@@ -26,9 +26,14 @@ setup(
     name="sloika_tpu",
     version="0.1.0",
     description="TPU-native nanopore basecaller training framework",
-    packages=find_packages(include=["sloika_tpu", "sloika_tpu.*"]),
+    packages=find_packages(include=["sloika_tpu", "sloika_tpu.*",
+                                    "sloika_tpu_torch",
+                                    "sloika_tpu_torch.*"]),
+    # the PyTorch port's CUDA sources, compiled by nvcc at first use
+    package_data={"sloika_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "h5py", "scipy"],
+    extras_require={"torch": ["torch"]},
     cmdclass={"build_py": BuildWithNative},
     entry_points={
         "console_scripts": [
@@ -42,6 +47,7 @@ setup(
             "sloika-extract-reference=sloika_tpu.cli.extract_reference:main",
             "sloika-get-refs-from-sam=sloika_tpu.cli.get_refs_from_sam:main",
             "sloika-model-convert=sloika_tpu.cli.model_convert:main",
+            "sloika-torch-basecall=sloika_tpu_torch.cli.basecall:main",
         ],
     },
 )
