@@ -48,6 +48,7 @@ setup(
             "sloika-get-refs-from-sam=sloika_tpu.cli.get_refs_from_sam:main",
             "sloika-model-convert=sloika_tpu.cli.model_convert:main",
             "sloika-torch-basecall=sloika_tpu_torch.cli.basecall:main",
+            "sloika-torch-train=sloika_tpu_torch.cli.train:main",
         ],
     },
 )

@@ -38,24 +38,41 @@ def _nvcc():
     return path
 
 
+def build_all(names):
+    """Compile each ``csrc/<name>.cu`` whose library is missing or stale,
+    one ``nvcc`` per source, all started together; returns the libraries'
+    paths.  Raises (after every compiler has finished) if one failed."""
+    libs, running = [], []
+    for name in names:
+        src = os.path.join(CSRC_DIR, name + ".cu")
+        lib = os.path.join(BUILD_DIR, "lib{}.so".format(name))
+        libs.append(lib)
+        if (os.path.exists(lib)
+                and os.path.getmtime(lib) >= os.path.getmtime(src)):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = "{}.{}.tmp".format(lib, os.getpid())
+        proc = subprocess.Popen([_nvcc()] + NVCC_FLAGS + ["-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running.append((name, src, lib, tmp, proc, time.time()))
+    errors = []
+    for name, src, lib, tmp, proc, t0 in running:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append("nvcc failed on {}:\n{}{}".format(src, out, err))
+            continue
+        os.replace(tmp, lib)        # atomic: no reader sees half a file
+        BUILD_LOG[name] = (time.time() - t0, err.strip())
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return libs
+
+
 def build(name):
     """Compile ``csrc/<name>.cu`` if its library is missing or stale;
     returns the library's path."""
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    lib = os.path.join(BUILD_DIR, "lib{}.so".format(name))
-    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "{}.{}.tmp".format(lib, os.getpid())
-    t0 = time.time()
-    proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-o", tmp, src],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed on {}:\n{}{}".format(
-            src, proc.stdout, proc.stderr))
-    os.replace(tmp, lib)        # atomic: no reader sees half a file
-    BUILD_LOG[name] = (time.time() - t0, proc.stderr.strip())
-    return lib
+    return build_all([name])[0]
 
 
 def load(name, functions):

@@ -28,8 +28,8 @@ class Reverse(Layer):
                 < lengths[None, :])
         return self.layer(x, reverse=True, mask=mask), lengths
 
-    def param_tree(self):
-        return {"sublayer": self.layer.param_tree()}
+    def param_tensors(self):
+        return {"sublayer": self.layer.param_tensors()}
 
     def load_param_tree(self, tree):
         self.layer.load_param_tree(tree["sublayer"])
@@ -68,8 +68,8 @@ class Serial(Layer):
             x, lengths = layer.apply_with_lengths(x, lengths)
         return x, lengths
 
-    def param_tree(self):
-        return {"sublayers": tuple(l.param_tree() for l in self.layers)}
+    def param_tensors(self):
+        return {"sublayers": tuple(l.param_tensors() for l in self.layers)}
 
     def load_param_tree(self, tree):
         subs = tree["sublayers"]

@@ -42,6 +42,34 @@ def affine(x, W, b=None):
     return y
 
 
+def tree_items(tree, prefix=""):
+    """``(path, leaf)`` pairs of a parameter tree (dicts and tuples) in the
+    JAX package's flattening order: dict keys sorted, tuples by index;
+    paths are ``/``-joined as in ``sloika_tpu.serialize.flatten_tree``."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+    elif isinstance(tree, (tuple, list)):
+        keys = range(len(tree))
+    else:
+        return [(prefix, tree)]
+    items = []
+    for k in keys:
+        path = "{}/{}".format(prefix, k) if prefix else str(k)
+        items.extend(tree_items(tree[k], path))
+    return items
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leafwise over trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_map(fn, v, *(r[i] for r in rest))
+                     for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
 _REGISTRY = {}
 
 
@@ -72,11 +100,16 @@ class Layer(torch.nn.Module):
 
     # -- parameters and JSON ---------------------------------------------
 
+    def param_tensors(self):
+        """This layer's parameters (the ``torch.nn.Parameter`` objects) as a
+        JAX-package-shaped tree."""
+        return dict(self.named_parameters(recurse=False))
+
     def param_tree(self):
         """This layer's parameters as a JAX-package-shaped tree of numpy
         arrays."""
-        return {k: p.detach().cpu().numpy()
-                for k, p in self.named_parameters(recurse=False)}
+        return tree_map(lambda p: p.detach().cpu().numpy(),
+                        self.param_tensors())
 
     def load_param_tree(self, tree):
         """Copy a JAX-package-shaped numpy tree into the parameters."""

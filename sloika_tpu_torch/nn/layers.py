@@ -23,8 +23,13 @@ class Softmax(Layer):
         self.b = self._param(init((size,)) if has_bias
                              else zeros_init((size,)))
 
+    def logits(self, x):
+        """The pre-activation ``x @ W.T + b`` (cf. JAX ``_preact``), for a
+        loss that takes the fused log-softmax."""
+        return affine(x, self.W, self.b)
+
     def forward(self, x):
-        tmp = affine(x, self.W, self.b)
+        tmp = self.logits(x)
         m = torch.amax(tmp, dim=2, keepdim=True)
         out = torch.exp(tmp - m)
         return out / torch.sum(out, dim=2, keepdim=True)

@@ -2,10 +2,13 @@
 
 The input projection ``x @ iW.T + b`` is hoisted out of the recurrence as
 one large matmul; the recurrence itself is
-:data:`sloika_tpu_torch.nn.fused_gru.gru_forward` (the CUDA kernel on the
-GPU, its plain masked scan on the CPU).  A masked step keeps the carried
-state, so with tail padding a reverse scan starts at each sequence's true
-end; the output at a masked position is unspecified.
+:class:`~sloika_tpu_torch.nn.fused_gru.GruFunction`, whose forward is
+``gru_forward`` (the CUDA kernel on the GPU, its plain masked scan on the
+CPU) and whose backward is ``gru_backward``.  Under ``no_grad`` or
+``inference_mode`` autograd runs the forward alone and saves nothing.  A
+masked step keeps the carried state, so with tail padding a reverse scan
+starts at each sequence's true end; the output at a masked position is
+unspecified.
 """
 import numpy as np
 import torch
@@ -14,7 +17,7 @@ from sloika_tpu_torch import activations
 from sloika_tpu_torch.nn.core import (Layer, register, zeros_init, affine,
                                       activation_name, activation_from_name,
                                       params_from_json)
-from sloika_tpu_torch.nn.fused_gru import gru_forward
+from sloika_tpu_torch.nn.fused_gru import GruFunction
 
 
 class RNNBase(Layer):
@@ -59,7 +62,10 @@ class Gru(RNNBase):
         S = self.size
         sWT = self.sW.reshape(2 * S, S).t().contiguous()
         sW2T = self.sW2.t().contiguous()
-        return gru_forward(xp, sWT, sW2T, mask=mask, reverse=reverse)
+        if mask is None:
+            mask = torch.ones(xp.shape[:2], dtype=torch.bool,
+                              device=xp.device)
+        return GruFunction.apply(xp, sWT, sW2T, mask.bool(), reverse)
 
     def _json_config(self):
         return {"activation": activation_name(self.fun),

@@ -20,6 +20,12 @@ import sloika_tpu_torch.models
 import sloika_tpu_torch.cli.basecall
 import sloika_tpu_torch.nn.fused_gru
 import sloika_tpu_torch.ops.viterbi_kernel
+import sloika_tpu_torch.training
+import sloika_tpu_torch.optim
+import sloika_tpu_torch.data.hdf5
+import sloika_tpu_torch.cli.train
+import sloika_tpu_torch.cli.validate
+import sloika_tpu_torch.profile_train
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "h5py")
                 and sys.modules[m] is not None)
@@ -58,3 +64,21 @@ def test_cli_device_cuda_raises_without_a_gpu(tmp_path):
     serialize.save_model_json(model, layer)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcli.main(["raw", model, str(tmp_path), "--kmer_len", "3"])
+
+
+def test_train_on_cuda_raises_without_a_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from sloika_tpu_torch import training
+    from sloika_tpu_torch.cli import train as tcli
+    layer = tmodels.network_factory("raw_0_98_rgrgr")(klen=3, sd=0.5,
+                                                      size=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        training.train(layer, {}, device="cuda")
+    assert all(p.device.type == "cpu" for p in layer.parameters())
+    h5 = tmp_path / "chunks.hdf5"
+    h5.write_bytes(b"")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tcli.main(["raw", "raw_0.98_rgrgr", str(tmp_path / "out"), str(h5),
+                   "--device", "cuda"])
+    assert not (tmp_path / "out").exists()

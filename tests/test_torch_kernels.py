@@ -14,8 +14,15 @@ import torch
 
 from sloika_tpu_torch import basecall as tbc
 from sloika_tpu_torch import models as tmodels
-from sloika_tpu_torch.nn.fused_gru import gru_forward, gru_scan_plain
+from sloika_tpu_torch import nn as tnn
+from sloika_tpu_torch.nn.fused_gru import (gru_backward, gru_forward,
+                                           gru_scan_bwd_plain, gru_scan_plain,
+                                           gru_wgrad, gru_wgrad_plain)
 from sloika_tpu_torch.ops import decode, viterbi_kernel
+
+#: GRU backward kernels against the twin: max|kernel - twin| / max|twin|
+#: (float32 sums in another order; the weight cotangents over T*B rows)
+BWD_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -38,6 +45,18 @@ def _gru_inputs(T, B, S, seed=2):
     return xp, sWT, sW2T, mask
 
 
+def _cotangent(T, B, S, seed=3):
+    rs = np.random.RandomState(seed)
+    return torch.from_numpy(rs.normal(size=(T, B, S)).astype(np.float32))
+
+
+def _rel_err(got, ref, mask=None):
+    d = (got - ref).abs()
+    if mask is not None:
+        d = d * mask[:, :, None]
+    return float(d.max()) / max(float(ref.abs().max()), 1e-30)
+
+
 def _posterior(klen, kind, T, B, seed=0):
     rs = np.random.RandomState(seed)
     post = rs.dirichlet(np.full(4 ** klen + 1, 0.05),
@@ -54,6 +73,18 @@ def test_gru_cpu_dispatch_is_the_plain_twin():
         out = gru_forward(xp, sWT, sW2T, mask=mask, reverse=reverse)
         assert torch.equal(out, gru_scan_plain(xp, sWT, sW2T, mask, reverse))
     assert gru_forward.launches == before
+
+
+def test_gru_backward_cpu_dispatch_is_the_plain_twin():
+    xp, sWT, sW2T, mask = _gru_inputs(9, 3, 8)
+    g = _cotangent(9, 3, 8)
+    before = (gru_backward.launches, gru_wgrad.launches)
+    for reverse in (False, True):
+        h_out = gru_scan_plain(xp, sWT, sW2T, mask, reverse)
+        got = gru_backward(xp, sWT, sW2T, mask, reverse, g, h_out)
+        ref = gru_scan_bwd_plain(xp, sWT, sW2T, mask, reverse, g, h_out)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert (gru_backward.launches, gru_wgrad.launches) == before
 
 
 def test_viterbi_cpu_dispatch_is_the_plain_twin():
@@ -88,6 +119,78 @@ def test_gru_kernel_rejects_bad_inputs(cuda_device):
         gru_forward(xp, sWT.t().contiguous().t(), sW2T)   # not contiguous
     with pytest.raises(ValueError):
         gru_forward(xp, sWT.cpu(), sW2T)                  # wrong device
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [8, 96, 144])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_backward_kernels_match_twin(cuda_device, S, reverse):
+    T, B = 211, 19
+    xp, sWT, sW2T, mask = [a.to(cuda_device) for a in _gru_inputs(T, B, S)]
+    g = _cotangent(T, B, S).to(cuda_device)
+    h_out = gru_forward(xp, sWT, sW2T, mask=mask, reverse=reverse)
+    before = (gru_backward.launches, gru_wgrad.launches)
+    got = gru_backward(xp, sWT, sW2T, mask, reverse, g, h_out)
+    assert (gru_backward.launches, gru_wgrad.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = gru_scan_bwd_plain(xp, sWT, sW2T, mask, reverse, g, h_out)
+    assert _rel_err(got[0], ref[0], mask) <= BWD_RTOL
+    assert not got[0][~mask].any()
+    assert _rel_err(got[1], ref[1]) <= BWD_RTOL
+    assert _rel_err(got[2], ref[2]) <= BWD_RTOL
+    # fixed-order sums: the same bits from run to run
+    again = gru_backward(xp, sWT, sW2T, mask, reverse, g, h_out)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the weight-cotangent kernel against its einsum twin on the same rows
+    dxp, rh = gru_backward.recurrence(xp, sWT, sW2T, mask, reverse, g, h_out)
+    wk = gru_wgrad(h_out, rh, dxp, reverse)
+    wp = gru_wgrad_plain(h_out, rh, dxp, reverse)
+    assert all(_rel_err(a, b) <= BWD_RTOL for a, b in zip(wk, wp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,B", [(96, 200), (96, 600), (256, 1100)])
+def test_gru_backward_kernels_wide_batches(cuda_device, S, B):
+    """Batches that take 2, 4 and 8 rows per block, and a width (S = 256)
+    whose 8-row block would not fit the SM's registers."""
+    T = 37
+    xp, sWT, sW2T, mask = [a.to(cuda_device) for a in _gru_inputs(T, B, S)]
+    g = _cotangent(T, B, S).to(cuda_device)
+    h_out = gru_forward(xp, sWT, sW2T, mask=mask, reverse=True)
+    got = gru_backward(xp, sWT, sW2T, mask, True, g, h_out)
+    ref = gru_scan_bwd_plain(xp, sWT, sW2T, mask, True, g, h_out)
+    assert _rel_err(got[0], ref[0], mask) <= BWD_RTOL
+    assert _rel_err(got[1], ref[1]) <= BWD_RTOL
+    assert _rel_err(got[2], ref[2]) <= BWD_RTOL
+
+
+@pytest.mark.gpu
+def test_gru_layer_gradients_match_cpu(cuda_device):
+    """A GRU layer under autograd on the card runs the three kernels and
+    gives the CPU twins' gradients; under no_grad only the forward."""
+    layer = tnn.Gru(6, 16, init=tnn.truncated_normal(
+        0.5, np.random.RandomState(1)), has_bias=True)
+    x = torch.from_numpy(np.random.RandomState(2).normal(
+        size=(157, 7, 6)).astype(np.float32))
+    mask = torch.from_numpy(np.arange(157)[:, None]
+                            < np.array([157, 3, 90, 157, 1, 40, 156]))
+    grads = []
+    for dev in ("cpu", cuda_device):
+        layer.zero_grad()
+        gpu = layer.to(dev)
+        n0 = (gru_forward.launches, gru_backward.launches,
+              gru_wgrad.launches)
+        out = gpu(x.to(dev), reverse=True, mask=mask.to(dev))
+        (out * mask.to(dev)[:, :, None]).square().sum().backward()
+        n1 = (gru_forward.launches, gru_backward.launches,
+              gru_wgrad.launches)
+        assert n1 == (tuple(n + 1 for n in n0) if dev != "cpu" else n0)
+        grads.append([p.grad.cpu() for p in gpu.parameters()])
+    assert all(_rel_err(a, b) <= BWD_RTOL for a, b in zip(*grads))
+    with torch.no_grad():
+        layer(x.to(cuda_device))
+    assert (gru_forward.launches, gru_backward.launches) == (n1[0] + 1,
+                                                             n1[1])
 
 
 @pytest.mark.gpu

@@ -100,7 +100,7 @@ def test_json_and_checkpoint_round_trips(jax_model, tmp_path):
     jser.save_model_json(jpath, layer, params)
     jser.save_checkpoint(npath, layer, params)
     from_json, tree = tser.load_model_json(jpath)
-    from_npz, _ = tser.load_checkpoint(npath)
+    from_npz, _, _ = tser.load_checkpoint(npath)
     ref = jax.tree_util.tree_leaves(_numpy_tree(params))
     for port in (from_json, from_npz):
         got = jax.tree_util.tree_leaves(port.param_tree())
