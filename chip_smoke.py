@@ -6,7 +6,7 @@ Needs one CUDA card; exits non-zero, printing no result, without one.
 Phases, each printing one line and raising on failure:
 
 1. environment: the card's name and power limit, the CUDA version;
-2. build: the five kernels, from ``sloika_tpu_torch/csrc``, one nvcc each,
+2. build: the seven kernels, from ``sloika_tpu_torch/csrc``, one nvcc each,
    all started together;
 3. GRU: the forward kernel against its plain twin at S = 112 and 144,
    T = 3277, B = 64, ragged lengths, forward and reverse (max abs difference
@@ -33,10 +33,37 @@ Phases, each printing one line and raising on failure:
    GRU kernels must have launched, and one batch's gradients (B = 4) must
    agree with the plain CPU twins' (max|gpu - cpu| / max|cpu| <= 1e-3 per
    parameter: five recurrent layers, and cuDNN's convolution weight
-   gradient may sum with atomics).
+   gradient may sum with atomics);
+8. remap kernels: ``remap_banded`` and ``remap_back`` against their plain
+   twins at B = 64 on log-posteriors made on the card, at W = 768
+   (Tp = 2,048, P = 1,300), the exact form (P = 600, W = 640), W = 3,072,
+   and the remap main path's shape (T = 35,429 frames, Tp = 35,584,
+   W = 768, P = 14,763) (traceback, final scores, score and path
+   bit-identical); each kernel and each twin timed at the main path's
+   shape;
+9. remap main path: ``Remapper(pretrained_standin(sd=1.5), 5,
+   batch_size=64)`` at the default band (768) remaps 64 synthetic DAC
+   reads of 40k-120k samples through ``remap_dac_signals``; every kernel
+   of the path must have launched, every read must get a registered
+   mapping table and a monotone path, and the four shortest reads, whose
+   references are too long for their frames, must miss their sequence
+   ends and be re-run at W = 3,072.  Then two reads of 13,500 samples
+   (references that bucket to P = 1,944 > 768, so both sides run banded
+   at W = 768) must agree with the plain CPU path (scores within 1e-4
+   relative, >= 99% of frames on the same position: the two forwards
+   differ at round-off).  Each read's reference (about L/9 bases) is the
+   one the model's own posterior favours along the read's diagonal.
+   Random weights need both: at the stand-in's sd of 0.5 the posterior
+   is nearly flat and barely follows the signal, so each step's frame is
+   a near-tie that round-off flips; and against a random reference every
+   banded path misses its sequence ends and is re-run exact at a window
+   of ~14,848 positions (a 68 GB traceback at this batch).
 
-Then one JSON line of per-kernel numbers, the card line again, and last
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX and no h5py.
+Then one JSON line of per-kernel numbers (with the least time the card
+could take for each kernel's work, ``bound_ms``, from the shapes run: the
+larger of its bytes at 3.35 TB/s and its float32 operations at
+67 TFLOP/s), the card line again, and last ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX and no h5py.
 """
 import copy
 import json
@@ -57,7 +84,28 @@ TRAIN_B, TRAIN_SAMPLES, TRAIN_T = 100, 2000, 400
 TRAIN_STEPS, TRAIN_WARM = 30, 5
 BWD_RTOL = 1e-4
 GRAD_RTOL = 1e-3
-KERNELS = ("gru_fwd", "gru_bwd", "gru_wgrad", "viterbi_fwd", "viterbi_back")
+KERNELS = ("gru_fwd", "gru_bwd", "gru_wgrad", "viterbi_fwd", "viterbi_back",
+           "remap_banded", "remap_back")
+#: the kernels each main path must launch
+PATH_KERNELS = {"basecall": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
+                "train": ("gru_fwd", "gru_bwd", "gru_wgrad"),
+                "remap": ("gru_fwd", "remap_banded", "remap_back")}
+# remap: B reads a batch; the main path's longest read buckets to 177,147
+# samples, 35,429 frames at stride 5, 35,584 in whole 256-frame blocks
+REMAP_B, REMAP_W = 64, 768
+REMAP_T_MAIN, REMAP_P_MAIN = 35429, 14763
+REMAP_T = 2000
+# the four shortest reads get references this many kmers longer than their
+# frames: the 768 window cannot reach their ends, the 3,072 window can
+REMAP_OVERLONG, REMAP_OVERLONG_EXCESS = 4, 1200
+# samples of the two reads the card and the CPU both remap
+REMAP_SHORT = 13500
+REMAP_SCORE_RTOL, REMAP_SAME_POS = 1e-4, 0.99
+# init sd of the remap path's stand-in weights (see phase 9)
+REMAP_SD = 1.5
+# the published peaks of one H100 SXM (NVIDIA data sheet) the bounds use
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def card_line():
@@ -66,6 +114,22 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0] if out else ""
+
+
+def bound(nbytes, nflop):
+    """(ms, what bounds it): the least time the card could take to move
+    ``nbytes`` and do ``nflop`` float32 operations."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * nflop / F32_FLOP_PER_S
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def with_bound(entry, nbytes, nflop, library_ms=None):
+    """Add ``bound_ms``, ``bound_by`` and ``library_ms`` to a kernel entry."""
+    entry["bound_ms"], entry["bound_by"] = bound(nbytes, nflop)
+    entry["library_ms"] = library_ms
+    return entry
 
 
 def cuda_ms(fn, reps):
@@ -116,10 +180,19 @@ def phase_gru(dev, standin):
                 raise AssertionError("GRU kernel differs from its twin by "
                                      "{} > {}".format(d, GRU_TOL))
     ms, plain_ms = times[(144, False)]
-    return {"name": "gru_fwd", "route": "cuda",
-            "source": "sloika_tpu_torch/csrc/gru_fwd.cu",
-            "replaces": "sloika_tpu/nn/pallas_gru.py:41",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    # at S = 144, forward: per valid step of a row, the products with sWT
+    # (S x 2S) and sW2T (S x S), 6 S^2 flop (the gates' elementwise work
+    # adds ~3%); xp read and h written once, and the weights.  No PyTorch
+    # call computes this GRU: cuDNN applies r after the recurrent product,
+    # sloika's candidate is sW2 (r * h)
+    S, steps = 144, int(lengths.sum())
+    return with_bound(
+        {"name": "gru_fwd", "route": "cuda",
+         "source": "sloika_tpu_torch/csrc/gru_fwd.cu",
+         "replaces": "sloika_tpu/nn/pallas_gru.py:41",
+         "shape": "T={} B={} S={}".format(T_FRAMES, BATCH, S),
+         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms},
+        4 * (4 * S * steps + 3 * S * S), 6 * S * S * steps)
 
 
 def phase_viterbi(dev):
@@ -157,17 +230,28 @@ def phase_viterbi(dev):
         if not same:
             raise AssertionError("Viterbi kernels differ from their twins "
                                  "on the {} posterior".format(kind))
+    # forward: the posterior read once, int8 codes and final scores
+    # written once; 21 candidate adds and compares a state a step.  The
+    # backtrace: one code byte read, a path int32 and a move byte written
+    # a step; its time is set by a chain of T dependent loads.  No PyTorch
+    # call computes either
+    K, TB = 1024, T_FRAMES * BATCH
+    shape = "T={} B={} K={}".format(T_FRAMES, BATCH, K)
     return [
-        {"name": "viterbi_fwd", "route": "cuda",
-         "source": "sloika_tpu_torch/csrc/viterbi_fwd.cu",
-         "replaces": "sloika_tpu/ops/pallas/viterbi.py:187",
-         "max_abs_err": err_fwd, "ms": fwd_t["peaked"][0],
-         "plain_ms": fwd_t["peaked"][1]},
-        {"name": "viterbi_back", "route": "cuda",
-         "source": "sloika_tpu_torch/csrc/viterbi_back.cu",
-         "replaces": "sloika_tpu/ops/pallas/viterbi.py:575",
-         "max_abs_err": err_back, "ms": back_t["peaked"][0],
-         "plain_ms": back_t["peaked"][1]}]
+        with_bound({"name": "viterbi_fwd", "route": "cuda",
+                    "source": "sloika_tpu_torch/csrc/viterbi_fwd.cu",
+                    "replaces": "sloika_tpu/ops/pallas/viterbi.py:187",
+                    "shape": shape,
+                    "max_abs_err": err_fwd, "ms": fwd_t["peaked"][0],
+                    "plain_ms": fwd_t["peaked"][1]},
+                   TB * (K + 1) * 4 + TB * K + BATCH * K * 4, 42 * TB * K),
+        with_bound({"name": "viterbi_back", "route": "cuda",
+                    "source": "sloika_tpu_torch/csrc/viterbi_back.cu",
+                    "replaces": "sloika_tpu/ops/pallas/viterbi.py:575",
+                    "shape": shape,
+                    "max_abs_err": err_back, "ms": back_t["peaked"][0],
+                    "plain_ms": back_t["peaked"][1]},
+                   TB * (1 + 4 + 1) + BATCH * 4, 3 * TB)]
 
 
 def rel_err(got, ref, mask=None):
@@ -248,18 +332,31 @@ def phase_gru_bwd(dev):
                                  "twins: relative errors {} > {}".format(
                                      bad, BWD_RTOL))
     ms, plain_ms, wms, wplain_ms = times[False]
-    fwd = {"shape": "T={} B={} S={}".format(T, B, S),
-           "max_abs_err": worst_f, "ms": fwd_times[False][0],
-           "plain_ms": fwd_times[False][1]}
+    shape = "T={} B={} S={}".format(T, B, S)
+    steps = int(lengths.sum())
+    fwd = with_bound({"shape": shape, "max_abs_err": worst_f,
+                      "ms": fwd_times[False][0],
+                      "plain_ms": fwd_times[False][1]},
+                     4 * (4 * S * steps + 3 * S * S), 6 * S * S * steps)
+    # gru_bwd: four products a valid step of a row (sWT, sW2T, sW2, sW:
+    # 6 S^2 multiply-adds); xp, h_out, g read and dxp, r*h written once.
+    # gru_wgrad: the two weight sums over the valid rows, 6 S^2 flop a
+    # row; h_out, r*h and dxp read once.  Its library time is the einsum
+    # pair of its twin; no PyTorch call computes gru_bwd's recurrence
     return fwd, [
-        {"name": "gru_bwd", "route": "cuda",
-         "source": "sloika_tpu_torch/csrc/gru_bwd.cu",
-         "replaces": "sloika_tpu/nn/pallas_gru.py:157",
-         "max_abs_err": worst_b, "ms": ms, "plain_ms": plain_ms},
-        {"name": "gru_wgrad", "route": "cuda",
-         "source": "sloika_tpu_torch/csrc/gru_wgrad.cu",
-         "replaces": "sloika_tpu/nn/pallas_gru.py:157",
-         "max_abs_err": worst_w, "ms": wms, "plain_ms": wplain_ms}]
+        with_bound({"name": "gru_bwd", "route": "cuda",
+                    "source": "sloika_tpu_torch/csrc/gru_bwd.cu",
+                    "replaces": "sloika_tpu/nn/pallas_gru.py:157",
+                    "shape": shape,
+                    "max_abs_err": worst_b, "ms": ms, "plain_ms": plain_ms},
+                   4 * (9 * S * steps + 6 * S * S), 12 * S * S * steps),
+        with_bound({"name": "gru_wgrad", "route": "cuda",
+                    "source": "sloika_tpu_torch/csrc/gru_wgrad.cu",
+                    "replaces": "sloika_tpu/nn/pallas_gru.py:157",
+                    "shape": shape,
+                    "max_abs_err": worst_w, "ms": wms, "plain_ms": wplain_ms},
+                   4 * (5 * S * steps + 3 * S * S), 6 * S * S * steps,
+                   library_ms=wplain_ms)]
 
 
 def phase_train(dev, counters):
@@ -269,7 +366,7 @@ def phase_train(dev, counters):
                                                      seed=0)
     data = synthetic_chunks()
     clock = StepMarks(sync=True)
-    for k in counters:
+    for k in counters.values():
         k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -278,7 +375,8 @@ def phase_train(dev, counters):
         layer, data, batch_size=TRAIN_B, chunk_len_range=(1.0, 1.0),
         drop=20, niteration=TRAIN_STEPS, seed=1, log=clock, device=dev)
     wall = time.perf_counter() - t0
-    launches = [k.launches for k in counters]
+    counts = {n: k.launches for n, k in counters.items()}
+    launches = [counts[n] for n in PATH_KERNELS["train"]]
     peak = torch.cuda.max_memory_allocated()
     steps = len(clock.marks) - TRAIN_WARM
     dt = clock.marks[-1] - clock.marks[TRAIN_WARM - 1]
@@ -320,7 +418,7 @@ def phase_train(dev, counters):
     if not max(errs) <= GRAD_RTOL:
         raise AssertionError("GPU gradients differ from the CPU ones: {}"
                              .format(dict(zip(names, errs))))
-    return launches, peak
+    return counts, peak
 
 
 def synthetic_reads(n=16, seed=5):
@@ -351,7 +449,7 @@ def phase_main(dev, standin, counters):
     caller = bc.Basecaller(standin, 5, chunk_size=CHUNK, overlap=OVERLAP,
                            batch_size=BATCH, output="bases", device=dev)
     caller.basecall_dac_reads(reads)                 # warm-up
-    for k in counters:
+    for k in counters.values():
         k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -359,7 +457,8 @@ def phase_main(dev, standin, counters):
     out = caller.basecall_dac_reads(reads)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = [k.launches for k in counters]
+    counts = {n: k.launches for n, k in counters.items()}
+    launches = [counts[n] for n in PATH_KERNELS["basecall"]]
     peak = torch.cuda.max_memory_allocated()
     nsamples = sum(len(d) for d, _ in reads)
     nbases = sum(len(c) for _, c in out)
@@ -393,7 +492,259 @@ def phase_main(dev, standin, counters):
     if not d <= POST_TOL:
         raise AssertionError("posterior differs from the CPU forward by "
                              "{} > {}".format(d, POST_TOL))
-    return launches
+    return counts
+
+
+def remap_inputs(dev, lt, P, W, seed):
+    """Sequences, masks, priors and the block-quantised band schedule of a
+    batch of REMAP_B rows with ragged frame and position counts, for the
+    time-major log-posterior ``lt`` (T, REMAP_B, 1025)."""
+    from sloika_tpu_torch.ops import remap_kernel as rk
+    rs = np.random.RandomState(seed)
+    T = lt.shape[0]
+    nframes = rs.randint(T * 3 // 4, T + 1, size=REMAP_B)
+    npos = rs.randint(P // 2, P + 1, size=REMAP_B)
+    nframes[0], npos[0] = T, P
+    seq = rs.randint(1, 1025, size=(REMAP_B, P)).astype(np.int32)
+    mask = np.arange(P)[None, :] < npos[:, None]
+    prior = np.log(rs.uniform(0.05, 1.0, size=(2, REMAP_B, P))) \
+        .astype(np.float32)
+    TB = rk.block_len(W)
+    Tp = -(-T // TB) * TB
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    starts = rk.band_starts_blocked(t(nframes), t(npos.astype(np.int32)), Tp,
+                                    W, TB)
+    return t(seq), t(mask), t(prior[0]), t(prior[1]), starts
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds by CUDA events), one run, no warm-up."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def remap_bytes(T, Tp, B, W, P):
+    """Bytes the banded DP must move: the posterior read once, its
+    sequences, masks, priors and schedule, the int16 traceback and final
+    scores written once."""
+    return T * B * 1025 * 4 + B * P * 9 + Tp * B * 4 + Tp * B * W * 2 \
+        + B * W * 4
+
+
+def phase_remap_kernels(dev):
+    from sloika_tpu_torch.ops import remap_kernel as rk
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst_tb = worst_back = 0.0
+    cases = (("W=768", REMAP_T, 1300, REMAP_W), ("exact", REMAP_T, 600, 640),
+             ("W=3072", REMAP_T, 5000, 4 * REMAP_W),
+             ("main path's shape", REMAP_T_MAIN, REMAP_P_MAIN, REMAP_W))
+    for name, T, P, W in cases:
+        lt = torch.log_softmax(
+            2.0 * torch.randn((T, REMAP_B, 1025), generator=gen, device=dev),
+            dim=2).contiguous()
+        seq, mask, p0, p1, starts = remap_inputs(dev, lt, P, W, seed=W + T)
+        tb, vfinal = rk.remap_banded(lt, seq, mask, p0, starts, 5.0, W)
+        score, path = rk.finish_banded(tb, vfinal, starts, p1,
+                                       rk.remap_backtrack)
+        (tb_p, vfinal_p), plain_ms = timed_once(
+            lambda: rk.remap_banded_plain(lt, seq, mask, p0, starts, 5.0, W))
+        score_p, path_p = rk.finish_banded(tb_p, vfinal_p, starts, p1,
+                                           rk.remap_backtrack_plain)
+        torch.cuda.synchronize()
+        same = (torch.equal(tb, tb_p) and torch.equal(vfinal, vfinal_p)
+                and torch.equal(score, score_p) and torch.equal(path, path_p))
+        worst_tb = max(worst_tb, float((tb.int() - tb_p.int()).abs().max()),
+                       float((vfinal - vfinal_p).abs().max()),
+                       float((score - score_p).abs().max()))
+        worst_back = max(worst_back, float((path - path_p).abs().max()))
+        Tp = starts.shape[0]
+        print("remap kernels {} (T={} Tp={} B={} P={} W={}): bit_identical "
+              "{}; slips in the path {}".format(
+                  name, T, Tp, REMAP_B, P, W, same,
+                  int(((path[1:] - path[:-1]) >= 2).sum())), flush=True)
+        if not same:
+            raise AssertionError("remap kernels differ from their twins "
+                                 "({})".format(name))
+        del tb_p
+    # each kernel and each twin timed at the main path's shape (the last)
+    last = path[-1]
+    ms = cuda_ms(lambda: rk.remap_banded(lt, seq, mask, p0, starts, 5.0, W),
+                 3)
+    back_ms = cuda_ms(lambda: rk.remap_backtrack(tb, starts, last), 3)
+    _, back_plain_ms = timed_once(
+        lambda: rk.remap_backtrack_plain(tb, starts, last))
+    del lt, tb
+    torch.cuda.empty_cache()
+    shape = "T={} Tp={} B={} W={} P={}".format(T, Tp, REMAP_B, W, P)
+    print("remap kernels at the main path's shape ({}): remap_banded "
+          "{:.3f} ms ({:.3f} us a step), remap_back {:.3f} ms; plain twins "
+          "{:.1f} ms and {:.1f} ms".format(
+              shape, ms, 1e3 * ms / Tp, back_ms, plain_ms, back_plain_ms),
+          flush=True)
+    # remap_banded: ~13 float32 operations a window lane a step; the
+    # backtrace reads one delta and one window start and writes one
+    # position a step (its time is set by a chain of Tp dependent loads).
+    # No PyTorch call computes either
+    return [
+        with_bound({"name": "remap_banded", "route": "cuda",
+                    "source": "sloika_tpu_torch/csrc/remap_banded.cu",
+                    "replaces": "sloika_tpu/ops/pallas/remap.py:69",
+                    "shape": shape, "max_abs_err": worst_tb, "ms": ms,
+                    "plain_ms": plain_ms},
+                   remap_bytes(T, Tp, REMAP_B, W, P), 13 * Tp * REMAP_B * W),
+        with_bound({"name": "remap_back", "route": "cuda",
+                    "source": "sloika_tpu_torch/csrc/remap_back.cu",
+                    "replaces": "sloika_tpu/ops/pallas/remap.py:161",
+                    "shape": shape, "max_abs_err": worst_back,
+                    "ms": back_ms, "plain_ms": back_plain_ms},
+                   Tp * REMAP_B * (2 + 4 + 4) + REMAP_B * 4,
+                   3 * Tp * REMAP_B)]
+
+
+def diagonal_references(layer, reads, dev, overlong=(), samples_per_base=9):
+    """A reference of about L/9 bases for each DAC read: the kmers the
+    model's posterior favours along the read's diagonal, kmer j at frame
+    j * nframes / npos, each extending the one before by the best of the
+    four bases.  (With random weights the posterior is nearly flat; a
+    random reference would leave every banded path off its anchors.)  The
+    reads indexed in ``overlong`` get REMAP_OVERLONG_EXCESS more kmers than
+    frames instead: a band that moves a position a frame at most cannot
+    reach their ends."""
+    from sloika_tpu_torch import remap as tremap
+    from sloika_tpu_torch.basecall import gather_normalise_dac
+    L = np.array([len(d) for d, _ in reads], np.int64)
+    T = tremap.bucket_length(int(L.max()))
+    offsets = np.concatenate([[0], np.cumsum(L)[:-1]])
+    flat = np.concatenate([d for d, _ in reads] + [np.zeros(T, np.int16)])
+    norms = np.array([n4 for _, n4 in reads], np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    with torch.inference_mode():
+        x = gather_normalise_dac(t(flat), t(offsets), t(L), t(norms), T)
+        post, nframes = layer.apply_with_lengths(x, t(L))
+        nkmer = L // samples_per_base - 4
+        for i in overlong:
+            nkmer[i] = int(nframes[i]) + REMAP_OVERLONG_EXCESS
+        rows = torch.arange(len(reads), device=dev)
+        j = torch.arange(int(nkmer.max()), device=dev)
+        frame = torch.minimum(j[None, :] * nframes[:, None]
+                              // t(nkmer)[:, None], nframes[:, None] - 1)
+        state = torch.argmax(post[frame[:, 0], rows, 1:], dim=1)
+        kmers = [state]
+        four = torch.arange(4, device=dev)
+        for i in range(1, frame.shape[1]):
+            cand = (state % 256)[:, None] * 4 + four
+            best = torch.argmax(torch.gather(post[frame[:, i], rows], 1,
+                                             cand + 1), dim=1)
+            state = cand[rows, best]
+            kmers.append(state)
+        kmers = torch.stack(kmers, dim=1).cpu().numpy()
+        del post, x
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    refs = []
+    for b, n in enumerate(nkmer):
+        first = (kmers[b, 0] >> (2 * np.arange(4, -1, -1))) & 3
+        refs.append(alphabet[np.concatenate([first, kmers[b, 1:n] & 3])]
+                    .tobytes())
+    return refs
+
+
+def phase_remap(dev, counters):
+    from sloika_tpu_torch import models
+    from sloika_tpu_torch import remap as tremap
+    from sloika_tpu_torch.basecall import normalise_dac_f32
+    from sloika_tpu_torch.data.raw_chunkify import mapping_table_is_registered
+
+    standin = models.pretrained_standin(sd=REMAP_SD, seed=0).to(dev).eval()
+    reads = synthetic_reads(n=REMAP_B)
+    overlong = np.argsort([len(d) for d, _ in reads])[:REMAP_OVERLONG]
+    refs = diagonal_references(standin, reads, dev, overlong)
+    remapper = tremap.Remapper(standin, 5, batch_size=REMAP_B, device=dev)
+    remapper.remap_dac_signals(reads, refs)              # warm-up
+    remapper.reruns.clear()
+    remapper.windows.clear()
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = remapper.remap_dac_signals(reads, refs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {n: k.launches for n, k in counters.items()}
+    launches = [counts[n] for n in PATH_KERNELS["remap"]]
+    peak = torch.cuda.max_memory_allocated()
+    nsamples = sum(len(d) for d, _ in reads)
+    reruns = dict(remapper.reruns)
+    print("remap main path: {} reads {} samples, references {}-{} bases, "
+          "band {}, in {:.3f} s: {:.1f} samples/s, peak memory {:.1f} MiB, "
+          "launches gru_fwd {} remap_banded {} remap_back {}; reads re-run "
+          "by band (None: exact) {}; DP batches by window {} [{}]".format(
+              len(reads), nsamples, min(map(len, refs)), max(map(len, refs)),
+              remapper.band, dt, nsamples / dt, peak / 2 ** 20, *launches,
+              reruns, dict(remapper.windows), card_line()), flush=True)
+    if reruns.get(4 * remapper.band, 0) < REMAP_OVERLONG:
+        raise AssertionError("the {} reads with overlong references were not "
+                             "re-run at W = {}: {}".format(
+                                 REMAP_OVERLONG, 4 * remapper.band, reruns))
+    if min(launches) <= 0:
+        raise AssertionError("a kernel of the remap path never launched: "
+                             "{}".format(launches))
+
+    # where the time goes: one more call under the profiler
+    from torch.profiler import ProfilerActivity
+    from sloika_tpu_torch.profile_train import device_breakdown
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        remapper.remap_dac_signals(reads, refs)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy, _, by_kernel = device_breakdown(prof.events(), 1)
+    print("remap profile (one call, profiled): wall {:.1f} ms, device busy "
+          "{:.1f} ms ({:.1%} of the wall); by kernel: {}".format(
+              wall, busy, busy / wall, "; ".join(
+                  "{} {:.2f} ms x{:.0f}".format(name[:48], ms, n)
+                  for ms, n, name in by_kernel[:10])), flush=True)
+
+    for i, ((d, n4), (score, table, path, _)) in enumerate(zip(reads, out)):
+        if not (np.isfinite(score) and np.all(np.diff(path) >= 0)
+                and mapping_table_is_registered(normalise_dac_f32(d, n4),
+                                                table)):
+            raise AssertionError("read {}: bad remap (score {}, path {}..{})"
+                                 .format(i, score, path.min(), path.max()))
+
+    # two shorter reads on the card and through the plain CPU path, at the
+    # same band: their references bucket past the band, so both run banded
+    short = [(d[:REMAP_SHORT], n4) for d, n4 in synthetic_reads(n=2, seed=9)]
+    short_refs = diagonal_references(standin, short, dev)
+    cpu = tremap.Remapper(copy.deepcopy(standin).cpu(), 5, batch_size=2,
+                          band=remapper.band, device="cpu")
+    remapper.windows.clear()
+    got = remapper.remap_dac_signals(short, short_refs)
+    ref = cpu.remap_dac_signals(short, short_refs)
+    rel = max(abs(g[0] - r[0]) / abs(r[0]) for g, r in zip(got, ref))
+    same = (sum(int((g[2] == r[2]).sum()) for g, r in zip(got, ref))
+            / sum(len(r[2]) for r in ref))
+    print("remap check (2 reads of {:,} samples, references {} bases, GPU "
+          "kernels vs CPU plain path): DP windows {} and {}; score max rel "
+          "err {:.3e}, frames on the same position {:.4f}".format(
+              REMAP_SHORT, [len(r) for r in short_refs],
+              dict(remapper.windows), dict(cpu.windows), rel, same),
+          flush=True)
+    if not (remapper.band in cpu.windows and remapper.windows == cpu.windows):
+        raise AssertionError("the check did not run banded at W = {} on "
+                             "both sides".format(remapper.band))
+    if not (rel <= REMAP_SCORE_RTOL and same >= REMAP_SAME_POS):
+        raise AssertionError("remap on the card differs from the CPU path: "
+                             "score rel err {}, same position {}".format(
+                                 rel, same))
+    return counts
 
 
 def main():
@@ -407,7 +758,7 @@ def main():
     from sloika_tpu_torch import config, cuda_build, models
     from sloika_tpu_torch.nn.fused_gru import (gru_backward, gru_forward,
                                                gru_wgrad)
-    from sloika_tpu_torch.ops import viterbi_kernel
+    from sloika_tpu_torch.ops import remap_kernel, viterbi_kernel
     config.disable_tf32()
     t0 = time.time()
     cuda_build.build_all(KERNELS)
@@ -427,18 +778,19 @@ def main():
     gru_fwd["max_abs_err"] = max(gru_fwd["max_abs_err"],
                                  gru_fwd_train["max_abs_err"])
     gru_fwd["at_training_shapes"] = gru_fwd_train
-    kernels = [gru_fwd] + viterbi + bwd
+    remap = phase_remap_kernels(dev)
+    kernels = [gru_fwd] + viterbi + bwd + remap
     by_name = {k["name"]: k for k in kernels}
-    paths = {
-        "basecall": (gru_forward, viterbi_kernel.viterbi_forward,
-                     viterbi_kernel.viterbi_backtrace),
-        "train": (gru_forward, gru_backward, gru_wgrad)}
-    names = {"basecall": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
-             "train": ("gru_fwd", "gru_bwd", "gru_wgrad")}
-    launches = {"basecall": phase_main(dev, standin, paths["basecall"])}
-    launches["train"], _ = phase_train(dev, paths["train"])
+    # every count is set to 0 before each path and all are read after it
+    counters = dict(zip(KERNELS, (
+        gru_forward, gru_backward, gru_wgrad, viterbi_kernel.viterbi_forward,
+        viterbi_kernel.viterbi_backtrace, remap_kernel.remap_banded,
+        remap_kernel.remap_backtrack)))
+    launches = {"basecall": phase_main(dev, standin, counters)}
+    launches["train"], _ = phase_train(dev, counters)
+    launches["remap"] = phase_remap(dev, counters)
     for path, counts in launches.items():
-        for name, n in zip(names[path], counts):
+        for name, n in counts.items():
             entry = by_name[name]
             entry.setdefault("launches_by_path", {})[path] = n
             entry["launches"] = entry.get("launches", 0) + n

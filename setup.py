@@ -49,6 +49,7 @@ setup(
             "sloika-model-convert=sloika_tpu.cli.model_convert:main",
             "sloika-torch-basecall=sloika_tpu_torch.cli.basecall:main",
             "sloika-torch-train=sloika_tpu_torch.cli.train:main",
+            "sloika-torch-chunkify=sloika_tpu_torch.cli.chunkify:main",
         ],
     },
 )

@@ -23,9 +23,9 @@ import sys
 import numpy as np
 import torch
 
-from sloika_tpu import maths
-from sloika_tpu.variables import DEFAULT_ALPHABET, nstate
-from sloika_tpu_torch import config, nn
+from sloika_tpu_torch import config, maths, nn
+from sloika_tpu_torch.data.batching import trim_open_pore
+from sloika_tpu_torch.variables import DEFAULT_ALPHABET, nstate
 from sloika_tpu_torch.ops import viterbi_kernel
 
 #: reads are packed into groups of about this many samples; one group is
@@ -145,14 +145,9 @@ class Basecaller(object):
         :param starts, lengths: (B,) int64;  :param norms: (B, 4) float32
             (offset, scale, med, mad)
         """
-        C = self.chunk_size
-        t = torch.arange(C, device=flat.device)
-        v = flat[starts[:, None] + t[None, :]].t().to(torch.float32)  # (C, B)
-        off, sc = norms[:, 0][None, :], norms[:, 1][None, :]
-        med, mad = norms[:, 2][None, :], norms[:, 3][None, :]
-        x = ((v + off) * sc - med) / mad
-        x = torch.where(t[:, None] < lengths[None, :], x, 0.0)
-        return self._forward_decode(x[:, :, None], lengths)
+        x = gather_normalise_dac(flat, starts, lengths, norms,
+                                 self.chunk_size)
+        return self._forward_decode(x, lengths)
 
     # -- public API ------------------------------------------------------
 
@@ -259,6 +254,26 @@ class Basecaller(object):
         return out
 
 
+def gather_normalise_dac(flat, starts, lengths, norms, C):
+    """(C, B, 1) float32 windows gathered from a flat int16 sample buffer
+    and normalised on its device with the exact float32 order
+    ``((dac + offset) * scale - med) / mad``; samples past each window's
+    length are 0 (sloika_tpu/basecall.py:360-383, sloika_tpu/remap.py:
+    194-207).
+
+    :param flat: (S,) int16, zero-padded by >= C past the last window
+    :param starts, lengths: (B,) int64;  :param norms: (B, 4) float32
+        (offset, scale, med, mad)
+    """
+    t = torch.arange(C, device=flat.device)
+    v = flat[starts[:, None] + t[None, :]].t().to(torch.float32)  # (C, B)
+    off, sc = norms[:, 0][None, :], norms[:, 1][None, :]
+    med, mad = norms[:, 2][None, :], norms[:, 3][None, :]
+    x = ((v + off) * sc - med) / mad
+    x = torch.where(t[:, None] < lengths[None, :], x, 0.0)
+    return x[:, :, None]
+
+
 def _collect(keys, out, results):
     """Pull one batch's outputs to the host into ``results[key]``."""
     score, first, counts, packed = (o.cpu().numpy() for o in out)
@@ -346,18 +361,6 @@ def normalise_dac_f32(dac, norm4):
     sloika_tpu/basecall.py:1011)."""
     offset, scale, med, mad = (np.float32(v) for v in norm4)
     return (scale_dac_f32(dac, offset, scale) - med) / mad
-
-
-def trim_open_pore(signal, max_op_fraction=0.3, window_size=100):
-    """(start, end) of the read within a raw signal, found by thresholding
-    the local MAD (copied from sloika_tpu/data/batching.py:111, whose module
-    imports jax)."""
-    ml = len(signal) // window_size
-    ub = ml * window_size
-    local_var = maths.mad(signal[:ub].reshape((ml, window_size)), axis=1)
-    probably_read = local_var > np.percentile(local_var, 100 * max_op_fraction)
-    ix = np.arange(local_var.shape[0])[probably_read]
-    return ix.min() * window_size, (ix.max() + 1) * window_size
 
 
 def load_raw_dac(fast5_file, trim=(200, 50), open_pore_fraction=0.3):

@@ -11,14 +11,14 @@ FASTA goes to stdout unless ``--output`` is given.  ``--device cuda``
 raises when no GPU is present.
 """
 import argparse
-import glob
-import os
 import sys
 import time
 
 from sloika_tpu_torch import __version__
-from sloika_tpu.cmdargs import (AutoBool, FileExists, Maybe, NonNegative,
-                                Positive, proportion, display_version_and_exit)
+from sloika_tpu_torch.cmdargs import (AutoBool, FileExists, Maybe, NonNegative,
+                                      Positive, proportion,
+                                      display_version_and_exit)
+from sloika_tpu_torch.data.fast5 import iterate_fast5
 
 
 def make_parser():
@@ -77,24 +77,6 @@ def load_model(path):
             raise ValueError('model JSON has no parameters')
         return layer
     raise ValueError('model must be a .npz checkpoint or a .json model')
-
-
-def iterate_fast5(path, strand_list=None, limit=None):
-    """fast5 file paths under a directory (copied from
-    sloika_tpu/data/fast5.py:193, whose module imports h5py)."""
-    if os.path.isfile(path):
-        files = [path]
-    else:
-        files = sorted(glob.glob(os.path.join(path, "*.fast5")))
-    if strand_list is not None:
-        from sloika_tpu.data import fileio
-        tsv = fileio.readtsv(strand_list)
-        col = "filename" if "filename" in tsv.dtype.names \
-            else tsv.dtype.names[0]
-        wanted = {os.path.basename(f.decode() if isinstance(f, bytes)
-                                   else str(f)) for f in tsv[col]}
-        files = [f for f in files if os.path.basename(f) in wanted]
-    return files[:limit] if limit is not None else files
 
 
 def main(argv=None):

@@ -16,7 +16,7 @@ import os
 import sys
 
 from sloika_tpu_torch import __version__
-from sloika_tpu.cmdargs import (AutoBool, FileExists, Maybe, NonNegative,
+from sloika_tpu_torch.cmdargs import (AutoBool, FileExists, Maybe, NonNegative,
                                 ParseToNamedTuple, Positive, proportion,
                                 display_version_and_exit)
 
@@ -101,10 +101,10 @@ def main(argv=None):
     args = make_parser().parse_args(argv)
 
     import numpy as np
-    from sloika_tpu.variables import DEFAULT_ALPHABET
     from sloika_tpu_torch import config, serialize, training
     from sloika_tpu_torch.data import hdf5
     from sloika_tpu_torch.models import network_factory
+    from sloika_tpu_torch.variables import DEFAULT_ALPHABET
 
     dev = config.resolve_device(args.device)
     config.disable_tf32()

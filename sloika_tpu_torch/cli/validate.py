@@ -7,7 +7,7 @@
 import argparse
 
 from sloika_tpu_torch import __version__
-from sloika_tpu.cmdargs import (AutoBool, FileExists, Maybe, Positive,
+from sloika_tpu_torch.cmdargs import (AutoBool, FileExists, Maybe, Positive,
                                 proportion, display_version_and_exit)
 
 

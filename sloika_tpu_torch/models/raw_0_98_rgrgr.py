@@ -3,8 +3,8 @@
 architecture: every width 96)."""
 import numpy as np
 
-from sloika_tpu import variables as sv
 from sloika_tpu_torch import activations, nn
+from sloika_tpu_torch import variables as sv
 
 
 def network(klen, sd, nbase=sv.DEFAULT_NBASE, nfeature=1, winlen=11,

@@ -2,8 +2,8 @@
 (cf. ``sloika_tpu/models/raw_1_00_rGr.py``, sizes 128/110/142/110)."""
 import numpy as np
 
-from sloika_tpu import variables as sv
 from sloika_tpu_torch import activations, nn
+from sloika_tpu_torch import variables as sv
 
 
 def network(klen, sd, nbase=sv.DEFAULT_NBASE, nfeature=1, winlen=11,

@@ -16,7 +16,7 @@ a move.
 import numpy as np
 import torch
 
-from sloika_tpu import variables as sv
+from sloika_tpu_torch import variables as sv
 
 _ETA = 1e-10
 

@@ -1,0 +1,328 @@
+"""The banded remap DP on the GPU: the CUDA kernels, their plain twins and
+their dispatch (cf. ``sloika_tpu/ops/pallas/remap.py``).
+
+:data:`remap_banded` replaces the Pallas TPU kernel
+``sloika_tpu/ops/pallas/remap.py::_banded_kernel`` with
+``csrc/remap_banded.cu``: the Viterbi DP over a (B, W) window of sequence
+positions that slides along each row's band schedule, writing an int16
+traceback of position deltas (0 stay, 1 step, >= 2 slip distance) and the
+final window scores.  :data:`remap_backtrack` replaces ``_backtrack_kernel``
+with ``csrc/remap_back.cu``: the reverse walk ``pos -= delta``.
+
+Both dispatch on the device of their input: the kernel for a CUDA tensor,
+the plain twin (:func:`remap_banded_plain`, :func:`remap_backtrack_plain`)
+for a CPU tensor.  ``launches`` counts kernel launches.
+
+The JAX package builds the banded emissions outside its kernel with a
+one-hot matmul (``_block_emissions``), a TPU device; here the kernel gathers
+them itself from the time-major log-posterior, and the plain twin gathers
+them with ``torch.gather``.  The schedule is block-quantised: the window
+stays put for ``TB = block_len(W)`` frames, so it moves by ``d in [0, TB]``
+at block boundaries only.
+"""
+import ctypes
+
+import torch
+
+from sloika_tpu_torch import cuda_build
+from sloika_tpu_torch.ops.remap import NEG_LARGE
+from sloika_tpu_torch.ops.remap_banded import band_starts
+
+
+def block_len(W):
+    """Frames the window stays put for (sloika_tpu/ops/pallas/remap.py:55)."""
+    return max(16, min(256, W // 2))
+
+
+def band_starts_blocked(nframes, npos, T, W, TB):
+    """:func:`band_starts` held at its value of each ``TB``-frame block's
+    first frame (sloika_tpu/ops/pallas/remap.py:60): (T, B) int32."""
+    base = band_starts(nframes, npos, T, W)
+    kidx = (torch.arange(T, device=base.device) // TB) * TB
+    return base[kidx]
+
+
+def _step_inputs_plain(ltrans_t, seq_states, pos_mask, starts, t, W, neg):
+    """Step ``t``'s inputs of the banded DP (sloika_tpu/ops/pallas/
+    remap.py:290-306 and ``_block_emissions`` :215, by gather), one step at
+    a time so that no (Tp, B, W) index tensor is built.
+
+    Frames ``t >= T`` (up to ``Tp``, the length of ``starts``) are stays:
+    NEG emissions and stay score 0.
+
+    :returns: (emit (B, W) f32, stay (B,) f32, valid (B, W) bool, idx (B, W)
+        int64 positions clamped to the sequence)
+    """
+    T, B, _ = ltrans_t.shape
+    P = seq_states.shape[1]
+    pos = starts[t].long()[:, None] + torch.arange(W, device=starts.device)
+    idx = pos.clamp(0, P - 1)
+    valid = torch.gather(pos_mask, 1, idx) & (pos < P)
+    if t < T:
+        seq_w = torch.gather(seq_states, 1, idx).long()
+        emit = torch.where(valid, torch.gather(ltrans_t[t], 1, seq_w), neg)
+        stay = ltrans_t[t, :, 0]
+    else:
+        emit = torch.full((B, W), NEG_LARGE, dtype=torch.float32,
+                          device=ltrans_t.device)
+        stay = torch.zeros((B,), dtype=torch.float32, device=ltrans_t.device)
+    return emit, stay, valid, idx
+
+
+def _slip_prefix_max(y, lane, W, neg):
+    """Running max of each row of ``y`` and its position, the earlier
+    position winning ties: the Hillis-Steele scan of ``_banded_kernel``
+    (sloika_tpu/ops/pallas/remap.py:92-101).  Where every value up to a
+    position is ``neg``, its position wraps in from the far end of the
+    row; such a slip source never wins (tests/test_torch_remap.py)."""
+    yi = lane
+    k = 1
+    while k < W:
+        y_s = torch.where(lane >= k, torch.roll(y, k, 1), neg)
+        yi_s = torch.roll(yi, k, 1)
+        earlier = y_s >= y
+        y = torch.where(earlier, y_s, y)
+        yi = torch.where(earlier, yi_s, yi)
+        k *= 2
+    return y, yi
+
+
+def remap_banded_plain(ltrans_t, seq_states, pos_mask, prior_initial, starts,
+                       slip, W):
+    """The banded DP, line for line as ``_banded_kernel``
+    (sloika_tpu/ops/pallas/remap.py:69-154), ``torch.roll`` standing in for
+    ``pltpu.roll``.
+
+    :param ltrans_t: (T, B, nstate) f32 time-major log posteriors
+    :param seq_states: (B, P) int32;  :param pos_mask: (B, P) bool
+    :param prior_initial: (B, P) f32;  :param starts: (Tp, B) int32 window
+        starts, constant within ``block_len(W)``-frame blocks
+    :returns: (traceback (Tp, B, W) int16, vfinal (B, W) f32)
+    """
+    Tp, B = starts.shape
+    P = seq_states.shape[1]
+    TB = block_len(W)
+    nbits = 0 if W >= P else max(int(TB).bit_length(), 1)
+    dev = ltrans_t.device
+    neg = torch.tensor(NEG_LARGE, dtype=torch.float32, device=dev)
+    slip = torch.tensor(slip, dtype=torch.float32, device=dev)
+    lane = torch.arange(W, dtype=torch.int32, device=dev).expand(B, W)
+    lanef = lane.to(torch.float32)
+
+    traceback = torch.empty((Tp, B, W), dtype=torch.int16, device=dev)
+    traceback[0] = 0
+    # t = 0: the DP initialisation prior_initial + fmax(emit_0, stay_0) on
+    # valid lanes (sloika_tpu/ops/pallas/remap.py:311-315)
+    emit0, stay0, _, idx0 = _step_inputs_plain(ltrans_t, seq_states,
+                                               pos_mask, starts, 0, W, neg)
+    p = torch.where(emit0 > neg * 0.5,
+                    torch.gather(prior_initial, 1, idx0)
+                    + torch.fmax(emit0, stay0[:, None]), neg)
+    for t in range(1, Tp):
+        emit, stay, valid, _ = _step_inputs_plain(
+            ltrans_t, seq_states, pos_mask, starts, t, W, neg)
+        # slip prefix max in the previous window's coordinates
+        y, yi = _slip_prefix_max(p + slip * lanef, lane, W, neg)
+        z = torch.where(lane >= 2, torch.roll(y, 2, 1), neg)
+        zi = torch.roll(yi, 2, 1)
+
+        # shift into the new window by the row's jump d
+        dt = (starts[t] - starts[t - 1])[:, None]
+        q = p
+        for bit in range(nbits):
+            s = 1 << bit
+            hit = (dt & s) > 0
+            q = torch.where(hit, torch.where(lane >= W - s, neg,
+                                             torch.roll(q, W - s, 1)), q)
+            z = torch.where(hit, torch.where(lane >= W - s, neg,
+                                             torch.roll(z, W - s, 1)), z)
+            zi = torch.where(hit, torch.roll(zi, W - s, 1), zi)
+        qm1 = torch.where(lane == 0, neg, torch.roll(q, 1, 1))
+
+        # stay, then step, then slip, each under strict >
+        cs = q + stay[:, None]
+        delta = torch.zeros((B, W), dtype=torch.float32, device=dev)
+        score_step = qm1 + emit
+        take = score_step > cs
+        cs = torch.where(take, score_step, cs)
+        delta = torch.where(take, 1.0, delta)
+
+        fs = z - slip * (lanef - 1.0 + dt.to(torch.float32))
+        score_slip = fs + emit
+        take = score_slip > cs
+        delta = torch.where(take, (lane + dt - zi).to(torch.float32), delta)
+        cs = torch.where(take, score_slip, cs)
+
+        p = torch.where(valid, cs, neg)
+        traceback[t] = delta.to(torch.int16)
+    return traceback, p
+
+
+def remap_backtrack_plain(traceback, starts, last):
+    """Reverse traceback, as ``_backtrack_kernel``
+    (sloika_tpu/ops/pallas/remap.py:161-212): ``path[Tp-1] = last`` and
+    ``path[t-1] = path[t] - traceback[t, b, clip(path[t] - starts[t])]``.
+
+    :returns: path (Tp, B) int32 absolute positions
+    """
+    Tp, B, W = traceback.shape
+    path = torch.empty((Tp, B), dtype=torch.int32, device=traceback.device)
+    pos = last.to(torch.int32)
+    path[Tp - 1] = pos
+    for t in range(Tp - 1, 0, -1):
+        rel = torch.clamp(pos - starts[t], 0, W - 1).long()
+        delta = torch.gather(traceback[t], 1, rel[:, None])[:, 0]
+        pos = pos - delta.to(torch.int32)
+        path[t - 1] = pos
+    return path
+
+
+class RemapBanded:
+    """(traceback (Tp, B, W) int16, vfinal (B, W) f32) of the banded DP.
+    Replaces the Pallas TPU kernel ``sloika_tpu/ops/pallas/remap.py::
+    _banded_kernel`` with ``csrc/remap_banded.cu``; runs
+    :func:`remap_banded_plain` for CPU tensors."""
+
+    #: the widest window the kernel takes: its shared memory holds 14
+    #: bytes a position
+    MAX_W = 16384
+
+    _ARGTYPES = {"remap_banded": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                 + [ctypes.c_float, ctypes.c_void_p]}
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, ltrans_t, seq_states, pos_mask, prior_initial, starts,
+                 slip, W):
+        if ltrans_t.device.type == "cpu":
+            return remap_banded_plain(ltrans_t, seq_states, pos_mask,
+                                      prior_initial, starts, slip, W)
+        if not 1 <= W <= self.MAX_W:
+            raise ValueError("remap_banded takes a window of 1..{} positions "
+                             "(got W = {})".format(self.MAX_W, W))
+        T, B, nstate = ltrans_t.shape
+        P = seq_states.shape[1]
+        Tp = starts.shape[0]
+        dev = ltrans_t.device
+        if Tp < T or T < 1:
+            raise ValueError("starts must cover the {} frames (got {})"
+                             .format(T, Tp))
+        cuda_build.check_tensor(ltrans_t, (T, B, nstate), torch.float32, dev,
+                                "ltrans_t")
+        cuda_build.check_tensor(seq_states, (B, P), torch.int32, dev,
+                                "seq_states")
+        cuda_build.check_tensor(pos_mask, (B, P), torch.bool, dev,
+                                "pos_mask")
+        cuda_build.check_tensor(prior_initial, (B, P), torch.float32, dev,
+                                "prior_initial")
+        cuda_build.check_tensor(starts, (Tp, B), torch.int32, dev, "starts")
+        traceback = torch.empty((Tp, B, W), dtype=torch.int16, device=dev)
+        vfinal = torch.empty((B, W), dtype=torch.float32, device=dev)
+        if B == 0:
+            return traceback, vfinal
+        lib = cuda_build.load("remap_banded", self._ARGTYPES)
+        with torch.cuda.device(dev):
+            err = lib.remap_banded(
+                ltrans_t.data_ptr(), seq_states.data_ptr(),
+                pos_mask.data_ptr(), prior_initial.data_ptr(),
+                starts.data_ptr(), traceback.data_ptr(), vfinal.data_ptr(),
+                T, B, nstate, P, W, Tp, float(slip),
+                torch.cuda.current_stream().cuda_stream)
+        cuda_build.check(err, "remap_banded")
+        self.launches += 1
+        return traceback, vfinal
+
+
+class RemapBacktrack:
+    """path (Tp, B) int32 from the banded DP's traceback, window starts and
+    each row's last position.  Replaces the Pallas TPU kernel
+    ``sloika_tpu/ops/pallas/remap.py::_backtrack_kernel`` with
+    ``csrc/remap_back.cu``; runs :func:`remap_backtrack_plain` for CPU
+    tensors."""
+
+    _ARGTYPES = {"remap_back": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p]}
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, traceback, starts, last):
+        if traceback.device.type == "cpu":
+            return remap_backtrack_plain(traceback, starts, last)
+        Tp, B, W = traceback.shape
+        dev = traceback.device
+        cuda_build.check_tensor(traceback, (Tp, B, W), torch.int16, dev,
+                                "traceback")
+        cuda_build.check_tensor(starts, (Tp, B), torch.int32, dev, "starts")
+        last = last.to(torch.int32).contiguous()
+        cuda_build.check_tensor(last, (B,), torch.int32, dev, "last")
+        path = torch.empty((Tp, B), dtype=torch.int32, device=dev)
+        if Tp == 0 or B == 0:
+            return path
+        lib = cuda_build.load("remap_back", self._ARGTYPES)
+        with torch.cuda.device(dev):
+            err = lib.remap_back(traceback.data_ptr(), starts.data_ptr(),
+                                 last.data_ptr(), path.data_ptr(), Tp, B, W,
+                                 torch.cuda.current_stream().cuda_stream)
+        cuda_build.check(err, "remap_back")
+        self.launches += 1
+        return path
+
+
+#: the banded DP entry point (kernel on CUDA, plain twin on the CPU)
+remap_banded = RemapBanded()
+
+#: the traceback entry point (kernel on CUDA, plain twin on the CPU)
+remap_backtrack = RemapBacktrack()
+
+
+def map_to_sequence_banded(ltrans_t, seq_states, slip, prior_initial,
+                           prior_final, pos_mask, nframes, npos, W):
+    """Banded Viterbi alignment through :data:`remap_banded` and
+    :data:`remap_backtrack` (sloika_tpu/ops/pallas/remap.py:258-365 with
+    ``time_major=True``).  With ``W >= P`` the window covers every position
+    and this is the exact DP.
+
+    :param ltrans_t: (T, B, nstate) f32 log posteriors, column 0 = stay
+    :param seq_states: (B, P) int32 emission state per position
+    :param slip: slip penalty (>= 0)
+    :param prior_initial, prior_final: (B, P) f32 log position priors
+    :param pos_mask: (B, P) bool, True for real positions
+    :param nframes, npos: (B,) true frame and sequence lengths
+    :param W: window width (guaranteed band: ``W - block_len(W)``)
+    :returns: (score (B,) f32, path (B, T) int32 absolute positions)
+    """
+    T = ltrans_t.shape[0]
+    TB = block_len(W)
+    Tp = -(-T // TB) * TB                 # whole blocks; the rest are stays
+    starts = band_starts_blocked(nframes, npos, Tp, W, TB)
+    traceback, vfinal = remap_banded(ltrans_t, seq_states, pos_mask,
+                                     prior_initial, starts, slip, W)
+    score, path = finish_banded(traceback, vfinal, starts, prior_final,
+                                remap_backtrack)
+    return score, path[:T].t()
+
+
+def finish_banded(traceback, vfinal, starts, prior_final, backtrack):
+    """Score and path from the banded DP's outputs
+    (sloika_tpu/ops/pallas/remap.py:352-364): the final-position prior, the
+    best end position (the first of equal maxima), and the backtrace from
+    it by ``backtrack`` (:data:`remap_backtrack` or its plain twin).  The
+    trailing pad frames are stays, which change neither scores nor the
+    final position.
+
+    :returns: (score (B,) f32, path (Tp, B) int32 absolute positions)
+    """
+    Tp, B, W = traceback.shape
+    P = prior_final.shape[1]
+    dev = traceback.device
+    s_last = starts[Tp - 1]
+    warange = torch.arange(W, device=dev)
+    p1_w = torch.gather(prior_final, 1,
+                        (s_last.long()[:, None] + warange).clamp(0, P - 1))
+    pscore = vfinal + p1_w
+    last_w = torch.argmax(pscore, dim=1)          # first of equal maxima
+    score = pscore[torch.arange(B, device=dev), last_w]
+    last = s_last + last_w.to(torch.int32)
+    return score, backtrack(traceback, starts, last)

@@ -1,5 +1,7 @@
-"""The port stands without jax and h5py, and never drops to the CPU on its
-own."""
+"""The port stands without jax, h5py and the JAX package, and never drops
+to the CPU on its own."""
+import ast
+import os
 import subprocess
 import sys
 
@@ -13,6 +15,7 @@ _BLOCKED = """
 import sys
 sys.modules["jax"] = None
 sys.modules["h5py"] = None
+sys.modules["sloika_tpu"] = None
 import sloika_tpu_torch
 import sloika_tpu_torch.basecall
 import sloika_tpu_torch.serialize
@@ -26,8 +29,18 @@ import sloika_tpu_torch.data.hdf5
 import sloika_tpu_torch.cli.train
 import sloika_tpu_torch.cli.validate
 import sloika_tpu_torch.profile_train
+import sloika_tpu_torch.remap
+import sloika_tpu_torch.ops.remap
+import sloika_tpu_torch.ops.remap_banded
+import sloika_tpu_torch.ops.remap_kernel
+import sloika_tpu_torch.data.batching
+import sloika_tpu_torch.data.chunkify_tools
+import sloika_tpu_torch.data.fast5
+import sloika_tpu_torch.data.fileio
+import sloika_tpu_torch.data.raw_chunkify
+import sloika_tpu_torch.cli.chunkify
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "h5py")
+                if m.split(".")[0] in ("jax", "jaxlib", "h5py", "sloika_tpu")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
 print("ok")
@@ -39,6 +52,23 @@ def test_port_imports_with_jax_and_h5py_blocked():
                         capture_output=True, text=True, timeout=120)
     assert cp.returncode == 0, cp.stderr
     assert cp.stdout.strip() == "ok"
+
+
+def test_chip_smoke_imports_nothing_of_jax_or_the_jax_package():
+    """Every import in chip_smoke.py, at any depth, names the port or a
+    package the card's machine has."""
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    roots = {n.split(".")[0] for n in names}
+    assert "sloika_tpu_torch" in roots
+    assert not roots & {"sloika_tpu", "jax", "jaxlib", "h5py"}, roots
 
 
 @pytest.mark.parametrize("device", ["cuda", "cuda:0"])
