@@ -6,7 +6,7 @@ Needs one CUDA card; exits non-zero, printing no result, without one.
 Phases, each printing one line and raising on failure:
 
 1. environment: the card's name and power limit, the CUDA version;
-2. build: the seven kernels, from ``sloika_tpu_torch/csrc``, one nvcc each,
+2. build: the ten kernels, from ``sloika_tpu_torch/csrc``, one nvcc each,
    all started together;
 3. GRU: the forward kernel against its plain twin at S = 112 and 144,
    T = 3277, B = 64, ragged lengths, forward and reverse (max abs difference
@@ -57,7 +57,32 @@ Phases, each printing one line and raising on failure:
    is nearly flat and barely follows the signal, so each step's frame is
    a near-tie that round-off flips; and against a random reference every
    banded path misses its sequence ends and is re-run exact at a window
-   of ~14,848 positions (a 68 GB traceback at this batch).
+   of ~14,848 positions (a 68 GB traceback at this batch);
+10. LSTM forward: the kernel (both variants, with and without the cell
+    trace) against its plain twin at S = 64, ragged lengths, forward and
+    reverse, at the two event paths' shapes: B = 64 at T = the events
+    basecall path's longest read, and B = 100 at T = 500 (max abs
+    difference of h and c on valid steps <= 1e-4: float32 sums in another
+    order over thousands of steps);
+11. LSTM backward: ``lstm_bwd`` then ``lstm_wgrad`` against the plain
+    backward twin on the kernel's h and c traces at B = 100, T = 500,
+    S = 64, forward and reverse (max|kernel - twin| / max|twin| <= 1e-4 for
+    dxp on valid steps, dsWT and dp), and ``lstm_wgrad`` against its
+    einsum twin;
+12. events basecall main path: ``baseline_lstm`` at full width (size 64,
+    4 features, window 3, k = 5: 1,025 states; seeded random weights)
+    basecalls 64 event reads of 3,000-9,000 events (feature matrices from
+    seeded event tables through ``data.features.from_events``) in one batch
+    of 64 through ``Basecaller.basecall_signals`` in "states" mode; every
+    kernel of the path must have launched and every read must get a call,
+    and the posterior of 4 reads must agree with the plain CPU forward
+    (<= 1e-4); one more call under the profiler;
+13. events training main path: ``training.train`` of ``baseline_lstm`` at
+    full width for 30 ADAMski steps of B = 100 chunks of 500 events from
+    1,000 synthetic chunks (drop 20); every loss must be finite, the three
+    LSTM kernels must have launched, and one batch's gradients (B = 4) must
+    agree with the plain CPU twins' (<= 1e-3 relative per parameter); then
+    a profile of 5 steady steps.
 
 Then one JSON line of per-kernel numbers (with the least time the card
 could take for each kernel's work, ``bound_ms``, from the shapes run: the
@@ -66,6 +91,7 @@ larger of its bytes at 3.35 TB/s and its float32 operations at
 {...}}``.  Imports nothing of JAX and no h5py.
 """
 import copy
+import io
 import json
 import subprocess
 import sys
@@ -85,11 +111,14 @@ TRAIN_STEPS, TRAIN_WARM = 30, 5
 BWD_RTOL = 1e-4
 GRAD_RTOL = 1e-3
 KERNELS = ("gru_fwd", "gru_bwd", "gru_wgrad", "viterbi_fwd", "viterbi_back",
-           "remap_banded", "remap_back")
+           "remap_banded", "remap_back", "lstm_fwd", "lstm_bwd", "lstm_wgrad")
 #: the kernels each main path must launch
 PATH_KERNELS = {"basecall": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
                 "train": ("gru_fwd", "gru_bwd", "gru_wgrad"),
-                "remap": ("gru_fwd", "remap_banded", "remap_back")}
+                "remap": ("gru_fwd", "remap_banded", "remap_back"),
+                "basecall_events": ("lstm_fwd", "viterbi_fwd",
+                                    "viterbi_back"),
+                "train_events": ("lstm_fwd", "lstm_bwd", "lstm_wgrad")}
 # remap: B reads a batch; the main path's longest read buckets to 177,147
 # samples, 35,429 frames at stride 5, 35,584 in whole 256-frame blocks
 REMAP_B, REMAP_W = 64, 768
@@ -103,6 +132,11 @@ REMAP_SHORT = 13500
 REMAP_SCORE_RTOL, REMAP_SAME_POS = 1e-4, 0.99
 # init sd of the remap path's stand-in weights (see phase 9)
 REMAP_SD = 1.5
+# event paths: baseline_lstm's width; 64 reads of 3,000-9,000 events in one
+# batch; training batches of 100 chunks of 500 events
+LSTM_S = 64
+EVENTS_READS, EVENTS_MIN, EVENTS_MAX = 64, 3000, 9000
+EVENTS_TRAIN_B, EVENTS_TRAIN_T = 100, 500
 # the published peaks of one H100 SXM (NVIDIA data sheet) the bounds use
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -495,6 +529,18 @@ def phase_main(dev, standin, counters):
     return counts
 
 
+def profile_table(events, nsteps, wall_ms=None):
+    """One line of where the device time went, from profiler events."""
+    from sloika_tpu_torch.profile_train import device_breakdown
+    busy, span, by_kernel = device_breakdown(events, nsteps)
+    head = ("wall {:.1f} ms, device busy {:.1f} ms ({:.1%})".format(
+        wall_ms, busy, busy / wall_ms) if wall_ms else
+        "device busy {:.2f} ms a step, span {:.2f} ms".format(busy, span))
+    return head + "; by kernel: " + "; ".join(
+        "{} {:.2f} ms x{:.0f}".format(name[:48], ms, n)
+        for ms, n, name in by_kernel[:10])
+
+
 def remap_inputs(dev, lt, P, W, seed):
     """Sequences, masks, priors and the block-quantised band schedule of a
     batch of REMAP_B rows with ragged frame and position counts, for the
@@ -698,19 +744,14 @@ def phase_remap(dev, counters):
 
     # where the time goes: one more call under the profiler
     from torch.profiler import ProfilerActivity
-    from sloika_tpu_torch.profile_train import device_breakdown
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         remapper.remap_dac_signals(reads, refs)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    busy, _, by_kernel = device_breakdown(prof.events(), 1)
-    print("remap profile (one call, profiled): wall {:.1f} ms, device busy "
-          "{:.1f} ms ({:.1%} of the wall); by kernel: {}".format(
-              wall, busy, busy / wall, "; ".join(
-                  "{} {:.2f} ms x{:.0f}".format(name[:48], ms, n)
-                  for ms, n, name in by_kernel[:10])), flush=True)
+    print("remap profile (one call, profiled): " +
+          profile_table(prof.events(), 1, wall), flush=True)
 
     for i, ((d, n4), (score, table, path, _)) in enumerate(zip(reads, out)):
         if not (np.isfinite(score) and np.all(np.diff(path) >= 0)
@@ -747,6 +788,329 @@ def phase_remap(dev, counters):
     return counts
 
 
+def event_reads(n=EVENTS_READS, seed=13):
+    """Feature matrices (T, 4) of ``n`` event reads of EVENTS_MIN-EVENTS_MAX
+    events, made from seeded event tables (mean, stdv, length) by the
+    port's ``from_events``, as ``load_event_features`` makes them."""
+    from sloika_tpu_torch.data.features import from_events
+    rs = np.random.RandomState(seed)
+    lengths = rs.randint(EVENTS_MIN, EVENTS_MAX + 1, size=n)
+    lengths[0] = EVENTS_MAX
+    reads = []
+    for L in lengths:
+        ev = np.zeros(L, dtype=[("mean", "f8"), ("stdv", "f8"),
+                                ("length", "f8")])
+        ev["mean"] = 90 + 12 * rs.normal(size=L)
+        ev["stdv"] = rs.uniform(0.5, 3.0, size=L)
+        ev["length"] = rs.geometric(0.1, size=L) / 4000.0
+        reads.append(from_events(ev, tag=""))
+    return reads
+
+
+def seeded_weights(layer, seed, sd=0.5):
+    """Draw every parameter of ``layer`` from numpy at sd / sqrt(fan-in)
+    (baseline_lstm's first feed-forward layer starts at zero, as in the
+    JAX model, which would make the layers after it see no signal)."""
+    rs = np.random.RandomState(seed)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.from_numpy(
+                (sd * rs.normal(size=tuple(p.shape))
+                 / np.sqrt(p.shape[-1])).astype(np.float32)))
+    return layer
+
+
+def lstm_bound(steps, S, cout):
+    """lstm_fwd: 8 S^2 flop a valid step of a row (the product with sWT,
+    S x 4S; the cell's elementwise work adds ~4%); xp read, h (and c)
+    written once, and the weights."""
+    return 4 * ((5 + cout) * S * steps + 4 * S * S + 3 * S), 8 * S * S * steps
+
+
+def phase_lstm(dev, serve_T):
+    """The LSTM forward kernel against its twin at both event paths'
+    shapes; returns its kernel entry (timed at the serving shape)."""
+    from sloika_tpu_torch.nn.fused_lstm import lstm_forward, lstm_scan_plain
+    S = LSTM_S
+    rs = np.random.RandomState(17)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    sWT = f32(rs.normal(size=(S, 4 * S)) / np.sqrt(2 * S))
+    p = f32(rs.normal(size=(3, S)) / np.sqrt(S))
+    worst, entry = 0.0, {}
+    for name, T, B in (("serving", serve_T, EVENTS_READS),
+                       ("training", EVENTS_TRAIN_T, EVENTS_TRAIN_B)):
+        xp = f32(rs.normal(size=(T, B, 4 * S)))
+        lengths = rs.randint(T // 3, T + 1, size=B)
+        lengths[0] = T
+        mask = torch.from_numpy(np.arange(T)[:, None]
+                                < lengths[None, :]).to(dev)
+        m = mask[:, :, None]
+        steps = int(lengths.sum())
+        for reverse in (False, True):
+            h, c = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse)
+            h2, _ = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
+                                 emit_cout=False)
+            (href, cref), plain_ms = timed_once(
+                lambda: lstm_scan_plain(xp, sWT, p, mask, reverse))
+            d = max(float(((a - b).abs() * m).max())
+                    for a, b in ((h, href), (c, cref), (h2, href)))
+            ms = cuda_ms(lambda: lstm_forward(
+                xp, sWT, p, mask=mask, reverse=reverse, emit_cout=False), 5)
+            ms_c = cuda_ms(lambda: lstm_forward(
+                xp, sWT, p, mask=mask, reverse=reverse), 5)
+            worst = max(worst, d)
+            print("lstm {} S={} reverse={} T={} B={}: max_abs_err {:.3e} "
+                  "kernel {:.3f} ms (with the cell trace {:.3f} ms; {:.3f} "
+                  "us a step) plain {:.3f} ms".format(
+                      name, S, reverse, T, B, d, ms, ms_c, 1e3 * ms / T,
+                      plain_ms), flush=True)
+            if not d <= GRU_TOL:
+                raise AssertionError("LSTM forward kernel differs from its "
+                                     "twin by {} > {}".format(d, GRU_TOL))
+            if not reverse:
+                entry[name] = with_bound(
+                    {"shape": "T={} B={} S={}".format(T, B, S), "ms": ms,
+                     "ms_with_cell_trace": ms_c, "plain_ms": plain_ms},
+                    *lstm_bound(steps, S, 0))
+    # no PyTorch call computes this cell: cuDNN's LSTM has no peepholes
+    serving = entry.pop("serving")
+    serving.update({"name": "lstm_fwd", "route": "cuda",
+                    "source": "sloika_tpu_torch/csrc/lstm_fwd.cu",
+                    "replaces": "sloika_tpu/nn/pallas_lstm.py:69",
+                    "max_abs_err": worst,
+                    "at_training_shapes": entry["training"]})
+    return serving
+
+
+def phase_lstm_bwd(dev):
+    from sloika_tpu_torch.nn.fused_lstm import (
+        lstm_backward, lstm_forward, lstm_scan_bwd_plain, lstm_wgrad,
+        lstm_wgrad_plain)
+    S, T, B = LSTM_S, EVENTS_TRAIN_T, EVENTS_TRAIN_B
+    rs = np.random.RandomState(19)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    xp = f32(rs.normal(size=(T, B, 4 * S)))
+    sWT = f32(rs.normal(size=(S, 4 * S)) / np.sqrt(2 * S))
+    p = f32(rs.normal(size=(3, S)) / np.sqrt(S))
+    g = f32(rs.normal(size=(T, B, S)))
+    lengths = rs.randint(T // 2, T + 1, size=B)
+    lengths[0] = T
+    mask = torch.from_numpy(np.arange(T)[:, None]
+                            < lengths[None, :]).to(dev)
+    worst_b = worst_w = 0.0
+    times = {}
+    for reverse in (False, True):
+        h, c = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse)
+        got = lstm_backward(xp, sWT, p, mask, reverse, g, h, c)
+        ref, plain_ms = timed_once(lambda: lstm_scan_bwd_plain(
+            xp, sWT, p, mask, reverse, g, h, c))
+        e_dxp = rel_err(got[0], ref[0], mask)
+        e_w = [rel_err(a, b) for a, b in zip(got[1:], ref[1:])]
+        e_wt = [rel_err(a, b)[1] for a, b in zip(
+            lstm_wgrad(h, c, got[0], reverse),
+            lstm_wgrad_plain(h, c, got[0], reverse))]
+        times[reverse] = (
+            cuda_ms(lambda: lstm_backward.recurrence(
+                xp, sWT, p, mask, reverse, g, h, c), 5), plain_ms,
+            cuda_ms(lambda: lstm_wgrad(h, c, got[0], reverse), 20),
+            cuda_ms(lambda: lstm_wgrad_plain(h, c, got[0], reverse), 20))
+        worst_b = max(worst_b, e_dxp[0])
+        worst_w = max([worst_w] + [e[0] for e in e_w])
+        print("lstm backward S={} reverse={} T={} B={}: dxp max_abs_err "
+              "{:.3e} (rel {:.3e}), dsWT {:.3e} (rel {:.3e}), dp {:.3e} "
+              "(rel {:.3e}); lstm_wgrad vs its einsum twin rel {:.3e} "
+              "{:.3e}; lstm_bwd kernel {:.3f} ms, plain backward twin "
+              "{:.3f} ms; lstm_wgrad kernel {:.3f} ms, einsum {:.3f} ms"
+              .format(S, reverse, T, B, *e_dxp, *e_w[0], *e_w[1], *e_wt,
+                      *times[reverse]), flush=True)
+        bad = [e for e in [e_dxp[1]] + [e[1] for e in e_w] + e_wt
+               if not e <= BWD_RTOL]
+        if bad:
+            raise AssertionError("LSTM backward kernels differ from their "
+                                 "twins: relative errors {} > {}".format(
+                                     bad, BWD_RTOL))
+    ms, plain_ms, wms, wplain_ms = times[False]
+    shape = "T={} B={} S={}".format(T, B, S)
+    steps = int(lengths.sum())
+    # lstm_bwd: two products a valid step of a row (sWT and sW: 8 S^2
+    # multiply-adds); xp, g, h, c read and dxp written once, and both
+    # weight layouts.  lstm_wgrad: the weight sum over the valid rows, 8 S^2
+    # flop a row (the peephole sums add 6 S); h, c and dxp read once.  Its
+    # library time is the einsums of its twin; no PyTorch call computes
+    # lstm_bwd's recurrence
+    return [
+        with_bound({"name": "lstm_bwd", "route": "cuda",
+                    "source": "sloika_tpu_torch/csrc/lstm_bwd.cu",
+                    "replaces": "sloika_tpu/nn/pallas_lstm.py:119",
+                    "shape": shape, "max_abs_err": worst_b, "ms": ms,
+                    "plain_ms": plain_ms},
+                   4 * (11 * S * steps + 8 * S * S + 3 * S),
+                   16 * S * S * steps),
+        with_bound({"name": "lstm_wgrad", "route": "cuda",
+                    "source": "sloika_tpu_torch/csrc/lstm_wgrad.cu",
+                    "replaces": "sloika_tpu/nn/pallas_lstm.py:119",
+                    "shape": shape, "max_abs_err": worst_w, "ms": wms,
+                    "plain_ms": wplain_ms},
+                   4 * (6 * S * steps + 4 * S * S + 3 * S),
+                   8 * S * S * steps, library_ms=wplain_ms)]
+
+
+def phase_basecall_events(dev, counters, reads):
+    from torch.profiler import ProfilerActivity
+    from sloika_tpu_torch import basecall as bc
+    from sloika_tpu_torch import models
+    layer = seeded_weights(models.network_factory("baseline_lstm")(
+        klen=5, sd=0.5, size=LSTM_S), seed=21)
+    cpu_layer = copy.deepcopy(layer)
+    caller = bc.Basecaller(layer, 5, batch_size=EVENTS_READS,
+                           output="states", device=dev)
+    caller.basecall_signals(reads)                   # warm-up
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = caller.basecall_signals(reads)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {n: k.launches for n, k in counters.items()}
+    launches = [counts[n] for n in PATH_KERNELS["basecall_events"]]
+    peak = torch.cuda.max_memory_allocated()
+    nev = sum(len(r) for r in reads)
+    printer = bc.SeqPrinter(datatype="events", fh=io.StringIO())
+    nbases = sum(printer.write("r", sc, call, 0) for sc, call in out)
+    print("events basecall main path: baseline_lstm (size {}), {} reads "
+          "{} events -> {} bases in {:.3f} s: {:.1f} events/s {:.1f} "
+          "bases/s, peak memory {:.1f} MiB, launches lstm_fwd {} "
+          "viterbi_fwd {} viterbi_back {} [{}]".format(
+              LSTM_S, len(reads), nev, nbases, dt, nev / dt, nbases / dt,
+              peak / 2 ** 20, *launches, card_line()), flush=True)
+    if min(launches) <= 0:
+        raise AssertionError("a kernel of the events basecall path never "
+                             "launched: {}".format(launches))
+    for i, (score, call) in enumerate(out):
+        if len(call) == 0 or not np.isfinite(score):
+            raise AssertionError("event read {}: bad call (score {}, {} "
+                                 "states)".format(i, score, len(call)))
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        caller.basecall_signals(reads)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    print("events basecall profile (one call, profiled): " +
+          profile_table(prof.events(), 1, wall), flush=True)
+
+    # the posterior of 4 reads on the card against the plain CPU forward
+    four = reads[:4]
+    T = max(len(r) for r in four)
+    x = np.zeros((T, 4, 4), np.float32)
+    for b, r in enumerate(four):
+        x[:len(r), b] = r
+    lengths = torch.tensor([len(r) for r in four])
+    with torch.inference_mode():
+        got, _ = caller._floored_masked_post(torch.from_numpy(x).to(dev),
+                                             lengths.to(dev))
+        ref, _ = bc.Basecaller(cpu_layer, 5, output="states",
+                               device="cpu")._floored_masked_post(
+            torch.from_numpy(x), lengths)
+    d = float((got.cpu() - ref).abs().max())
+    print("events posterior check (4 reads, GPU kernels vs CPU plain "
+          "forward): max_abs_err {:.3e}".format(d), flush=True)
+    if not d <= POST_TOL:
+        raise AssertionError("events posterior differs from the CPU forward "
+                             "by {} > {}".format(d, POST_TOL))
+    return counts
+
+
+def synthetic_event_chunks(n=1000, T=EVENTS_TRAIN_T, klen=5, seed=23):
+    """A labelled event-chunk set as ``load_labelled_chunks`` returns it:
+    n chunks of T events of 4 studentised-looking features, a label at
+    every event (stride 1)."""
+    rs = np.random.RandomState(seed)
+    labels = rs.randint(0, 4 ** klen + 1, size=(n, T)).astype(np.int32)
+    return {"chunks": rs.normal(size=(n, T, 4)).astype(np.float32),
+            "labels": labels, "bad": np.zeros(labels.shape, bool),
+            "weights": np.full(n, 1.0 / n), "attrs": {"kmer": klen}}
+
+
+def phase_train_events(dev, counters):
+    from torch.profiler import ProfilerActivity, schedule
+    from sloika_tpu_torch import models, training
+    from sloika_tpu_torch.profile_train import StepMarks
+    layer = seeded_weights(models.network_factory("baseline_lstm")(
+        klen=5, sd=0.5, size=LSTM_S), seed=25)
+    data = synthetic_event_chunks()
+    clock = StepMarks(sync=True)
+    kw = dict(batch_size=EVENTS_TRAIN_B, chunk_len_range=(1.0, 1.0),
+              drop=20, seed=1, device=dev)
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, history = training.train(layer, data, niteration=TRAIN_STEPS,
+                                log=clock, **kw)
+    wall = time.perf_counter() - t0
+    counts = {n: k.launches for n, k in counters.items()}
+    launches = [counts[n] for n in PATH_KERNELS["train_events"]]
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(clock.marks) - TRAIN_WARM
+    dt = clock.marks[-1] - clock.marks[TRAIN_WARM - 1]
+    print("events training main path: baseline_lstm (size {}), {} ADAMski "
+          "steps of B={} x {} events in {:.3f} s; steady state (steps "
+          "{}-{}): {:.2f} ms a step, {:.1f} chunks/s; peak memory {:.1f} "
+          "MiB; loss {:.4f} -> {:.4f}; launches lstm_fwd {} lstm_bwd {} "
+          "lstm_wgrad {} [{}]".format(
+              LSTM_S, TRAIN_STEPS, EVENTS_TRAIN_B, EVENTS_TRAIN_T, wall,
+              TRAIN_WARM + 1, TRAIN_STEPS, 1e3 * dt / steps,
+              steps * EVENTS_TRAIN_B / dt, peak / 2 ** 20, history[0, 0],
+              history[-1, 0], *launches, card_line()), flush=True)
+    if len(history) != TRAIN_STEPS or not np.isfinite(history).all():
+        raise AssertionError("events training losses not all finite: {}"
+                             .format(history[:, 0]))
+    if min(launches) <= 0:
+        raise AssertionError("an LSTM kernel of the events training path "
+                             "never launched: {}".format(launches))
+
+    # one batch's gradients on the card against the plain CPU twins
+    cpu_layer = copy.deepcopy(layer).cpu()
+    x, labels, weights = training.ChunkSampler(
+        data, 4, EVENTS_TRAIN_T, EVENTS_TRAIN_T, 1,
+        np.ones(1025, np.float32), seed=2).sample()
+    grads = []
+    for lyr, d in ((layer, dev), (cpu_layer, torch.device("cpu"))):
+        lyr.zero_grad(set_to_none=True)
+        loss, _ = training.make_loss_fn(lyr, min_prob=1e-30, drop=20)(
+            torch.from_numpy(x).to(d),
+            torch.from_numpy(labels.astype(np.int64)).to(d),
+            torch.from_numpy(weights).to(d))
+        loss.backward()
+        grads.append([p.grad.cpu() for p in lyr.parameters()])
+    errs = [rel_err(a, b)[1] for a, b in zip(*grads)]
+    names = [n for n, _ in layer.named_parameters()]
+    print("events training gradients (B=4, T={}), GPU kernels vs CPU plain "
+          "twins: worst max|d|/max|g_cpu| {:.3e} ({})".format(
+              EVENTS_TRAIN_T, max(errs), names[int(np.argmax(errs))]),
+          flush=True)
+    if not max(errs) <= GRAD_RTOL:
+        raise AssertionError("GPU gradients differ from the CPU ones: {}"
+                             .format(dict(zip(names, errs))))
+
+    # where a steady step's device time goes
+    prof = torch.profiler.profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        schedule=schedule(wait=3, warmup=1, active=5, repeat=1))
+    with prof:
+        training.train(layer, data, niteration=10,
+                       log=StepMarks(sync=True, prof=prof), **kw)
+        torch.cuda.synchronize()
+    print("events training profile (5 steady steps): " +
+          profile_table(prof.events(), 5), flush=True)
+    return counts, peak
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
@@ -758,6 +1122,8 @@ def main():
     from sloika_tpu_torch import config, cuda_build, models
     from sloika_tpu_torch.nn.fused_gru import (gru_backward, gru_forward,
                                                gru_wgrad)
+    from sloika_tpu_torch.nn.fused_lstm import (lstm_backward, lstm_forward,
+                                                lstm_wgrad)
     from sloika_tpu_torch.ops import remap_kernel, viterbi_kernel
     config.disable_tf32()
     t0 = time.time()
@@ -779,16 +1145,22 @@ def main():
                                  gru_fwd_train["max_abs_err"])
     gru_fwd["at_training_shapes"] = gru_fwd_train
     remap = phase_remap_kernels(dev)
-    kernels = [gru_fwd] + viterbi + bwd + remap
+    reads = event_reads()
+    lstm = [phase_lstm(dev, max(len(r) for r in reads))] \
+        + phase_lstm_bwd(dev)
+    kernels = [gru_fwd] + viterbi + bwd + remap + lstm
     by_name = {k["name"]: k for k in kernels}
     # every count is set to 0 before each path and all are read after it
     counters = dict(zip(KERNELS, (
         gru_forward, gru_backward, gru_wgrad, viterbi_kernel.viterbi_forward,
         viterbi_kernel.viterbi_backtrace, remap_kernel.remap_banded,
-        remap_kernel.remap_backtrack)))
+        remap_kernel.remap_backtrack, lstm_forward, lstm_backward,
+        lstm_wgrad)))
     launches = {"basecall": phase_main(dev, standin, counters)}
     launches["train"], _ = phase_train(dev, counters)
     launches["remap"] = phase_remap(dev, counters)
+    launches["basecall_events"] = phase_basecall_events(dev, counters, reads)
+    launches["train_events"], _ = phase_train_events(dev, counters)
     for path, counts in launches.items():
         for name, n in counts.items():
             entry = by_name[name]

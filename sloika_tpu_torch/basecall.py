@@ -1,7 +1,7 @@
-"""Chunked basecalling on the GPU (cf. ``sloika_tpu/basecall.py``).
+"""Basecalling on the GPU (cf. ``sloika_tpu/basecall.py``).
 
-The ported slice is the transfer-lean chunked transducer path with
-``output="bases"``: reads are cut into overlapping windows (C samples,
+Two modes are ported.  ``output="bases"`` is the transfer-lean chunked
+transducer path: reads are cut into overlapping windows (C samples,
 ``overlap`` on each side), windows run through the forward pass in device
 batches, the posterior gets the ``min_prob`` floor with padded frames turned
 into one-hot stays, a transducer Viterbi decodes it, and the path collapses
@@ -9,6 +9,13 @@ on the device to packed 2-bit base codes; the host stitches the windows at
 their seams.  From raw int16 DAC samples (:meth:`Basecaller.
 basecall_dac_reads`) the windowing and the exact float32 normalisation
 ``((dac + offset) * scale - med) / mad`` run on the device too.
+
+``output="states"`` is the JAX package's default, non-chunked mode
+(``chunked=False``), the one the event models use: whole reads, sorted by
+length, run in batches; each read's Viterbi path is cut at its own frame
+count and collapsed on the host to the kmer states entered by a move
+(:meth:`Basecaller.basecall_signals`, :func:`load_event_features`,
+:meth:`SeqPrinter.write`).
 
 PyTorch runs eagerly, so there is no compile cache and no batch or length
 bucketing: each batch runs at its own size.  Host <-> device copies are
@@ -23,10 +30,12 @@ import sys
 import numpy as np
 import torch
 
-from sloika_tpu_torch import config, maths, nn
+from sloika_tpu_torch import bio, config, maths, nn, util
+from sloika_tpu_torch.data import features, fast5
 from sloika_tpu_torch.data.batching import trim_open_pore
 from sloika_tpu_torch.variables import DEFAULT_ALPHABET, nstate
 from sloika_tpu_torch.ops import viterbi_kernel
+from sloika_tpu_torch.ops.decode import collapse_path
 
 #: reads are packed into groups of about this many samples; one group is
 #: one flat int16 buffer on the device (32 MB)
@@ -77,15 +86,17 @@ class Basecaller(object):
     :param skip: transducer skip penalty
     :param batch_size: windows decoded per device batch
     :param chunk_size, overlap: window length and seam overlap (samples)
-    :param output: "bases" (the only ported mode: packed 2-bit base codes)
+    :param output: "bases" (chunked, packed 2-bit base codes) or "states"
+        (whole reads, kmer-state calls)
     :param device: torch device; "cuda" raises when no GPU is present
     """
 
     def __init__(self, layer, kmer_len, min_prob=1e-5, skip=5.0,
                  batch_size=8, chunk_size=8192, overlap=400, output="bases",
                  device="cuda"):
-        if output != "bases":
-            raise NotImplementedError("only output='bases' is ported")
+        if output not in ("bases", "states"):
+            raise NotImplementedError(
+                "output must be 'bases' (chunked) or 'states' (whole reads)")
         expected = nstate(kmer_len, transducer=True, bad_state=False)
         if layer.size != expected:
             raise ValueError("model emits {} states, decode expects {}".format(
@@ -149,15 +160,37 @@ class Basecaller(object):
                                  self.chunk_size)
         return self._forward_decode(x, lengths)
 
+    def _forward_decode_states(self, x, lengths):
+        """Posterior + Viterbi of one batch of whole reads (the transducer
+        branch of ``_forward_decode``, sloika_tpu/basecall.py:315-325).
+
+        :returns: (score (B,), frames (B,), path (B, T'), moved (B, T'))
+            device tensors
+        """
+        post, out_lengths = self._floored_masked_post(x, lengths)
+        score, path, moved = viterbi_kernel.viterbi(
+            post, self.kmer_len, skip_pen=self.skip)
+        return score, out_lengths, path, moved
+
     # -- public API ------------------------------------------------------
 
     def basecall_signals(self, signals):
         """Basecall a list of normalised 1-D signals (or (T, F) feature
-        matrices) in chunked "bases" mode (cf. ``_basecall_chunked_bases``,
-        sloika_tpu/basecall.py:473).
+        matrices).
 
-        :returns: list of (score, base codes) per read
+        With ``output="bases"``, chunked (cf. ``_basecall_chunked_bases``,
+        sloika_tpu/basecall.py:473); returns (score, base codes) per read.
+        With ``output="states"``, whole reads in batches of
+        ``batch_size`` in order of length (sloika_tpu/basecall.py:424-443);
+        returns (score, kmer-state call) per read.
         """
+        if self.output == "states":
+            out = [None] * len(signals)
+            order = np.argsort([len(s) for s in signals])
+            for lo in range(0, len(order), self.batch_size):
+                idx = order[lo:lo + self.batch_size]
+                self._run_batch([signals[i] for i in idx], idx, out)
+            return out
         C = self.chunk_size
         lens = [len(s) for s in signals]
         jobs = _window_jobs(lens, C, self.overlap)
@@ -226,6 +259,26 @@ class Basecaller(object):
                         torch.from_numpy(norms).to(self.device))
                     _collect([(r, w) for r, w, _, _ in batch], out, results)
         return self._stitch_bases(results, read_lens)
+
+    def _run_batch(self, sigs, idx, out):
+        """One batch of whole reads (sloika_tpu/basecall.py:853-886).  The
+        batch runs at its own size and longest length: the JAX package's
+        bucketed padding adds frames that are exact one-hot stays, which
+        add nothing to the score and leave the path alone."""
+        nfeat = 1 if sigs[0].ndim == 1 else sigs[0].shape[1]
+        lengths = np.array([len(s) for s in sigs], dtype=np.int64)
+        x = np.zeros((int(lengths.max()), len(sigs), nfeat),
+                     dtype=config.sloika_dtype)
+        for b, s in enumerate(sigs):
+            x[:len(s), b] = s.reshape(len(s), nfeat)
+        with torch.inference_mode():
+            score, frames, path, moved = (o.cpu().numpy() for o in
+                                          self._forward_decode_states(
+                torch.from_numpy(x).to(self.device),
+                torch.from_numpy(lengths).to(self.device)))
+        for b, i in enumerate(idx):
+            out[i] = (float(score[b]),
+                      collapse_path(path[b], moved[b], int(frames[b])))
 
     def _stitch_bases(self, results, read_lens):
         """Concatenate per-window base emissions at the seam boundaries
@@ -399,12 +452,38 @@ def load_raw_dac(fast5_file, trim=(200, 50), open_pore_fraction=0.3):
     return sn, dac[start:stop], (offset, scale, med, mad)
 
 
+def load_event_features(fast5_file, section="template",
+                        segmentation="Segmentation", trim=(50, 10)):
+    """Event read -> feature matrix (copied from sloika_tpu/basecall.py:
+    1062-1078).  As there, the event reader takes the latest basecall
+    analysis and ``segmentation`` is not read.  h5py is imported by the
+    reader.
+
+    :returns: (short_name, features (T, 4) float32) or None
+    """
+    try:
+        ev = fast5.read_section_events(fast5_file, section)
+    except Exception as e:
+        sys.stderr.write("Error getting events for section {!r} in file {}\n"
+                         "{!r}\n".format(section, fast5_file, e))
+        return None
+    ev = util.trim_array(ev, *trim)
+    if ev.size == 0:
+        sys.stderr.write("Read too short in file {}\n".format(fast5_file))
+        return None
+    return fast5.filename_short(fast5_file), features.from_events(ev, tag='')
+
+
 class SeqPrinter(object):
-    """Write 2-bit base-code calls as FASTA (copied from
-    sloika_tpu/basecall.py:1081, its ``write_codes`` path)."""
+    """Write calls as FASTA (copied from sloika_tpu/basecall.py:1081-1124):
+    kmer-state calls with :meth:`write`, 2-bit base codes with
+    :meth:`write_codes`."""
 
     def __init__(self, datatype="samples", fname=None,
-                 alphabet=DEFAULT_ALPHABET, fh=None):
+                 alphabet=DEFAULT_ALPHABET, fh=None, kmer_len=5,
+                 transducer=True):
+        self.kmers = bio.all_kmers(kmer_len, alphabet=alphabet)
+        self.transducer = transducer
         self.datatype = datatype
         alpha = alphabet.encode() if isinstance(alphabet, str) else alphabet
         self._alpha_lut = np.frombuffer(alpha, dtype=np.uint8)
@@ -418,6 +497,16 @@ class SeqPrinter(object):
     def close(self):
         if self.close_fh:
             self.fh.close()
+
+    def write(self, read_name, score, call, nev):
+        kmer_path = [self.kmers[i] for i in call]
+        seq = bio.kmers_to_sequence(kmer_path, always_move=self.transducer)
+        if isinstance(seq, bytes):
+            seq = seq.decode('ascii')
+        self.fh.write(">{} score {:.0f}, {} {} to {} bases\n".format(
+            read_name, score, nev, self.datatype, len(seq)))
+        self.fh.write(seq + '\n')
+        return len(seq)
 
     def write_codes(self, read_name, score, codes, nev):
         seq = self._alpha_lut[np.asarray(codes, dtype=np.uint8)]

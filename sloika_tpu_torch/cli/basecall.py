@@ -1,12 +1,17 @@
-"""Basecall raw reads with the PyTorch port
-(cf. ``sloika_tpu/cli/basecall.py``).
+"""Basecall reads with the PyTorch port (cf. ``sloika_tpu/cli/basecall.py``).
 
-Only the ``raw`` subcommand is ported, in chunked "bases" mode from int16
-DAC samples::
+Two subcommands::
 
-    python -m sloika_tpu_torch.cli.basecall raw model.npz reads/ --chunked \\
+    python -m sloika_tpu_torch.cli.basecall raw model.npz reads/ \\
+        --device cuda --output calls.fa
+    python -m sloika_tpu_torch.cli.basecall events model.npz reads/ \\
         --device cuda --output calls.fa
 
+``raw`` decodes int16 DAC samples in chunked "bases" mode (``--chunked``,
+the only mode ported for raw reads).  ``events`` decodes event features
+(``--section``, ``--trim``) as the JAX package does by default: whole reads
+in batches of ``--batch``, in order of length (``--no-chunked``); with
+``--chunked`` it runs the chunked "bases" mode over the feature matrices.
 FASTA goes to stdout unless ``--output`` is given.  ``--device cuda``
 raises when no GPU is present.
 """
@@ -25,44 +30,61 @@ def make_parser():
     parser = argparse.ArgumentParser(
         description='Basecall reads with a transducer network (PyTorch/CUDA)',
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument('--batch', default=8, metavar='n',
+                        type=Positive(int),
+                        help='Windows (chunked) or reads per device batch')
+    common.add_argument('--chunk_size', default=8192, type=Positive(int),
+                        help='Window size for chunked decoding')
+    common.add_argument('--device', default='cuda',
+                        help='Torch device to run on')
+    common.add_argument('--overlap', default=400, type=Positive(int),
+                        help='Window overlap for chunked decoding')
+    common.add_argument('--kmer_len', default=5, type=Positive(int),
+                        help='Kmer length of model')
+    common.add_argument('--limit', default=None, type=Maybe(Positive(int)),
+                        help='Limit number of reads processed')
+    common.add_argument('--min_prob', default=1e-5, type=proportion,
+                        help='Minimum posterior probability')
+    common.add_argument('--skip', default=5.0, type=NonNegative(float),
+                        help='Skip penalty for transducer decoding')
+    common.add_argument('--strand_list', default=None, action=FileExists,
+                        help='File containing reads to process')
+    common.add_argument('--output', default=None,
+                        help='Output FASTA file (default stdout)')
+    common.add_argument('--version', nargs=0,
+                        action=display_version_and_exit(__version__),
+                        help='Display version')
+    common.add_argument('model', action=FileExists,
+                        help='Checkpoint (.npz) or model JSON')
+    common.add_argument('input_folder', action=FileExists,
+                        help='Directory containing fast5 files')
+
     sub = parser.add_subparsers(dest='command', required=True)
-    raw = sub.add_parser('raw', help='Basecall from raw signal',
+    ev = sub.add_parser('events', parents=[common],
+                        help='Basecall from events',
                         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
-    raw.add_argument('--batch', default=8, metavar='windows',
-                    type=Positive(int), help='Windows per device batch')
-    raw.add_argument('--chunked', default=True, action=AutoBool,
-                    help='Chunked overlap-stitch decoding (the only ported '
-                         'mode)')
-    raw.add_argument('--chunk_size', default=8192, type=Positive(int),
-                    help='Window size for chunked decoding (samples)')
-    raw.add_argument('--device', default='cuda',
-                    help='Torch device to run on')
-    raw.add_argument('--overlap', default=400, type=Positive(int),
-                    help='Window overlap for chunked decoding (samples)')
-    raw.add_argument('--kmer_len', default=5, type=Positive(int),
-                    help='Kmer length of model')
-    raw.add_argument('--limit', default=None, type=Maybe(Positive(int)),
-                    help='Limit number of reads processed')
-    raw.add_argument('--min_prob', default=1e-5, type=proportion,
-                    help='Minimum posterior probability')
-    raw.add_argument('--skip', default=5.0, type=NonNegative(float),
-                    help='Skip penalty for transducer decoding')
-    raw.add_argument('--strand_list', default=None, action=FileExists,
-                    help='File containing reads to process')
-    raw.add_argument('--output', default=None,
-                    help='Output FASTA file (default stdout)')
-    raw.add_argument('--open_pore_fraction', default=0.3, type=proportion,
-                    help='Max fraction of signal to trim as open pore')
-    raw.add_argument('--trim', default=(200, 50), nargs=2,
+    ev.add_argument('--chunked', default=False, action=AutoBool,
+                    help='Chunked overlap-stitch decoding (exact full-read '
+                         'decode when disabled)')
+    ev.add_argument('--section', default='template',
+                    choices=['template', 'complement'])
+    ev.add_argument('--segmentation', default='Segmentation',
+                    help='Segmentation analysis name')
+    ev.add_argument('--trim', default=(50, 10), nargs=2,
                     type=NonNegative(int), metavar=('beginning', 'end'),
-                    help='Samples to trim')
-    raw.add_argument('--version', nargs=0,
-                    action=display_version_and_exit(__version__),
-                    help='Display version')
-    raw.add_argument('model', action=FileExists,
-                    help='Checkpoint (.npz) or model JSON')
-    raw.add_argument('input_folder', action=FileExists,
-                    help='Directory containing fast5 files')
+                    help='Events to trim')
+    raw = sub.add_parser('raw', parents=[common],
+                         help='Basecall from raw signal',
+                         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    raw.add_argument('--chunked', default=True, action=AutoBool,
+                     help='Chunked overlap-stitch decoding (the only ported '
+                          'mode for raw reads)')
+    raw.add_argument('--open_pore_fraction', default=0.3, type=proportion,
+                     help='Max fraction of signal to trim as open pore')
+    raw.add_argument('--trim', default=(200, 50), nargs=2,
+                     type=NonNegative(int), metavar=('beginning', 'end'),
+                     help='Samples to trim')
     return parser
 
 
@@ -81,43 +103,58 @@ def load_model(path):
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
-    if not args.chunked:
-        raise NotImplementedError('exact per-read decoding is not ported; '
-                                  'use --chunked')
+    events = args.command == 'events'
+    if not (args.chunked or events):
+        raise NotImplementedError('exact per-read decoding of raw reads is '
+                                  'not ported; use --chunked')
     from sloika_tpu_torch import basecall as bc
 
+    output = 'bases' if args.chunked else 'states'
     caller = bc.Basecaller(load_model(args.model), args.kmer_len,
                            min_prob=args.min_prob, skip=args.skip,
                            batch_size=args.batch, chunk_size=args.chunk_size,
-                           overlap=args.overlap, device=args.device)
-    printer = bc.SeqPrinter(datatype='samples', fname=args.output)
+                           overlap=args.overlap, output=output,
+                           device=args.device)
+    datatype = 'events' if events else 'samples'
+    printer = bc.SeqPrinter(datatype=datatype, fname=args.output,
+                            kmer_len=args.kmer_len)
+    write = printer.write_codes if output == 'bases' else printer.write
     files = iterate_fast5(args.input_folder, strand_list=args.strand_list,
                           limit=args.limit)
+    if events:
+        load = lambda fn: bc.load_event_features(
+            fn, section=args.section, segmentation=args.segmentation,
+            trim=tuple(args.trim))
+    else:
+        load = lambda fn: bc.load_raw_dac(
+            fn, trim=tuple(args.trim),
+            open_pore_fraction=args.open_pore_fraction)
 
     t0 = time.time()
-    nbases = nsamples = nreads = 0
+    nbases = nsignal = nreads = 0
     # bounded blocks keep host memory O(block)
     block = max(8 * args.batch, 512)
     try:
         for lo in range(0, len(files), block):
-            loaded = [bc.load_raw_dac(
-                fn, trim=tuple(args.trim),
-                open_pore_fraction=args.open_pore_fraction)
-                for fn in files[lo:lo + block]]
-            loaded = [r for r in loaded if r is not None]
+            loaded = [r for r in map(load, files[lo:lo + block])
+                      if r is not None]
             if not loaded:
                 continue
-            results = caller.basecall_dac_reads([(r[1], r[2]) for r in loaded])
-            for (name, dac, _), (score, codes) in zip(loaded, results):
-                nbases += printer.write_codes(name, score, codes, len(dac))
-                nsamples += len(dac)
+            if events:
+                results = caller.basecall_signals([r[1] for r in loaded])
+            else:
+                results = caller.basecall_dac_reads(
+                    [(r[1], r[2]) for r in loaded])
+            for r, (score, call) in zip(loaded, results):
+                nbases += write(r[0], score, call, len(r[1]))
+                nsignal += len(r[1])
                 nreads += 1
     finally:
         printer.close()
     dt = time.time() - t0
     sys.stderr.write(
-        'Called {} reads in {:.2f}s ({:.1f} bases/s, {:.1f} samples/s)\n'
-        .format(nreads, dt, nbases / dt, nsamples / dt))
+        'Called {} reads in {:.2f}s ({:.1f} bases/s, {:.1f} {}/s)\n'
+        .format(nreads, dt, nbases / dt, nsignal / dt, datatype))
     return 0
 
 

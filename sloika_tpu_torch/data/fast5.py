@@ -1,9 +1,10 @@
 """The parts of the single-read fast5 reader that the port uses, copied from
 ``sloika_tpu/data/fast5.py``.  That module imports h5py at the top; here
-h5py is imported inside :func:`read_raw_signal`, so the port imports on a
-machine without it."""
+h5py is imported inside :func:`read_raw_signal` and
+:func:`read_section_events`, so the port imports on a machine without it."""
 import glob
 import os
+import re
 
 import numpy as np
 
@@ -24,6 +25,45 @@ def read_raw_signal(path):
         meta = dict(h5["UniqueGlobalKey/channel_id"].attrs)
     sig = (sig + meta["offset"]) * meta["range"] / meta["digitisation"]
     return sig.astype(np.float32)
+
+
+def _latest(h5, base, contains=None):
+    """Latest ``Analyses/<base>_NNN`` group name of an open file, or None
+    (``Fast5._latest``, sloika_tpu/data/fast5.py:86-106).
+
+    :param contains: relative path that must exist inside the group
+    """
+    if "Analyses" not in h5:
+        return None
+    pat = re.compile(re.escape(base) + r"_(\d+)$")
+    best, best_n = None, -1
+    for name in h5["Analyses"]:
+        m = pat.match(name)
+        if m is None or int(m.group(1)) <= best_n:
+            continue
+        path = "Analyses/" + name
+        if contains is not None and \
+                "{}/{}".format(path, contains) not in h5:
+            continue
+        best, best_n = path, int(m.group(1))
+    return best
+
+
+def read_section_events(path, section="template"):
+    """Event table of a read section, from the latest Basecall_1D analysis,
+    else the latest Basecall_2D (``Fast5.get_section_events``,
+    sloika_tpu/data/fast5.py:108-122).  Events have at least
+    mean/stdv/start/length."""
+    import h5py
+    with h5py.File(path, "r") as h5:
+        for base in ("Basecall_1D", "Basecall_2D"):
+            grp = _latest(h5, base)
+            if grp is None:
+                continue
+            events = "{}/BaseCalled_{}/Events".format(grp, section)
+            if events in h5:
+                return h5[events][:]
+    raise ValueError("No events for section {!r} in {}".format(section, path))
 
 
 def iterate_fast5(path, strand_list=None, limit=None):

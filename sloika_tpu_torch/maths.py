@@ -30,3 +30,12 @@ def mad(data, factor=None, axis=None, keepdims=False):
     sloika_tpu/maths.py:30)."""
     _, dmad = med_mad(data, factor=factor, axis=axis, keepdims=keepdims)
     return dmad
+
+
+def studentise(x, axis=None):
+    """Studentise an array along an axis; constant slices are left unscaled
+    (copied from sloika_tpu/maths.py:36)."""
+    m = np.mean(x, axis=axis, keepdims=True)
+    s = np.std(x, axis=axis, keepdims=True)
+    s = np.where(s > 0.0, s, 1.0)
+    return np.divide(x - m, s)

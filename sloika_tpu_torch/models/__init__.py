@@ -10,6 +10,7 @@ sample (2 x 393,456 dense weights / stride 5).
 import importlib
 
 REGISTRY = {
+    "baseline_lstm": "sloika_tpu_torch.models.baseline_lstm",
     "raw_0.98_rgrgr": "sloika_tpu_torch.models.raw_0_98_rgrgr",
     "raw_0_98_rgrgr": "sloika_tpu_torch.models.raw_0_98_rgrgr",
     "raw_1.00_rGr": "sloika_tpu_torch.models.raw_1_00_rGr",

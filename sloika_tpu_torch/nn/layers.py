@@ -1,6 +1,7 @@
 """Non-recurrent layers of the ported slice (cf. ``sloika_tpu/nn/layers.py``):
-``Convolution``, ``Softmax`` (JSON ``softmax_old``) and ``SoftmaxTheano``
-(JSON ``softmax``).  Initialisation scaling matches the JAX package."""
+``Convolution``, ``FeedForward`` (JSON ``feed-forward``), ``Window``,
+``Softmax`` (JSON ``softmax_old``) and ``SoftmaxTheano`` (JSON
+``softmax``).  Initialisation scaling matches the JAX package."""
 import numpy as np
 import torch
 
@@ -11,9 +12,9 @@ from sloika_tpu_torch.nn.core import (Layer, register, zeros_init, affine,
 from sloika_tpu_torch.ops import conv as convops
 
 
-@register("softmax_old")
-class Softmax(Layer):
-    """Affine followed by a max-shifted softmax over the features."""
+class _Affine(Layer):
+    """Shared parameters of ``FeedForward`` and ``Softmax``
+    (cf. ``sloika_tpu/nn/layers.py:40-74``)."""
 
     def __init__(self, insize, size, init=zeros_init, has_bias=False):
         super().__init__()
@@ -28,12 +29,6 @@ class Softmax(Layer):
         loss that takes the fused log-softmax."""
         return affine(x, self.W, self.b)
 
-    def forward(self, x):
-        tmp = self.logits(x)
-        m = torch.amax(tmp, dim=2, keepdim=True)
-        out = torch.exp(tmp - m)
-        return out / torch.sum(out, dim=2, keepdim=True)
-
     def _json_config(self):
         return {"size": self.size, "insize": self.insize,
                 "bias": self.has_bias}
@@ -43,6 +38,41 @@ class Softmax(Layer):
         layer = cls(obj["insize"], obj["size"],
                     has_bias=obj.get("bias", False))
         return _with_params(layer, obj)
+
+
+@register("feed-forward")
+class FeedForward(_Affine):
+    """``out = f(x W^T + b)`` (cf. ``sloika_tpu/nn/layers.py:77-90``)."""
+
+    def __init__(self, insize, size, init=zeros_init, has_bias=False,
+                 fun=activations.tanh):
+        super().__init__(insize, size, init=init, has_bias=has_bias)
+        self.fun = fun
+
+    def forward(self, x):
+        return self.fun(self.logits(x))
+
+    def _json_config(self):
+        return {"activation": activation_name(self.fun),
+                **super()._json_config()}
+
+    @classmethod
+    def _from_json(cls, obj):
+        layer = cls(obj["insize"], obj["size"],
+                    has_bias=obj.get("bias", False),
+                    fun=activation_from_name(obj.get("activation", "tanh")))
+        return _with_params(layer, obj)
+
+
+@register("softmax_old")
+class Softmax(_Affine):
+    """Affine followed by a max-shifted softmax over the features."""
+
+    def forward(self, x):
+        tmp = self.logits(x)
+        m = torch.amax(tmp, dim=2, keepdim=True)
+        out = torch.exp(tmp - m)
+        return out / torch.sum(out, dim=2, keepdim=True)
 
 
 @register("softmax")
@@ -101,6 +131,37 @@ class Convolution(Layer):
                     padding_mode=tuple(mode) if isinstance(mode, list)
                     else mode)
         return _with_params(layer, obj)
+
+
+@register("window")
+class Window(Layer):
+    """Sliding window of odd width ``w`` over time, zero-padded so the
+    output length equals the input length; output features are the window
+    contents ordered earliest to latest (cf. ``sloika_tpu/nn/layers.py:
+    173-204``).  With tail-padded batches, a window at a sequence's last
+    valid step reads the batch's zero padding, which equals the sequence's
+    own zero extension, so the default ``apply_with_lengths`` is exact."""
+
+    def __init__(self, insize, w):
+        super().__init__()
+        if w <= 0 or w % 2 != 1:
+            raise ValueError("Window size must be positive and odd")
+        self.insize, self.size = insize, w * insize
+        self.w = w
+
+    def forward(self, x):
+        pad = self.w // 2
+        xp = torch.nn.functional.pad(x, (0, 0, 0, 0, pad, pad))
+        ntime = x.shape[0]
+        return torch.cat([xp[i:i + ntime] for i in range(self.w)], dim=2)
+
+    def _json_config(self):
+        return {"w": self.w, "insize": self.insize}
+
+    @classmethod
+    def _from_json(cls, obj):
+        w = obj.get("w", obj.get("params", {}).get("w", 3))
+        return cls(obj["insize"], int(w)), {}
 
 
 def _with_params(layer, obj):

@@ -40,25 +40,27 @@ def save_model_json(path, layer, params=True, indent=None):
         json.dump(layer.to_json(params), fh, indent=indent)
 
 
-def unflatten_tree(flat):
-    """{'a/0/b': array} -> nested tree; a level whose keys are all integers
-    becomes a tuple in index order (the JAX package's flattening of
-    tuples)."""
-    tree = {}
-    for key, value in flat.items():
-        node = tree
-        parts = key.split("/")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = value
+def unflatten_like(template, flat, what="checkpoint entries"):
+    """Rebuild a tree shaped like ``template`` (a layer's
+    :meth:`~sloika_tpu_torch.nn.core.Layer.param_tensors`) from a flat
+    {'/'-joined path: array}, as ``sloika_tpu.serialize.unflatten_like``
+    does.  The template keeps the place of layers without parameters
+    (a ``Window``'s empty tree), which the flat paths cannot show.
+    Raises unless the paths and shapes are the template's."""
+    want = {k: tuple(p.shape) for k, p in nn_core.tree_items(template)}
+    got = {k: tuple(np.shape(v)) for k, v in flat.items()}
+    if got != want:
+        raise ValueError("{} do not match the model: {} given, {} expected"
+                         .format(what, got, want))
 
-    def fix(node):
-        if not isinstance(node, dict):
-            return node
-        if node and all(k.isdigit() for k in node):
-            return tuple(fix(node[k]) for k in sorted(node, key=int))
-        return {k: fix(v) for k, v in node.items()}
-    return fix(tree)
+    def build(node, path):
+        join = (lambda k: "{}/{}".format(path, k)) if path else str
+        if isinstance(node, dict):
+            return {k: build(v, join(k)) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(build(v, join(i)) for i, v in enumerate(node))
+        return flat[path]
+    return build(template, "")
 
 
 def params_from_numpy(layer, tree):
@@ -109,15 +111,10 @@ def save_checkpoint(path, layer, opt_state=None, meta=None):
 def _tensor_tree(layer, flat, prefix):
     """The ``prefix``-ed entries of ``flat`` as a tree of CPU tensors shaped
     like the layer's parameters."""
-    sub = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
-    want = {k: tuple(p.shape)
-            for k, p in nn_core.tree_items(layer.param_tensors())}
-    got = {k: tuple(v.shape) for k, v in sub.items()}
-    if got != want:
-        raise ValueError("checkpoint entries {}* do not match the model: {} "
-                         "given, {} expected".format(prefix, got, want))
-    return unflatten_tree({k: torch.from_numpy(np.array(v, np.float32))
-                           for k, v in sub.items()})
+    sub = {k[len(prefix):]: torch.from_numpy(np.array(v, np.float32))
+           for k, v in flat.items() if k.startswith(prefix)}
+    return unflatten_like(layer.param_tensors(), sub,
+                          "checkpoint entries {}*".format(prefix))
 
 
 def load_checkpoint(path):
@@ -129,8 +126,10 @@ def load_checkpoint(path):
     layer, _ = nn_core.from_json(struct["model"])
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
-    tree = unflatten_tree({k[len("params/"):]: v for k, v in flat.items()
-                           if k.startswith("params/")})
+    tree = unflatten_like(layer.param_tensors(),
+                          {k[len("params/"):]: v for k, v in flat.items()
+                           if k.startswith("params/")}, "checkpoint entries "
+                          "params/*")
     params_from_numpy(layer, tree)
     opt_state = None
     if any(k.startswith("opt/vel/") for k in flat):

@@ -300,7 +300,7 @@ def train(layer, data, *, output=None, adam=(1e-3, 0.9, 0.999),
           quiet=False, save_every=5000, seed=None, smooth=0.45,
           transducer=True, bad=True, log=None, opt_state=None,
           n_length_buckets=4, optimiser="adamski", lr_warmup=0,
-          device="cpu"):
+          device="cuda"):
     """Train a network on labelled chunks: the JAX package's
     ``training.train`` (``sloika_tpu/training.py:404-753``) with one
     optimiser step per batch.  The layer is moved to ``device`` and trained
@@ -314,7 +314,8 @@ def train(layer, data, *, output=None, adam=(1e-3, 0.9, 0.999),
     :param opt_state: optimiser state to resume from (e.g. from
         :func:`sloika_tpu_torch.serialize.load_checkpoint`); a state of
         another optimiser's type is logged and replaced by a fresh one
-    :param device: torch device; a CUDA device without a card raises
+    :param device: torch device, the card unless the caller asks for the
+        CPU; a CUDA device without a card raises
     :returns: (opt_state, history) with history an (niteration, 2) float32
         array of each iteration's (loss, accuracy)
     """
@@ -456,10 +457,10 @@ def _train(layer, data, dev, log, *, output, adam, batch_size,
 
 def validate(layer, data, *, batch_size=200, min_prob=1e-30, drop=0,
              transducer=True, bad=True, log=None, quiet=False,
-             device="cpu"):
+             device="cuda"):
     """Held-out evaluation over all chunks
     (``sloika_tpu/training.py:756-808``, one device).  The layer is moved to
-    ``device``.
+    ``device``, the card unless the caller asks for the CPU.
 
     :returns: (mean loss, mean accuracy)
     """

@@ -39,6 +39,9 @@ import sloika_tpu_torch.data.fast5
 import sloika_tpu_torch.data.fileio
 import sloika_tpu_torch.data.raw_chunkify
 import sloika_tpu_torch.cli.chunkify
+import sloika_tpu_torch.nn.fused_lstm
+import sloika_tpu_torch.models.baseline_lstm
+import sloika_tpu_torch.data.features
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "h5py", "sloika_tpu")
                 and sys.modules[m] is not None)
@@ -112,3 +115,18 @@ def test_train_on_cuda_raises_without_a_gpu(tmp_path):
         tcli.main(["raw", "raw_0.98_rgrgr", str(tmp_path / "out"), str(h5),
                    "--device", "cuda"])
     assert not (tmp_path / "out").exists()
+
+
+def test_train_and_validate_default_to_the_card():
+    """Called as library functions without ``device``, ``train`` and
+    ``validate`` ask for the card, and raise where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from sloika_tpu_torch import training
+    layer = tmodels.network_factory("baseline_lstm")(klen=3, sd=0.5,
+                                                     size=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        training.train(layer, {})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        training.validate(layer, {})
+    assert all(p.device.type == "cpu" for p in layer.parameters())

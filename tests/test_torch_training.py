@@ -210,7 +210,8 @@ def resumed_runs(jax_model, tmp_path_factory):
     tser.params_from_numpy(port, params)
     tmp = tmp_path_factory.mktemp("train")
     data = _data()
-    ttraining.train(port, data, output=str(tmp / "start"), **TRAIN)
+    ttraining.train(port, data, output=str(tmp / "start"), device="cpu",
+                    **TRAIN)
     start = str(tmp / "start" / "model_final.npz")
     jlayer, jparams, jstate = jser.load_checkpoint(start)
     assert float(jstate.count) == 3.0
@@ -220,7 +221,8 @@ def resumed_runs(jax_model, tmp_path_factory):
             output=str(tmp / "jax"), **TRAIN)
     tlayer, _, tstate = tser.load_checkpoint(start)
     tstate, history = ttraining.train(tlayer, data, opt_state=tstate,
-                                      output=str(tmp / "port"), **TRAIN)
+                                      output=str(tmp / "port"), device="cpu",
+                                      **TRAIN)
     return {"tmp": tmp, "data": data, "jparams": _numpy(jparams),
             "jstate": jstate, "jlosses": jlosses, "port": tlayer,
             "tstate": tstate, "history": history}
@@ -275,7 +277,8 @@ def test_training_resumes_across_packages(resumed_runs):
         str(resumed_runs["tmp"] / "jax" / "model_final.npz"))
     assert float(tstate.count) == 6.0
     tstate, history = ttraining.train(tlayer, resumed_runs["data"],
-                                      opt_state=tstate, **TRAIN)
+                                      opt_state=tstate, device="cpu",
+                                      **TRAIN)
     assert float(tstate.count) == 9.0
     assert np.isfinite(history).all()
 
@@ -315,6 +318,6 @@ def test_cli_train_then_validate(tmp_path):
     jlayer, jparams, _ = jser.load_checkpoint(final)
     tlayer, _, _ = tser.load_checkpoint(final)
     jl, ja = jtraining.validate(jlayer, jparams, data, batch_size=5)
-    tl, ta = ttraining.validate(tlayer, data, batch_size=5)
+    tl, ta = ttraining.validate(tlayer, data, batch_size=5, device="cpu")
     assert tl == pytest.approx(jl, rel=1e-5)
     assert ta == pytest.approx(ja, abs=1e-6)
