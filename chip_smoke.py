@@ -6,8 +6,8 @@ Needs one CUDA card; exits non-zero, printing no result, without one.
 Phases, each printing one line and raising on failure:
 
 1. environment: the card's name and power limit, the CUDA version;
-2. build: the ten kernels, from ``sloika_tpu_torch/csrc``, one nvcc each,
-   all started together;
+2. build: the thirteen kernels, from ``sloika_tpu_torch/csrc``, one nvcc
+   each, all started together;
 3. GRU: the forward kernel against its plain twin at S = 112 and 144,
    T = 3277, B = 64, ragged lengths, forward and reverse (max abs difference
    on valid steps <= 1e-4: float32 summation order over 3277 recurrent
@@ -82,7 +82,18 @@ Phases, each printing one line and raising on failure:
     1,000 synthetic chunks (drop 20); every loss must be finite, the three
     LSTM kernels must have launched, and one batch's gradients (B = 4) must
     agree with the plain CPU twins' (<= 1e-3 relative per parameter); then
-    a profile of 5 steady steps.
+    a profile of 5 steady steps;
+14. diagnostic probes (``sloika_tpu_torch/scripts``) through their entry
+    points at the JAX scripts' default shapes, launches counted under their
+    own path, "diagnostics": ``gru_unroll`` at T = 400, B = 100, S = 96 for
+    U = 1, 2, 4, 8 in both precisions (each within 1e-4 of its f32 twin, or
+    2e-3 of its bf16-rounding twin, and equal to U = 1); ``viterbi_parts``'
+    eight variants at B = 128, T = 3,277, K = 1,024 (traceback and final
+    scores bit-identical to the twin; the Dirichlet(0.05) posterior is drawn
+    on the card from a seeded ``torch.Generator``, as numpy's draw of its
+    429 M values takes minutes); ``hbm_ring`` at the four (rows, nslots) of
+    the script over B = 128, T = 3,264, K = 1,024 (1.71 GB, drawn on the
+    card; bit-identical to the twin), its bandwidth beside ``torch.amax``'s.
 
 Then one JSON line of per-kernel numbers (with the least time the card
 could take for each kernel's work, ``bound_ms``, from the shapes run: the
@@ -100,6 +111,8 @@ import time
 import numpy as np
 import torch
 
+from sloika_tpu_torch.scripts import cuda_ms
+
 T_FRAMES = 3277          # frames of a 16384-sample window at stride 5
 BATCH = 64
 CHUNK, OVERLAP = 16384, 400
@@ -111,14 +124,16 @@ TRAIN_STEPS, TRAIN_WARM = 30, 5
 BWD_RTOL = 1e-4
 GRAD_RTOL = 1e-3
 KERNELS = ("gru_fwd", "gru_bwd", "gru_wgrad", "viterbi_fwd", "viterbi_back",
-           "remap_banded", "remap_back", "lstm_fwd", "lstm_bwd", "lstm_wgrad")
+           "remap_banded", "remap_back", "lstm_fwd", "lstm_bwd", "lstm_wgrad",
+           "gru_unroll", "viterbi_parts", "hbm_ring")
 #: the kernels each main path must launch
 PATH_KERNELS = {"basecall": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
                 "train": ("gru_fwd", "gru_bwd", "gru_wgrad"),
                 "remap": ("gru_fwd", "remap_banded", "remap_back"),
                 "basecall_events": ("lstm_fwd", "viterbi_fwd",
                                     "viterbi_back"),
-                "train_events": ("lstm_fwd", "lstm_bwd", "lstm_wgrad")}
+                "train_events": ("lstm_fwd", "lstm_bwd", "lstm_wgrad"),
+                "diagnostics": ("gru_unroll", "viterbi_parts", "hbm_ring")}
 # remap: B reads a batch; the main path's longest read buckets to 177,147
 # samples, 35,429 frames at stride 5, 35,584 in whole 256-frame blocks
 REMAP_B, REMAP_W = 64, 768
@@ -137,6 +152,11 @@ REMAP_SD = 1.5
 LSTM_S = 64
 EVENTS_READS, EVENTS_MIN, EVENTS_MAX = 64, 3000, 9000
 EVENTS_TRAIN_B, EVENTS_TRAIN_T = 100, 500
+# the diagnostic probes at the JAX scripts' defaults: Viterbi parts (B, T),
+# the copy ring (B, T); gru_unroll "default" against its bf16 twin: max abs,
+# and mean abs as a share of the rounding's own (tests/test_torch_diag_kernels)
+DIAG_VITERBI, DIAG_RING = (128, 3277), (128, 3264)
+DIAG_BF16_TOL, DIAG_BF16_MEAN = 2e-3, 0.2
 # the published peaks of one H100 SXM (NVIDIA data sheet) the bounds use
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -164,21 +184,6 @@ def with_bound(entry, nbytes, nflop, library_ms=None):
     entry["bound_ms"], entry["bound_by"] = bound(nbytes, nflop)
     entry["library_ms"] = library_ms
     return entry
-
-
-def cuda_ms(fn, reps):
-    """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events,
-    after one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def phase_gru(dev, standin):
@@ -1111,6 +1116,146 @@ def phase_train_events(dev, counters):
     return counts, peak
 
 
+def phase_diagnostics(dev, counters):
+    """The three probes through their entry points (``run_case``,
+    ``run_variant``) at the JAX scripts' default shapes, launches counted;
+    then each output against its twin.  Returns the three kernel entries
+    and the launch counts."""
+    from sloika_tpu_torch.scripts import bench_dma as dma
+    from sloika_tpu_torch.scripts import bench_gru_unroll as gu
+    from sloika_tpu_torch.scripts import bench_viterbi_parts as vp
+    B, T = DIAG_VITERBI
+    post, stay = vp.device_inputs(B, T, 1024, dev)
+    RB, RT = DIAG_RING
+    x = torch.rand((RT, RB, 1024), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    gru = {(p, U): gu.run_case(U, precision=p, device=dev)
+           for p in gu.PRECISIONS for U in gu.UNROLLS}
+    parts = {v: vp.run_variant(v, B, T, device=dev, inputs=(post, stay))
+             for v in vp.VARIANTS}
+    ring = {c: dma.run_case(*c, RB, RT, device=dev, x=x) for c in dma.CASES}
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in counters.items()}
+    launches = [counts[n] for n in PATH_KERNELS["diagnostics"]]
+    if min(launches) <= 0:
+        raise AssertionError("a probe's kernel never launched: {}".format(
+            launches))
+    card = card_line()
+
+    # GRU: each (precision, U) against the twin, and against U = 1
+    xp, sWT, sW2T = (torch.from_numpy(a).to(dev) for a in gu.case_inputs(1))
+    twin, twin_ms, err = {}, {}, {}
+    for p in gu.PRECISIONS:
+        twin[p], twin_ms[p] = timed_once(
+            lambda: gu.gru_unroll_plain(xp, sWT, sW2T, p))
+    bf16_effect = float((twin["default"] - twin["highest"]).abs().mean())
+    for p in gu.PRECISIONS:
+        base = gru[(p, 1)][0]
+        d = [(gru[(p, U)][0] - twin[p]).abs() for U in gu.UNROLLS]
+        err[p] = max(float(e.max()) for e in d)
+        mean = max(float(e.mean()) for e in d)
+        same = [gu.parity(base, gru[(p, U)][0]) for U in gu.UNROLLS[1:]]
+        print("gru_unroll prec={} T=400 B=100 S=96: {} us a step at U = "
+              "{}; parity of U = 2, 4, 8 with U = 1: {}; max_abs_err {:.3e} "
+              "(mean {:.3e}) against the twin ({:.3f} ms) [{}]".format(
+                  p, ", ".join("{:.3f}".format(1e3 * gru[(p, U)][1] / 400)
+                               for U in gu.UNROLLS),
+                  ", ".join(map(str, gu.UNROLLS)), same, err[p], mean,
+                  twin_ms[p], card), flush=True)
+        tol = GRU_TOL if p == "highest" else DIAG_BF16_TOL
+        if not (err[p] <= tol and all(s == "EXACT" for s in same)):
+            raise AssertionError("gru_unroll ({}) differs from its twin by "
+                                 "{} > {} or across U: {}".format(
+                                     p, err[p], tol, same))
+        if p == "default" and not mean <= DIAG_BF16_MEAN * bf16_effect:
+            raise AssertionError("gru_unroll (default) is {} from its bf16 "
+                                 "twin on average, against the rounding's "
+                                 "{}".format(mean, bf16_effect))
+
+    # Viterbi parts: every variant bit for bit
+    ms = {v: parts[v][1] for v in vp.VARIANTS}
+    plain_ms = {}
+    for v in vp.VARIANTS:
+        (tb_p, vf_p), plain_ms[v] = timed_once(
+            lambda: vp.viterbi_parts_plain(v, post, stay))
+        tb, vf = parts[v][0]
+        if not (torch.equal(tb, tb_p) and torch.equal(vf, vf_p)):
+            raise AssertionError("viterbi_parts ({}) differs from its twin"
+                                 .format(v))
+    del parts, tb, tb_p
+    step = lambda a, b: 1e3 * (ms[a] - ms[b]) / T
+    print("viterbi_parts B={} T={} K=1024: bit_identical all 8; ms {}; us "
+          "a step priced: stream + barrier + store (noop) {:.3f}, scores "
+          "(nolog - noop) {:+.3f}, log (copy - nolog) {:+.3f}, int8 of the "
+          "log (copy - f32store) {:+.3f}, stay select (maxstay - copy) "
+          "{:+.3f}, group max (full - maxstay) {:+.3f}, the k mod K/4 "
+          "broadcast (reduce - full) {:+.3f}; twins up to {:.0f} ms [{}]"
+          .format(B, T, {v: round(ms[v], 4) for v in vp.VARIANTS},
+                  1e3 * ms["noop"] / T, step("nolog", "noop"),
+                  step("copy", "nolog"), step("copy", "f32store"),
+                  step("maxstay", "copy"), step("full", "maxstay"),
+                  step("reduce", "full"), max(plain_ms.values()), card),
+          flush=True)
+
+    # the copy ring: every case bit for bit (each case's rows divide RT, so
+    # all fold the same rows), its bandwidth beside torch.amax
+    ring_plain, ring_plain_ms = timed_once(lambda: dma.hbm_ring_plain(x, 1))
+    amax_ms = cuda_ms(lambda: torch.amax(x, dim=0), 8)
+    nbytes = x.numel() * 4
+    for (rows, nslots), (out, r_ms) in ring.items():
+        if not torch.equal(out, ring_plain):
+            raise AssertionError("hbm_ring ({}, {}) differs from its twin"
+                                 .format(rows, nslots))
+    print("hbm_ring B={} T={} K=1024 ({:.2f} GB): bit_identical all 4; "
+          "{}; torch.amax {:.3f} ms, {:.1f} GB/s; twin {:.1f} ms [{}]".format(
+              RB, RT, nbytes / 1e9, "; ".join(
+                  "rows {} slots {}: {:.3f} ms, {:.1f} GB/s ({:.1%} of "
+                  "3.35 TB/s)".format(r, s, m, nbytes / m / 1e6,
+                                      nbytes / m * 1e3 / HBM_BYTES_PER_S)
+                  for (r, s), (_, m) in ring.items()),
+              amax_ms, nbytes / amax_ms / 1e6, ring_plain_ms, card),
+          flush=True)
+
+    # gru_unroll: as gru_fwd, 6 S^2 flop a step of a row, xp read and h
+    # written once.  viterbi_parts ("full"): the posterior and stays read,
+    # the codes and final scores written once; ~10 operations a state a
+    # step.  hbm_ring: its input read once.  Only the ring has a PyTorch
+    # call that computes the same function (torch.amax)
+    S, steps = 96, 400 * 100
+    by_case = lambda d: {"{} {}".format(*k): v for k, v in d.items()}
+    return [
+        with_bound({"name": "gru_unroll", "route": "cuda",
+                    "source": "sloika_tpu_torch/csrc/gru_unroll.cu",
+                    "replaces": "scripts/bench_gru_unroll.py:26",
+                    "shape": "T=400 B=100 S=96 U=1 precision=highest",
+                    "max_abs_err": err["highest"],
+                    "max_abs_err_bf16": err["default"],
+                    "ms": gru[("highest", 1)][1],
+                    "plain_ms": twin_ms["highest"],
+                    "ms_by_case": by_case({k: v[1] for k, v in gru.items()})},
+                   4 * (4 * S * steps + 3 * S * S), 6 * S * S * steps),
+        with_bound({"name": "viterbi_parts", "route": "cuda",
+                    "source": "sloika_tpu_torch/csrc/viterbi_parts.cu",
+                    "replaces": "scripts/bench_viterbi_parts.py:25",
+                    "shape": "T={} B={} K=1024 variant=full".format(T, B),
+                    "max_abs_err": 0.0, "ms": ms["full"],
+                    "plain_ms": plain_ms["full"], "ms_by_variant": ms,
+                    "plain_ms_by_variant": plain_ms},
+                   T * B * (1024 * 5 + 4) + B * 1024 * 4, 10 * T * B * 1024),
+        with_bound({"name": "hbm_ring", "route": "cuda",
+                    "source": "sloika_tpu_torch/csrc/hbm_ring.cu",
+                    "replaces": "scripts/bench_dma.py:28",
+                    "shape": "T={} B={} K=1024 rows=32 slots=3".format(RT, RB),
+                    "max_abs_err": 0.0, "ms": ring[(32, 3)][1],
+                    "plain_ms": ring_plain_ms,
+                    "ms_by_case": by_case({k: v[1] for k, v in ring.items()})},
+                   nbytes + RB * 1024 * 4, nbytes // 4, library_ms=amax_ms),
+    ], counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
@@ -1125,6 +1270,8 @@ def main():
     from sloika_tpu_torch.nn.fused_lstm import (lstm_backward, lstm_forward,
                                                 lstm_wgrad)
     from sloika_tpu_torch.ops import remap_kernel, viterbi_kernel
+    from sloika_tpu_torch.scripts import bench_dma, bench_gru_unroll
+    from sloika_tpu_torch.scripts import bench_viterbi_parts
     config.disable_tf32()
     t0 = time.time()
     cuda_build.build_all(KERNELS)
@@ -1155,12 +1302,15 @@ def main():
         gru_forward, gru_backward, gru_wgrad, viterbi_kernel.viterbi_forward,
         viterbi_kernel.viterbi_backtrace, remap_kernel.remap_banded,
         remap_kernel.remap_backtrack, lstm_forward, lstm_backward,
-        lstm_wgrad)))
+        lstm_wgrad, bench_gru_unroll.gru_unroll,
+        bench_viterbi_parts.viterbi_parts, bench_dma.hbm_ring)))
     launches = {"basecall": phase_main(dev, standin, counters)}
     launches["train"], _ = phase_train(dev, counters)
     launches["remap"] = phase_remap(dev, counters)
     launches["basecall_events"] = phase_basecall_events(dev, counters, reads)
     launches["train_events"], _ = phase_train_events(dev, counters)
+    diag, launches["diagnostics"] = phase_diagnostics(dev, counters)
+    by_name.update((k["name"], k) for k in diag)
     for path, counts in launches.items():
         for name, n in counts.items():
             entry = by_name[name]

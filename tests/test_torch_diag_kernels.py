@@ -1,0 +1,225 @@
+"""The diagnostic probes' CUDA kernels against their plain PyTorch twins.
+
+This file imports no jax, so the ``gpu``-marked tests run on a machine with
+a CUDA card and without jax::
+
+    python -m pytest tests/test_torch_diag_kernels.py -m gpu --noconftest -q
+
+On a machine without a card they skip; the CPU tests check that each
+wrapper hands CPU tensors to its plain twin without counting a launch, and
+that the probes' entry points run on the CPU only when asked.
+"""
+import numpy as np
+import pytest
+import torch
+
+from sloika_tpu_torch.nn.fused_gru import gru_forward
+from sloika_tpu_torch.scripts import bench_dma as tdma
+from sloika_tpu_torch.scripts import bench_gru_unroll as tgru
+from sloika_tpu_torch.scripts import bench_viterbi_parts as tvit
+
+#: gru_unroll "highest" against its f32 twin: float32 sums in another order
+GRU_TOL = 1e-4
+#: gru_unroll "default" against its bf16-rounding twin, max abs: where the
+#: kernel's and the twin's f32 state differ in the last ulp, their bf16
+#: roundings can differ by one bf16 ulp (2^-8 relative), which the
+#: recurrence carries on (1.6e-4 at the script's shape between the twin and
+#: itself summed in float64, on the CPU)
+BF16_TOL = 2e-3
+#: ... and its mean abs difference from that twin, as a share of the mean
+#: abs difference the bf16 rounding itself makes (1.5e-6 against 4.2e-5 in
+#: that comparison): the kernel does round
+BF16_MEAN_SHARE = 0.2
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return torch.device("cuda")
+
+
+def _gru_case(T, B, S, dev, seed=4):
+    rs = np.random.RandomState(seed)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    return (f32(0.3 * rs.normal(size=(T, B, 3 * S))),
+            f32(rs.normal(size=(S, 2 * S)) / np.sqrt(2 * S)),
+            f32(rs.normal(size=(S, S)) / np.sqrt(2 * S)))
+
+
+# ---------------------------------------------------------------------------
+# CPU: dispatch to the twins, the entry points
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("precision", tgru.PRECISIONS)
+def test_gru_unroll_cpu_dispatch_is_the_plain_twin(precision):
+    xp, sWT, sW2T = _gru_case(7, 3, 8, "cpu")
+    before = tgru.gru_unroll.launches
+    out = tgru.gru_unroll(xp, sWT, sW2T, U=4, precision=precision)
+    assert torch.equal(out, tgru.gru_unroll_plain(xp, sWT, sW2T, precision))
+    assert tgru.gru_unroll.launches == before
+    if precision == "default":          # the twin rounds the products
+        assert not torch.equal(
+            out, tgru.gru_unroll_plain(xp, sWT, sW2T, "highest"))
+    with pytest.raises(ValueError, match="precision"):
+        tgru.gru_unroll(xp, sWT, sW2T, precision="bf16")
+
+
+def test_viterbi_parts_cpu_dispatch_is_the_plain_twin():
+    post, stay = (torch.from_numpy(a) for a in tvit.variant_inputs(3, 6, 64))
+    before = tvit.viterbi_parts.launches
+    for variant in tvit.VARIANTS:
+        tb, vf = tvit.viterbi_parts(variant, post, stay)
+        tb_p, vf_p = tvit.viterbi_parts_plain(variant, post, stay)
+        assert torch.equal(tb, tb_p) and torch.equal(vf, vf_p)
+    # "expand" and "full" are one computation
+    assert torch.equal(tvit.viterbi_parts("expand", post, stay)[0],
+                       tvit.viterbi_parts("full", post, stay)[0])
+    assert tvit.viterbi_parts.launches == before
+    with pytest.raises(ValueError, match="variant"):
+        tvit.viterbi_parts("skip", post, stay)
+
+
+def test_hbm_ring_cpu_dispatch_is_the_plain_twin():
+    x = torch.from_numpy(np.random.RandomState(6).rand(11, 3, 20)
+                         .astype(np.float32))
+    before = tdma.hbm_ring.launches
+    for rows, nslots in tdma.CASES + ((3, 2), (12, 2)):
+        out = tdma.hbm_ring(x, rows, nslots)
+        Tr = 11 // rows * rows
+        ref = (x[:Tr].amax(0) if Tr else
+               torch.full((3, 20), -float("inf")))
+        assert torch.equal(out, ref)
+    assert tdma.hbm_ring.launches == before
+    with pytest.raises(ValueError, match="nslots"):
+        tdma.hbm_ring(x, 1, 17)
+
+
+def test_probe_entry_points_run_on_the_cpu_only_when_asked(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for main in (tgru.main, tvit.main, tdma.main):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["--device", "cuda"])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main([])
+    assert tvit.main(["full", "reduce", "--batch", "2", "--T", "5",
+                      "--device", "cpu"]) == 0
+    assert tdma.main(["1,2", "3,2", "--batch", "2", "--T", "7",
+                      "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "full" in out and "rows=3" in out and "not timed" in out
+
+
+def test_gru_unroll_main_on_the_cpu(capsys):
+    """The script's cases at the training shape through the twin: every U
+    gives U = 1's output."""
+    assert tgru.main(["1", "2", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "U=2  parity vs U=1: EXACT" in out
+    assert out.count("prec=default") == 2
+
+
+# ---------------------------------------------------------------------------
+# GPU: the kernels against their twins
+# ---------------------------------------------------------------------------
+
+#: (T, B, S): the script's shape, ragged batches (1, 3; 128 at the wave's
+#: edge; 600 takes 8 rows a block), T no multiple of U, S = 144 (sWT staged,
+#: sW2T read through L1 in f32) and S = 5 (3S no multiple of 4: 4-byte
+#: copies)
+GRU_SHAPES = ((400, 100, 96), (37, 1, 96), (37, 3, 96), (37, 128, 96),
+              (37, 600, 96), (37, 64, 144), (37, 5, 5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", tgru.PRECISIONS)
+@pytest.mark.parametrize("U", tgru.UNROLLS)
+def test_gru_unroll_kernel_matches_its_twin(cuda_device, U, precision):
+    for T, B, S in GRU_SHAPES:
+        xp, sWT, sW2T = _gru_case(T, B, S, cuda_device)
+        before = tgru.gru_unroll.launches
+        got = tgru.gru_unroll(xp, sWT, sW2T, U=U, precision=precision)
+        torch.cuda.synchronize()
+        assert tgru.gru_unroll.launches == before + 1
+        ref = tgru.gru_unroll_plain(xp, sWT, sW2T, precision)
+        d = (got - ref).abs()
+        if precision == "highest":
+            assert float(d.max()) <= GRU_TOL, (T, B, S)
+        else:
+            f32 = tgru.gru_unroll_plain(xp, sWT, sW2T, "highest")
+            assert float(d.max()) <= BF16_TOL, (T, B, S)
+            assert float(d.mean()) <= BF16_MEAN_SHARE * float(
+                (ref - f32).abs().mean()), (T, B, S)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", tgru.PRECISIONS)
+def test_gru_unroll_kernel_is_the_same_at_every_unroll(cuda_device,
+                                                       precision):
+    for T, B, S in GRU_SHAPES:
+        xp, sWT, sW2T = _gru_case(T, B, S, cuda_device)
+        base = tgru.gru_unroll(xp, sWT, sW2T, U=1, precision=precision)
+        for U in tgru.UNROLLS[1:]:
+            assert torch.equal(base, tgru.gru_unroll(
+                xp, sWT, sW2T, U=U, precision=precision)), (T, B, S, U)
+
+
+@pytest.mark.gpu
+def test_gru_unroll_kernel_matches_the_production_forward(cuda_device):
+    for T, B, S in GRU_SHAPES:
+        xp, sWT, sW2T = _gru_case(T, B, S, cuda_device)
+        got = tgru.gru_unroll(xp, sWT, sW2T, U=1)
+        ref = gru_forward(xp, sWT, sW2T)           # an all-valid mask
+        assert float((got - ref).abs().max()) <= GRU_TOL, (T, B, S)
+
+
+@pytest.mark.gpu
+def test_gru_unroll_run_case_at_the_script_shape(cuda_device):
+    out, ms = tgru.run_case(8, device=cuda_device)
+    xp, sWT, sW2T = (torch.from_numpy(a).to(cuda_device)
+                     for a in tgru.case_inputs(8))
+    assert out.shape == (400, 100, 96) and ms > 0
+    assert float((out - tgru.gru_unroll_plain(xp, sWT, sW2T))
+                 .abs().max()) <= GRU_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", tvit.VARIANTS)
+def test_viterbi_parts_kernel_is_bit_identical_to_its_twin(cuda_device,
+                                                           variant):
+    for B, T, K in ((128, 3277, 1024), (1, 50, 1024), (3, 50, 64),
+                    (5, 2, 16), (2, 1, 1024)):
+        post, stay = tvit.device_inputs(B, T, K, cuda_device, seed=B + T)
+        before = tvit.viterbi_parts.launches
+        tb, vf = tvit.viterbi_parts(variant, post, stay)
+        torch.cuda.synchronize()
+        assert tvit.viterbi_parts.launches == before + 1
+        tb_p, vf_p = tvit.viterbi_parts_plain(variant, post, stay)
+        assert torch.equal(tb, tb_p), (variant, B, T, K)
+        assert torch.equal(vf, vf_p), (variant, B, T, K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,nslots", tdma.CASES + ((3, 5), (2, 16)))
+def test_hbm_ring_kernel_is_bit_identical_to_its_twin(cuda_device, rows,
+                                                      nslots):
+    gen = torch.Generator(device=cuda_device).manual_seed(rows * 17 + nslots)
+    for T, B, K in ((3264, 128, 1024), (100, 1, 1024), (101, 3, 1000),
+                    (70, 128, 1024), (35, 2, 2)):
+        x = torch.rand((T, B, K), generator=gen, device=cuda_device)
+        before = tdma.hbm_ring.launches
+        out = tdma.hbm_ring(x, rows, nslots)
+        torch.cuda.synchronize()
+        assert tdma.hbm_ring.launches == before + (T >= rows)
+        assert torch.equal(out, tdma.hbm_ring_plain(x, rows)), (T, B, K)
+
+
+@pytest.mark.gpu
+def test_hbm_ring_kernel_propagates_nan_and_empty_is_minus_inf(cuda_device):
+    x = torch.rand((9, 2, 8), device=cuda_device)
+    x[4, 1, 3] = float("nan")
+    out = tdma.hbm_ring(x, 2, 3)
+    assert torch.isnan(out[1, 3]) and int(torch.isnan(out).sum()) == 1
+    assert torch.equal(tdma.hbm_ring(x, 10, 2),
+                       torch.full((2, 8), -float("inf"), device=cuda_device))

@@ -42,6 +42,10 @@ import sloika_tpu_torch.cli.chunkify
 import sloika_tpu_torch.nn.fused_lstm
 import sloika_tpu_torch.models.baseline_lstm
 import sloika_tpu_torch.data.features
+import sloika_tpu_torch.scripts
+import sloika_tpu_torch.scripts.bench_gru_unroll
+import sloika_tpu_torch.scripts.bench_viterbi_parts
+import sloika_tpu_torch.scripts.bench_dma
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "h5py", "sloika_tpu")
                 and sys.modules[m] is not None)
