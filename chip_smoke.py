@@ -11,7 +11,9 @@ Phases, each printing one line and raising on failure:
 3. GRU: the forward kernel against its plain twin at S = 112 and 144,
    T = 3277, B = 64, ragged lengths, forward and reverse (max abs difference
    on valid steps <= 1e-4: float32 summation order over 3277 recurrent
-   steps);
+   steps); then at S = 144, forward, at bench.py's production batch
+   (T = 3277, B = 1,024) and at the remap path's longest bucket
+   (T = 35,429, B = 64), each timed;
 4. Viterbi: forward and backtrace kernels against their plain twins at
    K = 1024, T = 3277, B = 64 on a peaked and on a tie-heavy posterior
    (score, codes and path bit-identical);
@@ -20,13 +22,21 @@ Phases, each printing one line and raising on failure:
    ``Basecaller.basecall_dac_reads``; every kernel of the path must have
    launched, every read must get a call, and the posterior must agree with
    the plain CPU forward on a small batch (<= 1e-4);
+5b. whole-read raw basecall path (the default of ``raw``): the same model
+   basecalls the 16 reads, normalised on the host as ``load_raw_signal``
+   does, whole, in batches of 8, through ``Basecaller(output="states").
+   basecall_signals``; every kernel of the path must have launched and
+   every read must get a call; two reads of 20,000 samples against the
+   plain CPU path (scores within 1e-4 relative; whether the calls are
+   identical is reported, with the first differing state: random weights
+   leave near-ties that round-off may flip);
 6. GRU backward, at the training shapes T = 400, B = 100, S = 96, ragged
    lengths, forward and reverse: the forward kernel against its twin (as
    in 3), then the backward kernels (``gru_bwd`` then ``gru_wgrad``)
    against the plain backward twin on the kernel's ``h_out``
    (max|kernel - twin| / max|twin| <= 1e-4 for dxp on valid steps and for
    the weight cotangents: float32 sums over 400 steps and 40,000 rows in
-   another order);
+   another order), and ``gru_wgrad`` must give the same bits on two calls;
 7. training main path: ``training.train`` of raw_0.98_rgrgr at full width
    (seeded random weights) for 30 ADAMski steps of B = 100 chunks of 2,000
    samples from 1,000 synthetic chunks; every loss must be finite, the three
@@ -121,6 +131,11 @@ POST_TOL = 1e-4
 # training shapes (bench.py:369): B chunks of 2,000 samples, T = 400 frames
 TRAIN_B, TRAIN_SAMPLES, TRAIN_T = 100, 2000, 400
 TRAIN_STEPS, TRAIN_WARM = 30, 5
+# the forward kernel's further timed shapes at S = 144 (name, T, B):
+# bench.py's production batch of 1,024 windows (bench.py:53-55), and the
+# remap path's longest bucket
+GRU_EXTRA_SHAPES = (("production batch", T_FRAMES, 1024),
+                    ("remap", 35429, 64))
 BWD_RTOL = 1e-4
 GRAD_RTOL = 1e-3
 KERNELS = ("gru_fwd", "gru_bwd", "gru_wgrad", "viterbi_fwd", "viterbi_back",
@@ -128,12 +143,16 @@ KERNELS = ("gru_fwd", "gru_bwd", "gru_wgrad", "viterbi_fwd", "viterbi_back",
            "gru_unroll", "viterbi_parts", "hbm_ring")
 #: the kernels each main path must launch
 PATH_KERNELS = {"basecall": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
+                "basecall_raw": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
                 "train": ("gru_fwd", "gru_bwd", "gru_wgrad"),
                 "remap": ("gru_fwd", "remap_banded", "remap_back"),
                 "basecall_events": ("lstm_fwd", "viterbi_fwd",
                                     "viterbi_back"),
                 "train_events": ("lstm_fwd", "lstm_bwd", "lstm_wgrad"),
                 "diagnostics": ("gru_unroll", "viterbi_parts", "hbm_ring")}
+# whole-read raw basecalling: reads a batch, the short reads' samples (their
+# CPU twin takes seconds), the score tolerance against the CPU path
+RAW_BATCH, RAW_SHORT, RAW_SCORE_RTOL = 8, 20000, 1e-4
 # remap: B reads a batch; the main path's longest read buckets to 177,147
 # samples, 35,429 frames at stride 5, 35,584 in whole 256-frame blocks
 REMAP_B, REMAP_W = 64, 768
@@ -225,13 +244,59 @@ def phase_gru(dev, standin):
     # call computes this GRU: cuDNN applies r after the recurrent product,
     # sloika's candidate is sW2 (r * h)
     S, steps = 144, int(lengths.sum())
-    return with_bound(
+    entry = with_bound(
         {"name": "gru_fwd", "route": "cuda",
          "source": "sloika_tpu_torch/csrc/gru_fwd.cu",
          "replaces": "sloika_tpu/nn/pallas_gru.py:41",
          "shape": "T={} B={} S={}".format(T_FRAMES, BATCH, S),
          "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms},
-        4 * (4 * S * steps + 3 * S * S), 6 * S * S * steps)
+        *gru_fwd_bound(steps, S))
+    entry["at_shapes"] = {}
+    gru = standin.layers[2]
+    for name, T, B in GRU_EXTRA_SHAPES:
+        entry["at_shapes"][name] = gru_at_shape(gru, T, B, dev)
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   entry["at_shapes"][name]["max_abs_err"])
+    return entry
+
+
+def gru_fwd_bound(steps, S):
+    """gru_fwd's bytes and flop over ``steps`` valid steps of a row."""
+    return 4 * (4 * S * steps + 3 * S * S), 6 * S * S * steps
+
+
+def gru_at_shape(gru, T, B, dev):
+    """The forward kernel of the stand-in's S = 144 GRU against its twin on
+    valid steps at (T, B), ragged lengths, forward; each timed."""
+    from sloika_tpu_torch.nn.fused_gru import gru_forward, gru_scan_plain
+    S = gru.size
+    gen = torch.Generator(device=dev).manual_seed(T + B)
+    with torch.no_grad():
+        xp = gru.input_proj(torch.randn((T, B, gru.insize), generator=gen,
+                                        device=dev)).contiguous()
+        sWT = gru.sW.reshape(2 * S, S).t().contiguous()
+        sW2T = gru.sW2.t().contiguous()
+    lengths = np.random.RandomState(T).randint(T // 2, T + 1, size=B)
+    lengths[0] = T
+    mask = torch.from_numpy(np.arange(T)[:, None] < lengths[None, :]).to(dev)
+    got = gru_forward(xp, sWT, sW2T, mask=mask)
+    ref, plain_ms = timed_once(lambda: gru_scan_plain(xp, sWT, sW2T, mask))
+    d = float(((got - ref).abs() * mask[:, :, None]).max())
+    del got, ref
+    ms = cuda_ms(lambda: gru_forward(xp, sWT, sW2T, mask=mask), 3)
+    del xp
+    torch.cuda.empty_cache()
+    print("gru S={} T={} B={}: max_abs_err {:.3e} kernel {:.3f} ms ({:.3f} "
+          "us a step) plain {:.3f} ms".format(S, T, B, d, ms, 1e3 * ms / T,
+                                              plain_ms), flush=True)
+    if not d <= GRU_TOL:
+        raise AssertionError("GRU kernel differs from its twin at T={} B={} "
+                             "by {} > {}".format(T, B, d, GRU_TOL))
+    out = {"shape": "T={} B={} S={}".format(T, B, S), "max_abs_err": d,
+           "ms": ms, "plain_ms": plain_ms}
+    out["bound_ms"], out["bound_by"] = bound(
+        *gru_fwd_bound(int(lengths.sum()), S))
+    return out
 
 
 def phase_viterbi(dev):
@@ -345,9 +410,12 @@ def phase_gru_bwd(dev):
         e_w = [rel_err(a, b) for a, b in zip(got[1:], ref[1:])]
         dxp, rh = gru_backward.recurrence(xp, sWT, sW2T, mask, reverse, g,
                                           h_out)
+        wk = gru_wgrad(h_out, rh, dxp, reverse)
         e_wt = [rel_err(a, b)[1] for a, b in zip(
-            gru_wgrad(h_out, rh, dxp, reverse),
-            gru_wgrad_plain(h_out, rh, dxp, reverse))]
+            wk, gru_wgrad_plain(h_out, rh, dxp, reverse))]
+        if not all(torch.equal(a, b) for a, b in zip(
+                wk, gru_wgrad(h_out, rh, dxp, reverse))):
+            raise AssertionError("gru_wgrad gave other bits on a second call")
         times[reverse] = (
             cuda_ms(lambda: gru_backward.recurrence(
                 xp, sWT, sW2T, mask, reverse, g, h_out), 5),
@@ -359,7 +427,8 @@ def phase_gru_bwd(dev):
         worst_w = max([worst_w] + [e[0] for e in e_w])
         print("gru backward S={} reverse={} T={} B={}: dxp max_abs_err "
               "{:.3e} (rel {:.3e}), dsWT {:.3e} (rel {:.3e}), dsW2T {:.3e} "
-              "(rel {:.3e}); gru_wgrad vs its einsum twin rel {:.3e} {:.3e}; "
+              "(rel {:.3e}); gru_wgrad vs its einsum twin rel {:.3e} {:.3e} "
+              "(the same bits on two calls); "
               "gru_bwd kernel {:.3f} ms, plain backward twin {:.3f} ms; "
               "gru_wgrad kernel {:.3f} ms, einsum {:.3f} ms".format(
                   S, reverse, T, B, *e_dxp, *e_w[0], *e_w[1], *e_wt,
@@ -376,7 +445,7 @@ def phase_gru_bwd(dev):
     fwd = with_bound({"shape": shape, "max_abs_err": worst_f,
                       "ms": fwd_times[False][0],
                       "plain_ms": fwd_times[False][1]},
-                     4 * (4 * S * steps + 3 * S * S), 6 * S * S * steps)
+                     *gru_fwd_bound(steps, S))
     # gru_bwd: four products a valid step of a row (sWT, sW2T, sW2, sW:
     # 6 S^2 multiply-adds); xp, h_out, g read and dxp, r*h written once.
     # gru_wgrad: the two weight sums over the valid rows, 6 S^2 flop a
@@ -523,7 +592,8 @@ def phase_main(dev, standin, counters):
     with torch.inference_mode():
         got, _ = caller._floored_masked_post(x.to(dev), lengths.to(dev))
         ref, _ = bc.Basecaller(cpu_layer, 5, chunk_size=CHUNK,
-                               overlap=OVERLAP, device="cpu") \
+                               overlap=OVERLAP, output="bases",
+                               device="cpu") \
             ._floored_masked_post(x, lengths)
     d = float((got.cpu() - ref).abs().max())
     print("posterior check (4 windows, GPU kernels vs CPU plain forward): "
@@ -531,6 +601,81 @@ def phase_main(dev, standin, counters):
     if not d <= POST_TOL:
         raise AssertionError("posterior differs from the CPU forward by "
                              "{} > {}".format(d, POST_TOL))
+    return counts
+
+
+def raw_signals(reads):
+    """Whole raw signals normalised on the host as ``load_raw_signal`` does
+    (pA scale, then per-read median/MAD)."""
+    from sloika_tpu_torch.basecall import scale_dac_f32
+    from sloika_tpu_torch.data.batching import normalise_raw_signal
+    return [normalise_raw_signal(scale_dac_f32(d, n4[0], n4[1]))
+            for d, n4 in reads]
+
+
+def first_difference(a, b):
+    """Index of the first state at which two calls differ."""
+    n = min(len(a), len(b))
+    d = np.flatnonzero(a[:n] != b[:n])
+    return int(d[0]) if len(d) else n
+
+
+def phase_basecall_raw(dev, standin, counters):
+    """The default raw path: whole reads through ``Basecaller(output=
+    "states").basecall_signals``; two short reads against the CPU plain
+    path."""
+    from sloika_tpu_torch import basecall as bc
+    sigs = raw_signals(synthetic_reads())
+    caller = bc.Basecaller(standin, 5, batch_size=RAW_BATCH, output="states",
+                           device=dev)
+    caller.basecall_signals(sigs)                    # warm-up
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = caller.basecall_signals(sigs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {n: k.launches for n, k in counters.items()}
+    launches = [counts[n] for n in PATH_KERNELS["basecall_raw"]]
+    peak = torch.cuda.max_memory_allocated()
+    nsamples = sum(len(x) for x in sigs)
+    printer = bc.SeqPrinter(datatype="samples", fh=io.StringIO())
+    nbases = sum(printer.write("r", sc, call, 0) for sc, call in out)
+    print("whole-read raw basecall path: {} reads {} samples -> {} bases in "
+          "{:.3f} s: {:.1f} samples/s {:.1f} bases/s, peak memory {:.1f} "
+          "MiB, launches gru_fwd {} viterbi_fwd {} viterbi_back {} [{}]"
+          .format(len(sigs), nsamples, nbases, dt, nsamples / dt,
+                  nbases / dt, peak / 2 ** 20, *launches, card_line()),
+          flush=True)
+    if min(launches) <= 0:
+        raise AssertionError("a kernel of the whole-read raw path never "
+                             "launched: {}".format(launches))
+    for i, (score, call) in enumerate(out):
+        if len(call) == 0 or not np.isfinite(score):
+            raise AssertionError("raw read {}: bad call (score {}, {} "
+                                 "states)".format(i, score, len(call)))
+
+    # two short reads on the card and through the plain CPU path
+    short = raw_signals([(d[:RAW_SHORT], n4) for d, n4 in
+                         synthetic_reads(n=2, seed=9)])
+    got = caller.basecall_signals(short)
+    ref = bc.Basecaller(copy.deepcopy(standin).cpu(), 5, batch_size=2,
+                        output="states", device="cpu").basecall_signals(short)
+    rel = max(abs(g[0] - r[0]) / abs(r[0]) for g, r in zip(got, ref))
+    same = [len(g[1]) == len(r[1]) and bool(np.all(g[1] == r[1]))
+            for g, r in zip(got, ref)]
+    first = [None if s else first_difference(g[1], r[1])
+             for s, g, r in zip(same, got, ref)]
+    print("whole-read raw check (2 reads of {:,} samples, GPU kernels vs CPU "
+          "plain path): score max rel err {:.3e}; calls identical {} (first "
+          "differing state {}; lengths {} and {})".format(
+              RAW_SHORT, rel, same, first, [len(g[1]) for g in got],
+              [len(r[1]) for r in ref]), flush=True)
+    if not rel <= RAW_SCORE_RTOL:
+        raise AssertionError("whole-read raw scores differ from the CPU path "
+                             "by {} > {}".format(rel, RAW_SCORE_RTOL))
     return counts
 
 
@@ -1305,6 +1450,7 @@ def main():
         lstm_wgrad, bench_gru_unroll.gru_unroll,
         bench_viterbi_parts.viterbi_parts, bench_dma.hbm_ring)))
     launches = {"basecall": phase_main(dev, standin, counters)}
+    launches["basecall_raw"] = phase_basecall_raw(dev, standin, counters)
     launches["train"], _ = phase_train(dev, counters)
     launches["remap"] = phase_remap(dev, counters)
     launches["basecall_events"] = phase_basecall_events(dev, counters, reads)

@@ -10,12 +10,13 @@ their seams.  From raw int16 DAC samples (:meth:`Basecaller.
 basecall_dac_reads`) the windowing and the exact float32 normalisation
 ``((dac + offset) * scale - med) / mad`` run on the device too.
 
-``output="states"`` is the JAX package's default, non-chunked mode
-(``chunked=False``), the one the event models use: whole reads, sorted by
-length, run in batches; each read's Viterbi path is cut at its own frame
-count and collapsed on the host to the kmer states entered by a move
-(:meth:`Basecaller.basecall_signals`, :func:`load_event_features`,
-:meth:`SeqPrinter.write`).
+``output="states"``, the default, is the JAX package's default,
+non-chunked mode (``chunked=False``): whole reads, sorted by length, run in
+batches; each read's Viterbi path is cut at its own frame count and
+collapsed on the host to the kmer states entered by a move
+(:meth:`Basecaller.basecall_signals`, :meth:`SeqPrinter.write`), from raw
+reads normalised on the host (:func:`load_raw_signal`) or event features
+(:func:`load_event_features`).
 
 PyTorch runs eagerly, so there is no compile cache and no batch or length
 bucketing: each batch runs at its own size.  Host <-> device copies are
@@ -32,7 +33,8 @@ import torch
 
 from sloika_tpu_torch import bio, config, maths, nn, util
 from sloika_tpu_torch.data import features, fast5
-from sloika_tpu_torch.data.batching import trim_open_pore
+from sloika_tpu_torch.data.batching import (normalise_raw_signal,
+                                            trim_open_pore)
 from sloika_tpu_torch.variables import DEFAULT_ALPHABET, nstate
 from sloika_tpu_torch.ops import viterbi_kernel
 from sloika_tpu_torch.ops.decode import collapse_path
@@ -86,13 +88,13 @@ class Basecaller(object):
     :param skip: transducer skip penalty
     :param batch_size: windows decoded per device batch
     :param chunk_size, overlap: window length and seam overlap (samples)
-    :param output: "bases" (chunked, packed 2-bit base codes) or "states"
-        (whole reads, kmer-state calls)
+    :param output: "states" (whole reads, kmer-state calls; the JAX
+        package's default) or "bases" (chunked, packed 2-bit base codes)
     :param device: torch device; "cuda" raises when no GPU is present
     """
 
     def __init__(self, layer, kmer_len, min_prob=1e-5, skip=5.0,
-                 batch_size=8, chunk_size=8192, overlap=400, output="bases",
+                 batch_size=8, chunk_size=8192, overlap=400, output="states",
                  device="cuda"):
         if output not in ("bases", "states"):
             raise NotImplementedError(
@@ -222,6 +224,9 @@ class Basecaller(object):
         :param reads: list of (dac (T,) int16, (offset, scale, med, mad))
         :returns: list of (score, base codes) per read
         """
+        if self.output != "bases":
+            # as sloika_tpu/basecall.py:585 asserts
+            raise ValueError("DAC mode requires output='bases'")
         C = self.chunk_size
         read_lens = [len(d) for d, _ in reads]
         groups, cur, acc = [], [], 0
@@ -414,6 +419,28 @@ def normalise_dac_f32(dac, norm4):
     sloika_tpu/basecall.py:1011)."""
     offset, scale, med, mad = (np.float32(v) for v in norm4)
     return (scale_dac_f32(dac, offset, scale) - med) / mad
+
+
+def load_raw_signal(fast5_file, trim=(200, 50), open_pore_fraction=0.3):
+    """Raw read -> normalised signal (copied from sloika_tpu/basecall.py:
+    985-1001): pA scale, open-pore trim, edge trim, then per-read
+    (median, MAD) normalisation.  h5py is imported by the reader.
+
+    :returns: (short_name, signal (T,) float32) or None
+    """
+    try:
+        signal = fast5.read_raw_signal(fast5_file)
+        sn = fast5.filename_short(fast5_file)
+    except Exception as e:
+        sys.stderr.write("Error getting raw data for file {}\n{!r}\n".format(
+            fast5_file, e))
+        return None
+    start, end = trim_open_pore(signal, open_pore_fraction)
+    signal = util.trim_array(signal[start:end], *trim)
+    if signal.size == 0:
+        sys.stderr.write("Read too short in file {}\n".format(fast5_file))
+        return None
+    return sn, normalise_raw_signal(signal)
 
 
 def load_raw_dac(fast5_file, trim=(200, 50), open_pore_fraction=0.3):

@@ -7,11 +7,13 @@ Two subcommands::
     python -m sloika_tpu_torch.cli.basecall events model.npz reads/ \\
         --device cuda --output calls.fa
 
-``raw`` decodes int16 DAC samples in chunked "bases" mode (``--chunked``,
-the only mode ported for raw reads).  ``events`` decodes event features
-(``--section``, ``--trim``) as the JAX package does by default: whole reads
-in batches of ``--batch``, in order of length (``--no-chunked``); with
-``--chunked`` it runs the chunked "bases" mode over the feature matrices.
+Both decode as the JAX package does by default: whole reads in batches of
+``--batch``, in order of length (``--no-chunked``), ``raw`` from signals
+normalised on the host (``--trim``, ``--open_pore_fraction``), ``events``
+from event features (``--section``, ``--trim``).  With ``--chunked`` they
+run the chunked "bases" mode: ``raw`` ships int16 DAC samples and windows
+and normalises them on the device, ``events`` windows the feature
+matrices.
 FASTA goes to stdout unless ``--output`` is given.  ``--device cuda``
 raises when no GPU is present.
 """
@@ -34,6 +36,9 @@ def make_parser():
     common.add_argument('--batch', default=8, metavar='n',
                         type=Positive(int),
                         help='Windows (chunked) or reads per device batch')
+    common.add_argument('--chunked', default=False, action=AutoBool,
+                        help='Chunked overlap-stitch decoding (exact '
+                             'full-read decode when disabled)')
     common.add_argument('--chunk_size', default=8192, type=Positive(int),
                         help='Window size for chunked decoding')
     common.add_argument('--device', default='cuda',
@@ -64,9 +69,6 @@ def make_parser():
     ev = sub.add_parser('events', parents=[common],
                         help='Basecall from events',
                         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
-    ev.add_argument('--chunked', default=False, action=AutoBool,
-                    help='Chunked overlap-stitch decoding (exact full-read '
-                         'decode when disabled)')
     ev.add_argument('--section', default='template',
                     choices=['template', 'complement'])
     ev.add_argument('--segmentation', default='Segmentation',
@@ -77,9 +79,6 @@ def make_parser():
     raw = sub.add_parser('raw', parents=[common],
                          help='Basecall from raw signal',
                          formatter_class=argparse.ArgumentDefaultsHelpFormatter)
-    raw.add_argument('--chunked', default=True, action=AutoBool,
-                     help='Chunked overlap-stitch decoding (the only ported '
-                          'mode for raw reads)')
     raw.add_argument('--open_pore_fraction', default=0.3, type=proportion,
                      help='Max fraction of signal to trim as open pore')
     raw.add_argument('--trim', default=(200, 50), nargs=2,
@@ -104,9 +103,6 @@ def load_model(path):
 def main(argv=None):
     args = make_parser().parse_args(argv)
     events = args.command == 'events'
-    if not (args.chunked or events):
-        raise NotImplementedError('exact per-read decoding of raw reads is '
-                                  'not ported; use --chunked')
     from sloika_tpu_torch import basecall as bc
 
     output = 'bases' if args.chunked else 'states'
@@ -125,6 +121,10 @@ def main(argv=None):
         load = lambda fn: bc.load_event_features(
             fn, section=args.section, segmentation=args.segmentation,
             trim=tuple(args.trim))
+    elif output == 'states':
+        load = lambda fn: bc.load_raw_signal(
+            fn, trim=tuple(args.trim),
+            open_pore_fraction=args.open_pore_fraction)
     else:
         load = lambda fn: bc.load_raw_dac(
             fn, trim=tuple(args.trim),
@@ -140,7 +140,7 @@ def main(argv=None):
                       if r is not None]
             if not loaded:
                 continue
-            if events:
+            if output == 'states' or events:
                 results = caller.basecall_signals([r[1] for r in loaded])
             else:
                 results = caller.basecall_dac_reads(

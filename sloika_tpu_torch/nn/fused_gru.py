@@ -117,6 +117,114 @@ def gru_wgrad_plain(h_out, rh, dxp, reverse):
     return dsWT, dsW2T
 
 
+#: streaming multiprocessors of an H100 SXM; the plans size their grids by
+#: it, so a plan depends on the shapes alone
+H100_SMS = 132
+#: shared memory a block may opt in to on sm_90 (bytes)
+SMEM_OPTIN = 232448
+#: the forward kernel's modes (``csrc/gru_fwd.cu``): both weights staged in
+#: shared memory; weights held in registers (``kr`` rows of sWT's column
+#: and ``kh2`` rows of a half of sW2T's column a thread, sWT's rows past
+#: ``kr`` staged); sW2T read from global memory
+FWD_MODES = ("smem", "registers", "global")
+#: the register modes the kernel is built for: (largest S, kr, kh2, largest
+#: rows a block), in order of preference; each holds S <= 2 * kh2
+FWD_REGISTER_MODES = ((96, 96, 48, 8), (112, 112, 56, 8), (144, 48, 72, 2),
+                      (144, 0, 72, 8))
+#: below this width the staged weights are few: mode "smem"
+FWD_REGISTER_MIN_S = 73
+#: threads a block of the forward's shared-memory and register modes
+#: (``__launch_bounds__`` in ``gru_fwd.cu``)
+FWD_STAGED_THREADS = 288
+
+
+def _round(n, m):
+    return -(-n // m) * m
+
+
+def gru_fwd_plan(B, S, sms=H100_SMS, optin=SMEM_OPTIN):
+    """The launch plan of ``gru_fwd.cu`` for a batch of B rows of width S.
+
+    Rows a block ``br``: the fewest of 1, 2, 4, 8 that fit the batch in one
+    wave over ``sms`` SMs.  Then the first of these that fits ``optin``
+    bytes of shared memory, with a projection ring ``ns`` of 4 step slots,
+    else 3, else 2: for S from FWD_REGISTER_MIN_S to 144, the first register
+    mode of FWD_REGISTER_MODES that holds S at this ``br``; both weights
+    staged ("smem"); sWT staged and sW2T from global memory; both from
+    global memory.
+
+    :returns: dict of br, mode, kr, kh2, ns, stage1, smem (bytes), threads
+    """
+    br = 1
+    while br < 8 and -(-B // br) > sms:
+        br *= 2
+    threads = _round(2 * S, 32)
+    slot = _round(br * 3 * S + br, 4)
+
+    def smem(mode, ns, stage1, kr, kh2):
+        kh = kh2 if mode == "registers" else _round((S + 1) // 2, 4)
+        floats = (ns * slot + _round(max(S, kr) * br, 4) + _round(S * br, 4)
+                  + _round(2 * kh * br, 4)
+                  + (2 * S * max(S - kr, 0) if stage1 else 0)
+                  + (2 * kh * S if mode == "smem" else 0))
+        return 4 * floats
+
+    choices = []
+    if threads <= FWD_STAGED_THREADS:
+        if S >= FWD_REGISTER_MIN_S:
+            choices += [("registers", True, kr, kh2)
+                        for s_max, kr, kh2, br_max in FWD_REGISTER_MODES
+                        if S <= s_max and S <= 2 * kh2 and br <= br_max]
+        choices.append(("smem", True, 0, 0))
+    choices += [("global", True, 0, 0), ("global", False, 0, 0)]
+    for depths in ((4, 3), (2,)):
+        for mode, stage1, kr, kh2 in choices:
+            for ns in depths:
+                nbytes = smem(mode, ns, stage1, kr, kh2)
+                if nbytes <= optin:
+                    return {"br": br, "mode": mode, "kr": kr, "kh2": kh2,
+                            "ns": ns, "stage1": stage1, "smem": nbytes,
+                            "threads": threads}
+    raise ValueError("GRU size {} does not fit the forward kernel".format(S))
+
+
+#: threads a block of ``gru_wgrad.cu`` at most, and its copy-ring stages
+WGRAD_MAX_THREADS = 512
+WGRAD_STAGES = 3
+
+
+def gru_wgrad_plan(T, B, S):
+    """The launch plan of ``gru_wgrad.cu``: 8 x 8 thread tiles over the
+    S x 3S output (``MT`` row groups, ``G`` column groups), as many column
+    groups a block as fit WGRAD_MAX_THREADS threads, slices of ``kb`` rows
+    (16, else 8, else 4: what a 3-stage ring fits in SMEM_OPTIN bytes), and
+    the N = T * B rows split so that about one wave of blocks covers
+    H100_SMS SMs.  It depends on the shapes alone, so the sum order (and
+    the bits) do too.
+
+    :returns: dict of ng, ncb, kb, nsplit, rows_per_split, threads, smem
+    """
+    MT = -(-S // 8)
+    G = -(-2 * S // 8) + -(-S // 8)
+    ncb = -(-MT * G // WGRAD_MAX_THREADS)
+    ng = -(-G // ncb)
+    ncb = -(-G // ng)
+    for kb in (16, 8, 4):
+        nbytes = 4 * WGRAD_STAGES * kb * (8 * G + 16 * MT)
+        if nbytes <= SMEM_OPTIN:
+            break
+    else:
+        raise ValueError("GRU size {} does not fit the weight-cotangent "
+                         "kernel".format(S))
+    N = T * B
+    nsplit = max(1, min(H100_SMS // ncb, -(-N // kb)))
+    rows = max(kb, _round(-(-N // nsplit), kb))
+    nsplit = max(1, -(-N // rows))
+    return {"ng": ng, "ncb": ncb, "kb": kb, "nsplit": nsplit,
+            "rows_per_split": rows, "threads": _round(MT * ng, 32),
+            "smem": nbytes}
+
+
 def _check_gru_shapes(xp, sWT, sW2T, mask, S_max):
     T, B, S3 = xp.shape
     S = S3 // 3
@@ -140,7 +248,7 @@ class GruForward:
     :func:`gru_scan_plain` for CPU tensors.  ``launches`` counts kernel
     launches."""
 
-    _ARGTYPES = {"gru_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    _ARGTYPES = {"gru_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
                  + [ctypes.c_void_p]}
 
     def __init__(self):
@@ -157,12 +265,21 @@ class GruForward:
         out = torch.empty((T, B, S), dtype=torch.float32, device=xp.device)
         if T == 0 or B == 0:
             return out
-        mask8 = mask.to(torch.uint8).contiguous()
+        # int32 mask words: they ride in the kernel's copy ring
+        mask32 = mask.to(torch.int32).contiguous()
+        props = torch.cuda.get_device_properties(xp.device)
+        plan = gru_fwd_plan(B, S, props.multi_processor_count,
+                            getattr(props, "shared_memory_per_block_optin",
+                                    SMEM_OPTIN))
         lib = cuda_build.load("gru_fwd", self._ARGTYPES)
         with torch.cuda.device(xp.device):
-            err = lib.gru_fwd(xp.data_ptr(), mask8.data_ptr(),
+            err = lib.gru_fwd(xp.data_ptr(), mask32.data_ptr(),
                               sWT.data_ptr(), sW2T.data_ptr(),
                               out.data_ptr(), T, B, S, int(bool(reverse)),
+                              plan["br"], FWD_MODES.index(plan["mode"]),
+                              plan["kr"], plan["kh2"], plan["ns"],
+                              int(plan["stage1"]), plan["smem"],
+                              plan["threads"],
                               torch.cuda.current_stream().cuda_stream)
         cuda_build.check(err, "gru_fwd")
         self.launches += 1
@@ -179,20 +296,11 @@ class GruWgrad:
     :func:`gru_wgrad_plain` for CPU tensors.  ``launches`` counts kernel
     launches."""
 
-    _ARGTYPES = {"gru_wgrad": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    _ARGTYPES = {"gru_wgrad": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                  + [ctypes.c_void_p]}
-
-    #: rows of T*B that one block sums before its partial is stored; the
-    #: split depends on the shapes only, so the sum order (and the bits)
-    #: are the same from run to run
-    ROWS_PER_SPLIT = 1024
-    MAX_SPLITS = 64
 
     def __init__(self):
         self.launches = 0
-
-    def splits(self, nrows):
-        return max(1, min(self.MAX_SPLITS, -(-nrows // self.ROWS_PER_SPLIT)))
 
     def __call__(self, h_out, rh, dxp, reverse):
         if h_out.device.type == "cpu":
@@ -202,17 +310,23 @@ class GruWgrad:
         cuda_build.check_tensor(h_out, (T, B, S), torch.float32, dev, "h_out")
         cuda_build.check_tensor(rh, (T, B, S), torch.float32, dev, "rh")
         cuda_build.check_tensor(dxp, (T, B, 3 * S), torch.float32, dev, "dxp")
-        nsplit = self.splits(T * B)
+        if not 0 < S <= 256:
+            raise ValueError("GRU size {} outside the kernel's 1..256".format(
+                S))
+        plan = gru_wgrad_plan(T, B, S)
         dsWT = torch.empty((S, 2 * S), dtype=torch.float32, device=dev)
         dsW2T = torch.empty((S, S), dtype=torch.float32, device=dev)
-        part = torch.empty((nsplit, S, 3 * S), dtype=torch.float32,
+        part = torch.empty((plan["nsplit"], S, 3 * S), dtype=torch.float32,
                            device=dev)
         lib = cuda_build.load("gru_wgrad", self._ARGTYPES)
         with torch.cuda.device(dev):
             err = lib.gru_wgrad(h_out.data_ptr(), rh.data_ptr(),
                                 dxp.data_ptr(), part.data_ptr(),
                                 dsWT.data_ptr(), dsW2T.data_ptr(), T, B, S,
-                                int(bool(reverse)), nsplit,
+                                int(bool(reverse)), plan["ng"], plan["ncb"],
+                                plan["kb"], plan["nsplit"],
+                                plan["rows_per_split"], plan["threads"],
+                                plan["smem"],
                                 torch.cuda.current_stream().cuda_stream)
         cuda_build.check(err, "gru_wgrad")
         self.launches += 1

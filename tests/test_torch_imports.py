@@ -46,6 +46,7 @@ import sloika_tpu_torch.scripts
 import sloika_tpu_torch.scripts.bench_gru_unroll
 import sloika_tpu_torch.scripts.bench_viterbi_parts
 import sloika_tpu_torch.scripts.bench_dma
+import sloika_tpu_torch.scripts.bench_gru
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "h5py", "sloika_tpu")
                 and sys.modules[m] is not None)

@@ -122,7 +122,8 @@ def test_dac_fasta_identical_to_jax(jax_model):
     ref = jbc.Basecaller(layer, params, KLEN, chunked=True, output="bases",
                          viterbi_impl="pallas", **CALL).basecall_dac_reads(
                              reads)
-    caller = tbc.Basecaller(_port(jax_model), KLEN, device="cpu", **CALL)
+    caller = tbc.Basecaller(_port(jax_model), KLEN, output="bases",
+                            device="cpu", **CALL)
     got = caller.basecall_dac_reads(reads)
     assert _fasta(got, lens) == _fasta(ref, lens)
     assert all(len(codes) > 10 for _, codes in got)
