@@ -31,12 +31,16 @@ Phases, each printing one line and raising on failure:
    identical is reported, with the first differing state: random weights
    leave near-ties that round-off may flip);
 6. GRU backward, at the training shapes T = 400, B = 100, S = 96, ragged
-   lengths, forward and reverse: the forward kernel against its twin (as
-   in 3), then the backward kernels (``gru_bwd`` then ``gru_wgrad``)
-   against the plain backward twin on the kernel's ``h_out``
-   (max|kernel - twin| / max|twin| <= 1e-4 for dxp on valid steps and for
-   the weight cotangents: float32 sums over 400 steps and 40,000 rows in
-   another order), and ``gru_wgrad`` must give the same bits on two calls;
+   lengths with interior holes, forward and reverse: the forward kernel's
+   inference and training variants against their twin (as in 3; the
+   training variant's gate trace within 1e-4 of the twin's at every step,
+   and its h equal to the inference variant's), each timed; then the
+   backward kernels (``gru_bwd`` from the gate trace, then ``gru_wgrad``)
+   against the plain backward twins on the kernel's ``h_out``, the
+   recompute twin and the twin from the gate trace (max|kernel - twin| /
+   max|twin| <= 1e-4 for dxp on valid steps and for the weight cotangents:
+   float32 sums over 400 steps and 40,000 rows in another order), and both
+   kernels must give the same bits on two calls;
 7. training main path: ``training.train`` of raw_0.98_rgrgr at full width
    (seeded random weights) for 30 ADAMski steps of B = 100 chunks of 2,000
    samples from 1,000 synthetic chunks; every loss must be finite, the three
@@ -68,17 +72,20 @@ Phases, each printing one line and raising on failure:
    a near-tie that round-off flips; and against a random reference every
    banded path misses its sequence ends and is re-run exact at a window
    of ~14,848 positions (a 68 GB traceback at this batch);
-10. LSTM forward: the kernel (both variants, with and without the cell
-    trace) against its plain twin at S = 64, ragged lengths, forward and
-    reverse, at the two event paths' shapes: B = 64 at T = the events
-    basecall path's longest read, and B = 100 at T = 500 (max abs
-    difference of h and c on valid steps <= 1e-4: float32 sums in another
-    order over thousands of steps);
-11. LSTM backward: ``lstm_bwd`` then ``lstm_wgrad`` against the plain
-    backward twin on the kernel's h and c traces at B = 100, T = 500,
-    S = 64, forward and reverse (max|kernel - twin| / max|twin| <= 1e-4 for
-    dxp on valid steps, dsWT and dp), and ``lstm_wgrad`` against its
-    einsum twin;
+10. LSTM forward: the kernel (the inference variant, and the training
+    variant with the cell and gate traces) against its plain twin at
+    S = 64, ragged lengths, forward and reverse, at the two event paths'
+    shapes: B = 64 at T = the events basecall path's longest read, and
+    B = 100 at T = 500 (max abs difference of h and c on valid steps, and
+    of the gate trace at every step, <= 1e-4: float32 sums in another
+    order over thousands of steps), each variant timed;
+11. LSTM backward: ``lstm_bwd`` from the gate trace, then ``lstm_wgrad``,
+    against the plain backward twins (the recompute twin and the twin from
+    the gate trace) on the kernel's traces at B = 100, T = 500, S = 64,
+    ragged lengths with interior holes, forward and reverse (max|kernel -
+    twin| / max|twin| <= 1e-4 for dxp on valid steps, dsWT and dp), the
+    same bits from ``lstm_bwd`` on two calls, and ``lstm_wgrad`` against
+    its einsum twin;
 12. events basecall main path: ``baseline_lstm`` at full width (size 64,
     4 features, window 3, k = 5: 1,025 states; seeded random weights)
     basecalls 64 event reads of 3,000-9,000 events (feature matrices from
@@ -367,10 +374,19 @@ def rel_err(got, ref, mask=None):
     return d, d / max(float(ref.abs().max()), 1e-30)
 
 
+def holes(mask, seed):
+    """The (T, B) mask with 10% of its valid steps masked (interior holes;
+    the first row stays whole)."""
+    rs = np.random.RandomState(seed)
+    keep = torch.from_numpy(rs.uniform(size=tuple(mask.shape)) >= 0.1)
+    keep[:, 0] = True
+    return mask & keep.to(mask.device)
+
+
 def phase_gru_bwd(dev):
     from sloika_tpu_torch.nn.fused_gru import (
-        gru_backward, gru_forward, gru_scan_bwd_plain, gru_scan_plain,
-        gru_wgrad, gru_wgrad_plain)
+        gru_backward, gru_forward, gru_scan_bwd_gates_plain,
+        gru_scan_bwd_plain, gru_scan_plain, gru_wgrad, gru_wgrad_plain)
     S, T, B = 96, TRAIN_T, TRAIN_B
     rs = np.random.RandomState(3)
     f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
@@ -380,60 +396,75 @@ def phase_gru_bwd(dev):
     g = f32(rs.normal(size=(T, B, S)))
     lengths = rs.randint(T // 2, T + 1, size=B)
     lengths[0] = T
-    mask = torch.from_numpy(np.arange(T)[:, None]
-                            < lengths[None, :]).to(dev)
+    mask = holes(torch.from_numpy(np.arange(T)[:, None]
+                                  < lengths[None, :]).to(dev), 4)
     worst_f = worst_b = worst_w = 0.0
     times, fwd_times = {}, {}
     for reverse in (False, True):
-        # the forward at these shapes, whose h_out the backward reads
-        h_out = gru_forward(xp, sWT, sW2T, mask=mask, reverse=reverse)
-        e_fwd = float(((h_out - gru_scan_plain(xp, sWT, sW2T, mask,
-                                               reverse=reverse)).abs()
-                       * mask[:, :, None]).max())
+        # the forward's two variants at these shapes; the backward reads
+        # the training variant's h_out and gate trace
+        h_inf = gru_forward(xp, sWT, sW2T, mask=mask, reverse=reverse)
+        h_out, gates = gru_forward(xp, sWT, sW2T, mask=mask,
+                                   reverse=reverse, emit_gates=True)
+        (h_ref, gates_ref), fwd_plain_ms = timed_once(lambda: gru_scan_plain(
+            xp, sWT, sW2T, mask, reverse=reverse, emit_gates=True))
+        e_fwd = float(((h_out - h_ref).abs() * mask[:, :, None]).max())
+        e_gates = float((gates - gates_ref).abs().max())
         fwd_times[reverse] = (
             cuda_ms(lambda: gru_forward(xp, sWT, sW2T, mask=mask,
                                         reverse=reverse), 5),
-            cuda_ms(lambda: gru_scan_plain(xp, sWT, sW2T, mask,
-                                           reverse=reverse), 1))
-        print("gru S={} reverse={} T={} B={}: max_abs_err {:.3e} kernel "
-              "{:.3f} ms plain {:.3f} ms".format(S, reverse, T, B, e_fwd,
-                                                 *fwd_times[reverse]),
+            cuda_ms(lambda: gru_forward(xp, sWT, sW2T, mask=mask,
+                                        reverse=reverse, emit_gates=True),
+                    5), fwd_plain_ms)
+        print("gru S={} reverse={} T={} B={}: max_abs_err {:.3e}, gate "
+              "trace {:.3e}; inference variant {:.3f} ms, training variant "
+              "(with the gate trace) {:.3f} ms; plain {:.3f} ms".format(
+                  S, reverse, T, B, e_fwd, e_gates, *fwd_times[reverse]),
               flush=True)
-        if not e_fwd <= GRU_TOL:
-            raise AssertionError("GRU kernel differs from its twin at the "
-                                 "training shapes by {} > {}".format(
-                                     e_fwd, GRU_TOL))
-        worst_f = max(worst_f, e_fwd)
-        got = gru_backward(xp, sWT, sW2T, mask, reverse, g, h_out)
+        if not (e_fwd <= GRU_TOL and e_gates <= GRU_TOL
+                and torch.equal(h_inf, h_out)):
+            raise AssertionError("GRU forward kernel differs from its twin "
+                                 "at the training shapes: h {}, gates {} "
+                                 "(> {}), or its variants differ".format(
+                                     e_fwd, e_gates, GRU_TOL))
+        worst_f = max(worst_f, e_fwd, e_gates)
+        got = gru_backward(gates, sWT, sW2T, mask, reverse, g, h_out)
         ref = gru_scan_bwd_plain(xp, sWT, sW2T, mask, reverse, g, h_out)
+        ref_g, plain_ms = timed_once(lambda: gru_scan_bwd_gates_plain(
+            gates, sWT, sW2T, mask, reverse, g, h_out))
         e_dxp = rel_err(got[0], ref[0], mask)
         e_w = [rel_err(a, b) for a, b in zip(got[1:], ref[1:])]
-        dxp, rh = gru_backward.recurrence(xp, sWT, sW2T, mask, reverse, g,
+        e_twin = [rel_err(a, b)[1] for a, b in zip(got, ref_g)]
+        dxp, rh = gru_backward.recurrence(gates, sWT, sW2T, mask, reverse, g,
                                           h_out)
+        again = gru_backward.recurrence(gates, sWT, sW2T, mask, reverse, g,
+                                        h_out)
         wk = gru_wgrad(h_out, rh, dxp, reverse)
         e_wt = [rel_err(a, b)[1] for a, b in zip(
             wk, gru_wgrad_plain(h_out, rh, dxp, reverse))]
-        if not all(torch.equal(a, b) for a, b in zip(
-                wk, gru_wgrad(h_out, rh, dxp, reverse))):
-            raise AssertionError("gru_wgrad gave other bits on a second call")
+        if not (torch.equal(dxp, again[0]) and torch.equal(rh, again[1])
+                and all(torch.equal(a, b) for a, b in zip(
+                    wk, gru_wgrad(h_out, rh, dxp, reverse)))):
+            raise AssertionError("gru_bwd or gru_wgrad gave other bits on a "
+                                 "second call")
         times[reverse] = (
             cuda_ms(lambda: gru_backward.recurrence(
-                xp, sWT, sW2T, mask, reverse, g, h_out), 5),
-            cuda_ms(lambda: gru_scan_bwd_plain(
-                xp, sWT, sW2T, mask, reverse, g, h_out), 1),
+                gates, sWT, sW2T, mask, reverse, g, h_out), 5), plain_ms,
             cuda_ms(lambda: gru_wgrad(h_out, rh, dxp, reverse), 20),
             cuda_ms(lambda: gru_wgrad_plain(h_out, rh, dxp, reverse), 20))
         worst_b = max(worst_b, e_dxp[0])
         worst_w = max([worst_w] + [e[0] for e in e_w])
-        print("gru backward S={} reverse={} T={} B={}: dxp max_abs_err "
-              "{:.3e} (rel {:.3e}), dsWT {:.3e} (rel {:.3e}), dsW2T {:.3e} "
-              "(rel {:.3e}); gru_wgrad vs its einsum twin rel {:.3e} {:.3e} "
-              "(the same bits on two calls); "
-              "gru_bwd kernel {:.3f} ms, plain backward twin {:.3f} ms; "
-              "gru_wgrad kernel {:.3f} ms, einsum {:.3f} ms".format(
-                  S, reverse, T, B, *e_dxp, *e_w[0], *e_w[1], *e_wt,
-                  *times[reverse]), flush=True)
-        bad = [e for e in [e_dxp[1]] + [e[1] for e in e_w] + e_wt
+        print("gru backward S={} reverse={} T={} B={}: against the recompute "
+              "twin dxp max_abs_err {:.3e} (rel {:.3e}), dsWT {:.3e} (rel "
+              "{:.3e}), dsW2T {:.3e} (rel {:.3e}); against the gate-trace "
+              "twin rel {:.3e} {:.3e} {:.3e}; gru_wgrad vs its einsum twin "
+              "rel {:.3e} {:.3e} (both kernels the same bits on two calls); "
+              "gru_bwd kernel {:.3f} ms ({:.3f} us a step), plain twin "
+              "{:.3f} ms; gru_wgrad kernel {:.3f} ms, einsum {:.3f} ms"
+              .format(S, reverse, T, B, *e_dxp, *e_w[0], *e_w[1], *e_twin,
+                      *e_wt, times[reverse][0], 1e3 * times[reverse][0] / T,
+                      *times[reverse][1:]), flush=True)
+        bad = [e for e in [e_dxp[1]] + [e[1] for e in e_w] + e_twin + e_wt
                if not e <= BWD_RTOL]
         if bad:
             raise AssertionError("GRU backward kernels differ from their "
@@ -441,23 +472,31 @@ def phase_gru_bwd(dev):
                                      bad, BWD_RTOL))
     ms, plain_ms, wms, wplain_ms = times[False]
     shape = "T={} B={} S={}".format(T, B, S)
-    steps = int(lengths.sum())
+    steps = int(mask.sum())
     fwd = with_bound({"shape": shape, "max_abs_err": worst_f,
                       "ms": fwd_times[False][0],
-                      "plain_ms": fwd_times[False][1]},
+                      "ms_training_variant": fwd_times[False][1],
+                      "plain_ms": fwd_times[False][2]},
                      *gru_fwd_bound(steps, S))
-    # gru_bwd: four products a valid step of a row (sWT, sW2T, sW2, sW:
-    # 6 S^2 multiply-adds); xp, h_out, g read and dxp, r*h written once.
-    # gru_wgrad: the two weight sums over the valid rows, 6 S^2 flop a
-    # row; h_out, r*h and dxp read once.  Its library time is the einsum
-    # pair of its twin; no PyTorch call computes gru_bwd's recurrence
+    # gru_bwd from the gate trace: three products a valid step of a row
+    # (da . sW2, dz . sW[:S], dr . sW[S:]: 3 S^2 multiply-adds); the gates,
+    # h_out and g read and dxp, r*h written once, and sWT, sW2T.  Beside it
+    # the bound of the design that recomputed the gates from xp (four
+    # products, 6 S^2 multiply-adds, both weight layouts), the yardstick of
+    # earlier records.  gru_wgrad: the two weight sums over the valid rows,
+    # 6 S^2 flop a row; h_out, r*h and dxp read once.  Its library time is
+    # the einsum pair of its twin; no PyTorch call computes gru_bwd's
+    # recurrence
+    bwd = with_bound({"name": "gru_bwd", "route": "cuda",
+                      "source": "sloika_tpu_torch/csrc/gru_bwd.cu",
+                      "replaces": "sloika_tpu/nn/pallas_gru.py:157",
+                      "shape": shape,
+                      "max_abs_err": worst_b, "ms": ms, "plain_ms": plain_ms},
+                     4 * (9 * S * steps + 3 * S * S), 6 * S * S * steps)
+    bwd["bound_ms_recompute_design"] = bound(
+        4 * (9 * S * steps + 6 * S * S), 12 * S * S * steps)[0]
     return fwd, [
-        with_bound({"name": "gru_bwd", "route": "cuda",
-                    "source": "sloika_tpu_torch/csrc/gru_bwd.cu",
-                    "replaces": "sloika_tpu/nn/pallas_gru.py:157",
-                    "shape": shape,
-                    "max_abs_err": worst_b, "ms": ms, "plain_ms": plain_ms},
-                   4 * (9 * S * steps + 6 * S * S), 12 * S * S * steps),
+        bwd,
         with_bound({"name": "gru_wgrad", "route": "cuda",
                     "source": "sloika_tpu_torch/csrc/gru_wgrad.cu",
                     "replaces": "sloika_tpu/nn/pallas_gru.py:157",
@@ -997,30 +1036,33 @@ def phase_lstm(dev, serve_T):
         m = mask[:, :, None]
         steps = int(lengths.sum())
         for reverse in (False, True):
-            h, c = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse)
+            h, c, gates = lstm_forward(xp, sWT, p, mask=mask,
+                                       reverse=reverse, emit_gates=True)
             h2, _ = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
                                  emit_cout=False)
-            (href, cref), plain_ms = timed_once(
-                lambda: lstm_scan_plain(xp, sWT, p, mask, reverse))
-            d = max(float(((a - b).abs() * m).max())
-                    for a, b in ((h, href), (c, cref), (h2, href)))
+            (href, cref, gref), plain_ms = timed_once(
+                lambda: lstm_scan_plain(xp, sWT, p, mask, reverse,
+                                        emit_gates=True))
+            d = max([float(((a - b).abs() * m).max())
+                     for a, b in ((h, href), (c, cref), (h2, href))]
+                    + [float((gates - gref).abs().max())])
             ms = cuda_ms(lambda: lstm_forward(
                 xp, sWT, p, mask=mask, reverse=reverse, emit_cout=False), 5)
-            ms_c = cuda_ms(lambda: lstm_forward(
-                xp, sWT, p, mask=mask, reverse=reverse), 5)
+            ms_t = cuda_ms(lambda: lstm_forward(
+                xp, sWT, p, mask=mask, reverse=reverse, emit_gates=True), 5)
             worst = max(worst, d)
             print("lstm {} S={} reverse={} T={} B={}: max_abs_err {:.3e} "
-                  "kernel {:.3f} ms (with the cell trace {:.3f} ms; {:.3f} "
-                  "us a step) plain {:.3f} ms".format(
-                      name, S, reverse, T, B, d, ms, ms_c, 1e3 * ms / T,
-                      plain_ms), flush=True)
+                  "inference variant {:.3f} ms ({:.3f} us a step), training "
+                  "variant (cell and gate traces) {:.3f} ms; plain {:.3f} ms"
+                  .format(name, S, reverse, T, B, d, ms, 1e3 * ms / T, ms_t,
+                          plain_ms), flush=True)
             if not d <= GRU_TOL:
                 raise AssertionError("LSTM forward kernel differs from its "
                                      "twin by {} > {}".format(d, GRU_TOL))
             if not reverse:
                 entry[name] = with_bound(
                     {"shape": "T={} B={} S={}".format(T, B, S), "ms": ms,
-                     "ms_with_cell_trace": ms_c, "plain_ms": plain_ms},
+                     "ms_training_variant": ms_t, "plain_ms": plain_ms},
                     *lstm_bound(steps, S, 0))
     # no PyTorch call computes this cell: cuDNN's LSTM has no peepholes
     serving = entry.pop("serving")
@@ -1034,8 +1076,8 @@ def phase_lstm(dev, serve_T):
 
 def phase_lstm_bwd(dev):
     from sloika_tpu_torch.nn.fused_lstm import (
-        lstm_backward, lstm_forward, lstm_scan_bwd_plain, lstm_wgrad,
-        lstm_wgrad_plain)
+        lstm_backward, lstm_forward, lstm_scan_bwd_gates_plain,
+        lstm_scan_bwd_plain, lstm_wgrad, lstm_wgrad_plain)
     S, T, B = LSTM_S, EVENTS_TRAIN_T, EVENTS_TRAIN_B
     rs = np.random.RandomState(19)
     f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
@@ -1045,35 +1087,44 @@ def phase_lstm_bwd(dev):
     g = f32(rs.normal(size=(T, B, S)))
     lengths = rs.randint(T // 2, T + 1, size=B)
     lengths[0] = T
-    mask = torch.from_numpy(np.arange(T)[:, None]
-                            < lengths[None, :]).to(dev)
+    mask = holes(torch.from_numpy(np.arange(T)[:, None]
+                                  < lengths[None, :]).to(dev), 20)
     worst_b = worst_w = 0.0
     times = {}
     for reverse in (False, True):
-        h, c = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse)
-        got = lstm_backward(xp, sWT, p, mask, reverse, g, h, c)
-        ref, plain_ms = timed_once(lambda: lstm_scan_bwd_plain(
-            xp, sWT, p, mask, reverse, g, h, c))
+        h, c, gates = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
+                                   emit_gates=True)
+        got = lstm_backward(gates, sWT, p, mask, reverse, g, h, c)
+        ref = lstm_scan_bwd_plain(xp, sWT, p, mask, reverse, g, h, c)
+        ref_g, plain_ms = timed_once(lambda: lstm_scan_bwd_gates_plain(
+            gates, sWT, p, mask, reverse, g, h, c))
         e_dxp = rel_err(got[0], ref[0], mask)
         e_w = [rel_err(a, b) for a, b in zip(got[1:], ref[1:])]
+        e_twin = [rel_err(a, b)[1] for a, b in zip(got, ref_g)]
         e_wt = [rel_err(a, b)[1] for a, b in zip(
             lstm_wgrad(h, c, got[0], reverse),
             lstm_wgrad_plain(h, c, got[0], reverse))]
+        if not torch.equal(got[0], lstm_backward.recurrence(
+                gates, sWT, p, mask, reverse, g, c)):
+            raise AssertionError("lstm_bwd gave other bits on a second call")
         times[reverse] = (
             cuda_ms(lambda: lstm_backward.recurrence(
-                xp, sWT, p, mask, reverse, g, h, c), 5), plain_ms,
+                gates, sWT, p, mask, reverse, g, c), 5), plain_ms,
             cuda_ms(lambda: lstm_wgrad(h, c, got[0], reverse), 20),
             cuda_ms(lambda: lstm_wgrad_plain(h, c, got[0], reverse), 20))
         worst_b = max(worst_b, e_dxp[0])
         worst_w = max([worst_w] + [e[0] for e in e_w])
-        print("lstm backward S={} reverse={} T={} B={}: dxp max_abs_err "
-              "{:.3e} (rel {:.3e}), dsWT {:.3e} (rel {:.3e}), dp {:.3e} "
-              "(rel {:.3e}); lstm_wgrad vs its einsum twin rel {:.3e} "
-              "{:.3e}; lstm_bwd kernel {:.3f} ms, plain backward twin "
-              "{:.3f} ms; lstm_wgrad kernel {:.3f} ms, einsum {:.3f} ms"
-              .format(S, reverse, T, B, *e_dxp, *e_w[0], *e_w[1], *e_wt,
-                      *times[reverse]), flush=True)
-        bad = [e for e in [e_dxp[1]] + [e[1] for e in e_w] + e_wt
+        print("lstm backward S={} reverse={} T={} B={}: against the "
+              "recompute twin dxp max_abs_err {:.3e} (rel {:.3e}), dsWT "
+              "{:.3e} (rel {:.3e}), dp {:.3e} (rel {:.3e}); against the "
+              "gate-trace twin rel {:.3e} {:.3e} {:.3e}; lstm_wgrad vs its "
+              "einsum twin rel {:.3e} {:.3e} (lstm_bwd the same bits on two "
+              "calls); lstm_bwd kernel {:.3f} ms ({:.3f} us a step), plain "
+              "twin {:.3f} ms; lstm_wgrad kernel {:.3f} ms, einsum {:.3f} ms"
+              .format(S, reverse, T, B, *e_dxp, *e_w[0], *e_w[1], *e_twin,
+                      *e_wt, times[reverse][0], 1e3 * times[reverse][0] / T,
+                      *times[reverse][1:]), flush=True)
+        bad = [e for e in [e_dxp[1]] + [e[1] for e in e_w] + e_twin + e_wt
                if not e <= BWD_RTOL]
         if bad:
             raise AssertionError("LSTM backward kernels differ from their "
@@ -1081,21 +1132,27 @@ def phase_lstm_bwd(dev):
                                      bad, BWD_RTOL))
     ms, plain_ms, wms, wplain_ms = times[False]
     shape = "T={} B={} S={}".format(T, B, S)
-    steps = int(lengths.sum())
-    # lstm_bwd: two products a valid step of a row (sWT and sW: 8 S^2
-    # multiply-adds); xp, g, h, c read and dxp written once, and both
-    # weight layouts.  lstm_wgrad: the weight sum over the valid rows, 8 S^2
-    # flop a row (the peephole sums add 6 S); h, c and dxp read once.  Its
-    # library time is the einsums of its twin; no PyTorch call computes
-    # lstm_bwd's recurrence
+    steps = int(mask.sum())
+    # lstm_bwd from the gate trace: one product a valid step of a row
+    # (dg . sW: 4 S^2 multiply-adds); the gates, c_out (c_prev is c_out a
+    # step earlier, the same input) and g read and dxp written once, and
+    # sWT, p.  Beside it the bound of the design that recomputed the gates
+    # from xp (two products, 8 S^2 multiply-adds, xp, g, h, c read, both
+    # weight layouts), the yardstick of earlier records.  lstm_wgrad: the
+    # weight sum over the valid rows, 8 S^2 flop a row (the peephole sums
+    # add 6 S); h, c and dxp read once.  Its library time is the einsums of
+    # its twin; no PyTorch call computes lstm_bwd's recurrence
+    bwd = with_bound({"name": "lstm_bwd", "route": "cuda",
+                      "source": "sloika_tpu_torch/csrc/lstm_bwd.cu",
+                      "replaces": "sloika_tpu/nn/pallas_lstm.py:119",
+                      "shape": shape, "max_abs_err": worst_b, "ms": ms,
+                      "plain_ms": plain_ms},
+                     4 * (10 * S * steps + 4 * S * S + 3 * S),
+                     8 * S * S * steps)
+    bwd["bound_ms_recompute_design"] = bound(
+        4 * (11 * S * steps + 8 * S * S + 3 * S), 16 * S * S * steps)[0]
     return [
-        with_bound({"name": "lstm_bwd", "route": "cuda",
-                    "source": "sloika_tpu_torch/csrc/lstm_bwd.cu",
-                    "replaces": "sloika_tpu/nn/pallas_lstm.py:119",
-                    "shape": shape, "max_abs_err": worst_b, "ms": ms,
-                    "plain_ms": plain_ms},
-                   4 * (11 * S * steps + 8 * S * S + 3 * S),
-                   16 * S * S * steps),
+        bwd,
         with_bound({"name": "lstm_wgrad", "route": "cuda",
                     "source": "sloika_tpu_torch/csrc/lstm_wgrad.cu",
                     "replaces": "sloika_tpu/nn/pallas_lstm.py:119",

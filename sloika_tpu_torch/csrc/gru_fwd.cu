@@ -12,6 +12,17 @@
 // the scan runs from t = T-1 down to 0 (the Pallas kernel does it with its
 // index map).  out is (T, B, S) f32.
 //
+// The training variant (template flag EMIT_G, chosen by a non-null `gates`)
+// also writes the gate trace gates (T, B, 3S) = [z, r, hbar] of every step,
+// which csrc/gru_bwd.cu reads instead of recomputing the gates.  The kernel
+// holds each value already (z and r after the first product, hbar after
+// the second), and computes them at masked steps too, from the carried h,
+// so every entry is finite.  r * h is not written: gru_bwd.cu forms it from
+// r and h_prev and writes it for gru_wgrad.cu.  The values wait in
+// registers and are stored after the step's closing barrier, off the
+// step's path (stores issued before a barrier held it back).  The
+// inference variant (EMIT_G false) is the same code without those stores.
+//
 // What bounds it.  The recurrence is T dependent steps of 3 S^2 FMAs a row,
 // so the latency of one block's step, not bandwidth, bounds the kernel: a
 // step waits on its projections, on the weights it reads, on the dependent
@@ -46,46 +57,11 @@
 //
 // Sums are plain f32 FMA: no TF32 and no fast-math (expf/tanhf are the
 // accurate versions).
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "recurrence.cuh"
 
 namespace {
 
 enum { W2_SMEM = 0, W2_REG = 1, W2_GLOBAL = 2 };
-
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most ns - 2 groups are pending: the slot of the next step
-// has landed (for this thread; the barrier after it publishes the slot)
-__device__ __forceinline__ void cp_async_wait_ring(int ns) {
-  switch (ns) {
-    case 2: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-  }
-}
 
 // threads a block at most, for __launch_bounds__: 2S <= 4 KH2 in mode REG.
 // It sets the registers a thread may take: a sub-partition of the SM holds
@@ -96,107 +72,6 @@ struct MaxThreads {
   static constexpr int value =
       W2 == W2_GLOBAL ? 1024 : W2 == W2_REG ? (4 * KH2 + 31) / 32 * 32 : 288;
 };
-
-// partial sums a row keeps, so that BR * NP >= 4 chains are in flight
-template <int BR>
-struct Parts {
-  static constexpr int NP = BR >= 4 ? 1 : 4 / BR;
-};
-
-// acc[r] += v[r] * w over the block's rows; v points into shared memory
-template <int BR>
-__device__ __forceinline__ void fma_rows(float (&acc)[BR], const float* v,
-                                         float w) {
-  if constexpr (BR % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < BR; i += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(v + i);
-      acc[i] = fmaf(a.x, w, acc[i]);
-      acc[i + 1] = fmaf(a.y, w, acc[i + 1]);
-      acc[i + 2] = fmaf(a.z, w, acc[i + 2]);
-      acc[i + 3] = fmaf(a.w, w, acc[i + 3]);
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < BR; ++r) acc[r] = fmaf(v[r], w, acc[r]);
-  }
-}
-
-// NP consecutive k of a [k][BR] operand into NP partial sums; at BR = 1, 2
-// the NP * BR values are one 16-byte load
-template <int BR, int NP>
-__device__ __forceinline__ void fma_block(float (&acc)[NP][BR],
-                                          const float* v,
-                                          const float (&w)[NP]) {
-  if constexpr (BR * NP == 4) {
-    const float4 a = *reinterpret_cast<const float4*>(v);
-    const float f[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int p = 0; p < NP; ++p)
-#pragma unroll
-      for (int r = 0; r < BR; ++r)
-        acc[p][r] = fmaf(f[p * BR + r], w[p], acc[p][r]);
-  } else {
-#pragma unroll
-    for (int p = 0; p < NP; ++p) fma_rows<BR>(acc[p], v + p * BR, w[p]);
-  }
-}
-
-template <int BR, int NP>
-__device__ __forceinline__ void join(float (&out)[BR],
-                                     const float (&acc)[NP][BR]) {
-#pragma unroll
-  for (int r = 0; r < BR; ++r) {
-    if constexpr (NP == 4)
-      out[r] = (acc[0][r] + acc[1][r]) + (acc[2][r] + acc[3][r]);
-    else if constexpr (NP == 2)
-      out[r] = acc[0][r] + acc[1][r];
-    else
-      out[r] = acc[0][r];
-  }
-}
-
-// out = sum over k < K of vT[k][:] * w(k), vT [K][BR] in shared memory
-template <int BR, class W>
-__device__ __forceinline__ void dot_col(float (&out)[BR], const float* vT,
-                                        W w, int K) {
-  constexpr int NP = Parts<BR>::NP;
-  float acc[NP][BR];
-#pragma unroll
-  for (int p = 0; p < NP; ++p)
-#pragma unroll
-    for (int r = 0; r < BR; ++r) acc[p][r] = 0.0f;
-  int k = 0;
-#pragma unroll 2
-  for (; k + NP <= K; k += NP) {
-    float wv[NP];
-#pragma unroll
-    for (int p = 0; p < NP; ++p) wv[p] = w(k + p);
-    fma_block<BR, NP>(acc, vT + k * BR, wv);
-  }
-  for (; k < K; ++k) fma_rows<BR>(acc[0], vT + k * BR, w(k));
-  join<BR, NP>(out, acc);
-}
-
-// the same over K weights held in registers
-template <int BR, int K>
-__device__ __forceinline__ void dot_reg(float (&out)[BR], const float* vT,
-                                        const float (&w)[K]) {
-  constexpr int NP = Parts<BR>::NP;
-  float acc[NP][BR];
-#pragma unroll
-  for (int p = 0; p < NP; ++p)
-#pragma unroll
-    for (int r = 0; r < BR; ++r) acc[p][r] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < K; k += NP) {
-    float wv[NP];
-#pragma unroll
-    for (int p = 0; p < NP; ++p) wv[p] = w[k + p];
-    fma_block<BR, NP>(acc, vT + k * BR, wv);
-  }
-  join<BR, NP>(out, acc);
-}
 
 // start the copies of one time step (nrows rows of 3S projections, then
 // their mask words) into a ring slot; the caller commits the group
@@ -222,12 +97,12 @@ __device__ __forceinline__ void fetch_step(float* slot,
 
 // KR rows of sWT (mode REG) and KH2 rows of sW2T (a half of a pair, mode
 // REG) a thread holds in registers
-template <int BR, int W2, int KR, int KH2>
+template <int BR, int W2, int KR, int KH2, bool EMIT_G>
 __global__ void __launch_bounds__(MaxThreads<W2, KH2>::value)
 gru_fwd_kernel(const float* __restrict__ xp, const int* __restrict__ mask,
                const float* __restrict__ sWT, const float* __restrict__ sW2T,
-               float* __restrict__ out, int T, int B, int S, int reverse,
-               int ns, int stage1, int vec) {
+               float* __restrict__ out, float* __restrict__ gates, int T,
+               int B, int S, int reverse, int ns, int stage1, int vec) {
   extern __shared__ float4 smem4[];
   const int S2 = 2 * S, S3 = 3 * S;
   // rows of sW2T each half of a pair sums (a multiple of 4)
@@ -290,7 +165,7 @@ gru_fwd_kernel(const float* __restrict__ xp, const int* __restrict__ mask,
                  b0, nrows, S3, xlen, vec);
     cp_async_commit();
   }
-  cp_async_wait_ring(ns);
+  cp_async_wait_pending(ns - 2);
   __syncthreads();
 
   int cur = 0, nxt = ns - 1;                     // slots of steps s, s+ns-1
@@ -309,6 +184,7 @@ gru_fwd_kernel(const float* __restrict__ xp, const int* __restrict__ mask,
     cur = cur + 1 == ns ? 0 : cur + 1;
     const int* mslot = reinterpret_cast<const int*>(slot + xlen);
 
+    float zr[BR], hb[BR];        // the training variant's gate trace
     // z / r gates: column j of h . sWT for the block's rows
     if (j < S2) {
       float acc[BR];
@@ -330,6 +206,7 @@ gru_fwd_kernel(const float* __restrict__ xp, const int* __restrict__ mask,
 #pragma unroll
       for (int r = 0; r < BR; ++r) {
         const float g = sigmoid_f32(slot[r * S3 + j] + acc[r]);
+        if constexpr (EMIT_G) zr[r] = g;
         if (j < S) {
           zT[j * BR + r] = g;
         } else {
@@ -366,6 +243,7 @@ gru_fwd_kernel(const float* __restrict__ xp, const int* __restrict__ mask,
       for (int r = 0; r < BR; ++r) {
         if ((r & 1) == half && r < nrows) {
           const float hbar = tanhf(slot[r * S3 + S2 + c] + acc[r]);
+          if constexpr (EMIT_G) hb[r] = hbar;
           const float h = hT[c * BR + r];
           const float z = zT[c * BR + r];
           float nw = z * h + (1.0f - z) * hbar;
@@ -375,70 +253,69 @@ gru_fwd_kernel(const float* __restrict__ xp, const int* __restrict__ mask,
         }
       }
     }
-    cp_async_wait_ring(ns);          // the next step's slot has landed
+    cp_async_wait_pending(ns - 2);   // the next step's slot has landed
     __syncthreads();
+    if constexpr (EMIT_G) {
+      // the gate trace [z, r, hbar] of this step, after the barrier
+#pragma unroll
+      for (int r = 0; r < BR; ++r) {
+        if (r < nrows) {
+          float* gt = gates + ((size_t)t * B + b0 + r) * S3;
+          if (j < S2) gt[j] = zr[r];
+          if (pair_on && (r & 1) == half) gt[S2 + c] = hb[r];
+        }
+      }
+    }
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int BR, int W2, int KR, int KH2>
+template <int BR, int W2, int KR, int KH2, bool EMIT_G>
 int launch(const void* xp, const void* mask, const void* sWT,
-           const void* sW2T, void* out, int T, int B, int S, int reverse,
-           int ns, int stage1, int smem, int threads, cudaStream_t stream) {
+           const void* sW2T, void* out, void* gates, int T, int B, int S,
+           int reverse, int ns, int stage1, int smem, int threads,
+           cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gru_fwd_kernel<BR, W2, KR, KH2>,
+        gru_fwd_kernel<BR, W2, KR, KH2, EMIT_G>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int vec = (3 * S) % 4 == 0 && (uintptr_t)xp % 16 == 0;
-  gru_fwd_kernel<BR, W2, KR, KH2>
+  gru_fwd_kernel<BR, W2, KR, KH2, EMIT_G>
       <<<(B + BR - 1) / BR, threads, smem, stream>>>(
       (const float*)xp, (const int*)mask, (const float*)sWT,
-      (const float*)sW2T, (float*)out, T, B, S, reverse, ns, stage1, vec);
+      (const float*)sW2T, (float*)out, (float*)gates, T, B, S, reverse, ns,
+      stage1, vec);
   return (int)cudaGetLastError();
 }
 
-template <int W2, int KR, int KH2>
+template <int W2, int KR, int KH2, bool EMIT_G>
 int by_rows(int br, const void* xp, const void* mask, const void* sWT,
-            const void* sW2T, void* out, int T, int B, int S, int reverse,
-            int ns, int stage1, int smem, int threads, cudaStream_t s) {
+            const void* sW2T, void* out, void* gates, int T, int B, int S,
+            int reverse, int ns, int stage1, int smem, int threads,
+            cudaStream_t s) {
+#define GRU_FWD_LAUNCH(BR)                                                \
+  launch<BR, W2, KR, KH2, EMIT_G>(xp, mask, sWT, sW2T, out, gates, T, B, S, \
+                                  reverse, ns, stage1, smem, threads, s)
   switch (br) {
-    case 1:
-      return launch<1, W2, KR, KH2>(xp, mask, sWT, sW2T, out, T, B, S, reverse, ns,
-                           stage1, smem, threads, s);
-    case 2:
-      return launch<2, W2, KR, KH2>(xp, mask, sWT, sW2T, out, T, B, S, reverse, ns,
-                           stage1, smem, threads, s);
-    case 4:
-      return launch<4, W2, KR, KH2>(xp, mask, sWT, sW2T, out, T, B, S, reverse, ns,
-                           stage1, smem, threads, s);
-    case 8:
-      return launch<8, W2, KR, KH2>(xp, mask, sWT, sW2T, out, T, B, S, reverse, ns,
-                           stage1, smem, threads, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 1: return GRU_FWD_LAUNCH(1);
+    case 2: return GRU_FWD_LAUNCH(2);
+    case 4: return GRU_FWD_LAUNCH(4);
+    case 8: return GRU_FWD_LAUNCH(8);
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef GRU_FWD_LAUNCH
 }
 
-}  // namespace
-
-// The launch plan comes from the caller (nn/fused_gru.py::gru_fwd_plan):
-// rows a block br (1, 2, 4, 8), mode (0 SMEM, 1 REG, 2 GLOBAL), in mode
-// REG the register rows kr of sWT and kh2 of sW2T (one of the pairs
-// below), ring depth ns (2-4), stage1 (sWT rows past kr in shared memory),
-// smem bytes and threads (2S rounded up to a warp).  mask is (T, B) int32.
-extern "C" int gru_fwd(const void* xp, const void* mask, const void* sWT,
-                       const void* sW2T, void* out, int T, int B, int S,
-                       int reverse, int br, int mode, int kr, int kh2, int ns,
-                       int stage1, int smem, int threads, void* stream) {
-  if (ns < 2 || ns > 4 || threads < 2 * S || (mode != W2_GLOBAL && !stage1) ||
-      (mode == W2_REG && S > 2 * kh2))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
+template <bool EMIT_G>
+int by_mode(int br, int mode, int kr, int kh2, const void* xp,
+            const void* mask, const void* sWT, const void* sW2T, void* out,
+            void* gates, int T, int B, int S, int reverse, int ns,
+            int stage1, int smem, int threads, cudaStream_t s) {
 #define GRU_FWD_BY_ROWS(W2, KR, KH2)                                        \
-  by_rows<W2, KR, KH2>(br, xp, mask, sWT, sW2T, out, T, B, S, reverse, ns, \
-                       stage1, smem, threads, s)
+  by_rows<W2, KR, KH2, EMIT_G>(br, xp, mask, sWT, sW2T, out, gates, T, B, \
+                               S, reverse, ns, stage1, smem, threads, s)
   if (mode == W2_SMEM) return GRU_FWD_BY_ROWS(W2_SMEM, 0, 0);
   if (mode == W2_GLOBAL) return GRU_FWD_BY_ROWS(W2_GLOBAL, 0, 0);
   if (mode != W2_REG) return (int)cudaErrorInvalidValue;
@@ -448,4 +325,29 @@ extern "C" int gru_fwd(const void* xp, const void* mask, const void* sWT,
   if (kr == 0 && kh2 == 72) return GRU_FWD_BY_ROWS(W2_REG, 0, 72);
 #undef GRU_FWD_BY_ROWS
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The launch plan comes from the caller (nn/fused_gru.py::gru_fwd_plan):
+// rows a block br (1, 2, 4, 8), mode (0 SMEM, 1 REG, 2 GLOBAL), in mode
+// REG the register rows kr of sWT and kh2 of sW2T (one of the pairs in
+// by_mode), ring depth ns (2-4), stage1 (sWT rows past kr in shared
+// memory), smem bytes and threads (2S rounded up to a warp).  mask is
+// (T, B) int32.  gates == nullptr selects the inference variant; otherwise
+// the kernel also writes the (T, B, 3S) gate trace there.
+extern "C" int gru_fwd(const void* xp, const void* mask, const void* sWT,
+                       const void* sW2T, void* out, void* gates, int T, int B,
+                       int S, int reverse, int br, int mode, int kr, int kh2,
+                       int ns, int stage1, int smem, int threads,
+                       void* stream) {
+  if (ns < 2 || ns > 4 || threads < 2 * S || (mode != W2_GLOBAL && !stage1) ||
+      (mode == W2_REG && S > 2 * kh2))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (gates == nullptr)
+    return by_mode<false>(br, mode, kr, kh2, xp, mask, sWT, sW2T, out, gates,
+                          T, B, S, reverse, ns, stage1, smem, threads, s);
+  return by_mode<true>(br, mode, kr, kh2, xp, mask, sWT, sW2T, out, gates, T,
+                       B, S, reverse, ns, stage1, smem, threads, s);
 }

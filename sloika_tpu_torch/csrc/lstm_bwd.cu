@@ -2,318 +2,372 @@
 //
 // Replaces the Pallas TPU kernel sloika_tpu/nn/pallas_lstm.py::_bwd_kernel
 // (driven by _pallas_scan_bwd and the VJP _bwd), all but its weight and
-// peephole cotangent sums, which csrc/lstm_wgrad.cu takes over.  Same
-// contract: it walks the forward scan backwards and, at each step,
-// recomputes the gates from (xp_t, h_prev, c_prev) rather than reading them,
+// peephole cotangent sums, which csrc/lstm_wgrad.cu takes over.  It walks
+// the forward scan backwards and, at each step, reads the gates [u, i, f, o]
+// that the forward's training variant saved (csrc/lstm_fwd.cu) and the cell
+// trace c_out,
 //
-//     f, i, u, c_new, o from xp_t + h_prev . sWT, c_prev, p  (as the forward)
-//     tc   = tanh(c_new)
+//     tc   = tanh(c_out_t)   (c' at a valid step)
 //     dht  = dh + g_t;  dh_eff, dc_eff = mask ? (dht, dc) : 0
 //     dg3  = dh_eff tc o (1 - o)
 //     dcn  = dc_eff + dh_eff o (1 - tc^2) + dg3 p[2]
-//     dg0  = dcn i (1 - u^2);  dg1 = dcn u i (1 - i);  dg2 = dcn c_prev f (1 - f)
+//     dg0  = dcn i (1 - u^2);  dg1 = dcn u i (1 - i)
+//     dg2  = dcn c_prev f (1 - f)
 //     dc   = dcn f + dg1 p[0] + dg2 p[1]           (+ dc  where masked)
 //     dh   = [dg0 dg1 dg2 dg3] . sW                (+ dht where masked)
 //                                                  sW = sWT^T (4S, S)
 //
-// and writes dxp = dg (T, B, 4S), zero at masked steps (dh_eff = dc_eff = 0
-// make every dg zero there).  h_prev and c_prev are the forward's h and c
-// traces shifted one step towards the scan start (zeros at the first step);
-// the forward emits the carried state at a masked step, so they are what the
-// Pallas kernel sees.
+// and writes dxp = dg (T, B, 4S), zero at masked steps.  c_prev is c_out
+// shifted one step towards the scan start (zeros at the first step); the
+// forward emits the carried state at a masked step, so it is what the
+// Pallas kernel sees.  At a masked step dh_eff = dc_eff = 0 multiply the
+// saved gates, which the forward computed from the carried state, so they
+// are finite and the step passes (dht, dc) through exactly.
 //
-// Design.  As csrc/gru_bwd.cu: one block owns BR batch rows and walks all T
-// steps in reverse scan order, so the carried (dh, dc) stay in the registers
-// of the thread that owns state column s < S, with c_prev.  Four barriers a
-// step separate four phases: (A) h_prev into shared memory; (B) thread j of
-// 4S sums gate column j of xp + h_prev . sWT into shared memory; (C) thread
-// s < S recomputes its cell, forms its four dg columns in place of the four
-// gate sums it alone reads, writes dxp and carries dc; (D) thread j = q S + s
-// sums the q-th quarter of dg . sW for state column s, and (A) of the next
-// step adds the four quarters in a fixed order.  Spreading (D) over all 4S
-// threads makes its sequential length S, not 4S.
+// Why the gates are saved here although the Pallas kernel recomputes them
+// (pallas_lstm.py:137): on the TPU the recompute ran on the MXU beside the
+// step's other product; here it was half of the step's FMAs and two of its
+// four barriers, on the critical path of a latency-bound loop.  The trace
+// costs the forward one (T, B, 4S) stream of stores (51 MB at T = 500,
+// B = 100, S = 64) and replaces xp among the tensors kept for the backward;
+// tanh(c') is recomputed from c_out here, off the product's path.
 //
-// What bounds it.  Like the forward, T dependent steps of little work per
-// row (8 S^2 FMAs): the latency of a step, not bandwidth.  It reads both
-// sWT (coalesced for the gate product) and sW (for dg . sW); at S = 64 the
-// pair is 128 KB and both are staged in shared memory beside the block's
-// vectors (9 S BR floats), sWT first; what does not fit is read with __ldg.
-// Rows per block adapt to the batch as in lstm_fwd.cu, then halve while the
-// block's registers would not fit the SM.  Threads are 4S, so S <= 256.  The
-// weight cotangents are left to lstm_wgrad.cu: an S x 4S rank-BR update each
-// step would lengthen the critical path, and its accumulators do not fit
-// beside the weights.  Plain f32 FMA: no TF32 and no fast-math.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What bounds it.  T dependent steps of 4 S^2 FMAs a row: the latency of a
+// step, now one product and one barrier.  On an H100 the step (1.0-1.1 us
+// at S = 64, one row a block) costs what lstm_fwd.cu's inference step
+// costs, with half its barriers.  Its clocked split (bench_lstm, ~1,840
+// cycles): the refill's address and loop code ~40%, even in the warps that
+// copy nothing; the product ~26%, at the shared-memory pipe's rate (256
+// threads each read a 64-float operand quarter, 64 KB a step at 128 bytes
+// a clock); the cell ~22%; the barrier, the slot wait and the commit under
+// 8% together.  Not the FMAs.  The design:
+//
+// - One block owns BR batch rows for all T steps (the fewest that fit the
+//   batch in one wave over the SMs; nn/fused_lstm.py::lstm_bwd_plan), so
+//   the carried (dh, dc) stay in registers.
+// - Thread j = 4s + q sums the q-th quarter of dg . sW for state column s:
+//   sWT[s, qS:(q+1)S], S floats, which it holds in registers at the model's
+//   width (mode REG, S <= 64: 64 floats a thread at 8 warps).  The four
+//   quarters of a column sit in one warp and are joined by two shuffles in
+//   a fixed order, so all four threads hold the same dh_s; each then runs
+//   the cell backward of column s (the same arithmetic on the same values)
+//   and stores its own quarter of dg.  dg is double-buffered in shared
+//   memory, so one barrier a step separates the cell from the product.
+//   Below S = 33, and from 65 while it fits, sWT is staged in shared memory
+//   instead; past that it is read through L1.  Threads are 4S, so S <= 256.
+// - Inputs arrive through a ring of NS (2-4) step slots in shared memory,
+//   filled with cp.async NS-1 steps ahead: the gates, c_out at the step and
+//   the step before, g and the mask words.  The step is a rolled loop.
+// - 4 / BR partial sums a quarter, joined in a fixed order; no atomics, so
+//   every run gives the same bits.
+//
+// The weight cotangents are left to lstm_wgrad.cu: an S x 4S rank-BR update
+// each step would lengthen the critical path.  Plain f32 FMA: no TF32 and
+// no fast-math.
+#include "recurrence.cuh"
+
+#ifdef LSTM_BWD_CLOCKS
+// Step-phase clocks, for scripts/bench_lstm.py, which also builds this
+// source with -DLSTM_BWD_CLOCKS into a library of its own (the kernels the
+// port launches are built without it).  Lane 0 of each warp of block 0
+// sums, over the T steps, the SM clock cycles of the step's phases: the
+// cell (C), the wait for the next slot, the barrier, the refill's copies,
+// its commit, the product (D), the shuffles; then the whole loop.  A stamp
+// reads %clock64 behind a memory clobber, so the compiler moves no shared-
+// or global-memory access across it.
+__device__ long long lstm_bwd_clocks[32 * 8];
+#define STEP_CLOCK(k)                                                  \
+  do {                                                                 \
+    long long now_;                                                    \
+    asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(now_) : : "memory"); \
+    clk[k] += now_ - stamp;                                            \
+    stamp = now_;                                                      \
+  } while (0)
+#else
+#define STEP_CLOCK(k) \
+  do {                \
+  } while (0)
+#endif
 
 namespace {
 
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// acc[r] += v[r] * w over the block's rows; v points into shared memory
+// start the copies of the scan step at time t into a ring slot: the gates
+// [BR][4S], c_out at t [BR][S], c_prev [BR][S] (c_out at time tp; zeros
+// when tp < 0, the scan's first step), g [BR][S] and the int32 mask words
+// [BR]; the caller commits the group.  Rows past the batch are never
+// written: they stay zero.
 template <int BR>
-__device__ __forceinline__ void fma_rows(float (&acc)[BR], const float* v,
-                                         float w) {
-  if constexpr (BR % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < BR; i += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(v + i);
-      acc[i] = fmaf(a.x, w, acc[i]);
-      acc[i + 1] = fmaf(a.y, w, acc[i + 1]);
-      acc[i + 2] = fmaf(a.z, w, acc[i + 2]);
-      acc[i + 3] = fmaf(a.w, w, acc[i + 3]);
-    }
+__device__ __forceinline__ void fetch_step(
+    float* slot, const float* __restrict__ gates,
+    const float* __restrict__ c_out, const float* __restrict__ g,
+    const int* __restrict__ mask, int t, int tp, int B, int b0, int nrows,
+    int S, int vec) {
+  const size_t row0 = (size_t)t * B + b0;
+  const int n = nrows * S;
+  copy_async(slot, gates + row0 * 4 * S, 4 * n, vec);
+  copy_async(slot + BR * 4 * S, c_out + row0 * S, n, vec);
+  float* cp = slot + BR * 5 * S;
+  if (tp >= 0) {
+    copy_async(cp, c_out + ((size_t)tp * B + b0) * S, n, vec);
   } else {
-#pragma unroll
-    for (int r = 0; r < BR; ++r) acc[r] = fmaf(v[r], w, acc[r]);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) cp[i] = 0.0f;
   }
+  copy_async(slot + BR * 6 * S, g + row0 * S, n, vec);
+  int* m = reinterpret_cast<int*>(slot + BR * 7 * S);
+  for (int i = threadIdx.x; i < nrows; i += blockDim.x)
+    cp_async4(m + i, mask + row0 + i);
 }
 
-// acc[r] = sum_{k < K} vT[k][r] * W[k][j], W row-major with leading
-// dimension ld: from shared memory (smem + woff) when staged, else from
-// global memory through L1
-template <int BR>
-__device__ __forceinline__ void col_dot(float (&acc)[BR], const float* vT,
-                                        const float* __restrict__ wg,
-                                        const float* smem, int woff, int K,
-                                        int ld, int j) {
-#pragma unroll
-  for (int r = 0; r < BR; ++r) acc[r] = 0.0f;
-  if (woff >= 0) {
-    const float* ws = smem + woff;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k) fma_rows<BR>(acc, vT + k * BR, ws[k * ld + j]);
-  } else {
-#pragma unroll 8
-    for (int k = 0; k < K; ++k)
-      fma_rows<BR>(acc, vT + k * BR, __ldg(wg + (size_t)k * ld + j));
-  }
-}
-
-// staging bits: sWT (S x 4S), then sW (4S x S)
-constexpr int kStageSWT = 1, kStageSW = 2;
-
-template <int BR>
-__global__ void lstm_bwd_kernel(const float* __restrict__ xp,
-                                const uint8_t* __restrict__ mask,
-                                const float* __restrict__ sWT,
-                                const float* __restrict__ sW,
-                                const float* __restrict__ p,
-                                const float* __restrict__ g,
-                                const float* __restrict__ h_out,
-                                const float* __restrict__ c_out,
-                                float* __restrict__ dxp, int T, int B, int S,
-                                int reverse, int stage) {
+// KQ (0 or >= S): the floats of its quarter row a thread holds in
+// registers; otherwise the weights come from shared memory when `stage`,
+// else through L1.  qs: the floats between two quarters of dg in shared
+// memory (padded so that the four quarters' reads fall in other banks)
+template <int BR, int KQ>
+__global__ void __launch_bounds__(KQ > 0 ? 4 * KQ : 1024)
+lstm_bwd_kernel(const float* __restrict__ gates,
+                const float* __restrict__ c_out,
+                const float* __restrict__ g, const int* __restrict__ mask,
+                const float* __restrict__ sWT, const float* __restrict__ p,
+                float* __restrict__ dxp, int T, int B, int S, int reverse,
+                int ns, int stage, int qs, int vec) {
   extern __shared__ float4 smem4[];
-  float* hT = reinterpret_cast<float*>(smem4);   // [S][BR]   h_prev
-  float* gT = hT + S * BR;                       // [4S][BR]  gate sums, dg
-  float* qT = gT + 4 * S * BR;                   // [4][S][BR] dg . sW parts
-  float* wsm = qT + 4 * S * BR;                  // staged weights
+  const int S4 = 4 * S;
+  const int KK = KQ > 0 ? KQ : round4(S);           // k-range of a quarter
+  const int slot_len = round4(BR * 7 * S + BR);
+  float* ring = reinterpret_cast<float*>(smem4);    // [ns][slot_len]
+  float* dgb = ring + ns * slot_len;                // [2][4][qs]: [k][BR]
+  float* ws = dgb + 8 * qs;                         // [KK][S][4] if staged
   const int j = threadIdx.x;
   const int b0 = blockIdx.x * BR;
-  const int S4 = 4 * S;
-  const bool own_state = j < S;
-  const bool own_gate = j < S4;                  // threads round up to 32
+  const int nrows = min(BR, B - b0);
+  // the four threads j = 4s + q own state column s; threads past 4S (when
+  // 4S is not a multiple of 32) compute on column 0's weights and store
+  // nothing
+  const int s = j >> 2, q = j & 3;
+  const bool own = j < S4;
+  const int sw = own ? s : 0;
 
-  const int o_sWT = (stage & kStageSWT) ? 0 : -1;
-  const int o_sW = (stage & kStageSW) ? ((stage & kStageSWT) ? S * S4 : 0)
-                                      : -1;
-  for (int i = j; i < S * S4; i += blockDim.x) {
-    if (o_sWT >= 0) wsm[o_sWT + i] = sWT[i];
-    if (o_sW >= 0) wsm[o_sW + i] = sW[i];
+  // the ring and dg start at zero: rows past the batch and k past S are
+  // never written
+  const int nzero = ns * slot_len + 8 * qs;
+  for (int i = j; i < nzero; i += blockDim.x) ring[i] = 0.0f;
+  if (KQ == 0 && stage) {
+    // ws[(k * S + ss) * 4 + qq] = sWT[ss][qq S + k]: the threads of a warp
+    // read neighbouring words
+    for (int i = j; i < 4 * S * KK; i += blockDim.x) {
+      const int qq = i & 3, ks = i >> 2;
+      const int k = ks / S, ss = ks - k * S;
+      ws[i] = k < S ? sWT[(size_t)ss * S4 + qq * S + k] : 0.0f;
+    }
   }
-  for (int i = j; i < 4 * S * BR; i += blockDim.x) qT[i] = 0.0f;
+  float w[KQ > 0 ? KQ : 1];
+  if constexpr (KQ > 0) {
+#pragma unroll
+    for (int k = 0; k < KQ; ++k)
+      w[k] = (own && k < S) ? __ldg(sWT + (size_t)s * S4 + q * S + k) : 0.0f;
+  }
   float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;
-  if (own_state) {
-    p0 = p[j];
-    p1 = p[S + j];
-    p2 = p[2 * S + j];
+  if (own) {
+    p0 = p[s];
+    p1 = p[S + s];
+    p2 = p[2 * S + s];
   }
-  // carried cotangents of state column j < S; dh is the part that does not
-  // go through dg . sW (masked steps pass dht straight through)
+  __syncthreads();
+
+  // scan step f of the backward (the forward's steps, last first): its time
+  // and the time of its c_prev (-1 at the forward scan's first step)
+  auto time_of = [&](int f) { return reverse ? f : T - 1 - f; };
+  auto prev_of = [&](int t) {
+    return reverse ? (t + 1 < T ? t + 1 : -1) : t - 1;
+  };
+  for (int f = 0; f < ns; ++f) {
+    if (f < T) {
+      const int t = time_of(f);
+      fetch_step<BR>(ring + f * slot_len, gates, c_out, g, mask, t,
+                     prev_of(t), B, b0, nrows, S, vec);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait_pending(ns - 1);   // the first step's slot has landed
+  __syncthreads();
+
+  // carried cotangents of column s (the same in its four threads)
   float dh[BR], dc[BR];
 #pragma unroll
   for (int r = 0; r < BR; ++r) dh[r] = dc[r] = 0.0f;
-  __syncthreads();
+  int cur = 0;
+#ifdef LSTM_BWD_CLOCKS
+  long long clk[8] = {0, 0, 0, 0, 0, 0, 0, 0}, stamp;
+  asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(stamp) : : "memory");
+  const long long start = stamp;
+#endif
+  for (int st = 0; st < T; ++st) {
+    const int t = time_of(st);
+    float* slot = ring + cur * slot_len;
+    float* dg = dgb + (st & 1) * 4 * qs;
+    const float* cns = slot + BR * 4 * S;
+    const float* cps = slot + BR * 5 * S;
+    const float* gs = slot + BR * 6 * S;
+    const int* ms = reinterpret_cast<const int*>(slot + BR * 7 * S);
 
-  for (int step = 0; step < T; ++step) {
-    // the forward scan's steps, last first
-    const int t = reverse ? step : T - 1 - step;
-    const bool has_prev = reverse ? t + 1 < T : t > 0;
-    const size_t row0 = (size_t)t * B + b0;
-    const size_t prow0 =
-        has_prev ? (size_t)(reverse ? t + 1 : t - 1) * B + b0 : 0;
-
-    // (A) this step's inputs; h_prev into shared memory; dh completed with
-    // the previous step's four quarters of dg . sW, in a fixed order
-    float xg[BR], cp[BR], gt[BR];
-    uint8_t valid[BR];
+    // (C) the cell backward of column s; thread q stores dg's quarter q
+    float pass[BR];            // what a masked step passes straight to dh
 #pragma unroll
-    for (int r = 0; r < BR; ++r) {
-      const bool in = b0 + r < B;
-      const bool col = in && own_state;
-      xg[r] = (in && own_gate) ? xp[(row0 + r) * S4 + j] : 0.0f;
-      cp[r] = (col && has_prev) ? c_out[(prow0 + r) * S + j] : 0.0f;
-      gt[r] = col ? g[(row0 + r) * S + j] : 0.0f;
-      valid[r] = col ? mask[row0 + r] : 0;
-      if (own_state) {
-        hT[j * BR + r] = (col && has_prev) ? h_out[(prow0 + r) * S + j]
-                                           : 0.0f;
-        const int e = j * BR + r, q = S * BR;
-        dh[r] += ((qT[e] + qT[q + e]) + qT[2 * q + e]) + qT[3 * q + e];
-      }
-    }
-    __syncthreads();
-
-    // (B) gate column j of xp + h_prev . sWT
-    if (own_gate) {
-      float acc[BR];
-      col_dot<BR>(acc, hT, sWT, wsm, o_sWT, S, S4, j);
-#pragma unroll
-      for (int r = 0; r < BR; ++r) gT[j * BR + r] = xg[r] + acc[r];
-    }
-    __syncthreads();
-
-    // (C) the cell of state column j, its dg (in place), dxp and dc
-    if (own_state) {
+    for (int r = 0; r < BR; ++r) pass[r] = 0.0f;
+    if (own) {
 #pragma unroll
       for (int r = 0; r < BR; ++r) {
-        float* g0p = gT + j * BR + r;
-        float* g1p = gT + (S + j) * BR + r;
-        float* g2p = gT + (2 * S + j) * BR + r;
-        float* g3p = gT + (3 * S + j) * BR + r;
-        const float c = cp[r];
-        const float f = sigmoid_f32(*g2p + c * p1);
-        const float i = sigmoid_f32(*g1p + c * p0);
-        const float u = tanhf(*g0p);
-        const float cn = c * f + u * i;
-        const float o = sigmoid_f32(*g3p + cn * p2);
-        const float tc = tanhf(cn);
-
-        const float dht = dh[r] + gt[r];
+        const float* gt = slot + r * S4 + s;
+        const float u = gt[0], i = gt[S], f = gt[2 * S], o = gt[3 * S];
+        const float tc = tanhf(cns[r * S + s]);
+        const float c = cps[r * S + s];
+        const bool valid = ms[r] != 0;
+        const float dht = dh[r] + gs[r * S + s];
         const float dct = dc[r];
-        const float dhe = valid[r] ? dht : 0.0f;
-        const float dce = valid[r] ? dct : 0.0f;
+        const float dhe = valid ? dht : 0.0f;
+        const float dce = valid ? dct : 0.0f;
         const float dg3 = dhe * tc * o * (1.0f - o);
         const float dcn = dce + dhe * o * (1.0f - tc * tc) + dg3 * p2;
         const float dg0 = dcn * i * (1.0f - u * u);
         const float dg1 = dcn * u * i * (1.0f - i);
         const float dg2 = dcn * c * f * (1.0f - f);
-        *g0p = dg0;
-        *g1p = dg1;
-        *g2p = dg2;
-        *g3p = dg3;
-        dc[r] = dcn * f + dg1 * p0 + dg2 * p1 + (valid[r] ? 0.0f : dct);
-        dh[r] = valid[r] ? 0.0f : dht;
-        if (b0 + r < B) {
-          float* out = dxp + (row0 + r) * S4;
-          out[j] = dg0;
-          out[S + j] = dg1;
-          out[2 * S + j] = dg2;
-          out[3 * S + j] = dg3;
-        }
+        dc[r] = dcn * f + dg1 * p0 + dg2 * p1 + (valid ? 0.0f : dct);
+        pass[r] = valid ? 0.0f : dht;
+        const float mine = q == 0 ? dg0 : q == 1 ? dg1 : q == 2 ? dg2 : dg3;
+        dg[q * qs + s * BR + r] = mine;
+        if (r < nrows)
+          dxp[((size_t)t * B + b0 + r) * S4 + q * S + s] = mine;
       }
     }
+    STEP_CLOCK(0);
+    // the next step's slot has landed; every thread has left this one
+    cp_async_wait_pending(ns - 2);
+    STEP_CLOCK(1);
     __syncthreads();
-
-    // (D) quarter q of dg . sW for state column s, j = q S + s
-    if (own_gate) {
-      const int q = j / S, s = j - q * S;
-      float acc[BR];
-      if (o_sW >= 0) {
-        col_dot<BR>(acc, gT + q * S * BR, nullptr, wsm, o_sW + q * S * S, S,
-                    S, s);
-      } else {
-        col_dot<BR>(acc, gT + q * S * BR, sW + (size_t)q * S * S, wsm, -1, S,
-                    S, s);
+    STEP_CLOCK(2);
+    {
+      const int f = st + ns;
+      if (f < T) {
+        const int tf = time_of(f);
+        fetch_step<BR>(slot, gates, c_out, g, mask, tf, prev_of(tf), B, b0,
+                       nrows, S, vec);
       }
+      STEP_CLOCK(3);
+      cp_async_commit();
+      cur = cur + 1 == ns ? 0 : cur + 1;
+    }
+    STEP_CLOCK(4);
+
+    // (D) quarter q of dg . sW for column s, then the four quarters joined
+    float acc[BR];
+    const float* v = dg + q * qs;
+    if constexpr (KQ > 0) {
+      dot_reg<BR, KQ>(acc, v, w);
+    } else if (stage) {
+      dot_col<BR>(acc, v, [&](int k) { return ws[(k * S + sw) * 4 + q]; },
+                 KK);
+    } else {
+      dot_col<BR>(acc, v,
+                 [&](int k) {
+                   return k < S ? __ldg(sWT + (size_t)sw * S4 + q * S + k)
+                                : 0.0f;
+                 },
+                 KK);
+    }
+    STEP_CLOCK(5);
+    // (a0 + a1) + (a2 + a3) in every thread of the four
 #pragma unroll
-      for (int r = 0; r < BR; ++r) qT[(q * S + s) * BR + r] = acc[r];
+    for (int r = 0; r < BR; ++r)
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 1);
+#pragma unroll
+    for (int r = 0; r < BR; ++r)
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 2);
+    if (own) {
+#pragma unroll
+      for (int r = 0; r < BR; ++r) dh[r] = acc[r] + pass[r];
     }
-    // the next step's (A) reads qT and writes hT only; its barrier orders
-    // (B) behind it, and nothing of this step reads hT any more
-    __syncthreads();
+    STEP_CLOCK(6);
+    // the next step's (C) writes the other dg buffer and reads its own
+    // slot, which landed before the barrier above
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#ifdef LSTM_BWD_CLOCKS
+  clk[7] = stamp - start;
+  if (blockIdx.x == 0 && (j & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) lstm_bwd_clocks[(j >> 5) * 8 + k] = clk[k];
+  }
+#endif
 }
 
-template <int BR>
-int kernel_max_threads() {
-  cudaFuncAttributes a;
-  if (cudaFuncGetAttributes(&a, lstm_bwd_kernel<BR>) != cudaSuccess) return 0;
-  return a.maxThreadsPerBlock;
-}
-
-int max_threads(int br) {
-  switch (br) {
-    case 1: return kernel_max_threads<1>();
-    case 2: return kernel_max_threads<2>();
-    case 4: return kernel_max_threads<4>();
-    default: return kernel_max_threads<8>();
-  }
-}
-
-template <int BR>
-int launch(const void* xp, const void* mask, const void* sWT, const void* sW,
-           const void* p, const void* g, const void* h_out,
-           const void* c_out, void* dxp, int T, int B, int S, int reverse,
-           int optin, int threads, cudaStream_t stream) {
-  const size_t f = sizeof(float);
-  size_t smem = 9 * (size_t)S * BR * f;
-  const size_t wbytes = 4 * (size_t)S * S * f;
-  const int bits[2] = {kStageSWT, kStageSW};
-  int stage = 0;
-  for (int b = 0; b < 2; ++b) {
-    if (smem + wbytes <= (size_t)optin) {
-      smem += wbytes;
-      stage |= bits[b];
-    }
-  }
+template <int BR, int KQ>
+int launch(const void* gates, const void* c_out, const void* g,
+           const void* mask, const void* sWT, const void* p, void* dxp,
+           int T, int B, int S, int reverse, int ns, int stage, int qs,
+           int smem, int threads, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lstm_bwd_kernel<BR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        lstm_bwd_kernel<BR, KQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (e != cudaSuccess) return (int)e;
   }
-  lstm_bwd_kernel<BR><<<(B + BR - 1) / BR, threads, smem, stream>>>(
-      (const float*)xp, (const uint8_t*)mask, (const float*)sWT,
-      (const float*)sW, (const float*)p, (const float*)g,
-      (const float*)h_out, (const float*)c_out, (float*)dxp, T, B, S,
-      reverse, stage);
+  const int vec = S % 4 == 0 && (uintptr_t)gates % 16 == 0 &&
+                  (uintptr_t)c_out % 16 == 0 && (uintptr_t)g % 16 == 0;
+  lstm_bwd_kernel<BR, KQ><<<(B + BR - 1) / BR, threads, smem, stream>>>(
+      (const float*)gates, (const float*)c_out, (const float*)g,
+      (const int*)mask, (const float*)sWT, (const float*)p, (float*)dxp, T,
+      B, S, reverse, ns, stage, qs, vec);
   return (int)cudaGetLastError();
+}
+
+template <int KQ>
+int by_rows(int br, const void* gates, const void* c_out, const void* g,
+            const void* mask, const void* sWT, const void* p, void* dxp,
+            int T, int B, int S, int reverse, int ns, int stage, int qs,
+            int smem, int threads, cudaStream_t s) {
+#define LSTM_BWD_LAUNCH(BR)                                                \
+  launch<BR, KQ>(gates, c_out, g, mask, sWT, p, dxp, T, B, S, reverse, ns, \
+                 stage, qs, smem, threads, s)
+  switch (br) {
+    case 1: return LSTM_BWD_LAUNCH(1);
+    case 2: return LSTM_BWD_LAUNCH(2);
+    case 4: return LSTM_BWD_LAUNCH(4);
+    case 8: return LSTM_BWD_LAUNCH(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LSTM_BWD_LAUNCH
 }
 
 }  // namespace
 
-extern "C" int lstm_bwd(const void* xp, const void* mask, const void* sWT,
-                        const void* sW, const void* p, const void* g,
-                        const void* h_out, const void* c_out, void* dxp,
-                        int T, int B, int S, int reverse, void* stream) {
-  int dev = 0, sms = 1, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  const int threads = (4 * S + 31) / 32 * 32;
-  // fewest rows per block that keep the batch in one wave over the SMs ...
-  int br = 1;
-  while (br < 8 && (B + br - 1) / br > sms) br *= 2;
-  // ... and no more than the block's registers allow
-  while (br > 1 && max_threads(br) < threads) br /= 2;
+// The launch plan comes from the caller (nn/fused_lstm.py::lstm_bwd_plan):
+// rows a block br (1, 2, 4, 8), the register floats kq (64, or 0), stage
+// (sWT in shared memory when not in registers), ring depth ns (2-4), the
+// quarter stride qs of dg, smem bytes and threads (4S rounded up to a
+// warp).  gates is the forward's (T, B, 4S) trace, mask (T, B) int32.
+extern "C" int lstm_bwd(const void* gates, const void* c_out, const void* g,
+                        const void* mask, const void* sWT, const void* p,
+                        void* dxp, int T, int B, int S, int reverse, int br,
+                        int kq, int stage, int ns, int qs, int smem,
+                        int threads, void* stream) {
+  if (ns < 2 || ns > 4 || threads < 4 * S || (kq > 0 && kq < S) ||
+      qs % 4 != 0)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (br) {
-    case 1:
-      return launch<1>(xp, mask, sWT, sW, p, g, h_out, c_out, dxp, T, B, S,
-                       reverse, optin, threads, s);
-    case 2:
-      return launch<2>(xp, mask, sWT, sW, p, g, h_out, c_out, dxp, T, B, S,
-                       reverse, optin, threads, s);
-    case 4:
-      return launch<4>(xp, mask, sWT, sW, p, g, h_out, c_out, dxp, T, B, S,
-                       reverse, optin, threads, s);
-    default:
-      return launch<8>(xp, mask, sWT, sW, p, g, h_out, c_out, dxp, T, B, S,
-                       reverse, optin, threads, s);
-  }
+  if (kq == 64)
+    return by_rows<64>(br, gates, c_out, g, mask, sWT, p, dxp, T, B, S,
+                       reverse, ns, stage, qs, smem, threads, s);
+  if (kq == 0)
+    return by_rows<0>(br, gates, c_out, g, mask, sWT, p, dxp, T, B, S,
+                      reverse, ns, stage, qs, smem, threads, s);
+  return (int)cudaErrorInvalidValue;
 }
+
+#ifdef LSTM_BWD_CLOCKS
+// copy the step-phase clocks of the last launch, [warp][8], to host
+// memory
+extern "C" int lstm_bwd_clocks_read(void* host) {
+  return (int)cudaMemcpyFromSymbol(host, lstm_bwd_clocks,
+                                   sizeof(lstm_bwd_clocks));
+}
+#endif

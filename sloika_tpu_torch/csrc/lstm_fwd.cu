@@ -16,7 +16,15 @@
 // `reverse` the scan runs from t = T-1 down to 0.  h_out is (T, B, S) f32;
 // the training variant also writes the cell trace c_out (T, B, S), which
 // only the backward pass reads, and the inference variant (_nocout) skips
-// that stream.  Both are one template, EMIT_C.
+// that stream.  Both are one template, EMIT_C.  Given a `gates` buffer the
+// training variant also writes the gate trace gates (T, B, 4S) = [u, i, f,
+// o] (u = tanh(g0), the activated candidate; i, f, o the activated gates),
+// which csrc/lstm_bwd.cu reads instead of recomputing the gates; tanh(c')
+// is not stored, the backward takes it from c_out.  The cell computes its
+// gates at masked steps too, from the carried (h, c), so every entry is
+// finite.  The gate stores sit behind a test of the pointer, uniform over
+// the block, and after the step's closing barrier: issued before it, they
+// held the barrier back.  The inference variant has neither stream.
 //
 // Design.  As csrc/gru_fwd.cu: one block owns BR batch rows and walks all
 // T steps, so the sequential dependency stays inside the block.  Thread j
@@ -37,33 +45,9 @@
 // memory while it fits beside the block's vectors (up to S ~ 118), else
 // read with __ldg through L1.  Threads are 4S, so S <= 256.  Sums are plain
 // f32 FMA: no TF32 and no fast-math (expf/tanhf are the accurate versions).
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "recurrence.cuh"
 
 namespace {
-
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// acc[r] += v[r] * w over the block's rows; v points into shared memory
-template <int BR>
-__device__ __forceinline__ void fma_rows(float (&acc)[BR], const float* v,
-                                         float w) {
-  if constexpr (BR % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < BR; i += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(v + i);
-      acc[i] = fmaf(a.x, w, acc[i]);
-      acc[i + 1] = fmaf(a.y, w, acc[i + 1]);
-      acc[i + 2] = fmaf(a.z, w, acc[i + 2]);
-      acc[i + 3] = fmaf(a.w, w, acc[i + 3]);
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < BR; ++r) acc[r] = fmaf(v[r], w, acc[r]);
-  }
-}
 
 template <int BR, bool EMIT_C>
 __global__ void lstm_fwd_kernel(const float* __restrict__ xp,
@@ -71,7 +55,8 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ xp,
                                 const float* __restrict__ sWT,
                                 const float* __restrict__ p,
                                 float* __restrict__ h_out,
-                                float* __restrict__ c_out, int T, int B,
+                                float* __restrict__ c_out,
+                                float* __restrict__ gates, int T, int B,
                                 int S, int reverse, int stage) {
   extern __shared__ float4 smem4[];
   float* hT = reinterpret_cast<float*>(smem4);   // [S][BR]   state h
@@ -145,6 +130,7 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ xp,
     __syncthreads();
 
     // cell update of state column j
+    float gu[BR], gi[BR], gf[BR], go[BR];   // the training variant's trace
     if (own_state) {
 #pragma unroll
       for (int r = 0; r < BR; ++r) {
@@ -168,16 +154,37 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ xp,
           h_out[(row0 + r) * S + j] = h;
           if constexpr (EMIT_C) c_out[(row0 + r) * S + j] = c[r];
         }
+        if constexpr (EMIT_C) {
+          gu[r] = u;
+          gi[r] = i;
+          gf[r] = f;
+          go[r] = o;
+        }
       }
     }
     __syncthreads();
+    if constexpr (EMIT_C) {
+      // the gate trace, stored after the barrier, off the step's path
+      if (gates != nullptr && own_state) {
+#pragma unroll
+        for (int r = 0; r < BR; ++r) {
+          if (b0 + r < B) {
+            float* gt = gates + (row0 + r) * S4;
+            gt[j] = gu[r];
+            gt[S + j] = gi[r];
+            gt[2 * S + j] = gf[r];
+            gt[3 * S + j] = go[r];
+          }
+        }
+      }
+    }
   }
 }
 
 template <int BR, bool EMIT_C>
 int launch(const void* xp, const void* mask, const void* sWT, const void* p,
-           void* h_out, void* c_out, int T, int B, int S, int reverse,
-           int optin, int threads, cudaStream_t stream) {
+           void* h_out, void* c_out, void* gates, int T, int B, int S,
+           int reverse, int optin, int threads, cudaStream_t stream) {
   const size_t base = 5 * (size_t)S * BR * sizeof(float);
   const size_t wbytes = (size_t)S * 4 * S * sizeof(float);
   const int stage = base + wbytes <= (size_t)optin;
@@ -190,7 +197,8 @@ int launch(const void* xp, const void* mask, const void* sWT, const void* p,
   }
   lstm_fwd_kernel<BR, EMIT_C><<<(B + BR - 1) / BR, threads, smem, stream>>>(
       (const float*)xp, (const uint8_t*)mask, (const float*)sWT,
-      (const float*)p, (float*)h_out, (float*)c_out, T, B, S, reverse, stage);
+      (const float*)p, (float*)h_out, (float*)c_out, (float*)gates, T, B, S,
+      reverse, stage);
   return (int)cudaGetLastError();
 }
 
@@ -204,8 +212,8 @@ int kernel_max_threads() {
 
 template <bool EMIT_C>
 int dispatch(const void* xp, const void* mask, const void* sWT,
-             const void* p, void* h_out, void* c_out, int T, int B, int S,
-             int reverse, cudaStream_t s) {
+             const void* p, void* h_out, void* c_out, void* gates, int T,
+             int B, int S, int reverse, cudaStream_t s) {
   int dev = 0, sms = 1, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -227,29 +235,33 @@ int dispatch(const void* xp, const void* mask, const void* sWT,
   while (br > 1 && !fits(br)) br /= 2;
   switch (br) {
     case 1:
-      return launch<1, EMIT_C>(xp, mask, sWT, p, h_out, c_out, T, B, S,
-                               reverse, optin, threads, s);
+      return launch<1, EMIT_C>(xp, mask, sWT, p, h_out, c_out, gates, T, B,
+                               S, reverse, optin, threads, s);
     case 2:
-      return launch<2, EMIT_C>(xp, mask, sWT, p, h_out, c_out, T, B, S,
-                               reverse, optin, threads, s);
+      return launch<2, EMIT_C>(xp, mask, sWT, p, h_out, c_out, gates, T, B,
+                               S, reverse, optin, threads, s);
     case 4:
-      return launch<4, EMIT_C>(xp, mask, sWT, p, h_out, c_out, T, B, S,
-                               reverse, optin, threads, s);
+      return launch<4, EMIT_C>(xp, mask, sWT, p, h_out, c_out, gates, T, B,
+                               S, reverse, optin, threads, s);
     default:
-      return launch<8, EMIT_C>(xp, mask, sWT, p, h_out, c_out, T, B, S,
-                               reverse, optin, threads, s);
+      return launch<8, EMIT_C>(xp, mask, sWT, p, h_out, c_out, gates, T, B,
+                               S, reverse, optin, threads, s);
   }
 }
 
 }  // namespace
 
-// c_out == nullptr selects the inference variant (no cell trace)
+// c_out == nullptr selects the inference variant (no cell trace, and gates
+// must be nullptr); gates == nullptr leaves out the gate trace
 extern "C" int lstm_fwd(const void* xp, const void* mask, const void* sWT,
-                        const void* p, void* h_out, void* c_out, int T,
-                        int B, int S, int reverse, void* stream) {
+                        const void* p, void* h_out, void* c_out, void* gates,
+                        int T, int B, int S, int reverse, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (c_out == nullptr)
-    return dispatch<false>(xp, mask, sWT, p, h_out, c_out, T, B, S, reverse,
-                           s);
-  return dispatch<true>(xp, mask, sWT, p, h_out, c_out, T, B, S, reverse, s);
+  if (c_out == nullptr) {
+    if (gates != nullptr) return (int)cudaErrorInvalidValue;
+    return dispatch<false>(xp, mask, sWT, p, h_out, c_out, gates, T, B, S,
+                           reverse, s);
+  }
+  return dispatch<true>(xp, mask, sWT, p, h_out, c_out, gates, T, B, S,
+                        reverse, s);
 }

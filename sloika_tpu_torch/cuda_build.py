@@ -3,11 +3,13 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``_build/lib<name>.so`` (a git-ignored directory inside
 the package) the first time a kernel of it is launched, then loaded with
-``ctypes``.  A library is rebuilt when its source is newer than it.  No
+``ctypes``.  A library is rebuilt when its source, or a shared header
+``csrc/*.cuh``, is newer than it.  No
 ``--use_fast_math``: the kernels' ``expf``/``tanhf``/``logf`` must be the
 accurate ones, the same that PyTorch's own CUDA ops call.
 """
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -43,12 +45,13 @@ def build_all(names):
     one ``nvcc`` per source, all started together; returns the libraries'
     paths.  Raises (after every compiler has finished) if one failed."""
     libs, running = [], []
+    headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
     for name in names:
         src = os.path.join(CSRC_DIR, name + ".cu")
         lib = os.path.join(BUILD_DIR, "lib{}.so".format(name))
         libs.append(lib)
-        if (os.path.exists(lib)
-                and os.path.getmtime(lib) >= os.path.getmtime(src)):
+        if (os.path.exists(lib) and os.path.getmtime(lib)
+                >= max(os.path.getmtime(f) for f in [src] + headers)):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = "{}.{}.tmp".format(lib, os.getpid())

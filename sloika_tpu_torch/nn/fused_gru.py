@@ -10,6 +10,11 @@ VJP kernel ``_bwd_kernel`` (driven by ``_pallas_scan_bwd``) with two:
 rows.  The input projection ``x @ iW.T + b`` stays a ``torch.matmul``
 outside the kernels, as the JAX package leaves it to XLA.
 
+Unlike the Pallas kernels, which recompute the gates in the backward, the
+forward's training variant (``emit_gates``) writes the gate trace
+``[z, r, hbar]`` (T, B, 3S) and the backward reads it (``gru_bwd.cu``
+says why); :class:`GruFunction` asks for it only when a gradient is needed.
+
 Contract (all versions): over ``xp`` (T, B, 3S) float32 and the recurrent
 weights ``sWT`` (S, 2S), ``sW2T`` (S, S)::
 
@@ -29,22 +34,29 @@ import torch
 from sloika_tpu_torch import cuda_build
 
 
-def gru_scan_plain(xp, sWT, sW2T, mask, reverse=False):
-    """The plain twin: a Python loop over time of eager torch ops."""
+def gru_scan_plain(xp, sWT, sW2T, mask, reverse=False, emit_gates=False):
+    """The plain twin: a Python loop over time of eager torch ops.
+
+    :returns: h (T, B, S), or (h, the gate trace [z, r, hbar] (T, B, 3S)
+        of every step, masked ones included) with ``emit_gates``
+    """
     T, B, S3 = xp.shape
     S = S3 // 3
     h = xp.new_zeros((B, S))
     out = xp.new_empty((T, B, S))
+    gates = xp.new_empty((T, B, S3)) if emit_gates else None
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         lp = xp[t]
         vT = lp[:, :2 * S] + h @ sWT
         z = torch.sigmoid(vT[:, :S])
         r = torch.sigmoid(vT[:, S:])
         hbar = torch.tanh(lp[:, 2 * S:] + (r * h) @ sW2T)
+        if emit_gates:
+            gates[t] = torch.cat([z, r, hbar], dim=1)
         new = z * h + (1 - z) * hbar
         h = torch.where(mask[t][:, None], new, h)
         out[t] = h
-    return out
+    return (out, gates) if emit_gates else out
 
 
 def h_prev_of(h_out, reverse):
@@ -83,6 +95,48 @@ def gru_scan_bwd_plain(xp, sWT, sW2T, mask, reverse, g, h_out):
 
         dht = dh + g[t]
         # masked steps copied h through: gradients flow straight to h_{t-1}
+        dh_eff = torch.where(m, dht, torch.zeros_like(dht))
+        dz = dh_eff * (hp - hbar) * z * (1 - z)
+        dhbar = dh_eff * (1 - z)
+        da = dhbar * (1 - hbar * hbar)
+        drh = da @ sW2
+        dr = drh * hp * r * (1 - r)
+        dvT = torch.cat([dz, dr], dim=1)
+        dh_prev = dh_eff * z + drh * r + dvT @ sW
+        dh_prev = dh_prev + torch.where(m, torch.zeros_like(dht), dht)
+
+        d = torch.cat([dvT, da], dim=1)
+        dxp[t] = torch.where(m, d, torch.zeros_like(d))
+        dsWT += hp.t() @ dvT
+        dsW2T += rh.t() @ da
+        dh = dh_prev
+    return dxp, dsWT, dsW2T
+
+
+def gru_scan_bwd_gates_plain(gates, sWT, sW2T, mask, reverse, g, h_out):
+    """The plain twin of ``gru_bwd.cu`` with ``gru_wgrad``: the backward of
+    :func:`gru_scan_bwd_plain` from the forward's gate trace instead of a
+    recompute (the same arithmetic in the same order).
+
+    :param gates: (T, B, 3S) ``[z, r, hbar]`` from ``gru_scan_plain(...,
+        emit_gates=True)`` or the kernel's training variant
+    :returns: (dxp (T, B, 3S), dsWT (S, 2S), dsW2T (S, S))
+    """
+    T, B, S3 = gates.shape
+    S = S3 // 3
+    h_prev = h_prev_of(h_out, reverse)
+    sW, sW2 = sWT.t(), sW2T.t()
+    dh = gates.new_zeros((B, S))
+    dxp = gates.new_empty((T, B, S3))
+    dsWT = gates.new_zeros((S, 2 * S))
+    dsW2T = gates.new_zeros((S, S))
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        z, r, hbar = gates[t].split(S, dim=1)
+        hp = h_prev[t]
+        m = mask[t][:, None]
+        rh = r * hp
+
+        dht = dh + g[t]
         dh_eff = torch.where(m, dht, torch.zeros_like(dht))
         dz = dh_eff * (hp - hbar) * z * (1 - z)
         dhbar = dh_eff * (1 - z)
@@ -142,6 +196,15 @@ def _round(n, m):
     return -(-n // m) * m
 
 
+def _rows_a_block(B, sms):
+    """The fewest of 1, 2, 4, 8 rows a block that fit the batch in one wave
+    over ``sms`` SMs (8 past 8 * sms rows)."""
+    br = 1
+    while br < 8 and -(-B // br) > sms:
+        br *= 2
+    return br
+
+
 def gru_fwd_plan(B, S, sms=H100_SMS, optin=SMEM_OPTIN):
     """The launch plan of ``gru_fwd.cu`` for a batch of B rows of width S.
 
@@ -155,9 +218,7 @@ def gru_fwd_plan(B, S, sms=H100_SMS, optin=SMEM_OPTIN):
 
     :returns: dict of br, mode, kr, kh2, ns, stage1, smem (bytes), threads
     """
-    br = 1
-    while br < 8 and -(-B // br) > sms:
-        br *= 2
+    br = _rows_a_block(B, sms)
     threads = _round(2 * S, 32)
     slot = _round(br * 3 * S + br, 4)
 
@@ -186,6 +247,62 @@ def gru_fwd_plan(B, S, sms=H100_SMS, optin=SMEM_OPTIN):
                             "ns": ns, "stage1": stage1, "smem": nbytes,
                             "threads": threads}
     raise ValueError("GRU size {} does not fit the forward kernel".format(S))
+
+
+#: the backward kernel's register modes (``csrc/gru_bwd.cu``): (largest S,
+#: ka, kb, largest rows a block), in order of preference.  A thread holds
+#: ka floats of its first product's row (sW2T's or sWT's row c) and kb of a
+#: half of its second's (sWT's row c, from S); ka = 0: the first product's
+#: weights are staged in shared memory instead
+BWD_REGISTER_MODES = ((96, 96, 48, 8), (112, 112, 56, 8), (144, 0, 72, 8))
+#: below this width the backward stages both products' weights: "smem"
+BWD_REGISTER_MIN_S = 73
+#: threads a block of the backward's staged and global modes
+#: (``__launch_bounds__`` in ``gru_bwd.cu``)
+BWD_STAGED_THREADS = 512
+
+
+def gru_bwd_plan(B, S, sms=H100_SMS, optin=SMEM_OPTIN):
+    """The launch plan of ``gru_bwd.cu`` for a batch of B rows of width S.
+
+    Rows a block ``br`` as :func:`gru_fwd_plan`.  Then the first of these
+    that fits ``optin`` bytes of shared memory with a ring ``ns`` of 4 step
+    slots, else 3, else 2: from BWD_REGISTER_MIN_S, the first mode of
+    BWD_REGISTER_MODES that holds S at this ``br`` ("registers" with both
+    products' weights in registers, "mixed" with the second's); both
+    products' weights staged ("smem", stage bits 3); the first's staged and
+    the second's from global memory; both from global memory ("global").
+
+    :returns: dict of br, mode, ka, kb, stage, ns, smem (bytes), threads
+    """
+    br = _rows_a_block(B, sms)
+    threads = _round(2 * S, 32)
+    slot = _round(br * 5 * S + br, 4)
+
+    def smem(ka, kb, stage, ns):
+        kd = ka or _round(S, 4)
+        kh = kb or _round((S + 1) // 2, 4)
+        floats = (ns * slot + 2 * kd * br + 2 * kh * br
+                  + (2 * S * kd if not ka and stage & 1 else 0)
+                  + (2 * S * kh if not kb and stage & 2 else 0))
+        return 4 * floats
+
+    choices = []
+    if S >= BWD_REGISTER_MIN_S:
+        choices += [("registers" if ka else "mixed", ka, kb, 0 if ka else 1)
+                    for s_max, ka, kb, br_max in BWD_REGISTER_MODES
+                    if S <= s_max and S <= 2 * kb and br <= br_max]
+    if threads <= BWD_STAGED_THREADS:
+        choices += [("smem", 0, 0, 3), ("global", 0, 0, 1),
+                    ("global", 0, 0, 0)]
+    for mode, ka, kb, stage in choices:
+        for ns in (4, 3, 2):
+            nbytes = smem(ka, kb, stage, ns)
+            if nbytes <= optin:
+                return {"br": br, "mode": mode, "ka": ka, "kb": kb,
+                        "stage": stage, "ns": ns, "smem": nbytes,
+                        "threads": threads}
+    raise ValueError("GRU size {} does not fit the backward kernel".format(S))
 
 
 #: threads a block of ``gru_wgrad.cu`` at most, and its copy-ring stages
@@ -248,23 +365,32 @@ class GruForward:
     :func:`gru_scan_plain` for CPU tensors.  ``launches`` counts kernel
     launches."""
 
-    _ARGTYPES = {"gru_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
+    _ARGTYPES = {"gru_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
                  + [ctypes.c_void_p]}
 
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, xp, sWT, sW2T, mask=None, reverse=False):
-        """:param mask: optional (T, B) bool valid-step mask"""
+    def __call__(self, xp, sWT, sW2T, mask=None, reverse=False,
+                 emit_gates=False):
+        """:param mask: optional (T, B) bool valid-step mask
+        :param emit_gates: run the training variant, which also writes the
+            gate trace that :data:`gru_backward` reads
+        :returns: h (T, B, S), or (h, gates (T, B, 3S)) with ``emit_gates``
+        """
         T, B, S3 = xp.shape
         if mask is None:
             mask = torch.ones((T, B), dtype=torch.bool, device=xp.device)
         if xp.device.type == "cpu":
-            return gru_scan_plain(xp, sWT, sW2T, mask.bool(), reverse)
+            return gru_scan_plain(xp, sWT, sW2T, mask.bool(), reverse,
+                                  emit_gates)
         T, B, S = _check_gru_shapes(xp, sWT, sW2T, mask, 512)
         out = torch.empty((T, B, S), dtype=torch.float32, device=xp.device)
+        gates = (torch.empty((T, B, 3 * S), dtype=torch.float32,
+                             device=xp.device) if emit_gates else None)
+        result = (out, gates) if emit_gates else out
         if T == 0 or B == 0:
-            return out
+            return result
         # int32 mask words: they ride in the kernel's copy ring
         mask32 = mask.to(torch.int32).contiguous()
         props = torch.cuda.get_device_properties(xp.device)
@@ -275,7 +401,9 @@ class GruForward:
         with torch.cuda.device(xp.device):
             err = lib.gru_fwd(xp.data_ptr(), mask32.data_ptr(),
                               sWT.data_ptr(), sW2T.data_ptr(),
-                              out.data_ptr(), T, B, S, int(bool(reverse)),
+                              out.data_ptr(),
+                              gates.data_ptr() if emit_gates else None,
+                              T, B, S, int(bool(reverse)),
                               plan["br"], FWD_MODES.index(plan["mode"]),
                               plan["kr"], plan["kh2"], plan["ns"],
                               int(plan["stage1"]), plan["smem"],
@@ -283,7 +411,7 @@ class GruForward:
                               torch.cuda.current_stream().cuda_stream)
         cuda_build.check(err, "gru_fwd")
         self.launches += 1
-        return out
+        return result
 
 
 class GruWgrad:
@@ -336,53 +464,58 @@ class GruWgrad:
 class GruBackward:
     """The GRU VJP; replaces the Pallas TPU kernel
     ``sloika_tpu/nn/pallas_gru.py::_bwd_kernel`` with ``csrc/gru_bwd.cu``
-    (the reverse-time recurrence, which also writes ``r * h_prev``) followed
-    by :data:`gru_wgrad`.
+    (the reverse-time recurrence from the forward's gate trace, which also
+    writes ``r * h_prev``) followed by :data:`gru_wgrad`.
 
-    Runs :func:`gru_scan_bwd_plain` for CPU tensors.  ``launches`` counts
-    launches of ``gru_bwd``; ``gru_wgrad`` counts its own."""
+    Runs :func:`gru_scan_bwd_gates_plain` for CPU tensors.  ``launches``
+    counts launches of ``gru_bwd``; ``gru_wgrad`` counts its own."""
 
-    _ARGTYPES = {"gru_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+    _ARGTYPES = {"gru_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                  + [ctypes.c_void_p]}
 
     def __init__(self):
         self.launches = 0
 
-    def recurrence(self, xp, sWT, sW2T, mask, reverse, g, h_out):
+    def recurrence(self, gates, sWT, sW2T, mask, reverse, g, h_out):
         """The ``gru_bwd`` kernel alone (CUDA tensors only).
 
+        :param gates: (T, B, 3S) gate trace of the forward's training variant
         :returns: (dxp (T, B, 3S), rh (T, B, S))
         """
-        T, B, S = _check_gru_shapes(xp, sWT, sW2T, mask, 256)
-        dev = xp.device
+        T, B, S = _check_gru_shapes(gates, sWT, sW2T, mask, 256)
+        dev = gates.device
         cuda_build.check_tensor(g, (T, B, S), torch.float32, dev, "g")
         cuda_build.check_tensor(h_out, (T, B, S), torch.float32, dev, "h_out")
         dxp = torch.empty((T, B, 3 * S), dtype=torch.float32, device=dev)
         rh = torch.empty((T, B, S), dtype=torch.float32, device=dev)
         if T == 0 or B == 0:
             return dxp, rh
-        mask8 = mask.to(torch.uint8).contiguous()
-        # the kernel reads both layouts of each weight (see gru_bwd.cu)
-        sW = sWT.t().contiguous()
-        sW2 = sW2T.t().contiguous()
+        # int32 mask words: they ride in the kernel's copy ring
+        mask32 = mask.to(torch.int32).contiguous()
+        props = torch.cuda.get_device_properties(dev)
+        plan = gru_bwd_plan(B, S, props.multi_processor_count,
+                            getattr(props, "shared_memory_per_block_optin",
+                                    SMEM_OPTIN))
         lib = cuda_build.load("gru_bwd", self._ARGTYPES)
         with torch.cuda.device(dev):
-            err = lib.gru_bwd(xp.data_ptr(), mask8.data_ptr(),
-                              sWT.data_ptr(), sW2T.data_ptr(), sW.data_ptr(),
-                              sW2.data_ptr(), g.data_ptr(), h_out.data_ptr(),
+            err = lib.gru_bwd(gates.data_ptr(), h_out.data_ptr(),
+                              g.data_ptr(), mask32.data_ptr(),
+                              sWT.data_ptr(), sW2T.data_ptr(),
                               dxp.data_ptr(), rh.data_ptr(),
-                              T, B, S, int(bool(reverse)),
+                              T, B, S, int(bool(reverse)), plan["br"],
+                              plan["ka"], plan["kb"], plan["stage"],
+                              plan["ns"], plan["smem"], plan["threads"],
                               torch.cuda.current_stream().cuda_stream)
         cuda_build.check(err, "gru_bwd")
         self.launches += 1
         return dxp, rh
 
-    def __call__(self, xp, sWT, sW2T, mask, reverse, g, h_out):
+    def __call__(self, gates, sWT, sW2T, mask, reverse, g, h_out):
         """:returns: (dxp (T, B, 3S), dsWT (S, 2S), dsW2T (S, S))"""
-        if xp.device.type == "cpu":
-            return gru_scan_bwd_plain(xp, sWT, sW2T, mask.bool(), reverse, g,
-                                      h_out)
-        dxp, rh = self.recurrence(xp, sWT, sW2T, mask, reverse, g, h_out)
+        if gates.device.type == "cpu":
+            return gru_scan_bwd_gates_plain(gates, sWT, sW2T, mask.bool(),
+                                            reverse, g, h_out)
+        dxp, rh = self.recurrence(gates, sWT, sW2T, mask, reverse, g, h_out)
         dsWT, dsW2T = gru_wgrad(h_out, rh, dxp, reverse)
         return dxp, dsWT, dsW2T
 
@@ -397,22 +530,30 @@ gru_backward = GruBackward()
 
 class GruFunction(torch.autograd.Function):
     """The GRU recurrence under autograd (cf. the ``jax.custom_vjp``
-    ``pallas_gru.gru_fused``): the forward is :data:`gru_forward` and saves
-    the residuals of ``_fwd`` (:289-291); the backward is
-    :data:`gru_backward`.
+    ``pallas_gru.gru_fused``): the forward is :data:`gru_forward`, whose
+    training variant saves the gate trace in place of ``_fwd``'s ``xp``
+    (:289-291); the backward is :data:`gru_backward`.
 
-    ``apply(xp, sWT, sW2T, mask, reverse)`` with a (T, B) bool ``mask``."""
+    ``apply(xp, sWT, sW2T, mask, reverse)`` with a (T, B) bool ``mask``.
+    The gate trace is written only when a gradient is needed: under
+    ``no_grad``, ``inference_mode`` and on the basecall and remap paths the
+    inference variant runs and nothing is saved."""
 
     @staticmethod
     def forward(ctx, xp, sWT, sW2T, mask, reverse):
-        h_out = gru_forward(xp, sWT, sW2T, mask=mask, reverse=reverse)
-        ctx.save_for_backward(xp, mask, sWT, sW2T, h_out)
+        # grad mode is off inside Function.forward: ask autograd instead
+        if not any(ctx.needs_input_grad[:3]):
+            return gru_forward(xp, sWT, sW2T, mask=mask, reverse=reverse,
+                               emit_gates=False)
+        h_out, gates = gru_forward(xp, sWT, sW2T, mask=mask, reverse=reverse,
+                                   emit_gates=True)
+        ctx.save_for_backward(gates, mask, sWT, sW2T, h_out)
         ctx.reverse = reverse
         return h_out
 
     @staticmethod
     def backward(ctx, g):
-        xp, mask, sWT, sW2T, h_out = ctx.saved_tensors
-        dxp, dsWT, dsW2T = gru_backward(xp, sWT, sW2T, mask, ctx.reverse,
+        gates, mask, sWT, sW2T, h_out = ctx.saved_tensors
+        dxp, dsWT, dsW2T = gru_backward(gates, sWT, sW2T, mask, ctx.reverse,
                                         g.contiguous(), h_out)
         return dxp, dsWT, dsW2T, None, None

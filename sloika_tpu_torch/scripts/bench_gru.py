@@ -1,5 +1,4 @@
-"""Time the GRU forward and weight-cotangent kernels on the card at the
-main paths' shapes::
+"""Time the GRU kernels on the card at the main paths' shapes::
 
     python -m sloika_tpu_torch.scripts.bench_gru [shape ...]
 
@@ -9,13 +8,15 @@ batch; ``basecall112`` and ``basecall144`` (3277, 64, 112/144), a batch of
 (3277, 1024, 144), ``bench.py``'s batch of 1,024 windows; ``remap``
 (35429, 64, 144), the remap path's longest bucket.  Lengths are ragged
 (T/2 to T, the first row T long), the inputs drawn on the card from a
-seed.  ``gru_wgrad`` is timed at ``train`` beside the einsum pair of its
-twin.  Times are the best of 3 rounds of back-to-back calls by CUDA events.
+seed.  At ``train`` it also times the forward's training variant (which
+writes the gate trace), ``gru_bwd`` (the backward recurrence, from that
+trace) and ``gru_wgrad`` beside the einsum pair of its twin.  Times are
+the best of 3 rounds of back-to-back calls by CUDA events.
 
-It uses only the wrappers' public names, so it also times another tree's
-kernels, e.g. a parent commit unpacked with ``git archive``::
+Another tree's kernels, e.g. a parent commit unpacked with ``git
+archive``, are timed by that tree's own copy of this script::
 
-    PYTHONPATH=<tree> python sloika_tpu_torch/scripts/bench_gru.py
+    PYTHONPATH=<tree> python <tree>/sloika_tpu_torch/scripts/bench_gru.py
 
 Prints one JSON line: the card and its power limit, the tree timed, and
 the times.
@@ -51,8 +52,8 @@ def main(argv=None):
         raise RuntimeError("bench_gru needs a CUDA device")
     import sloika_tpu_torch
     from sloika_tpu_torch import config
-    from sloika_tpu_torch.nn.fused_gru import (gru_forward, gru_wgrad,
-                                               gru_wgrad_plain)
+    from sloika_tpu_torch.nn.fused_gru import (gru_backward, gru_forward,
+                                               gru_wgrad, gru_wgrad_plain)
     from sloika_tpu_torch.scripts import cuda_ms
     config.disable_tf32()
     dev = torch.device("cuda")
@@ -72,7 +73,16 @@ def main(argv=None):
         torch.cuda.empty_cache()
     T, B, S = SHAPES["train"]
     xp, sWT, sW2T, mask = inputs(T, B, S, dev, seed=1)
-    h_out = gru_forward(xp, sWT, sW2T, mask=mask)
+    g = torch.randn((T, B, S), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    train = lambda: gru_forward(xp, sWT, sW2T, mask=mask, emit_gates=True)
+    h_out, gates = train()
+    result["gru_fwd_train"] = {"T": T, "B": B, "S": S,
+                               "ms": cuda_ms(train, 3, 3)}
+    ms = cuda_ms(lambda: gru_backward.recurrence(gates, sWT, sW2T, mask,
+                                                 False, g, h_out), 3, 3)
+    result["gru_bwd"] = {"T": T, "B": B, "S": S, "ms": ms,
+                         "us_per_step": 1e3 * ms / T}
     gen = torch.Generator(device=dev).manual_seed(2)
     rh = torch.randn((T, B, S), generator=gen, device=dev)
     dxp = torch.randn((T, B, 3 * S), generator=gen, device=dev) \

@@ -9,6 +9,9 @@
 (b) ``GruFunction`` on the CPU against autograd through the plain forward
     twin ``gru_scan_plain``: the same math differentiated two ways, at atol
     1e-5.
+(c) The twin of the kernels' design, ``gru_scan_bwd_gates_plain`` from the
+    forward twin's gate trace, against the same Pallas VJP on a mask with
+    interior holes and a row masked throughout, at atol 1e-5.
 The einsum twin of ``gru_wgrad.cu`` is held against (a)'s per-step sums.
 """
 import jax.numpy as jnp
@@ -17,9 +20,10 @@ import pytest
 import torch
 
 from sloika_tpu.nn import pallas_gru
-from sloika_tpu_torch.nn.fused_gru import (GruFunction, gru_scan_bwd_plain,
-                                           gru_scan_plain, gru_wgrad_plain,
-                                           h_prev_of)
+from sloika_tpu_torch.nn.fused_gru import (GruFunction,
+                                           gru_scan_bwd_gates_plain,
+                                           gru_scan_bwd_plain, gru_scan_plain,
+                                           gru_wgrad_plain, h_prev_of)
 
 ATOL = 1e-5
 
@@ -57,6 +61,28 @@ def test_bwd_twin_matches_pallas_bwd_kernel(S, reverse):
     assert np.max(np.abs(dsWT.numpy() - rdsWT)) <= ATOL
     assert np.max(np.abs(dsW2T.numpy() - rdsW2T)) <= ATOL
     # masked steps get zero dxp, as in the Pallas kernel
+    assert not dxp.numpy()[~mask].any()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gates_bwd_twin_matches_pallas_bwd_kernel(reverse):
+    xp, sWT, sW2T, mask, g = _case(8, seed=5)
+    rs = np.random.RandomState(6)
+    mask = mask & (rs.uniform(size=mask.shape) < 0.8)
+    mask[:, -1] = False
+    txp, tsWT, tsW2T, tmask, tg = _torch(xp, sWT, sW2T, mask, g)
+    h_out, gates = gru_scan_plain(txp, tsWT, tsW2T, tmask, reverse,
+                                  emit_gates=True)
+    dxp, dsWT, dsW2T = gru_scan_bwd_gates_plain(gates, tsWT, tsW2T, tmask,
+                                                reverse, tg, h_out)
+    ref = pallas_gru._pallas_scan_bwd(
+        jnp.asarray(xp), jnp.asarray(mask.astype(np.int8)), jnp.asarray(sWT),
+        jnp.asarray(sW2T), reverse, jnp.asarray(g),
+        jnp.asarray(h_out.numpy()), None)
+    rdxp, rdsWT, rdsW2T = (np.asarray(a) for a in ref)
+    assert np.max(np.abs(dxp.numpy() - rdxp) * mask[:, :, None]) <= ATOL
+    assert np.max(np.abs(dsWT.numpy() - rdsWT)) <= ATOL
+    assert np.max(np.abs(dsW2T.numpy() - rdsW2T)) <= ATOL
     assert not dxp.numpy()[~mask].any()
 
 

@@ -16,9 +16,10 @@ from sloika_tpu_torch import basecall as tbc
 from sloika_tpu_torch import models as tmodels
 from sloika_tpu_torch import nn as tnn
 from sloika_tpu_torch.nn.fused_gru import (
-    FWD_STAGED_THREADS, H100_SMS, SMEM_OPTIN, gru_backward,
-    gru_forward, gru_fwd_plan, gru_scan_bwd_plain, gru_scan_plain, gru_wgrad,
-    gru_wgrad_plain, gru_wgrad_plan)
+    BWD_STAGED_THREADS, FWD_STAGED_THREADS, H100_SMS, SMEM_OPTIN, GruFunction,
+    gru_backward, gru_bwd_plan, gru_forward, gru_fwd_plan,
+    gru_scan_bwd_gates_plain, gru_scan_bwd_plain, gru_scan_plain, gru_wgrad,
+    gru_wgrad_plain, gru_wgrad_plan, h_prev_of)
 from sloika_tpu_torch.ops import decode, viterbi_kernel
 
 #: GRU backward kernels against the twin: max|kernel - twin| / max|twin|
@@ -79,13 +80,62 @@ def test_gru_cpu_dispatch_is_the_plain_twin():
 def test_gru_backward_cpu_dispatch_is_the_plain_twin():
     xp, sWT, sW2T, mask = _gru_inputs(9, 3, 8)
     g = _cotangent(9, 3, 8)
-    before = (gru_backward.launches, gru_wgrad.launches)
+    before = (gru_forward.launches, gru_backward.launches,
+              gru_wgrad.launches)
     for reverse in (False, True):
-        h_out = gru_scan_plain(xp, sWT, sW2T, mask, reverse)
-        got = gru_backward(xp, sWT, sW2T, mask, reverse, g, h_out)
-        ref = gru_scan_bwd_plain(xp, sWT, sW2T, mask, reverse, g, h_out)
+        h_out, gates = gru_forward(xp, sWT, sW2T, mask=mask, reverse=reverse,
+                                   emit_gates=True)
+        assert torch.equal(h_out, gru_scan_plain(xp, sWT, sW2T, mask,
+                                                 reverse))
+        got = gru_backward(gates, sWT, sW2T, mask, reverse, g, h_out)
+        ref = gru_scan_bwd_gates_plain(gates, sWT, sW2T, mask, reverse, g,
+                                       h_out)
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    assert (gru_backward.launches, gru_wgrad.launches) == before
+    assert (gru_forward.launches, gru_backward.launches,
+            gru_wgrad.launches) == before
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("S", [8, 24])
+def test_gru_gate_trace_twins_match_the_recompute_twin(S, reverse):
+    """The gate trace of the plain forward, and the plain backward from it,
+    give the recompute twin's results (held to the Pallas VJP in
+    ``tests/test_torch_gru_bwd.py``) on holed masks with a row masked
+    throughout: the same arithmetic in the same order."""
+    T, B = 17, 5
+    xp, sWT, sW2T, mask = _gru_inputs(T, B, S, seed=S)
+    mask = _holes(mask)
+    g = _cotangent(T, B, S)
+    h_out, gates = gru_scan_plain(xp, sWT, sW2T, mask, reverse,
+                                  emit_gates=True)
+    assert torch.equal(h_out, gru_scan_plain(xp, sWT, sW2T, mask, reverse))
+    assert torch.isfinite(gates).all()
+    got = gru_scan_bwd_gates_plain(gates, sWT, sW2T, mask, reverse, g, h_out)
+    ref = gru_scan_bwd_plain(xp, sWT, sW2T, mask, reverse, g, h_out)
+    for a, b in zip(got, ref):
+        assert _rel_err(a, b) <= 1e-6
+    assert not got[0][~mask].any()
+
+
+def test_gru_function_emits_the_gate_trace_only_for_gradients(monkeypatch):
+    """Outside autograd the inference variant runs and nothing is saved."""
+    xp, sWT, sW2T, mask = _gru_inputs(7, 2, 4)
+    seen = []
+    real = gru_forward.__call__
+
+    def spy(*a, **k):
+        seen.append(k["emit_gates"])
+        return real(*a, **k)
+
+    monkeypatch.setattr(type(gru_forward), "__call__",
+                        lambda self, *a, **k: spy(*a, **k))
+    with torch.no_grad():
+        GruFunction.apply(xp, sWT, sW2T, mask, False)
+    with torch.inference_mode():
+        GruFunction.apply(xp, sWT, sW2T, mask, False)
+    out = GruFunction.apply(xp.requires_grad_(), sWT, sW2T, mask, False)
+    assert seen == [False, False, True]
+    assert type(out.grad_fn).__name__ == "GruFunctionBackward"
 
 
 def test_gru_launch_plans_at_the_main_paths_shapes():
@@ -129,6 +179,42 @@ def test_gru_fwd_plan_fits_every_width(B, S):
                             else "global")
 
 
+def test_gru_bwd_plan_at_the_main_paths_shapes():
+    """The backward's plans: the training path's S = 96 and the basecall
+    width S = 112 hold both products' weights in registers, S = 144 the
+    second's (the first's staged), each with a ring of 4 step slots (inputs
+    fetched two or more steps ahead); a batch past 4 x 132 rows takes 8 rows
+    a block."""
+    mode = lambda p: (p["br"], p["mode"], p["ka"], p["kb"], p["stage"])
+    train = gru_bwd_plan(100, 96)
+    assert mode(train) == (1, "registers", 96, 48, 0) and train["ns"] == 4
+    assert train["threads"] == 192
+    assert mode(gru_bwd_plan(64, 112)) == (1, "registers", 112, 56, 0)
+    assert mode(gru_bwd_plan(64, 144)) == (1, "mixed", 0, 72, 1)
+    assert mode(gru_bwd_plan(100, 64)) == (1, "smem", 0, 0, 3)
+    assert mode(gru_bwd_plan(1024, 96)) == (8, "registers", 96, 48, 0)
+    assert gru_bwd_plan(100, 96) == train            # shapes alone
+
+
+@pytest.mark.parametrize("S", [1, 8, 64, 72, 73, 96, 112, 113, 136, 144,
+                               145, 200, 256])
+@pytest.mark.parametrize("B", [1, 100, 1024])
+def test_gru_bwd_plan_fits_every_width(B, S):
+    plan = gru_bwd_plan(B, S)
+    assert plan["smem"] <= SMEM_OPTIN and plan["threads"] >= 2 * S
+    assert plan["threads"] % 32 == 0 and plan["threads"] <= 1024
+    assert -(-B // plan["br"]) <= H100_SMS or plan["br"] == 8
+    assert 2 <= plan["ns"] <= 4
+    if plan["ka"]:
+        assert S <= plan["ka"] and plan["mode"] == "registers"
+    if plan["kb"]:
+        assert S <= 2 * plan["kb"] and plan["kb"] in (48, 56, 72)
+    else:
+        assert plan["threads"] <= BWD_STAGED_THREADS
+    assert plan["mode"] == ("smem" if S < 73 else "registers" if S <= 112
+                            else "mixed" if S <= 144 else "global")
+
+
 @pytest.mark.parametrize("T,B,S", [(0, 4, 96), (1, 1, 8), (211, 19, 8),
                                    (37, 1100, 256), (3277, 64, 144)])
 def test_gru_wgrad_plan_covers_the_rows(T, B, S):
@@ -167,7 +253,7 @@ def _holes(mask, seed=4):
     masked throughout."""
     rs = np.random.RandomState(seed)
     holes = torch.from_numpy(rs.uniform(size=tuple(mask.shape)) < 0.85)
-    mask = mask & holes
+    mask = mask & holes.to(mask.device)
     if mask.shape[1] > 1:
         mask[:, -1] = False
     return mask
@@ -201,27 +287,40 @@ def test_gru_kernel_rejects_bad_inputs(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S", [8, 96, 144, 256])
+@pytest.mark.parametrize("S", [8, 64, 96, 112, 144, 256])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_gru_backward_kernels_match_twin(cuda_device, S, reverse):
+    """Every mode of the backward (S = 8, 64 staged; 96, 112 registers; 144
+    mixed; 256 global) on holed masks with a row masked throughout: the
+    forward's gate trace against its twin, then the backward from it
+    against the recompute twin."""
     T, B = 211, 19          # N = 4,009 rows: not a multiple of a slice
     xp, sWT, sW2T, mask = [a.to(cuda_device) for a in _gru_inputs(T, B, S)]
+    mask = _holes(mask)
     g = _cotangent(T, B, S).to(cuda_device)
-    h_out = gru_forward(xp, sWT, sW2T, mask=mask, reverse=reverse)
+    h_out, gates = gru_forward(xp, sWT, sW2T, mask=mask, reverse=reverse,
+                               emit_gates=True)
+    assert torch.equal(h_out, gru_forward(xp, sWT, sW2T, mask=mask,
+                                          reverse=reverse))
+    _, gref = gru_scan_plain(xp, sWT, sW2T, mask, reverse, emit_gates=True)
+    assert float((gates - gref).abs().max()) <= 1e-4
     before = (gru_backward.launches, gru_wgrad.launches)
-    got = gru_backward(xp, sWT, sW2T, mask, reverse, g, h_out)
+    got = gru_backward(gates, sWT, sW2T, mask, reverse, g, h_out)
     assert (gru_backward.launches, gru_wgrad.launches) == (
         before[0] + 1, before[1] + 1)
     ref = gru_scan_bwd_plain(xp, sWT, sW2T, mask, reverse, g, h_out)
     assert _rel_err(got[0], ref[0], mask) <= BWD_RTOL
-    assert not got[0][~mask].any()
+    assert not got[0][~mask].any() and torch.isfinite(got[0]).all()
     assert _rel_err(got[1], ref[1]) <= BWD_RTOL
     assert _rel_err(got[2], ref[2]) <= BWD_RTOL
     # fixed-order sums: the same bits from run to run
-    again = gru_backward(xp, sWT, sW2T, mask, reverse, g, h_out)
+    again = gru_backward(gates, sWT, sW2T, mask, reverse, g, h_out)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     # the weight-cotangent kernel against its einsum twin on the same rows
-    dxp, rh = gru_backward.recurrence(xp, sWT, sW2T, mask, reverse, g, h_out)
+    dxp, rh = gru_backward.recurrence(gates, sWT, sW2T, mask, reverse, g,
+                                      h_out)
+    assert _rel_err(rh, gates[:, :, S:2 * S] * h_prev_of(
+        h_out, reverse)) <= 1e-6
     wk = gru_wgrad(h_out, rh, dxp, reverse)
     wp = gru_wgrad_plain(h_out, rh, dxp, reverse)
     assert all(_rel_err(a, b) <= BWD_RTOL for a, b in zip(wk, wp))
@@ -230,19 +329,25 @@ def test_gru_backward_kernels_match_twin(cuda_device, S, reverse):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S,B", [(96, 200), (96, 600), (256, 1100)])
+@pytest.mark.parametrize("S,B", [(96, 200), (96, 600), (144, 1100),
+                                 (256, 1100)])
 def test_gru_backward_kernels_wide_batches(cuda_device, S, B):
-    """Batches that take 2, 4 and 8 rows per block, and a width (S = 256)
-    whose 8-row block would not fit the SM's registers."""
+    """Batches that take 2, 4 and 8 rows per block (S = 144 at 8 rows: the
+    mixed mode with a 2-slot ring), on holed masks."""
     T = 37
     xp, sWT, sW2T, mask = [a.to(cuda_device) for a in _gru_inputs(T, B, S)]
+    mask = _holes(mask)
     g = _cotangent(T, B, S).to(cuda_device)
-    h_out = gru_forward(xp, sWT, sW2T, mask=mask, reverse=True)
-    got = gru_backward(xp, sWT, sW2T, mask, True, g, h_out)
+    h_out, gates = gru_forward(xp, sWT, sW2T, mask=mask, reverse=True,
+                               emit_gates=True)
+    got = gru_backward(gates, sWT, sW2T, mask, True, g, h_out)
     ref = gru_scan_bwd_plain(xp, sWT, sW2T, mask, True, g, h_out)
     assert _rel_err(got[0], ref[0], mask) <= BWD_RTOL
+    assert not got[0][~mask].any()
     assert _rel_err(got[1], ref[1]) <= BWD_RTOL
     assert _rel_err(got[2], ref[2]) <= BWD_RTOL
+    again = gru_backward(gates, sWT, sW2T, mask, True, g, h_out)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.gpu

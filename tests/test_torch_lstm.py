@@ -8,8 +8,12 @@ Tolerances:
 * forward: h and c within 1e-5 absolute under the mask (the emitted value
   at a masked step is unspecified, ``rnn.py:65-70``);
 * gradients (dxp, dsWT, dp) of a masked loss through
-  :class:`LstmFunction` against ``jax.grad`` through ``run_lstm_fused``:
-  max|port - jax| <= 1e-5 * max|jax| (float32 sums in another order).
+  :class:`LstmFunction` (whose backward reads the forward's gate trace)
+  against ``jax.grad`` through ``run_lstm_fused``: max|port - jax| <=
+  1e-5 * max|jax| (float32 sums in another order);
+* the backward twin from the gate trace, ``lstm_scan_bwd_gates_plain``,
+  against the Pallas VJP kernel ``_pallas_scan_bwd`` on a mask with
+  interior holes and a row masked throughout, at the same tolerance.
 """
 import jax
 import jax.numpy as jnp
@@ -18,7 +22,9 @@ import pytest
 import torch
 
 from sloika_tpu.nn import pallas_lstm
-from sloika_tpu_torch.nn.fused_lstm import LstmFunction, lstm_forward
+from sloika_tpu_torch.nn.fused_lstm import (LstmFunction, lstm_forward,
+                                            lstm_scan_bwd_gates_plain,
+                                            lstm_scan_plain)
 
 T, B, S = 23, 4, 16
 LENGTHS = np.array([23, 9, 1, 17])
@@ -92,3 +98,29 @@ def test_gradients_match_jax_grad(reverse, peep):
         assert err <= 1e-5 * max(np.max(np.abs(ref)), 1e-30)
     if not peep:
         assert not tp.grad.any() and not jdp.any()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gate_trace_backward_matches_pallas_bwd_kernel(reverse):
+    xp, sW, p, mask = _inputs(True, seed=3)
+    mask = mask & (np.random.RandomState(4).uniform(size=mask.shape) < 0.8)
+    mask[:, -1] = False
+    g = np.random.RandomState(5).normal(size=(T, B, S)).astype(np.float32)
+    sWT = _sWT(sW)
+    t = torch.from_numpy
+    h, c, gates = lstm_scan_plain(t(xp), t(sWT), t(p), t(mask), reverse,
+                                  emit_gates=True)
+    got = lstm_scan_bwd_gates_plain(gates, t(sWT), t(p), t(mask), reverse,
+                                    t(g), h, c)
+    ref = pallas_lstm._pallas_scan_bwd(
+        jnp.asarray(xp), jnp.asarray(mask.astype(np.int8)), jnp.asarray(sWT),
+        jnp.asarray(p), reverse, jnp.asarray(g), jnp.asarray(h.numpy()),
+        jnp.asarray(c.numpy()))
+    m = mask[:, :, None]
+    rdxp = np.asarray(ref[0])
+    assert np.max(np.abs(got[0].numpy() - rdxp) * m) <= \
+        1e-5 * np.max(np.abs(rdxp) * m)
+    for a, b in zip(got[1:], ref[1:]):
+        b = np.asarray(b)
+        assert np.max(np.abs(a.numpy() - b)) <= 1e-5 * np.max(np.abs(b))
+    assert not got[0].numpy()[~mask].any()

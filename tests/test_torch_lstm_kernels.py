@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from sloika_tpu_torch import nn as tnn
+from sloika_tpu_torch.nn.fused_gru import H100_SMS, SMEM_OPTIN
 from sloika_tpu_torch.nn.fused_lstm import (
-    LstmFunction, lstm_backward, lstm_forward, lstm_scan_bwd_plain,
-    lstm_scan_plain, lstm_wgrad, lstm_wgrad_plain)
+    LstmFunction, lstm_backward, lstm_bwd_plan, lstm_forward,
+    lstm_scan_bwd_gates_plain, lstm_scan_bwd_plain, lstm_scan_plain,
+    lstm_wgrad, lstm_wgrad_plain)
 
 #: forward kernel against its twin: max abs difference on valid steps
 #: (float32 sums in another order over up to a few thousand steps)
@@ -57,6 +59,17 @@ def _rel_err(got, ref, mask=None):
     return float(d.max()) / max(float(ref.abs().max()), 1e-30)
 
 
+def _holes(mask, seed=4):
+    """The mask with interior masked steps and, where B > 1, its last row
+    masked throughout."""
+    rs = np.random.RandomState(seed)
+    holes = torch.from_numpy(rs.uniform(size=tuple(mask.shape)) < 0.85)
+    mask = mask & holes.to(mask.device)
+    if mask.shape[1] > 1:
+        mask[:, -1] = False
+    return mask
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_lstm_cpu_dispatch_is_the_plain_twin(reverse):
     xp, sWT, p, mask = lstm_inputs(9, 3, 8)
@@ -69,8 +82,11 @@ def test_lstm_cpu_dispatch_is_the_plain_twin(reverse):
     h2, none = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
                             emit_cout=False)
     assert none is None and torch.equal(h2, href)
-    got = lstm_backward(xp, sWT, p, mask, reverse, g, h, c)
-    ref = lstm_scan_bwd_plain(xp, sWT, p, mask, reverse, g, h, c)
+    h3, c3, gates = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
+                                 emit_gates=True)
+    assert torch.equal(h3, href) and torch.equal(c3, cref)
+    got = lstm_backward(gates, sWT, p, mask, reverse, g, h, c)
+    ref = lstm_scan_bwd_gates_plain(gates, sWT, p, mask, reverse, g, h, c)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert (lstm_forward.launches, lstm_backward.launches,
             lstm_wgrad.launches) == before
@@ -78,6 +94,83 @@ def test_lstm_cpu_dispatch_is_the_plain_twin(reverse):
     w = lstm_wgrad(h, c, got[0], reverse)
     for a, b in zip(w, got[1:]):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("S,peep", [(8, True), (24, True), (24, False)])
+def test_lstm_gate_trace_twins_match_the_recompute_twin(S, peep, reverse):
+    """The gate trace of the plain forward, and the plain backward from it,
+    give the recompute twin's results (held to ``jax.grad`` through the
+    Pallas kernels in ``tests/test_torch_lstm.py``) on holed masks with a
+    row masked throughout: the same arithmetic in the same order."""
+    T, B = 17, 5
+    xp, sWT, p, mask = lstm_inputs(T, B, S, seed=S, peep=peep)
+    mask = _holes(mask)
+    g = _cotangent(T, B, S)
+    h, c, gates = lstm_scan_plain(xp, sWT, p, mask, reverse, emit_gates=True)
+    href, cref = lstm_scan_plain(xp, sWT, p, mask, reverse)
+    assert torch.equal(h, href) and torch.equal(c, cref)
+    assert torch.isfinite(gates).all()
+    got = lstm_scan_bwd_gates_plain(gates, sWT, p, mask, reverse, g, h, c)
+    ref = lstm_scan_bwd_plain(xp, sWT, p, mask, reverse, g, h, c)
+    for a, b in zip(got, ref):
+        assert _rel_err(a, b) <= 1e-6
+    assert not got[0][~mask].any()
+
+
+def test_lstm_bwd_plan_at_the_main_paths_shapes():
+    """The backward's plan at the event training path's shape (B = 100,
+    S = 64): sWT's quarter rows in registers, one row a block, a ring of 4
+    step slots (inputs fetched two or more steps ahead), and dg's quarters
+    padded off each other's banks."""
+    plan = lstm_bwd_plan(100, 64)
+    assert (plan["br"], plan["mode"], plan["kq"], plan["stage"]) == (
+        1, "registers", 64, 0)
+    assert plan["ns"] == 4 and plan["threads"] == 256 and plan["qs"] == 68
+    assert lstm_bwd_plan(100, 64) == plan            # shapes alone
+    assert lstm_bwd_plan(600, 64)["br"] == 8
+    assert lstm_bwd_plan(19, 8)["mode"] == "smem"
+    assert lstm_bwd_plan(19, 96)["mode"] == "smem"
+    assert lstm_bwd_plan(19, 144)["mode"] == "global"
+
+
+@pytest.mark.parametrize("S", [1, 8, 32, 33, 64, 65, 96, 118, 130, 256])
+@pytest.mark.parametrize("B", [1, 100, 1100])
+def test_lstm_bwd_plan_fits_every_width(B, S):
+    plan = lstm_bwd_plan(B, S)
+    assert plan["smem"] <= SMEM_OPTIN and plan["threads"] >= 4 * S
+    assert plan["threads"] % 32 == 0 and plan["threads"] <= 1024
+    assert -(-B // plan["br"]) <= H100_SMS or plan["br"] == 8
+    assert 2 <= plan["ns"] <= 4 and plan["qs"] % 4 == 0
+    assert plan["qs"] >= (plan["kq"] or -(-S // 4) * 4) * plan["br"]
+    offsets = sorted((q * plan["qs"]) % 32 for q in range(4))
+    width = 8 if plan["br"] == 8 else 4
+    assert all(b - a >= width for a, b in zip(offsets, offsets[1:]))
+    assert (offsets[0] + 32) - offsets[-1] >= width
+    assert plan["mode"] == ("registers" if 33 <= S <= 64 else
+                            "smem" if plan["stage"] else "global")
+
+
+def test_lstm_function_emits_the_gate_trace_only_for_gradients(monkeypatch):
+    """Under ``no_grad`` and ``inference_mode`` neither trace is written;
+    with a gradient both are, and the layer records ``LstmFunction``."""
+    xp, sWT, p, mask = lstm_inputs(7, 2, 4)
+    seen = []
+    real = lstm_forward.__call__
+
+    def spy(*a, **k):
+        seen.append((k["emit_cout"], k.get("emit_gates", False)))
+        return real(*a, **k)
+
+    monkeypatch.setattr(type(lstm_forward), "__call__",
+                        lambda self, *a, **k: spy(*a, **k))
+    with torch.no_grad():
+        LstmFunction.apply(xp, sWT, p, mask, False, True)
+    with torch.inference_mode():
+        LstmFunction.apply(xp, sWT, p, mask, False, True)
+    out = LstmFunction.apply(xp.requires_grad_(), sWT, p, mask, False, True)
+    assert seen == [(False, False), (False, False), (True, True)]
+    assert type(out.grad_fn).__name__ == "LstmFunctionBackward"
 
 
 @pytest.mark.gpu
@@ -97,6 +190,12 @@ def test_lstm_forward_kernel_matches_twin(cuda_device, S, reverse):
     assert float(((h - href).abs() * m).max()) <= FWD_ATOL
     assert float(((c - cref).abs() * m).max()) <= FWD_ATOL
     assert torch.equal(h, h2)
+    # the training variant: the same h and c, and the gate trace
+    h3, c3, gates = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
+                                 emit_gates=True)
+    assert torch.equal(h3, h) and torch.equal(c3, c)
+    _, _, gref = lstm_scan_plain(xp, sWT, p, mask, reverse, emit_gates=True)
+    assert float((gates - gref).abs().max()) <= FWD_ATOL
 
 
 @pytest.mark.gpu
@@ -115,24 +214,29 @@ def test_lstm_kernels_reject_bad_inputs(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S", [8, 64, 130])
+@pytest.mark.parametrize("S", [8, 64, 96, 130, 144, 256])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_lstm_backward_kernels_match_twin(cuda_device, S, reverse):
+    """Every mode of the backward (S = 8, 96 staged; 64 registers; 130, 144,
+    256 global) on holed masks with a row masked throughout, from the
+    forward's gate trace, against the recompute twin."""
     T, B = 211, 19
     xp, sWT, p, mask = [a.to(cuda_device) for a in lstm_inputs(T, B, S)]
+    mask = _holes(mask)
     g = _cotangent(T, B, S).to(cuda_device)
-    h, c = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse)
+    h, c, gates = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
+                               emit_gates=True)
     before = (lstm_backward.launches, lstm_wgrad.launches)
-    got = lstm_backward(xp, sWT, p, mask, reverse, g, h, c)
+    got = lstm_backward(gates, sWT, p, mask, reverse, g, h, c)
     assert (lstm_backward.launches, lstm_wgrad.launches) == (
         before[0] + 1, before[1] + 1)
     ref = lstm_scan_bwd_plain(xp, sWT, p, mask, reverse, g, h, c)
     assert _rel_err(got[0], ref[0], mask) <= BWD_RTOL
-    assert not got[0][~mask].any()
+    assert not got[0][~mask].any() and torch.isfinite(got[0]).all()
     assert _rel_err(got[1], ref[1]) <= BWD_RTOL
     assert _rel_err(got[2], ref[2]) <= BWD_RTOL
     # fixed-order sums: the same bits from run to run
-    again = lstm_backward(xp, sWT, p, mask, reverse, g, h, c)
+    again = lstm_backward(gates, sWT, p, mask, reverse, g, h, c)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     # the weight-cotangent kernel against its einsum twin on the same rows
     wk = lstm_wgrad(h, c, got[0], reverse)
@@ -144,18 +248,22 @@ def test_lstm_backward_kernels_match_twin(cuda_device, S, reverse):
 @pytest.mark.parametrize("S,B", [(64, 200), (64, 600), (256, 1100)])
 def test_lstm_kernels_wide_batches(cuda_device, S, B):
     """Batches that take 2, 4 and 8 rows per block, and a width (S = 256)
-    whose 8-row block may not fit the SM's registers."""
+    whose 8-row block may not fit the SM's registers, on holed masks."""
     T = 37
     xp, sWT, p, mask = [a.to(cuda_device) for a in lstm_inputs(T, B, S)]
+    mask = _holes(mask)
     g = _cotangent(T, B, S).to(cuda_device)
-    h, c = lstm_forward(xp, sWT, p, mask=mask, reverse=True)
+    h, c, gates = lstm_forward(xp, sWT, p, mask=mask, reverse=True,
+                               emit_gates=True)
     href, cref = lstm_scan_plain(xp, sWT, p, mask, True)
     assert float(((h - href).abs() * mask[:, :, None]).max()) <= FWD_ATOL
-    got = lstm_backward(xp, sWT, p, mask, True, g, h, c)
+    got = lstm_backward(gates, sWT, p, mask, True, g, h, c)
     ref = lstm_scan_bwd_plain(xp, sWT, p, mask, True, g, h, c)
     assert _rel_err(got[0], ref[0], mask) <= BWD_RTOL
     assert _rel_err(got[1], ref[1]) <= BWD_RTOL
     assert _rel_err(got[2], ref[2]) <= BWD_RTOL
+    again = lstm_backward(gates, sWT, p, mask, True, g, h, c)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.gpu
