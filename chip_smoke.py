@@ -78,7 +78,8 @@ Phases, each printing one line and raising on failure:
     shapes: B = 64 at T = the events basecall path's longest read, and
     B = 100 at T = 500 (max abs difference of h and c on valid steps, and
     of the gate trace at every step, <= 1e-4: float32 sums in another
-    order over thousands of steps), each variant timed;
+    order over thousands of steps), each variant timed; then at S = 96,
+    outside the registers mode (sWT staged), at T = 500, B = 100;
 11. LSTM backward: ``lstm_bwd`` from the gate trace, then ``lstm_wgrad``,
     against the plain backward twins (the recompute twin and the twin from
     the gate trace) on the kernel's traces at B = 100, T = 500, S = 64,
@@ -110,7 +111,9 @@ Phases, each printing one line and raising on failure:
     on the card from a seeded ``torch.Generator``, as numpy's draw of its
     429 M values takes minutes); ``hbm_ring`` at the four (rows, nslots) of
     the script over B = 128, T = 3,264, K = 1,024 (1.71 GB, drawn on the
-    card; bit-identical to the twin), its bandwidth beside ``torch.amax``'s.
+    card; bit-identical to the twin), its bandwidth beside ``torch.amax``'s,
+    and each case's cycles a chunk from the kernel's clocked build
+    (``bench_dma.py --clocks``, the same bits).
 
 Then one JSON line of per-kernel numbers (with the least time the card
 could take for each kernel's work, ``bound_ms``, from the shapes run: the
@@ -176,6 +179,8 @@ REMAP_SD = 1.5
 # event paths: baseline_lstm's width; 64 reads of 3,000-9,000 events in one
 # batch; training batches of 100 chunks of 500 events
 LSTM_S = 64
+# the LSTM forward also at a width outside its registers mode (S 33-64)
+LSTM_S_STAGED = 96
 EVENTS_READS, EVENTS_MIN, EVENTS_MAX = 64, 3000, 9000
 EVENTS_TRAIN_B, EVENTS_TRAIN_T = 100, 500
 # the diagnostic probes at the JAX scripts' defaults: Viterbi parts (B, T),
@@ -1019,7 +1024,8 @@ def lstm_bound(steps, S, cout):
 def phase_lstm(dev, serve_T):
     """The LSTM forward kernel against its twin at both event paths'
     shapes; returns its kernel entry (timed at the serving shape)."""
-    from sloika_tpu_torch.nn.fused_lstm import lstm_forward, lstm_scan_plain
+    from sloika_tpu_torch.nn.fused_lstm import (lstm_forward, lstm_fwd_plan,
+                                                lstm_scan_plain)
     S = LSTM_S
     rs = np.random.RandomState(17)
     f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
@@ -1027,7 +1033,13 @@ def phase_lstm(dev, serve_T):
     p = f32(rs.normal(size=(3, S)) / np.sqrt(S))
     worst, entry = 0.0, {}
     for name, T, B in (("serving", serve_T, EVENTS_READS),
-                       ("training", EVENTS_TRAIN_T, EVENTS_TRAIN_B)):
+                       ("training", EVENTS_TRAIN_T, EVENTS_TRAIN_B),
+                       ("staged", EVENTS_TRAIN_T, EVENTS_TRAIN_B)):
+        if name == "staged":
+            # a width outside the registers mode: sWT staged in shared memory
+            S = LSTM_S_STAGED
+            sWT = f32(rs.normal(size=(S, 4 * S)) / np.sqrt(2 * S))
+            p = f32(rs.normal(size=(3, S)) / np.sqrt(S))
         xp = f32(rs.normal(size=(T, B, 4 * S)))
         lengths = rs.randint(T // 3, T + 1, size=B)
         lengths[0] = T
@@ -1051,11 +1063,12 @@ def phase_lstm(dev, serve_T):
             ms_t = cuda_ms(lambda: lstm_forward(
                 xp, sWT, p, mask=mask, reverse=reverse, emit_gates=True), 5)
             worst = max(worst, d)
-            print("lstm {} S={} reverse={} T={} B={}: max_abs_err {:.3e} "
-                  "inference variant {:.3f} ms ({:.3f} us a step), training "
-                  "variant (cell and gate traces) {:.3f} ms; plain {:.3f} ms"
-                  .format(name, S, reverse, T, B, d, ms, 1e3 * ms / T, ms_t,
-                          plain_ms), flush=True)
+            print("lstm {} S={} reverse={} T={} B={} (mode {}): "
+                  "max_abs_err {:.3e} inference variant {:.3f} ms ({:.3f} us "
+                  "a step), training variant (cell and gate traces) {:.3f} "
+                  "ms; plain {:.3f} ms".format(
+                      name, S, reverse, T, B, lstm_fwd_plan(B, S)["mode"], d,
+                      ms, 1e3 * ms / T, ms_t, plain_ms), flush=True)
             if not d <= GRU_TOL:
                 raise AssertionError("LSTM forward kernel differs from its "
                                      "twin by {} > {}".format(d, GRU_TOL))
@@ -1070,7 +1083,8 @@ def phase_lstm(dev, serve_T):
                     "source": "sloika_tpu_torch/csrc/lstm_fwd.cu",
                     "replaces": "sloika_tpu/nn/pallas_lstm.py:69",
                     "max_abs_err": worst,
-                    "at_training_shapes": entry["training"]})
+                    "at_training_shapes": entry["training"],
+                    "outside_registers_mode": entry["staged"]})
     return serving
 
 
@@ -1407,16 +1421,20 @@ def phase_diagnostics(dev, counters):
     ring_plain, ring_plain_ms = timed_once(lambda: dma.hbm_ring_plain(x, 1))
     amax_ms = cuda_ms(lambda: torch.amax(x, dim=0), 8)
     nbytes = x.numel() * 4
+    clocks = {}
     for (rows, nslots), (out, r_ms) in ring.items():
         if not torch.equal(out, ring_plain):
             raise AssertionError("hbm_ring ({}, {}) differs from its twin"
                                  .format(rows, nslots))
+        clocks[(rows, nslots)] = dma.chunk_clocks(x, rows, nslots, out)
     print("hbm_ring B={} T={} K=1024 ({:.2f} GB): bit_identical all 4; "
           "{}; torch.amax {:.3f} ms, {:.1f} GB/s; twin {:.1f} ms [{}]".format(
               RB, RT, nbytes / 1e9, "; ".join(
                   "rows {} slots {}: {:.3f} ms, {:.1f} GB/s ({:.1%} of "
-                  "3.35 TB/s)".format(r, s, m, nbytes / m / 1e6,
-                                      nbytes / m * 1e3 / HBM_BYTES_PER_S)
+                  "3.35 TB/s), {:.0f} cycles a chunk (clocked build)".format(
+                      r, s, m, nbytes / m / 1e6,
+                      nbytes / m * 1e3 / HBM_BYTES_PER_S,
+                      clocks[(r, s)]["cycles_per_chunk"])
                   for (r, s), (_, m) in ring.items()),
               amax_ms, nbytes / amax_ms / 1e6, ring_plain_ms, card),
           flush=True)
@@ -1453,7 +1471,10 @@ def phase_diagnostics(dev, counters):
                     "shape": "T={} B={} K=1024 rows=32 slots=3".format(RT, RB),
                     "max_abs_err": 0.0, "ms": ring[(32, 3)][1],
                     "plain_ms": ring_plain_ms,
-                    "ms_by_case": by_case({k: v[1] for k, v in ring.items()})},
+                    "ms_by_case": by_case({k: v[1] for k, v in ring.items()}),
+                    "cycles_per_chunk_by_case": by_case(
+                        {k: v["cycles_per_chunk"]
+                         for k, v in clocks.items()})},
                    nbytes + RB * 1024 * 4, nbytes // 4, library_ms=amax_ms),
     ], counts
 

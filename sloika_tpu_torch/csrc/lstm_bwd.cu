@@ -67,22 +67,14 @@
 #include "recurrence.cuh"
 
 #ifdef LSTM_BWD_CLOCKS
-// Step-phase clocks, for scripts/bench_lstm.py, which also builds this
-// source with -DLSTM_BWD_CLOCKS into a library of its own (the kernels the
-// port launches are built without it).  Lane 0 of each warp of block 0
+// Step-phase clocks, for scripts/bench_lstm.py --clocks, which also builds
+// this source with -DLSTM_BWD_CLOCKS into a library of its own (the kernels
+// the port launches are built without it).  Lane 0 of each warp of block 0
 // sums, over the T steps, the SM clock cycles of the step's phases: the
 // cell (C), the wait for the next slot, the barrier, the refill's copies,
-// its commit, the product (D), the shuffles; then the whole loop.  A stamp
-// reads %clock64 behind a memory clobber, so the compiler moves no shared-
-// or global-memory access across it.
+// its commit, the product (D), the shuffles; then the whole loop.
 __device__ long long lstm_bwd_clocks[32 * 8];
-#define STEP_CLOCK(k)                                                  \
-  do {                                                                 \
-    long long now_;                                                    \
-    asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(now_) : : "memory"); \
-    clk[k] += now_ - stamp;                                            \
-    stamp = now_;                                                      \
-  } while (0)
+#define STEP_CLOCK(k) PHASE_CLOCK(k)
 #else
 #define STEP_CLOCK(k) \
   do {                \
@@ -197,9 +189,7 @@ lstm_bwd_kernel(const float* __restrict__ gates,
   for (int r = 0; r < BR; ++r) dh[r] = dc[r] = 0.0f;
   int cur = 0;
 #ifdef LSTM_BWD_CLOCKS
-  long long clk[8] = {0, 0, 0, 0, 0, 0, 0, 0}, stamp;
-  asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(stamp) : : "memory");
-  const long long start = stamp;
+  PHASE_CLOCK_START();
 #endif
   for (int st = 0; st < T; ++st) {
     const int t = time_of(st);
@@ -292,7 +282,7 @@ lstm_bwd_kernel(const float* __restrict__ gates,
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 #ifdef LSTM_BWD_CLOCKS
-  clk[7] = stamp - start;
+  clk[7] = PHASE_CLOCK_TOTAL();
   if (blockIdx.x == 0 && (j & 31) == 0) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) lstm_bwd_clocks[(j >> 5) * 8 + k] = clk[k];

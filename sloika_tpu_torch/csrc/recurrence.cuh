@@ -1,12 +1,15 @@
 // Device helpers shared by the recurrence kernels (gru_fwd.cu, gru_bwd.cu,
 // lstm_fwd.cu, lstm_bwd.cu): the accurate sigmoid, the cp.async copies of
-// their step rings, and the blocked dot products that keep 4 / BR partial
-// sums a row in flight and join them in a fixed order (the same bits on
-// every run).  Each kernel is its own library with a plain C interface;
-// this header only saves them repeating these.
+// their step rings (lstm_fwd.cu's ring takes the bulk copies of
+// bulk_copy.cuh instead), and the blocked dot products that keep 4 / BR
+// partial sums a row in flight and join them in a fixed order (the same
+// bits on every run).  Each kernel is its own library with a plain C
+// interface; this header only saves them repeating these.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bulk_copy.cuh"
 
 namespace {
 

@@ -241,6 +241,53 @@ def _check_lstm_shapes(xp, sWT, p, mask):
     return T, B, S
 
 
+#: the forward kernel's register mode (``csrc/lstm_fwd.cu``): a lane holds
+#: its column's FWD_REGISTER_KQ weights, for S from FWD_REGISTER_MIN_S to
+#: FWD_REGISTER_KQ (below it sWT is staged)
+FWD_REGISTER_KQ = 64
+FWD_REGISTER_MIN_S = 33
+#: bytes of the forward's mask window (steps x rows a block, a byte each),
+#: largest first: 16 KB holds all of an event read's 9,000 steps at one row
+#: a block
+FWD_MASK_WINDOWS = (16384, 4096, 1024)
+#: the forward's xp ring: its mbarriers' bytes, then slots of BR x 4S floats
+FWD_BAR_BYTES = 64
+
+
+def lstm_fwd_plan(B, S, sms=H100_SMS, optin=SMEM_OPTIN):
+    """The launch plan of ``lstm_fwd.cu`` for a batch of B rows of width S.
+
+    Rows a block ``br``: the fewest of 1, 2, 4, 8 that fit the batch in one
+    wave over ``sms`` SMs.  Then the first of these that fits ``optin``
+    bytes of shared memory with an xp ring ``ns`` of 4 step slots (the
+    copies run 3 steps ahead), else 3, else 2, and the largest mask window
+    of FWD_MASK_WINDOWS: sWT's columns in registers ("registers", S from
+    FWD_REGISTER_MIN_S to FWD_REGISTER_KQ); sWT staged ("smem"); sWT read
+    from global memory ("global").
+
+    :returns: dict of br, mode, kq, stage, ns, mw (mask window in steps),
+        smem (bytes), threads
+    """
+    br = _rows_a_block(B, sms)
+    threads = _round(4 * S, 32)
+    choices = ([("registers", FWD_REGISTER_KQ, 0)]
+               if FWD_REGISTER_MIN_S <= S <= FWD_REGISTER_KQ else [])
+    choices += [("smem", 0, 1), ("global", 0, 0)]
+    for mode, kq, stage in choices:
+        kk = kq or _round(S, 4)
+        for ns in (4, 3, 2):
+            for window in FWD_MASK_WINDOWS:
+                nbytes = (FWD_BAR_BYTES + window + 4 * (
+                    ns * br * 4 * S + 2 * kk * br
+                    + (4 * S * S if stage else 0)))
+                if nbytes <= optin:
+                    return {"br": br, "mode": mode, "kq": kq, "stage": stage,
+                            "ns": ns, "mw": window // br, "smem": nbytes,
+                            "threads": threads}
+    raise ValueError("LSTM size {} does not fit the forward kernel".format(
+        S))
+
+
 #: the backward kernel's register mode (``csrc/lstm_bwd.cu``): a thread
 #: holds its quarter row of sWT, BWD_REGISTER_KQ floats, for S from
 #: BWD_REGISTER_MIN_S to BWD_REGISTER_KQ (below it sWT is staged)
@@ -296,17 +343,23 @@ def lstm_bwd_plan(B, S, sms=H100_SMS, optin=SMEM_OPTIN):
 class LstmForward:
     """The LSTM forward recurrence; replaces the Pallas TPU kernels
     ``sloika_tpu/nn/pallas_lstm.py::_fwd_kernel`` (with the cell trace) and
-    ``_fwd_kernel_nocout`` (without) with ``csrc/lstm_fwd.cu``.
+    ``_fwd_kernel_nocout`` (without) with ``csrc/lstm_fwd.cu``, launched by
+    :func:`lstm_fwd_plan`.
 
     Launches the CUDA kernel for CUDA tensors and runs
     :func:`lstm_scan_plain` for CPU tensors.  ``launches`` counts kernel
     launches."""
 
-    _ARGTYPES = {"lstm_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+    _ARGTYPES = {"lstm_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
                  + [ctypes.c_void_p]}
 
     def __init__(self):
         self.launches = 0
+
+    def _library(self):
+        """The loaded ``lstm_fwd`` library (``scripts/bench_lstm.py``
+        swaps in its clocked build)."""
+        return cuda_build.load("lstm_fwd", self._ARGTYPES)
 
     def __call__(self, xp, sWT, p, mask=None, reverse=False, emit_cout=True,
                  emit_gates=False):
@@ -334,14 +387,22 @@ class LstmForward:
         if T == 0 or B == 0:
             return result
         mask8 = mask.to(torch.uint8).contiguous()
-        lib = cuda_build.load("lstm_fwd", self._ARGTYPES)
+        if xp.data_ptr() % 16:
+            xp = xp.clone()             # the bulk copies read 16-byte units
+        props = torch.cuda.get_device_properties(xp.device)
+        plan = lstm_fwd_plan(B, S, props.multi_processor_count,
+                             getattr(props, "shared_memory_per_block_optin",
+                                     SMEM_OPTIN))
+        lib = self._library()
         with torch.cuda.device(xp.device):
             err = lib.lstm_fwd(xp.data_ptr(), mask8.data_ptr(),
                                sWT.data_ptr(), p.data_ptr(),
                                h_out.data_ptr(),
                                c_out.data_ptr() if emit_cout else None,
                                gates.data_ptr() if emit_gates else None,
-                               T, B, S, int(bool(reverse)),
+                               T, B, S, int(bool(reverse)), plan["br"],
+                               plan["kq"], plan["stage"], plan["ns"],
+                               plan["mw"], plan["smem"], plan["threads"],
                                torch.cuda.current_stream().cuda_stream)
         cuda_build.check(err, "lstm_fwd")
         self.launches += 1

@@ -12,6 +12,10 @@ PyTorch twin::
 They run on the card unless given ``--device cpu``, where the twins run
 and nothing is timed.
 """
+import ctypes
+import os
+import subprocess
+
 import torch
 
 
@@ -32,3 +36,38 @@ def cuda_ms(fn, reps, rounds=1):
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(stop) / reps)
     return best
+
+
+def clocked_library(name, flag, functions, read):
+    """Build ``csrc/<name>.cu`` with ``-D<flag>``, which compiles its clock
+    stamps in, into a library of its own (``_build/lib<name>_clocks.so``;
+    the port's kernels are built without it) and load it.
+
+    :param functions: {function name: argtypes} of its entry points
+    :param read: the entry point that copies the stamps to host memory
+    """
+    from sloika_tpu_torch import cuda_build
+    src = os.path.join(cuda_build.CSRC_DIR, name + ".cu")
+    path = os.path.join(cuda_build.BUILD_DIR, "lib{}_clocks.so".format(name))
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    built = subprocess.run([cuda_build._nvcc()] + cuda_build.NVCC_FLAGS
+                           + ["-D" + flag, "-o", path, src],
+                           capture_output=True, text=True)
+    if built.returncode != 0:
+        raise RuntimeError("nvcc failed on the clocked build of {}:\n{}"
+                           .format(name, built.stderr))
+    lib = ctypes.CDLL(path)
+    for fn, argtypes in list(functions.items()) + [(read, [ctypes.c_void_p])]:
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def read_clocks(lib, read, warps, slots=8):
+    """The stamps of a clocked library's last launch: ``slots`` sums of
+    cycles for each of ``warps`` warps of block 0."""
+    from sloika_tpu_torch import cuda_build
+    torch.cuda.synchronize()
+    raw = (ctypes.c_longlong * (32 * slots))()
+    cuda_build.check(getattr(lib, read)(raw), read)
+    return [[raw[w * slots + k] for k in range(slots)] for w in range(warps)]

@@ -1,7 +1,7 @@
 """Time the LSTM forward and backward kernels on the card at the event
 training path's shape::
 
-    python -m sloika_tpu_torch.scripts.bench_lstm
+    python -m sloika_tpu_torch.scripts.bench_lstm [--clocks]
 
 The shape (T, B, S) = (500, 100, 64): ``baseline_lstm``'s training batch of
 100 chunks of 500 events.  Lengths are ragged (T/2 to T, the first row T
@@ -16,18 +16,22 @@ archive``, are timed by that tree's own copy of this script::
 
     PYTHONPATH=<tree> python <tree>/sloika_tpu_torch/scripts/bench_lstm.py
 
-It also builds ``csrc/lstm_bwd.cu`` with ``-DLSTM_BWD_CLOCKS`` into a
-library of its own and runs it at the same shape: lane 0 of each warp of
-block 0 sums the SM clock cycles of each phase of a step (the cell, the
-wait for the next ring slot, the barrier, the refill's copies and its
-commit, the product, the shuffles).  It reports them a step, each warp's
-and their mean, beside both builds' times a step; the cycles of the
-clocked loop over its time give the clock they ran at.
+It also times the forward's inference variant at the event basecall
+path's shape, (T, B) = (9,000, 64).
+
+With ``--clocks`` it builds ``csrc/lstm_fwd.cu`` with ``-DLSTM_FWD_CLOCKS``
+and ``csrc/lstm_bwd.cu`` with ``-DLSTM_BWD_CLOCKS``, each into a library
+of its own, and runs them at the training shape (the forward in both
+variants): lane 0 of each warp of block 0 sums the SM clock cycles of
+each phase of a step (FWD_PHASES, BWD_PHASES).  It reports them a step,
+each warp's and their mean, beside both builds' times a step; the cycles
+of the clocked loop over its time give the clock they ran at.  A clocked
+build must give the port's bits.
 
 Prints one JSON line: the card and its power limit, the tree timed, and
 the times.
 """
-import ctypes
+import argparse
 import json
 import os
 import subprocess
@@ -36,9 +40,13 @@ import numpy as np
 import torch
 
 SHAPE = (500, 100, 64)
-#: the phases of a step that the clocked build stamps, in order
-PHASES = ("cell", "slot_wait", "barrier", "refill_copies", "refill_commit",
-          "product", "shuffles")
+#: the event basecall path's batch: 64 reads of up to 9,000 events
+SERVING = (9000, 64)
+#: the phases of a step that each clocked build stamps, in order
+FWD_PHASES = ("product", "slot_wait", "activation", "shuffles_cell",
+              "barrier", "refill_stores")
+BWD_PHASES = ("cell", "slot_wait", "barrier", "refill_copies",
+              "refill_commit", "product", "shuffles")
 
 
 def inputs(T, B, S, dev, seed=0):
@@ -55,28 +63,53 @@ def inputs(T, B, S, dev, seed=0):
     return xp, sWT, p, g, mask
 
 
-def step_clocks(gates, sWT, p, mask, g, c, dxp):
-    """Run the clocked build of ``lstm_bwd`` on these inputs (it must give
-    ``dxp``, the port's build's bits); returns its time a step, the clock
-    it ran at and the cycles a step of each phase."""
-    from sloika_tpu_torch import cuda_build
+def _split(raw, T, ms, phases):
+    """Cycles a step of each phase, by warp and their mean, from the
+    stamps (slot 7: the whole loop), and the clock they ran at."""
+    per_warp = [[w[k] / T for k in range(8)] for w in raw]
+    mean = [sum(w[k] for w in per_warp) / len(per_warp) for k in range(8)]
+    us = 1e3 * ms / T
+    # the loop's cycles over the launch's time (which adds the prologue)
+    return {"us_per_step": us, "ghz": mean[7] / us / 1e3,
+            "cycles_per_step": mean[7],
+            "phases_mean": dict(zip(phases, mean)),
+            "phases_by_warp": [dict(zip(phases, w)) for w in per_warp]}
+
+
+def fwd_step_clocks(xp, sWT, p, mask, ref, train=False):
+    """Run the clocked build of ``lstm_fwd``'s inference variant (with
+    ``train``, the training variant) on these inputs (it must give ``ref``,
+    the port's build's h, or its (h, c, gates)); returns its time a step,
+    the clock it ran at and the cycles a step of each phase."""
+    from sloika_tpu_torch.nn.fused_lstm import LstmForward
+    from sloika_tpu_torch.scripts import clocked_library, cuda_ms, read_clocks
+    lib = clocked_library("lstm_fwd", "LSTM_FWD_CLOCKS",
+                          LstmForward._ARGTYPES, "lstm_fwd_clocks_read")
+
+    class Clocked(LstmForward):
+        def _library(self):
+            return lib
+
+    if train:
+        run = lambda: Clocked()(xp, sWT, p, mask=mask, emit_gates=True)
+    else:
+        run = lambda: Clocked()(xp, sWT, p, mask=mask, emit_cout=False)[0]
+    ms = cuda_ms(run, 3, 3)
+    got = run()
+    if not (all(map(torch.equal, got, ref)) if train
+            else torch.equal(got, ref)):
+        raise AssertionError("the clocked build of lstm_fwd gave other bits")
+    warps = -(-4 * sWT.shape[0] // 32)
+    raw = read_clocks(lib, "lstm_fwd_clocks_read", warps)
+    return _split(raw, xp.shape[0], ms, FWD_PHASES)
+
+
+def bwd_step_clocks(gates, sWT, p, mask, g, c, dxp):
+    """The same for ``lstm_bwd`` (it must give ``dxp``)."""
     from sloika_tpu_torch.nn.fused_lstm import LstmBackward
-    from sloika_tpu_torch.scripts import cuda_ms
-    src = os.path.join(cuda_build.CSRC_DIR, "lstm_bwd.cu")
-    path = os.path.join(cuda_build.BUILD_DIR, "liblstm_bwd_clocks.so")
-    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-    built = subprocess.run([cuda_build._nvcc()] + cuda_build.NVCC_FLAGS
-                           + ["-DLSTM_BWD_CLOCKS", "-o", path, src],
-                           capture_output=True, text=True)
-    if built.returncode != 0:
-        raise RuntimeError("nvcc failed on the clocked build:\n"
-                           + built.stderr)
-    lib = ctypes.CDLL(path)
-    for fn, argtypes in LstmBackward._ARGTYPES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.lstm_bwd_clocks_read.argtypes = [ctypes.c_void_p]
-    lib.lstm_bwd_clocks_read.restype = ctypes.c_int
+    from sloika_tpu_torch.scripts import clocked_library, cuda_ms, read_clocks
+    lib = clocked_library("lstm_bwd", "LSTM_BWD_CLOCKS",
+                          LstmBackward._ARGTYPES, "lstm_bwd_clocks_read")
 
     class Clocked(LstmBackward):
         def _library(self):
@@ -85,22 +118,19 @@ def step_clocks(gates, sWT, p, mask, g, c, dxp):
     run = lambda: Clocked().recurrence(gates, sWT, p, mask, False, g, c)
     ms = cuda_ms(run, 3, 3)
     if not torch.equal(run(), dxp):
-        raise AssertionError("the clocked build gave other bits")
-    raw = (ctypes.c_longlong * 256)()
-    cuda_build.check(lib.lstm_bwd_clocks_read(raw), "lstm_bwd_clocks_read")
-    T = gates.shape[0]
+        raise AssertionError("the clocked build of lstm_bwd gave other bits")
     warps = -(-4 * sWT.shape[0] // 32)
-    per_warp = [[raw[w * 8 + k] / T for k in range(8)] for w in range(warps)]
-    mean = [sum(w[k] for w in per_warp) / warps for k in range(8)]
-    us = 1e3 * ms / T
-    # the loop's cycles over the launch's time (which adds the prologue)
-    return {"us_per_step": us, "ghz": mean[7] / us / 1e3,
-            "cycles_per_step": mean[7],
-            "phases_mean": dict(zip(PHASES, mean)),
-            "phases_by_warp": [dict(zip(PHASES, w)) for w in per_warp]}
+    raw = read_clocks(lib, "lstm_bwd_clocks_read", warps)
+    return _split(raw, gates.shape[0], ms, BWD_PHASES)
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Time the LSTM kernels at the event paths' shapes")
+    parser.add_argument("--clocks", action="store_true",
+                        help="also split a step of lstm_fwd and lstm_bwd "
+                        "by the clocked builds")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("bench_lstm needs a CUDA device")
     import sloika_tpu_torch
@@ -124,18 +154,31 @@ def main():
     shape = {"T": T, "B": B, "S": S}
     ms = cuda_ms(bwd, 3, 3)
     fwd_ms = cuda_ms(inference, 3, 3)
+    Ts, Bs = SERVING
+    xs, _, _, _, ms_mask = inputs(Ts, Bs, S, dev, seed=1)
+    serving_ms = cuda_ms(
+        lambda: lstm_forward(xs, sWT, p, mask=ms_mask, emit_cout=False), 3, 3)
+    del xs
     result = {
         "card": card,
         "tree": os.path.dirname(os.path.dirname(
             os.path.abspath(sloika_tpu_torch.__file__))),
         "lstm_fwd": dict(shape, ms=fwd_ms, us_per_step=1e3 * fwd_ms / T),
         "lstm_fwd_train": dict(shape, ms=cuda_ms(train, 3, 3)),
+        "lstm_fwd_serving": {"T": Ts, "B": Bs, "S": S, "ms": serving_ms,
+                             "us_per_step": 1e3 * serving_ms / Ts},
         "lstm_bwd": dict(shape, ms=ms, us_per_step=1e3 * ms / T),
         "lstm_wgrad": dict(
             shape, ms=cuda_ms(lambda: lstm_wgrad(h, c, dxp, False), 20, 3),
             einsum_ms=cuda_ms(lambda: lstm_wgrad_plain(h, c, dxp, False),
-                              20, 3)),
-        "lstm_bwd_clocks": step_clocks(gates, sWT, p, mask, g, c, dxp)}
+                              20, 3))}
+    if args.clocks:
+        h_inf = inference()[0]
+        result["lstm_fwd_clocks"] = fwd_step_clocks(xp, sWT, p, mask, h_inf)
+        result["lstm_fwd_train_clocks"] = fwd_step_clocks(
+            xp, sWT, p, mask, (h, c, gates), train=True)
+        result["lstm_bwd_clocks"] = bwd_step_clocks(gates, sWT, p, mask, g,
+                                                    c, dxp)
     print(json.dumps(result), flush=True)
     return 0
 

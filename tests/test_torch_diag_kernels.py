@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from sloika_tpu_torch.nn.fused_gru import gru_forward
+from sloika_tpu_torch.nn.fused_gru import H100_SMS, SMEM_OPTIN, gru_forward
 from sloika_tpu_torch.scripts import bench_dma as tdma
 from sloika_tpu_torch.scripts import bench_gru_unroll as tgru
 from sloika_tpu_torch.scripts import bench_viterbi_parts as tvit
@@ -93,6 +93,43 @@ def test_hbm_ring_cpu_dispatch_is_the_plain_twin():
     assert tdma.hbm_ring.launches == before
     with pytest.raises(ValueError, match="nslots"):
         tdma.hbm_ring(x, 1, 17)
+
+
+@pytest.mark.parametrize("rows,nslots", tdma.CASES + ((1, 16),))
+@pytest.mark.parametrize("N", [128 * 1024, 128 * 1024 + 4, 3000, 4])
+def test_hbm_ring_plan(rows, nslots, N):
+    """Tiles of whole warps of float4s (every consumer thread folds one a
+    row of a whole tile), a ring that fits, and every tile on a block; at
+    the script's shape (N = 128 x 1,024) one tile a block on 128 SMs, but
+    at (32, 3), whose ring holds 512 floats a row, two."""
+    plan = tdma.hbm_ring_plan(N, rows, nslots)
+    W = plan["W"]
+    assert W % 4 == 0 and (W % 128 == 0 or W < 128)
+    assert plan["consumers"] == -(-W // 128) <= 8
+    assert plan["threads"] == 32 * (plan["consumers"] + 1)
+    assert plan["smem"] == 256 + 4 * nslots * rows * W <= SMEM_OPTIN
+    assert plan["tiles"] == -(-N // W)
+    assert plan["grid"] * plan["tiles_per_block"] >= plan["tiles"]
+    assert plan["grid"] <= H100_SMS * plan["blocks_per_sm"]
+    assert (plan["grid"] - 1) * plan["tiles_per_block"] < plan["tiles"]
+    if N == 128 * 1024:
+        assert (W, plan["grid"]) == ((512, 128) if rows == 32 else
+                                     (1024, 128))
+        assert plan["tiles_per_block"] == (2 if rows == 32 else 1)
+        assert plan["blocks_per_sm"] == 1
+
+
+def test_hbm_ring_plan_puts_blocks_together_where_tiles_outnumber_sms():
+    """At 32 times the script's columns the SMs hold several blocks each, so
+    that their tiles stream at once; a ring too large for the SM's shared
+    memory is refused."""
+    plan = tdma.hbm_ring_plan(32 * 128 * 1024, 1, 8)
+    assert plan["blocks_per_sm"] > 1 and plan["W"] == 1024
+    assert plan["grid"] > H100_SMS
+    with pytest.raises(ValueError):
+        tdma.hbm_ring_plan(1024, 4096, 16)
+    with pytest.raises(ValueError):
+        tdma.hbm_ring_plan(1022, 1, 2)
 
 
 def test_probe_entry_points_run_on_the_cpu_only_when_asked(capsys):
@@ -201,12 +238,17 @@ def test_viterbi_parts_kernel_is_bit_identical_to_its_twin(cuda_device,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,nslots", tdma.CASES + ((3, 5), (2, 16)))
+@pytest.mark.parametrize("rows,nslots", tdma.CASES + ((3, 5), (2, 16),
+                                                      (1, 16)))
 def test_hbm_ring_kernel_is_bit_identical_to_its_twin(cuda_device, rows,
                                                       nslots):
+    """Every case on the script's shape, ragged columns (N = 3,000 and 4:
+    a tile narrower than the block's warps), T short of a whole number of
+    chunks, and more tiles than the SMs hold (N = 4M: several blocks an
+    SM)."""
     gen = torch.Generator(device=cuda_device).manual_seed(rows * 17 + nslots)
     for T, B, K in ((3264, 128, 1024), (100, 1, 1024), (101, 3, 1000),
-                    (70, 128, 1024), (35, 2, 2)):
+                    (70, 128, 1024), (35, 2, 2), (67, 4096, 1024)):
         x = torch.rand((T, B, K), generator=gen, device=cuda_device)
         before = tdma.hbm_ring.launches
         out = tdma.hbm_ring(x, rows, nslots)
@@ -223,3 +265,36 @@ def test_hbm_ring_kernel_propagates_nan_and_empty_is_minus_inf(cuda_device):
     assert torch.isnan(out[1, 3]) and int(torch.isnan(out).sum()) == 1
     assert torch.equal(tdma.hbm_ring(x, 10, 2),
                        torch.full((2, 8), -float("inf"), device=cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,nslots", tdma.CASES + ((1, 16),))
+def test_hbm_ring_kernel_propagates_nan_at_every_case(cuda_device, rows,
+                                                      nslots):
+    """A NaN in a folded row, and one in the last row, which only rows = 1
+    folds (the others stop a row short of T), over ragged columns: NaN
+    where the twin has it, every other value bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + nslots)
+    T = 3 * rows + 1
+    x = torch.rand((T, 5, 1000), generator=gen, device=cuda_device)
+    x[T // 2, 3, 777] = float("nan")
+    x[T - 1, 1, 5] = float("nan")
+    out = tdma.hbm_ring(x, rows, nslots)
+    ref = tdma.hbm_ring_plain(x, rows)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert torch.isnan(out[3, 777]) and bool(torch.isnan(out[1, 5])) == (
+        rows == 1)
+    assert int(torch.isnan(out).sum()) == 1 + (rows == 1)
+    keep = ~torch.isnan(ref)
+    assert torch.equal(out[keep], ref[keep])
+
+
+@pytest.mark.gpu
+def test_hbm_ring_clocked_build_gives_the_same_bits(cuda_device):
+    """The probe's clocked build (``--clocks``) folds what the port's build
+    folds, and reports every chunk of block 0."""
+    x = torch.rand((64, 8, 1024), device=cuda_device)
+    out = tdma.hbm_ring(x, 2, 4)
+    clocks = tdma.chunk_clocks(x, 2, 4, out)
+    assert clocks["chunks_block0"] == 32 and clocks["cycles_per_chunk"] > 0
+    assert set(clocks["producer"]) == set(tdma.RING_PHASES) | {"loop"}

@@ -14,9 +14,10 @@ import pytest
 import torch
 
 from sloika_tpu_torch import nn as tnn
+from sloika_tpu_torch.nn import fused_lstm
 from sloika_tpu_torch.nn.fused_gru import H100_SMS, SMEM_OPTIN
 from sloika_tpu_torch.nn.fused_lstm import (
-    LstmFunction, lstm_backward, lstm_bwd_plan, lstm_forward,
+    LstmFunction, lstm_backward, lstm_bwd_plan, lstm_forward, lstm_fwd_plan,
     lstm_scan_bwd_gates_plain, lstm_scan_bwd_plain, lstm_scan_plain,
     lstm_wgrad, lstm_wgrad_plain)
 
@@ -134,6 +135,44 @@ def test_lstm_bwd_plan_at_the_main_paths_shapes():
     assert lstm_bwd_plan(19, 144)["mode"] == "global"
 
 
+def test_lstm_fwd_plan_at_the_main_paths_shapes():
+    """The forward's plan at both event paths' shapes (B = 64 reads of up
+    to 9,000 events, B = 100 training chunks; S = 64): sWT's columns in
+    registers, one row a block, an xp ring of 4 step slots, and a mask
+    window that holds all 9,000 steps."""
+    for B in (64, 100):
+        plan = lstm_fwd_plan(B, 64)
+        assert (plan["br"], plan["mode"], plan["kq"], plan["stage"]) == (
+            1, "registers", 64, 0)
+        assert plan["ns"] == 4 and plan["threads"] == 256
+        assert plan["mw"] >= 9000
+    assert lstm_fwd_plan(100, 64) == lstm_fwd_plan(100, 64)   # shapes alone
+    assert lstm_fwd_plan(600, 64)["br"] == 8
+    assert lstm_fwd_plan(19, 8)["mode"] == "smem"
+    assert lstm_fwd_plan(19, 96)["mode"] == "smem"
+    assert lstm_fwd_plan(19, 130)["mode"] == "global"
+
+
+@pytest.mark.parametrize("S", [1, 8, 32, 33, 64, 65, 96, 130, 256])
+@pytest.mark.parametrize("B", [1, 64, 100, 1100])
+def test_lstm_fwd_plan_fits_every_width(B, S):
+    plan = lstm_fwd_plan(B, S)
+    assert plan["smem"] <= SMEM_OPTIN and plan["threads"] >= 4 * S
+    assert plan["threads"] % 32 == 0 and plan["threads"] <= 1024
+    assert -(-B // plan["br"]) <= H100_SMS or plan["br"] == 8
+    assert 2 <= plan["ns"] <= 4 and plan["mw"] >= 1
+    assert plan["mw"] * plan["br"] in fused_lstm.FWD_MASK_WINDOWS
+    kk = plan["kq"] or -(-S // 4) * 4
+    assert plan["smem"] == (fused_lstm.FWD_BAR_BYTES
+                            + plan["mw"] * plan["br"] + 4 * (
+                                plan["ns"] * plan["br"] * 4 * S
+                                + 2 * kk * plan["br"]
+                                + (4 * S * S if plan["stage"] else 0)))
+    assert plan["mode"] == ("registers" if 33 <= S <= 64 else
+                            "smem" if plan["stage"] else "global")
+    assert plan["kq"] == (64 if plan["mode"] == "registers" else 0)
+
+
 @pytest.mark.parametrize("S", [1, 8, 32, 33, 64, 65, 96, 118, 130, 256])
 @pytest.mark.parametrize("B", [1, 100, 1100])
 def test_lstm_bwd_plan_fits_every_width(B, S):
@@ -173,19 +212,17 @@ def test_lstm_function_emits_the_gate_trace_only_for_gradients(monkeypatch):
     assert type(out.grad_fn).__name__ == "LstmFunctionBackward"
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("S", [8, 64, 130, 256])
-@pytest.mark.parametrize("reverse", [False, True])
-def test_lstm_forward_kernel_matches_twin(cuda_device, S, reverse):
-    """Both variants; S = 130 and 256 read sWT through L1 (it does not fit
-    shared memory)."""
-    xp, sWT, p, mask = [a.to(cuda_device) for a in lstm_inputs(301, 19, S)]
+def _check_forward(xp, sWT, p, mask, reverse):
+    """Both variants against the twin (h and c on valid steps, the gate
+    trace everywhere), the inference variant's h equal to the training
+    variant's, the same bits on a second call; one launch a call."""
     before = lstm_forward.launches
     h, c = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse)
     h2, none = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
                             emit_cout=False)
     assert lstm_forward.launches == before + 2 and none is None
-    href, cref = lstm_scan_plain(xp, sWT, p, mask, reverse)
+    href, cref, gref = lstm_scan_plain(xp, sWT, p, mask, reverse,
+                                       emit_gates=True)
     m = mask[:, :, None]
     assert float(((h - href).abs() * m).max()) <= FWD_ATOL
     assert float(((c - cref).abs() * m).max()) <= FWD_ATOL
@@ -194,8 +231,44 @@ def test_lstm_forward_kernel_matches_twin(cuda_device, S, reverse):
     h3, c3, gates = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
                                  emit_gates=True)
     assert torch.equal(h3, h) and torch.equal(c3, c)
-    _, _, gref = lstm_scan_plain(xp, sWT, p, mask, reverse, emit_gates=True)
+    assert torch.isfinite(gates).all()
     assert float((gates - gref).abs().max()) <= FWD_ATOL
+    again = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
+                         emit_gates=True)
+    assert all(torch.equal(a, b) for a, b in zip((h3, c3, gates), again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [8, 33, 64, 65, 96, 130, 256])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_forward_kernel_matches_twin(cuda_device, S, reverse):
+    """Both variants of every mode (S = 8, 65, 96 staged; 33, 64 registers;
+    130, 256 through L1) on holed masks with a row masked throughout."""
+    xp, sWT, p, mask = [a.to(cuda_device) for a in lstm_inputs(301, 19, S)]
+    _check_forward(xp, sWT, p, _holes(mask), reverse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,B", [(8, 1100), (64, 1100), (96, 300),
+                                 (130, 70), (64, 1)])
+def test_lstm_forward_kernel_wide_batches_and_mask_windows(cuda_device, S, B,
+                                                           monkeypatch):
+    """Batches of 1 to 8 rows a block, and mask windows of a few steps
+    (windows of 16 to 64 bytes: the mask is restaged every 2 to 64 steps)
+    on holed masks: the same results as the full window."""
+    T = 97
+    xp, sWT, p, mask = [a.to(cuda_device) for a in lstm_inputs(T, B, S)]
+    mask = _holes(mask)
+    for reverse in (False, True):
+        _check_forward(xp, sWT, p, mask, reverse)
+        full = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
+                            emit_gates=True)
+        with monkeypatch.context() as mp:
+            mp.setattr(fused_lstm, "FWD_MASK_WINDOWS", (64, 16))
+            assert lstm_fwd_plan(B, S)["mw"] * lstm_fwd_plan(B, S)["br"] == 64
+            small = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
+                                 emit_gates=True)
+        assert all(torch.equal(a, b) for a, b in zip(full, small))
 
 
 @pytest.mark.gpu
@@ -211,6 +284,20 @@ def test_lstm_kernels_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="256"):
         lstm_forward(big, torch.zeros((257, 4 * 257), device=cuda_device),
                      torch.zeros((3, 257), device=cuda_device))
+
+
+@pytest.mark.gpu
+def test_lstm_fwd_clocked_build_gives_the_same_bits(cuda_device):
+    """``bench_lstm --clocks``: the clocked build of the forward computes
+    what the port's build does, and stamps every warp's steps."""
+    from sloika_tpu_torch.scripts import bench_lstm
+    T, B, S = 41, 3, 64
+    xp, sWT, p, mask = [a.to(cuda_device) for a in lstm_inputs(T, B, S)]
+    h, _ = lstm_forward(xp, sWT, p, mask=mask, emit_cout=False)
+    split = bench_lstm.fwd_step_clocks(xp, sWT, p, mask, h)
+    assert len(split["phases_by_warp"]) == 8
+    assert split["cycles_per_step"] > 0
+    assert set(split["phases_mean"]) == set(bench_lstm.FWD_PHASES)
 
 
 @pytest.mark.gpu
