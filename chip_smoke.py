@@ -51,10 +51,14 @@ Phases, each printing one line and raising on failure:
 8. remap kernels: ``remap_banded`` and ``remap_back`` against their plain
    twins at B = 64 on log-posteriors made on the card, at W = 768
    (Tp = 2,048, P = 1,300), the exact form (P = 600, W = 640), W = 3,072,
-   and the remap main path's shape (T = 35,429 frames, Tp = 35,584,
-   W = 768, P = 14,763) (traceback, final scores, score and path
-   bit-identical); each kernel and each twin timed at the main path's
-   shape;
+   W = 777 (not a multiple of 8; T = 1,000), and the remap main path's
+   shape (T = 35,429 frames, Tp = 35,584, W = 768, P = 14,763)
+   (traceback, final scores, score and path bit-identical, and the same
+   bits on a second call); each kernel and each twin timed at the main
+   path's shape, beside the previous design's, and each kernel's step
+   split by its clocked build (``scripts/bench_remap.py --clocks``);
+   ``remap_back`` also beside its design's bytes and its chain's floor
+   (Tp shared-memory reads);
 9. remap main path: ``Remapper(pretrained_standin(sd=1.5), 5,
    batch_size=64)`` at the default band (768) remaps 64 synthetic DAC
    reads of 40k-120k samples through ``remap_dac_signals``; every kernel
@@ -168,6 +172,8 @@ RAW_BATCH, RAW_SHORT, RAW_SCORE_RTOL = 8, 20000, 1e-4
 REMAP_B, REMAP_W = 64, 768
 REMAP_T_MAIN, REMAP_P_MAIN = 35429, 14763
 REMAP_T = 2000
+# the odd-width case: a window that is not a multiple of 8, at small T
+REMAP_T_ODD, REMAP_W_ODD = 1000, 777
 # the four shortest reads get references this many kmers longer than their
 # frames: the 768 window cannot reach their ends, the 3,072 window can
 REMAP_OVERLONG, REMAP_OVERLONG_EXCESS = 4, 1200
@@ -735,28 +741,6 @@ def profile_table(events, nsteps, wall_ms=None):
         for ms, n, name in by_kernel[:10])
 
 
-def remap_inputs(dev, lt, P, W, seed):
-    """Sequences, masks, priors and the block-quantised band schedule of a
-    batch of REMAP_B rows with ragged frame and position counts, for the
-    time-major log-posterior ``lt`` (T, REMAP_B, 1025)."""
-    from sloika_tpu_torch.ops import remap_kernel as rk
-    rs = np.random.RandomState(seed)
-    T = lt.shape[0]
-    nframes = rs.randint(T * 3 // 4, T + 1, size=REMAP_B)
-    npos = rs.randint(P // 2, P + 1, size=REMAP_B)
-    nframes[0], npos[0] = T, P
-    seq = rs.randint(1, 1025, size=(REMAP_B, P)).astype(np.int32)
-    mask = np.arange(P)[None, :] < npos[:, None]
-    prior = np.log(rs.uniform(0.05, 1.0, size=(2, REMAP_B, P))) \
-        .astype(np.float32)
-    TB = rk.block_len(W)
-    Tp = -(-T // TB) * TB
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    starts = rk.band_starts_blocked(t(nframes), t(npos.astype(np.int32)), Tp,
-                                    W, TB)
-    return t(seq), t(mask), t(prior[0]), t(prior[1]), starts
-
-
 def timed_once(fn):
     """(fn(), its milliseconds by CUDA events), one run, no warm-up."""
     start = torch.cuda.Event(enable_timing=True)
@@ -779,19 +763,28 @@ def remap_bytes(T, Tp, B, W, P):
 
 def phase_remap_kernels(dev):
     from sloika_tpu_torch.ops import remap_kernel as rk
+    from sloika_tpu_torch.scripts import bench_remap
     gen = torch.Generator(device=dev).manual_seed(11)
     worst_tb = worst_back = 0.0
     cases = (("W=768", REMAP_T, 1300, REMAP_W), ("exact", REMAP_T, 600, 640),
              ("W=3072", REMAP_T, 5000, 4 * REMAP_W),
+             ("W=777", REMAP_T_ODD, 1300, REMAP_W_ODD),
              ("main path's shape", REMAP_T_MAIN, REMAP_P_MAIN, REMAP_W))
     for name, T, P, W in cases:
         lt = torch.log_softmax(
             2.0 * torch.randn((T, REMAP_B, 1025), generator=gen, device=dev),
             dim=2).contiguous()
-        seq, mask, p0, p1, starts = remap_inputs(dev, lt, P, W, seed=W + T)
+        seq, mask, p0, p1, starts = bench_remap.remap_inputs(dev, lt, P, W,
+                                                             seed=W + T)
         tb, vfinal = rk.remap_banded(lt, seq, mask, p0, starts, 5.0, W)
         score, path = rk.finish_banded(tb, vfinal, starts, p1,
                                        rk.remap_backtrack)
+        # the same bits on a second call of each
+        tb2, vfinal2 = rk.remap_banded(lt, seq, mask, p0, starts, 5.0, W)
+        again = (torch.equal(tb2, tb) and torch.equal(vfinal2, vfinal)
+                 and torch.equal(rk.remap_backtrack(tb, starts, path[-1]),
+                                 path))
+        del tb2
         (tb_p, vfinal_p), plain_ms = timed_once(
             lambda: rk.remap_banded_plain(lt, seq, mask, p0, starts, 5.0, W))
         score_p, path_p = rk.finish_banded(tb_p, vfinal_p, starts, p1,
@@ -805,28 +798,47 @@ def phase_remap_kernels(dev):
         worst_back = max(worst_back, float((path - path_p).abs().max()))
         Tp = starts.shape[0]
         print("remap kernels {} (T={} Tp={} B={} P={} W={}): bit_identical "
-              "{}; slips in the path {}".format(
-                  name, T, Tp, REMAP_B, P, W, same,
-                  int(((path[1:] - path[:-1]) >= 2).sum())), flush=True)
-        if not same:
-            raise AssertionError("remap kernels differ from their twins "
-                                 "({})".format(name))
+              "{}; same bits on a second call {}; slips in the path "
+              "{}".format(name, T, Tp, REMAP_B, P, W, same, again,
+                          int(((path[1:] - path[:-1]) >= 2).sum())),
+              flush=True)
+        if not (same and again):
+            raise AssertionError("remap kernels differ from their twins or "
+                                 "from their first call ({})".format(name))
         del tb_p
-    # each kernel and each twin timed at the main path's shape (the last)
+    # each kernel and each twin timed at the main path's shape (the last),
+    # and each kernel's step split by its clocked build (the same bits)
     last = path[-1]
-    ms = cuda_ms(lambda: rk.remap_banded(lt, seq, mask, p0, starts, 5.0, W),
-                 3)
+    args = (lt, seq, mask, p0, starts, 5.0, W)
+    ms = cuda_ms(lambda: rk.remap_banded(*args), 3)
     back_ms = cuda_ms(lambda: rk.remap_backtrack(tb, starts, last), 3)
     _, back_plain_ms = timed_once(
         lambda: rk.remap_backtrack_plain(tb, starts, last))
-    del lt, tb
+    banded_split = bench_remap.banded_clocks(args, (tb, vfinal))
+    back_split = bench_remap.back_clocks((tb, starts, last), path)
+    del lt, tb, args
     torch.cuda.empty_cache()
     shape = "T={} Tp={} B={} W={} P={}".format(T, Tp, REMAP_B, W, P)
+    # remap_back's design reads the whole traceback once; its chain is Tp
+    # shared-memory reads at the clocked build's clock
+    design_bytes = Tp * REMAP_B * (W * 2 + 4 + 4) + REMAP_B * 4
+    chain_floor_ms = (Tp * back_split["smem_chase_cycles"]
+                      / (back_split["ghz"] * 1e6))
     print("remap kernels at the main path's shape ({}): remap_banded "
-          "{:.3f} ms ({:.3f} us a step), remap_back {:.3f} ms; plain twins "
-          "{:.1f} ms and {:.1f} ms".format(
-              shape, ms, 1e3 * ms / Tp, back_ms, plain_ms, back_plain_ms),
+          "{:.3f} ms ({:.3f} us, {:.0f} cycles a step), remap_back {:.3f} "
+          "ms ({:.0f} cycles a step; its design's bytes {:.3f} ms, its "
+          "chain floor {:.3f} ms at {:.1f} cycles a shared-memory read); "
+          "plain twins {:.1f} ms and {:.1f} ms".format(
+              shape, ms, 1e3 * ms / Tp, banded_split["cycles_per_step"],
+              back_ms, back_split["cycles_per_step"],
+              bound(design_bytes, 0)[0], chain_floor_ms,
+              back_split["smem_chase_cycles"], plain_ms, back_plain_ms),
           flush=True)
+    print("remap kernels' steps by phase (cycles, clocked builds): "
+          "remap_banded {}; remap_back walker {}, copier {}".format(
+              json.dumps(banded_split["phases_mean"]),
+              json.dumps(back_split["walker"]),
+              json.dumps(back_split["copier"])), flush=True)
     # remap_banded: ~13 float32 operations a window lane a step; the
     # backtrace reads one delta and one window start and writes one
     # position a step (its time is set by a chain of Tp dependent loads).
@@ -836,13 +848,21 @@ def phase_remap_kernels(dev):
                     "source": "sloika_tpu_torch/csrc/remap_banded.cu",
                     "replaces": "sloika_tpu/ops/pallas/remap.py:69",
                     "shape": shape, "max_abs_err": worst_tb, "ms": ms,
-                    "plain_ms": plain_ms},
+                    "plain_ms": plain_ms,
+                    "cycles_per_step": banded_split["cycles_per_step"],
+                    "cycles_per_step_by_phase": banded_split["phases_mean"]},
                    remap_bytes(T, Tp, REMAP_B, W, P), 13 * Tp * REMAP_B * W),
         with_bound({"name": "remap_back", "route": "cuda",
                     "source": "sloika_tpu_torch/csrc/remap_back.cu",
                     "replaces": "sloika_tpu/ops/pallas/remap.py:161",
                     "shape": shape, "max_abs_err": worst_back,
-                    "ms": back_ms, "plain_ms": back_plain_ms},
+                    "ms": back_ms, "plain_ms": back_plain_ms,
+                    "design_bytes_bound_ms": bound(design_bytes, 0)[0],
+                    "chain_floor_ms": chain_floor_ms,
+                    "cycles_per_step": back_split["cycles_per_step"],
+                    "cycles_per_step_by_phase": {
+                        "walker": back_split["walker"],
+                        "copier": back_split["copier"]}},
                    Tp * REMAP_B * (2 + 4 + 4) + REMAP_B * 4,
                    3 * Tp * REMAP_B)]
 

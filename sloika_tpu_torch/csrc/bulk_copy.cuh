@@ -77,6 +77,41 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
+// a box of a 4-D tensor map (coordinates innermost first; elements outside
+// the tensor are filled with zeros), completing on `bar` with the box's
+// bytes
+__device__ __forceinline__ void tensor_copy_4d(void* dst, const void* tmap,
+                                               int x, int y, int z, int w,
+                                               uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(tmap), "r"(x), "r"(y), "r"(z), "r"(w), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// whether the phase of this parity has completed, without blocking
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, unsigned parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// wait until the phase of this parity has completed, testing first: a
+// blocking try_wait on a completed phase costs ~200 cycles (PERF.md §6)
+__device__ __forceinline__ void mbar_wait_tested(uint64_t* bar,
+                                                 unsigned parity) {
+  if (!mbar_test(bar, parity)) mbar_wait(bar, parity);
+}
+
 }  // namespace
 
 // Phase clocks of a kernel's clocked build: PHASE_CLOCK(k) adds the SM

@@ -30,70 +30,229 @@
 // 35,584 dependent steps at the remap main path's shapes (T = 35,429
 // frames, B = 64, W = 768).  Its bytes, the whole posterior read once
 // (9.3 GB) and the int16 traceback written once (3.5 GB), take ~3.8 ms at
-// 3.35 TB/s; the chain of steps, each a prefix max across the window and
-// two block barriers, takes far longer.  So it is bound by the latency of
-// a step, not by bytes or operations.
+// 3.35 TB/s; the chain of steps takes far longer, so the latency of one
+// step bounds it.  The design before this one took ~3,000 cycles a step
+// (PERF.md §6, step 0): two block barriers and a serial fold of the
+// warp totals ~950, an update ~1,000 whose shared-memory reads queued
+// behind the next step's 768 scattered 4-byte gathers from device memory,
+// and ~500 waiting for those gathers.
 //
-// What the design does about it.  One block per batch row runs all steps,
-// with the carried scores (double-buffered), the prefix maxima and their
-// positions in shared memory (14 bytes a position; W up to 16,384).  Each
-// thread owns ppt contiguous positions (256 threads x 3 at W = 768).  The
-// prefix max, a Hillis-Steele scan of log2(W) lane rolls on the TPU, is a
-// sequential pass over each thread's positions, a warp __shfl_up_sync scan
-// and a fold of the warp totals: two barriers a step, not log2(W).  Since
-// ties go to the earlier position under any order of combination, the
-// result equals the TPU scan's wherever it can win (see the plain twin's
-// test).  The realignment by d, log2(TB) conditional lane rolls on the TPU,
-// is one shifted shared-memory read.  The emissions of step t+1 and the
-// window start of step t+2 are loaded while step t runs, so their
-// global-memory latency is off the chain except at block boundaries,
-// where the window's emission states are read anew.
-#include <cuda_runtime.h>
+// What the design does about it.  One block per batch row runs all steps
+// with C consumer warps of PPT contiguous positions a thread (the plan,
+// ops/remap_kernel.py::remap_banded_plan: 6 warps x 4 at W = 768, 12 x 8
+// at 3,072).  PPT is a template argument: every position of a thread is
+// computed without a guard, positions past the window included (they come
+// after every real one, so no real prefix max or source reads them), and
+// only their stores are masked.
+// - Each frame's posterior row comes into a ring of shared-memory slots of
+//   G frames by bulk asynchronous copies (cp.async.bulk) on the slot's
+//   mbarrier.  A producer warp joins each step's barrier and, after the
+//   one that ends a slot's frames, refills the slot: lane q copies frame
+//   q, off the consumers' path.  A row is NS * 4 = 4,100 bytes and starts
+//   on a 16-byte boundary for one row in four, so a copy takes the aligned
+//   superset (up to 4,112 bytes) and the emissions are read at the row's
+//   offset into it; a superset that would run past the tensor's storage
+//   (its last row) is not copied, and that frame is gathered from device
+//   memory.  The consumers gather frame t + 1 after step t's barrier, so
+//   those reads land while the fold and the update run, and wait on a
+//   slot's barrier once in G steps.  No device-memory latency is left on
+//   the step's chain but at window moves, every TB frames, where the next
+//   window's states are read (6 cycles a step in the design before this
+//   one).  Where no ring of two slots fits beside the window's arrays
+//   (posterior rows of 16,385 states at W above 9,976, or of 65,537 at
+//   any W), the plan sets no slots and no producer: the consumers gather
+//   each frame's emissions from device memory a step ahead, as the design
+//   before this one did, so the kernel keeps its reach over NS.
+// - The carried scores stay in registers.  A step's prefix max is a
+//   sequential pass over a thread's positions, a __shfl_up_sync scan of the
+//   thread totals in the warp, and a fold of the warp totals before the
+//   thread's warp, which lane 31 of each warp publishes (double-buffered by
+//   the parity of t) before the step's one __syncthreads().  Where the
+//   window does not move (d = 0, all but one step in TB) every source of
+//   lane j lies at j, j - 1 or j - 2: in the thread's own registers, in
+//   lane - 1's (a shuffle), or, for lane 0, in what lane 31 of the warp
+//   before published beside its total.  Where it moves, every thread also
+//   publishes its scores and warp prefix maxima, and the step takes two
+//   more barriers: one before the shifted reads, one after them.  The
+//   combination is associative with ties to the earlier position, so the
+//   result equals the TPU scan's wherever it can win (see the plain twin's
+//   tests).
+// - The traceback row is written a thread's PPT deltas at a time, up to
+//   16 bytes a store: 53 cycles a step in the design before this one, so
+//   no bulk store.
+// What bounds it now: a step is ~600 warp instructions, most of them
+// dependent compares and selects on the half-rate integer pipe; with one
+// warp a scheduler they run at ~3 cycles each (PERF.md §6), so the
+// plan spreads W over more warps than schedulers.
 #include <math.h>
-#include <stdint.h>
+
+#include "bulk_copy.cuh"
+
+#ifdef REMAP_BANDED_CLOCKS
+// Step-phase clocks (scripts/bench_remap.py --clocks builds this source
+// with -DREMAP_BANDED_CLOCKS into a library of its own): lane 0 of each warp
+// of block 0 sums, over the steps, the SM clock cycles of the traceback
+// stores, the masking of the next emissions (where their reads land) and
+// the step's head with the issue of the next window's loads (0), the issue
+// of the next frame's gather (1), the local and warp scans with the
+// publication (2), the barrier (3), the fold of the warp totals (4), the
+// update (5) and the wait for a slot's copies (6); slot 7 holds the loop's
+// cycles.  The
+// producer warp stamps its barrier and refill (3) and its window moves'
+// barriers (5).
+__device__ long long remap_banded_clocks[32 * 8];
+#define BAND_CLOCK(k) PHASE_CLOCK(k)
+#else
+#define BAND_CLOCK(k) \
+  do {                \
+  } while (0)
+#endif
 
 namespace {
 
 constexpr float kNeg = -1.0e30f;   // NEG_LARGE, sloika_tpu/ops/remap_jax.py:29
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxSlots = 16;
+constexpr int kBarBytes = 256;     // the slots' full mbarriers
 
 // The states and validity bits of a thread's positions for the window
-// starting at s (_block_emissions :230-242, by gather).
-template <int MAXP>
-__device__ __forceinline__ void window(int s, int j0, int np, int P, int NS,
+// starting at s (_block_emissions :230-242, by gather); positions past the
+// window are not valid.
+template <int PPT>
+__device__ __forceinline__ void window(int s, int j0, int W, int P, int NS,
                                        const int32_t* __restrict__ seq_b,
                                        const uint8_t* __restrict__ mask_b,
-                                       int (&st)[MAXP], unsigned& ok) {
+                                       int (&st)[PPT], unsigned& ok) {
   ok = 0u;
 #pragma unroll
-  for (int i = 0; i < MAXP; ++i) {
-    if (i < np) {
-      const int a = s + j0 + i;
-      const int idx = min(max(a, 0), P - 1);
-      // clamped so a bad state can never address outside the row
-      st[i] = min(max(seq_b[idx], 0), NS - 1);
-      if (a < P && mask_b[idx]) ok |= 1u << i;
+  for (int i = 0; i < PPT; ++i) {
+    const int a = s + j0 + i;
+    const int idx = min(max(a, 0), P - 1);
+    // clamped so a bad state can never address outside the row
+    st[i] = min(max(seq_b[idx], 0), NS - 1);
+    if (j0 + i < W && a < P && mask_b[idx]) ok |= 1u << i;
+  }
+}
+
+// Frame t's posterior row as a bulk copy takes it: the 16-byte boundary at
+// or below the row, the row's offset into the copy (floats) and the copy's
+// bytes.  Returns false where the copy would run past `end`, the end of the
+// tensor's storage: that row is read from device memory instead.
+__device__ __forceinline__ bool row_span(const float* lt, int t, int B, int b,
+                                         int NS, unsigned long long end,
+                                         const float*& src, int& off,
+                                         unsigned& bytes) {
+  const unsigned long long a =
+      (unsigned long long)(lt + ((size_t)t * B + b) * NS);
+  const unsigned long long a0 = a & ~15ull;
+  const unsigned long long e = (a + 4ull * NS + 15ull) & ~15ull;
+  src = reinterpret_cast<const float*>(a0);
+  off = (int)((a - a0) >> 2);
+  bytes = (unsigned)(e - a0);
+  return e <= end;
+}
+
+// Fill ring slot `slot` (G rows) with frames f0 .. f0 + G - 1, those below
+// T: lane q copies frame f0 + q; lane 0 arms the slot's barrier with their
+// bytes.  A row whose copy would run past the storage is not copied (it is
+// read from device memory).  Called by a whole warp.
+__device__ __forceinline__ void refill(const float* lt, int f0, int G, int T,
+                                       int B, int b, int NS,
+                                       unsigned long long end, float* slot,
+                                       int slot_floats, uint64_t* bar,
+                                       int lane) {
+  const float* src = nullptr;
+  int off = 0;
+  unsigned bytes = 0;
+  bool copy = false;
+  if (lane < G && f0 + lane < T)
+    copy = row_span(lt, f0 + lane, B, b, NS, end, src, off, bytes);
+  const unsigned total = __reduce_add_sync(kFull, copy ? bytes : 0u);
+  if (lane == 0) mbar_expect_tx(bar, total);   // 0: the phase completes
+  __syncwarp();
+  if (copy) bulk_copy(slot + (size_t)lane * slot_floats, src, bytes, bar);
+}
+
+// a, the earlier segment's (value, position), takes b's only where b's
+// value is strictly greater: ties go to the earlier position
+__device__ __forceinline__ void later(float& av, int& ai, float bv, int bi) {
+  const bool take = bv > av;
+  av = take ? bv : av;
+  ai = take ? bi : ai;
+}
+
+__device__ __forceinline__ uint32_t pack2(int lo, int hi) {
+  return ((uint32_t)lo & 0xffffu) | ((uint32_t)hi << 16);
+}
+
+// the thread's PPT deltas of a traceback row: `vec` bytes a store, 16
+// (W % 8 == 0 and PPT % 8 == 0), 8 (W % 4 == 0 and PPT % 4 == 0), 4 (W
+// even) or 2
+template <int PPT>
+__device__ __forceinline__ void store_row(int16_t* __restrict__ row, int j0,
+                                          int W, const int (&dl)[PPT],
+                                          int vec) {
+  if (PPT % 8 == 0 && vec == 16) {
+#pragma unroll
+    for (int i = 0; i < PPT; i += 8) {
+      if (j0 + i < W) {
+        *reinterpret_cast<uint4*>(row + j0 + i) = make_uint4(
+            pack2(dl[i], dl[i + 1]), pack2(dl[i + 2], dl[i + 3]),
+            pack2(dl[i + 4], dl[i + 5]), pack2(dl[i + 6], dl[i + 7]));
+      }
+    }
+  } else if (PPT % 4 == 0 && vec == 8) {
+#pragma unroll
+    for (int i = 0; i < PPT; i += 4) {
+      if (j0 + i < W)
+        *reinterpret_cast<uint2*>(row + j0 + i) = make_uint2(
+            pack2(dl[i], dl[i + 1]), pack2(dl[i + 2], dl[i + 3]));
+    }
+  } else if (vec == 4) {
+#pragma unroll
+    for (int i = 0; i < PPT; i += 2) {
+      if (j0 + i < W)
+        *reinterpret_cast<uint32_t*>(row + j0 + i) = pack2(dl[i], dl[i + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      if (j0 + i < W) row[j0 + i] = (int16_t)dl[i];
     }
   }
 }
 
-// The emissions and stay score of frame t for those positions.
-template <int MAXP>
-__device__ __forceinline__ void emissions(const float* __restrict__ lt,
-                                          int t, int T, int B, int b, int NS,
-                                          int np, const int (&st)[MAXP],
-                                          unsigned ok, float (&em)[MAXP],
-                                          float& stay) {
-  const bool live = t < T;
-  const float* row = lt + ((size_t)(live ? t : 0) * B + b) * NS;
-  stay = live ? row[0] : 0.0f;
-#pragma unroll
-  for (int i = 0; i < MAXP; ++i) {
-    if (i < np) em[i] = (live && ((ok >> i) & 1u)) ? row[st[i]] : kNeg;
-  }
-}
+// A row's window starts, 32 steps to a register of a warp: lane l of cur
+// holds step base + l, of nxt step base + 32 + l (read 32 steps ahead)
+struct StartWindow {
+  const int32_t* starts;
+  int B, b, Tp, lane, base, cur, nxt;
 
-template <int MAXP, int MAXT>
+  __device__ int load(int u) const {
+    return u < Tp ? starts[(size_t)u * B + b] : 0;
+  }
+  __device__ void init(const int32_t* s, int B_, int b_, int Tp_, int l) {
+    starts = s;
+    B = B_;
+    b = b_;
+    Tp = Tp_;
+    lane = l;
+    base = 0;
+    cur = load(lane);
+    nxt = load(32 + lane);
+  }
+  // the start of step u, for u = 1, 2, ... in turn
+  __device__ int at(int u) {
+    if (u - base == 32) {
+      base += 32;
+      cur = nxt;
+      nxt = load(base + 32 + lane);
+    }
+    return __shfl_sync(kFull, cur, (u - base) & 31);
+  }
+};
+
+template <int PPT, int MAXT>
 __global__ void __launch_bounds__(MAXT)
 remap_banded_kernel(const float* __restrict__ lt,
                     const int32_t* __restrict__ seq,
@@ -101,214 +260,477 @@ remap_banded_kernel(const float* __restrict__ lt,
                     const float* __restrict__ prior0,
                     const int32_t* __restrict__ starts,
                     int16_t* __restrict__ tb, float* __restrict__ vfinal,
-                    int T, int B, int NS, int P, int W, int Tp, int ppt,
-                    float slip) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* pbuf0 = reinterpret_cast<float*>(smem);
-  float* pbuf1 = pbuf0 + W;
-  float* ys = pbuf1 + W;
-  int16_t* yi = reinterpret_cast<int16_t*>(ys + W);
-  __shared__ float warp_v[32];
-  __shared__ int warp_i[32];
+                    int T, int B, int NS, int P, int W, int Tp, int nwarps,
+                    int producer, int G, int nslots, int slot_floats, int vec,
+                    unsigned long long lt_end, float slip) {
+  constexpr int kWarps = MAXT / 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);           // [nslots]
+  float* ring = reinterpret_cast<float*>(smem + kBarBytes);     // [nslots][G][slot]
+  const int Wc = (W + 7) & ~7;
+  float* psh = ring + (size_t)nslots * G * slot_floats;         // [Wc] scores
+  float* ysh = psh + Wc;                                        // [Wc] prefix max
+  int16_t* ish = reinterpret_cast<int16_t*>(ysh + Wc);          // [Wc] its position
+  // lane 31 of each warp: its warp's total (value, position), its last
+  // score and the warp prefix max at its last position but one (value,
+  // position); by the parity of t
+  __shared__ float4 edge[2][kWarps];
+  __shared__ int edge_i[2][kWarps];
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int j0 = tid * ppt;
-  const int np = max(0, min(ppt, W - j0));
+  const int j0 = tid * PPT;
   const int32_t* seq_b = seq + (size_t)b * P;
   const uint8_t* mask_b = pos_mask + (size_t)b * P;
+  const size_t chunk_floats = (size_t)G * slot_floats;
 
-  int st[MAXP];
-  unsigned ok_n;
-  float em_n[MAXP], stay_n;
+  // the warp that fills the ring: the producer (the last), or warp 0 where
+  // the consumers take all 32 warps
+  const int filler = producer ? nwarps : 0;
+  if (tid == 0) {
+    for (int s = 0; s < nslots; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (warp == filler) {
+    // chunk k holds frames 1 + kG .. (k + 1)G, in slot k % nslots
+    for (int k = 0; k < nslots; ++k)
+      refill(lt, 1 + k * G, G, T, B, b, NS, lt_end, ring + k * chunk_floats,
+             slot_floats, &full[k], lane);
+  }
+  StartWindow sw;
+  sw.init(starts, B, b, Tp, lane);
+  // only the last frame's copy can run past the storage (a row before it
+  // ends at least a row before the end)
+  bool last_copied;
+  {
+    const float* src;
+    int off;
+    unsigned bytes;
+    last_copied = row_span(lt, T - 1, B, b, NS, lt_end, src, off, bytes);
+  }
+#ifdef REMAP_BANDED_CLOCKS
+  PHASE_CLOCK_START();
+#endif
+  if (warp == nwarps) {
+    // the producer: the step's barriers; after the one that ends a chunk,
+    // the refill of its slot with the chunk nslots ahead
+    int s_prev = starts[b], row = 0, slot = 0;
+    int s_next = Tp > 1 ? sw.at(1) : s_prev;
+    for (int t = 1; t < Tp; ++t) {
+      const int s = s_next;
+      s_next = sw.at(t + 1);
+      __syncthreads();
+      if (++row == G) {
+        row = 0;
+        const int f0 = t + 1 + (nslots - 1) * G;
+        if (f0 < T)
+          refill(lt, f0, G, T, B, b, NS, lt_end, ring + slot * chunk_floats,
+                 slot_floats, &full[slot], lane);
+        slot = slot + 1 == nslots ? 0 : slot + 1;
+      }
+      BAND_CLOCK(3);
+      if (s != s_prev) {           // the consumers' two more barriers
+        __syncthreads();
+        __syncthreads();
+      }
+      s_prev = s;
+      BAND_CLOCK(5);
+    }
+#ifdef REMAP_BANDED_CLOCKS
+    clk[7] = PHASE_CLOCK_TOTAL();
+    if (b == 0 && lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) remap_banded_clocks[warp * 8 + k] = clk[k];
+    }
+#endif
+    return;
+  }
+
+  int st[PPT];
+  unsigned ok, ok_next;
+  float p[PPT];
+  int dl[PPT];
+  float sj[PPT];     // slip * j, and slip * (j - 1), rounded as the twin
+  float sjm[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    dl[i] = 0;
+    sj[i] = __fmul_rn(slip, (float)(j0 + i));
+    sjm[i] = __fmul_rn(slip, __fadd_rn(__fsub_rn((float)(j0 + i), 1.0f),
+                                       0.0f));
+  }
 
   // t = 0: the initialisation row (sloika_tpu/ops/pallas/remap.py:311-315)
   int s_prev = starts[b];
-  window<MAXP>(s_prev, j0, np, P, NS, seq_b, mask_b, st, ok_n);
-  emissions<MAXP>(lt, 0, T, B, b, NS, np, st, ok_n, em_n, stay_n);
+  window<PPT>(s_prev, j0, W, P, NS, seq_b, mask_b, st, ok);
+  {
+    const float* row = lt + (size_t)b * NS;
+    const float stay0 = row[0];
 #pragma unroll
-  for (int i = 0; i < MAXP; ++i) {
-    if (i < np) {
-      const int j = j0 + i;
-      const float p0w = prior0[(size_t)b * P + min(max(s_prev + j, 0), P - 1)];
-      pbuf0[j] = em_n[i] > kNeg * 0.5f
-                     ? __fadd_rn(p0w, fmaxf(em_n[i], stay_n)) : kNeg;
-      tb[(size_t)b * W + j] = 0;
+    for (int i = 0; i < PPT; ++i) {
+      const float e = row[st[i]];
+      const float em = ((ok >> i) & 1u) ? e : kNeg;
+      const float p0w =
+          prior0[(size_t)b * P + min(max(s_prev + j0 + i, 0), P - 1)];
+      p[i] = em > kNeg * 0.5f ? __fadd_rn(p0w, fmaxf(em, stay0)) : kNeg;
     }
+    store_row<PPT>(tb + (size_t)b * W, j0, W, dl, vec);
   }
 
-  // inputs of step 1, and the window start of step 2
-  int s_n1 = Tp > 1 ? starts[(size_t)B + b] : s_prev;
-  int s_n2 = Tp > 2 ? starts[(size_t)2 * B + b] : s_n1;
-  if (Tp > 1) {
-    if (s_n1 != s_prev)
-      window<MAXP>(s_n1, j0, np, P, NS, seq_b, mask_b, st, ok_n);
-    emissions<MAXP>(lt, 1, T, B, b, NS, np, st, ok_n, em_n, stay_n);
-  }
-
-  for (int t = 1; t < Tp; ++t) {
-    const int s = s_n1;
-    const int d = s - s_prev;
-    const unsigned ok_c = ok_n;
-    const float stay_c = stay_n;
-    float em_c[MAXP];
-#pragma unroll
-    for (int i = 0; i < MAXP; ++i) em_c[i] = em_n[i];
-
-    // load the next step's inputs while this one runs
-    s_n1 = s_n2;
-    if (t + 2 < Tp) s_n2 = starts[(size_t)(t + 2) * B + b];
-    if (t + 1 < Tp) {
-      if (s_n1 != s)
-        window<MAXP>(s_n1, j0, np, P, NS, seq_b, mask_b, st, ok_n);
-      emissions<MAXP>(lt, t + 1, T, B, b, NS, np, st, ok_n, em_n, stay_n);
-    }
-
-    const float* p_old = (t & 1) ? pbuf0 : pbuf1;
-    float* p_new = (t & 1) ? pbuf1 : pbuf0;
-
-    // prefix max of y = p + slip*i: this thread's positions in order...
-    float ly[MAXP];
-    int li[MAXP];
-    float bv = -INFINITY;
-    int bi = 0;
-#pragma unroll
-    for (int i = 0; i < MAXP; ++i) {
-      if (i < np) {
-        const int j = j0 + i;
-        const float y = __fadd_rn(p_old[j], __fmul_rn(slip, (float)j));
-        if (i == 0 || y > bv) {
-          bv = y;
-          bi = j;
+  // the ring's cursor: frame `frame`'s row `row` of slot `slot`, whose
+  // barrier's phase is `phase`; gathered a step ahead
+  int frame = 1, row = 0, slot = 0;
+  unsigned phase = 0;
+  const float* row_g = lt + ((size_t)B + b) * NS;   // frame's row in lt
+  const size_t row_step = (size_t)B * NS;
+  float em[PPT], stay;
+  // frame `frame`'s emissions and stay score at the window's states st
+  // (unmasked: the caller applies the window's validity bits); then the
+  // cursor moves on
+  auto gather = [&](float (&e)[PPT], float& sv) {
+    if (frame < T) {
+      if (nslots > 0 && (frame < T - 1 || last_copied)) {
+        if (row == 0) {
+          BAND_CLOCK(1);
+          mbar_wait_tested(&full[slot], phase);
+          BAND_CLOCK(6);
         }
-        ly[i] = bv;
-        li[i] = bi;
-      }
-    }
-    // ...then across the warp (the earlier lane's total wins ties)...
+        const float* r = ring + slot * chunk_floats + row * slot_floats +
+                         (((uintptr_t)row_g >> 2) & 3);
+        sv = r[0];
 #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float ov = __shfl_up_sync(kFull, bv, off);
-      const int oi = __shfl_up_sync(kFull, bi, off);
-      if (lane >= off && !(bv > ov)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    const float ev = __shfl_up_sync(kFull, bv, 1);
-    const int ei = __shfl_up_sync(kFull, bi, 1);
-    if (lane == 31) {
-      warp_v[warp] = bv;
-      warp_i[warp] = bi;
-    }
-    __syncthreads();
-    // ...then the totals of the warps before this one
-    float xv = -INFINITY;
-    int xi = 0;
-    for (int w = 0; w < warp; ++w) {
-      if (warp_v[w] > xv) {
-        xv = warp_v[w];
-        xi = warp_i[w];
-      }
-    }
-    if (lane > 0 && ev > xv) {
-      xv = ev;
-      xi = ei;
-    }
+        for (int i = 0; i < PPT; ++i) e[i] = r[st[i]];
+      } else {
+        sv = row_g[0];
 #pragma unroll
-    for (int i = 0; i < MAXP; ++i) {
-      if (i < np) {
-        const bool own = ly[i] > xv;
-        ys[j0 + i] = own ? ly[i] : xv;
-        yi[j0 + i] = (int16_t)(own ? li[i] : xi);
+        for (int i = 0; i < PPT; ++i) e[i] = row_g[st[i]];
       }
+    } else {
+      sv = 0.0f;
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) e[i] = kNeg;
     }
-    __syncthreads();
+    ++frame;
+    row_g += row_step;
+    if (++row == G) {
+      row = 0;
+      slot = slot + 1 == nslots ? 0 : slot + 1;
+      phase ^= slot == 0 ? 1u : 0u;
+    }
+  };
+  int s_next = Tp > 1 ? sw.at(1) : s_prev;
+  ok_next = ok;
+  if (Tp > 1) {
+    if (s_next != s_prev)
+      window<PPT>(s_next, j0, W, P, NS, seq_b, mask_b, st, ok_next);
+    gather(em, stay);
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) em[i] = ((ok_next >> i) & 1u) ? em[i] : kNeg;
+  }
+  int16_t* tb_row = tb + ((size_t)B + b) * W;
+  const size_t tb_step = (size_t)B * W;
+#ifdef REMAP_BANDED_CLOCKS
+  asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(stamp) : : "memory");
+  const long long loop_start = stamp;
+#endif
+  for (int t = 1; t < Tp; ++t) {
+    const int s = s_next;
+    const int d = s - s_prev;
+    const int par = t & 1;
+    ok = ok_next;                    // step t's valid positions
+    // the next step's window start, and its states' loads where it moves
+    s_next = sw.at(t + 1);
+    const bool more = t + 1 < Tp;
+    if (more && s_next != s)
+      window<PPT>(s_next, j0, W, P, NS, seq_b, mask_b, st, ok_next);
+    BAND_CLOCK(0);
 
-    // realign by d; stay, then step, then slip, each under strict >
-    const float df = (float)d;
-    int16_t* tb_row = tb + ((size_t)t * B + b) * W;
+    // prefix max of y = p + slip*j: this thread's positions in order...
+    float wv[PPT];
+    float bv = __fadd_rn(p[0], sj[0]);
+    int bi = j0;
+    wv[0] = bv;
 #pragma unroll
-    for (int i = 0; i < MAXP; ++i) {
-      if (i < np) {
+    for (int i = 1; i < PPT; ++i) {
+      wv[i] = __fadd_rn(p[i], sj[i]);
+      later(bv, bi, wv[i], j0 + i);
+    }
+    // ...then across the warp (the earlier lane's total wins ties)
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float ov = __shfl_up_sync(kFull, bv, o);
+      const int oi = __shfl_up_sync(kFull, bi, o);
+      const bool take = lane >= o && !(bv > ov);
+      bv = take ? ov : bv;
+      bi = take ? oi : bi;
+    }
+    // the warp's prefix max before this thread's positions...
+    float ev = __shfl_up_sync(kFull, bv, 1);
+    int ei = __shfl_up_sync(kFull, bi, 1);
+    ev = lane == 0 ? -INFINITY : ev;
+    ei = lane == 0 ? 0 : ei;
+    // ...and through each of its positions (y in wv becomes the prefix
+    // max); the last score and the prefix max at the last position but
+    // one go to lane + 1
+    int wi[PPT];
+    {
+      float rv = ev;
+      int ri = ei;
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        later(rv, ri, wv[i], j0 + i);
+        wv[i] = rv;
+        wi[i] = ri;
+      }
+    }
+    if (lane == 31) {
+      edge[par][warp] = make_float4(bv, __int_as_float(bi), p[PPT - 1],
+                                    wv[PPT - 2]);
+      edge_i[par][warp] = wi[PPT - 2];
+    }
+    const float pl_up = __shfl_up_sync(kFull, p[PPT - 1], 1);
+    const float v2_up = __shfl_up_sync(kFull, wv[PPT - 2], 1);
+    const int i2_up = __shfl_up_sync(kFull, wi[PPT - 2], 1);
+    BAND_CLOCK(2);
+    __syncthreads();
+    // without a producer warp, warp 0 refills a chunk's slot once every
+    // thread has gathered its frames (the producer's loop does the same)
+    if (nslots > 0 && !producer && warp == 0 && t % G == 0) {
+      const int f0 = t + 1 + (nslots - 1) * G;
+      const int k = (t / G - 1) % nslots;
+      if (f0 < T)
+        refill(lt, f0, G, T, B, b, NS, lt_end, ring + k * chunk_floats,
+               slot_floats, &full[k], lane);
+    }
+    BAND_CLOCK(3);
+    // the next frame's emissions: their reads stay in flight through the
+    // fold and the update
+    float em_next[PPT], stay_next = 0.0f;
+    if (more) gather(em_next, stay_next);
+    BAND_CLOCK(1);
+
+    // the prefix max of the warps before the one before this one (xv1),
+    // then of the warps before this one (xv), folded in order
+    float xv1 = -INFINITY;
+    int xi1 = 0;
+    if constexpr (kWarps <= 16) {
+      // every total first (all in flight at once), then the fold
+      float2 e[kWarps - 2];
+#pragma unroll
+      for (int k = 0; k < kWarps - 2; ++k)
+        e[k] = *reinterpret_cast<const float2*>(&edge[par][k]);
+#pragma unroll
+      for (int k = 0; k < kWarps - 2; ++k) {
+        if (k + 1 < warp) later(xv1, xi1, e[k].x, __float_as_int(e[k].y));
+      }
+    } else {
+      for (int k = 0; k + 1 < warp; ++k) {
+        const float4 e = edge[par][k];
+        later(xv1, xi1, e.x, __float_as_int(e.y));
+      }
+    }
+    float xv = xv1;
+    int xi = xi1;
+    float4 eb = make_float4(0.0f, 0.0f, kNeg, -INFINITY);
+    int eb_i = 0;
+    if (warp > 0) {
+      eb = edge[par][warp - 1];       // the warp before's edge
+      eb_i = edge_i[par][warp - 1];
+      later(xv, xi, eb.x, __float_as_int(eb.y));
+    }
+    BAND_CLOCK(4);
+
+
+    // stay, then step, then slip, each under strict >; positions in
+    // falling order, so that p[i - 1] is still the old score when read
+    if (d == 0) {
+      // sources at j, j - 1 and j - 2: lane - 1's last score and its
+      // prefix maxima at its last two positions (lane 0: the warp before's)
+      float pl = pl_up, fv1 = xv, fv2 = xv;
+      int fi1 = xi, fi2 = xi;
+      if (lane > 0) {
+        later(fv1, fi1, ev, ei);
+        later(fv2, fi2, v2_up, i2_up);
+      } else if (warp > 0) {
+        pl = eb.z;
+        fv2 = xv1;
+        fi2 = xi1;
+        later(fv2, fi2, eb.w, eb_i);
+      }
+#pragma unroll
+      for (int i = PPT - 1; i >= 0; --i) {
+        const int j = j0 + i;
+        const float q = p[i];
+        const float qm1 = i > 0 ? p[i > 0 ? i - 1 : 0] : (j > 0 ? pl : kNeg);
+        float z = i >= 2 ? xv : (i == 1 ? fv1 : fv2);
+        int zi = i >= 2 ? xi : (i == 1 ? fi1 : fi2);
+        if (i >= 2) later(z, zi, wv[i >= 2 ? i - 2 : 0], wi[i >= 2 ? i - 2 : 0]);
+        if (i < 2) z = j < 2 ? kNeg : z;   // a wrapped source: never wins
+        float c = __fadd_rn(q, stay);
+        const float step = __fadd_rn(qm1, em[i]);
+        int delta = step > c ? 1 : 0;
+        c = step > c ? step : c;
+        const float sl = __fadd_rn(__fsub_rn(z, sjm[i]), em[i]);
+        delta = sl > c ? j - zi : delta;
+        c = sl > c ? sl : c;
+        p[i] = ((ok >> i) & 1u) ? c : kNeg;
+        dl[i] = delta;
+      }
+    } else {
+      // the window moved: publish the old scores and every position's
+      // prefix max, then read them shifted by d
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        if (j0 + i < W) {
+          float v = xv;
+          int vi = xi;
+          later(v, vi, wv[i], wi[i]);
+          psh[j0 + i] = p[i];
+          ysh[j0 + i] = v;
+          ish[j0 + i] = (int16_t)vi;
+        }
+      }
+      __syncthreads();
+      const float df = (float)d;
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
         const int j = j0 + i;
         const int src = j + d;
-        const float q = (src >= 0 && src < W) ? p_old[src] : kNeg;
-        const float qm1 = (j > 0 && src >= 1 && src - 1 < W) ? p_old[src - 1]
-                                                            : kNeg;
-        const float z = (src >= 2 && src < W) ? ys[src - 2] : kNeg;
-        int zw = (src - 2) % W;
-        if (zw < 0) zw += W;
-        float cs = __fadd_rn(q, stay_c);
+        const float q = (src >= 0 && src < W) ? psh[src] : kNeg;
+        const float qm1 =
+            (j > 0 && src >= 1 && src - 1 < W) ? psh[src - 1] : kNeg;
+        const float z = (src >= 2 && src < W) ? ysh[src - 2] : kNeg;
+        float c = __fadd_rn(q, stay);
         int delta = 0;
-        const float step = __fadd_rn(qm1, em_c[i]);
-        if (step > cs) {
-          cs = step;
+        const float step = __fadd_rn(qm1, em[i]);
+        if (step > c) {
+          c = step;
           delta = 1;
         }
         const float fs = __fsub_rn(
             z, __fmul_rn(slip, __fadd_rn(__fsub_rn((float)j, 1.0f), df)));
-        const float sl = __fadd_rn(fs, em_c[i]);
-        if (sl > cs) {
-          delta = j + d - (int)yi[zw];
-          cs = sl;
+        const float sl = __fadd_rn(fs, em[i]);
+        if (sl > c) {
+          int zw = src - 2;              // the twin's roll: mod W
+          if (zw < 0) zw += W;
+          else if (zw >= W) zw %= W;
+          delta = src - (int)ish[zw];
+          c = sl;
         }
-        p_new[j] = ((ok_c >> i) & 1u) ? cs : kNeg;
-        tb_row[j] = (int16_t)delta;
+        p[i] = ((ok >> i) & 1u) ? c : kNeg;
+        dl[i] = delta;
       }
+      __syncthreads();    // the next move's writers wait for these reads
     }
+    BAND_CLOCK(5);
+    store_row<PPT>(tb_row, j0, W, dl, vec);
+    tb_row += tb_step;
+    // the next step's emissions, masked by its window's validity bits
+#pragma unroll
+    for (int i = 0; i < PPT; ++i)
+      em[i] = ((ok_next >> i) & 1u) ? em_next[i] : kNeg;
+    stay = stay_next;
     s_prev = s;
   }
-
-  const float* p_last = ((Tp - 1) & 1) ? pbuf1 : pbuf0;
+#ifdef REMAP_BANDED_CLOCKS
+  clk[7] = stamp - loop_start;
+  if (b == 0 && lane == 0) {
 #pragma unroll
-  for (int i = 0; i < MAXP; ++i) {
-    if (i < np) vfinal[(size_t)b * W + j0 + i] = p_last[j0 + i];
+    for (int k = 0; k < 8; ++k) remap_banded_clocks[warp * 8 + k] = clk[k];
+  }
+#endif
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    if (j0 + i < W) vfinal[(size_t)b * W + j0 + i] = p[i];
   }
 }
 
-template <int MAXP, int MAXT>
+template <int PPT, int MAXT>
 int launch(const void* lt, const void* seq, const void* pos_mask,
            const void* prior0, const void* starts, void* tb, void* vfinal,
-           int T, int B, int NS, int P, int W, int Tp, int threads, int ppt,
-           float slip, cudaStream_t stream) {
-  const size_t smem = (size_t)W * 14;
-  auto kernel = remap_banded_kernel<MAXP, MAXT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<B, threads, smem, stream>>>(
+           int T, int B, int NS, int P, int W, int Tp, float slip,
+           int warps, int producer, int G, int nslots, int slot_floats,
+           int vec, int smem, unsigned long long lt_end,
+           cudaStream_t stream) {
+  auto kernel = remap_banded_kernel<PPT, MAXT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<B, 32 * (warps + producer), smem, stream>>>(
       (const float*)lt, (const int32_t*)seq, (const uint8_t*)pos_mask,
       (const float*)prior0, (const int32_t*)starts, (int16_t*)tb,
-      (float*)vfinal, T, B, NS, P, W, Tp, ppt, slip);
+      (float*)vfinal, T, B, NS, P, W, Tp, warps, producer, G, nslots,
+      slot_floats, vec, lt_end, slip);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // lt (T, B, NS) f32; seq (B, P) int32; pos_mask (B, P) uint8; prior0 (B, P)
-// f32; starts (Tp, B) int32; tb (Tp, B, W) int16; vfinal (B, W) f32.
-// Returns the cudaError_t of the launch; cudaErrorInvalidValue (1) for a
-// window wider than 16,384 positions.
+// f32; starts (Tp, B) int32; tb (Tp, B, W) int16; vfinal (B, W) f32.  The
+// launch plan comes from the caller (ops/remap_kernel.py::
+// remap_banded_plan): consumer warps, whether a producer warp fills the
+// ring (else warp 0 does), the instance's block size maxt and positions a
+// thread ppt (one of the pairs REMAP_BANDED_CASE lists below), frames a
+// ring slot G, ring slots (0: the emissions are gathered from device
+// memory), smem bytes, and the traceback's store width vec (16: W % 8 ==
+// 0 and ppt % 8 == 0; 8: W % 4 == 0 and ppt % 4 == 0; 4: W even; 2).
+// lt_end: the address one past the last byte of lt's storage.  Returns
+// the cudaError_t of the launch; cudaErrorInvalidValue (1) for a plan that
+// does not cover the window or has no instance.
 extern "C" int remap_banded(const void* lt, const void* seq,
                             const void* pos_mask, const void* prior0,
                             const void* starts, void* tb, void* vfinal, int T,
                             int B, int NS, int P, int W, int Tp, float slip,
-                            void* stream) {
-  if (W < 1 || W > 16384) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  // about three positions a thread up to 256 threads, then up to 16
-  int threads = min(256, (((W + 2) / 3 + 31) / 32) * 32);
-  if (W > 256 * 16) threads = (((W + 15) / 16 + 31) / 32) * 32;
-  const int ppt = (W + threads - 1) / threads;
-  if (ppt <= 4)
-    return launch<4, 256>(lt, seq, pos_mask, prior0, starts, tb, vfinal, T, B,
-                          NS, P, W, Tp, threads, ppt, slip, s);
-  if (threads <= 256)
-    return launch<16, 256>(lt, seq, pos_mask, prior0, starts, tb, vfinal, T,
-                           B, NS, P, W, Tp, threads, ppt, slip, s);
-  return launch<16, 1024>(lt, seq, pos_mask, prior0, starts, tb, vfinal, T, B,
-                          NS, P, W, Tp, threads, ppt, slip, s);
+                            int warps, int producer, int maxt, int ppt,
+                            int G, int nslots, int vec, int smem,
+                            unsigned long long lt_end, void* stream) {
+  const int threads = 32 * warps;
+  const int block = 32 * (warps + producer);
+  const int slot_bytes = (4 * NS + 12 + 15) & ~15;
+  if (W < 1 || W > 16384 || warps < 1 || warps > 32 ||
+      threads * ppt < W || G < 1 || G > 32 || nslots == 1 || nslots < 0 ||
+      nslots > kMaxSlots || (nslots == 0 && producer) || T < 1 ||
+      Tp < T || (vec == 16 && (W % 8 || ppt % 8)) ||
+      (vec == 8 && (W % 4 || ppt % 4)) || (vec == 4 && (W % 2 || ppt % 2)) ||
+      (vec != 16 && vec != 8 && vec != 4 && vec != 2) || (uintptr_t)lt % 4 ||
+      (producer != 0 && producer != 1) || block > maxt ||
+      (size_t)smem < kBarBytes + (size_t)nslots * G * slot_bytes +
+                         10 * (size_t)((W + 7) & ~7))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int slot_floats = slot_bytes / 4;
+#define REMAP_BANDED_LAUNCH(PPT, MAXT)                                     \
+  launch<PPT, MAXT>(lt, seq, pos_mask, prior0, starts, tb, vfinal, T, B, \
+                    NS, P, W, Tp, slip, warps, producer, G, nslots,        \
+                    slot_floats, vec, smem, lt_end, s)
+  // the pairs the plan can choose (ops/remap_kernel.py::BANDED_BUILDS)
+#define REMAP_BANDED_CASE(PPT, MAXT) \
+  if (ppt == PPT && maxt == MAXT) return REMAP_BANDED_LAUNCH(PPT, MAXT)
+  REMAP_BANDED_CASE(2, 256);
+  REMAP_BANDED_CASE(3, 256);
+  REMAP_BANDED_CASE(4, 256);
+  REMAP_BANDED_CASE(6, 256);
+  REMAP_BANDED_CASE(8, 256);
+  REMAP_BANDED_CASE(6, 512);
+  REMAP_BANDED_CASE(8, 512);
+  REMAP_BANDED_CASE(12, 512);
+  REMAP_BANDED_CASE(16, 512);
+  REMAP_BANDED_CASE(16, 1024);
+  return (int)cudaErrorInvalidValue;
+#undef REMAP_BANDED_CASE
+#undef REMAP_BANDED_LAUNCH
 }
+
+#ifdef REMAP_BANDED_CLOCKS
+// copy the step-phase clocks of the last launch, [warp][8], to host memory
+extern "C" int remap_banded_clocks_read(void* host) {
+  return (int)cudaMemcpyFromSymbol(host, remap_banded_clocks,
+                                   sizeof(remap_banded_clocks));
+}
+#endif

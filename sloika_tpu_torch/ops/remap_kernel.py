@@ -9,6 +9,11 @@ traceback of position deltas (0 stay, 1 step, >= 2 slip distance) and the
 final window scores.  :data:`remap_backtrack` replaces ``_backtrack_kernel``
 with ``csrc/remap_back.cu``: the reverse walk ``pos -= delta``.
 
+Both kernels take their launch plans from Python: :func:`remap_banded_plan`
+(consumer warps, positions a thread, the posterior ring's slots, shared
+memory) and :func:`remap_back_plan` (frames a slot of the traceback ring,
+slots, shared memory).
+
 Both dispatch on the device of their input: the kernel for a CUDA tensor,
 the plain twin (:func:`remap_banded_plain`, :func:`remap_backtrack_plain`)
 for a CPU tensor.  ``launches`` counts kernel launches.
@@ -25,8 +30,45 @@ import ctypes
 import torch
 
 from sloika_tpu_torch import cuda_build
+from sloika_tpu_torch.nn.fused_gru import SMEM_OPTIN, _round
 from sloika_tpu_torch.ops.remap import NEG_LARGE
 from sloika_tpu_torch.ops.remap_banded import band_starts
+
+#: the widest window the banded kernel takes
+MAX_W = 16384
+#: posterior states of the models the port remaps with (the plans' default)
+NSTATE = 1025
+#: remap_banded.cu: the ring's mbarriers ahead of its slots; the statically
+#: allocated shared memory (warp totals and edges, by parity, for up to 32
+#: warps); the bytes a window position takes when the window moves (score,
+#: prefix max, int16 position)
+BANDED_BAR_BYTES, BANDED_STATIC_BYTES, BANDED_POSITION_BYTES = 256, 1280, 10
+#: positions a thread the kernel is built for (a template argument, at
+#: 256, 512 and 1024 threads a block), and the tiers of consumer warps a
+#: block aims at, with the most positions a thread each allows.  A step's
+#: fixed work costs a warp ~300 instructions and a position ~35, most of
+#: them dependent compares and selects: one warp a scheduler idles on their
+#: latency, and more warps hide it but repeat the fixed work (PERF.md §6:
+#: 6 x 4 beat 4 x 6, 8 x 3 and 12 x 2 at W = 768; 12 x 8 beat 6 x 16, 8 x
+#: 12 and 16 x 6 at W = 3,072)
+BANDED_PPTS, BANDED_TIERS = (2, 3, 4, 6, 8, 12, 16), ((6, 8), (12, 16))
+#: the (positions a thread, block size) instances remap_banded.cu builds:
+#: those the plan can choose (tests/test_torch_remap_kernels.py checks
+#: both lists against each other)
+BANDED_BUILDS = ((2, 256), (3, 256), (4, 256), (6, 256), (8, 256),
+                 (6, 512), (8, 512), (12, 512), (16, 512), (16, 1024))
+#: the posterior ring: frames a slot (the consumers wait on a slot's barrier
+#: and the producer refills it once every that many steps), and slots,
+#: each deepest first
+BANDED_ROWS, BANDED_SLOTS = (4, 2, 1), (4, 3, 2)
+#: remap_back.cu: frames a slot it is built for, most first
+BACK_FRAMES = (16, 8, 4, 2, 1)
+#: the longest side of a tensor map's box (elements)
+BACK_BOX_LANES = 256
+#: its mbarriers (full and empty, 16 each); the bytes a slot of frames is
+#: aimed at; the ring's depth at most, and at least
+BACK_BAR_BYTES, BACK_SLOT_BYTES, BACK_MAX_SLOTS, BACK_MIN_SLOTS = (
+    256, 16384, 16, 2)
 
 
 def block_len(W):
@@ -40,6 +82,108 @@ def band_starts_blocked(nframes, npos, T, W, TB):
     base = band_starts(nframes, npos, T, W)
     kidx = (torch.arange(T, device=base.device) // TB) * TB
     return base[kidx]
+
+
+def remap_banded_plan(W, nstate=NSTATE, optin=SMEM_OPTIN):
+    """The launch plan of ``remap_banded.cu`` for a window of W positions
+    and posterior rows of ``nstate`` states.
+
+    Positions a thread ``ppt``: the fewest of BANDED_PPTS, up to 8, that
+    cover W on 6 consumer warps (6 x 4 at W = 768), else the fewest that
+    cover it on 12 (12 x 8 at W = 3,072), else 16 on as many warps as W
+    needs (at most 32): BANDED_TIERS.
+
+    Then the deepest posterior ring, of slots of ``rows`` frames
+    (BANDED_ROWS) and ``nslots`` slots (BANDED_SLOTS), whose frames (each
+    row's 16-byte-aligned superset, ``4 * nstate + 12`` bytes rounded up
+    to 16) fit ``optin`` bytes beside the moved window's arrays.  A
+    producer warp beside the consumers issues the ring's copies, off their
+    path, where the block has room for it (below 32 consumer warps; else
+    warp 0 issues them).  Where no ring of two slots fits (rows of 16,385
+    states at W above 9,976, or of 65,537 at any W), ``nslots`` is 0: the
+    consumers gather each frame's emissions from device memory a step
+    ahead, and there is no producer.  The traceback goes 16 bytes a store
+    where W % 8 == 0 and ppt % 8 == 0, 8 where W % 4 == 0 and ppt % 4 ==
+    0, 4 where W is even, else 2.  ``maxt``: the kernel instance's block
+    size, the least of 256, 512 and 1,024 threads that holds the block
+    (BANDED_BUILDS lists the instances).
+
+    :returns: dict of warps (consumers), producer (0 or 1), threads, maxt,
+        ppt, rows, nslots, slot_bytes (a frame's), vec (bytes a traceback
+        store), smem (dynamic bytes)
+    """
+    if not 1 <= W <= MAX_W:
+        raise ValueError("remap_banded takes a window of 1..{} positions "
+                         "(got W = {})".format(MAX_W, W))
+    ppt = next((p for aim, most in BANDED_TIERS for p in BANDED_PPTS
+                if p <= most and W <= 32 * aim * p), BANDED_PPTS[-1])
+    warps = -(-W // (32 * ppt))
+    vec = (16 if W % 8 == 0 and ppt % 8 == 0 else
+           8 if W % 4 == 0 and ppt % 4 == 0 else
+           4 if W % 2 == 0 and ppt % 2 == 0 else 2)
+    slot_bytes = _round(4 * nstate + 12, 16)
+    arrays = BANDED_BAR_BYTES + BANDED_POSITION_BYTES * _round(W, 8)
+    fits = lambda smem: smem + BANDED_STATIC_BYTES <= optin
+    rows, nslots = next(((r, n) for r in BANDED_ROWS for n in BANDED_SLOTS
+                         if fits(arrays + n * r * slot_bytes)), (1, 0))
+    smem = arrays + nslots * rows * slot_bytes
+    if not fits(smem):
+        raise ValueError("remap_banded: a window of {} positions does not "
+                         "fit {} bytes of shared memory".format(W, optin))
+    producer = int(nslots > 0 and warps < 32)
+    threads = 32 * (warps + producer)
+    maxt = next(m for m in (256, 512, 1024) if threads <= m)
+    return {"warps": warps, "producer": producer, "threads": threads,
+            "maxt": maxt, "ppt": ppt, "rows": rows, "nslots": nslots,
+            "slot_bytes": slot_bytes, "vec": vec, "smem": smem}
+
+
+def remap_back_plan(W, optin=SMEM_OPTIN):
+    """The launch plan of ``remap_back.cu`` for a window of W positions.
+
+    The traceback streams through a ring of slots of K frames.  Two copy
+    forms: one box a slot of a 4-D tensor map over the traceback
+    ("tensor": the lanes split as ``inner`` x W / inner, each at most
+    BACK_BOX_LANES, as a box's sides must be; the map's strides need W % 8
+    == 0), or one bulk copy a frame ("bulk rows": each row's
+    16-byte-aligned superset, ``2 * W + 14`` bytes rounded up to 16).  The
+    copier issues a slot's copies one after another (PERF.md §6: ~100
+    cycles a copy), so the tensor form is taken wherever W allows it.  K:
+    the most of BACK_FRAMES (the kernel is built for each) in
+    BACK_SLOT_BYTES; then the deepest ring up to BACK_MAX_SLOTS that fits
+    ``optin`` bytes.
+
+    :returns: dict of K, nslots, copy ("tensor" or "bulk rows"), inner
+        (the box's innermost side; 0 for bulk rows), frame_bytes,
+        slot_bytes (K frames, 128-byte aligned for a box), smem (dynamic
+        bytes)
+    """
+    if W < 1:
+        raise ValueError("remap_back takes W >= 1 (got {})".format(W))
+    inner = next((i for i in range(BACK_BOX_LANES, 0, -8)
+                  if W % 8 == 0 and W % i == 0
+                  and W // i <= BACK_BOX_LANES), 0)
+    if inner:
+        copy, frame_bytes = "tensor", 2 * W
+    else:
+        copy, frame_bytes = "bulk rows", _round(2 * W + 14, 16)
+    K = next(k for k in BACK_FRAMES
+             if k == 1 or k * frame_bytes <= BACK_SLOT_BYTES)
+    slot_bytes = _round(K * frame_bytes, 128) if inner else K * frame_bytes
+    nslots = min(BACK_MAX_SLOTS, (optin - BACK_BAR_BYTES) // slot_bytes)
+    if nslots < BACK_MIN_SLOTS:
+        raise ValueError("remap_back: a window of {} positions does not fit "
+                         "{} bytes of shared memory".format(W, optin))
+    return {"K": K, "nslots": nslots, "copy": copy, "inner": inner,
+            "frame_bytes": frame_bytes, "slot_bytes": slot_bytes,
+            "smem": BACK_BAR_BYTES + nslots * slot_bytes}
+
+
+def storage_end(t):
+    """The address one past the last byte of ``t``'s storage: a kernel's
+    bulk copy of a row's aligned superset must not pass it."""
+    return (t.data_ptr() + t.untyped_storage().nbytes()
+            - t.storage_offset() * t.element_size())
 
 
 def _step_inputs_plain(ltrans_t, seq_states, pos_mask, starts, t, W, neg):
@@ -183,15 +327,18 @@ class RemapBanded:
     _banded_kernel`` with ``csrc/remap_banded.cu``; runs
     :func:`remap_banded_plain` for CPU tensors."""
 
-    #: the widest window the kernel takes: its shared memory holds 14
-    #: bytes a position
-    MAX_W = 16384
+    #: the widest window the kernel takes (:func:`remap_banded_plan`)
+    MAX_W = MAX_W
 
     _ARGTYPES = {"remap_banded": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                 + [ctypes.c_float, ctypes.c_void_p]}
+                 + [ctypes.c_float] + [ctypes.c_int] * 8
+                 + [ctypes.c_ulonglong, ctypes.c_void_p]}
 
     def __init__(self):
         self.launches = 0
+
+    def _library(self):
+        return cuda_build.load("remap_banded", self._ARGTYPES)
 
     def __call__(self, ltrans_t, seq_states, pos_mask, prior_initial, starts,
                  slip, W):
@@ -221,13 +368,18 @@ class RemapBanded:
         vfinal = torch.empty((B, W), dtype=torch.float32, device=dev)
         if B == 0:
             return traceback, vfinal
-        lib = cuda_build.load("remap_banded", self._ARGTYPES)
+        plan = remap_banded_plan(W, nstate)
+        lib = self._library()
         with torch.cuda.device(dev):
             err = lib.remap_banded(
                 ltrans_t.data_ptr(), seq_states.data_ptr(),
                 pos_mask.data_ptr(), prior_initial.data_ptr(),
                 starts.data_ptr(), traceback.data_ptr(), vfinal.data_ptr(),
-                T, B, nstate, P, W, Tp, float(slip),
+                T, B, nstate, P, W, Tp, float(slip), plan["warps"],
+                plan["producer"], plan["maxt"], plan["ppt"], plan["rows"],
+                plan["nslots"],
+                plan["vec"], plan["smem"],
+                storage_end(ltrans_t),
                 torch.cuda.current_stream().cuda_stream)
         cuda_build.check(err, "remap_banded")
         self.launches += 1
@@ -241,11 +393,14 @@ class RemapBacktrack:
     ``csrc/remap_back.cu``; runs :func:`remap_backtrack_plain` for CPU
     tensors."""
 
-    _ARGTYPES = {"remap_back": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                 + [ctypes.c_void_p]}
+    _ARGTYPES = {"remap_back": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                 + [ctypes.c_ulonglong, ctypes.c_void_p]}
 
     def __init__(self):
         self.launches = 0
+
+    def _library(self):
+        return cuda_build.load("remap_back", self._ARGTYPES)
 
     def __call__(self, traceback, starts, last):
         if traceback.device.type == "cpu":
@@ -260,10 +415,13 @@ class RemapBacktrack:
         path = torch.empty((Tp, B), dtype=torch.int32, device=dev)
         if Tp == 0 or B == 0:
             return path
-        lib = cuda_build.load("remap_back", self._ARGTYPES)
+        plan = remap_back_plan(W)
+        lib = self._library()
         with torch.cuda.device(dev):
             err = lib.remap_back(traceback.data_ptr(), starts.data_ptr(),
                                  last.data_ptr(), path.data_ptr(), Tp, B, W,
+                                 plan["K"], plan["nslots"], plan["inner"],
+                                 plan["smem"], storage_end(traceback),
                                  torch.cuda.current_stream().cuda_stream)
         cuda_build.check(err, "remap_back")
         self.launches += 1

@@ -8,6 +8,9 @@ a CUDA card and without jax::
 On a machine without a card they skip; the CPU tests check that each
 wrapper hands CPU tensors to its plain twin without counting a launch.
 """
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -53,8 +56,9 @@ def near_linear_case(nframes, nposs, T, P, nstate=66, seed=0, jitter=3):
     return lt, seq, mask
 
 
-def _inputs(nframes, nposs, T, P, W, dev, seed=0):
-    lt, seq, mask = near_linear_case(nframes, nposs, T, P, seed=seed)
+def _inputs(nframes, nposs, T, P, W, dev, seed=0, nstate=66):
+    lt, seq, mask = near_linear_case(nframes, nposs, T, P, nstate=nstate,
+                                     seed=seed)
     rs = np.random.RandomState(seed + 1)
     p0 = np.log(rs.uniform(0.1, 1.0, size=(len(nframes), P))) \
         .astype(np.float32)
@@ -123,3 +127,245 @@ def test_remap_window_out_of_range_raises(cuda_device):
     with pytest.raises(ValueError, match="window of 1..16384"):
         rk.remap_banded(lt, seq, mask, p0, starts, 3.0,
                         rk.RemapBanded.MAX_W + 1)
+
+
+#: the widths the plans are checked over, and the plan's layout boundaries
+#: (positions a thread 2 -> 3 -> 4 -> 6 -> 8 on 6 consumer warps, then 6 ->
+#: 8 -> 12 -> 16 on 12, then the 512- and 1024-thread instances, and the
+#: last width with a producer warp)
+PLAN_WIDTHS = (1, 7, 32, 64, 255, 256, 640, 768, 1000, 3072, 5000, 12288,
+               16384)
+LAYOUT_BOUNDARIES = (384, 385, 576, 577, 768, 769, 1152, 1153, 1536, 1537,
+                     2304, 2305, 3072, 3073, 4608, 4609, 6144, 6145, 7680,
+                     7681, 15872, 15873)
+
+
+@pytest.mark.parametrize("W", PLAN_WIDTHS + LAYOUT_BOUNDARIES + (777,))
+def test_remap_banded_plan_fits_and_covers(W):
+    plan = rk.remap_banded_plan(W)
+    assert plan["smem"] + rk.BANDED_STATIC_BYTES <= rk.SMEM_OPTIN
+    assert plan["smem"] >= (rk.BANDED_BAR_BYTES + plan["nslots"]
+                            * plan["rows"] * plan["slot_bytes"]
+                            + rk.BANDED_POSITION_BYTES * W)
+    assert plan["slot_bytes"] % 16 == 0
+    assert plan["slot_bytes"] >= 4 * rk.NSTATE + 12
+    assert plan["ppt"] in rk.BANDED_PPTS and 2 <= plan["nslots"] <= 4
+    assert plan["rows"] in rk.BANDED_ROWS
+    assert plan["producer"] == int(plan["warps"] < 32)
+    assert plan["threads"] == 32 * (plan["warps"] + plan["producer"]) <= 1024
+    # every position has a thread, and every warp a position
+    assert plan["threads"] * plan["ppt"] >= W
+    assert (plan["warps"] - 1) * 32 * plan["ppt"] < W
+    ppt = plan["ppt"]
+    assert plan["vec"] == (16 if W % 8 == 0 and ppt % 8 == 0 else
+                           8 if W % 4 == 0 and ppt % 4 == 0 else
+                           4 if W % 2 == 0 and ppt % 2 == 0 else 2)
+    assert (ppt, plan["maxt"]) in rk.BANDED_BUILDS
+    assert plan["maxt"] // 2 < plan["threads"] <= plan["maxt"] or (
+        plan["maxt"] == 256)
+
+
+#: kmer lengths 5 to 8: posterior rows of 1,025 to 65,537 states
+NSTATES = (1025, 4097, 16385, 65537)
+
+
+@pytest.mark.parametrize("nstate", NSTATES[1:])
+@pytest.mark.parametrize("W", PLAN_WIDTHS)
+def test_remap_banded_plan_reaches_large_posteriors(W, nstate):
+    """Rows of 4,097 states keep a ring at every width; rows of 16,385
+    keep one up to W = 9,976 and rows of 65,537 at no width: there the
+    kernel gathers its emissions from device memory, without a producer
+    warp, and still fits beside the window's arrays."""
+    plan = rk.remap_banded_plan(W, nstate)
+    assert plan["smem"] + rk.BANDED_STATIC_BYTES <= rk.SMEM_OPTIN
+    assert plan["threads"] * plan["ppt"] >= W
+    assert (plan["ppt"], plan["maxt"]) in rk.BANDED_BUILDS
+    ring = plan["nslots"] > 0
+    assert ring == (nstate == 4097 or (nstate == 16385 and W <= 9976))
+    if ring:
+        assert 2 <= plan["nslots"] <= 4
+        assert plan["smem"] >= (rk.BANDED_BAR_BYTES + plan["nslots"]
+                                * plan["rows"] * plan["slot_bytes"]
+                                + rk.BANDED_POSITION_BYTES * W)
+    else:
+        assert plan["producer"] == 0 and plan["rows"] == 1
+        assert plan["threads"] == 32 * plan["warps"]
+        assert plan["smem"] == (rk.BANDED_BAR_BYTES
+                                + rk.BANDED_POSITION_BYTES * (-(-W // 8) * 8))
+
+
+def test_remap_banded_builds_are_the_plans_pairs():
+    """remap_banded.cu instantiates exactly BANDED_BUILDS, and every plan,
+    at every width and with or without a ring, falls on one of them."""
+    src = os.path.join(os.path.dirname(rk.__file__), os.pardir, "csrc",
+                       "remap_banded.cu")
+    with open(src) as f:
+        built = {(int(a), int(b)) for a, b in re.findall(
+            r"^\s*REMAP_BANDED_CASE\((\d+), (\d+)\);", f.read(), re.M)}
+    assert built == set(rk.BANDED_BUILDS)
+    reached = {(plan["ppt"], plan["maxt"])
+               for nstate in (NSTATES[0], NSTATES[-1])
+               for plan in map(lambda W: rk.remap_banded_plan(W, nstate),
+                               range(1, rk.MAX_W + 1))}
+    assert reached == built
+
+
+def test_remap_banded_plan_at_the_main_paths_widths():
+    main = rk.remap_banded_plan(768)
+    assert (main["warps"], main["ppt"], main["rows"], main["nslots"],
+            main["vec"]) == (6, 4, 4, 4, 8)
+    assert main["producer"] == 1 and main["threads"] == 224
+    rerun = rk.remap_banded_plan(3072)
+    assert (rerun["warps"], rerun["ppt"], rerun["vec"]) == (12, 8, 16)
+
+
+@pytest.mark.parametrize("W", PLAN_WIDTHS + (777, 1024, 2048, 15872))
+def test_remap_back_plan_fits(W):
+    plan = rk.remap_back_plan(W)
+    assert plan["smem"] <= rk.SMEM_OPTIN
+    assert plan["frame_bytes"] % 16 == 0
+    assert plan["K"] in rk.BACK_FRAMES
+    assert plan["K"] == 1 or plan["K"] * plan["frame_bytes"] <= (
+        rk.BACK_SLOT_BYTES)
+    assert plan["slot_bytes"] >= plan["K"] * plan["frame_bytes"]
+    assert rk.BACK_MIN_SLOTS <= plan["nslots"] <= rk.BACK_MAX_SLOTS
+    assert plan["smem"] == (rk.BACK_BAR_BYTES
+                            + plan["nslots"] * plan["slot_bytes"])
+    if plan["copy"] == "tensor":
+        # one box a slot: inner x W / inner lanes, each side <= 256
+        inner = plan["inner"]
+        assert W % 8 == 0 and inner % 8 == 0 and W % inner == 0
+        assert inner <= rk.BACK_BOX_LANES and W // inner <= rk.BACK_BOX_LANES
+        assert plan["frame_bytes"] == 2 * W
+        assert plan["slot_bytes"] % 128 == 0
+    else:
+        assert plan["copy"] == "bulk rows" and plan["inner"] == 0
+        assert plan["frame_bytes"] >= 2 * W + 14
+
+
+def test_remap_back_plan_copy_forms():
+    assert rk.remap_back_plan(768)["inner"] == 256
+    assert rk.remap_back_plan(3072)["inner"] == 256
+    assert rk.remap_back_plan(640)["inner"] == 160
+    assert rk.remap_back_plan(777)["copy"] == "bulk rows"     # W % 8 != 0
+    assert rk.remap_back_plan(7)["copy"] == "bulk rows"
+
+
+@pytest.mark.parametrize("W", (0, rk.MAX_W + 1))
+def test_remap_banded_plan_rejects_out_of_range_windows(W):
+    with pytest.raises(ValueError, match="window of 1..16384"):
+        rk.remap_banded_plan(W)
+
+
+def test_storage_end_counts_from_a_views_start():
+    base = torch.zeros(100, dtype=torch.float32)
+    view = base[10:90]
+    assert rk.storage_end(view) == view.data_ptr() + 90 * 4
+    assert rk.storage_end(base) == base.data_ptr() + 400
+
+
+def _twice_against_twins(lt, seq, mask, p0, starts, slip, W):
+    """Both kernels twice against their twins: the same bits each time."""
+    n0, m0 = rk.remap_banded.launches, rk.remap_backtrack.launches
+    tb, vfinal = rk.remap_banded(lt, seq, mask, p0, starts, slip, W)
+    tb2, vfinal2 = rk.remap_banded(lt, seq, mask, p0, starts, slip, W)
+    torch.cuda.synchronize()
+    ref_tb, ref_v = rk.remap_banded_plain(lt, seq, mask, p0, starts, slip, W)
+    assert torch.equal(tb, ref_tb) and torch.equal(vfinal, ref_v)
+    assert torch.equal(tb2, tb) and torch.equal(vfinal2, vfinal)
+    last = torch.argmax(vfinal, dim=1).to(torch.int32) + starts[-1]
+    path = rk.remap_backtrack(tb, starts, last)
+    path2 = rk.remap_backtrack(tb, starts, last)
+    torch.cuda.synchronize()
+    assert torch.equal(path, rk.remap_backtrack_plain(tb, starts, last))
+    assert torch.equal(path2, path)
+    assert (rk.remap_banded.launches, rk.remap_backtrack.launches) == (
+        n0 + 2, m0 + 2)
+    return tb, path
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 130])
+def test_remap_kernels_across_batch_sizes(cuda_device, B):
+    """B = 1, an odd B (the posterior's last row ends off a 16-byte
+    boundary, so it is read from device memory), and more rows than half
+    the SMs."""
+    rs = np.random.RandomState(B)
+    T, P, W = 301, 400, 128
+    nframes = rs.randint(T // 2, T + 1, size=B)
+    nposs = rs.randint(P // 4, P + 1, size=B)
+    nframes[0], nposs[0] = T, P
+    lt, seq, mask, p0, starts = _inputs(list(nframes), list(nposs), T, P, W,
+                                        cuda_device, seed=B)
+    if B % 2:
+        assert (T * B * lt.shape[2] * 4) % 16 != 0
+    _twice_against_twins(lt, seq, mask, p0, starts, 3.0, W)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,P,T", [
+    (777, 2000, 500),                  # W not a multiple of 8 (nor even)
+    (100, 300, 40),                    # T < TB: one block, stay-padded
+    (768, 3000, 700),                  # T padded with stays up to Tp
+    (640, 600, 300),                   # the exact form (W >= P)
+] + [(W, W + 500, 60) for W in LAYOUT_BOUNDARIES])
+def test_remap_kernels_at_odd_widths_and_plan_boundaries(cuda_device, W, P,
+                                                         T):
+    nframes = [T, T - 7, T // 2]
+    nposs = [P, P - 33, 2]             # a row of two positions
+    lt, seq, mask, p0, starts = _inputs(nframes, nposs, T, P, W, cuda_device,
+                                        seed=W)
+    TB = rk.block_len(W)
+    assert starts.shape[0] == -(-T // TB) * TB
+    _twice_against_twins(lt, seq, mask, p0, starts, 3.0, W)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,P", [(64, 256), (256, 256), (777, 900)])
+def test_remap_kernels_tie_heavy(cuda_device, W, P):
+    """A posterior quantised to a few values and no slip penalty: many
+    slip sources and stay/step scores are equal, and the tie rules decide
+    the traceback."""
+    T = 300
+    lt, seq, mask, p0, starts = _inputs([300, 280, 150], [P, P - 40, 60], T,
+                                        P, W, cuda_device, seed=7)
+    lt = torch.round(lt / 4.0) * 4.0
+    p0 = torch.round(p0)
+    _twice_against_twins(lt, seq, mask, p0, starts, 0.0, W)
+
+
+@pytest.mark.gpu
+def test_remap_clocked_builds_give_the_same_bits(cuda_device):
+    """``bench_remap --clocks``: the clocked builds compute what the port's
+    builds compute, and report cycles for every phase."""
+    from sloika_tpu_torch.scripts import bench_remap
+    T, W = 300, 768
+    lt, seq, mask, p0, starts = _inputs([300, 290, 200], [900, 800, 400], T,
+                                        1000, W, cuda_device)
+    args = (lt, seq, mask, p0, starts, 3.0, W)
+    tb, vfinal = rk.remap_banded(*args)
+    split = bench_remap.banded_clocks(args, (tb, vfinal))
+    assert split["cycles_per_step"] > 0
+    assert set(split["phases_mean"]) == set(bench_remap.BANDED_PHASES)
+    last = torch.argmax(vfinal, dim=1).to(torch.int32) + starts[-1]
+    path = rk.remap_backtrack(tb, starts, last)
+    back = bench_remap.back_clocks((tb, starts, last), path)
+    assert back["walker"]["loop"] > 0 and back["copier"]["loop"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nstate,W,P,T", [
+    (4097, 12288, 12800, 60),          # a ring of rows of 16,400 bytes
+    (16385, 3072, 3600, 300),          # a ring of rows of 65,552 bytes
+    (16385, 12288, 12800, 60),         # no ring fits: device gathers
+    (65537, 2048, 2500, 100),          # no ring at any width
+])
+def test_remap_kernels_at_large_posteriors(cuda_device, nstate, W, P, T):
+    """Longer kmers (``--kmer_len`` 6 to 8): the plan keeps a ring where
+    one fits and gathers the emissions from device memory where none does;
+    both give the twins' bits."""
+    nframes = [T, T - 9, T // 2]
+    nposs = [P, P - 100, 40]
+    lt, seq, mask, p0, starts = _inputs(nframes, nposs, T, P, W, cuda_device,
+                                        seed=nstate % 97, nstate=nstate)
+    _twice_against_twins(lt, seq, mask, p0, starts, 3.0, W)
