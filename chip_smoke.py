@@ -16,7 +16,13 @@ Phases, each printing one line and raising on failure:
    (T = 35,429, B = 64), each timed;
 4. Viterbi: forward and backtrace kernels against their plain twins at
    K = 1024, T = 3277, B = 64 on a peaked and on a tie-heavy posterior
-   (score, codes and path bit-identical);
+   (score, codes and path bit-identical), each kernel's step split by its
+   clocked build (``scripts/bench_viterbi.py --clocks``); then both timed
+   at bench.py's production batch (T = 3277, B = 1,024), the events
+   basecall's batch (T = 9,000, B = 64) and the whole-read raw path's
+   longest batch (B = 8), rows 0-7 bit-identical to the twins run on those
+   rows alone; ``viterbi_back`` also beside its design's bytes and its
+   chain's floor (T shared-memory reads);
 5. basecall main path: the headline model's graph at full width (seeded
    random weights) basecalls 16 synthetic DAC reads through
    ``Basecaller.basecall_dac_reads``; every kernel of the path must have
@@ -26,10 +32,11 @@ Phases, each printing one line and raising on failure:
    basecalls the 16 reads, normalised on the host as ``load_raw_signal``
    does, whole, in batches of 8, through ``Basecaller(output="states").
    basecall_signals``; every kernel of the path must have launched and
-   every read must get a call; two reads of 20,000 samples against the
-   plain CPU path (scores within 1e-4 relative; whether the calls are
-   identical is reported, with the first differing state: random weights
-   leave near-ties that round-off may flip);
+   every read must get a call; then one profiled call; two reads of
+   20,000 samples against the plain CPU path (scores within 1e-4
+   relative; whether the calls are identical is reported, with the first
+   differing state: random weights leave near-ties that round-off may
+   flip);
 6. GRU backward, at the training shapes T = 400, B = 100, S = 96, ragged
    lengths with interior holes, forward and reverse: the forward kernel's
    inference and training variants against their twin (as in 3; the
@@ -188,6 +195,11 @@ LSTM_S = 64
 # the LSTM forward also at a width outside its registers mode (S 33-64)
 LSTM_S_STAGED = 96
 EVENTS_READS, EVENTS_MIN, EVENTS_MAX = 64, 3000, 9000
+# the Viterbi kernels' further timed shapes (name, T, B), beside the
+# whole-read raw path's longest batch: bench.py's production batch, and the
+# events basecall path's batch
+VITERBI_EXTRA_SHAPES = (("production batch", T_FRAMES, 1024),
+                        ("events", EVENTS_MAX, EVENTS_READS))
 EVENTS_TRAIN_B, EVENTS_TRAIN_T = 100, 500
 # the diagnostic probes at the JAX scripts' defaults: Viterbi parts (B, T),
 # the copy ring (B, T); gru_unroll "default" against its bf16 twin: max abs,
@@ -317,8 +329,9 @@ def gru_at_shape(gru, T, B, dev):
     return out
 
 
-def phase_viterbi(dev):
+def phase_viterbi(dev, standin):
     from sloika_tpu_torch.ops import decode, viterbi_kernel
+    from sloika_tpu_torch.scripts import bench_viterbi
     gen = torch.Generator(device=dev).manual_seed(7)
     logits = 4.0 * torch.randn((T_FRAMES, BATCH, 1025), generator=gen,
                                device=dev)
@@ -348,32 +361,129 @@ def phase_viterbi(dev):
               "{:.3f} ms plain {:.3f} ms; backtrace kernel {:.3f} ms plain "
               "{:.3f} ms; moves {}".format(
                   kind, T_FRAMES, BATCH, same, *fwd_t[kind], *back_t[kind],
-                  int(moved.sum())))
+                  int(moved.sum())), flush=True)
         if not same:
             raise AssertionError("Viterbi kernels differ from their twins "
                                  "on the {} posterior".format(kind))
+    # each kernel's step split by its clocked build (the same bits), on the
+    # peaked posterior
+    v, tb = viterbi_kernel.viterbi_forward(peaked, 5, skip_pen=5.0)
+    last = torch.argmax(v, dim=1)
+    fwd_split = bench_viterbi.fwd_clocks(peaked, (v, tb))
+    back_split = bench_viterbi.back_clocks(
+        tb, last, viterbi_kernel.viterbi_backtrace(tb, last))
+    print("viterbi kernels' steps by phase (cycles, clocked builds, T={} "
+          "B={}): viterbi_fwd {:.0f} a step {}; viterbi_back {:.0f} a frame, "
+          "walker {}, copier {}, {:.1f} cycles a shared-memory read".format(
+              T_FRAMES, BATCH, fwd_split["cycles_per_step"],
+              json.dumps(fwd_split["phases_mean"]),
+              back_split["cycles_per_step"], json.dumps(back_split["walker"]),
+              json.dumps(back_split["copier"]),
+              back_split["smem_chase_cycles"]), flush=True)
+    del logits, peaked, ties, tb
+    torch.cuda.empty_cache()
+    fwd_at, back_at = {}, {}
+    whole_T = max(raw_batch_frames(standin, [d for d, _ in
+                                             synthetic_reads()]))
+    for name, T, B in VITERBI_EXTRA_SHAPES + (("whole read", whole_T,
+                                               RAW_BATCH),):
+        fwd_at[name], back_at[name] = viterbi_at_shape(T, B, dev,
+                                                       back_split)
+        err_fwd = max(err_fwd, fwd_at[name]["max_abs_err"])
+        err_back = max(err_back, back_at[name]["max_abs_err"])
     # forward: the posterior read once, int8 codes and final scores
     # written once; 21 candidate adds and compares a state a step.  The
     # backtrace: one code byte read, a path int32 and a move byte written
     # a step; its time is set by a chain of T dependent loads.  No PyTorch
     # call computes either
-    K, TB = 1024, T_FRAMES * BATCH
-    shape = "T={} B={} K={}".format(T_FRAMES, BATCH, K)
+    shape = "T={} B={} K={}".format(T_FRAMES, BATCH, 1024)
+    back = with_bound({"name": "viterbi_back", "route": "cuda",
+                       "source": "sloika_tpu_torch/csrc/viterbi_back.cu",
+                       "replaces": "sloika_tpu/ops/pallas/viterbi.py:575",
+                       "shape": shape,
+                       "max_abs_err": err_back, "ms": back_t["peaked"][0],
+                       "plain_ms": back_t["peaked"][1]},
+                      *viterbi_back_bound(T_FRAMES, BATCH))
+    back.update(bench_viterbi.back_design_bounds(T_FRAMES, BATCH, 1024,
+                                                 back_split))
+    back.update({"cycles_per_step": back_split["cycles_per_step"],
+                 "cycles_per_step_by_phase": {
+                     "walker": back_split["walker"],
+                     "copier": back_split["copier"]},
+                 "at_shapes": back_at})
     return [
         with_bound({"name": "viterbi_fwd", "route": "cuda",
                     "source": "sloika_tpu_torch/csrc/viterbi_fwd.cu",
                     "replaces": "sloika_tpu/ops/pallas/viterbi.py:187",
                     "shape": shape,
                     "max_abs_err": err_fwd, "ms": fwd_t["peaked"][0],
-                    "plain_ms": fwd_t["peaked"][1]},
-                   TB * (K + 1) * 4 + TB * K + BATCH * K * 4, 42 * TB * K),
-        with_bound({"name": "viterbi_back", "route": "cuda",
-                    "source": "sloika_tpu_torch/csrc/viterbi_back.cu",
-                    "replaces": "sloika_tpu/ops/pallas/viterbi.py:575",
-                    "shape": shape,
-                    "max_abs_err": err_back, "ms": back_t["peaked"][0],
-                    "plain_ms": back_t["peaked"][1]},
-                   TB * (1 + 4 + 1) + BATCH * 4, 3 * TB)]
+                    "plain_ms": fwd_t["peaked"][1],
+                    "cycles_per_step": fwd_split["cycles_per_step"],
+                    "cycles_per_step_by_phase": fwd_split["phases_mean"],
+                    "at_shapes": fwd_at},
+                   *viterbi_fwd_bound(T_FRAMES, BATCH)),
+        back]
+
+
+def viterbi_fwd_bound(T, B, K=1024):
+    """viterbi_fwd's bytes and operations at (T, B)."""
+    return T * B * (K + 1) * 4 + T * B * K + B * K * 4, 42 * T * B * K
+
+
+def viterbi_back_bound(T, B):
+    """viterbi_back's bytes and operations at (T, B): a code read, a state
+    and a move written, a step."""
+    return T * B * (1 + 4 + 1) + B * 4, 3 * T * B
+
+
+def viterbi_at_shape(T, B, dev, back_split):
+    """Both Viterbi kernels at (T, B), K = 1,024, on a peaked posterior
+    drawn on the card, each timed; rows 0-7 of their outputs must be
+    bit-identical to the plain twins run on those rows alone (the rows are
+    independent; the twins on every row of a batch of 1,024 would take
+    minutes)."""
+    from sloika_tpu_torch.ops import decode, viterbi_kernel as vk
+    from sloika_tpu_torch.scripts import bench_viterbi
+    post = bench_viterbi.posterior(T, B, dev, seed=T + B)
+    v, tb = vk.viterbi_forward(post, 5, skip_pen=5.0)
+    last = torch.argmax(v, dim=1)
+    path, moved = vk.viterbi_backtrace(tb, last)
+    n = min(B, RAW_BATCH)
+    (v_ref, tb_ref), plain_ms = timed_once(
+        lambda: decode.viterbi_forward_plain(post[:, :n].contiguous(), 5,
+                                             skip_pen=5.0))
+    tb_rows = tb[:, :n].contiguous()
+    (path_ref, moved_ref), back_plain_ms = timed_once(
+        lambda: decode.viterbi_backtrace_plain(tb_rows, last[:n]))
+    same_fwd = torch.equal(v[:n], v_ref) and torch.equal(tb_rows, tb_ref)
+    same_back = (torch.equal(path[:n], path_ref)
+                 and torch.equal(moved[:n], moved_ref))
+    err_fwd = max(float((v[:n] - v_ref).abs().max()),
+                  float((tb_rows.int() - tb_ref.int()).abs().max()))
+    err_back = max(float((path[:n] - path_ref).abs().max()),
+                   float((moved[:n].int() - moved_ref.int()).abs().max()))
+    del tb_rows, tb_ref
+    ms = cuda_ms(lambda: vk.viterbi_forward(post, 5, 5.0), 3)
+    back_ms = cuda_ms(lambda: vk.viterbi_backtrace(tb, last), 3)
+    del post, tb
+    torch.cuda.empty_cache()
+    print("viterbi K=1024 T={} B={}: rows 0-{} bit_identical {}; forward "
+          "kernel {:.3f} ms ({:.3f} us a step), backtrace kernel {:.3f} ms; "
+          "plain twins on {} rows {:.1f} ms and {:.1f} ms".format(
+              T, B, n - 1, same_fwd and same_back, ms, 1e3 * ms / T,
+              back_ms, n, plain_ms, back_plain_ms), flush=True)
+    if not (same_fwd and same_back):
+        raise AssertionError("Viterbi kernels differ from their twins at "
+                             "T={} B={}".format(T, B))
+    shape = "T={} B={} K=1024".format(T, B)
+    fwd = {"shape": shape, "max_abs_err": err_fwd, "ms": ms,
+           "plain_ms_rows_0_7": plain_ms}
+    fwd["bound_ms"], fwd["bound_by"] = bound(*viterbi_fwd_bound(T, B))
+    back = {"shape": shape, "max_abs_err": err_back, "ms": back_ms,
+            "plain_ms_rows_0_7": back_plain_ms}
+    back["bound_ms"], back["bound_by"] = bound(*viterbi_back_bound(T, B))
+    back.update(bench_viterbi.back_design_bounds(T, B, 1024, back_split))
+    return fwd, back
 
 
 def rel_err(got, ref, mask=None):
@@ -670,10 +780,22 @@ def first_difference(a, b):
     return int(d[0]) if len(d) else n
 
 
+def raw_batch_frames(layer, sigs):
+    """The frames of each batch of whole reads, as ``basecall_signals``
+    batches them (in order of length) and the model's strided convolution
+    makes them."""
+    conv = layer.layers[0]
+    lens = sorted(len(s) for s in sigs)
+    return [1 + (max(lens[lo:lo + RAW_BATCH]) + sum(conv.padding)
+                 - conv.winlen) // conv.stride
+            for lo in range(0, len(lens), RAW_BATCH)]
+
+
 def phase_basecall_raw(dev, standin, counters):
     """The default raw path: whole reads through ``Basecaller(output=
-    "states").basecall_signals``; two short reads against the CPU plain
-    path."""
+    "states").basecall_signals``, then one profiled call; two short reads
+    against the CPU plain path."""
+    from torch.profiler import ProfilerActivity
     from sloika_tpu_torch import basecall as bc
     sigs = raw_signals(synthetic_reads())
     caller = bc.Basecaller(standin, 5, batch_size=RAW_BATCH, output="states",
@@ -706,6 +828,16 @@ def phase_basecall_raw(dev, standin, counters):
         if len(call) == 0 or not np.isfinite(score):
             raise AssertionError("raw read {}: bad call (score {}, {} "
                                  "states)".format(i, score, len(call)))
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        caller.basecall_signals(sigs)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    print("whole-read raw basecall profile (one call, profiled; batches of "
+          "{} reads at T = {} frames): ".format(
+              RAW_BATCH, raw_batch_frames(standin, sigs)) +
+          profile_table(prof.events(), 1, wall), flush=True)
 
     # two short reads on the card and through the plain CPU path
     short = raw_signals([(d[:RAW_SHORT], n4) for d, n4 in
@@ -1528,7 +1660,7 @@ def main():
 
     standin = models.pretrained_standin(seed=0).to(dev).eval()
     gru_fwd = phase_gru(dev, standin)
-    viterbi = phase_viterbi(dev)
+    viterbi = phase_viterbi(dev, standin)
     gru_fwd_train, bwd = phase_gru_bwd(dev)
     # the forward kernel is held to its twin at both paths' shapes
     gru_fwd["max_abs_err"] = max(gru_fwd["max_abs_err"],

@@ -45,9 +45,8 @@
 // stores frame q's position.  The design reads the whole traceback once,
 // 3.5 GB at the main path's shapes (~1.05 ms at 3.35 TB/s), and its chain
 // is Tp shared-memory load-to-use latencies (~32 cycles each).
-#include <cuda.h>
-
 #include "bulk_copy.cuh"
+#include "tensor_map.cuh"
 
 #ifdef REMAP_BACK_CLOCKS
 // Slot-phase clocks (scripts/bench_remap.py --clocks builds this source with
@@ -301,27 +300,6 @@ int launch(const void* tb, const void* starts, const void* last, void* path,
       (int32_t*)path, Tp, B, W, nslots, frame_elems, slot_elems, tb_end,
       tmap);
   return (int)cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = (EncodeTiled)p;
-  }
-  return fn;
 }
 
 }  // namespace

@@ -103,6 +103,13 @@ def check(err, what):
             what, err))
 
 
+def storage_end(t):
+    """The address one past the last byte of ``t``'s storage: a kernel's
+    bulk copy of a row's aligned superset must not pass it."""
+    return (t.data_ptr() + t.untyped_storage().nbytes()
+            - t.storage_offset() * t.element_size())
+
+
 def check_tensor(t, shape, dtype, device, name):
     """Raise unless ``t`` is a contiguous CUDA tensor of the given shape,
     dtype and device."""

@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from sloika_tpu_torch import cuda_build
+from sloika_tpu_torch.cuda_build import storage_end
 from sloika_tpu_torch.nn.fused_gru import SMEM_OPTIN, _round
 from sloika_tpu_torch.ops.remap import NEG_LARGE
 from sloika_tpu_torch.ops.remap_banded import band_starts
@@ -177,13 +178,6 @@ def remap_back_plan(W, optin=SMEM_OPTIN):
     return {"K": K, "nslots": nslots, "copy": copy, "inner": inner,
             "frame_bytes": frame_bytes, "slot_bytes": slot_bytes,
             "smem": BACK_BAR_BYTES + nslots * slot_bytes}
-
-
-def storage_end(t):
-    """The address one past the last byte of ``t``'s storage: a kernel's
-    bulk copy of a row's aligned superset must not pass it."""
-    return (t.data_ptr() + t.untyped_storage().nbytes()
-            - t.storage_offset() * t.element_size())
 
 
 def _step_inputs_plain(ltrans_t, seq_states, pos_mask, starts, t, W, neg):

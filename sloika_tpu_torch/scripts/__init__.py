@@ -71,3 +71,18 @@ def read_clocks(lib, read, warps, slots=8):
     raw = (ctypes.c_longlong * (32 * slots))()
     cuda_build.check(getattr(lib, read)(raw), read)
     return [[raw[w * slots + k] for k in range(slots)] for w in range(warps)]
+
+
+def split_clocks(raw, steps, ms, phases):
+    """Cycles a step of each phase, by warp and their mean (over the warps
+    that stamped), from a clocked build's stamps (slot 7: the whole loop),
+    and the clock they ran at."""
+    per_warp = [[w[k] / steps for k in range(8)] for w in raw if w[7] > 0]
+    mean = [sum(w[k] for w in per_warp) / len(per_warp) for k in range(8)]
+    us = 1e3 * ms / steps
+    return {"ms": ms, "us_per_step": us, "ghz": mean[7] / us / 1e3,
+            "cycles_per_step": mean[7],
+            "phases_mean": dict(zip(phases, mean)),
+            "phases_by_warp": [dict(zip(phases + ("loop",),
+                                        w[:len(phases)] + [w[7]]))
+                               for w in per_warp]}

@@ -81,28 +81,14 @@ def posterior(T, B, dev, seed):
         dim=2).contiguous()
 
 
-def _split(raw, steps, ms, phases):
-    """Cycles a step of each phase, by warp and their mean (over the warps
-    that stamped), from the stamps (slot 7: the whole loop), and the clock
-    they ran at."""
-    per_warp = [[w[k] / steps for k in range(8)] for w in raw if w[7] > 0]
-    mean = [sum(w[k] for w in per_warp) / len(per_warp) for k in range(8)]
-    us = 1e3 * ms / steps
-    return {"ms": ms, "us_per_step": us, "ghz": mean[7] / us / 1e3,
-            "cycles_per_step": mean[7],
-            "phases_mean": dict(zip(phases, mean)),
-            "phases_by_warp": [dict(zip(phases + ("loop",),
-                                        w[:len(phases)] + [w[7]]))
-                               for w in per_warp]}
-
-
 def banded_clocks(args, ref):
     """Run the clocked build of ``remap_banded`` on ``args`` (it must give
     ``ref``, the port's build's (traceback, vfinal)); returns its time, the
     clock it ran at and the cycles a step of each phase."""
     from sloika_tpu_torch.ops.remap_kernel import (RemapBanded,
                                                    remap_banded_plan)
-    from sloika_tpu_torch.scripts import clocked_library, cuda_ms, read_clocks
+    from sloika_tpu_torch.scripts import (clocked_library, cuda_ms,
+                                         read_clocks, split_clocks)
     lib = clocked_library("remap_banded", "REMAP_BANDED_CLOCKS",
                           RemapBanded._ARGTYPES, "remap_banded_clocks_read")
 
@@ -118,7 +104,7 @@ def banded_clocks(args, ref):
                              "bits")
     plan = remap_banded_plan(args[6], args[0].shape[2])
     raw = read_clocks(lib, "remap_banded_clocks_read", 32)
-    split = _split(raw[:plan["warps"]], args[4].shape[0] - 1, ms,
+    split = split_clocks(raw[:plan["warps"]], args[4].shape[0] - 1, ms,
                    BANDED_PHASES)
     if plan["producer"]:
         # the producer warp: its barriers with the refill, and its window
@@ -134,7 +120,8 @@ def banded_clocks(args, ref):
 def back_clocks(args, ref):
     """The same for ``remap_back`` (it must give ``ref``, the path)."""
     from sloika_tpu_torch.ops.remap_kernel import RemapBacktrack
-    from sloika_tpu_torch.scripts import clocked_library, cuda_ms, read_clocks
+    from sloika_tpu_torch.scripts import (clocked_library, cuda_ms,
+                                         read_clocks, split_clocks)
     lib = clocked_library("remap_back", "REMAP_BACK_CLOCKS",
                           RemapBacktrack._ARGTYPES, "remap_back_clocks_read")
 
@@ -148,7 +135,7 @@ def back_clocks(args, ref):
         raise AssertionError("the clocked build of remap_back gave other "
                              "bits")
     raw = read_clocks(lib, "remap_back_clocks_read", 2)
-    split = _split(raw, args[0].shape[0] - 1, ms, BACK_PHASES)
+    split = split_clocks(raw, args[0].shape[0] - 1, ms, BACK_PHASES)
     split["walker"], split["copier"] = split.pop("phases_by_warp")
     del split["phases_mean"]
     split["cycles_per_step"] = split["walker"]["loop"]

@@ -1,0 +1,185 @@
+"""Time the Viterbi kernels on the card at the decode paths' shapes::
+
+    python -m sloika_tpu_torch.scripts.bench_viterbi [--clocks] \\
+        [--shapes chunk,production,events,whole]
+
+Shapes (T frames, B rows; K = 1,024 states, klen 5): "chunk", the chunked
+basecall's window batch (T 3,277, B 64); "production", ``bench.py``'s
+batch of 1,024 windows; "events", the events basecall's batch of 64 reads
+of up to 9,000 events; "whole", ``chip_smoke.py``'s longest batch of 8
+whole reads (22,543 frames).  The posterior is ``softmax(4 x N(0, 1))``
+over 1,025 states, drawn on the card from a seed, as in ``chip_smoke.py``
+phase 4.  It times ``viterbi_fwd`` and ``viterbi_back`` (the best of 2
+rounds of 3 back-to-back calls by CUDA events).
+
+Another tree's kernels, e.g. a parent commit unpacked with ``git
+archive``, are timed by that tree's own copy of this script::
+
+    PYTHONPATH=<tree> python <tree>/sloika_tpu_torch/scripts/bench_viterbi.py
+
+With ``--clocks`` it builds ``csrc/viterbi_fwd.cu`` with
+``-DVITERBI_FWD_CLOCKS`` and ``csrc/viterbi_back.cu`` with
+``-DVITERBI_BACK_CLOCKS``, each into a library of its own, and runs them
+on the same inputs: lane 0 of each warp of block 0 sums the SM clock
+cycles of each phase of a step (FWD_PHASES; BACK_PHASES, whose walker and
+copier warps are reported apart, and the cycles of one read of a chase
+through shared memory, ``smem_chase_cycles``).  It reports them a step,
+each warp's and the mean over the warps, beside both builds' times; the
+cycles of the clocked loop over its time give the clock they ran at.  A
+clocked build must give the port's bits.  ``viterbi_back`` is also given
+its design's bound: the bytes of the whole traceback read once, and its
+chain floor, T shared-memory reads at the chase's cycles.
+
+Prints one JSON line: the card and its power limit, the tree timed, and
+the times.
+"""
+import argparse
+import json
+import os
+import subprocess
+
+import torch
+
+#: name -> (T, B)
+SHAPES = {"chunk": (3277, 64), "production": (3277, 1024),
+          "events": (9000, 64), "whole": (22543, 8)}
+KLEN, NSTATE, SKIP_PEN = 5, 1025, 5.0
+#: the phases of a step that each clocked build stamps, in order
+FWD_PHASES = ("row", "logs", "maxima", "update_store", "barrier")
+#: viterbi_back's warps: the walker (0) and the copier (1)
+BACK_PHASES = ("slot_wait", "walk", "store", "release", "copy_issue")
+#: the published peak of one H100 SXM's device memory (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+
+
+def posterior(T, B, dev, seed):
+    """(T, B, 1025) probability-domain posterior drawn on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.softmax(
+        4.0 * torch.randn((T, B, NSTATE), generator=gen, device=dev),
+        dim=2).contiguous()
+
+
+def fwd_clocks(post, ref):
+    """Run the clocked build of ``viterbi_fwd`` on ``post`` (it must give
+    ``ref``, the port's build's (vfinal, traceback)); returns its time, the
+    clock it ran at and the cycles a step of each phase."""
+    from sloika_tpu_torch.ops.viterbi_kernel import (ViterbiForward,
+                                                     viterbi_fwd_plan)
+    from sloika_tpu_torch.scripts import (clocked_library, cuda_ms,
+                                         read_clocks, split_clocks)
+    lib = clocked_library("viterbi_fwd", "VITERBI_FWD_CLOCKS",
+                          ViterbiForward._ARGTYPES, "viterbi_fwd_clocks_read")
+
+    class Clocked(ViterbiForward):
+        def _library(self):
+            return lib
+
+    run = lambda: Clocked()(post, KLEN, SKIP_PEN)
+    ms = cuda_ms(run, 3, 2)
+    if not all(map(torch.equal, run(), ref)):
+        raise AssertionError("the clocked build of viterbi_fwd gave other "
+                             "bits")
+    # the DP warps of row 0's block, each of which stamps
+    T, B, nst = post.shape
+    plan = viterbi_fwd_plan(B, nst - 1, pairs=ViterbiForward().pairs(
+        nst - 1, post.device))
+    dp = (nst - 1) // 4 if plan["route"] == "pair" else plan["threads"]
+    warps = -(-dp // 32)
+    raw = read_clocks(lib, "viterbi_fwd_clocks_read", warps)
+    return split_clocks(raw, T - 1, ms, FWD_PHASES)
+
+
+def back_clocks(tb, last, ref):
+    """The same for ``viterbi_back`` (it must give ``ref``, the path and
+    moves)."""
+    from sloika_tpu_torch.ops.viterbi_kernel import ViterbiBacktrace
+    from sloika_tpu_torch.scripts import (clocked_library, cuda_ms,
+                                         read_clocks, split_clocks)
+    lib = clocked_library("viterbi_back", "VITERBI_BACK_CLOCKS",
+                          ViterbiBacktrace._ARGTYPES,
+                          "viterbi_back_clocks_read")
+
+    class Clocked(ViterbiBacktrace):
+        def _library(self):
+            return lib
+
+    run = lambda: Clocked()(tb, last)
+    ms = cuda_ms(run, 3, 2)
+    if not all(map(torch.equal, run(), ref)):
+        raise AssertionError("the clocked build of viterbi_back gave other "
+                             "bits")
+    raw = read_clocks(lib, "viterbi_back_clocks_read", 2)
+    split = split_clocks(raw, max(tb.shape[0] - 1, 1), ms, BACK_PHASES)
+    split["walker"], split["copier"] = split.pop("phases_by_warp")
+    del split["phases_mean"]
+    split["cycles_per_step"] = split["walker"]["loop"]
+    # thread 0's chase of 64 dependent shared-memory reads
+    split["smem_chase_cycles"] = raw[0][6] / 64
+    return split
+
+
+def back_design_bounds(T, B, K, split):
+    """``viterbi_back``'s design bounds (ms): the whole traceback read once
+    at the published rate, and T shared-memory reads at the chase's cycles
+    and the clocked build's clock."""
+    return {"design_bytes_ms": 1e3 * T * B * K / HBM_BYTES_PER_S,
+            "chain_floor_ms": T * split["smem_chase_cycles"]
+            / (split["ghz"] * 1e6)}
+
+
+def bench_shape(name, dev, clocks):
+    """Time both kernels at one of SHAPES (and split their steps)."""
+    from sloika_tpu_torch.ops import viterbi_kernel as vk
+    from sloika_tpu_torch.scripts import cuda_ms
+    T, B = SHAPES[name]
+    post = posterior(T, B, dev, seed=T + B)
+    vfinal, tb = vk.viterbi_forward(post, KLEN, SKIP_PEN)
+    last = torch.argmax(vfinal, dim=1)
+    path = vk.viterbi_backtrace(tb, last)
+    ms = cuda_ms(lambda: vk.viterbi_forward(post, KLEN, SKIP_PEN), 3, 2)
+    back_ms = cuda_ms(lambda: vk.viterbi_backtrace(tb, last), 3, 2)
+    K = NSTATE - 1
+    out = {"T": T, "B": B, "K": K,
+           "viterbi_fwd": {"ms": ms, "us_per_step": 1e3 * ms / T,
+                           "plan": vk.viterbi_fwd_plan(
+                               B, K, pairs=vk.viterbi_forward.pairs(K, dev))},
+           "viterbi_back": {"ms": back_ms, "us_per_step": 1e3 * back_ms / T,
+                            "plan": vk.viterbi_back_plan(B, K, T)}}
+    if clocks:
+        out["viterbi_fwd_clocks"] = fwd_clocks(post, (vfinal, tb))
+        out["viterbi_back_clocks"] = back_clocks(tb, last, path)
+        out["viterbi_back"].update(back_design_bounds(
+            T, B, K, out["viterbi_back_clocks"]))
+    return out
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Time the Viterbi kernels at the decode paths' shapes")
+    parser.add_argument("--clocks", action="store_true",
+                        help="also split a step of each kernel by its "
+                        "clocked build")
+    parser.add_argument("--shapes", default="chunk,production,events,whole",
+                        help="comma-separated names of SHAPES")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_viterbi needs a CUDA device")
+    import sloika_tpu_torch
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    result = {"card": card,
+              "tree": os.path.dirname(os.path.dirname(
+                  os.path.abspath(sloika_tpu_torch.__file__)))}
+    for name in args.shapes.split(","):
+        result[name] = bench_shape(name, dev, args.clocks)
+        torch.cuda.empty_cache()
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
