@@ -6,8 +6,9 @@ Needs one CUDA card; exits non-zero, printing no result, without one.
 Phases, each printing one line and raising on failure:
 
 1. environment: the card's name and power limit, the CUDA version;
-2. build: the thirteen kernels, from ``sloika_tpu_torch/csrc``, one nvcc
-   each, all started together;
+2. build: the thirteen kernels, from ``sloika_tpu_torch/csrc``, and the
+   clocked builds the phases split steps with (CLOCKED), one nvcc each, all
+   started together;
 3. GRU: the forward kernel against its plain twin at S = 112 and 144,
    T = 3277, B = 64, ragged lengths, forward and reverse (max abs difference
    on valid steps <= 1e-4: float32 summation order over 3277 recurrent
@@ -22,7 +23,10 @@ Phases, each printing one line and raising on failure:
    basecall's batch (T = 9,000, B = 64) and the whole-read raw path's
    longest batch (B = 8), rows 0-7 bit-identical to the twins run on those
    rows alone; ``viterbi_back`` also beside its design's bytes and its
-   chain's floor (T shared-memory reads);
+   chain's floor (T shared-memory reads); and a klen 7 posterior (16,384
+   states, T = 200, B = 2), which the kernels do not take: the wrappers
+   route it to the plain twins on the card (``plain_calls`` up by one, no
+   launch) and its path equals the CPU twin's;
 5. basecall main path: the headline model's graph at full width (seeded
    random weights) basecalls 16 synthetic DAC reads through
    ``Basecaller.basecall_dac_reads``; every kernel of the path must have
@@ -97,7 +101,10 @@ Phases, each printing one line and raising on failure:
     ragged lengths with interior holes, forward and reverse (max|kernel -
     twin| / max|twin| <= 1e-4 for dxp on valid steps, dsWT and dp), the
     same bits from ``lstm_bwd`` on two calls, and ``lstm_wgrad`` against
-    its einsum twin;
+    its einsum twin; then ``lstm_wgrad``'s ms beside its bound and the
+    einsums', its launches a call and their device ms (``torch.profiler``),
+    its plan, and a slice split by its clocked build (``bench_lstm.py
+    --clocks``);
 12. events basecall main path: ``baseline_lstm`` at full width (size 64,
     4 features, window 3, k = 5: 1,025 states; seeded random weights)
     basecalls 64 event reads of 3,000-9,000 events (feature matrices from
@@ -114,9 +121,11 @@ Phases, each printing one line and raising on failure:
     a profile of 5 steady steps;
 14. diagnostic probes (``sloika_tpu_torch/scripts``) through their entry
     points at the JAX scripts' default shapes, launches counted under their
-    own path, "diagnostics": ``gru_unroll`` at T = 400, B = 100, S = 96 for
-    U = 1, 2, 4, 8 in both precisions (each within 1e-4 of its f32 twin, or
-    2e-3 of its bf16-rounding twin, and equal to U = 1); ``viterbi_parts``'
+    own path, "diagnostics": ``gru_unroll`` at T = 400, B = 100, S = 96 and
+    144 for U = 1, 2, 4, 8 in both precisions (each within 1e-4 of its f32
+    twin, or 2e-3 of its bf16-rounding twin, and equal to U = 1), a step
+    split by its clocked build at U = 1 and 8 (``bench_gru_unroll.py
+    --clocks``); ``viterbi_parts``'
     eight variants at B = 128, T = 3,277, K = 1,024 (traceback and final
     scores bit-identical to the twin; the Dirichlet(0.05) posterior is drawn
     on the card from a seeded ``torch.Generator``, as numpy's draw of its
@@ -125,6 +134,10 @@ Phases, each printing one line and raising on failure:
     card; bit-identical to the twin), its bandwidth beside ``torch.amax``'s,
     and each case's cycles a chunk from the kernel's clocked build
     (``bench_dma.py --clocks``, the same bits).
+
+Every path (5-14) sets the kernels' launch counts to 0 before it runs and
+reads them after, and fails if a Viterbi wrapper took its plain route on
+the card (``plain_calls``): the paths decode klen 5 over 4 bases.
 
 Then one JSON line of per-kernel numbers (with the least time the card
 could take for each kernel's work, ``bound_ms``, from the shapes run: the
@@ -162,6 +175,11 @@ GRAD_RTOL = 1e-3
 KERNELS = ("gru_fwd", "gru_bwd", "gru_wgrad", "viterbi_fwd", "viterbi_back",
            "remap_banded", "remap_back", "lstm_fwd", "lstm_bwd", "lstm_wgrad",
            "gru_unroll", "viterbi_parts", "hbm_ring")
+#: the clocked builds the phases split steps with, compiled beside the
+#: kernels (``scripts.clocked_library``)
+CLOCKED = tuple((n, n.upper() + "_CLOCKS") for n in (
+    "viterbi_fwd", "viterbi_back", "remap_banded", "remap_back",
+    "lstm_wgrad", "gru_unroll", "hbm_ring"))
 #: the kernels each main path must launch
 PATH_KERNELS = {"basecall": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
                 "basecall_raw": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
@@ -200,6 +218,9 @@ EVENTS_READS, EVENTS_MIN, EVENTS_MAX = 64, 3000, 9000
 # events basecall path's batch
 VITERBI_EXTRA_SHAPES = (("production batch", T_FRAMES, 1024),
                         ("events", EVENTS_MAX, EVENTS_READS))
+# a klen 7 posterior (T, B), which the Viterbi kernels do not take: routed to
+# the plain twins on the card
+KLEN7_T, KLEN7_B = 200, 2
 EVENTS_TRAIN_B, EVENTS_TRAIN_T = 100, 500
 # the diagnostic probes at the JAX scripts' defaults: Viterbi parts (B, T),
 # the copy ring (B, T); gru_unroll "default" against its bf16 twin: max abs,
@@ -217,6 +238,27 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0] if out else ""
+
+
+def zero_counts(counters):
+    """Set every wrapper's launch count, and the Viterbi wrappers' count of
+    calls routed to their plain twins on the card, to 0."""
+    for k in counters.values():
+        k.launches = 0
+        if hasattr(k, "plain_calls"):
+            k.plain_calls = 0
+
+
+def read_counts(counters):
+    """The launches of each kernel since :func:`zero_counts`; raises if a
+    Viterbi wrapper routed a call to its plain twin (``plain_calls``): the
+    main paths decode klen 5 over nbase 4, the kernels' range."""
+    plain = {n: k.plain_calls for n, k in counters.items()
+             if getattr(k, "plain_calls", 0)}
+    if plain:
+        raise AssertionError("a main path took the plain route on the "
+                             "card: plain_calls {}".format(plain))
+    return {n: k.launches for n, k in counters.items()}
 
 
 def bound(nbytes, nflop):
@@ -382,6 +424,7 @@ def phase_viterbi(dev, standin):
               back_split["smem_chase_cycles"]), flush=True)
     del logits, peaked, ties, tb
     torch.cuda.empty_cache()
+    klen7 = viterbi_outside_the_kernels(dev)
     fwd_at, back_at = {}, {}
     whole_T = max(raw_batch_frames(standin, [d for d, _ in
                                              synthetic_reads()]))
@@ -420,9 +463,43 @@ def phase_viterbi(dev, standin):
                     "plain_ms": fwd_t["peaked"][1],
                     "cycles_per_step": fwd_split["cycles_per_step"],
                     "cycles_per_step_by_phase": fwd_split["phases_mean"],
-                    "at_shapes": fwd_at},
+                    "at_shapes": fwd_at, "klen7_plain_route": klen7},
                    *viterbi_fwd_bound(T_FRAMES, BATCH)),
         back]
+
+
+def viterbi_outside_the_kernels(dev, T=KLEN7_T, B=KLEN7_B):
+    """A klen 7 posterior (16,385 states, which the kernels do not take) on
+    the card: ``viterbi_kernel.viterbi`` routes it to the plain twins on the
+    card's own device (``plain_calls``, no launch), and the path equals the
+    CPU twin's."""
+    from sloika_tpu_torch.ops import decode, viterbi_kernel as vk
+    gen = torch.Generator(device=dev).manual_seed(71)
+    post = torch.softmax(4.0 * torch.randn((T, B, 4 ** 7 + 1), generator=gen,
+                                           device=dev), dim=2).contiguous()
+    wrappers = (vk.viterbi_forward, vk.viterbi_backtrace)
+    before = [(k.launches, k.plain_calls) for k in wrappers]
+    t0 = time.perf_counter()
+    score, path, moved = vk.viterbi(post, 7, skip_pen=5.0)
+    torch.cuda.synchronize()
+    card_ms = 1e3 * (time.perf_counter() - t0)
+    after = [(k.launches, k.plain_calls) for k in wrappers]
+    ref = decode.viterbi(post.cpu(), 7, skip_pen=5.0)
+    same_path = (torch.equal(path.cpu(), ref[1])
+                 and torch.equal(moved.cpu(), ref[2]))
+    score_err = float((score.cpu() - ref[0]).abs().max())
+    routed = all(a == (b[0], b[1] + 1) for a, b in zip(after, before))
+    print("viterbi klen 7 (K = 16,384) T={} B={} on the card: plain route "
+          "{} (launches and plain_calls before {}, after {}), on {}; path "
+          "equal to the CPU twin's {}, score max_abs_err {:.3e}; {:.1f} ms"
+          .format(T, B, routed, before, after, path.device, same_path,
+                  score_err, card_ms), flush=True)
+    if not (routed and same_path and path.is_cuda
+            and score_err <= 1e-4 * float(ref[0].abs().max())):
+        raise AssertionError("the klen 7 route on the card failed")
+    return {"shape": "T={} B={} K=16384".format(T, B), "ms": card_ms,
+            "path_equal_to_cpu_twin": same_path, "score_max_abs_err":
+            score_err}
 
 
 def viterbi_fwd_bound(T, B, K=1024):
@@ -634,8 +711,7 @@ def phase_train(dev, counters):
                                                      seed=0)
     data = synthetic_chunks()
     clock = StepMarks(sync=True)
-    for k in counters.values():
-        k.launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -643,7 +719,7 @@ def phase_train(dev, counters):
         layer, data, batch_size=TRAIN_B, chunk_len_range=(1.0, 1.0),
         drop=20, niteration=TRAIN_STEPS, seed=1, log=clock, device=dev)
     wall = time.perf_counter() - t0
-    counts = {n: k.launches for n, k in counters.items()}
+    counts = read_counts(counters)
     launches = [counts[n] for n in PATH_KERNELS["train"]]
     peak = torch.cuda.max_memory_allocated()
     steps = len(clock.marks) - TRAIN_WARM
@@ -717,15 +793,14 @@ def phase_main(dev, standin, counters):
     caller = bc.Basecaller(standin, 5, chunk_size=CHUNK, overlap=OVERLAP,
                            batch_size=BATCH, output="bases", device=dev)
     caller.basecall_dac_reads(reads)                 # warm-up
-    for k in counters.values():
-        k.launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = caller.basecall_dac_reads(reads)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {n: k.launches for n, k in counters.items()}
+    counts = read_counts(counters)
     launches = [counts[n] for n in PATH_KERNELS["basecall"]]
     peak = torch.cuda.max_memory_allocated()
     nsamples = sum(len(d) for d, _ in reads)
@@ -791,6 +866,13 @@ def raw_batch_frames(layer, sigs):
             for lo in range(0, len(lens), RAW_BATCH)]
 
 
+def gru_layers(layer):
+    """The GRU layers of a Serial model, reversed ones unwrapped."""
+    from sloika_tpu_torch.nn.rnn import Gru
+    inner = [getattr(l, "layer", l) for l in layer.layers]
+    return [l for l in inner if isinstance(l, Gru)]
+
+
 def phase_basecall_raw(dev, standin, counters):
     """The default raw path: whole reads through ``Basecaller(output=
     "states").basecall_signals``, then one profiled call; two short reads
@@ -801,15 +883,14 @@ def phase_basecall_raw(dev, standin, counters):
     caller = bc.Basecaller(standin, 5, batch_size=RAW_BATCH, output="states",
                            device=dev)
     caller.basecall_signals(sigs)                    # warm-up
-    for k in counters.values():
-        k.launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = caller.basecall_signals(sigs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {n: k.launches for n, k in counters.items()}
+    counts = read_counts(counters)
     launches = [counts[n] for n in PATH_KERNELS["basecall_raw"]]
     peak = torch.cuda.max_memory_allocated()
     nsamples = sum(len(x) for x in sigs)
@@ -838,6 +919,21 @@ def phase_basecall_raw(dev, standin, counters):
           "{} reads at T = {} frames): ".format(
               RAW_BATCH, raw_batch_frames(standin, sigs)) +
           profile_table(prof.events(), 1, wall), flush=True)
+    # the least time of the call's GRU launches: each layer over each
+    # batch's valid frames
+    conv = standin.layers[0]
+    frames = sorted(1 + (len(x) + sum(conv.padding) - conv.winlen)
+                    // conv.stride for x in sigs)
+    widths = [l.size for l in gru_layers(standin)]
+    gru_bound = sum(bound(*gru_fwd_bound(sum(frames[lo:lo + RAW_BATCH]),
+                                         S))[0]
+                    for lo in range(0, len(frames), RAW_BATCH)
+                    for S in widths)
+    print("whole-read raw gru_fwd bound over the call's {} launches (S = {} "
+          "over each batch's valid frames): {:.3f} ms (operations: 6 S^2 "
+          "flop a valid frame)".format(
+              len(widths) * -(-len(frames) // RAW_BATCH), widths, gru_bound),
+          flush=True)
 
     # two short reads on the card and through the plain CPU path
     short = raw_signals([(d[:RAW_SHORT], n4) for d, n4 in
@@ -1060,15 +1156,14 @@ def phase_remap(dev, counters):
     remapper.remap_dac_signals(reads, refs)              # warm-up
     remapper.reruns.clear()
     remapper.windows.clear()
-    for k in counters.values():
-        k.launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = remapper.remap_dac_signals(reads, refs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {n: k.launches for n, k in counters.items()}
+    counts = read_counts(counters)
     launches = [counts[n] for n in PATH_KERNELS["remap"]]
     peak = torch.cuda.max_memory_allocated()
     nsamples = sum(len(d) for d, _ in reads)
@@ -1244,6 +1339,7 @@ def phase_lstm_bwd(dev):
     from sloika_tpu_torch.nn.fused_lstm import (
         lstm_backward, lstm_forward, lstm_scan_bwd_gates_plain,
         lstm_scan_bwd_plain, lstm_wgrad, lstm_wgrad_plain)
+    from sloika_tpu_torch.scripts import bench_lstm
     S, T, B = LSTM_S, EVENTS_TRAIN_T, EVENTS_TRAIN_B
     rs = np.random.RandomState(19)
     f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
@@ -1296,7 +1392,10 @@ def phase_lstm_bwd(dev):
             raise AssertionError("LSTM backward kernels differ from their "
                                  "twins: relative errors {} > {}".format(
                                      bad, BWD_RTOL))
+        if reverse is False:
+            wgrad_in = (h, c, got[0])
     ms, plain_ms, wms, wplain_ms = times[False]
+    wgrad = lstm_wgrad_split(*wgrad_in, wms, wplain_ms, int(mask.sum()))
     shape = "T={} B={} S={}".format(T, B, S)
     steps = int(mask.sum())
     # lstm_bwd from the gate trace: one product a valid step of a row
@@ -1317,15 +1416,55 @@ def phase_lstm_bwd(dev):
                      8 * S * S * steps)
     bwd["bound_ms_recompute_design"] = bound(
         4 * (11 * S * steps + 8 * S * S + 3 * S), 16 * S * S * steps)[0]
-    return [
-        bwd,
-        with_bound({"name": "lstm_wgrad", "route": "cuda",
-                    "source": "sloika_tpu_torch/csrc/lstm_wgrad.cu",
-                    "replaces": "sloika_tpu/nn/pallas_lstm.py:119",
-                    "shape": shape, "max_abs_err": worst_w, "ms": wms,
-                    "plain_ms": wplain_ms},
-                   4 * (6 * S * steps + 4 * S * S + 3 * S),
-                   8 * S * S * steps, library_ms=wplain_ms)]
+    entry = with_bound({"name": "lstm_wgrad", "route": "cuda",
+                        "source": "sloika_tpu_torch/csrc/lstm_wgrad.cu",
+                        "replaces": "sloika_tpu/nn/pallas_lstm.py:119",
+                        "shape": shape, "max_abs_err": worst_w, "ms": wms,
+                        "plain_ms": wplain_ms},
+                       *bench_lstm.wgrad_bound(steps, S),
+                       library_ms=wplain_ms)
+    entry.update(wgrad)
+    return [bwd, entry]
+
+
+def kernel_name(key):
+    """A profiler's kernel name without its namespace and parameters."""
+    return key.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
+
+
+def lstm_wgrad_split(h, c, dxp, ms, einsum_ms, rows):
+    """``lstm_wgrad`` at the event-training shape: its launches a call and
+    their device ms (``torch.profiler``), its plan and a slice split by the
+    clocked build (``bench_lstm --clocks``), beside its bound and the
+    einsum twin."""
+    from sloika_tpu_torch.nn import fused_lstm
+    from sloika_tpu_torch.scripts import bench_lstm
+    T, B, S = h.shape
+    by_launch = bench_lstm.wgrad_launches(h, c, dxp)
+    clocks = bench_lstm.wgrad_clocks(
+        h, c, dxp, fused_lstm.lstm_wgrad(h, c, dxp, False))
+    plan = fused_lstm.lstm_wgrad_plan(T, B, S)
+    bound_ms, bound_by = bound(*bench_lstm.wgrad_bound(rows, S))
+    print("lstm_wgrad T={} B={} S={}: kernel {:.4f} ms, bound {:.4f} ms "
+          "({}), einsum {:.4f} ms; {} launches a call: {}; plan {} splits "
+          "of {} rows, {} x {} threads, slices of {}; "
+          "clocked build {:.0f} cycles a slice {} [{}]".format(
+              T, B, S, ms, bound_ms, bound_by, einsum_ms,
+              sum(v["launches_a_call"] for v in by_launch.values()),
+              {kernel_name(k): round(v["ms_a_call"], 4)
+               for k, v in by_launch.items()}, plan["nsplit"],
+              plan["rows_per_split"], plan["ncb"], plan["threads"],
+              plan["kb"],
+              clocks["cycles_per_slice"],
+              {k: round(v) for k, v in clocks["phases_mean"].items()},
+              card_line()), flush=True)
+    return {"launches_a_call": sum(v["launches_a_call"]
+                                   for v in by_launch.values()),
+            "ms_by_launch": {kernel_name(k): v["ms_a_call"]
+                             for k, v in by_launch.items()},
+            "plan": plan,
+            "cycles_per_slice": clocks["cycles_per_slice"],
+            "cycles_per_slice_by_phase": clocks["phases_mean"]}
 
 
 def phase_basecall_events(dev, counters, reads):
@@ -1338,15 +1477,14 @@ def phase_basecall_events(dev, counters, reads):
     caller = bc.Basecaller(layer, 5, batch_size=EVENTS_READS,
                            output="states", device=dev)
     caller.basecall_signals(reads)                   # warm-up
-    for k in counters.values():
-        k.launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = caller.basecall_signals(reads)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {n: k.launches for n, k in counters.items()}
+    counts = read_counts(counters)
     launches = [counts[n] for n in PATH_KERNELS["basecall_events"]]
     peak = torch.cuda.max_memory_allocated()
     nev = sum(len(r) for r in reads)
@@ -1397,36 +1535,25 @@ def phase_basecall_events(dev, counters, reads):
     return counts
 
 
-def synthetic_event_chunks(n=1000, T=EVENTS_TRAIN_T, klen=5, seed=23):
-    """A labelled event-chunk set as ``load_labelled_chunks`` returns it:
-    n chunks of T events of 4 studentised-looking features, a label at
-    every event (stride 1)."""
-    rs = np.random.RandomState(seed)
-    labels = rs.randint(0, 4 ** klen + 1, size=(n, T)).astype(np.int32)
-    return {"chunks": rs.normal(size=(n, T, 4)).astype(np.float32),
-            "labels": labels, "bad": np.zeros(labels.shape, bool),
-            "weights": np.full(n, 1.0 / n), "attrs": {"kmer": klen}}
-
-
 def phase_train_events(dev, counters):
     from torch.profiler import ProfilerActivity, schedule
     from sloika_tpu_torch import models, training
-    from sloika_tpu_torch.profile_train import StepMarks
+    from sloika_tpu_torch.profile_train import (StepMarks,
+                                                synthetic_event_chunks)
     layer = seeded_weights(models.network_factory("baseline_lstm")(
         klen=5, sd=0.5, size=LSTM_S), seed=25)
     data = synthetic_event_chunks()
     clock = StepMarks(sync=True)
     kw = dict(batch_size=EVENTS_TRAIN_B, chunk_len_range=(1.0, 1.0),
               drop=20, seed=1, device=dev)
-    for k in counters.values():
-        k.launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _, history = training.train(layer, data, niteration=TRAIN_STEPS,
                                 log=clock, **kw)
     wall = time.perf_counter() - t0
-    counts = {n: k.launches for n, k in counters.items()}
+    counts = read_counts(counters)
     launches = [counts[n] for n in PATH_KERNELS["train_events"]]
     peak = torch.cuda.max_memory_allocated()
     steps = len(clock.marks) - TRAIN_WARM
@@ -1497,51 +1624,69 @@ def phase_diagnostics(dev, counters):
     RB, RT = DIAG_RING
     x = torch.rand((RT, RB, 1024), device=dev,
                    generator=torch.Generator(device=dev).manual_seed(0))
-    for k in counters.values():
-        k.launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
-    gru = {(p, U): gu.run_case(U, precision=p, device=dev)
-           for p in gu.PRECISIONS for U in gu.UNROLLS}
+    gru = {(S, p, U): gu.run_case(U, S=S, precision=p, device=dev)
+           for S in gu.WIDTHS for p in gu.PRECISIONS for U in gu.UNROLLS}
     parts = {v: vp.run_variant(v, B, T, device=dev, inputs=(post, stay))
              for v in vp.VARIANTS}
     ring = {c: dma.run_case(*c, RB, RT, device=dev, x=x) for c in dma.CASES}
     torch.cuda.synchronize()
-    counts = {n: k.launches for n, k in counters.items()}
+    counts = read_counts(counters)
     launches = [counts[n] for n in PATH_KERNELS["diagnostics"]]
     if min(launches) <= 0:
         raise AssertionError("a probe's kernel never launched: {}".format(
             launches))
     card = card_line()
 
-    # GRU: each (precision, U) against the twin, and against U = 1
-    xp, sWT, sW2T = (torch.from_numpy(a).to(dev) for a in gu.case_inputs(1))
-    twin, twin_ms, err = {}, {}, {}
-    for p in gu.PRECISIONS:
-        twin[p], twin_ms[p] = timed_once(
-            lambda: gu.gru_unroll_plain(xp, sWT, sW2T, p))
-    bf16_effect = float((twin["default"] - twin["highest"]).abs().mean())
-    for p in gu.PRECISIONS:
-        base = gru[(p, 1)][0]
-        d = [(gru[(p, U)][0] - twin[p]).abs() for U in gu.UNROLLS]
-        err[p] = max(float(e.max()) for e in d)
-        mean = max(float(e.mean()) for e in d)
-        same = [gu.parity(base, gru[(p, U)][0]) for U in gu.UNROLLS[1:]]
-        print("gru_unroll prec={} T=400 B=100 S=96: {} us a step at U = "
-              "{}; parity of U = 2, 4, 8 with U = 1: {}; max_abs_err {:.3e} "
-              "(mean {:.3e}) against the twin ({:.3f} ms) [{}]".format(
-                  p, ", ".join("{:.3f}".format(1e3 * gru[(p, U)][1] / 400)
-                               for U in gu.UNROLLS),
-                  ", ".join(map(str, gu.UNROLLS)), same, err[p], mean,
-                  twin_ms[p], card), flush=True)
-        tol = GRU_TOL if p == "highest" else DIAG_BF16_TOL
-        if not (err[p] <= tol and all(s == "EXACT" for s in same)):
-            raise AssertionError("gru_unroll ({}) differs from its twin by "
-                                 "{} > {} or across U: {}".format(
-                                     p, err[p], tol, same))
-        if p == "default" and not mean <= DIAG_BF16_MEAN * bf16_effect:
-            raise AssertionError("gru_unroll (default) is {} from its bf16 "
-                                 "twin on average, against the rounding's "
-                                 "{}".format(mean, bf16_effect))
+    # GRU: each (S, precision, U) against the twin, and against U = 1; then
+    # a step split by the clocked build at U = 1 and 8
+    twin_ms, err, gru_clocks = {}, {p: 0.0 for p in gu.PRECISIONS}, {}
+    for S in gu.WIDTHS:
+        xp, sWT, sW2T = (torch.from_numpy(a).to(dev)
+                         for a in gu.case_inputs(1, S=S))
+        twin = {}
+        for p in gu.PRECISIONS:
+            twin[p], twin_ms[(S, p)] = timed_once(
+                lambda: gu.gru_unroll_plain(xp, sWT, sW2T, p))
+        bf16_effect = float((twin["default"] - twin["highest"]).abs().mean())
+        for p in gu.PRECISIONS:
+            base = gru[(S, p, 1)][0]
+            d = [(gru[(S, p, U)][0] - twin[p]).abs() for U in gu.UNROLLS]
+            e = max(float(x.max()) for x in d)
+            err[p] = max(err[p], e)
+            mean = max(float(x.mean()) for x in d)
+            same = [gu.parity(base, gru[(S, p, U)][0])
+                    for U in gu.UNROLLS[1:]]
+            for U in (1, 8):
+                gru_clocks[(S, p, U)] = gu.step_clocks(U, S=S,
+                                                       precision=p)
+            print("gru_unroll prec={} T=400 B=100 S={}: {} us a step at U "
+                  "= {}; parity of U = 2, 4, 8 with U = 1: {}; max_abs_err "
+                  "{:.3e} (mean {:.3e}) against the twin ({:.3f} ms); "
+                  "clocked build, cycles a step at U = 1: {:.0f} {}, at U = "
+                  "8: {:.0f} [{}]".format(
+                      p, S, ", ".join("{:.3f}".format(
+                          1e3 * gru[(S, p, U)][1] / 400)
+                          for U in gu.UNROLLS),
+                      ", ".join(map(str, gu.UNROLLS)), same, e, mean,
+                      twin_ms[(S, p)],
+                      gru_clocks[(S, p, 1)]["cycles_per_step"],
+                      {k: round(v) for k, v in
+                       gru_clocks[(S, p, 1)]["phases_mean"].items()},
+                      gru_clocks[(S, p, 8)]["cycles_per_step"], card),
+                  flush=True)
+            tol = GRU_TOL if p == "highest" else DIAG_BF16_TOL
+            if not (e <= tol and all(x == "EXACT" for x in same)):
+                raise AssertionError("gru_unroll ({}, S={}) differs from its "
+                                     "twin by {} > {} or across U: {}".format(
+                                         p, S, e, tol, same))
+            if p == "default" and not mean <= DIAG_BF16_MEAN * bf16_effect:
+                raise AssertionError("gru_unroll (default, S={}) is {} from "
+                                     "its bf16 twin on average, against the "
+                                     "rounding's {}".format(S, mean,
+                                                            bf16_effect))
+        del xp, twin
 
     # Viterbi parts: every variant bit for bit
     ms = {v: parts[v][1] for v in vp.VARIANTS}
@@ -1596,8 +1741,10 @@ def phase_diagnostics(dev, counters):
     # the codes and final scores written once; ~10 operations a state a
     # step.  hbm_ring: its input read once.  Only the ring has a PyTorch
     # call that computes the same function (torch.amax)
-    S, steps = 96, 400 * 100
-    by_case = lambda d: {"{} {}".format(*k): v for k, v in d.items()}
+    steps = 400 * 100
+    gru_bound = {S: bound(4 * (4 * S * steps + 3 * S * S), 6 * S * S * steps)
+                 for S in gu.WIDTHS}
+    by_case = lambda d: {" ".join(map(str, k)): v for k, v in d.items()}
     return [
         with_bound({"name": "gru_unroll", "route": "cuda",
                     "source": "sloika_tpu_torch/csrc/gru_unroll.cu",
@@ -1605,10 +1752,17 @@ def phase_diagnostics(dev, counters):
                     "shape": "T=400 B=100 S=96 U=1 precision=highest",
                     "max_abs_err": err["highest"],
                     "max_abs_err_bf16": err["default"],
-                    "ms": gru[("highest", 1)][1],
-                    "plain_ms": twin_ms["highest"],
-                    "ms_by_case": by_case({k: v[1] for k, v in gru.items()})},
-                   4 * (4 * S * steps + 3 * S * S), 6 * S * S * steps),
+                    "ms": gru[(96, "highest", 1)][1],
+                    "plain_ms": twin_ms[(96, "highest")],
+                    "ms_by_case": by_case({k: v[1] for k, v in gru.items()}),
+                    "cycles_per_step_by_case": by_case(
+                        {k: v["cycles_per_step"]
+                         for k, v in gru_clocks.items()}),
+                    "cycles_per_step_by_phase_by_case": by_case(
+                        {k: v["phases_mean"] for k, v in gru_clocks.items()}),
+                    "bound_ms_by_width": {S: b[0]
+                                          for S, b in gru_bound.items()}},
+                   4 * (4 * 96 * steps + 3 * 96 * 96), 6 * 96 * 96 * steps),
         with_bound({"name": "viterbi_parts", "route": "cuda",
                     "source": "sloika_tpu_torch/csrc/viterbi_parts.cu",
                     "replaces": "scripts/bench_viterbi_parts.py:25",
@@ -1649,14 +1803,15 @@ def main():
     from sloika_tpu_torch.scripts import bench_viterbi_parts
     config.disable_tf32()
     t0 = time.time()
-    cuda_build.build_all(KERNELS)
+    cuda_build.build_all(KERNELS + CLOCKED)
     ptxas = " | ".join(
         "{} ({:.1f} s): {}".format(n, sec, " ".join(
             l.split(":", 1)[-1].strip() for l in log.splitlines()
             if "registers" in l or "spill" in l))
-        for n, (sec, log) in sorted(cuda_build.BUILD_LOG.items()))
-    print("build: {} kernels in {:.1f} s ({})".format(
-        len(KERNELS), time.time() - t0, ptxas), flush=True)
+        for n, (sec, log) in sorted(cuda_build.BUILD_LOG.items())
+        if n in KERNELS)
+    print("build: {} kernels and {} clocked builds in {:.1f} s ({})".format(
+        len(KERNELS), len(CLOCKED), time.time() - t0, ptxas), flush=True)
 
     standin = models.pretrained_standin(seed=0).to(dev).eval()
     gru_fwd = phase_gru(dev, standin)

@@ -43,30 +43,37 @@ def _nvcc():
 def build_all(names):
     """Compile each ``csrc/<name>.cu`` whose library is missing or stale,
     one ``nvcc`` per source, all started together; returns the libraries'
-    paths.  Raises (after every compiler has finished) if one failed."""
+    paths.  An entry ``(name, flag)`` compiles the source with ``-D<flag>``
+    (its clock stamps, ``scripts.clocked_library``) into
+    ``lib<name>_clocks.so`` instead.  Raises (after every compiler has
+    finished) if one failed."""
     libs, running = [], []
     headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
-    for name in names:
+    for entry in names:
+        name, flag = (entry, None) if isinstance(entry, str) else entry
+        key = name + ("_clocks" if flag else "")
         src = os.path.join(CSRC_DIR, name + ".cu")
-        lib = os.path.join(BUILD_DIR, "lib{}.so".format(name))
+        lib = os.path.join(BUILD_DIR, "lib{}.so".format(key))
         libs.append(lib)
         if (os.path.exists(lib) and os.path.getmtime(lib)
                 >= max(os.path.getmtime(f) for f in [src] + headers)):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = "{}.{}.tmp".format(lib, os.getpid())
-        proc = subprocess.Popen([_nvcc()] + NVCC_FLAGS + ["-o", tmp, src],
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-        running.append((name, src, lib, tmp, proc, time.time()))
+        defines = ["-D" + flag] if flag else []
+        proc = subprocess.Popen(
+            [_nvcc()] + NVCC_FLAGS + defines + ["-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running.append((key, src, lib, tmp, proc, time.time()))
     errors = []
-    for name, src, lib, tmp, proc, t0 in running:
+    for key, src, lib, tmp, proc, t0 in running:
         out, err = proc.communicate()
         if proc.returncode != 0:
-            errors.append("nvcc failed on {}:\n{}{}".format(src, out, err))
+            errors.append("nvcc failed on {} ({}):\n{}{}".format(
+                src, key, out, err))
             continue
         os.replace(tmp, lib)        # atomic: no reader sees half a file
-        BUILD_LOG[name] = (time.time() - t0, err.strip())
+        BUILD_LOG[key] = (time.time() - t0, err.strip())
     if errors:
         raise RuntimeError("\n".join(errors))
     return libs

@@ -409,30 +409,79 @@ class LstmForward:
         return result
 
 
+#: ``lstm_wgrad.cu``: threads a block at most (168 registers a thread),
+#: its copy-ring stages, slice rows (most first), the floats after a
+#: stage's h and dxp regions, and peephole columns a thread at most
+WGRAD_MAX_THREADS = 384
+WGRAD_STAGES = 3
+WGRAD_SLICES = (32, 16, 8, 4)
+WGRAD_PAD = 8
+WGRAD_PEEP_COLUMNS = 8
+
+
+def lstm_wgrad_plan(T, B, S, sms=H100_SMS, optin=SMEM_OPTIN):
+    """The launch plan of ``lstm_wgrad.cu`` for the N = T * B rows of an
+    (S, 4S) weight sum and its 3S peephole sums.
+
+    8 x 8 thread tiles over the output (``MT`` = S/8 row groups, ``G`` =
+    4S/8 column groups), as many column groups a block as fit
+    WGRAD_MAX_THREADS threads (all of them up to S = 64, else ``ncb``
+    column blocks), whose threads also add the 3S peephole columns' products
+    in column block 0 (at most WGRAD_PEEP_COLUMNS a thread); slices of
+    ``kb`` rows (the most of
+    WGRAD_SLICES whose WGRAD_STAGES stages fit ``optin`` bytes); and the
+    rows split so that the ncb x nsplit blocks cover ``sms`` SMs in one
+    wave.  ``lh``: floats a row of h_out and c_out as the kernel reads them
+    (S rounded up to 4; the copies move whole 16-byte units).  It depends
+    on the shapes alone, so the sum order (and the bits) do too.
+
+    :returns: dict of lh, ng, ncb, kb, nsplit, rows_per_split, threads,
+        smem
+    """
+    lh = _round(S, 4)
+    MT, G = -(-S // 8), -(-4 * S // 8)
+    ng = min(G, WGRAD_MAX_THREADS // MT)
+    if ng < 1 or WGRAD_PEEP_COLUMNS * _round(MT * ng, 32) < 3 * S:
+        raise ValueError("LSTM size {} does not fit the weight-cotangent "
+                         "kernel".format(S))
+    ncb = -(-G // ng)
+    ng = -(-G // ncb)
+    stage = lambda kb: 4 * (kb * (3 * lh + 4 * S) + 2 * WGRAD_PAD)
+    kb = next((k for k in WGRAD_SLICES
+               if WGRAD_STAGES * stage(k) <= optin), None)
+    if kb is None:
+        raise ValueError("LSTM size {} does not fit the weight-cotangent "
+                         "kernel".format(S))
+    N = T * B
+    nsplit = max(1, min(sms // ncb, -(-N // kb)))
+    rows = max(kb, _round(-(-N // nsplit), kb))
+    nsplit = max(1, -(-N // rows))
+    return {"lh": lh, "ng": ng, "ncb": ncb, "kb": kb, "nsplit": nsplit,
+            "rows_per_split": rows, "threads": _round(MT * ng, 32),
+            "smem": WGRAD_STAGES * stage(kb)}
+
+
 class LstmWgrad:
     """The recurrent-weight cotangent ``dsWT = sum h_prev^T dxp`` and the
     peephole cotangents over the T*B rows, which the Pallas kernel
     ``_bwd_kernel`` accumulates in its body (:165-169); here
-    ``csrc/lstm_wgrad.cu``.
+    ``csrc/lstm_wgrad.cu``, launched with :func:`lstm_wgrad_plan`.
 
     Launches the CUDA kernel for CUDA tensors and runs
     :func:`lstm_wgrad_plain` for CPU tensors.  ``launches`` counts kernel
     launches."""
 
-    _ARGTYPES = {"lstm_wgrad": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    _ARGTYPES = {"lstm_wgrad": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                 + [ctypes.c_longlong] + [ctypes.c_int] * 2
                  + [ctypes.c_void_p]}
-
-    #: rows of T*B that one block sums before its partial is stored; the
-    #: split depends on the shapes only, so the sum order (and the bits)
-    #: are the same from run to run
-    ROWS_PER_SPLIT = 1024
-    MAX_SPLITS = 64
 
     def __init__(self):
         self.launches = 0
 
-    def splits(self, nrows):
-        return max(1, min(self.MAX_SPLITS, -(-nrows // self.ROWS_PER_SPLIT)))
+    def _library(self):
+        """The loaded ``lstm_wgrad`` library (``scripts/bench_lstm.py``
+        swaps in its clocked build)."""
+        return cuda_build.load("lstm_wgrad", self._ARGTYPES)
 
     def __call__(self, h_out, c_out, dxp, reverse):
         if h_out.device.type == "cpu":
@@ -442,17 +491,29 @@ class LstmWgrad:
         cuda_build.check_tensor(h_out, (T, B, S), torch.float32, dev, "h_out")
         cuda_build.check_tensor(c_out, (T, B, S), torch.float32, dev, "c_out")
         cuda_build.check_tensor(dxp, (T, B, 4 * S), torch.float32, dev, "dxp")
-        nsplit = self.splits(T * B)
         dsWT = torch.empty((S, 4 * S), dtype=torch.float32, device=dev)
         dp = torch.empty((3, S), dtype=torch.float32, device=dev)
-        part = torch.empty((nsplit, 4 * S * S + 3 * S), dtype=torch.float32,
-                           device=dev)
-        lib = cuda_build.load("lstm_wgrad", self._ARGTYPES)
+        if T * B == 0:
+            return dsWT.zero_(), dp.zero_()
+        plan = lstm_wgrad_plan(T, B, S)
+        # the copies move 16-byte units: rows of lh floats, aligned
+        if plan["lh"] != S:
+            pad = (0, plan["lh"] - S)
+            h_out = torch.nn.functional.pad(h_out, pad)
+            c_out = torch.nn.functional.pad(c_out, pad)
+        h_out, c_out, dxp = (t if t.data_ptr() % 16 == 0 else t.clone()
+                             for t in (h_out, c_out, dxp))
+        part = torch.empty((plan["nsplit"], 4 * S * S + 3 * S),
+                           dtype=torch.float32, device=dev)
+        lib = self._library()
         with torch.cuda.device(dev):
             err = lib.lstm_wgrad(h_out.data_ptr(), c_out.data_ptr(),
                                  dxp.data_ptr(), part.data_ptr(),
                                  dsWT.data_ptr(), dp.data_ptr(), T, B, S,
-                                 int(bool(reverse)), nsplit,
+                                 plan["lh"], int(bool(reverse)), plan["ng"],
+                                 plan["ncb"], plan["kb"], plan["nsplit"],
+                                 plan["rows_per_split"], plan["threads"],
+                                 plan["smem"],
                                  torch.cuda.current_stream().cuda_stream)
         cuda_build.check(err, "lstm_wgrad")
         self.launches += 1

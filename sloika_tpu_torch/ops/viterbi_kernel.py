@@ -17,8 +17,11 @@ logs, or one block a row, and the rings' slots and shared memory) and
 :func:`viterbi_back_plan` (frames a slot of the traceback ring, slots,
 shared memory).  Both dispatch on the device of their input: the kernel for
 a CUDA tensor, the plain twin of :mod:`sloika_tpu_torch.ops.decode` for a
-CPU tensor.  ``launches`` counts kernel launches.  The kernels handle
-nbase = 4 and klen 2..6 (K = 16 .. 4,096 states).
+CPU tensor.  The kernels handle nbase = 4 and klen 2..6 (K = 16 .. 4,096
+states); :func:`kernel_route` sends a CUDA posterior outside that range to
+the plain twin on the tensor's own device, as the JAX package routes it to
+``decode_jax.viterbi`` (``sloika_tpu/basecall.py:166-168``, :271).
+``launches`` counts kernel launches, ``plain_calls`` those CUDA calls.
 """
 import ctypes
 
@@ -58,6 +61,29 @@ def _states(K):
         raise ValueError("the Viterbi kernels take K = 4^klen states for "
                          "klen {}..{} (got K = {})".format(KLENS[0],
                                                             KLENS[-1], K))
+
+
+def kernel_route(K, klen, nbase):
+    """"kernel" where the CUDA kernels decode K states of kmers of ``klen``
+    over ``nbase`` bases (nbase 4, klen in KLENS, K = 4^klen), else
+    "plain".  A shape rule, decided before any build: the plain twin runs
+    on the card for klen 7 or nbase 3, as the JAX package's XLA decoder
+    does off the TPU."""
+    if nbase == 4 and klen in KLENS and K == 4 ** klen:
+        return "kernel"
+    return "plain"
+
+
+def _klen_of(K, nbase):
+    """The kmer length whose nbase^klen states are K (the reference asserts
+    that a posterior has them, ``sloika_tpu/basecall.py:156-158``)."""
+    klen, n = 0, 1
+    while n < K and nbase > 1:
+        klen, n = klen + 1, n * nbase
+    if n != K or K < nbase * nbase:
+        raise ValueError("{} states are not nbase^klen for nbase {} and "
+                         "klen >= 2".format(K, nbase))
+    return klen
 
 
 def _resident(B, threads, sms):
@@ -190,6 +216,7 @@ class ViterbiForward:
 
     def __init__(self):
         self.launches = 0
+        self.plain_calls = 0
         self._pairs = {}
 
     def pairs(self, K, device):
@@ -217,10 +244,14 @@ class ViterbiForward:
                                          nbase=nbase)
         T, B, nst = post.shape
         K = nst - 1
-        if nbase != 4 or K != 4 ** klen or klen not in KLENS:
-            raise ValueError("viterbi_fwd takes nbase 4 and klen 2..6 "
-                             "(got nbase {}, klen {}, {} states)".format(
-                                 nbase, klen, nst))
+        if K != nbase ** klen:
+            raise ValueError("the posterior has {} states, klen {} over {} "
+                             "bases needs {}".format(nst, klen, nbase,
+                                                     nbase ** klen + 1))
+        if kernel_route(K, klen, nbase) == "plain":
+            self.plain_calls += 1
+            return viterbi_forward_plain(post, klen, skip_pen=skip_pen,
+                                         nbase=nbase)
         cuda_build.check_tensor(post, (T, B, nst), torch.float32,
                                 post.device, "post")
         tb = torch.empty((T, B, K), dtype=torch.int8, device=post.device)
@@ -253,6 +284,7 @@ class ViterbiBacktrace:
 
     def __init__(self):
         self.launches = 0
+        self.plain_calls = 0
 
     def _library(self):
         """The loaded ``viterbi_back`` library (``scripts/bench_viterbi.py``
@@ -263,9 +295,9 @@ class ViterbiBacktrace:
         if tb.device.type == "cpu":
             return viterbi_backtrace_plain(tb, last_state, nbase=nbase)
         T, B, K = tb.shape
-        if nbase != 4:
-            raise ValueError("viterbi_back takes nbase 4")
-        _states(K)
+        if kernel_route(K, _klen_of(K, nbase), nbase) == "plain":
+            self.plain_calls += 1
+            return viterbi_backtrace_plain(tb, last_state, nbase=nbase)
         cuda_build.check_tensor(tb, (T, B, K), torch.int8, tb.device, "tb")
         last = last_state.to(torch.int32).contiguous()
         cuda_build.check_tensor(last, (B,), torch.int32, tb.device,

@@ -1,9 +1,11 @@
 """Where a training step's time goes on the card.
 
-    python -m sloika_tpu_torch.profile_train [--trace out.json]
+    python -m sloika_tpu_torch.profile_train [--events] [--trace out.json]
 
 Trains raw_0.98_rgrgr at full width (seeded random weights) on synthetic
-chunks of 2,000 samples at B = 100, as ``chip_smoke.py`` does, and prints:
+chunks of 2,000 samples at B = 100, as ``chip_smoke.py`` does (with
+``--events``, baseline_lstm at full width on chunks of 500 events of 4
+features, as its event-training phase does), and prints:
 
 1. the steady-state step time with and without a ``torch.cuda.synchronize()``
    at each step's progress mark (steps 6-30 of 30);
@@ -14,7 +16,11 @@ chunks of 2,000 samples at B = 100, as ``chip_smoke.py`` does, and prints:
    intervals), the span of those intervals, and the device time a step of
    each kernel, largest first.
 
-Needs a CUDA card.  ``--trace`` also writes the Chrome trace.
+Needs a CUDA card.  ``--trace`` also writes the Chrome trace.  The script
+uses only the package's entry points, so it also profiles another tree's
+package when that tree comes first on the path::
+
+    PYTHONPATH=<tree> python sloika_tpu_torch/profile_train.py --events
 """
 import argparse
 import time
@@ -24,6 +30,10 @@ import torch
 
 TRAIN_B, TRAIN_SAMPLES, STRIDE, KLEN = 100, 2000, 5, 5
 STEPS, WARM, ACTIVE, TOP = 30, 5, 10, 20
+#: the two training workloads: model, chunk length (samples or events) and
+#: the labels' stride
+WORKLOADS = {"raw": ("raw_0.98_rgrgr", TRAIN_SAMPLES, STRIDE),
+             "events": ("baseline_lstm", 500, 1)}
 
 
 def synthetic_chunks(n=1000, samples=TRAIN_SAMPLES, stride=STRIDE,
@@ -38,6 +48,18 @@ def synthetic_chunks(n=1000, samples=TRAIN_SAMPLES, stride=STRIDE,
     chunks += rs.normal(scale=0.3, size=chunks.shape)
     labels = rs.randint(0, 4 ** klen + 1, size=(n, frames)).astype(np.int32)
     return {"chunks": chunks[:, :, None].astype(np.float32),
+            "labels": labels, "bad": np.zeros(labels.shape, bool),
+            "weights": np.full(n, 1.0 / n), "attrs": {"kmer": klen}}
+
+
+def synthetic_event_chunks(n=1000, T=WORKLOADS["events"][1], klen=KLEN,
+                           seed=23):
+    """A labelled event-chunk set as ``load_labelled_chunks`` returns it:
+    n chunks of T events of 4 studentised-looking features, a label at
+    every event (stride 1)."""
+    rs = np.random.RandomState(seed)
+    labels = rs.randint(0, 4 ** klen + 1, size=(n, T)).astype(np.int32)
+    return {"chunks": rs.normal(size=(n, T, 4)).astype(np.float32),
             "labels": labels, "bad": np.zeros(labels.shape, bool),
             "weights": np.full(n, 1.0 / n), "attrs": {"kmer": klen}}
 
@@ -58,29 +80,30 @@ class StepMarks:
                 self.prof.step()
 
 
-def _train(data, steps, log, dev):
+def _train(workload, data, steps, log, dev):
     from sloika_tpu_torch import models, training
-    layer = models.network_factory("raw_0.98_rgrgr")(klen=KLEN, sd=0.5,
-                                                     seed=0)
+    layer = models.network_factory(WORKLOADS[workload][0])(klen=KLEN,
+                                                           sd=0.5, seed=0)
     return training.train(layer, data, batch_size=TRAIN_B,
                           chunk_len_range=(1.0, 1.0), drop=20,
                           niteration=steps, seed=1, log=log, device=dev)
 
 
-def step_ms(data, steps, warm, sync, dev):
+def step_ms(workload, data, steps, warm, sync, dev):
     """Mean ms a steady-state step (steps warm+1 .. steps)."""
     marks = StepMarks(sync)
-    _train(data, steps, marks, dev)
+    _train(workload, data, steps, marks, dev)
     torch.cuda.synchronize()
     end = time.perf_counter()
     return 1e3 * (end - marks.marks[warm - 1]) / (steps - warm)
 
 
-def host_ms(data, dev, reps=50):
+def host_ms(workload, data, dev, reps=50):
     """(sample ms, host-to-device copy ms) of one batch, each alone."""
     from sloika_tpu_torch import training
+    _, length, stride = WORKLOADS[workload]
     sampler = training.ChunkSampler(
-        data, TRAIN_B, TRAIN_SAMPLES, TRAIN_SAMPLES, STRIDE,
+        data, TRAIN_B, length, length, stride,
         np.ones(4 ** KLEN + 1, np.float32), seed=2)
     t0 = time.perf_counter()
     batches = [sampler.sample() for _ in range(reps)]
@@ -122,7 +145,7 @@ def device_breakdown(events, nsteps):
     return busy / 1e3 / nsteps, span / 1e3 / nsteps, table
 
 
-def profile(data, warm, active, dev, trace=None):
+def profile(workload, data, warm, active, dev, trace=None):
     from torch.profiler import ProfilerActivity, schedule
     prof = torch.profiler.profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -130,7 +153,7 @@ def profile(data, warm, active, dev, trace=None):
     # a sync at each step's end keeps each step's kernels in its window
     marks = StepMarks(sync=True, prof=prof)
     with prof:
-        _train(data, warm + 2 + active + 1, marks, dev)
+        _train(workload, data, warm + 2 + active + 1, marks, dev)
         torch.cuda.synchronize()
     if trace:
         prof.export_chrome_trace(trace)
@@ -139,24 +162,27 @@ def profile(data, warm, active, dev, trace=None):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--events", action="store_true",
+                        help="train baseline_lstm on event chunks")
     parser.add_argument("--trace", default=None,
                         help="write the profiler's Chrome trace here")
     args = parser.parse_args(argv)
+    workload = "events" if args.events else "raw"
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: profile_train needs a GPU")
     from sloika_tpu_torch import config
     config.disable_tf32()
     dev = torch.device("cuda")
-    data = synthetic_chunks()
+    data = synthetic_event_chunks() if args.events else synthetic_chunks()
     for sync in (False, True, False):
-        ms = step_ms(data, STEPS, WARM, sync, dev)
+        ms = step_ms(workload, data, STEPS, WARM, sync, dev)
         print("{}: {:.3f} ms a step, {:.1f} chunks/s".format(
             "sync" if sync else "nosync", ms, 1e3 * TRAIN_B / ms),
             flush=True)
-    sample, copy = host_ms(data, dev)
+    sample, copy = host_ms(workload, data, dev)
     print("host: sample {:.3f} ms, host-to-device copy {:.3f} ms".format(
         sample, copy), flush=True)
-    events = profile(data, WARM, ACTIVE, dev, args.trace)
+    events = profile(workload, data, WARM, ACTIVE, dev, args.trace)
     busy, span, table = device_breakdown(events, ACTIVE)
     print("profiled {} steps: device busy {:.3f} ms a step, span {:.3f} ms "
           "a step, busy share of span {:.3f}; {:.0f} device events a step"

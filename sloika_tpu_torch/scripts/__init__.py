@@ -13,10 +13,17 @@ They run on the card unless given ``--device cpu``, where the twins run
 and nothing is timed.
 """
 import ctypes
-import os
-import subprocess
 
 import torch
+
+#: the published peaks of one H100 SXM (NVIDIA data sheet) the bounds use
+HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
+
+
+def bound_ms(nbytes, nflop):
+    """The least ms the card could take to move ``nbytes`` and do ``nflop``
+    float32 operations."""
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, nflop / F32_FLOP_PER_S)
 
 
 def cuda_ms(fn, reps, rounds=1):
@@ -40,26 +47,22 @@ def cuda_ms(fn, reps, rounds=1):
 
 def clocked_library(name, flag, functions, read):
     """Build ``csrc/<name>.cu`` with ``-D<flag>``, which compiles its clock
-    stamps in, into a library of its own (``_build/lib<name>_clocks.so``;
-    the port's kernels are built without it) and load it.
+    stamps in, into a library of its own (``_build/lib<name>_clocks.so``,
+    rebuilt when stale as the port's are; the port's kernels are built
+    without it) and load it, once a process.
 
     :param functions: {function name: argtypes} of its entry points
     :param read: the entry point that copies the stamps to host memory
     """
     from sloika_tpu_torch import cuda_build
-    src = os.path.join(cuda_build.CSRC_DIR, name + ".cu")
-    path = os.path.join(cuda_build.BUILD_DIR, "lib{}_clocks.so".format(name))
-    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-    built = subprocess.run([cuda_build._nvcc()] + cuda_build.NVCC_FLAGS
-                           + ["-D" + flag, "-o", path, src],
-                           capture_output=True, text=True)
-    if built.returncode != 0:
-        raise RuntimeError("nvcc failed on the clocked build of {}:\n{}"
-                           .format(name, built.stderr))
-    lib = ctypes.CDLL(path)
+    key = "{}_clocks".format(name)
+    if key in cuda_build._LIBS:
+        return cuda_build._LIBS[key]
+    lib = ctypes.CDLL(cuda_build.build_all([(name, flag)])[0])
     for fn, argtypes in list(functions.items()) + [(read, [ctypes.c_void_p])]:
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
+    cuda_build._LIBS[key] = lib
     return lib
 
 

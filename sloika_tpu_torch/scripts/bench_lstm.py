@@ -17,7 +17,15 @@ archive``, are timed by that tree's own copy of this script::
     PYTHONPATH=<tree> python <tree>/sloika_tpu_torch/scripts/bench_lstm.py
 
 It also times the forward's inference variant at the event basecall
-path's shape, (T, B) = (9,000, 64).
+path's shape, (T, B) = (9,000, 64), and splits a call of ``lstm_wgrad``
+by its launches (``torch.profiler``: device ms of each kernel a call).
+With ``--wgrad``
+it times ``lstm_wgrad`` alone (the other kernels run once, untimed, to
+make its inputs).  This script uses only the kernels' Python entry points,
+so it also times another tree's kernels when that tree comes first on the
+path::
+
+    PYTHONPATH=<tree> python sloika_tpu_torch/scripts/bench_lstm.py --wgrad
 
 With ``--clocks`` it builds ``csrc/lstm_fwd.cu`` with ``-DLSTM_FWD_CLOCKS``
 and ``csrc/lstm_bwd.cu`` with ``-DLSTM_BWD_CLOCKS``, each into a library
@@ -25,8 +33,10 @@ of its own, and runs them at the training shape (the forward in both
 variants): lane 0 of each warp of block 0 sums the SM clock cycles of
 each phase of a step (FWD_PHASES, BWD_PHASES).  It reports them a step,
 each warp's and their mean, beside both builds' times a step; the cycles
-of the clocked loop over its time give the clock they ran at.  A clocked
-build must give the port's bits.
+of the clocked loop over its time give the clock they ran at.  It also
+builds ``csrc/lstm_wgrad.cu`` with ``-DLSTM_WGRAD_CLOCKS`` and splits a
+slice of its block 0 (WGRAD_PHASES).  A clocked build must give the port's
+bits.
 
 Prints one JSON line: the card and its power limit, the tree timed, and
 the times.
@@ -47,6 +57,7 @@ FWD_PHASES = ("product", "slot_wait", "activation", "shuffles_cell",
               "barrier", "refill_stores")
 BWD_PHASES = ("cell", "slot_wait", "barrier", "refill_copies",
               "refill_commit", "product", "shuffles")
+WGRAD_PHASES = ("slice_wait_barrier", "refill_issue", "fmas")
 
 
 def inputs(T, B, S, dev, seed=0):
@@ -124,20 +135,83 @@ def bwd_step_clocks(gates, sWT, p, mask, g, c, dxp):
     return _split(raw, gates.shape[0], ms, BWD_PHASES)
 
 
+def wgrad_clocks(h, c, dxp, ref):
+    """Run the clocked build of ``lstm_wgrad`` (it must give ``ref``, the
+    port's build's (dsWT, dp)); returns its time, its cycles a slice and
+    the cycles a slice of each phase, by warp of block 0 and their mean."""
+    from sloika_tpu_torch.nn.fused_lstm import LstmWgrad, lstm_wgrad_plan
+    from sloika_tpu_torch.scripts import (clocked_library, cuda_ms,
+                                          read_clocks, split_clocks)
+    lib = clocked_library("lstm_wgrad", "LSTM_WGRAD_CLOCKS",
+                          LstmWgrad._ARGTYPES, "lstm_wgrad_clocks_read")
+
+    class Clocked(LstmWgrad):
+        def _library(self):
+            return lib
+
+    run = lambda: Clocked()(h, c, dxp, False)
+    ms = cuda_ms(run, 3, 3)
+    if not all(map(torch.equal, run(), ref)):
+        raise AssertionError("the clocked build of lstm_wgrad gave other "
+                             "bits")
+    T, B, S = h.shape
+    plan = lstm_wgrad_plan(T, B, S)
+    warps = plan["threads"] // 32
+    slices = -(-min(plan["rows_per_split"], T * B) // plan["kb"])
+    split = split_clocks(read_clocks(lib, "lstm_wgrad_clocks_read", warps),
+                         slices, ms, WGRAD_PHASES)
+    split["cycles_per_slice"] = split.pop("cycles_per_step")
+    split.pop("us_per_step")
+    split["slices"], split["slice_rows"] = slices, plan["kb"]
+    return split
+
+
+def wgrad_bound(rows, S):
+    """``lstm_wgrad``'s bytes and operations over ``rows`` valid rows: h,
+    c and dxp read once, dsWT and dp written; 8 S^2 flop a row (the
+    peephole sums add 6 S)."""
+    return 4 * (6 * S * rows + 4 * S * S + 3 * S), 8 * S * S * rows
+
+
+def wgrad_launches(h, c, dxp, reps=10):
+    """Device ms a call of each kernel that ``lstm_wgrad`` launches, by
+    ``torch.profiler`` over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    from sloika_tpu_torch.nn.fused_lstm import lstm_wgrad
+    lstm_wgrad(h, c, dxp, False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            lstm_wgrad(h, c, dxp, False)
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us > 0 and ev.count >= reps:
+            out[ev.key] = {"ms_a_call": us / 1e3 / reps,
+                           "launches_a_call": ev.count / reps}
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Time the LSTM kernels at the event paths' shapes")
     parser.add_argument("--clocks", action="store_true",
                         help="also split a step of lstm_fwd and lstm_bwd "
-                        "by the clocked builds")
+                        "and a slice of lstm_wgrad by the clocked builds")
+    parser.add_argument("--wgrad", action="store_true",
+                        help="time lstm_wgrad alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("bench_lstm needs a CUDA device")
     import sloika_tpu_torch
     from sloika_tpu_torch import config
+    from sloika_tpu_torch.nn import fused_lstm
     from sloika_tpu_torch.nn.fused_lstm import (lstm_backward, lstm_forward,
                                                 lstm_wgrad, lstm_wgrad_plain)
-    from sloika_tpu_torch.scripts import cuda_ms
+    from sloika_tpu_torch.scripts import bound_ms, cuda_ms
     config.disable_tf32()
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -152,6 +226,22 @@ def main(argv=None):
     bwd = lambda: lstm_backward.recurrence(gates, sWT, p, mask, False, g, c)
     dxp = bwd()
     shape = {"T": T, "B": B, "S": S}
+    tree = os.path.dirname(os.path.dirname(os.path.abspath(
+        sloika_tpu_torch.__file__)))
+    wgrad = dict(
+        shape, ms=cuda_ms(lambda: lstm_wgrad(h, c, dxp, False), 20, 3),
+        einsum_ms=cuda_ms(lambda: lstm_wgrad_plain(h, c, dxp, False), 20, 3),
+        bound_ms=bound_ms(*wgrad_bound(T * B, S)),
+        by_launch=wgrad_launches(h, c, dxp))
+    if hasattr(fused_lstm, "lstm_wgrad_plan"):
+        wgrad["plan"] = fused_lstm.lstm_wgrad_plan(T, B, S)
+    result = {"card": card, "tree": tree, "lstm_wgrad": wgrad}
+    if args.clocks:
+        result["lstm_wgrad_clocks"] = wgrad_clocks(
+            h, c, dxp, lstm_wgrad(h, c, dxp, False))
+    if args.wgrad:
+        print(json.dumps(result), flush=True)
+        return 0
     ms = cuda_ms(bwd, 3, 3)
     fwd_ms = cuda_ms(inference, 3, 3)
     Ts, Bs = SERVING
@@ -159,19 +249,12 @@ def main(argv=None):
     serving_ms = cuda_ms(
         lambda: lstm_forward(xs, sWT, p, mask=ms_mask, emit_cout=False), 3, 3)
     del xs
-    result = {
-        "card": card,
-        "tree": os.path.dirname(os.path.dirname(
-            os.path.abspath(sloika_tpu_torch.__file__))),
+    result.update({
         "lstm_fwd": dict(shape, ms=fwd_ms, us_per_step=1e3 * fwd_ms / T),
         "lstm_fwd_train": dict(shape, ms=cuda_ms(train, 3, 3)),
         "lstm_fwd_serving": {"T": Ts, "B": Bs, "S": S, "ms": serving_ms,
                              "us_per_step": 1e3 * serving_ms / Ts},
-        "lstm_bwd": dict(shape, ms=ms, us_per_step=1e3 * ms / T),
-        "lstm_wgrad": dict(
-            shape, ms=cuda_ms(lambda: lstm_wgrad(h, c, dxp, False), 20, 3),
-            einsum_ms=cuda_ms(lambda: lstm_wgrad_plain(h, c, dxp, False),
-                              20, 3))}
+        "lstm_bwd": dict(shape, ms=ms, us_per_step=1e3 * ms / T)})
     if args.clocks:
         h_inf = inference()[0]
         result["lstm_fwd_clocks"] = fwd_step_clocks(xp, sWT, p, mask, h_inf)

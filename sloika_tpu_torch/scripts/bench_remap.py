@@ -10,7 +10,8 @@ frames and 9,842 positions, at W = 3,072).  The posterior is
 ``log_softmax(2 x N(0, 1))`` over 1,025 states, drawn on the card from a
 seed, and the rows' frame and position counts are ragged, as in
 ``chip_smoke.py`` phase 8.  It times ``remap_banded`` and ``remap_back``
-(the best of 2 rounds of 3 back-to-back calls by CUDA events).
+(the best of 2 rounds of 3 back-to-back calls by CUDA events), beside the
+least time the card could take for each one's work (:func:`bounds`).
 
 Another tree's kernels, e.g. a parent commit unpacked with ``git
 archive``, are timed by that tree's own copy of this script::
@@ -144,6 +145,20 @@ def back_clocks(args, ref):
     return split
 
 
+def bounds(T, Tp, B, P, W):
+    """The least ms of each kernel's work at a shape, as ``chip_smoke.py``
+    phase 8 counts it: ``remap_banded`` the posterior (T frames of NSTATE
+    floats), sequences, masks, priors and schedule read once, the int16
+    traceback and final scores written once (~13 f32 operations a window
+    lane a step: the bytes bound it); ``remap_back`` a delta and a window
+    start read and a position written a step (a chain of Tp dependent
+    loads sets its time, not these bytes)."""
+    from sloika_tpu_torch.scripts import bound_ms
+    return (bound_ms(T * B * NSTATE * 4 + B * P * 9 + Tp * B * 4
+                     + Tp * B * W * 2 + B * W * 4, 13 * Tp * B * W),
+            bound_ms(Tp * B * (2 + 4 + 4) + B * 4, 3 * Tp * B))
+
+
 def bench_shape(name, dev, clocks):
     """Time both kernels at one of SHAPES (and split their steps)."""
     from sloika_tpu_torch.ops import remap_kernel as rk
@@ -163,6 +178,8 @@ def bench_shape(name, dev, clocks):
            "remap_back": {"ms": back_ms, "us_per_step": 1e3 * back_ms / Tp}}
     out["remap_banded"]["plan"] = rk.remap_banded_plan(W, NSTATE)
     out["remap_back"]["plan"] = rk.remap_back_plan(W)
+    out["remap_banded"]["bound_ms"], out["remap_back"]["bound_ms"] = bounds(
+        T, Tp, B, P, W)
     if clocks:
         out["remap_banded_clocks"] = banded_clocks(args, (tb, vfinal))
         out["remap_back_clocks"] = back_clocks(back_args, path)

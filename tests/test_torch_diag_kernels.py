@@ -148,6 +148,78 @@ def test_probe_entry_points_run_on_the_cpu_only_when_asked(capsys):
     assert "full" in out and "rows=3" in out and "not timed" in out
 
 
+@pytest.mark.parametrize("U", tgru.UNROLLS)
+@pytest.mark.parametrize("precision", tgru.PRECISIONS)
+@pytest.mark.parametrize("S", tgru.WIDTHS)
+def test_gru_unroll_plan_at_the_script_widths(S, precision, U):
+    """At the script's batch (B = 100): one row a block, the weights in
+    registers (at S = 144 in f32 the 8-warp layout, sWT's last 40 rows
+    staged, or without it 9 warps and 96 rows staged; in bf16 all of them
+    held, two rows a register), a ring of 4 slots of U rows."""
+    plan = tgru.gru_unroll_plan(100, S, U, precision)
+    assert plan == tgru.gru_unroll_plan(100, S, U, precision)  # shapes alone
+    w8 = (S, precision) == (144, "highest")
+    assert (plan["br"], plan["mode"], plan["nslot"]) == (
+        1, "registers8" if w8 else "registers", 4)
+    want = {(96, "highest"): (96, 48), (96, "default"): (96, 48),
+            (144, "highest"): (104, 72), (144, "default"): (144, 72)}
+    assert (plan["kr"], plan["kh2"]) == want[(S, precision)]
+    assert plan["threads"] == (256 if w8 else 2 * S)
+    assert plan["ld"] == 3 * S and plan["smem"] <= SMEM_OPTIN
+    wbytes = 2 if precision == "default" else 4
+    if w8:
+        assert plan["smem"] == (tgru.UNROLL_BAR_BYTES + 4 * (
+            4 * U * 3 * S + 4 * 72 + 16 + 40 * 256))
+        nine = tgru.gru_unroll_plan(100, S, U, precision, warps8=False)
+        assert (nine["mode"], nine["kr"], nine["kh2"], nine["threads"]) == (
+            "registers", 48, 72, 288)
+    else:
+        assert plan["smem"] == (tgru.UNROLL_BAR_BYTES + 4 * (
+            4 * U * 3 * S + max(S, plan["kr"]) + 2 * plan["kh2"])
+            + wbytes * (S - min(S, plan["kr"])) * 2 * S)
+
+
+@pytest.mark.parametrize("precision", tgru.PRECISIONS)
+@pytest.mark.parametrize("S", [1, 5, 8, 64, 72, 73, 96, 97, 144, 145, 256,
+                               512])
+@pytest.mark.parametrize("B", [1, 100, 600, 1100])
+def test_gru_unroll_plan_fits_every_width(B, S, precision):
+    for U in tgru.UNROLLS:
+        br = 1
+        while br < 8 and -(-B // br) > H100_SMS:
+            br *= 2
+        if 4 * U * br * -(-3 * S // 4) * 4 > SMEM_OPTIN:
+            # not one ring slot of U time rows fits
+            with pytest.raises(ValueError):
+                tgru.gru_unroll_plan(B, S, U, precision)
+            continue
+        plan = tgru.gru_unroll_plan(B, S, U, precision)
+        assert plan["br"] == br and plan["smem"] <= SMEM_OPTIN
+        assert 1 <= plan["nslot"] <= 4
+        # one slot only where two would not fit with nothing staged
+        wbytes = 2 if precision == "default" else 4
+        kh = plan["kh2"] or -(-((S + 1) // 2) // 4) * 4
+        staged = (wbytes * (S - min(S, plan["kr"])) * 2 * S * plan["stage1"]
+                  + wbytes * kh * S * 2 * plan["stage2"])
+        assert plan["nslot"] >= 2 or (plan["smem"] - staged
+                                      + 4 * U * br * plan["ld"] > SMEM_OPTIN)
+        assert plan["ld"] % 4 == 0 and 3 * S <= plan["ld"] < 3 * S + 4
+        assert plan["threads"] % 32 == 0
+        assert plan["threads"] >= 2 * S or plan["mode"] == "registers8"
+        if plan["mode"] == "registers":
+            # the kernel's instances: S <= 2 kh2, and sWT's rows past kr
+            # staged
+            assert 73 <= S <= 144 and S <= 2 * plan["kh2"]
+            assert plan["stage1"] and not plan["stage2"]
+            assert plan["threads"] <= 4 * plan["kh2"]
+            assert plan["br"] <= (2 if plan["kh2"] == 72 else 8)
+        elif plan["mode"] == "registers8":
+            assert precision == "highest" and plan["br"] == 1
+            assert 128 < S <= 144 and plan["threads"] == 256
+        else:
+            assert (plan["kr"], plan["kh2"]) == (0, 0)
+
+
 def test_gru_unroll_main_on_the_cpu(capsys):
     """The script's cases at the training shape through the twin: every U
     gives U = 1's output."""
@@ -162,11 +234,12 @@ def test_gru_unroll_main_on_the_cpu(capsys):
 # ---------------------------------------------------------------------------
 
 #: (T, B, S): the script's shape, ragged batches (1, 3; 128 at the wave's
-#: edge; 600 takes 8 rows a block), T no multiple of U, S = 144 (sWT staged,
-#: sW2T read through L1 in f32) and S = 5 (3S no multiple of 4: 4-byte
-#: copies)
+#: edge; 600 takes 8 rows a block), T no multiple of U, S = 144 and 130 (the
+#: 8-warp layout in f32, with 16 and 2 states spread over the warps; all
+#: weights in registers in bf16) and S = 5 (3S no multiple of 4: the
+#: projections padded to 16-byte rows)
 GRU_SHAPES = ((400, 100, 96), (37, 1, 96), (37, 3, 96), (37, 128, 96),
-              (37, 600, 96), (37, 64, 144), (37, 5, 5))
+              (37, 600, 96), (37, 64, 144), (37, 3, 130), (37, 5, 5))
 
 
 @pytest.mark.gpu
@@ -219,6 +292,52 @@ def test_gru_unroll_run_case_at_the_script_shape(cuda_device):
     assert out.shape == (400, 100, 96) and ms > 0
     assert float((out - tgru.gru_unroll_plain(xp, sWT, sW2T))
                  .abs().max()) <= GRU_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", tgru.PRECISIONS)
+@pytest.mark.parametrize("S", tgru.WIDTHS)
+def test_gru_unroll_at_the_script_widths(cuda_device, S, precision):
+    """T = 400, B = 100 at S = 96 and 144: every U gives the same bits,
+    within GRU_TOL of the f32 twin and of the production forward, or
+    BF16_TOL of the bf16 twin."""
+    xp, sWT, sW2T = (torch.from_numpy(a).to(cuda_device)
+                     for a in tgru.case_inputs(1, S=S))
+    base = tgru.gru_unroll(xp, sWT, sW2T, U=1, precision=precision)
+    for U in tgru.UNROLLS[1:]:
+        assert torch.equal(base, tgru.gru_unroll(
+            xp, sWT, sW2T, U=U, precision=precision)), U
+    ref = tgru.gru_unroll_plain(xp, sWT, sW2T, precision)
+    d = (base - ref).abs()
+    if precision == "highest":
+        assert float(d.max()) <= GRU_TOL
+        assert float((base - gru_forward(xp, sWT, sW2T)).abs().max()) \
+            <= GRU_TOL
+        # the 9-warp layout, where the plan takes the 8-warp one
+        nine = tgru.GruUnroll(warps8=False)
+        base9 = nine(xp, sWT, sW2T, U=1)
+        assert float((base9 - ref).abs().max()) <= GRU_TOL
+        assert all(torch.equal(base9, nine(xp, sWT, sW2T, U=U))
+                   for U in tgru.UNROLLS[1:])
+    else:
+        f32 = tgru.gru_unroll_plain(xp, sWT, sW2T, "highest")
+        assert float(d.max()) <= BF16_TOL
+        assert float(d.mean()) <= BF16_MEAN_SHARE * float(
+            (ref - f32).abs().mean())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", tgru.WIDTHS)
+def test_gru_unroll_clocked_build_gives_the_same_bits(cuda_device, S):
+    """``bench_gru_unroll --clocks``: the clocked build computes what the
+    port's build does and stamps every warp's steps."""
+    for p in tgru.PRECISIONS:
+        split = tgru.step_clocks(2, S=S, precision=p, T=40, B=3,
+                                 device=cuda_device)
+        assert split["cycles_per_step"] > 0
+        assert set(split["phases_mean"]) == set(tgru.UNROLL_PHASES)
+        plan = tgru.gru_unroll_plan(3, S, 2, p)
+        assert len(split["phases_by_warp"]) == plan["threads"] // 32
 
 
 @pytest.mark.gpu

@@ -17,9 +17,9 @@ from sloika_tpu_torch import nn as tnn
 from sloika_tpu_torch.nn import fused_lstm
 from sloika_tpu_torch.nn.fused_gru import H100_SMS, SMEM_OPTIN
 from sloika_tpu_torch.nn.fused_lstm import (
-    LstmFunction, lstm_backward, lstm_bwd_plan, lstm_forward, lstm_fwd_plan,
-    lstm_scan_bwd_gates_plain, lstm_scan_bwd_plain, lstm_scan_plain,
-    lstm_wgrad, lstm_wgrad_plain)
+    LstmFunction, LstmWgrad, lstm_backward, lstm_bwd_plan, lstm_forward,
+    lstm_fwd_plan, lstm_scan_bwd_gates_plain, lstm_scan_bwd_plain,
+    lstm_scan_plain, lstm_wgrad, lstm_wgrad_plain, lstm_wgrad_plan)
 
 #: forward kernel against its twin: max abs difference on valid steps
 #: (float32 sums in another order over up to a few thousand steps)
@@ -171,6 +171,48 @@ def test_lstm_fwd_plan_fits_every_width(B, S):
     assert plan["mode"] == ("registers" if 33 <= S <= 64 else
                             "smem" if plan["stage"] else "global")
     assert plan["kq"] == (64 if plan["mode"] == "registers" else 0)
+
+
+#: row counts T * B of the weight-sum plan's tests: 1 row, fewer than a
+#: slice, a slice and one, one wave's edge, the event-training shape, and a
+#: batch of 1,100 x 100
+WGRAD_ROWS = (1, 7, 33, 4224, 4225, 50000, 110000)
+
+
+@pytest.mark.parametrize("S", [1, 8, 33, 64, 65, 96, 130, 256])
+@pytest.mark.parametrize("N", WGRAD_ROWS)
+def test_lstm_wgrad_plan_fits_and_covers_every_row_once(S, N):
+    plan = lstm_wgrad_plan(N, 1, S)
+    assert plan == lstm_wgrad_plan(1, N, S)                # shapes alone
+    assert plan["smem"] <= SMEM_OPTIN
+    threads = plan["threads"]
+    assert threads <= fused_lstm.WGRAD_MAX_THREADS and threads % 32 == 0
+    MT, G = -(-S // 8), -(-4 * S // 8)
+    # the tiles cover the S x 4S output, column block 0's threads its 3S
+    # peephole sums
+    assert threads >= MT * plan["ng"]
+    assert plan["ncb"] * plan["ng"] >= G > (plan["ncb"] - 1) * plan["ng"]
+    assert threads * fused_lstm.WGRAD_PEEP_COLUMNS >= 3 * S
+    # the splits cover the N rows once, each split whole slices but the
+    # last, in one wave
+    rows, nsplit = plan["rows_per_split"], plan["nsplit"]
+    assert rows % plan["kb"] == 0
+    assert (nsplit - 1) * rows < N <= nsplit * rows
+    assert plan["ncb"] * nsplit <= H100_SMS
+    assert plan["lh"] % 4 == 0 and S <= plan["lh"] < S + 4
+    stage = 4 * (plan["kb"] * (3 * plan["lh"] + 4 * S)
+                 + 2 * fused_lstm.WGRAD_PAD)
+    assert plan["smem"] == fused_lstm.WGRAD_STAGES * stage
+
+
+def test_lstm_wgrad_plan_at_the_event_training_shape():
+    """T = 500, B = 100, S = 64: the whole 64 x 256 output in one block of
+    8 x 32 tiles, 32-row slices, 131 splits of 384 rows: one wave over the
+    H100's 132 SMs."""
+    plan = lstm_wgrad_plan(500, 100, 64)
+    assert (plan["ng"], plan["ncb"], plan["kb"]) == (32, 1, 32)
+    assert plan["threads"] == 256
+    assert (plan["nsplit"], plan["rows_per_split"]) == (131, 384)
 
 
 @pytest.mark.parametrize("S", [1, 8, 32, 33, 64, 65, 96, 118, 130, 256])
@@ -351,6 +393,68 @@ def test_lstm_kernels_wide_batches(cuda_device, S, B):
     assert _rel_err(got[2], ref[2]) <= BWD_RTOL
     again = lstm_backward(gates, sWT, p, mask, True, g, h, c)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 8, 33, 64, 65, 96, 130, 256])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_wgrad_kernel_matches_its_twin(cuda_device, S, reverse):
+    """Every width of the plan's tests, on holed masks (a row masked
+    throughout), with N = 37 x 29 rows (no multiple of a slice, and the
+    first scan step straddling slices): within BWD_RTOL of the einsum twin,
+    and the same bits on two calls."""
+    T, B = 37, 29
+    xp, sWT, p, mask = [a.to(cuda_device) for a in lstm_inputs(T, B, S)]
+    mask = _holes(mask)
+    g = _cotangent(T, B, S).to(cuda_device)
+    h, c, gates = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
+                               emit_gates=True)
+    dxp = lstm_backward.recurrence(gates, sWT, p, mask, reverse, g, c)
+    kernel = LstmWgrad()
+    got = kernel(h, c, dxp, reverse)
+    assert kernel.launches == 1
+    ref = lstm_wgrad_plain(h, c, dxp, reverse)
+    assert all(_rel_err(a, b) <= BWD_RTOL for a, b in zip(got, ref))
+    again = kernel(h, c, dxp, reverse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_wgrad_kernel_at_the_event_training_shape(cuda_device, reverse):
+    """(T, B, S) = (500, 100, 64), the plan's 131 splits, against the twin
+    and the same bits on two calls; and views that start off a 16-byte
+    boundary."""
+    T, B, S = 500, 100, 64
+    rs = np.random.RandomState(31)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+    h, c = f32(rs.normal(size=(T, B, S))), f32(rs.normal(size=(T, B, S)))
+    dxp = f32(rs.normal(size=(T, B, 4 * S)))
+    ref = lstm_wgrad_plain(h, c, dxp, reverse)
+    got = lstm_wgrad(h, c, dxp, reverse)
+    assert all(_rel_err(a, b) <= BWD_RTOL for a, b in zip(got, ref))
+    again = lstm_wgrad(h, c, dxp, reverse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    base = torch.empty(h.numel() + 1, device=cuda_device)
+    view = base[1:].view(h.shape)
+    view.copy_(h)
+    got = lstm_wgrad(view, c, dxp, reverse)
+    assert all(_rel_err(a, b) <= BWD_RTOL for a, b in zip(got, ref))
+
+
+@pytest.mark.gpu
+def test_lstm_wgrad_clocked_build_gives_the_same_bits(cuda_device):
+    """``bench_lstm --clocks``: the clocked build of the weight sums
+    computes what the port's build does and stamps every warp."""
+    from sloika_tpu_torch.scripts import bench_lstm
+    T, B, S = 41, 30, 64
+    rs = np.random.RandomState(5)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+    h, c = f32(rs.normal(size=(T, B, S))), f32(rs.normal(size=(T, B, S)))
+    dxp = f32(rs.normal(size=(T, B, 4 * S)))
+    split = bench_lstm.wgrad_clocks(h, c, dxp, lstm_wgrad(h, c, dxp, False))
+    assert split["cycles_per_slice"] > 0
+    assert set(split["phases_mean"]) == set(bench_lstm.WGRAD_PHASES)
 
 
 @pytest.mark.gpu

@@ -20,12 +20,13 @@ from sloika_tpu.ops import decode_jax
 from sloika_tpu.ops.pallas import viterbi as pallas_viterbi
 from sloika_tpu_torch import basecall as tbc
 from sloika_tpu_torch.ops import decode
+from sloika_tpu_torch.ops import viterbi_kernel
 
 
-def _posterior(klen, kind, T=23, B=3, seed=0):
-    """Time-major (T, B, 4**klen + 1) float32 probabilities."""
+def _posterior(klen, kind, T=23, B=3, seed=0, nbase=4):
+    """Time-major (T, B, nbase**klen + 1) float32 probabilities."""
     rs = np.random.RandomState(seed)
-    post = rs.dirichlet(np.full(4 ** klen + 1, 0.05),
+    post = rs.dirichlet(np.full(nbase ** klen + 1, 0.05),
                         size=(T, B)).astype(np.float32)
     if kind == "ties":
         post = (np.round(post * 8) / 8 + 1e-3).astype(np.float32)
@@ -36,7 +37,7 @@ def _np(*xs):
     return [np.asarray(x) for x in xs]
 
 
-@pytest.mark.parametrize("klen", [3, 5])
+@pytest.mark.parametrize("klen", [3, 5, 7])
 @pytest.mark.parametrize("kind", ["peaked", "ties"])
 @pytest.mark.parametrize("skip_pen", [0.0, 5.0])
 def test_plain_viterbi_bit_equal_to_jax(klen, kind, skip_pen):
@@ -53,6 +54,28 @@ def test_plain_viterbi_bit_equal_to_jax(klen, kind, skip_pen):
     for ref in refs:
         for g, r in zip(got, _np(*ref)):
             np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("klen,nbase", [(7, 4), (4, 3)])
+def test_entry_points_outside_the_kernels_bit_equal_to_jax(klen, nbase):
+    """The port's entry points at klen 7 (16,384 states) and at nbase 3,
+    which the CUDA kernels do not take (on a CUDA tensor they route to the
+    same plain twin, on the card), against the JAX package's XLA decoder,
+    which its ``Basecaller`` uses off the TPU."""
+    post = _posterior(klen, "peaked", T=16, B=2, seed=klen, nbase=nbase)
+    assert viterbi_kernel.kernel_route(nbase ** klen, klen, nbase) == "plain"
+    vfinal, tb = viterbi_kernel.viterbi_forward(torch.from_numpy(post), klen,
+                                                skip_pen=5.0, nbase=nbase)
+    score = torch.amax(vfinal, dim=1)
+    path, moved = viterbi_kernel.viterbi_backtrace(
+        tb, torch.argmax(vfinal, dim=1), nbase=nbase)
+    # the entry points take probabilities: log them as the twin does, and
+    # hand the JAX decoder the same float32 logs
+    lp = torch.log(torch.from_numpy(post) + 1e-10).numpy()
+    ref = decode_jax.viterbi(jnp.asarray(lp), klen, skip_pen=5.0, log=True,
+                             nbase=nbase, time_major=True)
+    for g, r in zip(_np(score, path, moved), _np(*ref)):
+        np.testing.assert_array_equal(g, r)
 
 
 @pytest.mark.parametrize("klen", [3, 5])

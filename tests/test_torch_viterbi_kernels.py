@@ -8,6 +8,8 @@ a CUDA card and without jax::
 
 On a machine without a card they skip; the plan tests run everywhere.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -116,6 +118,25 @@ def test_viterbi_plans_at_the_decode_paths_shapes():
     assert (back["F"], back["nslots"], back["blocks"]) == (8, 3, 8)
 
 
+@pytest.mark.parametrize("klen", range(1, 9))
+@pytest.mark.parametrize("nbase", (3, 4, 5))
+def test_kernel_route_is_nbase_4_and_klen_2_to_6(nbase, klen):
+    K = nbase ** klen
+    want = "kernel" if nbase == 4 and 2 <= klen <= 6 else "plain"
+    assert vk.kernel_route(K, klen, nbase) == want
+    # a state count that is not nbase^klen never takes the kernels
+    assert vk.kernel_route(K + 1, klen, nbase) == "plain"
+
+
+@pytest.mark.parametrize("K,nbase", [(16385, 4), (4097, 4), (80, 3), (1, 4)])
+def test_the_backtrace_rejects_state_counts_of_no_kmer(K, nbase):
+    tb = torch.full((3, 1, K), -1, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        vk.viterbi_backtrace(tb.to("meta"), torch.zeros(1, dtype=torch.long,
+                                                        device="meta"),
+                             nbase=nbase)
+
+
 @pytest.mark.parametrize("K", (0, 8, 32, 1000, 1025, 16384))
 def test_viterbi_plans_reject_other_state_counts(K):
     with pytest.raises(ValueError):
@@ -219,6 +240,60 @@ def test_viterbi_kernels_on_views(cuda_device):
     got = vk.viterbi_backtrace(tb, last)
     ref = decode.viterbi_backtrace_plain(tb, last)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("klen,nbase,T", [(7, 4, 40), (4, 3, 60), (2, 3, 30)])
+def test_outside_the_kernels_the_card_runs_the_twin(cuda_device, klen, nbase,
+                                                    T):
+    """klen 7 (16,384 states) and nbase 3 route to the plain twins
+    on the card's own device: the same bits as on the CPU, counted in
+    ``plain_calls``, no kernel launched."""
+    rs = np.random.RandomState(klen)
+    x = 4.0 * rs.standard_normal((T, 2, nbase ** klen + 1))
+    post = torch.from_numpy((np.exp(x) / np.exp(x).sum(2, keepdims=True))
+                            .astype(np.float32))
+    before = [(k.launches, k.plain_calls)
+              for k in (vk.viterbi_forward, vk.viterbi_backtrace)]
+    got = vk.viterbi(post.to(cuda_device), klen, skip_pen=5.0, nbase=nbase)
+    assert all(g.device == post.to(cuda_device).device for g in got)
+    ref = decode.viterbi(post, klen, skip_pen=5.0, nbase=nbase)
+    assert all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+    assert [(k.launches, k.plain_calls)
+            for k in (vk.viterbi_forward, vk.viterbi_backtrace)] == [
+                (n, p + 1) for n, p in before]
+
+
+@pytest.mark.gpu
+def test_basecaller_klen_7_decodes_on_the_card(cuda_device):
+    """``Basecaller(kmer_len=7)`` with a stand-in emitting 16,385 states:
+    one read decoded on the card gives the CPU path's call, through the
+    plain twins (``plain_calls``), with no Viterbi kernel launched."""
+    from sloika_tpu_torch import basecall as tbc, nn
+    rs = np.random.RandomState(17)
+    conv = nn.Convolution(1, 16, 11, stride=5)
+    out = nn.Softmax(16, 16385)
+    with torch.no_grad():
+        conv.W.copy_(torch.from_numpy(rs.normal(size=(16, 1, 11))
+                                      .astype(np.float32)))
+        # large weights: a peaked posterior, far from round-off ties
+        out.W.copy_(torch.from_numpy(8.0 * rs.normal(size=(16385, 16))
+                                     .astype(np.float32)))
+    layer = nn.Serial([conv, out])
+    read = rs.normal(size=1500).astype(np.float32)
+    cpu = tbc.Basecaller(copy.deepcopy(layer), 7, device="cpu")
+    ref = cpu.basecall_signals([read])
+    before = [(k.launches, k.plain_calls)
+              for k in (vk.viterbi_forward, vk.viterbi_backtrace)]
+    got = tbc.Basecaller(layer, 7, device=cuda_device).basecall_signals(
+        [read])
+    after = [(k.launches, k.plain_calls)
+             for k in (vk.viterbi_forward, vk.viterbi_backtrace)]
+    assert [a[0] for a in after] == [b[0] for b in before]
+    assert all(a[1] > b[1] for a, b in zip(after, before))
+    assert np.array_equal(got[0][1], ref[0][1])
+    assert abs(float(got[0][0]) - float(ref[0][0])) <= 1e-4 * abs(
+        float(ref[0][0]))
 
 
 @pytest.mark.gpu
