@@ -23,10 +23,12 @@ Phases, each printing one line and raising on failure:
    basecall's batch (T = 9,000, B = 64) and the whole-read raw path's
    longest batch (B = 8), rows 0-7 bit-identical to the twins run on those
    rows alone; ``viterbi_back`` also beside its design's bytes and its
-   chain's floor (T shared-memory reads); and a klen 7 posterior (16,384
-   states, T = 200, B = 2), which the kernels do not take: the wrappers
-   route it to the plain twins on the card (``plain_calls`` up by one, no
-   launch) and its path equals the CPU twin's;
+   chain's floor (T shared-memory reads); and posteriors the tuned kernels
+   do not take, klen 7 (16,384 states) and nbase 3 at klen 4 (T = 200,
+   B = 2): the wrappers launch the kernels' general route
+   (``general_launches`` up by one) and the paths equal the CPU twin's;
+   then klen 7 at the whole-read batch (B = 8), both general kernels
+   timed against their plain twins on the card and bit-identical to them;
 5. basecall main path: the headline model's graph at full width (seeded
    random weights) basecalls 16 synthetic DAC reads through
    ``Basecaller.basecall_dac_reads``; every kernel of the path must have
@@ -136,8 +138,8 @@ Phases, each printing one line and raising on failure:
     (``bench_dma.py --clocks``, the same bits).
 
 Every path (5-14) sets the kernels' launch counts to 0 before it runs and
-reads them after, and fails if a Viterbi wrapper took its plain route on
-the card (``plain_calls``): the paths decode klen 5 over 4 bases.
+reads them after, and fails if a Viterbi wrapper took its general route
+(``general_launches``): the paths decode klen 5 over 4 bases.
 
 Then one JSON line of per-kernel numbers (with the least time the card
 could take for each kernel's work, ``bound_ms``, from the shapes run: the
@@ -218,8 +220,8 @@ EVENTS_READS, EVENTS_MIN, EVENTS_MAX = 64, 3000, 9000
 # events basecall path's batch
 VITERBI_EXTRA_SHAPES = (("production batch", T_FRAMES, 1024),
                         ("events", EVENTS_MAX, EVENTS_READS))
-# a klen 7 posterior (T, B), which the Viterbi kernels do not take: routed to
-# the plain twins on the card
+# posteriors the tuned Viterbi kernels do not take (T, B): klen 7, and nbase
+# 3 at klen 4, through the kernels' general route
 KLEN7_T, KLEN7_B = 200, 2
 EVENTS_TRAIN_B, EVENTS_TRAIN_T = 100, 500
 # the diagnostic probes at the JAX scripts' defaults: Viterbi parts (B, T),
@@ -242,22 +244,22 @@ def card_line():
 
 def zero_counts(counters):
     """Set every wrapper's launch count, and the Viterbi wrappers' count of
-    calls routed to their plain twins on the card, to 0."""
+    general-route launches, to 0."""
     for k in counters.values():
         k.launches = 0
-        if hasattr(k, "plain_calls"):
-            k.plain_calls = 0
+        if hasattr(k, "general_launches"):
+            k.general_launches = 0
 
 
 def read_counts(counters):
     """The launches of each kernel since :func:`zero_counts`; raises if a
-    Viterbi wrapper routed a call to its plain twin (``plain_calls``): the
-    main paths decode klen 5 over nbase 4, the kernels' range."""
-    plain = {n: k.plain_calls for n, k in counters.items()
-             if getattr(k, "plain_calls", 0)}
-    if plain:
-        raise AssertionError("a main path took the plain route on the "
-                             "card: plain_calls {}".format(plain))
+    Viterbi wrapper launched its general route (``general_launches``): the
+    main paths decode klen 5 over nbase 4, the tuned kernels' range."""
+    general = {n: k.general_launches for n, k in counters.items()
+               if getattr(k, "general_launches", 0)}
+    if general:
+        raise AssertionError("a main path took the general Viterbi route: "
+                             "general_launches {}".format(general))
     return {n: k.launches for n, k in counters.items()}
 
 
@@ -424,10 +426,10 @@ def phase_viterbi(dev, standin):
               back_split["smem_chase_cycles"]), flush=True)
     del logits, peaked, ties, tb
     torch.cuda.empty_cache()
-    klen7 = viterbi_outside_the_kernels(dev)
     fwd_at, back_at = {}, {}
     whole_T = max(raw_batch_frames(standin, [d for d, _ in
                                              synthetic_reads()]))
+    general_fwd, general_back = viterbi_general_route(dev, whole_T)
     for name, T, B in VITERBI_EXTRA_SHAPES + (("whole read", whole_T,
                                                RAW_BATCH),):
         fwd_at[name], back_at[name] = viterbi_at_shape(T, B, dev,
@@ -453,7 +455,7 @@ def phase_viterbi(dev, standin):
                  "cycles_per_step_by_phase": {
                      "walker": back_split["walker"],
                      "copier": back_split["copier"]},
-                 "at_shapes": back_at})
+                 "at_shapes": back_at, "general_route": general_back})
     return [
         with_bound({"name": "viterbi_fwd", "route": "cuda",
                     "source": "sloika_tpu_torch/csrc/viterbi_fwd.cu",
@@ -463,43 +465,101 @@ def phase_viterbi(dev, standin):
                     "plain_ms": fwd_t["peaked"][1],
                     "cycles_per_step": fwd_split["cycles_per_step"],
                     "cycles_per_step_by_phase": fwd_split["phases_mean"],
-                    "at_shapes": fwd_at, "klen7_plain_route": klen7},
+                    "at_shapes": fwd_at, "general_route": general_fwd},
                    *viterbi_fwd_bound(T_FRAMES, BATCH)),
         back]
 
 
-def viterbi_outside_the_kernels(dev, T=KLEN7_T, B=KLEN7_B):
-    """A klen 7 posterior (16,385 states, which the kernels do not take) on
-    the card: ``viterbi_kernel.viterbi`` routes it to the plain twins on the
-    card's own device (``plain_calls``, no launch), and the path equals the
-    CPU twin's."""
+def viterbi_general_route(dev, whole_T):
+    """Posteriors the tuned Viterbi kernels do not take, on the card,
+    through ``viterbi_kernel.viterbi``: they take the kernels' general
+    route (``general_launches`` up by one each).  klen 7 (16,385 states)
+    and nbase 3 at klen 4 (KLEN7_T, KLEN7_B), paths equal to the CPU twin's;
+    then klen 7 at the whole-read raw path's batch (RAW_BATCH reads of
+    ``whole_T`` frames), both kernels timed against their plain twins on
+    the card, bit-identical to them.
+
+    :returns: (viterbi_fwd's, viterbi_back's) general-route entries
+    """
     from sloika_tpu_torch.ops import decode, viterbi_kernel as vk
-    gen = torch.Generator(device=dev).manual_seed(71)
-    post = torch.softmax(4.0 * torch.randn((T, B, 4 ** 7 + 1), generator=gen,
-                                           device=dev), dim=2).contiguous()
     wrappers = (vk.viterbi_forward, vk.viterbi_backtrace)
-    before = [(k.launches, k.plain_calls) for k in wrappers]
-    t0 = time.perf_counter()
-    score, path, moved = vk.viterbi(post, 7, skip_pen=5.0)
-    torch.cuda.synchronize()
-    card_ms = 1e3 * (time.perf_counter() - t0)
-    after = [(k.launches, k.plain_calls) for k in wrappers]
-    ref = decode.viterbi(post.cpu(), 7, skip_pen=5.0)
-    same_path = (torch.equal(path.cpu(), ref[1])
-                 and torch.equal(moved.cpu(), ref[2]))
-    score_err = float((score.cpu() - ref[0]).abs().max())
-    routed = all(a == (b[0], b[1] + 1) for a, b in zip(after, before))
-    print("viterbi klen 7 (K = 16,384) T={} B={} on the card: plain route "
-          "{} (launches and plain_calls before {}, after {}), on {}; path "
-          "equal to the CPU twin's {}, score max_abs_err {:.3e}; {:.1f} ms"
-          .format(T, B, routed, before, after, path.device, same_path,
-                  score_err, card_ms), flush=True)
-    if not (routed and same_path and path.is_cuda
-            and score_err <= 1e-4 * float(ref[0].abs().max())):
-        raise AssertionError("the klen 7 route on the card failed")
-    return {"shape": "T={} B={} K=16384".format(T, B), "ms": card_ms,
-            "path_equal_to_cpu_twin": same_path, "score_max_abs_err":
-            score_err}
+    checks = {}
+    for klen, nbase in ((7, 4), (4, 3)):
+        gen = torch.Generator(device=dev).manual_seed(71 + nbase)
+        post = torch.softmax(4.0 * torch.randn(
+            (KLEN7_T, KLEN7_B, nbase ** klen + 1), generator=gen,
+            device=dev), dim=2).contiguous()
+        before = [(k.launches, k.general_launches) for k in wrappers]
+        score, path, moved = vk.viterbi(post, klen, skip_pen=5.0,
+                                        nbase=nbase)
+        after = [(k.launches, k.general_launches) for k in wrappers]
+        ref = decode.viterbi(post.cpu(), klen, skip_pen=5.0, nbase=nbase)
+        same_path = (torch.equal(path.cpu(), ref[1])
+                     and torch.equal(moved.cpu(), ref[2]))
+        score_err = float((score.cpu() - ref[0]).abs().max())
+        routed = all(a == (b[0] + 1, b[1] + 1)
+                     for a, b in zip(after, before))
+        print("viterbi klen {} nbase {} (K = {}) T={} B={} on the card: "
+              "general route {} (launches and general_launches before {}, "
+              "after {}), on {}; path equal to the CPU twin's {}, score "
+              "max_abs_err {:.3e}".format(
+                  klen, nbase, nbase ** klen, KLEN7_T, KLEN7_B, routed,
+                  before, after, path.device, same_path, score_err),
+              flush=True)
+        if not (routed and same_path and path.is_cuda
+                and score_err <= 1e-4 * float(ref[0].abs().max())):
+            raise AssertionError("the general Viterbi route failed at klen "
+                                 "{} nbase {}".format(klen, nbase))
+        checks["klen {} nbase {}".format(klen, nbase)] = {
+            "path_equal_to_cpu_twin": same_path,
+            "score_max_abs_err": score_err}
+    # klen 7 at the whole-read batch: the kernels against the twins on the
+    # card
+    T, B, K = whole_T, RAW_BATCH, 4 ** 7
+    gen = torch.Generator(device=dev).manual_seed(77)
+    post = torch.randn((T, B, K + 1), generator=gen, device=dev)
+    post.mul_(4.0)
+    post = torch.softmax(post, dim=2)
+    before = [k.general_launches for k in wrappers]
+    (v, tb), ms = timed_once(lambda: vk.viterbi_forward(post, 7, 5.0))
+    last = torch.argmax(v, dim=1)
+    (path, moved), back_ms = timed_once(
+        lambda: vk.viterbi_backtrace(tb, last))
+    launched = [k.general_launches - b for k, b in zip(wrappers, before)]
+    (v_ref, tb_ref), plain_ms = timed_once(
+        lambda: decode.viterbi_forward_plain(post, 7, skip_pen=5.0))
+    same_fwd = torch.equal(v, v_ref) and torch.equal(tb, tb_ref)
+    err_fwd = max(float((v - v_ref).abs().max()),
+                  float((tb != tb_ref).any()))
+    del tb_ref, v_ref
+    (path_ref, moved_ref), back_plain_ms = timed_once(
+        lambda: decode.viterbi_backtrace_plain(tb, last))
+    same_back = (torch.equal(path, path_ref)
+                 and torch.equal(moved, moved_ref))
+    err_back = max(float((path - path_ref).abs().max()),
+                   float((moved != moved_ref).any()))
+    ms = min(ms, cuda_ms(lambda: vk.viterbi_forward(post, 7, 5.0), 2))
+    back_ms = min(back_ms, cuda_ms(lambda: vk.viterbi_backtrace(tb, last),
+                                   2))
+    del post, tb
+    torch.cuda.empty_cache()
+    print("viterbi general route klen 7 (K = 16,384) T={} B={}: "
+          "bit_identical to the twins on the card {}; forward kernel {:.3f} "
+          "ms ({:.3f} us a step) plain {:.1f} ms; backtrace kernel {:.3f} "
+          "ms plain {:.1f} ms; launches {}".format(
+              T, B, same_fwd and same_back, ms, 1e3 * ms / T, plain_ms,
+              back_ms, back_plain_ms, launched), flush=True)
+    if not (same_fwd and same_back and launched == [1, 1]):
+        raise AssertionError("the general Viterbi route differs from its "
+                             "twins at T={} B={}".format(T, B))
+    shape = "T={} B={} K={} (klen 7)".format(T, B, K)
+    fwd = with_bound({"shape": shape, "max_abs_err": err_fwd, "ms": ms,
+                      "plain_ms": plain_ms, "checks": checks},
+                     *viterbi_fwd_bound(T, B, K))
+    back = with_bound({"shape": shape, "max_abs_err": err_back,
+                       "ms": back_ms, "plain_ms": back_plain_ms},
+                      *viterbi_back_bound(T, B))
+    return fwd, back
 
 
 def viterbi_fwd_bound(T, B, K=1024):

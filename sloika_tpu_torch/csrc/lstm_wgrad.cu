@@ -39,7 +39,11 @@
 //   against 0.076 ms at the event-training shape, H100 80GB HBM3 at
 //   700 W; its slices waited ~1,050 cycles each for their copies).  One
 //   block barrier a slice publishes the slice that landed and frees the
-//   stage that the next refill takes.
+//   stage that the next refill takes.  Where S is not a multiple of 4
+//   (h_out's and c_out's rows are then not 16-byte units) or an operand is
+//   not 16-byte aligned, that operand comes by 4-byte cp.async copies
+//   instead, each row of S floats into its row of lh (S rounded up to 4)
+//   in the stage, so the tiles' 16-byte loads stay aligned.
 // - h_prev and c_prev by offset: their rows are h_out's and c_out's rows B
 //   rows earlier (later with `reverse`).  No index is divided: the rows of
 //   the first scan step, whose h_prev is zero, are left out of the loops'
@@ -81,7 +85,8 @@ constexpr int kPad = 8;          // floats after the h and dxp regions: the
 
 
 struct Shape {
-  int T, B, S, lh, reverse;  // lh: floats a row of h_out and c_out
+  int T, B, S, lh, reverse;  // lh: floats a staged row of h_prev and c
+  int wide_h, wide_d;        // h_out and c_out, dxp: by 16-byte copies
   long long N;
   int MT, G, NG, KB;         // row groups, column groups, column groups a
                              // block, slice rows
@@ -125,14 +130,32 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                : "memory");
 }
 
-// every thread's share of 16-byte copies of len floats (a multiple of 4)
-__device__ __forceinline__ void copy16(float* dst, const float* src,
-                                       long long len, int nthreads) {
-  for (long long i = threadIdx.x; i < len / 4; i += nthreads)
-    cp_async16(dst + 4 * i, src + 4 * i);
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem)
+               : "memory");
 }
 
-// start every thread's share of the 16-byte copies of slice i into stage
+// every thread's share of the copies of nrows rows of w floats, contiguous
+// in device memory, into rows of ld floats: 16-byte copies where `wide`
+// (then ld == w, a multiple of 4, and src 16-byte aligned), else 4-byte
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          long long nrows, int w, int ld,
+                                          bool wide, int nthreads) {
+  const long long n = nrows * w;
+  if (wide) {
+    for (long long i = threadIdx.x; i < n / 4; i += nthreads)
+      cp_async16(dst + 4 * i, src + 4 * i);
+  } else {
+    for (long long i = threadIdx.x; i < n; i += nthreads) {
+      const long long r = i / w;
+      cp_async4(dst + r * ld + (i - r * w), src + i);
+    }
+  }
+}
+
+// start every thread's share of the copies of slice i into stage
 // st, one commit group (an empty one past the split's last slice)
 __device__ __forceinline__ void issue(float* st, const float* __restrict__ h,
                                       const float* __restrict__ c,
@@ -143,17 +166,16 @@ __device__ __forceinline__ void issue(float* st, const float* __restrict__ h,
   if (i < nslice) {
     const Slice sl(p, n0, n1, i);
     const long long shift = p.reverse ? p.B : -(long long)p.B;
-    const long long nd = (sl.ne - sl.nb) * 4 * p.S;      // floats of dxp
-    const long long nc = (sl.ne - sl.nb) * p.lh;         // of c_new
-    const long long np = (sl.phi - sl.plo) * p.lh;       // of h_prev, c_prev
-    const long long prev = (sl.plo + shift) * p.lh;
+    const long long nr = sl.ne - sl.nb;          // rows of dxp and c_new
+    const long long npr = sl.phi - sl.plo;       // of h_prev and c_prev
+    const long long prev = (sl.plo + shift) * p.S;
     const int row = (int)(sl.plo - sl.nb) * p.lh;
-    const int nt = blockDim.x;
-    copy16(st + g.d, dxp + sl.nb * 4 * p.S, nd, nt);
-    copy16(st + g.h + row, h + prev, np, nt);
+    const int nt = blockDim.x, S4 = 4 * p.S;
+    copy_rows(st + g.d, dxp + sl.nb * S4, nr, S4, S4, p.wide_d, nt);
+    copy_rows(st + g.h + row, h + prev, npr, p.S, p.lh, p.wide_h, nt);
     if (peep) {
-      copy16(st + g.cn, c + sl.nb * p.lh, nc, nt);
-      copy16(st + g.cp + row, c + prev, np, nt);
+      copy_rows(st + g.cn, c + sl.nb * p.S, nr, p.S, p.lh, p.wide_h, nt);
+      copy_rows(st + g.cp + row, c + prev, npr, p.S, p.lh, p.wide_h, nt);
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -297,10 +319,10 @@ __global__ void wgrad_sum(const float* __restrict__ part,
 
 // The plan comes from the caller (nn/fused_lstm.py::lstm_wgrad_plan):
 // column groups a block ng, column blocks ncb, slice rows kb, splits nsplit
-// of rows_per_split rows each, threads and smem bytes.  h_out and
-// c_out are (T, B, lh) with lh = S rounded up to 4 (the wrapper pads them
-// when it is not S), dxp is (T, B, 4S); all three 16-byte aligned.  part
-// is (nsplit, 4S^2 + 3S) f32 scratch.
+// of rows_per_split rows each, threads and smem bytes; lh = S rounded up
+// to 4, the floats of a staged row of h and c.  h_out and c_out are
+// (T, B, S), dxp is (T, B, 4S), each at least 4-byte aligned.  part is
+// (nsplit, 4S^2 + 3S) f32 scratch.
 extern "C" int lstm_wgrad(const void* h_out, const void* c_out,
                           const void* dxp, void* part, void* dsWT, void* dp,
                           int T, int B, int S, int lh, int reverse, int ng,
@@ -312,6 +334,9 @@ extern "C" int lstm_wgrad(const void* h_out, const void* c_out,
   p.S = S;
   p.lh = lh;
   p.reverse = reverse;
+  p.wide_h = S % 4 == 0 && (uintptr_t)h_out % 16 == 0 &&
+             (uintptr_t)c_out % 16 == 0;
+  p.wide_d = (uintptr_t)dxp % 16 == 0;
   p.N = (long long)T * B;
   p.MT = (S + 7) / 8;
   p.G = (4 * S + 7) / 8;
@@ -321,8 +346,8 @@ extern "C" int lstm_wgrad(const void* h_out, const void* c_out,
   if (threads > MAXT || threads % 32 || threads < p.MT * ng ||
       (long long)ncb * ng < p.G || kb <= 0 || lh % 4 || lh < S ||
       (long long)threads * MAXPC < 3LL * S ||
-      (long long)nsplit * rows < p.N || (uintptr_t)h_out % 16 ||
-      (uintptr_t)c_out % 16 || (uintptr_t)dxp % 16)
+      (long long)nsplit * rows < p.N || (uintptr_t)h_out % 4 ||
+      (uintptr_t)c_out % 4 || (uintptr_t)dxp % 4)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (smem > 48 * 1024) {

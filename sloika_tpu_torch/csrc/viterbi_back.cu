@@ -12,6 +12,8 @@
 //
 // and ends with path[0] = state, moved[0] = false.  path is (B, T) int32,
 // moved (B, T) bool.
+// For another nbase (codes g < nbase a step, nbase + h a skip) the general
+// route below walks the codes in device memory.
 //
 // What bounds it.  Each step's read depends on the step before: a row is a
 // chain of T - 1 dependent reads.  The design before this one gave each
@@ -201,6 +203,36 @@ viterbi_back_kernel(const int32_t* __restrict__ last_state,
 #endif
 }
 
+// The general route, for the general forward's codes (any nbase; K =
+// nbase^klen, not a power of two for nbase 3 or 5, which the tensor map's
+// 16-byte strides cannot take): a thread a row walks the codes in device
+// memory, a chain of T - 1 dependent loads.
+__global__ void __launch_bounds__(32)
+viterbi_back_general_kernel(const int8_t* __restrict__ tb,
+                            const int32_t* __restrict__ last_state,
+                            int32_t* __restrict__ path,
+                            uint8_t* __restrict__ moved, int T, int B, int K,
+                            int nbase) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int nskip = nbase * nbase;
+  const int nrs = K / nbase, nrk = K / nskip;
+  int state = last_state[b];
+  int32_t* p = path + (size_t)b * T;
+  uint8_t* m = moved + (size_t)b * T;
+  for (int t = T - 1; t > 0; --t) {
+    const int c = tb[((size_t)t * B + b) * K + state];
+    p[t] = state;
+    m[t] = (uint8_t)(c >= 0);
+    if (c >= nbase)
+      state = (c - nbase) * nrk + state / nskip;
+    else if (c >= 0)
+      state = c * nrs + state / nbase;
+  }
+  p[0] = state;
+  m[0] = 0;
+}
+
 template <int F>
 int launch(const void* last, void* path, void* moved, int T, int B, int K,
            int nslots, int slot_bytes, int smem, const CUtensorMap& tmap,
@@ -263,6 +295,23 @@ extern "C" int viterbi_back(const void* tb, const void* last_state,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef VITERBI_BACK_LAUNCH
+}
+
+// The general route (viterbi_back_general_kernel): tb (T, B, K) int8 of
+// K = nbase^klen states over nbase bases, nbase + nbase^2 <= 128; the rest
+// as viterbi_back.  Returns the cudaError_t of the launch;
+// cudaErrorInvalidValue (1) for shapes it does not take.
+extern "C" int viterbi_back_general(const void* tb, const void* last_state,
+                                    void* path, void* moved, int T, int B,
+                                    int K, int nbase, void* stream) {
+  if (T < 1 || B < 1 || nbase < 2 || nbase + nbase * nbase > 128 ||
+      K < nbase * nbase || K % (nbase * nbase))
+    return (int)cudaErrorInvalidValue;
+  viterbi_back_general_kernel<<<(B + 31) / 32, 32, 0,
+                                (cudaStream_t)stream>>>(
+      (const int8_t*)tb, (const int32_t*)last_state, (int32_t*)path,
+      (uint8_t*)moved, T, B, K, nbase);
+  return (int)cudaGetLastError();
 }
 
 #ifdef VITERBI_BACK_CLOCKS

@@ -20,6 +20,10 @@
 //   score' = max(new, stay)
 //
 // At t = 0 the scores are the row-0 kmer log-posteriors and the codes -1.
+// A posterior of another nbase or klen (nbase 3 or 5, klen 7 over 4
+// bases) takes the general route below (viterbi_fwd_general): the same
+// function for any nbase, with nbase step and nbase^2 skip predecessors
+// (codes g and nbase + h).
 // logf is the accurate one (no fast-math), the same PyTorch's torch.log
 // calls on the GPU, so the plain twin agrees bit for bit.
 //
@@ -610,6 +614,149 @@ viterbi_fwd_pair_kernel(const float* __restrict__ post,
   cluster_sync();
 }
 
+// The general route: any nbase (codes up to nbase + nbase^2 - 1 fit int8)
+// and K = nbase^klen, where the tuned kernels above take nbase 4 and
+// klen 2..6 only (klen 7 over 4 bases, or 3 or 5 bases, as the Pallas
+// kernel takes nbase and klen as parameters).  One block a row; a step in
+// three phases, each over its own index so that consecutive threads read
+// consecutive scores:
+//   1. skip group s (K / nbase^2 of them): its first maximum and argmax
+//      over its nbase^2 predecessors h K/nbase^2 + s, less skip_pen;
+//   2. step group j (K / nbase): its first maximum over its nbase
+//      predecessors g K/nbase + j, against its skip group j / nbase's,
+//      into the group's max and code;
+//   3. state i: the update against the stay, as in the tuned step.
+// Phase 3 reads no score but its own, and phases 1-2 read all of them
+// before the barrier that precedes it, so the scores are updated in place
+// (one buffer: two ring slots fit beside it at K = 16,384).  Divisions by
+// nbase are a multiply-high by ceil(2^32 / nbase) (exact for i < 2^32 /
+// nbase).  The scores and the groups' maxima and codes lie in shared
+// memory where they fit (kShared), else in `work`, a row's region of
+// device memory (a block barrier orders device memory within the block as
+// it does shared memory).  Frame t's posterior row comes through a ring of
+// nslots shared-memory slots by one thread's bulk copies of its aligned
+// superset, refilled after the step's last barrier (nslots = 0: read from
+// device memory), and is waited for before phase 3.
+__device__ __forceinline__ unsigned div_by(unsigned i, unsigned magic) {
+  return __umulhi(i, magic);
+}
+
+// phase 3 of the general route over the frame's row p (stay, then kmers)
+__device__ __forceinline__ void general_update(
+    const float* p, float* cur, const float* stm, const int8_t* stc,
+    int8_t* __restrict__ tb_row, int K, unsigned magic) {
+  const float lps = logf(p[0] + kEta);
+  for (int i = threadIdx.x; i < K; i += blockDim.x) {
+    const unsigned j = div_by((unsigned)i, magic);
+    const float nw = logf(p[1 + i] + kEta) + stm[j];
+    const float st = cur[i] + lps;
+    tb_row[i] = nw > st ? stc[j] : (int8_t)-1;
+    cur[i] = nw > st ? nw : st;
+  }
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(1024, 1)
+viterbi_fwd_general_kernel(const float* __restrict__ post,
+                           int8_t* __restrict__ tb,
+                           float* __restrict__ vfinal, float* work, int T,
+                           int B, int K, int nbase, float skip_pen,
+                           int nslots, int row_floats, int work_floats,
+                           unsigned long long post_end) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);        // [nslots]
+  float* ring = reinterpret_cast<float*>(smem + kBarBytes);  // [nslots][row]
+  const int b = blockIdx.x;
+  const int r = threadIdx.x, nt = blockDim.x;
+  const int nst = K + 1;
+  const int nskip = nbase * nbase;
+  const int nrs = K / nbase, nrk = K / nskip;
+  const unsigned magic = 0xffffffffu / (unsigned)nbase + 1u;
+  const size_t row_step = (size_t)B * nst;
+  float* cur = kShared ? ring + (size_t)nslots * row_floats
+                       : work + (size_t)b * work_floats;     // [K] scores
+  float* stm = cur + K;             // [nrs] step groups' maxima
+  float* skv = stm + nrs;           // [nrk] skip groups' maxima - skip_pen
+  int8_t* stc = reinterpret_cast<int8_t*>(skv + nrk);   // [nrs] their codes
+  int8_t* ska = stc + nrs;                              // [nrk] argmax h
+
+  if (r == 0 && nslots > 0) {
+    for (int k = 0; k < nslots; ++k) mbar_init(&full[k], 1);
+    mbar_init_fence();
+    const float* row = post + ((size_t)B + b) * nst;
+    for (int k = 0; k < nslots && 1 + k < T; ++k, row += row_step)
+      fill(row, nst, post_end, ring + (size_t)k * row_floats, &full[k]);
+  }
+  {
+    // t = 0: the scores are the row's kmer log-posteriors
+    const float* row = post + (size_t)b * nst + 1;
+    int8_t* tb0 = tb + (size_t)b * K;
+    for (int i = r; i < K; i += nt) {
+      cur[i] = logf(row[i] + kEta);
+      tb0[i] = -1;
+    }
+  }
+  __syncthreads();
+
+  int slot = 0;
+  unsigned phase = 0;
+  for (int t = 1; t < T; ++t) {
+    for (int s = r; s < nrk; s += nt) {
+      float mk = cur[s];
+      int ak = 0;
+      for (int h = 1; h < nskip; ++h) {
+        const float c = cur[h * nrk + s];
+        if (c > mk) { mk = c; ak = h; }
+      }
+      skv[s] = mk - skip_pen;
+      ska[s] = (int8_t)ak;
+    }
+    __syncthreads();
+    for (int j = r; j < nrs; j += nt) {
+      float mx = cur[j];
+      int am = 0;
+      for (int g = 1; g < nbase; ++g) {
+        const float c = cur[g * nrs + j];
+        if (c > mx) { mx = c; am = g; }
+      }
+      const unsigned s = div_by((unsigned)j, magic);
+      const float sk = skv[s];
+      if (mx > sk) {
+        stm[j] = mx;
+        stc[j] = (int8_t)am;
+      } else {
+        stm[j] = sk;
+        stc[j] = (int8_t)(nbase + ska[s]);
+      }
+    }
+    // the frame's stay and kmers: from its slot, or from device memory
+    const float* row_g = post + ((size_t)t * B + b) * nst;
+    const unsigned long long a = (unsigned long long)row_g;
+    const bool copied =
+        nslots > 0 && ((a + 4ull * nst + 15ull) & ~15ull) <= post_end;
+    if (copied) mbar_wait_tested(&full[slot], phase);
+    __syncthreads();
+    int8_t* tb_row = tb + ((size_t)t * B + b) * K;
+    if (copied)
+      general_update(ring + (size_t)slot * row_floats + ((a >> 2) & 3), cur,
+                     stm, stc, tb_row, K, magic);
+    else
+      general_update(row_g, cur, stm, stc, tb_row, K, magic);
+    __syncthreads();
+    // every thread has read frame t: its slot takes frame t + nslots
+    if (nslots > 0) {
+      if (r == 0 && t + nslots < T)
+        fill(post + ((size_t)(t + nslots) * B + b) * nst, nst, post_end,
+             ring + (size_t)slot * row_floats, &full[slot]);
+      if (++slot == nslots) {
+        slot = 0;
+        phase ^= 1u;
+      }
+    }
+  }
+  for (int i = r; i < K; i += nt) vfinal[(size_t)b * K + i] = cur[i];
+}
+
 template <int DPT>
 int launch(const void* post, void* tb, void* vfinal, int T, int B, int K,
            float skip_pen, int nslots, int smem, int row_floats,
@@ -671,6 +818,43 @@ extern "C" int viterbi_fwd(const void* post, void* tb, void* vfinal, int T,
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The general route (viterbi_fwd_general_kernel) for K = nbase^klen states
+// over nbase bases, nbase + nbase^2 <= 128: `threads` a block, a ring of
+// nslots (0-16) one-frame slots in smem bytes, and the scores and groups'
+// arrays in smem (work null) or in work, work_floats floats a row.  The
+// plan comes from ops/viterbi_kernel.py::viterbi_general_plan.  Returns
+// the cudaError_t of the launch; cudaErrorInvalidValue (1) for a plan that
+// does not fit.
+extern "C" int viterbi_fwd_general(const void* post, void* tb, void* vfinal,
+                                   void* work, int T, int B, int K,
+                                   int nbase, float skip_pen, int nslots,
+                                   int threads, int smem, int work_floats,
+                                   unsigned long long post_end,
+                                   void* stream) {
+  const int row_bytes = (4 * (K + 1) + 12 + 15) & ~15;
+  const int nrs = nbase > 1 ? K / nbase : 0, nrk = nbase > 1 ? nrs / nbase : 0;
+  const size_t arrays = 4 * ((size_t)K + nrs + nrk) + nrs + nrk;
+  const size_t need = kBarBytes + (size_t)nslots * row_bytes +
+                      (work == nullptr ? arrays : 0);
+  if (T < 1 || B < 1 || nbase < 2 || nbase + nbase * nbase > 128 ||
+      nrk < 1 || nrk * nbase * nbase != K || nslots < 0 ||
+      nslots > kMaxSlots || threads < 32 || threads > 1024 || threads % 32 ||
+      (uintptr_t)post % 4 || (size_t)smem < need ||
+      (work != nullptr && (size_t)work_floats * 4 < arrays))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = work == nullptr ? viterbi_fwd_general_kernel<true>
+                                : viterbi_fwd_general_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)post, (int8_t*)tb, (float*)vfinal, (float*)work, T, B, K,
+      nbase, skip_pen, nslots, row_bytes / 4, work_floats, post_end);
+  return (int)cudaGetLastError();
 }
 
 // The clusters of the pair kernel (K / 4 threads and smem bytes a block)

@@ -431,9 +431,9 @@ def lstm_wgrad_plan(T, B, S, sms=H100_SMS, optin=SMEM_OPTIN):
     ``kb`` rows (the most of
     WGRAD_SLICES whose WGRAD_STAGES stages fit ``optin`` bytes); and the
     rows split so that the ncb x nsplit blocks cover ``sms`` SMs in one
-    wave.  ``lh``: floats a row of h_out and c_out as the kernel reads them
-    (S rounded up to 4; the copies move whole 16-byte units).  It depends
-    on the shapes alone, so the sum order (and the bits) do too.
+    wave.  ``lh``: floats a row of h_out and c_out as the kernel stages it
+    (S rounded up to 4, for the tiles' 16-byte loads).  It depends on the
+    shapes alone, so the sum order (and the bits) do too.
 
     :returns: dict of lh, ng, ncb, kb, nsplit, rows_per_split, threads,
         smem
@@ -496,13 +496,6 @@ class LstmWgrad:
         if T * B == 0:
             return dsWT.zero_(), dp.zero_()
         plan = lstm_wgrad_plan(T, B, S)
-        # the copies move 16-byte units: rows of lh floats, aligned
-        if plan["lh"] != S:
-            pad = (0, plan["lh"] - S)
-            h_out = torch.nn.functional.pad(h_out, pad)
-            c_out = torch.nn.functional.pad(c_out, pad)
-        h_out, c_out, dxp = (t if t.data_ptr() % 16 == 0 else t.clone()
-                             for t in (h_out, c_out, dxp))
         part = torch.empty((plan["nsplit"], 4 * S * S + 3 * S),
                            dtype=torch.float32, device=dev)
         lib = self._library()

@@ -17,11 +17,13 @@ logs, or one block a row, and the rings' slots and shared memory) and
 :func:`viterbi_back_plan` (frames a slot of the traceback ring, slots,
 shared memory).  Both dispatch on the device of their input: the kernel for
 a CUDA tensor, the plain twin of :mod:`sloika_tpu_torch.ops.decode` for a
-CPU tensor.  The kernels handle nbase = 4 and klen 2..6 (K = 16 .. 4,096
-states); :func:`kernel_route` sends a CUDA posterior outside that range to
-the plain twin on the tensor's own device, as the JAX package routes it to
-``decode_jax.viterbi`` (``sloika_tpu/basecall.py:166-168``, :271).
-``launches`` counts kernel launches, ``plain_calls`` those CUDA calls.
+CPU tensor.  The tuned kernels take nbase = 4 and klen 2..6 (K = 16 ..
+4,096 states); every other posterior that the Pallas kernel takes (its
+``nbase`` and ``klen`` are parameters: klen 7 over 4 bases, or 3 or 5
+bases) takes the same sources' general route (``viterbi_fwd_general``,
+``viterbi_back_general``, planned by :func:`viterbi_general_plan`), by the
+shape rule :func:`kernel_route`.  ``launches`` counts kernel launches of
+either route, ``general_launches`` those of the general route.
 """
 import ctypes
 
@@ -32,7 +34,7 @@ from sloika_tpu_torch.nn.fused_gru import H100_SMS, SMEM_OPTIN, _round
 from sloika_tpu_torch.ops.decode import (viterbi_backtrace_plain,
                                          viterbi_forward_plain)
 
-#: the kmer lengths the kernels take (K = 4 ** klen states)
+#: the kmer lengths the tuned kernels take (K = 4 ** klen states)
 KLENS = (2, 3, 4, 5, 6)
 #: an SM's shared memory, what each resident block reserves of it, its
 #: threads and its blocks at most (sm_90)
@@ -54,6 +56,8 @@ FWD_PAIR_ROWS, FWD_PAIR_MAX_SLOTS = (8, 4, 2, 1), 4
 BACK_THREADS, BACK_BAR_BYTES = 64, 256
 BACK_FRAMES, BACK_SLOT_BYTES = (32, 16, 8, 4, 2, 1), 16384
 BACK_MAX_SLOTS, BACK_MIN_SLOTS = 16, 2
+#: the general route: threads a block at most, the ring's depth at most
+GENERAL_MAX_THREADS, GENERAL_MAX_SLOTS = 1024, 4
 
 
 def _states(K):
@@ -64,14 +68,16 @@ def _states(K):
 
 
 def kernel_route(K, klen, nbase):
-    """"kernel" where the CUDA kernels decode K states of kmers of ``klen``
+    """"tuned" where the tuned kernels decode K states of kmers of ``klen``
     over ``nbase`` bases (nbase 4, klen in KLENS, K = 4^klen), else
-    "plain".  A shape rule, decided before any build: the plain twin runs
-    on the card for klen 7 or nbase 3, as the JAX package's XLA decoder
-    does off the TPU."""
+    "general" (any nbase whose codes, up to nbase + nbase^2 - 1, fit int8,
+    as the Pallas kernel's do).  A shape rule, decided before any build."""
     if nbase == 4 and klen in KLENS and K == 4 ** klen:
-        return "kernel"
-    return "plain"
+        return "tuned"
+    if nbase + nbase * nbase > 128:
+        raise ValueError("int8 traceback codes hold nbase + nbase^2 <= 128 "
+                         "(got nbase {})".format(nbase))
+    return "general"
 
 
 def _klen_of(K, nbase):
@@ -195,6 +201,40 @@ def viterbi_back_plan(B, K, T, sms=H100_SMS, optin=SMEM_OPTIN):
             "blocks": blocks, "smem": smem}
 
 
+def viterbi_general_plan(B, K, nbase, optin=SMEM_OPTIN):
+    """The launch plan of the general route (``viterbi_fwd_general``) for B
+    rows of K = nbase^klen states.
+
+    A block a row of ``threads`` (K rounded up to a warp, at most
+    GENERAL_MAX_THREADS).  A step's arrays (the scores, updated in place,
+    and the K/nbase step groups' and K/nbase^2 skip groups' maxima and
+    codes: ``4 (K + K/nbase + K/nbase^2) + K/nbase + K/nbase^2`` bytes) lie
+    in shared memory with at least one ring slot beside them where that
+    fits (``shared``), else in device memory, ``work_floats`` floats a row.
+    The ring takes as many one-frame slots (the row's 16-byte-aligned
+    superset) as fit beside them, up to GENERAL_MAX_SLOTS (0: the rows are
+    read from device memory).  At K = 16,384 over 4 bases: the arrays in
+    shared memory and two slots.
+
+    :returns: dict of threads, shared, nslots, row_bytes, work_floats, smem
+        (dynamic bytes)
+    """
+    nrs = K // nbase
+    nrk = nrs // nbase
+    arrays = _round(4 * (K + nrs + nrk) + nrs + nrk, 16)
+    row_bytes = _round(4 * (K + 1) + 12, 16)
+    slots = lambda used: min(GENERAL_MAX_SLOTS,
+                             max(0, optin - FWD_BAR_BYTES - used)
+                             // row_bytes)
+    shared = slots(arrays) >= 1
+    nslots = slots(arrays if shared else 0)
+    return {"threads": min(GENERAL_MAX_THREADS, max(32, _round(K, 32))),
+            "shared": shared, "nslots": nslots, "row_bytes": row_bytes,
+            "work_floats": 0 if shared else arrays // 4,
+            "smem": FWD_BAR_BYTES + nslots * row_bytes
+            + (arrays if shared else 0)}
+
+
 def _device_limits(dev):
     """(SMs, shared memory a block may opt in to) of a CUDA device."""
     props = torch.cuda.get_device_properties(dev)
@@ -212,11 +252,15 @@ class ViterbiForward:
     _ARGTYPES = {"viterbi_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                  + [ctypes.c_float] + [ctypes.c_int] * 4
                  + [ctypes.c_ulonglong, ctypes.c_void_p],
-                 "viterbi_fwd_pairs": [ctypes.c_int] * 2 + [ctypes.c_void_p]}
+                 "viterbi_fwd_pairs": [ctypes.c_int] * 2 + [ctypes.c_void_p],
+                 "viterbi_fwd_general": [ctypes.c_void_p] * 4
+                 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                 + [ctypes.c_int] * 4 + [ctypes.c_ulonglong,
+                                          ctypes.c_void_p]}
 
     def __init__(self):
         self.launches = 0
-        self.plain_calls = 0
+        self.general_launches = 0
         self._pairs = {}
 
     def pairs(self, K, device):
@@ -248,15 +292,15 @@ class ViterbiForward:
             raise ValueError("the posterior has {} states, klen {} over {} "
                              "bases needs {}".format(nst, klen, nbase,
                                                      nbase ** klen + 1))
-        if kernel_route(K, klen, nbase) == "plain":
-            self.plain_calls += 1
-            return viterbi_forward_plain(post, klen, skip_pen=skip_pen,
-                                         nbase=nbase)
+        route = kernel_route(K, klen, nbase)
         cuda_build.check_tensor(post, (T, B, nst), torch.float32,
                                 post.device, "post")
         tb = torch.empty((T, B, K), dtype=torch.int8, device=post.device)
         vfinal = torch.empty((B, K), dtype=torch.float32, device=post.device)
         if T == 0 or B == 0:
+            return vfinal, tb
+        if route == "general":
+            self._general(post, tb, vfinal, nbase, skip_pen)
             return vfinal, tb
         plan = viterbi_fwd_plan(B, K, *_device_limits(post.device),
                                 pairs=self.pairs(K, post.device))
@@ -272,6 +316,28 @@ class ViterbiForward:
         self.launches += 1
         return vfinal, tb
 
+    def _general(self, post, tb, vfinal, nbase, skip_pen):
+        """The general route into ``tb`` and ``vfinal``."""
+        T, B, nst = post.shape
+        plan = viterbi_general_plan(B, nst - 1, nbase,
+                                    _device_limits(post.device)[1])
+        work = None
+        if not plan["shared"]:
+            work = torch.empty(B * plan["work_floats"], dtype=torch.float32,
+                               device=post.device)
+        lib = self._library()
+        with torch.cuda.device(post.device):
+            err = lib.viterbi_fwd_general(
+                post.data_ptr(), tb.data_ptr(), vfinal.data_ptr(),
+                None if work is None else work.data_ptr(), T, B, nst - 1,
+                nbase, float(skip_pen), plan["nslots"], plan["threads"],
+                plan["smem"], plan["work_floats"],
+                cuda_build.storage_end(post),
+                torch.cuda.current_stream().cuda_stream)
+        cuda_build.check(err, "viterbi_fwd_general")
+        self.launches += 1
+        self.general_launches += 1
+
 
 class ViterbiBacktrace:
     """(path (B, T) int32, moved (B, T) bool) from traceback codes
@@ -280,11 +346,13 @@ class ViterbiBacktrace:
     ``csrc/viterbi_back.cu``, launched with :func:`viterbi_back_plan`."""
 
     _ARGTYPES = {"viterbi_back": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                 + [ctypes.c_void_p]}
+                 + [ctypes.c_void_p],
+                 "viterbi_back_general": [ctypes.c_void_p] * 4
+                 + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
 
     def __init__(self):
         self.launches = 0
-        self.plain_calls = 0
+        self.general_launches = 0
 
     def _library(self):
         """The loaded ``viterbi_back`` library (``scripts/bench_viterbi.py``
@@ -295,9 +363,7 @@ class ViterbiBacktrace:
         if tb.device.type == "cpu":
             return viterbi_backtrace_plain(tb, last_state, nbase=nbase)
         T, B, K = tb.shape
-        if kernel_route(K, _klen_of(K, nbase), nbase) == "plain":
-            self.plain_calls += 1
-            return viterbi_backtrace_plain(tb, last_state, nbase=nbase)
+        route = kernel_route(K, _klen_of(K, nbase), nbase)
         cuda_build.check_tensor(tb, (T, B, K), torch.int8, tb.device, "tb")
         last = last_state.to(torch.int32).contiguous()
         cuda_build.check_tensor(last, (B,), torch.int32, tb.device,
@@ -305,6 +371,16 @@ class ViterbiBacktrace:
         path = torch.empty((B, T), dtype=torch.int32, device=tb.device)
         moved = torch.empty((B, T), dtype=torch.bool, device=tb.device)
         if T == 0 or B == 0:
+            return path, moved
+        if route == "general":
+            with torch.cuda.device(tb.device):
+                err = self._library().viterbi_back_general(
+                    tb.data_ptr(), last.data_ptr(), path.data_ptr(),
+                    moved.data_ptr(), T, B, K, nbase,
+                    torch.cuda.current_stream().cuda_stream)
+            cuda_build.check(err, "viterbi_back_general")
+            self.launches += 1
+            self.general_launches += 1
             return path, moved
         if tb.data_ptr() % 16:
             tb = tb.clone()          # the tensor map reads 16-byte units

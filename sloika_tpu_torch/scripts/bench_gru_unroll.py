@@ -17,13 +17,15 @@ stand-in's widest layer too::
 ``--clocks`` also builds ``csrc/gru_unroll.cu`` with ``-DGRU_UNROLL_CLOCKS``
 into a library of its own and splits a step by phase (UNROLL_PHASES), at
 U = 1 and 8.  ``--parent DIR`` also times another tree's probe (e.g. a
-parent commit unpacked with ``git archive``) at the same cases, through
-that tree's own ``run_case`` (and ``step_clocks``, where it has one) in a
-process of its own, before and after this tree's: parent, change, change,
-parent.
+parent commit unpacked with ``git archive``) at the same cases, before and
+after this tree's (parent, change, change, parent): this script, run with
+``--cases`` in a process of its own with DIR first on ``PYTHONPATH``, times
+the probe of whichever ``sloika_tpu_torch`` comes first on the path,
+through its ``run_case`` (and ``step_clocks``, where it has one).
 """
 import argparse
 import ctypes
+import importlib
 import json
 import os
 import subprocess
@@ -66,14 +68,15 @@ UNROLL_MAX_SLOTS, UNROLL_MIN_SLOTS, UNROLL_BAR_BYTES = 4, 1, 64
 
 
 def gru_unroll_plan(B, S, U, precision="highest", sms=H100_SMS,
-                    optin=SMEM_OPTIN, warps8=True):
+                    optin=SMEM_OPTIN):
     """The launch plan of ``gru_unroll.cu`` for B rows of width S, U time
     rows a ring slot.
 
     Rows a block ``br``: the fewest of 1, 2, 4, 8 that fit the batch in one
     wave over ``sms`` SMs.  In f32 at one row a block and S above 128 (to
-    144), with ``warps8``, the 8-warp layout ("registers8": 256 threads at
-    255 registers, kr of sWT's rows held, the rest staged).  Else the first
+    144), the 8-warp layout ("registers8": 256 threads at 255 registers, kr
+    of sWT's rows held, the rest staged), which beat the 9-warp one
+    (PERF.md section 6).  Else the first
     register mode of
     UNROLL_REGISTER_MODES[precision] that holds S at this ``br`` (from
     UNROLL_REGISTER_MIN_S), whose sWT rows past ``kr`` are staged; else
@@ -101,7 +104,7 @@ def gru_unroll_plan(B, S, U, precision="highest", sms=H100_SMS,
     mode, kr, kh2 = (modes + [("smem", 0, 0)])[0]
     threads = _round(2 * S, 32)
     w8 = UNROLL_W8
-    if (warps8 and precision == "highest" and br == 1
+    if (precision == "highest" and br == 1
             and w8["main"] < S <= 2 * w8["kh2"]):
         mode, kr, kh2, threads = ("registers8", w8["kr"], w8["kh2"],
                                   w8["threads"])
@@ -170,9 +173,8 @@ class GruUnroll:
     _ARGTYPES = {"gru_unroll": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
                  + [ctypes.c_void_p]}
 
-    def __init__(self, warps8=True):
+    def __init__(self):
         self.launches = 0
-        self.warps8 = warps8
 
     def _library(self):
         """The loaded ``gru_unroll`` library (:func:`step_clocks` swaps in
@@ -207,7 +209,7 @@ class GruUnroll:
         plan = gru_unroll_plan(B, S, U, precision,
                                props.multi_processor_count,
                                getattr(props, "shared_memory_per_block_optin",
-                                       SMEM_OPTIN), self.warps8)
+                                       SMEM_OPTIN))
         # the bulk copies move whole 16-byte units: rows of ld floats
         if plan["ld"] != 3 * S:
             xp = torch.nn.functional.pad(xp, (0, plan["ld"] - 3 * S))
@@ -244,19 +246,16 @@ def case_inputs(U, B=100, S=96, T=400):
     return xp, sWT, sW2T
 
 
-def run_case(U, B=100, S=96, T=400, precision="highest", device="cuda",
-             warps8=True):
+def run_case(U, B=100, S=96, T=400, precision="highest", device="cuda"):
     """Run and time one case on ``device`` (CUDA events; nothing is timed
-    on the CPU); without ``warps8``, through a wrapper that plans no
-    8-warp layout.
+    on the CPU).
 
     :returns: (out (Tp, B, S), ms a call or None)
     """
     dev = config.resolve_device(device)
     xp, sWT, sW2T = (torch.from_numpy(a).to(dev)
                      for a in case_inputs(U, B, S, T))
-    kernel = gru_unroll if warps8 else GruUnroll(warps8=False)
-    run = lambda: kernel(xp, sWT, sW2T, U=U, precision=precision)
+    run = lambda: gru_unroll(xp, sWT, sW2T, U=U, precision=precision)
     t0 = time.time()
     out = run()
     if dev.type != "cuda":
@@ -313,8 +312,7 @@ def time_cases(gu, widths, unrolls, clocks, device="cuda"):
     """Time every (S, precision, U) case through module ``gu`` (this
     script, or another tree's copy of it) and, with ``clocks`` where ``gu``
     has ``step_clocks``, split its step at U = 1 and 8.  Prints each case's
-    parity with the first U.  Where the plan takes the 8-warp layout, also
-    times the 9-warp one ("... 9 warps").
+    parity with the first U.
 
     :returns: {"S<S> <precision> U<U>": ms, "... clocks": split}
     """
@@ -330,13 +328,6 @@ def time_cases(gu, widths, unrolls, clocks, device="cuda"):
                 else:
                     print("U=%-2d parity vs U=%d: %s"
                           % (U, U0, gu.parity(base, out)), flush=True)
-                if ms is not None and gu.gru_unroll_plan(
-                        100, S, U, p)["mode"] == "registers8":
-                    out9, cases["S%d %s U%d 9 warps" % (S, p, U)] = \
-                        gu.run_case(U, S=S, precision=p, device=device,
-                                    warps8=False)
-                    print("U=%-2d 9 warps parity vs 8: %s"
-                          % (U, gu.parity(out, out9)), flush=True)
             if clocks and hasattr(gu, "step_clocks"):
                 for U in (1, 8):
                     split = gu.step_clocks(U, S=S, precision=p)
@@ -346,39 +337,16 @@ def time_cases(gu, widths, unrolls, clocks, device="cuda"):
     return cases
 
 
-#: the code another tree's process runs: :func:`time_cases`' loop over that
-#: tree's ``run_case`` (and ``step_clocks``, where it has one), which every
-#: tree's probe has
-_PARENT_CODE = """
-import json, sys
-from sloika_tpu_torch import config
-from sloika_tpu_torch.scripts import bench_gru_unroll as gu
-widths, unrolls, clocks = json.loads(sys.argv[1])
-config.disable_tf32()
-cases = {}
-for S in widths:
-    for p in gu.PRECISIONS:
-        for U in unrolls:
-            cases["S%d %s U%d" % (S, p, U)] = gu.run_case(
-                U, S=S, precision=p, device="cuda")[1]
-        if clocks and hasattr(gu, "step_clocks"):
-            for U in (1, 8):
-                split = gu.step_clocks(U, S=S, precision=p)
-                cases["S%d %s U%d clocks" % (S, p, U)] = {
-                    k: split[k] for k in ("ms", "cycles_per_step", "ghz",
-                                          "phases_mean")}
-print("CASES " + json.dumps(cases), flush=True)
-"""
-
-
 def time_tree(tree, widths, unrolls, clocks):
-    """The cases of :func:`time_cases` through another tree's probe, in a
-    process of its own with that tree first on the path."""
+    """The cases of :func:`time_cases` through another tree's probe: this
+    script with ``--cases``, in a process of its own with that tree first on
+    the path."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
-    done = subprocess.run(
-        [sys.executable, "-c", _PARENT_CODE,
-         json.dumps([list(widths), list(unrolls), bool(clocks)])],
-        cwd=tree, env=env, capture_output=True, text=True, timeout=1800)
+    argv = ([sys.executable, os.path.abspath(__file__), "--cases"]
+            + [str(u) for u in unrolls] + ["--S"] + [str(w) for w in widths]
+            + (["--clocks"] if clocks else []))
+    done = subprocess.run(argv, cwd=tree, env=env, capture_output=True,
+                          text=True, timeout=1800)
     lines = [l for l in done.stdout.splitlines() if l.startswith("CASES ")]
     if done.returncode != 0 or not lines:
         raise RuntimeError("the probe of {} failed:\n{}{}".format(
@@ -399,12 +367,23 @@ def main(argv=None):
     parser.add_argument("--parent", default=None,
                         help="another tree whose probe to time before and "
                         "after this one's (card only)")
+    parser.add_argument("--cases", action="store_true",
+                        help="time the probe of whichever sloika_tpu_torch "
+                        "comes first on the path and print its cases as "
+                        "one JSON line (what --parent runs)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     dev = config.resolve_device(args.device)
     config.disable_tf32()
     unrolls = args.unroll or list(UNROLLS)
+    if args.cases:
+        gu = importlib.import_module("sloika_tpu_torch.scripts."
+                                     "bench_gru_unroll")
+        print("CASES " + json.dumps(time_cases(gu, args.S, unrolls,
+                                               args.clocks, dev)),
+              flush=True)
+        return 0
     if dev.type != "cuda":
         time_cases(sys.modules[__name__], args.S, unrolls, False, dev)
         return 0

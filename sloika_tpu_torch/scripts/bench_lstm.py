@@ -18,7 +18,8 @@ archive``, are timed by that tree's own copy of this script::
 
 It also times the forward's inference variant at the event basecall
 path's shape, (T, B) = (9,000, 64), and splits a call of ``lstm_wgrad``
-by its launches (``torch.profiler``: device ms of each kernel a call).
+by its launches (``torch.profiler``: device ms of each kernel a call);
+``lstm_wgrad`` is also timed at S = WGRAD_NARROW_S on random rows.
 With ``--wgrad``
 it times ``lstm_wgrad`` alone (the other kernels run once, untimed, to
 make its inputs).  This script uses only the kernels' Python entry points,
@@ -58,6 +59,9 @@ FWD_PHASES = ("product", "slot_wait", "activation", "shuffles_cell",
 BWD_PHASES = ("cell", "slot_wait", "barrier", "refill_copies",
               "refill_commit", "product", "shuffles")
 WGRAD_PHASES = ("slice_wait_barrier", "refill_issue", "fmas")
+#: a width that is not a multiple of 4 (rows of h and c that are not
+#: 16-byte units), at which ``lstm_wgrad`` is also timed
+WGRAD_NARROW_S = 65
 
 
 def inputs(T, B, S, dev, seed=0):
@@ -211,7 +215,11 @@ def main(argv=None):
     from sloika_tpu_torch.nn import fused_lstm
     from sloika_tpu_torch.nn.fused_lstm import (lstm_backward, lstm_forward,
                                                 lstm_wgrad, lstm_wgrad_plain)
-    from sloika_tpu_torch.scripts import bound_ms, cuda_ms
+    from sloika_tpu_torch import scripts
+    from sloika_tpu_torch.scripts import cuda_ms
+    # the bound depends on the shapes alone; a tree whose scripts lack it
+    # reports none
+    bound_ms = getattr(scripts, "bound_ms", lambda nbytes, nflop: None)
     config.disable_tf32()
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -235,7 +243,18 @@ def main(argv=None):
         by_launch=wgrad_launches(h, c, dxp))
     if hasattr(fused_lstm, "lstm_wgrad_plan"):
         wgrad["plan"] = fused_lstm.lstm_wgrad_plan(T, B, S)
-    result = {"card": card, "tree": tree, "lstm_wgrad": wgrad}
+    Sn = WGRAD_NARROW_S
+    gen = torch.Generator(device=dev).manual_seed(3)
+    hn, cn, dn = (torch.randn((T, B, k * Sn), generator=gen, device=dev)
+                  for k in (1, 1, 4))
+    narrow = {"T": T, "B": B, "S": Sn,
+              "ms": cuda_ms(lambda: lstm_wgrad(hn, cn, dn, False), 20, 3),
+              "einsum_ms": cuda_ms(lambda: lstm_wgrad_plain(hn, cn, dn,
+                                                            False), 20, 3),
+              "bound_ms": bound_ms(*wgrad_bound(T * B, Sn))}
+    del hn, cn, dn
+    result = {"card": card, "tree": tree, "lstm_wgrad": wgrad,
+              "lstm_wgrad_narrow": narrow}
     if args.clocks:
         result["lstm_wgrad_clocks"] = wgrad_clocks(
             h, c, dxp, lstm_wgrad(h, c, dxp, False))

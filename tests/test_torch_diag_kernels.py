@@ -154,8 +154,9 @@ def test_probe_entry_points_run_on_the_cpu_only_when_asked(capsys):
 def test_gru_unroll_plan_at_the_script_widths(S, precision, U):
     """At the script's batch (B = 100): one row a block, the weights in
     registers (at S = 144 in f32 the 8-warp layout, sWT's last 40 rows
-    staged, or without it 9 warps and 96 rows staged; in bf16 all of them
-    held, two rows a register), a ring of 4 slots of U rows."""
+    staged, where two rows a block, from B = 200, take 9 warps and 96 rows
+    staged; in bf16 all of them held, two rows a register), a ring of 4
+    slots of U rows."""
     plan = tgru.gru_unroll_plan(100, S, U, precision)
     assert plan == tgru.gru_unroll_plan(100, S, U, precision)  # shapes alone
     w8 = (S, precision) == (144, "highest")
@@ -170,9 +171,9 @@ def test_gru_unroll_plan_at_the_script_widths(S, precision, U):
     if w8:
         assert plan["smem"] == (tgru.UNROLL_BAR_BYTES + 4 * (
             4 * U * 3 * S + 4 * 72 + 16 + 40 * 256))
-        nine = tgru.gru_unroll_plan(100, S, U, precision, warps8=False)
-        assert (nine["mode"], nine["kr"], nine["kh2"], nine["threads"]) == (
-            "registers", 48, 72, 288)
+        nine = tgru.gru_unroll_plan(200, S, U, precision)
+        assert (nine["br"], nine["mode"], nine["kr"], nine["kh2"],
+                nine["threads"]) == (2, "registers", 48, 72, 288)
     else:
         assert plan["smem"] == (tgru.UNROLL_BAR_BYTES + 4 * (
             4 * U * 3 * S + max(S, plan["kr"]) + 2 * plan["kh2"])
@@ -300,7 +301,8 @@ def test_gru_unroll_run_case_at_the_script_shape(cuda_device):
 def test_gru_unroll_at_the_script_widths(cuda_device, S, precision):
     """T = 400, B = 100 at S = 96 and 144: every U gives the same bits,
     within GRU_TOL of the f32 twin and of the production forward, or
-    BF16_TOL of the bf16 twin."""
+    BF16_TOL of the bf16 twin; in f32 also at B = 200 (two rows a block:
+    at S = 144 the 9-warp layout)."""
     xp, sWT, sW2T = (torch.from_numpy(a).to(cuda_device)
                      for a in tgru.case_inputs(1, S=S))
     base = tgru.gru_unroll(xp, sWT, sW2T, U=1, precision=precision)
@@ -313,11 +315,13 @@ def test_gru_unroll_at_the_script_widths(cuda_device, S, precision):
         assert float(d.max()) <= GRU_TOL
         assert float((base - gru_forward(xp, sWT, sW2T)).abs().max()) \
             <= GRU_TOL
-        # the 9-warp layout, where the plan takes the 8-warp one
-        nine = tgru.GruUnroll(warps8=False)
-        base9 = nine(xp, sWT, sW2T, U=1)
-        assert float((base9 - ref).abs().max()) <= GRU_TOL
-        assert all(torch.equal(base9, nine(xp, sWT, sW2T, U=U))
+        # B = 200: two rows a block, the 9-warp layout at S = 144
+        xp2, sWT2, sW2T2 = (torch.from_numpy(a).to(cuda_device)
+                            for a in tgru.case_inputs(1, B=200, S=S))
+        base2 = tgru.gru_unroll(xp2, sWT2, sW2T2, U=1)
+        assert float((base2 - tgru.gru_unroll_plain(xp2, sWT2, sW2T2))
+                     .abs().max()) <= GRU_TOL
+        assert all(torch.equal(base2, tgru.gru_unroll(xp2, sWT2, sW2T2, U=U))
                    for U in tgru.UNROLLS[1:])
     else:
         f32 = tgru.gru_unroll_plain(xp, sWT, sW2T, "highest")

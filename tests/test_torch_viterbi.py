@@ -57,13 +57,16 @@ def test_plain_viterbi_bit_equal_to_jax(klen, kind, skip_pen):
 
 
 @pytest.mark.parametrize("klen,nbase", [(7, 4), (4, 3)])
-def test_entry_points_outside_the_kernels_bit_equal_to_jax(klen, nbase):
+def test_entry_points_outside_the_tuned_kernels_bit_equal_to_jax(klen,
+                                                                 nbase):
     """The port's entry points at klen 7 (16,384 states) and at nbase 3,
-    which the CUDA kernels do not take (on a CUDA tensor they route to the
-    same plain twin, on the card), against the JAX package's XLA decoder,
-    which its ``Basecaller`` uses off the TPU."""
+    which the tuned CUDA kernels do not take (on a CUDA tensor they take
+    the kernels' general route, whose GPU tests hold it to this twin),
+    against the JAX package's XLA decoder, which its ``Basecaller`` uses
+    off the TPU."""
     post = _posterior(klen, "peaked", T=16, B=2, seed=klen, nbase=nbase)
-    assert viterbi_kernel.kernel_route(nbase ** klen, klen, nbase) == "plain"
+    assert viterbi_kernel.kernel_route(nbase ** klen, klen,
+                                       nbase) == "general"
     vfinal, tb = viterbi_kernel.viterbi_forward(torch.from_numpy(post), klen,
                                                 skip_pen=5.0, nbase=nbase)
     score = torch.amax(vfinal, dim=1)

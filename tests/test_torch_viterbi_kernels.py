@@ -120,12 +120,51 @@ def test_viterbi_plans_at_the_decode_paths_shapes():
 
 @pytest.mark.parametrize("klen", range(1, 9))
 @pytest.mark.parametrize("nbase", (3, 4, 5))
-def test_kernel_route_is_nbase_4_and_klen_2_to_6(nbase, klen):
+def test_kernel_route_is_tuned_for_nbase_4_and_klen_2_to_6(nbase, klen):
     K = nbase ** klen
-    want = "kernel" if nbase == 4 and 2 <= klen <= 6 else "plain"
+    want = "tuned" if nbase == 4 and 2 <= klen <= 6 else "general"
     assert vk.kernel_route(K, klen, nbase) == want
-    # a state count that is not nbase^klen never takes the kernels
-    assert vk.kernel_route(K + 1, klen, nbase) == "plain"
+    # a state count that is not nbase^klen never takes the tuned kernels
+    assert vk.kernel_route(K + 1, klen, nbase) == "general"
+
+
+def test_kernel_route_rejects_codes_past_int8():
+    assert vk.kernel_route(100, 2, 10) == "general"
+    with pytest.raises(ValueError, match="int8"):
+        vk.kernel_route(121, 2, 11)
+
+
+@pytest.mark.parametrize("B", (1, 8, 1024))
+@pytest.mark.parametrize("nbase,klen", [(2, 2), (2, 14), (3, 4), (3, 9),
+                                        (4, 7), (4, 8), (5, 6), (10, 2),
+                                        (10, 4)])
+def test_viterbi_general_plan_fits(nbase, klen, B):
+    """The general route's plan: its arrays in shared memory with a ring
+    slot beside them where that fits, else in device memory; at most
+    GENERAL_MAX_SLOTS slots; from the shapes alone."""
+    K = nbase ** klen
+    plan = vk.viterbi_general_plan(B, K, nbase)
+    assert plan == vk.viterbi_general_plan(B, K, nbase, SMEM_OPTIN)
+    nrs = K // nbase
+    arrays = 4 * (K + nrs + nrs // nbase) + nrs + nrs // nbase
+    row = plan["row_bytes"]
+    assert row % 16 == 0 and row >= 4 * (K + 1) + 12
+    assert plan["smem"] <= SMEM_OPTIN
+    assert 0 <= plan["nslots"] <= vk.GENERAL_MAX_SLOTS
+    assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 1024
+    fits = vk.FWD_BAR_BYTES + arrays + row <= SMEM_OPTIN
+    assert plan["shared"] == fits
+    if fits:
+        assert plan["work_floats"] == 0 and plan["nslots"] >= 1
+        assert plan["smem"] >= vk.FWD_BAR_BYTES + arrays + plan["nslots"] * row
+    else:
+        assert 4 * plan["work_floats"] >= arrays
+    # the deepest ring that fits
+    assert (plan["nslots"] == vk.GENERAL_MAX_SLOTS
+            or plan["smem"] + row > SMEM_OPTIN)
+    if (nbase, klen) == (4, 7):
+        assert (plan["shared"], plan["nslots"], plan["threads"]) == (
+            True, 2, 1024)
 
 
 @pytest.mark.parametrize("K,nbase", [(16385, 4), (4097, 4), (80, 3), (1, 4)])
@@ -242,33 +281,66 @@ def test_viterbi_kernels_on_views(cuda_device):
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("klen,nbase,T", [(7, 4, 40), (4, 3, 60), (2, 3, 30)])
-def test_outside_the_kernels_the_card_runs_the_twin(cuda_device, klen, nbase,
-                                                    T):
-    """klen 7 (16,384 states) and nbase 3 route to the plain twins
-    on the card's own device: the same bits as on the CPU, counted in
-    ``plain_calls``, no kernel launched."""
-    rs = np.random.RandomState(klen)
-    x = 4.0 * rs.standard_normal((T, 2, nbase ** klen + 1))
-    post = torch.from_numpy((np.exp(x) / np.exp(x).sum(2, keepdims=True))
+def _softmax_posterior(klen, nbase, T, B, seed):
+    rs = np.random.RandomState(seed)
+    x = 4.0 * rs.standard_normal((T, B, nbase ** klen + 1))
+    return torch.from_numpy((np.exp(x) / np.exp(x).sum(2, keepdims=True))
                             .astype(np.float32))
-    before = [(k.launches, k.plain_calls)
-              for k in (vk.viterbi_forward, vk.viterbi_backtrace)]
-    got = vk.viterbi(post.to(cuda_device), klen, skip_pen=5.0, nbase=nbase)
-    assert all(g.device == post.to(cuda_device).device for g in got)
-    ref = decode.viterbi(post, klen, skip_pen=5.0, nbase=nbase)
-    assert all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
-    assert [(k.launches, k.plain_calls)
-            for k in (vk.viterbi_forward, vk.viterbi_backtrace)] == [
-                (n, p + 1) for n, p in before]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optin", [None, 1000, 4096])
+@pytest.mark.parametrize("klen,nbase,T,B", [
+    (7, 4, 40, 2), (4, 3, 60, 3), (2, 3, 30, 1), (6, 5, 12, 2),
+    (2, 2, 25, 5), (2, 10, 9, 2), (9, 3, 5, 1), (7, 4, 1, 2)])
+def test_the_general_route_equals_the_twins(cuda_device, monkeypatch, klen,
+                                            nbase, T, B, optin):
+    """klen 7 (16,384 states) and nbase 2, 3, 5 and 10 take the kernels'
+    general route on the card: the twins' bits (scores, codes, path and
+    moves), on the card's own device, counted in ``launches`` and
+    ``general_launches``.  ``optin``: a card of that little shared memory,
+    so the step's arrays lie in device memory (and the ring has one slot,
+    or none)."""
+    if optin is not None:
+        monkeypatch.setattr(vk, "_device_limits", lambda dev: (SMS, optin))
+    post = _softmax_posterior(klen, nbase, T, B, seed=klen + nbase)
+    for kind in ("peaked", "ties"):
+        if kind == "ties":
+            post = (torch.round(post * 8) / 8 + 1e-3).contiguous()
+        wrappers = (vk.viterbi_forward, vk.viterbi_backtrace)
+        before = [(k.launches, k.general_launches) for k in wrappers]
+        p = post.to(cuda_device)
+        v, tb = vk.viterbi_forward(p, klen, skip_pen=5.0, nbase=nbase)
+        v_ref, tb_ref = decode.viterbi_forward_plain(p, klen, skip_pen=5.0,
+                                                     nbase=nbase)
+        assert torch.equal(v, v_ref) and torch.equal(tb, tb_ref), kind
+        last = torch.argmax(v, dim=1)
+        got = vk.viterbi_backtrace(tb, last, nbase=nbase)
+        ref = decode.viterbi_backtrace_plain(tb, last, nbase=nbase)
+        assert all(g.device == p.device for g in got)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref)), kind
+        assert [(k.launches, k.general_launches) for k in wrappers] == [
+            (n + 1, g + 1) for n, g in before]
+
+
+@pytest.mark.gpu
+def test_the_general_route_reads_a_view(cuda_device):
+    """A posterior that is a view at an odd float offset, whose last row
+    ends at its storage's end (no bulk copy may pass it)."""
+    post = _softmax_posterior(4, 3, 30, 2, seed=5)
+    base = torch.zeros(post.numel() + 1)
+    base[1:] = post.flatten()
+    view = base.to(cuda_device)[1:].view(post.shape)
+    got = vk.viterbi(view, 4, skip_pen=5.0, nbase=3)
+    ref = decode.viterbi(view, 4, skip_pen=5.0, nbase=3)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 @pytest.mark.gpu
 def test_basecaller_klen_7_decodes_on_the_card(cuda_device):
     """``Basecaller(kmer_len=7)`` with a stand-in emitting 16,385 states:
     one read decoded on the card gives the CPU path's call, through the
-    plain twins (``plain_calls``), with no Viterbi kernel launched."""
+    kernels' general route (``general_launches``)."""
     from sloika_tpu_torch import basecall as tbc, nn
     rs = np.random.RandomState(17)
     conv = nn.Convolution(1, 16, 11, stride=5)
@@ -283,14 +355,13 @@ def test_basecaller_klen_7_decodes_on_the_card(cuda_device):
     read = rs.normal(size=1500).astype(np.float32)
     cpu = tbc.Basecaller(copy.deepcopy(layer), 7, device="cpu")
     ref = cpu.basecall_signals([read])
-    before = [(k.launches, k.plain_calls)
-              for k in (vk.viterbi_forward, vk.viterbi_backtrace)]
+    wrappers = (vk.viterbi_forward, vk.viterbi_backtrace)
+    before = [(k.launches, k.general_launches) for k in wrappers]
     got = tbc.Basecaller(layer, 7, device=cuda_device).basecall_signals(
         [read])
-    after = [(k.launches, k.plain_calls)
-             for k in (vk.viterbi_forward, vk.viterbi_backtrace)]
-    assert [a[0] for a in after] == [b[0] for b in before]
-    assert all(a[1] > b[1] for a, b in zip(after, before))
+    after = [(k.launches, k.general_launches) for k in wrappers]
+    assert all(a[0] - b[0] == a[1] - b[1] > 0
+               for a, b in zip(after, before))
     assert np.array_equal(got[0][1], ref[0][1])
     assert abs(float(got[0][0]) - float(ref[0][0])) <= 1e-4 * abs(
         float(ref[0][0]))
