@@ -79,7 +79,9 @@
 // wait for the frame's slot and its reads (0), the logs (1: none on the
 // pair route), the step and skip maxima (2), the update and the stores (3)
 // and the barrier with the refill or the slot's release (4); slot 7 holds
-// the loop's cycles.
+// the loop's cycles.  The general route's kernel stamps, in row 0's block,
+// phase 1 (0: skip groups), phase 2 (1: step groups), the slot's wait (2),
+// phase 3 (3: update and stores) and its barriers and refill (4).
 __device__ long long viterbi_fwd_clocks[32 * 8];
 #define FWD_CLOCK(k) PHASE_CLOCK(k)
 #else
@@ -700,6 +702,9 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
 
   int slot = 0;
   unsigned phase = 0;
+#ifdef VITERBI_FWD_CLOCKS
+  PHASE_CLOCK_START();
+#endif
   for (int t = 1; t < T; ++t) {
     for (int s = r; s < nrk; s += nt) {
       float mk = cur[s];
@@ -711,7 +716,9 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
       skv[s] = mk - skip_pen;
       ska[s] = (int8_t)ak;
     }
+    FWD_CLOCK(0);
     __syncthreads();
+    FWD_CLOCK(4);
     for (int j = r; j < nrs; j += nt) {
       float mx = cur[j];
       int am = 0;
@@ -729,19 +736,23 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
         stc[j] = (int8_t)(nbase + ska[s]);
       }
     }
+    FWD_CLOCK(1);
     // the frame's stay and kmers: from its slot, or from device memory
     const float* row_g = post + ((size_t)t * B + b) * nst;
     const unsigned long long a = (unsigned long long)row_g;
     const bool copied =
         nslots > 0 && ((a + 4ull * nst + 15ull) & ~15ull) <= post_end;
     if (copied) mbar_wait_tested(&full[slot], phase);
+    FWD_CLOCK(2);
     __syncthreads();
+    FWD_CLOCK(4);
     int8_t* tb_row = tb + ((size_t)t * B + b) * K;
     if (copied)
       general_update(ring + (size_t)slot * row_floats + ((a >> 2) & 3), cur,
                      stm, stc, tb_row, K, magic);
     else
       general_update(row_g, cur, stm, stc, tb_row, K, magic);
+    FWD_CLOCK(3);
     __syncthreads();
     // every thread has read frame t: its slot takes frame t + nslots
     if (nslots > 0) {
@@ -753,7 +764,15 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
         phase ^= 1u;
       }
     }
+    FWD_CLOCK(4);
   }
+#ifdef VITERBI_FWD_CLOCKS
+  clk[7] = PHASE_CLOCK_TOTAL();
+  if (b == 0 && (r & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) viterbi_fwd_clocks[(r >> 5) * 8 + k] = clk[k];
+  }
+#endif
   for (int i = r; i < K; i += nt) vfinal[(size_t)b * K + i] = cur[i];
 }
 

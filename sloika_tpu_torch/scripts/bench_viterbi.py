@@ -10,18 +10,26 @@ of up to 9,000 events; "whole", ``chip_smoke.py``'s longest batch of 8
 whole reads (22,543 frames).  The posterior is ``softmax(4 x N(0, 1))``
 over 1,025 states, drawn on the card from a seed, as in ``chip_smoke.py``
 phase 4.  It times ``viterbi_fwd`` and ``viterbi_back`` (the best of 2
-rounds of 3 back-to-back calls by CUDA events).
+rounds of 3 back-to-back calls by CUDA events).  The general route's
+shapes (GENERAL_SHAPES, klen 7 and 8 over 4 bases: "whole7", the whole
+read batch at 16,384 states; "klen8", T 1,000, B 8 at 65,536) time
+``viterbi_fwd``'s general route alone.
 
 Another tree's kernels, e.g. a parent commit unpacked with ``git
 archive``, are timed by that tree's own copy of this script::
 
     PYTHONPATH=<tree> python <tree>/sloika_tpu_torch/scripts/bench_viterbi.py
 
+or, for the shapes this copy knows, by ``--parent <tree>``: this script in
+a process of its own with the tree first on the path, before and after
+this tree's run (parent, change, change, parent; untimed by clocks).
+
 With ``--clocks`` it builds ``csrc/viterbi_fwd.cu`` with
 ``-DVITERBI_FWD_CLOCKS`` and ``csrc/viterbi_back.cu`` with
 ``-DVITERBI_BACK_CLOCKS``, each into a library of its own, and runs them
 on the same inputs: lane 0 of each warp of block 0 sums the SM clock
-cycles of each phase of a step (FWD_PHASES; BACK_PHASES, whose walker and
+cycles of each phase of a step (FWD_PHASES, GENERAL_PHASES on the general
+route; BACK_PHASES, whose walker and
 copier warps are reported apart, and the cycles of one read of a chase
 through shared memory, ``smem_chase_cycles``).  It reports them a step,
 each warp's and the mean over the warps, beside both builds' times; the
@@ -37,6 +45,7 @@ import argparse
 import json
 import os
 import subprocess
+import sys
 
 import torch
 
@@ -44,50 +53,69 @@ import torch
 SHAPES = {"chunk": (3277, 64), "production": (3277, 1024),
           "events": (9000, 64), "whole": (22543, 8)}
 KLEN, NSTATE, SKIP_PEN = 5, 1025, 5.0
+#: the general route's shapes over 4 bases: name -> (T, B, klen)
+GENERAL_SHAPES = {"whole7": (22543, 8, 7), "klen8": (1000, 8, 8)}
 #: the phases of a step that each clocked build stamps, in order
 FWD_PHASES = ("row", "logs", "maxima", "update_store", "barrier")
+GENERAL_PHASES = ("skip_groups", "step_groups", "slot_wait", "update_store",
+                  "barriers_refill")
 #: viterbi_back's warps: the walker (0) and the copier (1)
 BACK_PHASES = ("slot_wait", "walk", "store", "release", "copy_issue")
 #: the published peak of one H100 SXM's device memory (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 
 
-def posterior(T, B, dev, seed):
-    """(T, B, 1025) probability-domain posterior drawn on the card."""
+def posterior(T, B, dev, seed, nstate=NSTATE):
+    """(T, B, nstate) probability-domain posterior drawn on the card."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return torch.softmax(
-        4.0 * torch.randn((T, B, NSTATE), generator=gen, device=dev),
-        dim=2).contiguous()
+    x = torch.randn((T, B, nstate), generator=gen, device=dev)
+    return torch.softmax(x.mul_(4.0), dim=2).contiguous()
 
 
-def fwd_clocks(post, ref):
+def fwd_clocks(post, ref, klen=KLEN):
     """Run the clocked build of ``viterbi_fwd`` on ``post`` (it must give
     ``ref``, the port's build's (vfinal, traceback)); returns its time, the
-    clock it ran at and the cycles a step of each phase."""
-    from sloika_tpu_torch.ops.viterbi_kernel import (ViterbiForward,
-                                                     viterbi_fwd_plan)
+    clock it ran at and the cycles a step of each phase (GENERAL_PHASES
+    where klen takes the general route)."""
+    from sloika_tpu_torch.ops import viterbi_kernel as vk
     from sloika_tpu_torch.scripts import (clocked_library, cuda_ms,
                                          read_clocks, split_clocks)
     lib = clocked_library("viterbi_fwd", "VITERBI_FWD_CLOCKS",
-                          ViterbiForward._ARGTYPES, "viterbi_fwd_clocks_read")
+                          vk.ViterbiForward._ARGTYPES,
+                          "viterbi_fwd_clocks_read")
 
-    class Clocked(ViterbiForward):
+    class Clocked(vk.ViterbiForward):
         def _library(self):
             return lib
 
-    run = lambda: Clocked()(post, KLEN, SKIP_PEN)
+    run = lambda: Clocked()(post, klen, SKIP_PEN)
     ms = cuda_ms(run, 3, 2)
     if not all(map(torch.equal, run(), ref)):
         raise AssertionError("the clocked build of viterbi_fwd gave other "
                              "bits")
     # the DP warps of row 0's block, each of which stamps
     T, B, nst = post.shape
-    plan = viterbi_fwd_plan(B, nst - 1, pairs=ViterbiForward().pairs(
-        nst - 1, post.device))
-    dp = (nst - 1) // 4 if plan["route"] == "pair" else plan["threads"]
+    K = nst - 1
+    if vk.kernel_route(K, klen, 4) == "general":
+        plan = general_plan(B, K, post.device)
+        raw = read_clocks(lib, "viterbi_fwd_clocks_read",
+                          plan["threads"] // 32)
+        split = split_clocks(raw, T - 1, ms, GENERAL_PHASES)
+        split["plan"] = plan
+        return split
+    plan = vk.viterbi_fwd_plan(B, K, pairs=vk.ViterbiForward().pairs(
+        K, post.device))
+    dp = K // 4 if plan["route"] == "pair" else plan["threads"]
     warps = -(-dp // 32)
     raw = read_clocks(lib, "viterbi_fwd_clocks_read", warps)
     return split_clocks(raw, T - 1, ms, FWD_PHASES)
+
+
+def general_plan(B, K, dev):
+    """The general route's launch plan for B rows of K states over 4 bases
+    on ``dev``."""
+    from sloika_tpu_torch.ops import viterbi_kernel as vk
+    return vk.viterbi_general_plan(B, K, 4, vk._device_limits(dev)[1])
 
 
 def back_clocks(tb, last, ref):
@@ -154,6 +182,51 @@ def bench_shape(name, dev, clocks):
     return out
 
 
+def bench_general(name, dev, clocks):
+    """Time the general route of ``viterbi_fwd`` at one of GENERAL_SHAPES
+    (and split its step)."""
+    from sloika_tpu_torch.ops import viterbi_kernel as vk
+    from sloika_tpu_torch.scripts import cuda_ms
+    T, B, klen = GENERAL_SHAPES[name]
+    K = 4 ** klen
+    post = posterior(T, B, dev, seed=T + B, nstate=K + 1)
+    ref = vk.viterbi_forward(post, klen, SKIP_PEN)
+    ms = cuda_ms(lambda: vk.viterbi_forward(post, klen, SKIP_PEN), 3, 2)
+    out = {"T": T, "B": B, "K": K,
+           "viterbi_fwd_general": {"ms": ms, "us_per_step": 1e3 * ms / T,
+                                   "plan": general_plan(B, K, dev)}}
+    if clocks:
+        out["viterbi_fwd_general_clocks"] = fwd_clocks(post, ref, klen)
+    return out
+
+
+def run_tree(tree, shapes):
+    """This script's timings (no clocks) through another tree's kernels: a
+    process of its own with that tree first on the path."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+    done = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--shapes", shapes], cwd=tree, env=env,
+                          capture_output=True, text=True, timeout=1800)
+    lines = [l for l in done.stdout.splitlines() if l.startswith("{")]
+    if done.returncode != 0 or not lines:
+        raise RuntimeError("bench_viterbi in {} failed:\n{}{}".format(
+            tree, done.stdout[-4000:], done.stderr[-4000:]))
+    return json.loads(lines[-1])
+
+
+def run_here(shapes, dev, clocks):
+    """This tree's timings of ``shapes`` (comma-separated names)."""
+    import sloika_tpu_torch
+    result = {"tree": os.path.dirname(os.path.dirname(
+        os.path.abspath(sloika_tpu_torch.__file__)))}
+    for name in shapes.split(","):
+        result[name] = (bench_general(name, dev, clocks)
+                        if name in GENERAL_SHAPES
+                        else bench_shape(name, dev, clocks))
+        torch.cuda.empty_cache()
+    return result
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Time the Viterbi kernels at the decode paths' shapes")
@@ -161,23 +234,31 @@ def main(argv=None):
                         help="also split a step of each kernel by its "
                         "clocked build")
     parser.add_argument("--shapes", default="chunk,production,events,whole",
-                        help="comma-separated names of SHAPES")
+                        help="comma-separated names of SHAPES and "
+                        "GENERAL_SHAPES")
+    parser.add_argument("--parent", default=None,
+                        help="another tree to time before and after this "
+                        "one (parent, change, change, parent)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("bench_viterbi needs a CUDA device")
-    import sloika_tpu_torch
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    result = {"card": card,
-              "tree": os.path.dirname(os.path.dirname(
-                  os.path.abspath(sloika_tpu_torch.__file__)))}
-    for name in args.shapes.split(","):
-        result[name] = bench_shape(name, dev, args.clocks)
-        torch.cuda.empty_cache()
-    print(json.dumps(result), flush=True)
+    if not args.parent:
+        result = run_here(args.shapes, dev, args.clocks)
+        result["card"] = card
+        print(json.dumps(result), flush=True)
+        return 0
+    runs = [("parent", run_tree(args.parent, args.shapes)),
+            ("change", run_here(args.shapes, dev, args.clocks)),
+            ("change", run_here(args.shapes, dev, False)),
+            ("parent", run_tree(args.parent, args.shapes))]
+    print(json.dumps({"card": card, "runs": [dict(r, run=n)
+                                             for n, r in runs]}),
+          flush=True)
     return 0
 
 
