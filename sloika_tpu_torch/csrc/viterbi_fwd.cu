@@ -70,7 +70,9 @@
 // Thread r's 4 in-order reads of its columns fall 4 threads to a bank; a
 // rotated order that avoids it measured no faster (PERF.md §6), so the
 // reads stay in order.
-#include "bulk_copy.cuh"
+#include <type_traits>
+
+#include "viterbi_ring.cuh"
 
 #ifdef VITERBI_FWD_CLOCKS
 // Step-phase clocks (scripts/bench_viterbi.py --clocks builds this source
@@ -79,9 +81,12 @@
 // wait for the frame's slot and its reads (0), the logs (1: none on the
 // pair route), the step and skip maxima (2), the update and the stores (3)
 // and the barrier with the refill or the slot's release (4); slot 7 holds
-// the loop's cycles.  The general route's kernel stamps, in row 0's block,
-// phase 1 (0: skip groups), phase 2 (1: step groups), the slot's wait (2),
-// phase 3 (3: update and stores) and its barriers and refill (4).
+// the loop's cycles.  The general route's kernel stamps, in block 0 of row
+// 0's cluster, the slot's wait (0), the frame's logs (1), the cluster
+// barrier's wait (2), the gather with the block barrier and the refill (3),
+// the maxima (4) and the update with the stores and the arrival (5); slot 6
+// holds thread 0's cycles of 16 cluster barriers and thread 32's of a chase
+// of 64 dependent loads through the next block's shared memory.
 __device__ long long viterbi_fwd_clocks[32 * 8];
 #define FWD_CLOCK(k) PHASE_CLOCK(k)
 #else
@@ -92,32 +97,10 @@ __device__ long long viterbi_fwd_clocks[32 * 8];
 
 namespace {
 
-constexpr float kEta = 1e-10f;
 constexpr int kMaxSlots = 16;
 constexpr int kBarBytes = 128;     // the slots' full mbarriers
 constexpr int kPairBarBytes = 384; // full, freed, logged: 16 each
 constexpr int kPairPostSlots = 2;  // the log block's posterior slots
-
-// One thread: copy frame t's posterior row `row` into a ring slot, on the
-// slot's barrier (one arrival that expects the copy's bytes).  A row is
-// 4 (K+1) bytes, 16-byte aligned for one row in four, so the copy takes
-// the row's aligned superset; a superset that would run past `end`, the
-// end of the tensor's storage (its last row), is not copied, and arrives
-// with no bytes.
-__device__ __forceinline__ void fill(const float* row, int nst,
-                                     unsigned long long end, float* slot,
-                                     uint64_t* bar) {
-  const unsigned long long a = (unsigned long long)row;
-  const unsigned long long a0 = a & ~15ull;
-  const unsigned long long e = (a + 4ull * nst + 15ull) & ~15ull;
-  if (e <= end) {
-    mbar_expect_tx(bar, (unsigned)(e - a0));
-    bulk_copy(slot, reinterpret_cast<const float*>(a0), (unsigned)(e - a0),
-              bar);
-  } else {
-    mbar_expect_tx(bar, 0u);
-  }
-}
 
 // The DP with DPT destinations a thread: thread r owns the step groups
 // (DPT/4) r .. (DPT/4) r + DPT/4 - 1, i.e. destinations DPT r ..
@@ -619,42 +602,146 @@ viterbi_fwd_pair_kernel(const float* __restrict__ post,
 // The general route: any nbase (codes up to nbase + nbase^2 - 1 fit int8)
 // and K = nbase^klen, where the tuned kernels above take nbase 4 and
 // klen 2..6 only (klen 7 over 4 bases, or 3 or 5 bases, as the Pallas
-// kernel takes nbase and klen as parameters).  One block a row; a step in
-// three phases, each over its own index so that consecutive threads read
-// consecutive scores:
-//   1. skip group s (K / nbase^2 of them): its first maximum and argmax
-//      over its nbase^2 predecessors h K/nbase^2 + s, less skip_pen;
-//   2. step group j (K / nbase): its first maximum over its nbase
-//      predecessors g K/nbase + j, against its skip group j / nbase's,
-//      into the group's max and code;
-//   3. state i: the update against the stay, as in the tuned step.
-// Phase 3 reads no score but its own, and phases 1-2 read all of them
-// before the barrier that precedes it, so the scores are updated in place
-// (one buffer: two ring slots fit beside it at K = 16,384).  Divisions by
-// nbase are a multiply-high by ceil(2^32 / nbase) (exact for i < 2^32 /
-// nbase).  The scores and the groups' maxima and codes lie in shared
-// memory where they fit (kShared), else in `work`, a row's region of
-// device memory (a block barrier orders device memory within the block as
-// it does shared memory).  Frame t's posterior row comes through a ring of
-// nslots shared-memory slots by one thread's bulk copies of its aligned
-// superset, refilled after the step's last barrier (nslots = 0: read from
-// device memory), and is waited for before phase 3.
+// kernel takes nbase and klen as parameters).
+//
+// What bounds it.  At klen 7 a step is 16,384 states of one row; one block
+// a row ran it at 13,597 cycles a step, phase 3 (16 logs, the update and
+// the stores a thread) 8,565 of them (PERF.md §6, PR 12 step 0): the
+// per-state work of one SM, while a whole-read batch of 8 rows left 124 SMs
+// idle.  The bytes (the posterior read, the codes written) would take 4.4
+// ms at klen 7, T = 22,543, B = 8; the chain of T steps, each a cluster
+// barrier and a remote load, sets the pace long before that.
+//
+// What the design does about it.  Row b is a cluster of C blocks (C a
+// power of two that divides the skip groups, ops/viterbi_kernel.py::
+// viterbi_general_plan); block c owns contiguous ranges of the three index
+// spaces: states [c KC, (c+1) KC) (KC = K / C), their step groups
+// [c L1, (c+1) L1) (L1 = KC / nbase) and those groups' skip groups
+// [c L2, (c+1) L2) (L2 = L1 / nbase).  Its thread r takes step groups
+// r, r + nt, ...: the group's skip maximum over nbase^2 predecessors
+// (computed by each of the skip group's nbase step groups, as the tuned
+// step does), its step maximum over nbase predecessors, the decision, and
+// the update of its nbase states, so no array between phases and no block
+// barrier between them.  The predecessors of a block's groups lie in
+// nbase + nbase^2 contiguous chunks of the other blocks' scores (step chunk
+// g: states g K/nbase + c L1 .., L1 of them; skip chunk h: h K/nbase^2 +
+// c L2 .., L2), each within one block; after the cluster barrier the block
+// gathers them (2 KC floats, 16-byte units where L2 % 4 == 0) from
+// distributed shared memory (ld.shared::cluster) into its own shared
+// memory, then one block barrier.  Each block's scores are double-buffered,
+// so one cluster barrier a step separates step t's remote reads from step
+// t + 1's writes; it is split: a thread arrives after its update and, before
+// it waits, takes the next frame's logs (the frame's slot comes first), so
+// the logs overlap the barrier.  A block streams only its own slice of each
+// posterior row (kmers 1 + c KC .., the aligned superset) and the 16-byte
+// unit holding the stay, two bulk copies a frame on the slot's barrier,
+// through a ring of nslots slots; thread 0 refills frame t's slot with
+// frame t + nslots after step t's block barrier, when every thread has
+// taken frame t's logs.  The comparison order in each group is the single
+// block's (first g and h win, a skip wins a tie with a step, a stay with
+// the new score), so the codes and scores are the same bits at any C.
+// C = 1 is the single-block design: no gather, the predecessors read from
+// the block's own scores at the same indices (L1 = K/nbase, L2 =
+// K/nbase^2).  Where no C fits shared memory, C = 1 keeps the scores and
+// logs in `work`, a row's region of device memory (kShared false; a
+// barrier orders device memory within the block as it does shared memory).
+// Divisions are a multiply-high by ceil(2^32 / d) (exact for i d < 2^32).
 __device__ __forceinline__ unsigned div_by(unsigned i, unsigned magic) {
   return __umulhi(i, magic);
 }
 
-// phase 3 of the general route over the frame's row p (stay, then kmers)
-__device__ __forceinline__ void general_update(
-    const float* p, float* cur, const float* stm, const int8_t* stc,
-    int8_t* __restrict__ tb_row, int K, unsigned magic) {
-  const float lps = logf(p[0] + kEta);
-  for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    const unsigned j = div_by((unsigned)i, magic);
-    const float nw = logf(p[1 + i] + kEta) + stm[j];
-    const float st = cur[i] + lps;
-    tb_row[i] = nw > st ? stc[j] : (int8_t)-1;
-    cur[i] = nw > st ? nw : st;
+__device__ __forceinline__ unsigned magic_of(unsigned d) {
+  return 0xffffffffu / d + 1u;
+}
+
+// i / d by magic_of(d), for any d >= 1 (d = 1's magic wraps to 0)
+__device__ __forceinline__ unsigned div_any(unsigned i, unsigned d,
+                                            unsigned magic) {
+  return d == 1 ? i : __umulhi(i, magic);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// a load from a cluster address, of the type of its second argument
+__device__ __forceinline__ float ld_cluster(uint32_t a, float) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster(uint32_t a, float4) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
+}
+
+// Gather the predecessors of this block's groups from the cluster's score
+// buffers of parity `par` into gbuf ([nbase][L1] step chunks, then
+// [nbase^2][L2] skip chunks), in units of W floats: unit e goes to
+// gbuf[W e], from its chunk's cluster address src[ch] (parity 0) at unit
+// offset o.  Four units a thread in flight at once.
+template <int W>
+__device__ __forceinline__ void gather(float* gbuf, const uint32_t* src,
+                                       int nbase, int L1, int L2,
+                                       uint32_t par_bytes) {
+  using V = typename std::conditional<W == 4, float4, float>::type;
+  const unsigned u1 = L1 / W, u2 = L2 / W;
+  const unsigned m1 = magic_of(u1), m2 = magic_of(u2);
+  const unsigned n1 = nbase * u1, n = n1 + nbase * nbase * u2;
+  const unsigned nt = blockDim.x;
+  for (unsigned e0 = threadIdx.x; e0 < n; e0 += 4 * nt) {
+    V v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned e = e0 + k * nt;
+      if (e < n) {
+        unsigned ch, o;
+        if (e < n1) {
+          ch = div_any(e, u1, m1);
+          o = e - ch * u1;
+        } else {
+          const unsigned ch2 = div_any(e - n1, u2, m2);
+          o = e - n1 - ch2 * u2;
+          ch = nbase + ch2;
+        }
+        v[k] = ld_cluster(src[ch] + par_bytes + 4u * W * o, V());
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned e = e0 + k * nt;
+      if (e < n) reinterpret_cast<V*>(gbuf)[e] = v[k];
+    }
   }
+}
+
+// The bytes of one ring slot: the stay's 16-byte unit, then the aligned
+// superset of a block's KC kmers
+__host__ __device__ constexpr int general_slot_bytes(int KC) {
+  return 16 + ((4 * KC + 12 + 15) & ~15);
+}
+
+// A block's arrays in shared memory (kShared), after the ring: the scores
+// [2][KC4] and logs [KC4] (KC4: KC rounded up to 16 bytes), and where C > 1
+// the gathered predecessors [2 KC4] and the chunks' addresses (nbase +
+// nbase^2 of them)
+__host__ __device__ constexpr int general_round4(int n) {
+  return (n + 3) & ~3;
+}
+
+__host__ __device__ constexpr size_t general_arrays(int K, int nbase, int C) {
+  return 4 * (size_t)(3 * general_round4(K / C)) +
+         (C > 1 ? 4 * (size_t)(2 * general_round4(K / C)) +
+                      4 * (size_t)general_round4(nbase + nbase * nbase)
+                : 0);
 }
 
 template <bool kShared>
@@ -662,118 +749,182 @@ __global__ void __launch_bounds__(1024, 1)
 viterbi_fwd_general_kernel(const float* __restrict__ post,
                            int8_t* __restrict__ tb,
                            float* __restrict__ vfinal, float* work, int T,
-                           int B, int K, int nbase, float skip_pen,
-                           int nslots, int row_floats, int work_floats,
+                           int B, int K, int nbase, float skip_pen, int C,
+                           int nslots, int work_floats,
                            unsigned long long post_end) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);        // [nslots]
-  float* ring = reinterpret_cast<float*>(smem + kBarBytes);  // [nslots][row]
-  const int b = blockIdx.x;
+  float* ring = reinterpret_cast<float*>(smem + kBarBytes);  // [nslots][slot]
+  const int c = (int)cluster_rank();
+  const int b = blockIdx.x / C;
   const int r = threadIdx.x, nt = blockDim.x;
   const int nst = K + 1;
   const int nskip = nbase * nbase;
-  const int nrs = K / nbase, nrk = K / nskip;
-  const unsigned magic = 0xffffffffu / (unsigned)nbase + 1u;
-  const size_t row_step = (size_t)B * nst;
-  float* cur = kShared ? ring + (size_t)nslots * row_floats
-                       : work + (size_t)b * work_floats;     // [K] scores
-  float* stm = cur + K;             // [nrs] step groups' maxima
-  float* skv = stm + nrs;           // [nrk] skip groups' maxima - skip_pen
-  int8_t* stc = reinterpret_cast<int8_t*>(skv + nrk);   // [nrs] their codes
-  int8_t* ska = stc + nrs;                              // [nrk] argmax h
+  const int KC = K / C, KC4 = general_round4(KC);
+  const int L1 = KC / nbase, L2 = L1 / nbase;
+  const int slot_floats = general_slot_bytes(KC) / 4;
+  const unsigned magic = magic_of((unsigned)nbase);
+  float* sc = kShared ? ring + (size_t)nslots * slot_floats
+                      : work + (size_t)b * work_floats;  // [2][KC4] scores
+  float* lg = sc + 2 * KC4;              // [KC4] the frame's logs
+  float* gbuf = lg + KC4;                // [2 KC4] gathered predecessors
+  uint32_t* src = reinterpret_cast<uint32_t*>(gbuf + 2 * KC4);
+  const bool vec = L2 % 4 == 0;
 
-  if (r == 0 && nslots > 0) {
-    for (int k = 0; k < nslots; ++k) mbar_init(&full[k], 1);
+  if (r == 0) {
+    for (int k = 0; k < nslots; ++k) mbar_init(&full[k], 2);
     mbar_init_fence();
-    const float* row = post + ((size_t)B + b) * nst;
-    for (int k = 0; k < nslots && 1 + k < T; ++k, row += row_step)
-      fill(row, nst, post_end, ring + (size_t)k * row_floats, &full[k]);
   }
-  {
-    // t = 0: the scores are the row's kmer log-posteriors
-    const float* row = post + (size_t)b * nst + 1;
-    int8_t* tb0 = tb + (size_t)b * K;
-    for (int i = r; i < K; i += nt) {
-      cur[i] = logf(row[i] + kEta);
-      tb0[i] = -1;
+  if (C > 1) {
+    // chunk ch's first state x0 lies in block x0 / KC
+    for (int ch = r; ch < nbase + nskip; ch += nt) {
+      const int x0 = ch < nbase ? ch * (K / nbase) + c * L1
+                                : (ch - nbase) * (K / nskip) + c * L2;
+      src[ch] = map_rank(sc + x0 % KC, (unsigned)(x0 / KC));
     }
   }
   __syncthreads();
+  // frame t's stay unit and kmer slice into slot k
+  auto refill = [&](int t, int k) {
+    const float* row = post + ((size_t)t * B + b) * nst;
+    float* slot = ring + (size_t)k * slot_floats;
+    fill(row, 1, post_end, slot, &full[k]);
+    fill(row + 1 + c * KC, KC, post_end, slot + 4, &full[k]);
+  };
+  if (r == 0)
+    for (int k = 0; k < nslots && 1 + k < T; ++k) refill(1 + k, k);
+  {
+    // t = 0: the scores are the slice's kmer log-posteriors
+    const float* row = post + (size_t)b * nst + 1 + c * KC;
+    int8_t* tb0 = tb + (size_t)b * K + c * KC;
+    for (int i = r; i < KC; i += nt) {
+      sc[i] = logf(row[i] + kEta);
+      tb0[i] = -1;
+    }
+  }
+  cluster_arrive();
 
-  int slot = 0;
+  int slot = 0, par = 0;
   unsigned phase = 0;
 #ifdef VITERBI_FWD_CLOCKS
   PHASE_CLOCK_START();
 #endif
   for (int t = 1; t < T; ++t) {
-    for (int s = r; s < nrk; s += nt) {
-      float mk = cur[s];
-      int ak = 0;
-      for (int h = 1; h < nskip; ++h) {
-        const float c = cur[h * nrk + s];
-        if (c > mk) { mk = c; ak = h; }
-      }
-      skv[s] = mk - skip_pen;
-      ska[s] = (int8_t)ak;
+    // frame t's logs, from its slot (or device memory), while the other
+    // blocks finish step t - 1
+    const float* row = post + ((size_t)t * B + b) * nst;
+    const float* kr = row + 1 + c * KC;
+    float stay;
+    const float* p = kr;
+    if (nslots > 0) {
+      mbar_wait_tested(&full[slot], phase);
+      const float* sl = ring + (size_t)slot * slot_floats;
+      stay = in_storage(row, 1, post_end) ? sl[superset_offset(row)]
+                                          : row[0];
+      if (in_storage(kr, KC, post_end)) p = sl + 4 + superset_offset(kr);
+    } else {
+      stay = row[0];
     }
     FWD_CLOCK(0);
-    __syncthreads();
-    FWD_CLOCK(4);
-    for (int j = r; j < nrs; j += nt) {
-      float mx = cur[j];
-      int am = 0;
-      for (int g = 1; g < nbase; ++g) {
-        const float c = cur[g * nrs + j];
-        if (c > mx) { mx = c; am = g; }
-      }
-      const unsigned s = div_by((unsigned)j, magic);
-      const float sk = skv[s];
-      if (mx > sk) {
-        stm[j] = mx;
-        stc[j] = (int8_t)am;
-      } else {
-        stm[j] = sk;
-        stc[j] = (int8_t)(nbase + ska[s]);
-      }
-    }
+    const float lps = logf(stay + kEta);
+    for (int i = r; i < KC; i += nt) lg[i] = logf(p[i] + kEta);
     FWD_CLOCK(1);
-    // the frame's stay and kmers: from its slot, or from device memory
-    const float* row_g = post + ((size_t)t * B + b) * nst;
-    const unsigned long long a = (unsigned long long)row_g;
-    const bool copied =
-        nslots > 0 && ((a + 4ull * nst + 15ull) & ~15ull) <= post_end;
-    if (copied) mbar_wait_tested(&full[slot], phase);
+    cluster_wait();
     FWD_CLOCK(2);
+    const float* cur = sc + par * KC4;      // this block's scores at t - 1
+    float* nxt = sc + (par ^ 1) * KC4;
+    const float* sp = cur;                  // the step chunks [nbase][L1]
+    const float* kp = cur;                  // the skip chunks [nbase^2][L2]
+    if (C > 1) {
+      const uint32_t par_bytes = 4u * (uint32_t)(par * KC4);
+      if (vec)
+        gather<4>(gbuf, src, nbase, L1, L2, par_bytes);
+      else
+        gather<1>(gbuf, src, nbase, L1, L2, par_bytes);
+      sp = gbuf;
+      kp = gbuf + nbase * L1;
+    }
     __syncthreads();
-    FWD_CLOCK(4);
-    int8_t* tb_row = tb + ((size_t)t * B + b) * K;
-    if (copied)
-      general_update(ring + (size_t)slot * row_floats + ((a >> 2) & 3), cur,
-                     stm, stc, tb_row, K, magic);
-    else
-      general_update(row_g, cur, stm, stc, tb_row, K, magic);
-    FWD_CLOCK(3);
-    __syncthreads();
-    // every thread has read frame t: its slot takes frame t + nslots
+    // every thread has taken frame t's logs: its slot takes t + nslots
     if (nslots > 0) {
-      if (r == 0 && t + nslots < T)
-        fill(post + ((size_t)(t + nslots) * B + b) * nst, nst, post_end,
-             ring + (size_t)slot * row_floats, &full[slot]);
+      if (r == 0 && t + nslots < T) refill(t + nslots, slot);
       if (++slot == nslots) {
         slot = 0;
         phase ^= 1u;
       }
     }
-    FWD_CLOCK(4);
+    FWD_CLOCK(3);
+    int8_t* tb_row = tb + ((size_t)t * B + b) * K + c * KC;
+    for (int j = r; j < L1; j += nt) {
+      const int u = (int)div_by((unsigned)j, magic);   // its skip group
+      float mk = kp[u];
+      int ak = 0;
+      for (int h = 1; h < nskip; ++h) {
+        const float v = kp[h * L2 + u];
+        if (v > mk) { mk = v; ak = h; }
+      }
+      const float sk = mk - skip_pen;
+      float mx = sp[j];
+      int am = 0;
+      for (int g = 1; g < nbase; ++g) {
+        const float v = sp[g * L1 + j];
+        if (v > mx) { mx = v; am = g; }
+      }
+      float m;
+      int code;
+      if (mx > sk) { m = mx; code = am; } else { m = sk; code = nbase + ak; }
+#ifdef VITERBI_FWD_CLOCKS
+      asm volatile("" ::"f"(m), "r"(code));
+#endif
+      FWD_CLOCK(4);
+      for (int q = 0; q < nbase; ++q) {
+        const int i = nbase * j + q;
+        const float nw = lg[i] + m;
+        const float st = cur[i] + lps;
+        tb_row[i] = nw > st ? (int8_t)code : (int8_t)-1;
+        nxt[i] = nw > st ? nw : st;
+      }
+      FWD_CLOCK(5);
+    }
+    cluster_arrive();
+    par ^= 1;
+    FWD_CLOCK(5);
   }
+  cluster_wait();
 #ifdef VITERBI_FWD_CLOCKS
   clk[7] = PHASE_CLOCK_TOTAL();
-  if (b == 0 && (r & 31) == 0) {
+  // the design floor's parts: 16 cluster barriers (thread 0 times them),
+  // and thread 32's chase of 64 dependent loads through the next block's
+  // shared memory (a chain of indices in its logs, which are free now)
+  long long t0 = clock64();
+  for (int k = 0; k < 16; ++k) {
+    cluster_arrive();
+    cluster_wait();
+  }
+  if (r == 0) clk[6] = clock64() - t0;
+  uint32_t* chain = reinterpret_cast<uint32_t*>(lg);
+  const int links = KC < 64 ? KC : 64;
+  for (int i = r; i < links; i += nt) chain[i] = (i + 1) % links;
+  cluster_arrive();
+  cluster_wait();
+  if (r == 32 && kShared) {
+    const uint32_t peer = map_rank(chain, (unsigned)((c + 1) % C));
+    uint32_t idx = 0;
+    t0 = clock64();
+    for (int k = 0; k < 64; ++k)
+      idx = __float_as_uint(ld_cluster(peer + 4u * idx, 0.0f));
+    clk[6] = clock64() - t0 + (idx > 64u ? 1 : 0);
+  }
+  cluster_arrive();
+  cluster_wait();
+  if (b == 0 && c == 0 && (r & 31) == 0) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) viterbi_fwd_clocks[(r >> 5) * 8 + k] = clk[k];
   }
 #endif
-  for (int i = r; i < K; i += nt) vfinal[(size_t)b * K + i] = cur[i];
+  const float* fin = sc + par * KC4;
+  for (int i = r; i < KC; i += nt)
+    vfinal[(size_t)b * K + (size_t)c * KC + i] = fin[i];
 }
 
 template <int DPT>
@@ -840,40 +991,82 @@ extern "C" int viterbi_fwd(const void* post, void* tb, void* vfinal, int T,
 }
 
 // The general route (viterbi_fwd_general_kernel) for K = nbase^klen states
-// over nbase bases, nbase + nbase^2 <= 128: `threads` a block, a ring of
-// nslots (0-16) one-frame slots in smem bytes, and the scores and groups'
-// arrays in smem (work null) or in work, work_floats floats a row.  The
-// plan comes from ops/viterbi_kernel.py::viterbi_general_plan.  Returns
-// the cudaError_t of the launch; cudaErrorInvalidValue (1) for a plan that
-// does not fit.
+// over nbase bases, nbase + nbase^2 <= 128: a cluster of C blocks a row (C
+// a power of two up to 16 that divides the K / nbase^2 skip groups) of
+// `threads` each, a ring of nslots (0-16) slots in smem bytes, and the
+// scores and logs in smem (work null) or in work, work_floats floats a row
+// (C = 1 only).  The plan comes from ops/viterbi_kernel.py::
+// viterbi_general_plan.  Returns the cudaError_t of the launch;
+// cudaErrorInvalidValue (1) for a plan that does not fit.
 extern "C" int viterbi_fwd_general(const void* post, void* tb, void* vfinal,
                                    void* work, int T, int B, int K,
-                                   int nbase, float skip_pen, int nslots,
-                                   int threads, int smem, int work_floats,
+                                   int nbase, float skip_pen, int C,
+                                   int nslots, int threads, int smem,
+                                   int work_floats,
                                    unsigned long long post_end,
                                    void* stream) {
-  const int row_bytes = (4 * (K + 1) + 12 + 15) & ~15;
-  const int nrs = nbase > 1 ? K / nbase : 0, nrk = nbase > 1 ? nrs / nbase : 0;
-  const size_t arrays = 4 * ((size_t)K + nrs + nrk) + nrs + nrk;
-  const size_t need = kBarBytes + (size_t)nslots * row_bytes +
-                      (work == nullptr ? arrays : 0);
-  if (T < 1 || B < 1 || nbase < 2 || nbase + nbase * nbase > 128 ||
-      nrk < 1 || nrk * nbase * nbase != K || nslots < 0 ||
-      nslots > kMaxSlots || threads < 32 || threads > 1024 || threads % 32 ||
-      (uintptr_t)post % 4 || (size_t)smem < need ||
-      (work != nullptr && (size_t)work_floats * 4 < arrays))
+  const int nskip = nbase * nbase;
+  const int nrk = nbase > 1 && nbase + nskip <= 128 ? K / nskip : 0;
+  const bool shared = work == nullptr;
+  if (T < 1 || B < 1 || nbase < 2 || nbase + nskip > 128 || nrk < 1 ||
+      nrk * nskip != K || C < 1 || C > 16 || (C & (C - 1)) || nrk % C ||
+      (!shared && C != 1) || nslots < 0 || nslots > kMaxSlots ||
+      threads < 32 || threads > 1024 || threads % 32 || (uintptr_t)post % 4 ||
+      (size_t)smem < kBarBytes + (size_t)nslots * general_slot_bytes(K / C) +
+                         (shared ? general_arrays(K, nbase, C) : 0) ||
+      (!shared && (size_t)work_floats < 3 * (size_t)general_round4(K)))
     return (int)cudaErrorInvalidValue;
-  auto kernel = work == nullptr ? viterbi_fwd_general_kernel<true>
-                                : viterbi_fwd_general_kernel<false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)post, (int8_t*)tb, (float*)vfinal, (float*)work, T, B, K,
-      nbase, skip_pen, nslots, row_bytes / 4, work_floats, post_end);
-  return (int)cudaGetLastError();
+  auto kernel = shared ? viterbi_fwd_general_kernel<true>
+                       : viterbi_fwd_general_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && C > 8)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = C;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.gridDim = dim3(B * C, 1, 1);
+  config.blockDim = dim3(threads, 1, 1);
+  config.dynamicSmemBytes = smem;
+  config.stream = (cudaStream_t)stream;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  e = cudaLaunchKernelEx(&config, kernel, (const float*)post, (int8_t*)tb,
+                         (float*)vfinal, (float*)work, T, B, K, nbase,
+                         skip_pen, C, nslots, work_floats, post_end);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// The clusters of C blocks of the general kernel (`threads` and smem bytes
+// a block, its arrays in shared memory) that the device runs at once, into
+// *clusters.  Returns the cudaError_t.
+extern "C" int viterbi_fwd_general_clusters(int C, int threads, int smem,
+                                            int* clusters) {
+  const auto kernel = viterbi_fwd_general_kernel<true>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && C > 8)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = C;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.gridDim = dim3(C, 1, 1);
+  config.blockDim = dim3(threads, 1, 1);
+  config.dynamicSmemBytes = smem;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel,
+                                             &config);
 }
 
 // The clusters of the pair kernel (K / 4 threads and smem bytes a block)

@@ -21,9 +21,10 @@ CPU tensor.  The tuned kernels take nbase = 4 and klen 2..6 (K = 16 ..
 4,096 states); every other posterior that the Pallas kernel takes (its
 ``nbase`` and ``klen`` are parameters: klen 7 over 4 bases, or 3 or 5
 bases) takes the same sources' general route (``viterbi_fwd_general``,
-``viterbi_back_general``, planned by :func:`viterbi_general_plan`), by the
-shape rule :func:`kernel_route`.  ``launches`` counts kernel launches of
-either route, ``general_launches`` those of the general route.
+``viterbi_back_general``, planned by :func:`viterbi_general_plan`: the
+forward's row over a cluster of blocks), by the shape rule
+:func:`kernel_route`.  ``launches`` counts kernel launches of either route,
+``general_launches`` those of the general route.
 """
 import ctypes
 
@@ -56,8 +57,15 @@ FWD_PAIR_ROWS, FWD_PAIR_MAX_SLOTS = (8, 4, 2, 1), 4
 BACK_THREADS, BACK_BAR_BYTES = 64, 256
 BACK_FRAMES, BACK_SLOT_BYTES = (32, 16, 8, 4, 2, 1), 16384
 BACK_MAX_SLOTS, BACK_MIN_SLOTS = 16, 2
-#: the general route: threads a block at most, the ring's depth at most
-GENERAL_MAX_THREADS, GENERAL_MAX_SLOTS = 1024, 4
+#: the general route: threads a block at most, the ring's depth at most;
+#: the clusters of blocks a row it may take, most first
+GENERAL_MAX_THREADS, GENERAL_MAX_SLOTS = 1024, 8
+GENERAL_CLUSTERS = (16, 8, 4, 2, 1)
+#: the clusters of C one-block-an-SM blocks that an H100 SXM runs at once
+#: (``cudaOccupancyMaxActiveClusters``, the same at 256-1,024 threads; my
+#: chip run 1, PR 12): its 132 SMs lie in GPCs of uneven size, so it holds 7
+#: clusters of 16, not 8.  The plan's default where no card is asked
+H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 
 
 def _states(K):
@@ -201,38 +209,88 @@ def viterbi_back_plan(B, K, T, sms=H100_SMS, optin=SMEM_OPTIN):
             "blocks": blocks, "smem": smem}
 
 
-def viterbi_general_plan(B, K, nbase, optin=SMEM_OPTIN):
+def _general_slot_bytes(KC):
+    """A general ring slot: the stay's 16-byte unit, then the aligned
+    superset of a block's KC kmers (``viterbi_fwd.cu::general_slot_bytes``)."""
+    return 16 + _round(4 * KC + 12, 16)
+
+
+def _general_arrays(K, nbase, C):
+    """A block's arrays in shared memory (``general_arrays``): the scores
+    twice and the logs, KC = K / C floats each rounded up to 16 bytes, and
+    where C > 1 the gathered predecessors (2 KC) and their nbase + nbase^2
+    chunks' addresses."""
+    KC4 = _round(K // C, 4)
+    extra = 4 * 2 * KC4 + 4 * _round(nbase + nbase * nbase, 4) if C > 1 else 0
+    return 4 * 3 * KC4 + extra
+
+
+def general_cluster_shapes(K, nbase, optin=SMEM_OPTIN):
+    """{C: {threads, nslots, smem}}: each cluster size of GENERAL_CLUSTERS
+    at which the general kernel takes K states over nbase bases with its
+    arrays in shared memory.  C divides the K / nbase^2 skip groups (so a
+    block's states, step groups and skip groups are whole ranges); a block
+    has K / (nbase C) step groups, a thread each (at least a warp, at most
+    GENERAL_MAX_THREADS); its arrays and at least one ring slot fit ``optin``
+    bytes; the ring is as deep as fits, up to GENERAL_MAX_SLOTS; smem is at
+    least half an SM's shared memory (up to ``optin``), so each block has an
+    SM of its own: the step's latency, not the SM's issue, sets the pace."""
+    nrk = K // (nbase * nbase)
+    shapes = {}
+    for C in GENERAL_CLUSTERS:
+        if nrk < 1 or nrk % C:
+            continue
+        fixed = FWD_BAR_BYTES + _general_arrays(K, nbase, C)
+        slot = _general_slot_bytes(K // C)
+        nslots = min(GENERAL_MAX_SLOTS, max(0, optin - fixed) // slot)
+        if nslots < 1:
+            continue
+        shapes[C] = {"threads": min(GENERAL_MAX_THREADS,
+                                    max(32, _round(K // (nbase * C), 32))),
+                     "nslots": nslots,
+                     "smem": max(fixed + nslots * slot,
+                                 min(optin, SM_SMEM // 2))}
+    return shapes
+
+
+def viterbi_general_plan(B, K, nbase, optin=SMEM_OPTIN, clusters=None):
     """The launch plan of the general route (``viterbi_fwd_general``) for B
-    rows of K = nbase^klen states.
+    rows of K = nbase^klen states: a cluster of C blocks a row.
 
-    A block a row of ``threads`` (K rounded up to a warp, at most
-    GENERAL_MAX_THREADS).  A step's arrays (the scores, updated in place,
-    and the K/nbase step groups' and K/nbase^2 skip groups' maxima and
-    codes: ``4 (K + K/nbase + K/nbase^2) + K/nbase + K/nbase^2`` bytes) lie
-    in shared memory with at least one ring slot beside them where that
-    fits (``shared``), else in device memory, ``work_floats`` floats a row.
-    The ring takes as many one-frame slots (the row's 16-byte-aligned
-    superset) as fit beside them, up to GENERAL_MAX_SLOTS (0: the rows are
-    read from device memory).  At K = 16,384 over 4 bases: the arrays in
-    shared memory and two slots.
+    ``clusters``: {C: the clusters of C blocks that the card runs at once
+    at :func:`general_cluster_shapes`' sizes} (``ViterbiForward.
+    general_clusters`` asks the card; default H100_CLUSTERS).  C is the
+    largest of those shapes' sizes whose B clusters all run in one wave:
+    8 at klen 7 and B = 8 on the H100, where 16 would leave a row for a
+    second wave and double the time.  Where no size runs in one wave, the
+    smallest that fits, its smem not padded (blocks may share an SM: the
+    issue of many rows, not one step's latency, sets the pace).  Where no
+    size fits shared memory (a card of little of it), C = 1 with the
+    scores and logs in device memory (``shared`` False, ``work_floats`` a
+    row) and as many ring slots as fit (0: the rows are read from device
+    memory).
 
-    :returns: dict of threads, shared, nslots, row_bytes, work_floats, smem
-        (dynamic bytes)
+    :returns: dict of C, threads, shared, nslots, slot_bytes, work_floats,
+        smem (dynamic bytes)
     """
-    nrs = K // nbase
-    nrk = nrs // nbase
-    arrays = _round(4 * (K + nrs + nrk) + nrs + nrk, 16)
-    row_bytes = _round(4 * (K + 1) + 12, 16)
-    slots = lambda used: min(GENERAL_MAX_SLOTS,
-                             max(0, optin - FWD_BAR_BYTES - used)
-                             // row_bytes)
-    shared = slots(arrays) >= 1
-    nslots = slots(arrays if shared else 0)
-    return {"threads": min(GENERAL_MAX_THREADS, max(32, _round(K, 32))),
-            "shared": shared, "nslots": nslots, "row_bytes": row_bytes,
-            "work_floats": 0 if shared else arrays // 4,
-            "smem": FWD_BAR_BYTES + nslots * row_bytes
-            + (arrays if shared else 0)}
+    shapes = general_cluster_shapes(K, nbase, optin)
+    clusters = H100_CLUSTERS if clusters is None else clusters
+    wave = [C for C in shapes if B <= clusters.get(C, 0)]
+    if wave or shapes:
+        C = max(wave) if wave else min(shapes)
+        plan = dict(shapes[C], C=C, shared=True, work_floats=0,
+                    slot_bytes=_general_slot_bytes(K // C))
+        if not wave:
+            plan["smem"] = (FWD_BAR_BYTES + _general_arrays(K, nbase, C)
+                            + plan["nslots"] * plan["slot_bytes"])
+        return plan
+    slot = _general_slot_bytes(K)
+    nslots = min(GENERAL_MAX_SLOTS, max(0, optin - FWD_BAR_BYTES) // slot)
+    return {"C": 1, "threads": min(GENERAL_MAX_THREADS,
+                                   max(32, _round(K // nbase, 32))),
+            "shared": False, "nslots": nslots, "slot_bytes": slot,
+            "work_floats": 3 * _round(K, 4),
+            "smem": FWD_BAR_BYTES + nslots * slot}
 
 
 def _device_limits(dev):
@@ -255,13 +313,16 @@ class ViterbiForward:
                  "viterbi_fwd_pairs": [ctypes.c_int] * 2 + [ctypes.c_void_p],
                  "viterbi_fwd_general": [ctypes.c_void_p] * 4
                  + [ctypes.c_int] * 4 + [ctypes.c_float]
-                 + [ctypes.c_int] * 4 + [ctypes.c_ulonglong,
-                                          ctypes.c_void_p]}
+                 + [ctypes.c_int] * 5 + [ctypes.c_ulonglong,
+                                          ctypes.c_void_p],
+                 "viterbi_fwd_general_clusters": [ctypes.c_int] * 3
+                 + [ctypes.c_void_p]}
 
     def __init__(self):
         self.launches = 0
         self.general_launches = 0
         self._pairs = {}
+        self._clusters = {}
 
     def pairs(self, K, device):
         """The clusters of the pair route's blocks for K states that the
@@ -276,6 +337,26 @@ class ViterbiForward:
                     K, smem, ctypes.byref(n)), "viterbi_fwd_pairs")
             self._pairs[key] = n.value
         return self._pairs[key]
+
+    def general_clusters(self, K, nbase, device):
+        """{C: the clusters of C blocks of the general kernel that the card
+        runs at once}, at :func:`general_cluster_shapes`' sizes for K states
+        over nbase bases (queried once for each device and shape)."""
+        optin = _device_limits(device)[1]
+        key = (str(device), K, nbase, optin)
+        if key not in self._clusters:
+            lib = self._library()
+            found = {}
+            with torch.cuda.device(device):
+                for C, shape in general_cluster_shapes(K, nbase,
+                                                       optin).items():
+                    n = ctypes.c_int(0)
+                    cuda_build.check(lib.viterbi_fwd_general_clusters(
+                        C, shape["threads"], shape["smem"], ctypes.byref(n)),
+                        "viterbi_fwd_general_clusters")
+                    found[C] = n.value
+            self._clusters[key] = found
+        return self._clusters[key]
 
     def _library(self):
         """The loaded ``viterbi_fwd`` library (``scripts/bench_viterbi.py``
@@ -319,8 +400,10 @@ class ViterbiForward:
     def _general(self, post, tb, vfinal, nbase, skip_pen):
         """The general route into ``tb`` and ``vfinal``."""
         T, B, nst = post.shape
-        plan = viterbi_general_plan(B, nst - 1, nbase,
-                                    _device_limits(post.device)[1])
+        K = nst - 1
+        plan = viterbi_general_plan(
+            B, K, nbase, _device_limits(post.device)[1],
+            self.general_clusters(K, nbase, post.device))
         work = None
         if not plan["shared"]:
             work = torch.empty(B * plan["work_floats"], dtype=torch.float32,
@@ -329,8 +412,8 @@ class ViterbiForward:
         with torch.cuda.device(post.device):
             err = lib.viterbi_fwd_general(
                 post.data_ptr(), tb.data_ptr(), vfinal.data_ptr(),
-                None if work is None else work.data_ptr(), T, B, nst - 1,
-                nbase, float(skip_pen), plan["nslots"], plan["threads"],
+                None if work is None else work.data_ptr(), T, B, K, nbase,
+                float(skip_pen), plan["C"], plan["nslots"], plan["threads"],
                 plan["smem"], plan["work_floats"],
                 cuda_build.storage_end(post),
                 torch.cuda.current_stream().cuda_stream)

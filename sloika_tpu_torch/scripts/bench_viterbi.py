@@ -28,15 +28,18 @@ With ``--clocks`` it builds ``csrc/viterbi_fwd.cu`` with
 ``-DVITERBI_FWD_CLOCKS`` and ``csrc/viterbi_back.cu`` with
 ``-DVITERBI_BACK_CLOCKS``, each into a library of its own, and runs them
 on the same inputs: lane 0 of each warp of block 0 sums the SM clock
-cycles of each phase of a step (FWD_PHASES, GENERAL_PHASES on the general
-route; BACK_PHASES, whose walker and
-copier warps are reported apart, and the cycles of one read of a chase
+cycles of each phase of a step (FWD_PHASES; on the general route
+GENERAL_PHASES, in block 0 of row 0's cluster; BACK_PHASES, whose walker
+and copier warps are reported apart, and the cycles of one read of a chase
 through shared memory, ``smem_chase_cycles``).  It reports them a step,
 each warp's and the mean over the warps, beside both builds' times; the
 cycles of the clocked loop over its time give the clock they ran at.  A
 clocked build must give the port's bits.  ``viterbi_back`` is also given
 its design's bound: the bytes of the whole traceback read once, and its
-chain floor, T shared-memory reads at the chase's cycles.
+chain floor, T shared-memory reads at the chase's cycles.  The general
+forward is given its design floor: T steps of one cluster barrier and one
+load from another block's shared memory, each timed by the clocked build
+(``cluster_barrier_cycles``, ``remote_load_cycles``).
 
 Prints one JSON line: the card and its power limit, the tree timed, and
 the times.
@@ -57,8 +60,8 @@ KLEN, NSTATE, SKIP_PEN = 5, 1025, 5.0
 GENERAL_SHAPES = {"whole7": (22543, 8, 7), "klen8": (1000, 8, 8)}
 #: the phases of a step that each clocked build stamps, in order
 FWD_PHASES = ("row", "logs", "maxima", "update_store", "barrier")
-GENERAL_PHASES = ("skip_groups", "step_groups", "slot_wait", "update_store",
-                  "barriers_refill")
+GENERAL_PHASES = ("slot_wait", "logs", "cluster_wait", "gather", "maxima",
+                  "update_store")
 #: viterbi_back's warps: the walker (0) and the copier (1)
 BACK_PHASES = ("slot_wait", "walk", "store", "release", "copy_issue")
 #: the published peak of one H100 SXM's device memory (NVIDIA data sheet)
@@ -98,10 +101,18 @@ def fwd_clocks(post, ref, klen=KLEN):
     K = nst - 1
     if vk.kernel_route(K, klen, 4) == "general":
         plan = general_plan(B, K, post.device)
-        raw = read_clocks(lib, "viterbi_fwd_clocks_read",
-                          plan["threads"] // 32)
-        split = split_clocks(raw, T - 1, ms, GENERAL_PHASES)
+        warps = plan["threads"] // 32
+        raw = read_clocks(lib, "viterbi_fwd_clocks_read", warps)
+        split = split_clocks(raw, max(T - 1, 1), ms, GENERAL_PHASES)
         split["plan"] = plan
+        # thread 0's 16 cluster barriers, thread 32's chase of 64 remote
+        # loads: the design floor is a barrier and a remote load a step
+        split["cluster_barrier_cycles"] = raw[0][6] / 16
+        split["remote_load_cycles"] = raw[1][6] / 64 if warps > 1 else None
+        if warps > 1:
+            split["design_floor_ms"] = (
+                T * (split["cluster_barrier_cycles"]
+                     + split["remote_load_cycles"]) / (split["ghz"] * 1e6))
         return split
     plan = vk.viterbi_fwd_plan(B, K, pairs=vk.ViterbiForward().pairs(
         K, post.device))
@@ -113,9 +124,14 @@ def fwd_clocks(post, ref, klen=KLEN):
 
 def general_plan(B, K, dev):
     """The general route's launch plan for B rows of K states over 4 bases
-    on ``dev``."""
+    on ``dev`` (a tree before the cluster route plans without the card's
+    clusters)."""
     from sloika_tpu_torch.ops import viterbi_kernel as vk
-    return vk.viterbi_general_plan(B, K, 4, vk._device_limits(dev)[1])
+    optin = vk._device_limits(dev)[1]
+    if not hasattr(vk.viterbi_forward, "general_clusters"):
+        return vk.viterbi_general_plan(B, K, 4, optin)
+    return vk.viterbi_general_plan(
+        B, K, 4, optin, vk.viterbi_forward.general_clusters(K, 4, dev))
 
 
 def back_clocks(tb, last, ref):

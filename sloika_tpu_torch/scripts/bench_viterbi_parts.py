@@ -3,17 +3,30 @@ the port's counterpart of ``scripts/bench_viterbi_parts.py``.
 
 :data:`viterbi_parts` replaces that script's Pallas TPU kernels
 (``run_variant``, ``make_kernel`` :19-94, ``pl.pallas_call`` :107) with
-``csrc/viterbi_parts.cu``, whose design is ``viterbi_fwd.cu``'s: each variant
-removes what the Pallas variant removes, so the difference between two
-variants prices one part of that kernel (the log, the int8 store, the stay
-compare, the group reduction).  ``expand`` runs ``full``: the TPU's exact
-one-hot expansion matmul is an index on the card::
+``csrc/viterbi_parts.cu``, whose design is ``viterbi_fwd.cu``'s "single"
+route (each row's frames through a ring of bulk copies, one barrier a step;
+:func:`viterbi_parts_plan`): each variant removes what the Pallas variant
+removes, so the difference between two variants prices one part of that
+kernel's step (the log, the int8 store, the stay compare, the group
+reduction).  ``expand`` runs ``full``: the TPU's exact one-hot expansion
+matmul is an index on the card::
 
     python -m sloika_tpu_torch.scripts.bench_viterbi_parts [variant ...] \\
-        [--batch B] [--T T] [--device cuda|cpu]
+        [--batch B] [--T T] [--device cuda|cpu] [--parent DIR]
+
+``--parent DIR`` also times another tree's probe (e.g. a parent commit
+unpacked with ``git archive``) before and after this tree's (parent,
+change, change, parent), on inputs drawn on the card
+(:func:`device_inputs`): this script, run with ``--cases`` in a process of
+its own with DIR first on ``PYTHONPATH``, times the probe of whichever
+``sloika_tpu_torch`` comes first on the path.
 """
 import argparse
 import ctypes
+import importlib
+import json
+import os
+import subprocess
 import sys
 import time
 
@@ -21,6 +34,8 @@ import numpy as np
 import torch
 
 from sloika_tpu_torch import config, cuda_build
+from sloika_tpu_torch.nn.fused_gru import H100_SMS, SMEM_OPTIN
+from sloika_tpu_torch.ops import viterbi_kernel as vk
 from sloika_tpu_torch.scripts import cuda_ms
 
 #: timed calls a round, as in the JAX script; the best of 3 rounds
@@ -89,6 +104,36 @@ def viterbi_parts_plain(variant, post, stay, nstep=4, log=torch.log):
     return tb, vscore
 
 
+def viterbi_parts_plan(B, K, sms=H100_SMS, optin=SMEM_OPTIN):
+    """The launch plan of ``viterbi_parts.cu``: ``viterbi_fwd_plan``'s
+    "single" route with 4 destinations a thread (K / 4 threads a block), for
+    any K that is a multiple of 4.  A slot holds the stay's 16-byte unit and
+    the row (16 + 4 K bytes); the scores take 8 K.  ``blocks``: the blocks
+    an SM must hold for the batch to run in one wave (fewer where a ring of
+    FWD_MIN_SLOTS would not fit beside them); the ring is the deepest, up to
+    FWD_MAX_SLOTS, with which that many fit: 16 slots at B = 128 and K =
+    1,024, as ``viterbi_fwd_plan`` gives.
+
+    :returns: dict of threads, blocks, nslots, slot_bytes, smem
+    """
+    if K % 4 or not 4 <= K <= 4096:
+        raise ValueError("viterbi_parts takes K a multiple of 4 in 4..4096 "
+                         "(got K {})".format(K))
+    threads = K // 4
+    fixed = vk.FWD_BAR_BYTES + 8 * K
+    slot = 16 + 4 * K
+    slots = lambda n: (vk._budget(n, optin) - fixed) // slot
+    blocks = vk._resident(B, threads, sms)
+    while blocks > 1 and slots(blocks) < vk.FWD_MIN_SLOTS:
+        blocks -= 1
+    nslots = min(vk.FWD_MAX_SLOTS, slots(blocks))
+    if nslots < vk.FWD_MIN_SLOTS:
+        raise ValueError("viterbi_parts: no ring of {} slots fits K = {}"
+                         .format(vk.FWD_MIN_SLOTS, K))
+    return {"threads": threads, "blocks": blocks, "nslots": nslots,
+            "slot_bytes": slot, "smem": fixed + nslots * slot}
+
+
 class ViterbiParts:
     """One variant of the Viterbi step; replaces the Pallas TPU kernels of
     ``scripts/bench_viterbi_parts.py::run_variant`` with
@@ -99,7 +144,8 @@ class ViterbiParts:
     launches."""
 
     _ARGTYPES = {"viterbi_parts": [ctypes.c_int] + [ctypes.c_void_p] * 4
-                 + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+                 + [ctypes.c_int] * 5 + [ctypes.c_ulonglong,
+                                          ctypes.c_void_p]}
 
     def __init__(self):
         self.launches = 0
@@ -112,10 +158,10 @@ class ViterbiParts:
             return viterbi_parts_plain(variant, post, stay, nstep)
         T, B, K = post.shape
         dev = post.device
-        if nstep != 4 or K % 4 or not 4 <= K <= 4096:
-            raise ValueError("viterbi_parts takes nstep 4 and K a multiple "
-                             "of 4 in 4..4096 (got nstep {}, K {})".format(
-                                 nstep, K))
+        if nstep != 4:
+            raise ValueError("viterbi_parts takes nstep 4 (got {})".format(
+                nstep))
+        plan = viterbi_parts_plan(B, K, *vk._device_limits(dev))
         cuda_build.check_tensor(post, (T, B, K), torch.float32, dev, "post")
         cuda_build.check_tensor(stay, (T, B, 1), torch.float32, dev, "stay")
         if post.data_ptr() % 16:
@@ -128,7 +174,8 @@ class ViterbiParts:
         with torch.cuda.device(dev):
             err = lib.viterbi_parts(_CODES[variant], post.data_ptr(),
                                     stay.data_ptr(), tb.data_ptr(),
-                                    vf.data_ptr(), T, B, K,
+                                    vf.data_ptr(), T, B, K, plan["nslots"],
+                                    plan["smem"], cuda_build.storage_end(stay),
                                     torch.cuda.current_stream().cuda_stream)
         cuda_build.check(err, "viterbi_parts")
         self.launches += 1
@@ -188,6 +235,32 @@ def run_variant(variant, B, T, K=1024, nstep=4, device="cuda", inputs=None):
     return out, ms
 
 
+def time_variants(variants, B, T, dev):
+    """{variant: ms} of whichever ``sloika_tpu_torch``'s probe comes first
+    on the path, on :func:`device_inputs`."""
+    vp = importlib.import_module("sloika_tpu_torch.scripts."
+                                 "bench_viterbi_parts")
+    inputs = vp.device_inputs(B, T, 1024, dev)
+    return {v: vp.run_variant(v, B, T, device=dev, inputs=inputs)[1]
+            for v in variants}
+
+
+def time_tree(tree, variants, B, T):
+    """:func:`time_variants` through another tree's probe: this script
+    with ``--cases``, in a process of its own with that tree first on the
+    path."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+    argv = ([sys.executable, os.path.abspath(__file__), "--cases",
+             "--batch", str(B), "--T", str(T)] + list(variants))
+    done = subprocess.run(argv, cwd=tree, env=env, capture_output=True,
+                          text=True, timeout=1800)
+    lines = [l for l in done.stdout.splitlines() if l.startswith("CASES ")]
+    if done.returncode != 0 or not lines:
+        raise RuntimeError("the probe of {} failed:\n{}{}".format(
+            tree, done.stdout[-4000:], done.stderr[-4000:]))
+    return json.loads(lines[-1][len("CASES "):])
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Time the Viterbi step with parts of the DP removed")
@@ -197,16 +270,44 @@ def main(argv=None):
     parser.add_argument("--T", type=int, default=3277)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--parent", default=None,
+                        help="another tree whose probe to time before and "
+                        "after this one's (card only)")
+    parser.add_argument("--cases", action="store_true",
+                        help="time the probe of whichever sloika_tpu_torch "
+                        "comes first on the path and print its times as "
+                        "one JSON line (what --parent runs)")
     args = parser.parse_args(argv)
     unknown = sorted(set(args.variants) - set(VARIANTS))
     if unknown:
         parser.error("unknown variants {}".format(unknown))
     dev = config.resolve_device(args.device)
+    variants = args.variants or list(VARIANTS)
+    if args.cases:
+        print("CASES " + json.dumps(time_variants(variants, args.batch,
+                                                  args.T, dev)), flush=True)
+        return 0
     if dev.type == "cuda":
-        print("device: %s" % torch.cuda.get_device_name(dev), flush=True)
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()[0]
+        print("device: %s [%s]" % (torch.cuda.get_device_name(dev), card),
+              flush=True)
+    if args.parent:
+        runs = [("parent", time_tree(args.parent, variants, args.batch,
+                                     args.T)),
+                ("change", time_variants(variants, args.batch, args.T, dev)),
+                ("change", time_variants(variants, args.batch, args.T, dev)),
+                ("parent", time_tree(args.parent, variants, args.batch,
+                                     args.T))]
+        print(json.dumps({"card": card, "B": args.batch, "T": args.T,
+                          "runs": [{"tree": t, "ms": ms}
+                                   for t, ms in runs]}), flush=True)
+        return 0
     inputs = tuple(torch.from_numpy(a).to(dev)
                    for a in variant_inputs(args.batch, args.T))
-    for v in args.variants or VARIANTS:
+    for v in variants:
         run_variant(v, args.batch, args.T, device=dev, inputs=inputs)
     return 0
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from sloika_tpu_torch.nn.fused_gru import H100_SMS, SMEM_OPTIN, gru_forward
+from sloika_tpu_torch.ops import viterbi_kernel as vk
 from sloika_tpu_torch.scripts import bench_dma as tdma
 from sloika_tpu_torch.scripts import bench_gru_unroll as tgru
 from sloika_tpu_torch.scripts import bench_viterbi_parts as tvit
@@ -78,6 +79,37 @@ def test_viterbi_parts_cpu_dispatch_is_the_plain_twin():
     assert tvit.viterbi_parts.launches == before
     with pytest.raises(ValueError, match="variant"):
         tvit.viterbi_parts("skip", post, stay)
+
+
+@pytest.mark.parametrize("B", [1, 128, 132, 133, 1024])
+@pytest.mark.parametrize("K", [4, 12, 16, 64, 100, 256, 1024, 4092, 4096])
+def test_viterbi_parts_plan_is_viterbi_fwds_single_route(K, B):
+    """The probe's plan is ``viterbi_fwd_plan``'s "single" route with 4
+    destinations a thread, for any K a multiple of 4: the same ring and
+    shared memory where that plan takes 4 destinations (K = 4^klen, B at
+    most the SMs), and always a ring of 2-16 slots that fits the blocks an
+    SM the batch needs."""
+    plan = tvit.viterbi_parts_plan(B, K)
+    assert plan["threads"] == K // 4
+    assert plan["slot_bytes"] == 16 + 4 * K
+    assert vk.FWD_MIN_SLOTS <= plan["nslots"] <= vk.FWD_MAX_SLOTS
+    assert plan["smem"] == (vk.FWD_BAR_BYTES + 8 * K
+                            + plan["nslots"] * plan["slot_bytes"])
+    assert plan["smem"] <= SMEM_OPTIN
+    assert plan["blocks"] * (plan["smem"] + vk.BLOCK_RESERVED) <= vk.SM_SMEM
+    if K in [4 ** k for k in vk.KLENS] and B <= H100_SMS:
+        fwd = vk.viterbi_fwd_plan(B, K, pairs=0)
+        assert fwd["dpt"] == 4
+        assert (plan["blocks"], plan["nslots"], plan["smem"]) == (
+            fwd["blocks"], fwd["nslots"], fwd["smem"])
+    if (B, K) == (128, 1024):
+        assert (plan["blocks"], plan["nslots"]) == (1, 16)
+
+
+@pytest.mark.parametrize("K", [0, 2, 6, 4100])
+def test_viterbi_parts_plan_rejects_other_widths(K):
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tvit.viterbi_parts_plan(8, K)
 
 
 def test_hbm_ring_cpu_dispatch_is_the_plain_twin():
@@ -348,8 +380,11 @@ def test_gru_unroll_clocked_build_gives_the_same_bits(cuda_device, S):
 @pytest.mark.parametrize("variant", tvit.VARIANTS)
 def test_viterbi_parts_kernel_is_bit_identical_to_its_twin(cuda_device,
                                                            variant):
+    # (3, 50, 64): the last stays' 16-byte unit runs past the storage;
+    # (200, 30, 256): two blocks an SM; (7, 40, 4092): K not a power of 4
     for B, T, K in ((128, 3277, 1024), (1, 50, 1024), (3, 50, 64),
-                    (5, 2, 16), (2, 1, 1024)):
+                    (5, 2, 16), (2, 1, 1024), (200, 30, 256),
+                    (7, 40, 4092)):
         post, stay = tvit.device_inputs(B, T, K, cuda_device, seed=B + T)
         before = tvit.viterbi_parts.launches
         tb, vf = tvit.viterbi_parts(variant, post, stay)

@@ -134,37 +134,74 @@ def test_kernel_route_rejects_codes_past_int8():
         vk.kernel_route(121, 2, 11)
 
 
+#: cards' answers to cudaOccupancyMaxActiveClusters for the general plan:
+#: the H100's (the default), a card that runs any cluster of every row at
+#: once, one that runs none in one wave, and each size forced alone
+CLUSTER_LIMITS = {"h100": None, "all": {C: 10 ** 6 for C in (1, 2, 4, 8, 16)},
+                  "none": {C: 0 for C in (1, 2, 4, 8, 16)},
+                  **{"only{}".format(C): {C: 10 ** 6} for C in (2, 8, 16)}}
+
+
+@pytest.mark.parametrize("limits", sorted(CLUSTER_LIMITS))
 @pytest.mark.parametrize("B", (1, 8, 1024))
 @pytest.mark.parametrize("nbase,klen", [(2, 2), (2, 14), (3, 4), (3, 9),
                                         (4, 7), (4, 8), (5, 6), (10, 2),
                                         (10, 4)])
-def test_viterbi_general_plan_fits(nbase, klen, B):
-    """The general route's plan: its arrays in shared memory with a ring
-    slot beside them where that fits, else in device memory; at most
-    GENERAL_MAX_SLOTS slots; from the shapes alone."""
+def test_viterbi_general_plan_fits(nbase, klen, B, limits):
+    """The general route's plan: a cluster of C blocks a row, C a power of
+    two that divides the skip groups, the largest whose B clusters run in
+    one wave on the card given (else the smallest that fits); a block's
+    arrays in shared memory with a ring slot beside them where that fits,
+    else C = 1 with the arrays in device memory; at most GENERAL_MAX_SLOTS
+    slots; from the shapes and the card's answers alone."""
     K = nbase ** klen
-    plan = vk.viterbi_general_plan(B, K, nbase)
-    assert plan == vk.viterbi_general_plan(B, K, nbase, SMEM_OPTIN)
-    nrs = K // nbase
-    arrays = 4 * (K + nrs + nrs // nbase) + nrs + nrs // nbase
-    row = plan["row_bytes"]
-    assert row % 16 == 0 and row >= 4 * (K + 1) + 12
+    clusters = CLUSTER_LIMITS[limits]
+    plan = vk.viterbi_general_plan(B, K, nbase, clusters=clusters)
+    assert plan == vk.viterbi_general_plan(B, K, nbase, SMEM_OPTIN, clusters)
+    shapes = vk.general_cluster_shapes(K, nbase)
+    nrk = K // nbase ** 2
+    C = plan["C"]
+    assert C in vk.GENERAL_CLUSTERS and nrk % C == 0
+    KC = K // C
+    slot = plan["slot_bytes"]
+    assert slot % 16 == 0 and slot >= 16 + 4 * KC + 12
     assert plan["smem"] <= SMEM_OPTIN
     assert 0 <= plan["nslots"] <= vk.GENERAL_MAX_SLOTS
     assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 1024
-    fits = vk.FWD_BAR_BYTES + arrays + row <= SMEM_OPTIN
-    assert plan["shared"] == fits
-    if fits:
-        assert plan["work_floats"] == 0 and plan["nslots"] >= 1
-        assert plan["smem"] >= vk.FWD_BAR_BYTES + arrays + plan["nslots"] * row
-    else:
-        assert 4 * plan["work_floats"] >= arrays
+    # a thread a step group, where a block has at most 1,024 of them
+    assert plan["threads"] >= min(1024, KC // nbase)
+    KC4 = -(-KC // 4) * 4
+    arrays = 12 * KC4 + (8 * KC4 + 4 * (-(-(nbase + nbase ** 2) // 4) * 4)
+                         if C > 1 else 0)
+    fits = vk.FWD_BAR_BYTES + 12 * -(-K // 4) * 4 + 16 + 4 * K + 12 <= \
+        SMEM_OPTIN
+    assert plan["shared"] == bool(shapes)
+    if not plan["shared"]:
+        assert not fits and C == 1
+        assert plan["work_floats"] >= 3 * K
+        assert plan["smem"] == vk.FWD_BAR_BYTES + plan["nslots"] * slot
+        return
+    assert plan["work_floats"] == 0 and plan["nslots"] >= 1
+    assert plan["smem"] >= vk.FWD_BAR_BYTES + arrays + plan["nslots"] * slot
     # the deepest ring that fits
     assert (plan["nslots"] == vk.GENERAL_MAX_SLOTS
-            or plan["smem"] + row > SMEM_OPTIN)
-    if (nbase, klen) == (4, 7):
-        assert (plan["shared"], plan["nslots"], plan["threads"]) == (
-            True, 2, 1024)
+            or plan["smem"] + slot > SMEM_OPTIN)
+    limit = vk.H100_CLUSTERS if clusters is None else clusters
+    wave = [c for c in shapes if B <= limit.get(c, 0)]
+    if wave:
+        # every row's cluster in one wave, each block on an SM of its own
+        assert C == max(wave) and B <= limit[C]
+        assert 2 * (plan["smem"] + vk.BLOCK_RESERVED) > vk.SM_SMEM
+    else:
+        assert C == min(shapes)
+    if limits.startswith("only") and int(limits[4:]) in shapes:
+        assert C == int(limits[4:])
+    if (nbase, klen, B, limits) == (4, 7, 8, "h100"):
+        # 7 clusters of 16 hold 7 of the 8 rows: 8 blocks a row
+        assert (C, plan["threads"], plan["nslots"]) == (8, 512, 8)
+    if (nbase, klen, B, limits) == (4, 8, 8, "h100"):
+        # klen 8's arrays fit the cluster's shared memory
+        assert (C, plan["shared"]) == (8, True)
 
 
 @pytest.mark.parametrize("K,nbase", [(16385, 4), (4097, 4), (80, 3), (1, 4)])
@@ -289,20 +326,35 @@ def _softmax_posterior(klen, nbase, T, B, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("optin", [None, 1000, 4096])
+@pytest.mark.parametrize("optin,cluster", [
+    (None, None), (1000, None), (4096, None), (None, 1), (None, 2),
+    (None, 4), (None, 8), (None, 16)])
 @pytest.mark.parametrize("klen,nbase,T,B", [
     (7, 4, 40, 2), (4, 3, 60, 3), (2, 3, 30, 1), (6, 5, 12, 2),
-    (2, 2, 25, 5), (2, 10, 9, 2), (9, 3, 5, 1), (7, 4, 1, 2)])
+    (2, 2, 25, 5), (2, 10, 9, 2), (9, 3, 5, 1), (7, 4, 1, 2),
+    (8, 4, 6, 2), (14, 2, 7, 1), (4, 10, 8, 2), (7, 4, 30, 9)])
 def test_the_general_route_equals_the_twins(cuda_device, monkeypatch, klen,
-                                            nbase, T, B, optin):
-    """klen 7 (16,384 states) and nbase 2, 3, 5 and 10 take the kernels'
-    general route on the card: the twins' bits (scores, codes, path and
-    moves), on the card's own device, counted in ``launches`` and
-    ``general_launches``.  ``optin``: a card of that little shared memory,
-    so the step's arrays lie in device memory (and the ring has one slot,
-    or none)."""
+                                            nbase, T, B, optin, cluster):
+    """klen 7 (16,384 states), klen 8 (65,536) and nbase 2, 3, 5 and 10
+    take the kernels' general route on the card: the twins' bits (scores,
+    codes, path and moves), on the card's own device, counted in
+    ``launches`` and ``general_launches``.  ``optin``: a card of that little
+    shared memory, so the step's arrays lie in device memory (and the ring
+    has one slot, or none).  ``cluster``: a card that runs clusters of that
+    size only, so the plan takes it wherever the shape allows (nbase 10 at
+    klen 4 gathers in 4-byte units; B = 9 at klen 7 leaves the H100's 16s
+    for 8s)."""
     if optin is not None:
         monkeypatch.setattr(vk, "_device_limits", lambda dev: (SMS, optin))
+    K = nbase ** klen
+    if cluster is not None:
+        monkeypatch.setattr(vk.viterbi_forward, "general_clusters",
+                            lambda K, nbase, device: {cluster: 10 ** 6})
+        limits = vk._device_limits(cuda_device)
+        if cluster in vk.general_cluster_shapes(K, nbase, limits[1]):
+            plan = vk.viterbi_general_plan(B, K, nbase, limits[1],
+                                           {cluster: 10 ** 6})
+            assert plan["C"] == cluster
     post = _softmax_posterior(klen, nbase, T, B, seed=klen + nbase)
     for kind in ("peaked", "ties"):
         if kind == "ties":
@@ -321,6 +373,21 @@ def test_the_general_route_equals_the_twins(cuda_device, monkeypatch, klen,
         assert all(torch.equal(g, r) for g, r in zip(got, ref)), kind
         assert [(k.launches, k.general_launches) for k in wrappers] == [
             (n + 1, g + 1) for n, g in before]
+
+
+@pytest.mark.gpu
+def test_the_cards_clusters_take_klen_7_over_8_blocks(cuda_device):
+    """The card's answer for the general kernel at klen 7: at least one
+    cluster of every size the shape allows, and a plan at the whole-read
+    batch of 8 whose clusters all run in one wave, of 8 blocks or more."""
+    K = 4 ** 7
+    clusters = vk.viterbi_forward.general_clusters(K, 4, cuda_device)
+    assert set(clusters) == set(vk.general_cluster_shapes(
+        K, 4, vk._device_limits(cuda_device)[1]))
+    assert all(n >= 1 for n in clusters.values())
+    plan = vk.viterbi_general_plan(8, K, 4, vk._device_limits(cuda_device)[1],
+                                   clusters)
+    assert plan["C"] >= 8 and clusters[plan["C"]] >= 8
 
 
 @pytest.mark.gpu
@@ -391,3 +458,19 @@ def test_viterbi_clocked_builds_give_the_same_bits(cuda_device):
     back = bench_viterbi.back_clocks(tb, last, vk.viterbi_backtrace(tb, last))
     assert back["walker"]["loop"] > 0 and back["copier"]["loop"] > 0
     assert back["smem_chase_cycles"] > 0
+
+
+@pytest.mark.gpu
+def test_the_general_route_clocked_build_gives_the_same_bits(cuda_device):
+    """``bench_viterbi --clocks`` at klen 7: the clocked general kernel
+    computes the port's bits, stamps every phase and measures the design
+    floor's cluster barrier and remote load."""
+    from sloika_tpu_torch.scripts import bench_viterbi
+    post = _softmax_posterior(7, 4, 50, 2, seed=9).to(cuda_device)
+    ref = vk.viterbi_forward(post, 7, bench_viterbi.SKIP_PEN)
+    split = bench_viterbi.fwd_clocks(post, ref, klen=7)
+    assert split["cycles_per_step"] > 0
+    assert set(split["phases_mean"]) == set(bench_viterbi.GENERAL_PHASES)
+    assert split["plan"]["C"] >= 8
+    assert split["cluster_barrier_cycles"] > 0
+    assert split["remote_load_cycles"] > 0
