@@ -609,43 +609,51 @@ viterbi_fwd_pair_kernel(const float* __restrict__ post,
 // the stores a thread) 8,565 of them (PERF.md §6, PR 12 step 0): the
 // per-state work of one SM, while a whole-read batch of 8 rows left 124 SMs
 // idle.  The bytes (the posterior read, the codes written) would take 4.4
-// ms at klen 7, T = 22,543, B = 8; the chain of T steps, each a cluster
-// barrier and a remote load, sets the pace long before that.
+// ms at klen 7, T = 22,543, B = 8; the chain of T steps, each waiting on
+// scores from the other blocks of its row, sets the pace long before that.
 //
 // What the design does about it.  Row b is a cluster of C blocks (C a
-// power of two that divides the skip groups, ops/viterbi_kernel.py::
-// viterbi_general_plan); block c owns contiguous ranges of the three index
-// spaces: states [c KC, (c+1) KC) (KC = K / C), their step groups
-// [c L1, (c+1) L1) (L1 = KC / nbase) and those groups' skip groups
-// [c L2, (c+1) L2) (L2 = L1 / nbase).  Its thread r takes step groups
-// r, r + nt, ...: the group's skip maximum over nbase^2 predecessors
+// power of two that divides the skip groups, at most nbase^2, ops/
+// viterbi_kernel.py::viterbi_general_plan); block c owns contiguous ranges
+// of the three index spaces: states [c KC, (c+1) KC) (KC = K / C), their
+// step groups [c L1, (c+1) L1) (L1 = KC / nbase) and those groups' skip
+// groups [c L2, (c+1) L2) (L2 = L1 / nbase).  Its thread r takes step
+// groups r, r + nt, ...: the group's skip maximum over nbase^2 predecessors
 // (computed by each of the skip group's nbase step groups, as the tuned
 // step does), its step maximum over nbase predecessors, the decision, and
-// the update of its nbase states, so no array between phases and no block
-// barrier between them.  The predecessors of a block's groups lie in
-// nbase + nbase^2 contiguous chunks of the other blocks' scores (step chunk
-// g: states g K/nbase + c L1 .., L1 of them; skip chunk h: h K/nbase^2 +
-// c L2 .., L2), each within one block; after the cluster barrier the block
-// gathers them (2 KC floats, 16-byte units where L2 % 4 == 0) from
-// distributed shared memory (ld.shared::cluster) into its own shared
-// memory, then one block barrier.  Each block's scores are double-buffered,
-// so one cluster barrier a step separates step t's remote reads from step
-// t + 1's writes; it is split: a thread arrives after its update and, before
-// it waits, takes the next frame's logs (the frame's slot comes first), so
-// the logs overlap the barrier.  A block streams only its own slice of each
-// posterior row (kmers 1 + c KC .., the aligned superset) and the 16-byte
-// unit holding the stay, two bulk copies a frame on the slot's barrier,
-// through a ring of nslots slots; thread 0 refills frame t's slot with
-// frame t + nslots after step t's block barrier, when every thread has
-// taken frame t's logs.  The comparison order in each group is the single
-// block's (first g and h win, a skip wins a tie with a step, a stay with
-// the new score), so the codes and scores are the same bits at any C.
-// C = 1 is the single-block design: no gather, the predecessors read from
-// the block's own scores at the same indices (L1 = K/nbase, L2 =
-// K/nbase^2).  Where no C fits shared memory, C = 1 keeps the scores and
-// logs in `work`, a row's region of device memory (kShared false; a
-// barrier orders device memory within the block as it does shared memory).
-// Divisions are a multiply-high by ceil(2^32 / d) (exact for i d < 2^32).
+// the update of its nbase states.  The predecessors of a block's groups
+// lie in nbase step chunks (chunk g: states g K/nbase + c L1 .., L1 of
+// them) and nbase^2 skip chunks (h K/nbase^2 + c L2 .., L2), which the
+// block receives into `in` ([2][step chunks | skip chunks], by parity of
+// t): a thread that updates state x pushes its new score straight into the
+// shared memory of x's two consumers (x's step group's block and its skip
+// group's block) by st.async, each store completing on the consumer's
+// mbarrier of that parity, which expects 2 KC scores a step: 16-byte
+// stores where a group's 4 states land together (nbase 4, L2 % 4 == 0).
+// So a step waits for its inputs once, on a local barrier, with no cluster
+// barrier and no gather, and one block barrier separates its reads of `in`
+// from its pushes: every block receives from every block (C <= nbase^2),
+// so a block that pushes step t + 1's scores into a buffer has had step t's
+// from each consumer, which each pushed after its block barrier, after its
+// reads of that buffer.  Before its inputs arrive a thread takes the next
+// frame's logs into the frame's ring slot (in place, then a proxy fence,
+// since a bulk copy refills the slot), so the logs overlap the wait.  A
+// block streams only its own slice of each posterior row (kmers 1 + c KC
+// .., the aligned superset) and the 16-byte unit holding the stay, two bulk
+// copies a frame on the slot's barrier; thread 0 refills frame t's slot
+// with frame t + nslots after step t + 1's block barrier, when every thread
+// has read frame t's logs (so nslots >= 2: the ring runs nslots - 1
+// frames ahead).  The comparison order in each group is
+// the single block's (first g and h win, a skip wins a tie with a step, a
+// stay with the new score), so the codes and scores are the same bits at
+// any C.  C = 1 is the single-block design: the block writes its scores
+// into `in` itself (one copy: a state is its own step and skip
+// predecessor at index x), with a second block barrier for them.  Where no
+// C fits shared memory, C = 1 keeps its scores and `in` in `work`, a row's
+// region of device memory (kShared false; a barrier orders device memory
+// within the block as it does shared memory).  Divisions are a multiply-high
+// by ceil(2^32 / d) (exact for i d < 2^32).
+constexpr int kGeneralMaxSlots = 12;   // full[0..11]; 12: ping; 14-15: in
 __device__ __forceinline__ unsigned div_by(unsigned i, unsigned magic) {
   return __umulhi(i, magic);
 }
@@ -660,67 +668,48 @@ __device__ __forceinline__ unsigned div_any(unsigned i, unsigned d,
   return d == 1 ? i : __umulhi(i, magic);
 }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+// a store of 4 or 16 bytes into another block's shared memory, completing
+// on that block's mbarrier `bar` (both cluster addresses)
+__device__ __forceinline__ void push(uint32_t dst, float v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(dst),
+      "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
 }
 
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+__device__ __forceinline__ void push(uint32_t dst, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+      "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+      "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
+      : "memory");
 }
 
-// a load from a cluster address, of the type of its second argument
+// a load of 4 bytes from a cluster address (the clocked build's chase)
 __device__ __forceinline__ float ld_cluster(uint32_t a, float) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
   return v;
 }
 
-__device__ __forceinline__ float4 ld_cluster(uint32_t a, float4) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(a));
-  return v;
-}
-
-// Gather the predecessors of this block's groups from the cluster's score
-// buffers of parity `par` into gbuf ([nbase][L1] step chunks, then
-// [nbase^2][L2] skip chunks), in units of W floats: unit e goes to
-// gbuf[W e], from its chunk's cluster address src[ch] (parity 0) at unit
-// offset o.  Four units a thread in flight at once.
-template <int W>
-__device__ __forceinline__ void gather(float* gbuf, const uint32_t* src,
-                                       int nbase, int L1, int L2,
-                                       uint32_t par_bytes) {
-  using V = typename std::conditional<W == 4, float4, float>::type;
-  const unsigned u1 = L1 / W, u2 = L2 / W;
-  const unsigned m1 = magic_of(u1), m2 = magic_of(u2);
-  const unsigned n1 = nbase * u1, n = n1 + nbase * nbase * u2;
-  const unsigned nt = blockDim.x;
-  for (unsigned e0 = threadIdx.x; e0 < n; e0 += 4 * nt) {
-    V v[4];
+// the first maximum (strict >) of p[0], p[stride], .., p[(n-1) stride] and
+// its index, in order, eight loads at a time in flight
+__device__ __forceinline__ float first_max(const float* p, int stride, int n,
+                                           int& arg) {
+  float m = p[0];
+  arg = 0;
+  for (int h0 = 1; h0 < n; h0 += 8) {
+    float v[8];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const unsigned e = e0 + k * nt;
-      if (e < n) {
-        unsigned ch, o;
-        if (e < n1) {
-          ch = div_any(e, u1, m1);
-          o = e - ch * u1;
-        } else {
-          const unsigned ch2 = div_any(e - n1, u2, m2);
-          o = e - n1 - ch2 * u2;
-          ch = nbase + ch2;
-        }
-        v[k] = ld_cluster(src[ch] + par_bytes + 4u * W * o, V());
-      }
-    }
+    for (int k = 0; k < 8; ++k)
+      v[k] = h0 + k < n ? p[(h0 + k) * stride] : 0.0f;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const unsigned e = e0 + k * nt;
-      if (e < n) reinterpret_cast<V*>(gbuf)[e] = v[k];
-    }
+    for (int k = 0; k < 8; ++k)
+      if (h0 + k < n && v[k] > m) { m = v[k]; arg = h0 + k; }
   }
+  return m;
 }
 
 // The bytes of one ring slot: the stay's 16-byte unit, then the aligned
@@ -729,19 +718,17 @@ __host__ __device__ constexpr int general_slot_bytes(int KC) {
   return 16 + ((4 * KC + 12 + 15) & ~15);
 }
 
-// A block's arrays in shared memory (kShared), after the ring: the scores
-// [2][KC4] and logs [KC4] (KC4: KC rounded up to 16 bytes), and where C > 1
-// the gathered predecessors [2 KC4] and the chunks' addresses (nbase +
-// nbase^2 of them)
 __host__ __device__ constexpr int general_round4(int n) {
   return (n + 3) & ~3;
 }
 
-__host__ __device__ constexpr size_t general_arrays(int K, int nbase, int C) {
-  return 4 * (size_t)(3 * general_round4(K / C)) +
-         (C > 1 ? 4 * (size_t)(2 * general_round4(K / C)) +
-                      4 * (size_t)general_round4(nbase + nbase * nbase)
-                : 0);
+// A block's arrays in shared memory (kShared), after the ring: its scores
+// [KC4] (KC4: KC rounded up to 16 bytes) and its inputs `in` [2][2 KC4]
+// (C > 1) or [2][KC4] (C = 1), and where C > 1 the cluster addresses of
+// every block's `in` and mbarriers [2 C]
+__host__ __device__ constexpr size_t general_arrays(int K, int C) {
+  return 4 * (size_t)general_round4(K / C) * (C > 1 ? 5 : 3) +
+         (C > 1 ? 4 * (size_t)general_round4(2 * C) : 0);
 }
 
 template <bool kShared>
@@ -754,36 +741,47 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
                            unsigned long long post_end) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);        // [nslots]
+  uint64_t* inbar = full + 14;                               // [2]
   float* ring = reinterpret_cast<float*>(smem + kBarBytes);  // [nslots][slot]
   const int c = (int)cluster_rank();
   const int b = blockIdx.x / C;
   const int r = threadIdx.x, nt = blockDim.x;
   const int nst = K + 1;
   const int nskip = nbase * nbase;
+  const int nrs = K / nbase, nrk = K / nskip;
   const int KC = K / C, KC4 = general_round4(KC);
   const int L1 = KC / nbase, L2 = L1 / nbase;
   const int slot_floats = general_slot_bytes(KC) / 4;
   const unsigned magic = magic_of((unsigned)nbase);
   float* sc = kShared ? ring + (size_t)nslots * slot_floats
-                      : work + (size_t)b * work_floats;  // [2][KC4] scores
-  float* lg = sc + 2 * KC4;              // [KC4] the frame's logs
-  float* gbuf = lg + KC4;                // [2 KC4] gathered predecessors
-  uint32_t* src = reinterpret_cast<uint32_t*>(gbuf + 2 * KC4);
-  const bool vec = L2 % 4 == 0;
+                      : work + (size_t)b * work_floats;  // [KC4] scores
+  float* in = sc + KC4;                  // [2][in_floats] inputs by parity
+  const int in_floats = C > 1 ? 2 * KC4 : KC4;
+  uint32_t* remote = reinterpret_cast<uint32_t*>(in + 2 * in_floats);
+  const bool vec = nbase == 4 && L2 % 4 == 0;
+  const uint32_t in_bytes = 8u * (uint32_t)KC;  // a step's inputs
 
   if (r == 0) {
     for (int k = 0; k < nslots; ++k) mbar_init(&full[k], 2);
+    if (C > 1) {
+      mbar_init(&full[12], 1);
+      mbar_init(&inbar[0], 1);
+      mbar_init(&inbar[1], 1);
+      // the inputs of steps 1 and 2 (scores 0 and 1)
+      if (T > 1) mbar_expect_tx(&inbar[0], in_bytes);
+      if (T > 2) mbar_expect_tx(&inbar[1], in_bytes);
+    }
     mbar_init_fence();
   }
-  if (C > 1) {
-    // chunk ch's first state x0 lies in block x0 / KC
-    for (int ch = r; ch < nbase + nskip; ch += nt) {
-      const int x0 = ch < nbase ? ch * (K / nbase) + c * L1
-                                : (ch - nbase) * (K / nskip) + c * L2;
-      src[ch] = map_rank(sc + x0 % KC, (unsigned)(x0 / KC));
+  if (C > 1)
+    for (int k = r; k < C; k += nt) {
+      remote[k] = map_rank(in, (unsigned)k);
+      remote[C + k] = map_rank(inbar, (unsigned)k);
     }
-  }
-  __syncthreads();
+  if (C > 1)
+    cluster_sync();  // every barrier armed before any push
+  else
+    __syncthreads();
   // frame t's stay unit and kmer slice into slot k
   auto refill = [&](int t, int k) {
     const float* row = post + ((size_t)t * B + b) * nst;
@@ -793,138 +791,239 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
   };
   if (r == 0)
     for (int k = 0; k < nslots && 1 + k < T; ++k) refill(1 + k, k);
+
+  // state x's score v of step t into the inputs of parity par of its
+  // consumers: at C = 1 the block's own, at index x; else by st.async into
+  // its step predecessors' chunk g = x / nrs at x mod nrs's block, and its
+  // skip predecessors' chunk h = x / nrk at x mod nrk's block (v4: states
+  // x .. x + 3 together)
+  const unsigned m_rs = magic_of(nrs), m_rk = magic_of(nrk);
+  const unsigned m_l1 = magic_of(L1), m_l2 = magic_of(L2);
+  auto send = [&](unsigned x, auto v, int par) {
+    const unsigned g = div_any(x, nrs, m_rs), js = x - g * nrs;
+    const unsigned cs = div_any(js, L1, m_l1);
+    const unsigned h = div_any(x, nrk, m_rk), jk = x - h * nrk;
+    const unsigned ck = div_any(jk, L2, m_l2);
+    const uint32_t off = 4u * (uint32_t)(par * in_floats);
+    push(remote[cs] + off + 4u * (g * L1 + js - cs * L1), v,
+         remote[C + cs] + 8u * par);
+    push(remote[ck] + off + 4u * (KC4 + h * L2 + jk - ck * L2), v,
+         remote[C + ck] + 8u * par);
+  };
   {
     // t = 0: the scores are the slice's kmer log-posteriors
+    // (each thread its own groups' states, which it alone reads after)
     const float* row = post + (size_t)b * nst + 1 + c * KC;
     int8_t* tb0 = tb + (size_t)b * K + c * KC;
-    for (int i = r; i < KC; i += nt) {
-      sc[i] = logf(row[i] + kEta);
-      tb0[i] = -1;
+    for (int j = r; j < L1; j += nt) {
+      const int i = nbase * j;
+      for (int q = 0; q < nbase; ++q) {
+        sc[i + q] = logf(row[i + q] + kEta);
+        tb0[i + q] = -1;
+      }
+      if (T < 2) continue;
+      if (C == 1) {
+        for (int q = 0; q < nbase; ++q) in[i + q] = sc[i + q];
+      } else if (vec) {
+        send((unsigned)(c * KC + i), reinterpret_cast<const float4*>(sc)[j],
+             0);
+      } else {
+        for (int q = 0; q < nbase; ++q)
+          send((unsigned)(c * KC + i + q), sc[i + q], 0);
+      }
     }
   }
-  cluster_arrive();
+
+  // step group j's decision from the inputs sp, kp: its maximum and code
+  auto decide = [&](int j, const float* sp, const float* kp, float& m,
+                    int& code) {
+    const int u = (int)div_by((unsigned)j, magic);   // its skip group
+    int ak, am;
+    const float sk = first_max(kp + u, L2, nskip, ak) - skip_pen;
+    const float mx = first_max(sp + j, L1, nbase, am);
+    if (mx > sk) { m = mx; code = am; } else { m = sk; code = nbase + ak; }
+  };
+  // step group j's update from its decision: its states' codes and scores,
+  // sent on (lg: the frame's logs, or at nslots = 0 its posterior)
+  auto update = [&](int j, float m, int code, const float* lg, float lps,
+                    int8_t* tb_row, int par, bool last) {
+    const int i0 = nbase * j;
+    if (vec) {
+      const float4 old = reinterpret_cast<const float4*>(sc)[j];
+      float l[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        l[q] = nslots > 0 ? lg[i0 + q] : logf(lg[i0 + q] + kEta);
+      float4 sv;
+      char4 cd;
+      float nw, st;
+      nw = l[0] + m; st = old.x + lps;
+      cd.x = (signed char)(nw > st ? code : -1); sv.x = nw > st ? nw : st;
+      nw = l[1] + m; st = old.y + lps;
+      cd.y = (signed char)(nw > st ? code : -1); sv.y = nw > st ? nw : st;
+      nw = l[2] + m; st = old.z + lps;
+      cd.z = (signed char)(nw > st ? code : -1); sv.z = nw > st ? nw : st;
+      nw = l[3] + m; st = old.w + lps;
+      cd.w = (signed char)(nw > st ? code : -1); sv.w = nw > st ? nw : st;
+      reinterpret_cast<float4*>(sc)[j] = sv;
+      reinterpret_cast<char4*>(tb_row)[j] = cd;
+      if (last) return;
+      if (C == 1)
+        reinterpret_cast<float4*>(in + par * in_floats)[j] = sv;
+      else
+        send((unsigned)(c * KC + i0), sv, par);
+      return;
+    }
+    for (int q = 0; q < nbase; ++q) {
+      const int i = i0 + q;
+      const float nw = (nslots > 0 ? lg[i] : logf(lg[i] + kEta)) + m;
+      const float st = sc[i] + lps;
+      tb_row[i] = nw > st ? (int8_t)code : (int8_t)-1;
+      const float v = nw > st ? nw : st;
+      sc[i] = v;
+      if (last) continue;
+      if (C == 1)
+        in[par * in_floats + i] = v;
+      else
+        send((unsigned)(c * KC + i), v, par);
+    }
+  };
 
   int slot = 0, par = 0;
-  unsigned phase = 0;
+  unsigned phase = 0, inphase = 0;   // inphase: bit p, inbar[p]'s parity
 #ifdef VITERBI_FWD_CLOCKS
   PHASE_CLOCK_START();
 #endif
   for (int t = 1; t < T; ++t) {
-    // frame t's logs, from its slot (or device memory), while the other
-    // blocks finish step t - 1
+    // frame t's logs, in place in its slot, while the inputs arrive
     const float* row = post + ((size_t)t * B + b) * nst;
     const float* kr = row + 1 + c * KC;
+    float* lg = ring + (size_t)slot * slot_floats + 4 + superset_offset(kr);
     float stay;
-    const float* p = kr;
     if (nslots > 0) {
       mbar_wait_tested(&full[slot], phase);
       const float* sl = ring + (size_t)slot * slot_floats;
       stay = in_storage(row, 1, post_end) ? sl[superset_offset(row)]
                                           : row[0];
-      if (in_storage(kr, KC, post_end)) p = sl + 4 + superset_offset(kr);
+      FWD_CLOCK(0);
+      const float* p = in_storage(kr, KC, post_end) ? lg : kr;
+      for (int i = r; i < KC; i += nt) lg[i] = logf(p[i] + kEta);
+      fence_proxy_async();   // before a bulk copy refills the slot
     } else {
       stay = row[0];
+      lg = const_cast<float*>(kr);     // the logs are taken at the update
     }
-    FWD_CLOCK(0);
     const float lps = logf(stay + kEta);
-    for (int i = r; i < KC; i += nt) lg[i] = logf(p[i] + kEta);
     FWD_CLOCK(1);
-    cluster_wait();
-    FWD_CLOCK(2);
-    const float* cur = sc + par * KC4;      // this block's scores at t - 1
-    float* nxt = sc + (par ^ 1) * KC4;
-    const float* sp = cur;                  // the step chunks [nbase][L1]
-    const float* kp = cur;                  // the skip chunks [nbase^2][L2]
+    // the scores of step t - 1
     if (C > 1) {
-      const uint32_t par_bytes = 4u * (uint32_t)(par * KC4);
-      if (vec)
-        gather<4>(gbuf, src, nbase, L1, L2, par_bytes);
-      else
-        gather<1>(gbuf, src, nbase, L1, L2, par_bytes);
-      sp = gbuf;
-      kp = gbuf + nbase * L1;
+      mbar_wait_tested(&inbar[par], (inphase >> par) & 1u);
+      inphase ^= 1u << par;
+      // these inputs are read: the barrier expects step t + 1's scores
+      if (r == 0 && t + 2 < T) mbar_expect_tx(&inbar[par], in_bytes);
+    } else {
+      __syncthreads();
     }
+    FWD_CLOCK(2);
+    const float* sp = in + par * in_floats;   // [nbase][L1] step chunks
+    const float* kp = C > 1 ? sp + KC4 : sp;  // [nbase^2][L2] skip chunks
+    const bool last = t + 1 == T;
+    int8_t* tb_row = tb + ((size_t)t * B + b) * K + c * KC;
+    // the decisions before the block barrier frees the inputs: in
+    // registers (C > 1: at most kMaxGroups groups a thread, the plan), or
+    // at C = 1 in the inputs of the other parity, at the group's first two
+    // states, which only its own thread writes
+    constexpr int kMaxGroups = 8;
+    float mr[kMaxGroups];
+    int cr[kMaxGroups];
+    float* dec = in + (par ^ 1) * in_floats;
+    if (C > 1) {
+#pragma unroll
+      for (int k = 0; k < kMaxGroups; ++k)
+        if (r + k * nt < L1) decide(r + k * nt, sp, kp, mr[k], cr[k]);
+    } else {
+      for (int j = r; j < L1; j += nt) {
+        float m;
+        int code;
+        decide(j, sp, kp, m, code);
+        dec[nbase * j] = m;
+        dec[nbase * j + 1] = __int_as_float(code);
+      }
+    }
+    FWD_CLOCK(3);
     __syncthreads();
-    // every thread has taken frame t's logs: its slot takes t + nslots
+    // every thread has read frame t - 1's logs: its slot takes the frame
+    // nslots - 1 on
     if (nslots > 0) {
-      if (r == 0 && t + nslots < T) refill(t + nslots, slot);
+      if (r == 0 && t > 1 && t - 1 + nslots < T)
+        refill(t - 1 + nslots, slot == 0 ? nslots - 1 : slot - 1);
       if (++slot == nslots) {
         slot = 0;
         phase ^= 1u;
       }
     }
-    FWD_CLOCK(3);
-    int8_t* tb_row = tb + ((size_t)t * B + b) * K + c * KC;
-    for (int j = r; j < L1; j += nt) {
-      const int u = (int)div_by((unsigned)j, magic);   // its skip group
-      float mk = kp[u];
-      int ak = 0;
-      for (int h = 1; h < nskip; ++h) {
-        const float v = kp[h * L2 + u];
-        if (v > mk) { mk = v; ak = h; }
-      }
-      const float sk = mk - skip_pen;
-      float mx = sp[j];
-      int am = 0;
-      for (int g = 1; g < nbase; ++g) {
-        const float v = sp[g * L1 + j];
-        if (v > mx) { mx = v; am = g; }
-      }
-      float m;
-      int code;
-      if (mx > sk) { m = mx; code = am; } else { m = sk; code = nbase + ak; }
-#ifdef VITERBI_FWD_CLOCKS
-      asm volatile("" ::"f"(m), "r"(code));
-#endif
-      FWD_CLOCK(4);
-      for (int q = 0; q < nbase; ++q) {
-        const int i = nbase * j + q;
-        const float nw = lg[i] + m;
-        const float st = cur[i] + lps;
-        tb_row[i] = nw > st ? (int8_t)code : (int8_t)-1;
-        nxt[i] = nw > st ? nw : st;
-      }
-      FWD_CLOCK(5);
+    FWD_CLOCK(4);
+    if (C > 1) {
+#pragma unroll
+      for (int k = 0; k < kMaxGroups; ++k)
+        if (r + k * nt < L1)
+          update(r + k * nt, mr[k], cr[k], lg, lps, tb_row, par ^ 1, last);
+    } else {
+      for (int j = r; j < L1; j += nt)
+        update(j, dec[nbase * j], __float_as_int(dec[nbase * j + 1]), lg,
+               lps, tb_row, par ^ 1, last);
     }
-    cluster_arrive();
     par ^= 1;
     FWD_CLOCK(5);
   }
-  cluster_wait();
 #ifdef VITERBI_FWD_CLOCKS
   clk[7] = PHASE_CLOCK_TOTAL();
-  // the design floor's parts: 16 cluster barriers (thread 0 times them),
-  // and thread 32's chase of 64 dependent loads through the next block's
-  // shared memory (a chain of indices in its logs, which are free now)
-  long long t0 = clock64();
-  for (int k = 0; k < 16; ++k) {
-    cluster_arrive();
-    cluster_wait();
-  }
-  if (r == 0) clk[6] = clock64() - t0;
-  uint32_t* chain = reinterpret_cast<uint32_t*>(lg);
-  const int links = KC < 64 ? KC : 64;
-  for (int i = r; i < links; i += nt) chain[i] = (i + 1) % links;
-  cluster_arrive();
-  cluster_wait();
-  if (r == 32 && kShared) {
-    const uint32_t peer = map_rank(chain, (unsigned)((c + 1) % C));
-    uint32_t idx = 0;
-    t0 = clock64();
-    for (int k = 0; k < 64; ++k)
-      idx = __float_as_uint(ld_cluster(peer + 4u * idx, 0.0f));
-    clk[6] = clock64() - t0 + (idx > 64u ? 1 : 0);
-  }
-  cluster_arrive();
-  cluster_wait();
-  if (b == 0 && c == 0 && (r & 31) == 0) {
+#endif
+  __syncthreads();
+  for (int i = r; i < KC; i += nt)
+    vfinal[(size_t)b * K + (size_t)c * KC + i] = sc[i];
+#ifdef VITERBI_FWD_CLOCKS
+  // the design floors' parts, from block 0 of row 0's cluster: thread 0
+  // times 16 cluster barriers, thread 32 a chase of 64 dependent loads
+  // through the next block's shared memory, thread 64 32 round trips of a
+  // push to the next block and its push back (rank 1's thread 64 answers)
+  if (C > 1) {
+    cluster_sync();
+    long long t0 = clock64();
+    for (int k = 0; k < 16; ++k) cluster_sync();
+    if (r == 0) clk[6] = clock64() - t0;
+    uint32_t* chain = reinterpret_cast<uint32_t*>(in);
+    const int links = KC < 64 ? KC : 64;
+    for (int i = r; i < links; i += nt) chain[i] = (i + 1) % links;
+    cluster_sync();
+    if (r == 32 && kShared) {
+      const uint32_t peer = map_rank(chain, (unsigned)((c + 1) % C));
+      uint32_t idx = 0;
+      t0 = clock64();
+      for (int k = 0; k < 64; ++k)
+        idx = __float_as_uint(ld_cluster(peer + 4u * idx, 0.0f));
+      clk[6] = clock64() - t0 + (idx > 64u ? 1 : 0);
+    }
+    if (r == 64 && c < 2) {
+      const uint32_t peer = map_rank(sc, (unsigned)(c ^ 1));
+      const uint32_t peer_bar = map_rank(&full[12], (unsigned)(c ^ 1));
+      t0 = clock64();
+      for (int k = 0; k < 32; ++k) {
+        mbar_expect_tx(&full[12], 4u);
+        if (c == 0) push(peer, (float)k, peer_bar);
+        mbar_wait(&full[12], (unsigned)(k & 1));
+        if (c == 1) push(peer, (float)k, peer_bar);
+      }
+      clk[6] = clock64() - t0;
+    }
+    if (b == 0 && c == 0 && (r & 31) == 0) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) viterbi_fwd_clocks[(r >> 5) * 8 + k] = clk[k];
+      for (int k = 0; k < 8; ++k)
+        viterbi_fwd_clocks[(r >> 5) * 8 + k] = clk[k];
+    }
   }
 #endif
-  const float* fin = sc + par * KC4;
-  for (int i = r; i < KC; i += nt)
-    vfinal[(size_t)b * K + (size_t)c * KC + i] = fin[i];
+  if (C > 1) cluster_sync();   // no block leaves while another pushes to it
 }
 
 template <int DPT>
@@ -992,10 +1091,11 @@ extern "C" int viterbi_fwd(const void* post, void* tb, void* vfinal, int T,
 
 // The general route (viterbi_fwd_general_kernel) for K = nbase^klen states
 // over nbase bases, nbase + nbase^2 <= 128: a cluster of C blocks a row (C
-// a power of two up to 16 that divides the K / nbase^2 skip groups) of
-// `threads` each, a ring of nslots (0-16) slots in smem bytes, and the
-// scores and logs in smem (work null) or in work, work_floats floats a row
-// (C = 1 only).  The plan comes from ops/viterbi_kernel.py::
+// a power of two up to 16 and nbase^2 that divides the K / nbase^2 skip
+// groups) of `threads` each, at most 8 step groups a thread where C > 1, a
+// ring of nslots (0 or 2-12) slots in smem bytes, and the scores and
+// inputs in smem (work null) or in work, work_floats floats a row (C = 1
+// only).  The plan comes from ops/viterbi_kernel.py::
 // viterbi_general_plan.  Returns the cudaError_t of the launch;
 // cudaErrorInvalidValue (1) for a plan that does not fit.
 extern "C" int viterbi_fwd_general(const void* post, void* tb, void* vfinal,
@@ -1009,11 +1109,13 @@ extern "C" int viterbi_fwd_general(const void* post, void* tb, void* vfinal,
   const int nrk = nbase > 1 && nbase + nskip <= 128 ? K / nskip : 0;
   const bool shared = work == nullptr;
   if (T < 1 || B < 1 || nbase < 2 || nbase + nskip > 128 || nrk < 1 ||
-      nrk * nskip != K || C < 1 || C > 16 || (C & (C - 1)) || nrk % C ||
-      (!shared && C != 1) || nslots < 0 || nslots > kMaxSlots ||
-      threads < 32 || threads > 1024 || threads % 32 || (uintptr_t)post % 4 ||
+      nrk * nskip != K || C < 1 || C > 16 || C > nskip || (C & (C - 1)) ||
+      nrk % C || (!shared && C != 1) || nslots < 0 || nslots == 1 ||
+      nslots > kGeneralMaxSlots || threads < 32 || threads > 1024 ||
+      threads % 32 || (C > 1 && K / (nbase * C) > 8 * threads) ||
+      (uintptr_t)post % 4 ||
       (size_t)smem < kBarBytes + (size_t)nslots * general_slot_bytes(K / C) +
-                         (shared ? general_arrays(K, nbase, C) : 0) ||
+                         (shared ? general_arrays(K, C) : 0) ||
       (!shared && (size_t)work_floats < 3 * (size_t)general_round4(K)))
     return (int)cudaErrorInvalidValue;
   auto kernel = shared ? viterbi_fwd_general_kernel<true>

@@ -149,11 +149,12 @@ CLUSTER_LIMITS = {"h100": None, "all": {C: 10 ** 6 for C in (1, 2, 4, 8, 16)},
                                         (10, 4)])
 def test_viterbi_general_plan_fits(nbase, klen, B, limits):
     """The general route's plan: a cluster of C blocks a row, C a power of
-    two that divides the skip groups, the largest whose B clusters run in
-    one wave on the card given (else the smallest that fits); a block's
-    arrays in shared memory with a ring slot beside them where that fits,
-    else C = 1 with the arrays in device memory; at most GENERAL_MAX_SLOTS
-    slots; from the shapes and the card's answers alone."""
+    two at most nbase^2 that divides the skip groups, the largest whose B
+    clusters run in one wave on the card given (else the smallest that
+    fits); a block's arrays in shared memory with a ring of two slots
+    beside them where that fits, else C = 1 with the arrays in device
+    memory; at most GENERAL_MAX_SLOTS slots; from the shapes and the card's
+    answers alone."""
     K = nbase ** klen
     clusters = CLUSTER_LIMITS[limits]
     plan = vk.viterbi_general_plan(B, K, nbase, clusters=clusters)
@@ -161,27 +162,30 @@ def test_viterbi_general_plan_fits(nbase, klen, B, limits):
     shapes = vk.general_cluster_shapes(K, nbase)
     nrk = K // nbase ** 2
     C = plan["C"]
-    assert C in vk.GENERAL_CLUSTERS and nrk % C == 0
+    assert C in vk.GENERAL_CLUSTERS and nrk % C == 0 and C <= nbase ** 2
     KC = K // C
     slot = plan["slot_bytes"]
     assert slot % 16 == 0 and slot >= 16 + 4 * KC + 12
     assert plan["smem"] <= SMEM_OPTIN
-    assert 0 <= plan["nslots"] <= vk.GENERAL_MAX_SLOTS
+    assert plan["nslots"] in (0,) + tuple(range(vk.GENERAL_MIN_SLOTS,
+                                                vk.GENERAL_MAX_SLOTS + 1))
     assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 1024
-    # a thread a step group, where a block has at most 1,024 of them
+    # a thread a step group, where a block has at most 1,024 of them; at
+    # most GENERAL_MAX_GROUPS a thread in a cluster
     assert plan["threads"] >= min(1024, KC // nbase)
+    assert C == 1 or KC // nbase <= vk.GENERAL_MAX_GROUPS * plan["threads"]
     KC4 = -(-KC // 4) * 4
-    arrays = 12 * KC4 + (8 * KC4 + 4 * (-(-(nbase + nbase ** 2) // 4) * 4)
-                         if C > 1 else 0)
-    fits = vk.FWD_BAR_BYTES + 12 * -(-K // 4) * 4 + 16 + 4 * K + 12 <= \
-        SMEM_OPTIN
+    # the scores and both parities' inputs (twice over in a cluster: step
+    # and skip predecessors), and every block's cluster addresses
+    arrays = 12 * KC4 if C == 1 else 20 * KC4 + 4 * (-(-2 * C // 4) * 4)
+    fits = vk.FWD_BAR_BYTES + 12 * -(-K // 4) * 4 + 2 * slot <= SMEM_OPTIN
     assert plan["shared"] == bool(shapes)
     if not plan["shared"]:
         assert not fits and C == 1
         assert plan["work_floats"] >= 3 * K
         assert plan["smem"] == vk.FWD_BAR_BYTES + plan["nslots"] * slot
         return
-    assert plan["work_floats"] == 0 and plan["nslots"] >= 1
+    assert plan["work_floats"] == 0 and plan["nslots"] >= 2
     assert plan["smem"] >= vk.FWD_BAR_BYTES + arrays + plan["nslots"] * slot
     # the deepest ring that fits
     assert (plan["nslots"] == vk.GENERAL_MAX_SLOTS
@@ -463,8 +467,8 @@ def test_viterbi_clocked_builds_give_the_same_bits(cuda_device):
 @pytest.mark.gpu
 def test_the_general_route_clocked_build_gives_the_same_bits(cuda_device):
     """``bench_viterbi --clocks`` at klen 7: the clocked general kernel
-    computes the port's bits, stamps every phase and measures the design
-    floor's cluster barrier and remote load."""
+    computes the port's bits, stamps every phase and measures a cluster
+    barrier, a remote load and a push's hop."""
     from sloika_tpu_torch.scripts import bench_viterbi
     post = _softmax_posterior(7, 4, 50, 2, seed=9).to(cuda_device)
     ref = vk.viterbi_forward(post, 7, bench_viterbi.SKIP_PEN)
@@ -474,3 +478,4 @@ def test_the_general_route_clocked_build_gives_the_same_bits(cuda_device):
     assert split["plan"]["C"] >= 8
     assert split["cluster_barrier_cycles"] > 0
     assert split["remote_load_cycles"] > 0
+    assert 0 < split["design_floor_ms"] < split["ms"]
