@@ -27,8 +27,11 @@ Phases, each printing one line and raising on failure:
    do not take, klen 7 (16,384 states) and nbase 3 at klen 4 (T = 200,
    B = 2): the wrappers launch the kernels' general route
    (``general_launches`` up by one) and the paths equal the CPU twin's;
-   then klen 7 at the whole-read batch (B = 8), both general kernels
-   timed against their plain twins on the card and bit-identical to them;
+   then klen 8 (65,536 states, T = 1,000, B = 8), the forward
+   bit-identical to its twin, and klen 7 at the whole-read batch (B = 8),
+   both general kernels timed against their plain twins on the card and
+   bit-identical to them, the forward's plan (a cluster of C blocks a row)
+   and its step split by the clocked build, with its design floor;
 5. basecall main path: the headline model's graph at full width (seeded
    random weights) basecalls 16 synthetic DAC reads through
    ``Basecaller.basecall_dac_reads``; every kernel of the path must have
@@ -223,6 +226,8 @@ VITERBI_EXTRA_SHAPES = (("production batch", T_FRAMES, 1024),
 # posteriors the tuned Viterbi kernels do not take (T, B): klen 7, and nbase
 # 3 at klen 4, through the kernels' general route
 KLEN7_T, KLEN7_B = 200, 2
+# klen 8 (65,536 states) through the general route at T frames
+KLEN8_T = 1000
 EVENTS_TRAIN_B, EVENTS_TRAIN_T = 100, 500
 # the diagnostic probes at the JAX scripts' defaults: Viterbi parts (B, T),
 # the copy ring (B, T); gru_unroll "default" against its bf16 twin: max abs,
@@ -475,9 +480,12 @@ def viterbi_general_route(dev, whole_T):
     through ``viterbi_kernel.viterbi``: they take the kernels' general
     route (``general_launches`` up by one each).  klen 7 (16,385 states)
     and nbase 3 at klen 4 (KLEN7_T, KLEN7_B), paths equal to the CPU twin's;
-    then klen 7 at the whole-read raw path's batch (RAW_BATCH reads of
-    ``whole_T`` frames), both kernels timed against their plain twins on
-    the card, bit-identical to them.
+    klen 8 (65,536 states) at KLEN8_T, RAW_BATCH, the forward bit-identical
+    to its twin, its plan printed; then klen 7 at the whole-read raw path's
+    batch (RAW_BATCH reads of ``whole_T`` frames), both kernels timed
+    against their plain twins on the card, bit-identical to them, the
+    forward's plan (a cluster of C blocks a row) and its step split by the
+    clocked build (``bench_viterbi.fwd_clocks``), with its design floor.
 
     :returns: (viterbi_fwd's, viterbi_back's) general-route entries
     """
@@ -513,13 +521,40 @@ def viterbi_general_route(dev, whole_T):
         checks["klen {} nbase {}".format(klen, nbase)] = {
             "path_equal_to_cpu_twin": same_path,
             "score_max_abs_err": score_err}
+    # klen 8 (65,536 states) at KLEN8_T, RAW_BATCH: the forward against its
+    # twin on the card
+    from sloika_tpu_torch.scripts import bench_viterbi
+    K8 = 4 ** 8
+    post = bench_viterbi.posterior(KLEN8_T, RAW_BATCH, dev, seed=88,
+                                   nstate=K8 + 1)
+    plan8 = bench_viterbi.general_plan(RAW_BATCH, K8, dev)
+    before = vk.viterbi_forward.general_launches
+    (v, tb), ms8 = timed_once(lambda: vk.viterbi_forward(post, 8, 5.0))
+    launched8 = vk.viterbi_forward.general_launches - before
+    (v_ref, tb_ref), plain8 = timed_once(
+        lambda: decode.viterbi_forward_plain(post, 8, skip_pen=5.0))
+    same8 = torch.equal(v, v_ref) and torch.equal(tb, tb_ref)
+    del post, v, tb, v_ref, tb_ref
+    torch.cuda.empty_cache()
+    print("viterbi general route klen 8 (K = 65,536) T={} B={}: plan C={} "
+          "threads={} nslots={} shared={}; bit_identical to the twin on the "
+          "card {}; forward kernel {:.3f} ms ({:.3f} us a step, the first "
+          "call) plain {:.1f} ms; launches {}".format(
+              KLEN8_T, RAW_BATCH, plan8["C"], plan8["threads"],
+              plan8["nslots"], plan8["shared"], same8, ms8,
+              1e3 * ms8 / KLEN8_T, plain8, launched8), flush=True)
+    if not (same8 and launched8 == 1):
+        raise AssertionError("the general Viterbi route differs from its "
+                             "twin at klen 8")
+    checks["klen 8 nbase 4"] = {"bit_identical_to_twin": same8,
+                                "shape": "T={} B={}".format(KLEN8_T,
+                                                            RAW_BATCH),
+                                "plan": plan8, "ms_first_call": ms8}
     # klen 7 at the whole-read batch: the kernels against the twins on the
-    # card
+    # card, the forward's plan and its step split by the clocked build
     T, B, K = whole_T, RAW_BATCH, 4 ** 7
-    gen = torch.Generator(device=dev).manual_seed(77)
-    post = torch.randn((T, B, K + 1), generator=gen, device=dev)
-    post.mul_(4.0)
-    post = torch.softmax(post, dim=2)
+    post = bench_viterbi.posterior(T, B, dev, seed=77, nstate=K + 1)
+    plan = bench_viterbi.general_plan(B, K, dev)
     before = [k.general_launches for k in wrappers]
     (v, tb), ms = timed_once(lambda: vk.viterbi_forward(post, 7, 5.0))
     last = torch.argmax(v, dim=1)
@@ -541,20 +576,38 @@ def viterbi_general_route(dev, whole_T):
     ms = min(ms, cuda_ms(lambda: vk.viterbi_forward(post, 7, 5.0), 2))
     back_ms = min(back_ms, cuda_ms(lambda: vk.viterbi_backtrace(tb, last),
                                    2))
+    split = bench_viterbi.fwd_clocks(post, (v, tb), klen=7)
     del post, tb
     torch.cuda.empty_cache()
-    print("viterbi general route klen 7 (K = 16,384) T={} B={}: "
-          "bit_identical to the twins on the card {}; forward kernel {:.3f} "
-          "ms ({:.3f} us a step) plain {:.1f} ms; backtrace kernel {:.3f} "
-          "ms plain {:.1f} ms; launches {}".format(
-              T, B, same_fwd and same_back, ms, 1e3 * ms / T, plain_ms,
-              back_ms, back_plain_ms, launched), flush=True)
+    print("viterbi general route klen 7 (K = 16,384) T={} B={}: plan C={} "
+          "threads={} nslots={}; bit_identical to the twins on the card {}; "
+          "forward kernel {:.3f} ms ({:.3f} us a step) plain {:.1f} ms; "
+          "backtrace kernel {:.3f} ms plain {:.1f} ms; launches {}; the "
+          "forward's step by phase (cycles, clocked build at {:.2f} GHz, "
+          "{:.3f} ms): {:.0f} {}; a cluster barrier {:.0f} cycles, a remote "
+          "load {:.0f}, a copy's hop {:.0f}: design floor {:.3f} ms [{}]"
+          .format(T, B, plan["C"], plan["threads"], plan["nslots"],
+                  same_fwd and same_back, ms, 1e3 * ms / T, plain_ms,
+                  back_ms, back_plain_ms, launched, split["ghz"],
+                  split["ms"], split["cycles_per_step"],
+                  {k: round(x) for k, x in split["phases_mean"].items()},
+                  split["cluster_barrier_cycles"],
+                  split["remote_load_cycles"], split["push_hop_cycles"],
+                  split["design_floor_ms"], card_line()), flush=True)
     if not (same_fwd and same_back and launched == [1, 1]):
         raise AssertionError("the general Viterbi route differs from its "
                              "twins at T={} B={}".format(T, B))
     shape = "T={} B={} K={} (klen 7)".format(T, B, K)
     fwd = with_bound({"shape": shape, "max_abs_err": err_fwd, "ms": ms,
-                      "plain_ms": plain_ms, "checks": checks},
+                      "plain_ms": plain_ms, "checks": checks, "plan": plan,
+                      "cycles_per_step": split["cycles_per_step"],
+                      "cycles_per_step_by_phase": split["phases_mean"],
+                      "design_floor_ms": split["design_floor_ms"],
+                      "barrier_floor_ms": split["barrier_floor_ms"],
+                      "floor_cycles": {
+                          k: split[k] for k in (
+                              "cluster_barrier_cycles",
+                              "remote_load_cycles", "push_hop_cycles")}},
                      *viterbi_fwd_bound(T, B, K))
     back = with_bound({"shape": shape, "max_abs_err": err_back,
                        "ms": back_ms, "plain_ms": back_plain_ms},

@@ -612,47 +612,49 @@ viterbi_fwd_pair_kernel(const float* __restrict__ post,
 // ms at klen 7, T = 22,543, B = 8; the chain of T steps, each waiting on
 // scores from the other blocks of its row, sets the pace long before that.
 //
-// What the design does about it.  Row b is a cluster of C blocks (C a
-// power of two that divides the skip groups, at most nbase^2, ops/
-// viterbi_kernel.py::viterbi_general_plan); block c owns contiguous ranges
-// of the three index spaces: states [c KC, (c+1) KC) (KC = K / C), their
-// step groups [c L1, (c+1) L1) (L1 = KC / nbase) and those groups' skip
-// groups [c L2, (c+1) L2) (L2 = L1 / nbase).  Its thread r takes step
-// groups r, r + nt, ...: the group's skip maximum over nbase^2 predecessors
-// (computed by each of the skip group's nbase step groups, as the tuned
-// step does), its step maximum over nbase predecessors, the decision, and
-// the update of its nbase states.  The predecessors of a block's groups
-// lie in nbase step chunks (chunk g: states g K/nbase + c L1 .., L1 of
-// them) and nbase^2 skip chunks (h K/nbase^2 + c L2 .., L2), which the
-// block receives into `in` ([2][step chunks | skip chunks], by parity of
-// t): a thread that updates state x pushes its new score straight into the
-// shared memory of x's two consumers (x's step group's block and its skip
-// group's block) by st.async, each store completing on the consumer's
-// mbarrier of that parity, which expects 2 KC scores a step: 16-byte
-// stores where a group's 4 states land together (nbase 4, L2 % 4 == 0).
-// So a step waits for its inputs once, on a local barrier, with no cluster
-// barrier and no gather, and one block barrier separates its reads of `in`
-// from its pushes: every block receives from every block (C <= nbase^2),
-// so a block that pushes step t + 1's scores into a buffer has had step t's
-// from each consumer, which each pushed after its block barrier, after its
-// reads of that buffer.  Before its inputs arrive a thread takes the next
-// frame's logs into the frame's ring slot (in place, then a proxy fence,
-// since a bulk copy refills the slot), so the logs overlap the wait.  A
-// block streams only its own slice of each posterior row (kmers 1 + c KC
-// .., the aligned superset) and the 16-byte unit holding the stay, two bulk
-// copies a frame on the slot's barrier; thread 0 refills frame t's slot
-// with frame t + nslots after step t + 1's block barrier, when every thread
-// has read frame t's logs (so nslots >= 2: the ring runs nslots - 1
-// frames ahead).  The comparison order in each group is
-// the single block's (first g and h win, a skip wins a tie with a step, a
-// stay with the new score), so the codes and scores are the same bits at
-// any C.  C = 1 is the single-block design: the block writes its scores
-// into `in` itself (one copy: a state is its own step and skip
-// predecessor at index x), with a second block barrier for them.  Where no
-// C fits shared memory, C = 1 keeps its scores and `in` in `work`, a row's
+// What the design does about it.  Row b is a cluster of C blocks (ops/
+// viterbi_kernel.py::viterbi_general_plan: C a power of two, at most
+// nbase^2, that divides the skip groups into ranges of a multiple of 4);
+// block c owns contiguous ranges of the three index spaces: states
+// [c KC, (c+1) KC) (KC = K / C), their step groups [c L1, (c+1) L1)
+// (L1 = KC / nbase) and those groups' skip groups [c L2, (c+1) L2) (L2 =
+// L1 / nbase).  Its thread r takes step groups r, r + nt, ...: the group's
+// skip maximum over nbase^2 predecessors (computed by each of the skip
+// group's nbase step groups, as the tuned step does), its step maximum
+// over nbase predecessors, the decision and the update of its nbase
+// states, with the frame's logs of those states, which it took itself.
+// The predecessors of a block's groups lie in nbase step chunks (chunk g:
+// states g K/nbase + c L1 .., L1 of them) and nbase^2 skip chunks
+// (h K/nbase^2 + c L2 .., L2), which the block receives into `in` ([2]
+// [step chunks | skip chunks], by parity of t).  A block's own states are,
+// in order, nbase runs of L1 that are step chunks of nbase blocks and
+// nbase^2 runs of L2 that are skip chunks of C blocks, so after a step it
+// sends its scores (double-buffered) by nbase + nbase^2 bulk copies from
+// its shared memory into its consumers' (cp.async.bulk.shared::cluster),
+// each completing on the consumer's mbarrier of that parity, which expects
+// 2 KC scores a step.  A step waits once for its inputs, on that local
+// barrier, and has one block barrier, between its updates and its copies:
+// a transaction-count update a copy, where a store a score (PR 12's
+// second design) put 1,024 on each block's barrier a step.  Every block
+// receives from every block (C <= nbase^2), so a block that has step t's
+// inputs knows that each consumer had its step t - 1 copies, and has read
+// what it overwrites next: the inputs that it copies into, and its scores
+// of step t - 2 that were those copies' source.  Before its inputs arrive
+// a thread takes the frame's logs of its states into the frame's ring slot
+// (in place, then a proxy fence, since a bulk copy refills the slot), so
+// the logs overlap the wait.  A block streams only its own slice of each
+// posterior row (kmers 1 + c KC .., the aligned superset) and the 16-byte
+// unit holding the stay, two bulk copies a frame on the slot's barrier;
+// thread 0 refills frame t's slot with frame t + nslots after step t's
+// block barrier.  The comparison order in each group is the single block's
+// (first g and h win, a skip wins a tie with a step, a stay with the new
+// score), so the codes and scores are the same bits at any C.  C = 1 is
+// the single-block design: its scores are its inputs (a state is its own
+// step and skip predecessor at index x), and the block barrier orders
+// them.  Where no C fits shared memory, C = 1 keeps them in `work`, a row's
 // region of device memory (kShared false; a barrier orders device memory
-// within the block as it does shared memory).  Divisions are a multiply-high
-// by ceil(2^32 / d) (exact for i d < 2^32).
+// within the block as it does shared memory).  Divisions are a
+// multiply-high by ceil(2^32 / d) (exact for i d < 2^32).
 constexpr int kGeneralMaxSlots = 12;   // full[0..11]; 12: ping; 14-15: in
 __device__ __forceinline__ unsigned div_by(unsigned i, unsigned magic) {
   return __umulhi(i, magic);
@@ -662,33 +664,8 @@ __device__ __forceinline__ unsigned magic_of(unsigned d) {
   return 0xffffffffu / d + 1u;
 }
 
-// i / d by magic_of(d), for any d >= 1 (d = 1's magic wraps to 0)
-__device__ __forceinline__ unsigned div_any(unsigned i, unsigned d,
-                                            unsigned magic) {
-  return d == 1 ? i : __umulhi(i, magic);
-}
-
-// a store of 4 or 16 bytes into another block's shared memory, completing
-// on that block's mbarrier `bar` (both cluster addresses)
-__device__ __forceinline__ void push(uint32_t dst, float v, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
-      "[%2];\n" ::"r"(dst),
-      "r"(__float_as_uint(v)), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void push(uint32_t dst, float4 v, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
-      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
-      "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
-      "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
-      : "memory");
-}
-
 // a load of 4 bytes from a cluster address (the clocked build's chase)
-__device__ __forceinline__ float ld_cluster(uint32_t a, float) {
+__device__ __forceinline__ float ld_cluster(uint32_t a) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
   return v;
@@ -722,23 +699,25 @@ __host__ __device__ constexpr int general_round4(int n) {
   return (n + 3) & ~3;
 }
 
-// A block's arrays in shared memory (kShared), after the ring: its scores
-// [KC4] (KC4: KC rounded up to 16 bytes) and its inputs `in` [2][2 KC4]
-// (C > 1) or [2][KC4] (C = 1), and where C > 1 the cluster addresses of
-// every block's `in` and mbarriers [2 C]
+// A block's arrays in shared memory (kShared), after the ring (KC4: KC
+// rounded up to 16 bytes): C > 1, its scores [2][KC4] and its inputs
+// [2][2 KC4]; C = 1, its scores, which are its inputs, [2][KC4]
 __host__ __device__ constexpr size_t general_arrays(int K, int C) {
-  return 4 * (size_t)general_round4(K / C) * (C > 1 ? 5 : 3) +
-         (C > 1 ? 4 * (size_t)general_round4(2 * C) : 0);
+  return 4 * (size_t)general_round4(K / C) * (C > 1 ? 6 : 2);
 }
 
-template <bool kShared>
+// kNbase: 4, the kmers of the JAX package's models, for which the loops
+// over a group's predecessors and states unroll (a step of 4,419 cycles
+// against 5,466 at klen 7, C = 8: PERF.md §6), or 0, any nbase_arg
+template <bool kShared, int kNbase>
 __global__ void __launch_bounds__(1024, 1)
 viterbi_fwd_general_kernel(const float* __restrict__ post,
                            int8_t* __restrict__ tb,
                            float* __restrict__ vfinal, float* work, int T,
-                           int B, int K, int nbase, float skip_pen, int C,
+                           int B, int K, int nbase_arg, float skip_pen, int C,
                            int nslots, int work_floats,
                            unsigned long long post_end) {
+  const int nbase = kNbase ? kNbase : nbase_arg;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);        // [nslots]
   uint64_t* inbar = full + 14;                               // [2]
@@ -754,11 +733,9 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
   const int slot_floats = general_slot_bytes(KC) / 4;
   const unsigned magic = magic_of((unsigned)nbase);
   float* sc = kShared ? ring + (size_t)nslots * slot_floats
-                      : work + (size_t)b * work_floats;  // [KC4] scores
-  float* in = sc + KC4;                  // [2][in_floats] inputs by parity
+                      : work + (size_t)b * work_floats;  // [2][KC4] scores
+  float* in = C > 1 ? sc + 2 * KC4 : sc;     // [2][in_floats] inputs
   const int in_floats = C > 1 ? 2 * KC4 : KC4;
-  uint32_t* remote = reinterpret_cast<uint32_t*>(in + 2 * in_floats);
-  const bool vec = nbase == 4 && L2 % 4 == 0;
   const uint32_t in_bytes = 8u * (uint32_t)KC;  // a step's inputs
 
   if (r == 0) {
@@ -773,15 +750,26 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
     }
     mbar_init_fence();
   }
+  // thread r < nbase + nbase^2 sends run r of the block's scores: its
+  // first float, bytes, and the cluster addresses of its destination in
+  // its consumer's inputs and of the consumer's barrier (parity 0)
+  int run_src = 0;
+  uint32_t run_bytes = 0, run_dst = 0, run_bar = 0;
+  if (C > 1 && r < nbase + nskip) {
+    const bool step = r < nbase;
+    const int len = step ? L1 : L2;
+    run_src = (step ? r : r - nbase) * len;
+    const unsigned x0 = (unsigned)(c * KC + run_src);
+    // a step chunk g = x0 / nrs of block (x0 mod nrs) / L1; a skip chunk
+    // h = x0 / nrk of block (x0 mod nrk) / L2
+    const unsigned d = step ? nrs : nrk, q = x0 / d;
+    const unsigned owner = (x0 - q * d) / len;
+    run_bytes = 4u * len;
+    run_dst = map_rank(in + (step ? 0 : KC4) + q * len, owner);
+    run_bar = map_rank(inbar, owner);
+  }
   if (C > 1)
-    for (int k = r; k < C; k += nt) {
-      remote[k] = map_rank(in, (unsigned)k);
-      remote[C + k] = map_rank(inbar, (unsigned)k);
-    }
-  if (C > 1)
-    cluster_sync();  // every barrier armed before any push
-  else
-    __syncthreads();
+    cluster_sync();  // every barrier armed before any copy
   // frame t's stay unit and kmer slice into slot k
   auto refill = [&](int t, int k) {
     const float* row = post + ((size_t)t * B + b) * nst;
@@ -791,103 +779,26 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
   };
   if (r == 0)
     for (int k = 0; k < nslots && 1 + k < T; ++k) refill(1 + k, k);
-
-  // state x's score v of step t into the inputs of parity par of its
-  // consumers: at C = 1 the block's own, at index x; else by st.async into
-  // its step predecessors' chunk g = x / nrs at x mod nrs's block, and its
-  // skip predecessors' chunk h = x / nrk at x mod nrk's block (v4: states
-  // x .. x + 3 together)
-  const unsigned m_rs = magic_of(nrs), m_rk = magic_of(nrk);
-  const unsigned m_l1 = magic_of(L1), m_l2 = magic_of(L2);
-  auto send = [&](unsigned x, auto v, int par) {
-    const unsigned g = div_any(x, nrs, m_rs), js = x - g * nrs;
-    const unsigned cs = div_any(js, L1, m_l1);
-    const unsigned h = div_any(x, nrk, m_rk), jk = x - h * nrk;
-    const unsigned ck = div_any(jk, L2, m_l2);
-    const uint32_t off = 4u * (uint32_t)(par * in_floats);
-    push(remote[cs] + off + 4u * (g * L1 + js - cs * L1), v,
-         remote[C + cs] + 8u * par);
-    push(remote[ck] + off + 4u * (KC4 + h * L2 + jk - ck * L2), v,
-         remote[C + ck] + 8u * par);
+  // this step's scores (parity p) into the consumers' inputs
+  auto send = [&](int p) {
+    if (run_bytes == 0) return;
+    bulk_copy_cluster(run_dst + 4u * (uint32_t)(p * in_floats),
+                      sc + p * KC4 + run_src, run_bytes, run_bar + 8u * p);
   };
   {
-    // t = 0: the scores are the slice's kmer log-posteriors
-    // (each thread its own groups' states, which it alone reads after)
+    // t = 0: the scores are the slice's kmer log-posteriors (each thread
+    // its own groups' states)
     const float* row = post + (size_t)b * nst + 1 + c * KC;
     int8_t* tb0 = tb + (size_t)b * K + c * KC;
-    for (int j = r; j < L1; j += nt) {
-      const int i = nbase * j;
+    for (int i = nbase * r; i < KC; i += nbase * nt)
       for (int q = 0; q < nbase; ++q) {
         sc[i + q] = logf(row[i + q] + kEta);
         tb0[i + q] = -1;
       }
-      if (T < 2) continue;
-      if (C == 1) {
-        for (int q = 0; q < nbase; ++q) in[i + q] = sc[i + q];
-      } else if (vec) {
-        send((unsigned)(c * KC + i), reinterpret_cast<const float4*>(sc)[j],
-             0);
-      } else {
-        for (int q = 0; q < nbase; ++q)
-          send((unsigned)(c * KC + i + q), sc[i + q], 0);
-      }
-    }
+    if (C > 1) fence_proxy_async();   // before the copies read them
+    __syncthreads();
+    if (C > 1 && T > 1) send(0);
   }
-
-  // step group j's decision from the inputs sp, kp: its maximum and code
-  auto decide = [&](int j, const float* sp, const float* kp, float& m,
-                    int& code) {
-    const int u = (int)div_by((unsigned)j, magic);   // its skip group
-    int ak, am;
-    const float sk = first_max(kp + u, L2, nskip, ak) - skip_pen;
-    const float mx = first_max(sp + j, L1, nbase, am);
-    if (mx > sk) { m = mx; code = am; } else { m = sk; code = nbase + ak; }
-  };
-  // step group j's update from its decision: its states' codes and scores,
-  // sent on (lg: the frame's logs, or at nslots = 0 its posterior)
-  auto update = [&](int j, float m, int code, const float* lg, float lps,
-                    int8_t* tb_row, int par, bool last) {
-    const int i0 = nbase * j;
-    if (vec) {
-      const float4 old = reinterpret_cast<const float4*>(sc)[j];
-      float l[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        l[q] = nslots > 0 ? lg[i0 + q] : logf(lg[i0 + q] + kEta);
-      float4 sv;
-      char4 cd;
-      float nw, st;
-      nw = l[0] + m; st = old.x + lps;
-      cd.x = (signed char)(nw > st ? code : -1); sv.x = nw > st ? nw : st;
-      nw = l[1] + m; st = old.y + lps;
-      cd.y = (signed char)(nw > st ? code : -1); sv.y = nw > st ? nw : st;
-      nw = l[2] + m; st = old.z + lps;
-      cd.z = (signed char)(nw > st ? code : -1); sv.z = nw > st ? nw : st;
-      nw = l[3] + m; st = old.w + lps;
-      cd.w = (signed char)(nw > st ? code : -1); sv.w = nw > st ? nw : st;
-      reinterpret_cast<float4*>(sc)[j] = sv;
-      reinterpret_cast<char4*>(tb_row)[j] = cd;
-      if (last) return;
-      if (C == 1)
-        reinterpret_cast<float4*>(in + par * in_floats)[j] = sv;
-      else
-        send((unsigned)(c * KC + i0), sv, par);
-      return;
-    }
-    for (int q = 0; q < nbase; ++q) {
-      const int i = i0 + q;
-      const float nw = (nslots > 0 ? lg[i] : logf(lg[i] + kEta)) + m;
-      const float st = sc[i] + lps;
-      tb_row[i] = nw > st ? (int8_t)code : (int8_t)-1;
-      const float v = nw > st ? nw : st;
-      sc[i] = v;
-      if (last) continue;
-      if (C == 1)
-        in[par * in_floats + i] = v;
-      else
-        send((unsigned)(c * KC + i), v, par);
-    }
-  };
 
   int slot = 0, par = 0;
   unsigned phase = 0, inphase = 0;   // inphase: bit p, inbar[p]'s parity
@@ -895,7 +806,8 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
   PHASE_CLOCK_START();
 #endif
   for (int t = 1; t < T; ++t) {
-    // frame t's logs, in place in its slot, while the inputs arrive
+    // frame t's logs of this thread's states, in place in its slot, while
+    // the inputs arrive
     const float* row = post + ((size_t)t * B + b) * nst;
     const float* kr = row + 1 + c * KC;
     float* lg = ring + (size_t)slot * slot_floats + 4 + superset_offset(kr);
@@ -907,7 +819,8 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
                                           : row[0];
       FWD_CLOCK(0);
       const float* p = in_storage(kr, KC, post_end) ? lg : kr;
-      for (int i = r; i < KC; i += nt) lg[i] = logf(p[i] + kEta);
+      for (int i = nbase * r; i < KC; i += nbase * nt)
+        for (int q = 0; q < nbase; ++q) lg[i + q] = logf(p[i + q] + kEta);
       fence_proxy_async();   // before a bulk copy refills the slot
     } else {
       stay = row[0];
@@ -921,72 +834,80 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
       inphase ^= 1u << par;
       // these inputs are read: the barrier expects step t + 1's scores
       if (r == 0 && t + 2 < T) mbar_expect_tx(&inbar[par], in_bytes);
-    } else {
-      __syncthreads();
     }
     FWD_CLOCK(2);
     const float* sp = in + par * in_floats;   // [nbase][L1] step chunks
     const float* kp = C > 1 ? sp + KC4 : sp;  // [nbase^2][L2] skip chunks
-    const bool last = t + 1 == T;
+    const float* old = sc + par * KC4;        // this block's scores at t-1
+    float* nxt = sc + (par ^ 1) * KC4;
     int8_t* tb_row = tb + ((size_t)t * B + b) * K + c * KC;
-    // the decisions before the block barrier frees the inputs: in
-    // registers (C > 1: at most kMaxGroups groups a thread, the plan), or
-    // at C = 1 in the inputs of the other parity, at the group's first two
-    // states, which only its own thread writes
-    constexpr int kMaxGroups = 8;
-    float mr[kMaxGroups];
-    int cr[kMaxGroups];
-    float* dec = in + (par ^ 1) * in_floats;
-    if (C > 1) {
+    for (int j = r; j < L1; j += nt) {
+      const int u = (int)div_by((unsigned)j, magic);   // its skip group
+      int ak, am;
+      const float sk = first_max(kp + u, L2, nskip, ak) - skip_pen;
+      const float mx = first_max(sp + j, L1, nbase, am);
+      float m;
+      int code;
+      if (mx > sk) { m = mx; code = am; } else { m = sk; code = nbase + ak; }
+#ifdef VITERBI_FWD_CLOCKS
+      asm volatile("" ::"f"(m), "r"(code));
+#endif
+      FWD_CLOCK(3);
+      if constexpr (kNbase == 4) {
+        float l[4];
 #pragma unroll
-      for (int k = 0; k < kMaxGroups; ++k)
-        if (r + k * nt < L1) decide(r + k * nt, sp, kp, mr[k], cr[k]);
-    } else {
-      for (int j = r; j < L1; j += nt) {
-        float m;
-        int code;
-        decide(j, sp, kp, m, code);
-        dec[nbase * j] = m;
-        dec[nbase * j + 1] = __int_as_float(code);
+        for (int q = 0; q < 4; ++q)
+          l[q] = nslots > 0 ? lg[4 * j + q] : logf(lg[4 * j + q] + kEta);
+        const float4 o = reinterpret_cast<const float4*>(old)[j];
+        float4 sv;
+        char4 cd;
+        float nw, st;
+        nw = l[0] + m; st = o.x + lps;
+        cd.x = (signed char)(nw > st ? code : -1); sv.x = nw > st ? nw : st;
+        nw = l[1] + m; st = o.y + lps;
+        cd.y = (signed char)(nw > st ? code : -1); sv.y = nw > st ? nw : st;
+        nw = l[2] + m; st = o.z + lps;
+        cd.z = (signed char)(nw > st ? code : -1); sv.z = nw > st ? nw : st;
+        nw = l[3] + m; st = o.w + lps;
+        cd.w = (signed char)(nw > st ? code : -1); sv.w = nw > st ? nw : st;
+        reinterpret_cast<float4*>(nxt)[j] = sv;
+        reinterpret_cast<char4*>(tb_row)[j] = cd;
+      } else {
+        for (int q = 0; q < nbase; ++q) {
+          const int i = nbase * j + q;
+          const float nw = (nslots > 0 ? lg[i] : logf(lg[i] + kEta)) + m;
+          const float st = old[i] + lps;
+          tb_row[i] = nw > st ? (int8_t)code : (int8_t)-1;
+          nxt[i] = nw > st ? nw : st;
+        }
       }
+      FWD_CLOCK(4);
     }
-    FWD_CLOCK(3);
+    if (C > 1) fence_proxy_async();   // before the copies read the scores
     __syncthreads();
-    // every thread has read frame t - 1's logs: its slot takes the frame
-    // nslots - 1 on
+    // every thread has read frame t's logs: its slot takes t + nslots
     if (nslots > 0) {
-      if (r == 0 && t > 1 && t - 1 + nslots < T)
-        refill(t - 1 + nslots, slot == 0 ? nslots - 1 : slot - 1);
+      if (r == 0 && t + nslots < T) refill(t + nslots, slot);
       if (++slot == nslots) {
         slot = 0;
         phase ^= 1u;
       }
     }
-    FWD_CLOCK(4);
-    if (C > 1) {
-#pragma unroll
-      for (int k = 0; k < kMaxGroups; ++k)
-        if (r + k * nt < L1)
-          update(r + k * nt, mr[k], cr[k], lg, lps, tb_row, par ^ 1, last);
-    } else {
-      for (int j = r; j < L1; j += nt)
-        update(j, dec[nbase * j], __float_as_int(dec[nbase * j + 1]), lg,
-               lps, tb_row, par ^ 1, last);
-    }
+    if (C > 1 && t + 1 < T) send(par ^ 1);
     par ^= 1;
     FWD_CLOCK(5);
   }
 #ifdef VITERBI_FWD_CLOCKS
   clk[7] = PHASE_CLOCK_TOTAL();
 #endif
-  __syncthreads();
   for (int i = r; i < KC; i += nt)
-    vfinal[(size_t)b * K + (size_t)c * KC + i] = sc[i];
+    vfinal[(size_t)b * K + (size_t)c * KC + i] = sc[par * KC4 + i];
 #ifdef VITERBI_FWD_CLOCKS
   // the design floors' parts, from block 0 of row 0's cluster: thread 0
   // times 16 cluster barriers, thread 32 a chase of 64 dependent loads
   // through the next block's shared memory, thread 64 32 round trips of a
-  // push to the next block and its push back (rank 1's thread 64 answers)
+  // 16-byte bulk copy to the next block and its copy back (rank 1's thread
+  // 64 answers)
   if (C > 1) {
     cluster_sync();
     long long t0 = clock64();
@@ -1001,18 +922,19 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
       uint32_t idx = 0;
       t0 = clock64();
       for (int k = 0; k < 64; ++k)
-        idx = __float_as_uint(ld_cluster(peer + 4u * idx, 0.0f));
+        idx = __float_as_uint(ld_cluster(peer + 4u * idx));
       clk[6] = clock64() - t0 + (idx > 64u ? 1 : 0);
     }
     if (r == 64 && c < 2) {
-      const uint32_t peer = map_rank(sc, (unsigned)(c ^ 1));
+      const uint32_t peer = map_rank(in + 64, (unsigned)(c ^ 1));
       const uint32_t peer_bar = map_rank(&full[12], (unsigned)(c ^ 1));
+      fence_proxy_async();
       t0 = clock64();
       for (int k = 0; k < 32; ++k) {
-        mbar_expect_tx(&full[12], 4u);
-        if (c == 0) push(peer, (float)k, peer_bar);
+        mbar_expect_tx(&full[12], 16u);
+        if (c == 0) bulk_copy_cluster(peer, in, 16u, peer_bar);
         mbar_wait(&full[12], (unsigned)(k & 1));
-        if (c == 1) push(peer, (float)k, peer_bar);
+        if (c == 1) bulk_copy_cluster(peer, in, 16u, peer_bar);
       }
       clk[6] = clock64() - t0;
     }
@@ -1023,7 +945,7 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
     }
   }
 #endif
-  if (C > 1) cluster_sync();   // no block leaves while another pushes to it
+  if (C > 1) cluster_sync();   // no block leaves while another copies to it
 }
 
 template <int DPT>
@@ -1092,10 +1014,9 @@ extern "C" int viterbi_fwd(const void* post, void* tb, void* vfinal, int T,
 // The general route (viterbi_fwd_general_kernel) for K = nbase^klen states
 // over nbase bases, nbase + nbase^2 <= 128: a cluster of C blocks a row (C
 // a power of two up to 16 and nbase^2 that divides the K / nbase^2 skip
-// groups) of `threads` each, at most 8 step groups a thread where C > 1, a
-// ring of nslots (0 or 2-12) slots in smem bytes, and the scores and
-// inputs in smem (work null) or in work, work_floats floats a row (C = 1
-// only).  The plan comes from ops/viterbi_kernel.py::
+// groups into ranges of a multiple of 4) of `threads` each, a ring of
+// nslots (0 or 2-12) slots in smem bytes, and the scores in smem (work
+// null) or in work, work_floats floats a row (C = 1 only).  The plan comes from ops/viterbi_kernel.py::
 // viterbi_general_plan.  Returns the cudaError_t of the launch;
 // cudaErrorInvalidValue (1) for a plan that does not fit.
 extern "C" int viterbi_fwd_general(const void* post, void* tb, void* vfinal,
@@ -1112,14 +1033,15 @@ extern "C" int viterbi_fwd_general(const void* post, void* tb, void* vfinal,
       nrk * nskip != K || C < 1 || C > 16 || C > nskip || (C & (C - 1)) ||
       nrk % C || (!shared && C != 1) || nslots < 0 || nslots == 1 ||
       nslots > kGeneralMaxSlots || threads < 32 || threads > 1024 ||
-      threads % 32 || (C > 1 && K / (nbase * C) > 8 * threads) ||
+      threads % 32 || (C > 1 && (K / (nskip * C)) % 4) ||
       (uintptr_t)post % 4 ||
       (size_t)smem < kBarBytes + (size_t)nslots * general_slot_bytes(K / C) +
                          (shared ? general_arrays(K, C) : 0) ||
-      (!shared && (size_t)work_floats < 3 * (size_t)general_round4(K)))
+      (!shared && (size_t)work_floats < 2 * (size_t)general_round4(K)))
     return (int)cudaErrorInvalidValue;
-  auto kernel = shared ? viterbi_fwd_general_kernel<true>
-                       : viterbi_fwd_general_kernel<false>;
+  auto kernel = !shared       ? viterbi_fwd_general_kernel<false, 0>
+                : nbase == 4 ? viterbi_fwd_general_kernel<true, 4>
+                             : viterbi_fwd_general_kernel<true, 0>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess && C > 8)
@@ -1149,7 +1071,7 @@ extern "C" int viterbi_fwd_general(const void* post, void* tb, void* vfinal,
 // *clusters.  Returns the cudaError_t.
 extern "C" int viterbi_fwd_general_clusters(int C, int threads, int smem,
                                             int* clusters) {
-  const auto kernel = viterbi_fwd_general_kernel<true>;
+  const auto kernel = viterbi_fwd_general_kernel<true, 4>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess && C > 8)

@@ -58,11 +58,8 @@ BACK_THREADS, BACK_BAR_BYTES = 64, 256
 BACK_FRAMES, BACK_SLOT_BYTES = (32, 16, 8, 4, 2, 1), 16384
 BACK_MAX_SLOTS, BACK_MIN_SLOTS = 16, 2
 #: the general route: threads a block at most, the ring's depth at most
-#: and at least (the ring runs nslots - 1 frames ahead), step groups a
-#: thread at most where a row has a cluster of blocks; the clusters of
-#: blocks a row it may take, most first
+#: and at least; the clusters of blocks a row it may take, most first
 GENERAL_MAX_THREADS, GENERAL_MAX_SLOTS, GENERAL_MIN_SLOTS = 1024, 8, 2
-GENERAL_MAX_GROUPS = 8
 GENERAL_CLUSTERS = (16, 8, 4, 2, 1)
 #: the clusters of C one-block-an-SM blocks that an H100 SXM runs at once
 #: (``cudaOccupancyMaxActiveClusters``, the same at 256-1,024 threads; my
@@ -220,38 +217,34 @@ def _general_slot_bytes(KC):
 
 def _general_arrays(K, C):
     """A block's arrays in shared memory (``general_arrays``): its scores
-    and its inputs of both parities, KC = K / C floats each rounded up to
-    16 bytes (twice that for the inputs where C > 1: the step and the skip
-    predecessors), and where C > 1 the cluster addresses of every block's
-    inputs and mbarriers."""
-    KC4 = _round(K // C, 4)
-    if C == 1:
-        return 4 * 3 * KC4
-    return 4 * 5 * KC4 + 4 * _round(2 * C, 4)
+    of both parities, KC = K / C floats each rounded up to 16 bytes, and
+    where C > 1 its inputs of both parities, 2 KC each (the step and the
+    skip predecessors; at C = 1 its scores are its inputs)."""
+    return 4 * _round(K // C, 4) * (6 if C > 1 else 2)
 
 
 def general_cluster_shapes(K, nbase, optin=SMEM_OPTIN):
     """{C: {threads, nslots, smem}}: each cluster size of GENERAL_CLUSTERS
     at which the general kernel takes K states over nbase bases with its
     arrays in shared memory.  C divides the K / nbase^2 skip groups (so a
-    block's states, step groups and skip groups are whole ranges) and is at
-    most nbase^2 (so that every block feeds every block each step); a block
-    has K / (nbase C) step groups, a thread each (at least a warp, at most
-    GENERAL_MAX_THREADS, and at most GENERAL_MAX_GROUPS groups a thread
-    where C > 1); its arrays and a ring of GENERAL_MIN_SLOTS slots fit
-    ``optin`` bytes; the ring is as deep as fits, up to GENERAL_MAX_SLOTS;
+    block's states, step groups and skip groups are whole ranges), into
+    ranges of a multiple of 4 where C > 1 (the bulk copies' 16-byte units),
+    and is at most nbase^2 (so that every block feeds every block each
+    step); a block has K / (nbase C) step groups, a thread each (at least a
+    warp, at most GENERAL_MAX_THREADS); its arrays and a ring of
+    GENERAL_MIN_SLOTS slots fit ``optin`` bytes; the ring is as deep as
+    fits, up to GENERAL_MAX_SLOTS;
     smem is at least half an SM's shared memory (up to ``optin``), so each
     block has an SM of its own: the step's latency, not the SM's issue,
     sets the pace."""
     nrk = K // (nbase * nbase)
     shapes = {}
     for C in GENERAL_CLUSTERS:
-        if nrk < 1 or nrk % C or C > nbase * nbase:
+        if (nrk < 1 or nrk % C or C > nbase * nbase
+                or (C > 1 and (nrk // C) % 4)):
             continue
-        groups = K // (nbase * C)
-        threads = min(GENERAL_MAX_THREADS, max(32, _round(groups, 32)))
-        if C > 1 and groups > GENERAL_MAX_GROUPS * threads:
-            continue
+        threads = min(GENERAL_MAX_THREADS,
+                      max(32, _round(K // (nbase * C), 32)))
         fixed = FWD_BAR_BYTES + _general_arrays(K, C)
         slot = _general_slot_bytes(K // C)
         nslots = min(GENERAL_MAX_SLOTS, max(0, optin - fixed) // slot)
@@ -277,8 +270,7 @@ def viterbi_general_plan(B, K, nbase, optin=SMEM_OPTIN, clusters=None):
     smallest that fits, its smem not padded (blocks may share an SM: the
     issue of many rows, not one step's latency, sets the pace).  Where no
     size fits shared memory (a card of little of it), C = 1 with the
-    scores and inputs in device memory (``shared`` False, ``work_floats``
-    a row) and as many ring slots as fit (0 where fewer than
+    scores in device memory (``shared`` False, ``work_floats`` a row) and as many ring slots as fit (0 where fewer than
     GENERAL_MIN_SLOTS fit: the rows are read from device memory).
 
     :returns: dict of C, threads, shared, nslots, slot_bytes, work_floats,
@@ -301,7 +293,7 @@ def viterbi_general_plan(B, K, nbase, optin=SMEM_OPTIN, clusters=None):
     return {"C": 1, "threads": min(GENERAL_MAX_THREADS,
                                    max(32, _round(K // nbase, 32))),
             "shared": False, "nslots": nslots, "slot_bytes": slot,
-            "work_floats": 3 * _round(K, 4),
+            "work_floats": 2 * _round(K, 4),
             "smem": FWD_BAR_BYTES + nslots * slot}
 
 

@@ -37,7 +37,7 @@ cycles of the clocked loop over its time give the clock they ran at.  A
 clocked build must give the port's bits.  ``viterbi_back`` is also given
 its design's bound: the bytes of the whole traceback read once, and its
 chain floor, T shared-memory reads at the chase's cycles.  The general
-forward is given its design floor, T one-way pushes of a score into another
+forward is given its design floor, T one-way bulk copies into another
 block's shared memory (``push_hop_cycles``: half a round trip between two
 blocks of the cluster), and the floor of a step that synchronised by a
 cluster barrier and loaded its inputs from the other blocks
@@ -63,8 +63,8 @@ KLEN, NSTATE, SKIP_PEN = 5, 1025, 5.0
 GENERAL_SHAPES = {"whole7": (22543, 8, 7), "klen8": (1000, 8, 8)}
 #: the phases of a step that each clocked build stamps, in order
 FWD_PHASES = ("row", "logs", "maxima", "update_store", "barrier")
-GENERAL_PHASES = ("slot_wait", "logs", "input_wait", "maxima",
-                  "barrier_refill", "update_push")
+GENERAL_PHASES = ("slot_wait", "logs", "input_wait", "maxima", "update",
+                  "barrier_send")
 #: viterbi_back's warps: the walker (0) and the copier (1)
 BACK_PHASES = ("slot_wait", "walk", "store", "release", "copy_issue")
 #: the published peak of one H100 SXM's device memory (NVIDIA data sheet)
@@ -110,9 +110,9 @@ def fwd_clocks(post, ref, klen=KLEN):
         split["plan"] = plan
         # thread 0's 16 cluster barriers, thread 32's chase of 64 loads from
         # another block's shared memory, thread 64's 32 round trips of a
-        # push: the design's floor is a push's one-way hop a step; a step
-        # that synchronised by a cluster barrier and read its inputs would
-        # pay a barrier and a remote load
+        # 16-byte bulk copy between two blocks: the design's floor is a
+        # copy's one-way hop a step; a step that synchronised by a cluster
+        # barrier and read its inputs would pay a barrier and a remote load
         if plan["C"] > 1 and warps > 2:
             hop = raw[2][6] / 64
             split.update({"cluster_barrier_cycles": raw[0][6] / 16,

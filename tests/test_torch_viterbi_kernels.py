@@ -170,19 +170,19 @@ def test_viterbi_general_plan_fits(nbase, klen, B, limits):
     assert plan["nslots"] in (0,) + tuple(range(vk.GENERAL_MIN_SLOTS,
                                                 vk.GENERAL_MAX_SLOTS + 1))
     assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 1024
-    # a thread a step group, where a block has at most 1,024 of them; at
-    # most GENERAL_MAX_GROUPS a thread in a cluster
+    # a thread a step group, where a block has at most 1,024 of them; in a
+    # cluster, a block's skip groups in 16-byte runs
     assert plan["threads"] >= min(1024, KC // nbase)
-    assert C == 1 or KC // nbase <= vk.GENERAL_MAX_GROUPS * plan["threads"]
+    assert C == 1 or (nrk // C) % 4 == 0
     KC4 = -(-KC // 4) * 4
-    # the scores and both parities' inputs (twice over in a cluster: step
-    # and skip predecessors), and every block's cluster addresses
-    arrays = 12 * KC4 if C == 1 else 20 * KC4 + 4 * (-(-2 * C // 4) * 4)
-    fits = vk.FWD_BAR_BYTES + 12 * -(-K // 4) * 4 + 2 * slot <= SMEM_OPTIN
+    # both parities' scores, and in a cluster both parities' inputs (step
+    # and skip predecessors)
+    arrays = 8 * KC4 if C == 1 else 24 * KC4
+    fits = vk.FWD_BAR_BYTES + 8 * -(-K // 4) * 4 + 2 * slot <= SMEM_OPTIN
     assert plan["shared"] == bool(shapes)
     if not plan["shared"]:
         assert not fits and C == 1
-        assert plan["work_floats"] >= 3 * K
+        assert plan["work_floats"] >= 2 * K
         assert plan["smem"] == vk.FWD_BAR_BYTES + plan["nslots"] * slot
         return
     assert plan["work_floats"] == 0 and plan["nslots"] >= 2
@@ -204,8 +204,9 @@ def test_viterbi_general_plan_fits(nbase, klen, B, limits):
         # 7 clusters of 16 hold 7 of the 8 rows: 8 blocks a row
         assert (C, plan["threads"], plan["nslots"]) == (8, 512, 8)
     if (nbase, klen, B, limits) == (4, 8, 8, "h100"):
-        # klen 8's arrays fit the cluster's shared memory
-        assert (C, plan["shared"]) == (8, True)
+        # klen 8's arrays fit the shared memory of a cluster of 16 (not 8),
+        # of which the card runs 7 at once: two waves
+        assert (C, plan["shared"]) == (16, True)
 
 
 @pytest.mark.parametrize("K,nbase", [(16385, 4), (4097, 4), (80, 3), (1, 4)])
@@ -336,18 +337,19 @@ def _softmax_posterior(klen, nbase, T, B, seed):
 @pytest.mark.parametrize("klen,nbase,T,B", [
     (7, 4, 40, 2), (4, 3, 60, 3), (2, 3, 30, 1), (6, 5, 12, 2),
     (2, 2, 25, 5), (2, 10, 9, 2), (9, 3, 5, 1), (7, 4, 1, 2),
-    (8, 4, 6, 2), (14, 2, 7, 1), (4, 10, 8, 2), (7, 4, 30, 9)])
+    (8, 4, 6, 2), (14, 2, 7, 1), (4, 10, 8, 2), (7, 4, 30, 9),
+    (5, 8, 6, 2)])
 def test_the_general_route_equals_the_twins(cuda_device, monkeypatch, klen,
                                             nbase, T, B, optin, cluster):
-    """klen 7 (16,384 states), klen 8 (65,536) and nbase 2, 3, 5 and 10
+    """klen 7 (16,384 states), klen 8 (65,536) and nbase 2, 3, 5, 8 and 10
     take the kernels' general route on the card: the twins' bits (scores,
     codes, path and moves), on the card's own device, counted in
     ``launches`` and ``general_launches``.  ``optin``: a card of that little
-    shared memory, so the step's arrays lie in device memory (and the ring
-    has one slot, or none).  ``cluster``: a card that runs clusters of that
-    size only, so the plan takes it wherever the shape allows (nbase 10 at
-    klen 4 gathers in 4-byte units; B = 9 at klen 7 leaves the H100's 16s
-    for 8s)."""
+    shared memory, so the step's scores lie in device memory (and the ring
+    has two slots, or none).  ``cluster``: a card that runs clusters of that
+    size only, so the plan takes it wherever the shape allows (B = 9 at
+    klen 7 leaves the H100's 16s for 8s; nbase 8 at klen 5 sends 72 runs a
+    step to 16 blocks)."""
     if optin is not None:
         monkeypatch.setattr(vk, "_device_limits", lambda dev: (SMS, optin))
     K = nbase ** klen
