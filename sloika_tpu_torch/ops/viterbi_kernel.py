@@ -62,9 +62,10 @@ BACK_MAX_SLOTS, BACK_MIN_SLOTS = 16, 2
 GENERAL_MAX_THREADS, GENERAL_MAX_SLOTS, GENERAL_MIN_SLOTS = 1024, 8, 2
 GENERAL_CLUSTERS = (16, 8, 4, 2, 1)
 #: the clusters of C one-block-an-SM blocks that an H100 SXM runs at once
-#: (``cudaOccupancyMaxActiveClusters``, the same at 256-1,024 threads; my
-#: chip run 1, PR 12): its 132 SMs lie in GPCs of uneven size, so it holds 7
-#: clusters of 16, not 8.  The plan's default where no card is asked
+#: (``cudaOccupancyMaxActiveClusters`` at 256-1,024 threads, on an H100
+#: 80GB HBM3 at 700 W, PERF.md §6): its 132 SMs lie in GPCs of uneven size,
+#: so it holds 7 clusters of 16, not 8.  The plan's default where no card
+#: is asked
 H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 
 
@@ -216,11 +217,13 @@ def _general_slot_bytes(KC):
 
 
 def _general_arrays(K, C):
-    """A block's arrays in shared memory (``general_arrays``): its scores
-    of both parities, KC = K / C floats each rounded up to 16 bytes, and
-    where C > 1 its inputs of both parities, 2 KC each (the step and the
-    skip predecessors; at C = 1 its scores are its inputs)."""
-    return 4 * _round(K // C, 4) * (6 if C > 1 else 2)
+    """A block's arrays in shared memory (``general_arrays``), KC = K / C
+    floats each rounded up to 16 bytes: where C > 1 its scores, its inputs
+    of both parities, 2 KC each (the step and the skip predecessors), and
+    every block's cluster addresses (2 C words); at C = 1 its scores of both
+    parities, which are its inputs."""
+    KC4 = _round(K // C, 4)
+    return 4 * (5 * KC4 + _round(2 * C, 4)) if C > 1 else 4 * 2 * KC4
 
 
 def general_cluster_shapes(K, nbase, optin=SMEM_OPTIN):

@@ -175,9 +175,10 @@ def test_viterbi_general_plan_fits(nbase, klen, B, limits):
     assert plan["threads"] >= min(1024, KC // nbase)
     assert C == 1 or (nrk // C) % 4 == 0
     KC4 = -(-KC // 4) * 4
-    # both parities' scores, and in a cluster both parities' inputs (step
-    # and skip predecessors)
-    arrays = 8 * KC4 if C == 1 else 24 * KC4
+    # both parities' scores (its inputs), or in a cluster its scores, both
+    # parities' inputs (step and skip predecessors) and every block's
+    # addresses
+    arrays = 8 * KC4 if C == 1 else 20 * KC4 + 4 * (-(-2 * C // 4) * 4)
     fits = vk.FWD_BAR_BYTES + 8 * -(-K // 4) * 4 + 2 * slot <= SMEM_OPTIN
     assert plan["shared"] == bool(shapes)
     if not plan["shared"]:
@@ -204,9 +205,8 @@ def test_viterbi_general_plan_fits(nbase, klen, B, limits):
         # 7 clusters of 16 hold 7 of the 8 rows: 8 blocks a row
         assert (C, plan["threads"], plan["nslots"]) == (8, 512, 8)
     if (nbase, klen, B, limits) == (4, 8, 8, "h100"):
-        # klen 8's arrays fit the shared memory of a cluster of 16 (not 8),
-        # of which the card runs 7 at once: two waves
-        assert (C, plan["shared"]) == (16, True)
+        # klen 8's arrays fit the cluster's shared memory
+        assert (C, plan["shared"]) == (8, True)
 
 
 @pytest.mark.parametrize("K,nbase", [(16385, 4), (4097, 4), (80, 3), (1, 4)])
