@@ -579,15 +579,18 @@ def viterbi_general_route(dev, whole_T):
     split = bench_viterbi.fwd_clocks(post, (v, tb), klen=7)
     del post, tb
     torch.cuda.empty_cache()
+    clusters = vk.viterbi_forward.general_clusters(K, 4, dev)
     print("viterbi general route klen 7 (K = 16,384) T={} B={}: plan C={} "
-          "threads={} nslots={}; bit_identical to the twins on the card {}; "
+          "threads={} nslots={} (the card runs {} clusters of C blocks at "
+          "once); bit_identical to the twins on the card {}; "
           "forward kernel {:.3f} ms ({:.3f} us a step) plain {:.1f} ms; "
           "backtrace kernel {:.3f} ms plain {:.1f} ms; launches {}; the "
           "forward's step by phase (cycles, clocked build at {:.2f} GHz, "
           "{:.3f} ms): {:.0f} {}; a cluster barrier {:.0f} cycles, a remote "
           "load {:.0f}, a copy's hop {:.0f}: design floor {:.3f} ms [{}]"
           .format(T, B, plan["C"], plan["threads"], plan["nslots"],
-                  same_fwd and same_back, ms, 1e3 * ms / T, plain_ms,
+                  clusters, same_fwd and same_back, ms, 1e3 * ms / T,
+                  plain_ms,
                   back_ms, back_plain_ms, launched, split["ghz"],
                   split["ms"], split["cycles_per_step"],
                   {k: round(x) for k, x in split["phases_mean"].items()},
@@ -600,6 +603,7 @@ def viterbi_general_route(dev, whole_T):
     shape = "T={} B={} K={} (klen 7)".format(T, B, K)
     fwd = with_bound({"shape": shape, "max_abs_err": err_fwd, "ms": ms,
                       "plain_ms": plain_ms, "checks": checks, "plan": plan,
+                      "cards_clusters": clusters,
                       "cycles_per_step": split["cycles_per_step"],
                       "cycles_per_step_by_phase": split["phases_mean"],
                       "design_floor_ms": split["design_floor_ms"],

@@ -664,12 +664,14 @@ __device__ __forceinline__ unsigned magic_of(unsigned d) {
   return 0xffffffffu / d + 1u;
 }
 
+#ifdef VITERBI_FWD_CLOCKS
 // a load of 4 bytes from a cluster address (the clocked build's chase)
 __device__ __forceinline__ float ld_cluster(uint32_t a) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
   return v;
 }
+#endif
 
 // weak stores of 4 and 16 bytes to a cluster address
 __device__ __forceinline__ void st_cluster(uint32_t a, float v) {

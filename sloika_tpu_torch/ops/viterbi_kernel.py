@@ -231,15 +231,14 @@ def general_cluster_shapes(K, nbase, optin=SMEM_OPTIN):
     at which the general kernel takes K states over nbase bases with its
     arrays in shared memory.  C divides the K / nbase^2 skip groups (so a
     block's states, step groups and skip groups are whole ranges), into
-    ranges of a multiple of 4 where C > 1 (the bulk copies' 16-byte units),
-    and is at most nbase^2 (so that every block feeds every block each
-    step); a block has K / (nbase C) step groups, a thread each (at least a
-    warp, at most GENERAL_MAX_THREADS); its arrays and a ring of
-    GENERAL_MIN_SLOTS slots fit ``optin`` bytes; the ring is as deep as
-    fits, up to GENERAL_MAX_SLOTS;
-    smem is at least half an SM's shared memory (up to ``optin``), so each
-    block has an SM of its own: the step's latency, not the SM's issue,
-    sets the pace."""
+    ranges of a multiple of 4 where C > 1 (a group's 4 scores go to their
+    consumers as one 16-byte store), and is at most nbase^2 (so that every
+    block feeds every block each step); a block has K / (nbase C) step
+    groups, a thread each (at least a warp, at most GENERAL_MAX_THREADS);
+    its arrays and a ring of GENERAL_MIN_SLOTS slots fit ``optin`` bytes;
+    the ring is as deep as fits, up to GENERAL_MAX_SLOTS; smem is at least
+    half an SM's shared memory (up to ``optin``), so each block has an SM
+    of its own: the step's latency, not the SM's issue, sets the pace."""
     nrk = K // (nbase * nbase)
     shapes = {}
     for C in GENERAL_CLUSTERS:
@@ -273,8 +272,9 @@ def viterbi_general_plan(B, K, nbase, optin=SMEM_OPTIN, clusters=None):
     smallest that fits, its smem not padded (blocks may share an SM: the
     issue of many rows, not one step's latency, sets the pace).  Where no
     size fits shared memory (a card of little of it), C = 1 with the
-    scores in device memory (``shared`` False, ``work_floats`` a row) and as many ring slots as fit (0 where fewer than
-    GENERAL_MIN_SLOTS fit: the rows are read from device memory).
+    scores in device memory (``shared`` False, ``work_floats`` a row) and
+    as many ring slots as fit (0 where fewer than GENERAL_MIN_SLOTS fit:
+    the rows are read from device memory).
 
     :returns: dict of C, threads, shared, nslots, slot_bytes, work_floats,
         smem (dynamic bytes)

@@ -37,9 +37,10 @@ cycles of the clocked loop over its time give the clock they ran at.  A
 clocked build must give the port's bits.  ``viterbi_back`` is also given
 its design's bound: the bytes of the whole traceback read once, and its
 chain floor, T shared-memory reads at the chase's cycles.  The general
-forward is given its design floor, T one-way bulk copies into another
-block's shared memory (``push_hop_cycles``: half a round trip between two
-blocks of the cluster), and the floor of a step that synchronised by a
+forward is given its design floor, T one-way hops of a score into another
+block's shared memory, a store and its release arrival on that block's
+barrier (``push_hop_cycles``: half a round trip between two blocks of the
+cluster), and the floor of a step that synchronised by a
 cluster barrier and loaded its inputs from the other blocks
 (``cluster_barrier_cycles``, ``remote_load_cycles``), each timed by the
 clocked build.
@@ -110,9 +111,10 @@ def fwd_clocks(post, ref, klen=KLEN):
         split["plan"] = plan
         # thread 0's 16 cluster barriers, thread 32's chase of 64 loads from
         # another block's shared memory, thread 64's 32 round trips of a
-        # 16-byte bulk copy between two blocks: the design's floor is a
-        # copy's one-way hop a step; a step that synchronised by a cluster
-        # barrier and read its inputs would pay a barrier and a remote load
+        # store and its release arrival between two blocks: the design's
+        # floor is one such hop a step; a step that synchronised by a
+        # cluster barrier and read its inputs would pay a barrier and a
+        # remote load
         if plan["C"] > 1 and warps > 2:
             hop = raw[2][6] / 64
             split.update({"cluster_barrier_cycles": raw[0][6] / 16,
@@ -221,6 +223,9 @@ def bench_general(name, dev, clocks):
     out = {"T": T, "B": B, "K": K,
            "viterbi_fwd_general": {"ms": ms, "us_per_step": 1e3 * ms / T,
                                    "plan": general_plan(B, K, dev)}}
+    if hasattr(vk.viterbi_forward, "general_clusters"):
+        out["viterbi_fwd_general"]["cards_clusters"] = (
+            vk.viterbi_forward.general_clusters(K, 4, dev))
     if clocks:
         out["viterbi_fwd_general_clocks"] = fwd_clocks(post, ref, klen)
     return out
