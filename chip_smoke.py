@@ -587,7 +587,8 @@ def viterbi_general_route(dev, whole_T):
           "backtrace kernel {:.3f} ms plain {:.1f} ms; launches {}; the "
           "forward's step by phase (cycles, clocked build at {:.2f} GHz, "
           "{:.3f} ms): {:.0f} {}; a cluster barrier {:.0f} cycles, a remote "
-          "load {:.0f}, a store's hop with its release arrival {:.0f}: design floor {:.3f} ms [{}]"
+          "load {:.0f}, a store's hop with its release arrival {:.0f}: "
+          "design floor {:.3f} ms [{}]"
           .format(T, B, plan["C"], plan["threads"], plan["nslots"],
                   clusters, same_fwd and same_back, ms, 1e3 * ms / T,
                   plain_ms,

@@ -1048,9 +1048,10 @@ extern "C" int viterbi_fwd(const void* post, void* tb, void* vfinal, int T,
 // a power of two up to 16 and nbase^2 that divides the K / nbase^2 skip
 // groups into ranges of a multiple of 4) of `threads` each, a ring of
 // nslots (0 or 2-12) slots in smem bytes, and the scores in smem (work
-// null) or in work, work_floats floats a row (C = 1 only).  The plan comes from ops/viterbi_kernel.py::
-// viterbi_general_plan.  Returns the cudaError_t of the launch;
-// cudaErrorInvalidValue (1) for a plan that does not fit.
+// null) or in work, work_floats floats a row (C = 1 only).  The plan
+// comes from ops/viterbi_kernel.py::viterbi_general_plan.  Returns the
+// cudaError_t of the launch; cudaErrorInvalidValue (1) for a plan that
+// does not fit.
 extern "C" int viterbi_fwd_general(const void* post, void* tb, void* vfinal,
                                    void* work, int T, int B, int K,
                                    int nbase, float skip_pen, int C,
