@@ -138,13 +138,32 @@ Phases, each printing one line and raising on failure:
     the script over B = 128, T = 3,264, K = 1,024 (1.71 GB, drawn on the
     card; bit-identical to the twin), its bandwidth beside ``torch.amax``'s,
     and each case's cycles a chunk from the kernel's clocked build
-    (``bench_dma.py --clocks``, the same bits).
+    (``bench_dma.py --clocks``, the same bits);
+15. bf16, the reference's bfloat16 configuration
+    (``SLOIKA_TPU_COMPUTE_DTYPE=bfloat16``), changing none of the phases
+    before it: ``viterbi_fwd`` on a bfloat16 posterior at the chunk
+    (T = 3,277, B = 64, pair route), production (B = 1,024, single
+    route), events (T = 9,000, B = 64) and whole-read (B = 8) shapes, and
+    on the general route at klen 7 and at nbase 3, klen 4 (T = 200,
+    B = 2): codes, final scores and decoded paths bit-identical to the
+    float32 kernel fed the upcast, the first 64 frames' codes of rows 0-7
+    to the plain twin, both dtypes timed in turns (f32, bf16, bf16, f32)
+    beside their bounds; the chunked DAC, whole-read raw and events paths
+    run in float32 and under ``config.compute_dtype`` bfloat16 (every
+    kernel of the path launched, no general route), with samples/s or
+    events/s, peak device memory and the share of reads called the same,
+    and a batch's posterior against float32's (max abs difference < 0.05,
+    argmax agreement > 0.95: tests/test_bf16.py:40-45; the events model at
+    sd 1.5, whose posterior is peaked, and at phase 12's 0.5, printed);
+    a profile of the chunked path's bfloat16 call, and the floor, mask and
+    cast pass timed at both dtypes.
 
 Every path (5-14) sets the kernels' launch counts to 0 before it runs and
 reads them after, and fails if a Viterbi wrapper took its general route
 (``general_launches``): the paths decode klen 5 over 4 bases.
 
-Then one JSON line of per-kernel numbers (with the least time the card
+Then one JSON line of per-kernel numbers (``viterbi_fwd``'s with the
+bfloat16 phase's under "bf16"; with the least time the card
 could take for each kernel's work, ``bound_ms``, from the shapes run: the
 larger of its bytes at 3.35 TB/s and its float32 operations at
 67 TFLOP/s), the card line again, and last ``{"ok": true, "device":
@@ -234,6 +253,17 @@ EVENTS_TRAIN_B, EVENTS_TRAIN_T = 100, 500
 # and mean abs as a share of the rounding's own (tests/test_torch_diag_kernels)
 DIAG_VITERBI, DIAG_RING = (128, 3277), (128, 3264)
 DIAG_BF16_TOL, DIAG_BF16_MEAN = 2e-3, 0.2
+# the bfloat16 phase: frames of the Viterbi codes held to the plain twin
+# (rows 0-7); the posterior against float32 (tests/test_bf16.py:40-45): max
+# abs difference below, argmax agreement above
+BF16_TWIN_T = 64
+BF16_POST_TOL, BF16_ARGMAX = 0.05, 0.95
+# the events model's weight sd in that check: at phase 12's 0.5 its
+# posterior is near-uniform over 1,025 states, so bf16 moves it by ~4e-6
+# and yet flips the argmax of ~9% of frames (near-ties); at 1.5 it is
+# peaked, as a trained model's is (the stand-in remaps at 1.5 for the
+# same reason, phase 9).  Both are printed; the check holds at 1.5
+BF16_EVENTS_SD = 1.5
 # the published peaks of one H100 SXM (NVIDIA data sheet) the bounds use
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -620,9 +650,11 @@ def viterbi_general_route(dev, whole_T):
     return fwd, back
 
 
-def viterbi_fwd_bound(T, B, K=1024):
-    """viterbi_fwd's bytes and operations at (T, B)."""
-    return T * B * (K + 1) * 4 + T * B * K + B * K * 4, 42 * T * B * K
+def viterbi_fwd_bound(T, B, K=1024, esize=4):
+    """viterbi_fwd's bytes and operations at (T, B), on a posterior of
+    ``esize``-byte elements (4: float32, 2: bfloat16)."""
+    return (T * B * (K + 1) * esize + T * B * K + B * K * 4,
+            42 * T * B * K)
 
 
 def viterbi_back_bound(T, B):
@@ -1902,6 +1934,372 @@ def phase_diagnostics(dev, counters):
                    nbytes + RB * 1024 * 4, nbytes // 4, library_ms=amax_ms),
     ], counts
 
+def phase_bf16(dev, standin, counters, event_feats):
+    """The reference's bfloat16 configuration (``SLOIKA_TPU_COMPUTE_DTYPE=
+    bfloat16``): ``viterbi_fwd`` on bfloat16 posteriors on every route, then
+    the three basecall paths under ``config.compute_dtype`` bfloat16.
+
+    :returns: viterbi_fwd's bfloat16 entry (its times beside the float32
+        ones at each shape, and the paths' numbers)
+    """
+    whole_T = max(raw_batch_frames(standin, [d for d, _ in
+                                             synthetic_reads()]))
+    shapes = bf16_viterbi_shapes(dev, whole_T)
+    general = bf16_viterbi_general(dev)
+    paths = bf16_basecall_paths(dev, standin, counters, event_feats)
+    return {"at_shapes": shapes, "general_route": general,
+            "basecall_paths": paths, "floor_pass": bf16_floor(dev, standin)}
+
+
+def bf16_floor(dev, standin):
+    """The floor, stay mask and cast (``Basecaller._floor_mask``) of the
+    chunked path's window batch (BATCH windows of CHUNK samples), writing a
+    float32 and a bfloat16 posterior, timed in turns f32, bf16, bf16, f32,
+    each beside its bytes (the posterior read, the stream written); and
+    the peak device memory of each of the model's layers and of the floor
+    over its input, at each dtype."""
+    from sloika_tpu_torch import basecall as bc, config
+    dac = synthetic_reads()
+    sig = np.concatenate([bc.normalise_dac_f32(d, n) for d, n in dac])
+    x = torch.from_numpy(sig[:BATCH * CHUNK].reshape(BATCH, CHUNK).T.copy()
+                         [:, :, None]).to(dev)
+    lengths = torch.full((BATCH,), CHUNK, dtype=torch.int64, device=dev)
+    callers = {d: bc.Basecaller(standin, 5, chunk_size=CHUNK,
+                                overlap=OVERLAP, output="bases", device=dev,
+                                post_dtype=d)
+               for d in ("float32", "bfloat16")}
+    peaks = {}
+    try:
+        for d in ("float32", "bfloat16"):
+            config.compute_dtype = getattr(torch, d)
+            peaks[d] = layer_peaks(standin, x, lengths, callers[d])
+    finally:
+        config.compute_dtype = torch.float32
+    print("peak device memory over each stage's input at the chunked batch "
+          "(MiB, f32 / bf16): " + "; ".join(
+              "{} {:.0f} / {:.0f}".format(n, a, b) for (n, a), (_, b) in
+              zip(peaks["float32"], peaks["bfloat16"])), flush=True)
+    with torch.inference_mode():
+        post, out_len = standin.apply_with_lengths(x, lengths)
+        runs = [cuda_ms(lambda: callers[d]._floor_mask(post, out_len), 5)
+                for d in ("float32", "bfloat16", "bfloat16", "float32")]
+    ms = {"float32": (runs[0] + runs[3]) / 2,
+          "bfloat16": (runs[1] + runs[2]) / 2}
+    bounds = {d: bound(post.numel() * (4 + e), 0)[0]
+              for d, e in (("float32", 4), ("bfloat16", 2))}
+    print("floor, stay mask and cast of the chunked batch ({} x {} x {}, "
+          "three passes): f32 {:.3f} ms (bytes bound {:.3f}), bf16 {:.3f} "
+          "ms (bytes bound {:.3f}) [{}]".format(
+              *post.shape, ms["float32"], bounds["float32"],
+              ms["bfloat16"], bounds["bfloat16"], card_line()), flush=True)
+    return {"shape": "T={} B={} nstate={}".format(*post.shape), "ms": ms,
+            "bytes_bound_ms": bounds, "peak_mib_by_stage": peaks}
+
+
+def layer_peaks(layer, x, lengths, caller):
+    """[(stage, MiB)]: the peak device memory of each layer of a Serial
+    model, and of ``caller``'s floor, mask and cast, over what was
+    allocated before it, run one after another on (x, lengths)."""
+    out = []
+    with torch.inference_mode():
+        y, ylen = x, lengths
+        for stage in list(layer.layers) + [None]:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if stage is None:
+                y = caller._floor_mask(y, ylen)
+            else:
+                y, ylen = stage.apply_with_lengths(y, ylen)
+            torch.cuda.synchronize()
+            out.append((type(stage).__name__ if stage is not None
+                        else "floor",
+                        (torch.cuda.max_memory_allocated() - base) / 2 ** 20))
+    return out
+
+
+def bf16_against_f32(post16, klen, nbase=4):
+    """``viterbi_fwd`` on a bfloat16 posterior and on its float32 upcast:
+    whether codes, final scores and decoded paths are the same bits, and
+    whether the first BF16_TWIN_T frames' codes of rows 0-7 equal the plain
+    twin's on those rows (the DP is causal: a frame's codes depend on no
+    later frame)."""
+    from sloika_tpu_torch.ops import decode, viterbi_kernel as vk
+    up = post16.float()
+    v16, tb16 = vk.viterbi_forward(post16, klen, 5.0, nbase)
+    v32, tb32 = vk.viterbi_forward(up, klen, 5.0, nbase)
+    same = torch.equal(v16, v32) and torch.equal(tb16, tb32)
+    paths = [vk.viterbi_backtrace(tb, torch.argmax(v, dim=1), nbase)
+             for v, tb in ((v16, tb16), (v32, tb32))]
+    same_path = all(map(torch.equal, *paths))
+    del v32, tb32, paths
+    Ts, n = min(BF16_TWIN_T, post16.shape[0]), min(RAW_BATCH,
+                                                   post16.shape[1])
+    _, tb_ref = decode.viterbi_forward_plain(
+        post16[:Ts, :n].contiguous(), klen, skip_pen=5.0, nbase=nbase)
+    same_twin = torch.equal(tb16[:Ts, :n], tb_ref)
+    return up, same, same_path, same_twin
+
+
+def f32_bf16_ms(post16, up, klen, nbase=4):
+    """(float32 ms, bfloat16 ms) of ``viterbi_fwd`` on the upcast and on
+    the bfloat16 posterior, timed in turns f32, bf16, bf16, f32; each the
+    mean of its two."""
+    from sloika_tpu_torch.ops import viterbi_kernel as vk
+    runs = [cuda_ms(lambda: vk.viterbi_forward(p, klen, 5.0, nbase), 3)
+            for p in (up, post16, post16, up)]
+    return (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+
+
+def bf16_viterbi_shapes(dev, whole_T):
+    """The tuned routes at the decode paths' shapes (K = 1,024), on a
+    bfloat16 posterior drawn on the card: bit-identical to the float32
+    kernel on its upcast (codes, final scores, paths), rows 0-7's first
+    codes to the twin; both dtypes timed, each beside its bound."""
+    from sloika_tpu_torch.ops import viterbi_kernel as vk
+    from sloika_tpu_torch.scripts import bench_viterbi
+    out = {}
+    for name, T, B in ((("chunk", T_FRAMES, BATCH),) + VITERBI_EXTRA_SHAPES
+                       + (("whole read", whole_T, RAW_BATCH),)):
+        post16 = bench_viterbi.posterior(T, B, dev, seed=T + B).to(
+            torch.bfloat16)
+        route = vk.viterbi_fwd_plan(
+            B, 1024, *vk._device_limits(dev), esize=2,
+            pairs=vk.viterbi_forward.pairs(1024, dev))["route"]
+        up, same, same_path, same_twin = bf16_against_f32(post16, 5)
+        ms32, ms16 = f32_bf16_ms(post16, up, 5)
+        del post16, up
+        torch.cuda.empty_cache()
+        b32 = bound(*viterbi_fwd_bound(T, B))
+        b16 = bound(*viterbi_fwd_bound(T, B, esize=2))
+        print("viterbi_fwd bf16 {} T={} B={} ({} route): bit_identical to "
+              "the f32 kernel on the upcast {} (paths {}), rows 0-{} codes "
+              "of {} frames equal to the twin {}; f32 {:.3f} ms (bound "
+              "{:.3f} ms, {}), bf16 {:.3f} ms (bound {:.3f} ms, {}), "
+              "bf16/f32 {:.3f} [{}]".format(
+                  name, T, B, route, same, same_path, min(B, RAW_BATCH) - 1,
+                  min(T, BF16_TWIN_T), same_twin, ms32, *b32, ms16, *b16,
+                  ms16 / ms32, card_line()), flush=True)
+        if not (same and same_path and same_twin):
+            raise AssertionError("viterbi_fwd on a bf16 posterior differs "
+                                 "at {} (T={} B={})".format(name, T, B))
+        out[name] = {"shape": "T={} B={} K=1024".format(T, B),
+                     "route": route, "ms_f32": ms32, "ms_bf16": ms16,
+                     "bound_ms_f32": b32[0], "bound_ms_bf16": b16[0],
+                     "bound_by": b16[1]}
+    return out
+
+
+def bf16_viterbi_general(dev):
+    """The general route on bfloat16 posteriors, klen 7 and nbase 3 at klen
+    4 (KLEN7_T, KLEN7_B): the float32 kernel's bits on the upcast, the
+    twin's codes, ``general_launches`` up by two."""
+    from sloika_tpu_torch.ops import viterbi_kernel as vk
+    out = {}
+    for klen, nbase in ((7, 4), (4, 3)):
+        gen = torch.Generator(device=dev).manual_seed(171 + nbase)
+        post16 = torch.softmax(4.0 * torch.randn(
+            (KLEN7_T, KLEN7_B, nbase ** klen + 1), generator=gen,
+            device=dev), dim=2).to(torch.bfloat16)
+        before = vk.viterbi_forward.general_launches
+        up, same, same_path, same_twin = bf16_against_f32(post16, klen,
+                                                          nbase)
+        routed = vk.viterbi_forward.general_launches - before == 2
+        ms32, ms16 = f32_bf16_ms(post16, up, klen, nbase)
+        K = nbase ** klen
+        b32 = bound(*viterbi_fwd_bound(KLEN7_T, KLEN7_B, K))
+        b16 = bound(*viterbi_fwd_bound(KLEN7_T, KLEN7_B, K, esize=2))
+        print("viterbi_fwd bf16 general route klen {} nbase {} T={} B={}: "
+              "general route {}; bit_identical to the f32 kernel on the "
+              "upcast {} (paths {}), codes equal to the twin {}; f32 {:.3f} "
+              "ms (bound {:.4f} ms), bf16 {:.3f} ms (bound {:.4f} ms)".format(
+                  klen, nbase, KLEN7_T, KLEN7_B, routed, same, same_path,
+                  same_twin, ms32, b32[0], ms16, b16[0]), flush=True)
+        if not (routed and same and same_path and same_twin):
+            raise AssertionError("the general route on a bf16 posterior "
+                                 "differs at klen {} nbase {}".format(
+                                     klen, nbase))
+        out["klen {} nbase {}".format(klen, nbase)] = {
+            "shape": "T={} B={} K={}".format(KLEN7_T, KLEN7_B, K),
+            "ms_f32": ms32, "ms_bf16": ms16, "bound_ms_f32": b32[0],
+            "bound_ms_bf16": b16[0]}
+    return out
+
+
+def valid_post(post, lengths):
+    """(T', nstate) float32 rows of a (T, B, nstate) posterior's valid
+    frames."""
+    T = post.shape[0]
+    mask = torch.arange(T, device=post.device)[:, None] < lengths[None, :]
+    return post.float()[mask]
+
+
+def bf16_basecall_paths(dev, standin, counters, event_feats):
+    """The chunked DAC, whole-read raw and events basecall paths, each run
+    in float32 and under ``config.compute_dtype`` bfloat16 (bfloat16 affine
+    products, a bfloat16 posterior stream): every kernel of the path
+    launched and none took the general Viterbi route; throughput, peak
+    device memory, the share of reads called the same; the posterior of a
+    batch against float32's (max abs difference < BF16_POST_TOL, argmax
+    agreement > BF16_ARGMAX over its valid frames; the events model at
+    BF16_EVENTS_SD, and at phase 12's sd, whose check is printed, not
+    held); then a profile of the chunked path's bfloat16 call (the cast is
+    the floor's add, written in bfloat16)."""
+    from sloika_tpu_torch import basecall as bc, config, models
+    dac = synthetic_reads()
+    sigs = raw_signals(dac)
+    ev_net = lambda sd: seeded_weights(models.network_factory(
+        "baseline_lstm")(klen=5, sd=0.5, size=LSTM_S), seed=21, sd=sd)
+    ev_layer = ev_net(BF16_EVENTS_SD)
+    # a batch of each path for the posterior check: 4 windows; 2 whole
+    # reads of RAW_SHORT samples; 4 event reads
+    wins = np.concatenate([bc.normalise_dac_f32(d, n) for d, n in dac])
+    wins = wins[:4 * CHUNK].reshape(4, CHUNK).T.copy()[:, :, None]
+    short = raw_signals([(d[:RAW_SHORT], n4) for d, n4 in
+                         synthetic_reads(n=2, seed=9)])
+    paths = (
+        ("chunked DAC", "basecall", standin,
+         dict(chunk_size=CHUNK, overlap=OVERLAP, batch_size=BATCH,
+              output="bases"),
+         lambda c: c.basecall_dac_reads(dac), sum(len(d) for d, _ in dac),
+         "samples", [wins[:, b] for b in range(4)]),
+        ("whole-read raw", "basecall_raw", standin,
+         dict(batch_size=RAW_BATCH, output="states"),
+         lambda c: c.basecall_signals(sigs), sum(len(x) for x in sigs),
+         "samples", short),
+        ("events", "basecall_events", ev_layer,
+         dict(batch_size=EVENTS_READS, output="states"),
+         lambda c: c.basecall_signals(event_feats),
+         sum(len(r) for r in event_feats), "events", event_feats[:4]))
+    out = {}
+    dtypes = (torch.float32, torch.bfloat16)
+    try:
+        for name, key, layer, kw, run, n, unit, check in paths:
+            callers = {}
+            for dtype in dtypes:
+                config.compute_dtype = dtype
+                callers[dtype] = bc.Basecaller(layer, 5, device=dev, **kw)
+                run(callers[dtype])                      # warm-up
+            res = {d: {"s": [], "peak_mib": 0.0} for d in dtypes}
+            # in turns, so that neither dtype always runs first
+            for dtype in dtypes + dtypes[::-1]:
+                config.compute_dtype = dtype
+                zero_counts(counters)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                calls = run(callers[dtype])
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                counts = read_counts(counters)
+                launched = [counts[k] for k in PATH_KERNELS[key]]
+                if min(launched) <= 0:
+                    raise AssertionError("a kernel of the {} path never "
+                                         "launched under {}: {}".format(
+                                             name, dtype, launched))
+                r = res[dtype]
+                r.update(calls=calls, launches=launched)
+                r["s"].append(dt)
+                r["peak_mib"] = max(r["peak_mib"],
+                                    torch.cuda.max_memory_allocated()
+                                    / 2 ** 20)
+            for r in res.values():
+                r["rate"] = n * len(r["s"]) / sum(r["s"])
+            if key == "basecall":
+                config.compute_dtype = torch.bfloat16
+                prof_line = profiled_call(
+                    lambda: run(callers[torch.bfloat16]))
+            diff, agree, frames = bf16_posterior_check(layer, kw, check,
+                                                       dev)
+            a, b = res[torch.float32], res[torch.bfloat16]
+            same = [len(c1) == len(c2) and bool(np.all(c1 == c2))
+                    for (_, c1), (_, c2) in zip(a["calls"], b["calls"])]
+            print("bf16 {} basecall path (f32, bf16, bf16, f32): f32 {:.1f} "
+                  "{}/s peak {:.1f} MiB; "
+                  "bf16 {:.1f} {}/s peak {:.1f} MiB (launches {} {}); reads "
+                  "called the same {}/{}; posterior of a batch ({} frames) "
+                  "bf16 vs f32: max_abs_diff {:.3e} (< {}), argmax "
+                  "agreement {:.4f} (> {}) [{}]".format(
+                      name, a["rate"], unit, a["peak_mib"], b["rate"], unit,
+                      b["peak_mib"], PATH_KERNELS[key], b["launches"],
+                      sum(same), len(same), frames, diff, BF16_POST_TOL,
+                      agree, BF16_ARGMAX, card_line()), flush=True)
+            if not (diff < BF16_POST_TOL and agree > BF16_ARGMAX):
+                raise AssertionError("the {} path's bf16 posterior departs "
+                                     "from f32: {} {}".format(name, diff,
+                                                              agree))
+            for c in res.values():
+                if any(len(call) == 0 or not np.isfinite(sc)
+                       for sc, call in c["calls"]):
+                    raise AssertionError("the {} path gave an empty or "
+                                         "non-finite call".format(name))
+                del c["calls"]
+            out[name] = {"f32": a, "bf16": b, "reads_called_the_same":
+                         sum(same) / len(same), "posterior_max_abs_diff":
+                         diff, "argmax_agreement": agree, "unit": unit}
+        flat = bf16_posterior_check(ev_net(0.5), paths[2][3],
+                                    event_feats[:4], dev)
+    finally:
+        config.compute_dtype = torch.float32
+    print("bf16 events posterior at phase 12's weights (sd 0.5, near-"
+          "uniform: not held): max_abs_diff {:.3e}, argmax agreement {:.4f} "
+          "over {} frames".format(*flat), flush=True)
+    out["events"]["at_sd_0.5"] = {"posterior_max_abs_diff": flat[0],
+                                  "argmax_agreement": flat[1]}
+    print("bf16 chunked DAC basecall profile (one call, profiled): "
+          + prof_line, flush=True)
+    return out
+
+
+def bf16_posterior_check(layer, kw, seqs, dev):
+    """(max abs difference, argmax agreement, frames) of the posterior
+    that a Basecaller of ``layer`` streams to the Viterbi under bfloat16
+    against float32's, over the valid frames of a batch of ``seqs``."""
+    from sloika_tpu_torch import basecall as bc, config
+    x, lengths = padded_batch(seqs)
+    posts, prev = {}, config.compute_dtype
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            config.compute_dtype = dtype
+            caller = bc.Basecaller(layer, 5, device=dev, **kw)
+            with torch.inference_mode():
+                post, out_len = caller._floored_masked_post(
+                    x.to(dev), lengths.to(dev))
+            if post.dtype != dtype:
+                raise AssertionError("a {} posterior under {}".format(
+                    post.dtype, dtype))
+            posts[dtype] = valid_post(post, out_len)
+    finally:
+        config.compute_dtype = prev
+    p32, p16 = posts[torch.float32], posts[torch.bfloat16]
+    return (float((p16 - p32).abs().max()),
+            float((p16.argmax(1) == p32.argmax(1)).float().mean()),
+            len(p32))
+
+
+def padded_batch(seqs):
+    """(T, B, F) float32 zero-padded batch of 1-D signals or (T, F)
+    feature matrices, and their lengths."""
+    nfeat = 1 if seqs[0].ndim == 1 else seqs[0].shape[1]
+    lengths = np.array([len(s) for s in seqs], np.int64)
+    x = np.zeros((int(lengths.max()), len(seqs), nfeat), np.float32)
+    for b, s in enumerate(seqs):
+        x[:len(s), b] = s.reshape(len(s), nfeat)
+    return torch.from_numpy(x), torch.from_numpy(lengths)
+
+
+def profiled_call(fn):
+    """``profile_table`` of one call of ``fn`` under the profiler."""
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    return profile_table(prof.events(), 1, wall)
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1960,6 +2358,8 @@ def main():
     launches["train_events"], _ = phase_train_events(dev, counters)
     diag, launches["diagnostics"] = phase_diagnostics(dev, counters)
     by_name.update((k["name"], k) for k in diag)
+    by_name["viterbi_fwd"]["bf16"] = phase_bf16(dev, standin, counters,
+                                                reads)
     for path, counts in launches.items():
         for name, n in counts.items():
             entry = by_name[name]

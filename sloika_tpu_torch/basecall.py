@@ -91,11 +91,16 @@ class Basecaller(object):
     :param output: "states" (whole reads, kmer-state calls; the JAX
         package's default) or "bases" (chunked, packed 2-bit base codes)
     :param device: torch device; "cuda" raises when no GPU is present
+    :param post_dtype: dtype the posterior streams to the Viterbi in,
+        "float32", "bfloat16" or "auto": bfloat16 where
+        ``config.compute_dtype`` is bfloat16, as the JAX package's "auto"
+        with its Pallas Viterbi (``sloika_tpu/basecall.py:202-219``), whose
+        counterpart the port's Viterbi is on the card and on the CPU alike
     """
 
     def __init__(self, layer, kmer_len, min_prob=1e-5, skip=5.0,
                  batch_size=8, chunk_size=8192, overlap=400, output="states",
-                 device="cuda"):
+                 device="cuda", post_dtype="auto"):
         if output not in ("bases", "states"):
             raise NotImplementedError(
                 "output must be 'bases' (chunked) or 'states' (whole reads)")
@@ -116,6 +121,14 @@ class Basecaller(object):
             raise ValueError("chunk_size must exceed 2*overlap")
         self.model_stride = _infer_stride(layer)
         self.output = output
+        #: the Viterbi kernels upcast each row to float32 before the log,
+        #: so a bfloat16 posterior halves their dominant read and leaves
+        #: the DP in float32
+        if post_dtype == "auto":
+            self.post_dtype = config.compute_dtype
+        else:
+            self.post_dtype = {"float32": torch.float32,
+                               "bfloat16": torch.bfloat16}[str(post_dtype)]
         #: the two seam frames of a window (move-record count boundaries)
         self._f_splits = (overlap // self.model_stride,
                           (chunk_size - overlap) // self.model_stride)
@@ -123,18 +136,29 @@ class Basecaller(object):
     # -- device programs -------------------------------------------------
 
     def _floored_masked_post(self, x, lengths):
-        """Forward pass + min_prob floor + pad-frame masking
-        (sloika_tpu/basecall.py:274-289)."""
+        """Forward pass + min_prob floor + pad-frame masking, in
+        ``post_dtype`` (sloika_tpu/basecall.py:274-289)."""
         post, out_lengths = self.layer.apply_with_lengths(x, lengths)
-        post = self.min_prob + (1.0 - self.min_prob) * post
+        return self._floor_mask(post, out_lengths), out_lengths
+
+    def _floor_mask(self, post, out_lengths):
+        """The min_prob floor of a (T, B, nstate) float32 posterior, and
+        one-hot stays on the frames past each row's ``out_lengths``, in
+        ``post_dtype``.  The cast comes after the floor and is exact on the
+        stays, so it folds into the floor's add (the float32 sum rounded to
+        ``post_dtype`` as it is stored) and the mask runs on the narrow
+        tensor: three passes at either dtype."""
+        scaled = (1.0 - self.min_prob) * post
+        post = torch.add(scaled, self.min_prob, out=torch.empty_like(
+            scaled, dtype=self.post_dtype))
+        del scaled
         T = post.shape[0]
         frame_mask = (torch.arange(T, device=post.device)[:, None]
                       < out_lengths[None, :])
         stay = torch.zeros(post.shape[2], dtype=post.dtype,
                            device=post.device)
         stay[0] = 1.0
-        post = torch.where(frame_mask[:, :, None], post, stay)
-        return post.contiguous(), out_lengths
+        return torch.where(frame_mask[:, :, None], post, stay).contiguous()
 
     def _forward_decode(self, x, lengths):
         """Posterior + Viterbi + collapse of one window batch.

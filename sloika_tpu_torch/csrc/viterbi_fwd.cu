@@ -4,9 +4,13 @@
 // _fwd_kernel_sm (state-major, driven by viterbi_forward_sm) and its
 // lane-major twin _fwd_kernel (viterbi_forward): one GPU layout serves both.
 //
-// Input: the forward's time-major posterior post (T, B, K+1) f32, column 0 =
-// stay, in the probability domain.  Output: traceback codes tb (T, B, K)
-// int8 and the final scores vfinal (B, K) f32.  nbase = 4, so a destination
+// Input: the forward's time-major posterior post (T, B, K+1), column 0 =
+// stay, in the probability domain, f32 or bf16 (the JAX package's
+// Basecaller streams it in bf16 when its compute dtype is bf16: each kernel
+// is a template over the element type E, and upcasts each element to f32
+// before the log, as the Pallas kernel's _row does, so a bf16 posterior
+// gives the bits of the f32 kernel fed its upcast).  Output: traceback
+// codes tb (T, B, K) int8 and the final scores vfinal (B, K) f32.  nbase = 4, so a destination
 // state i has 4 step predecessors g*K/4 + i/4 and 16 skip predecessors
 // h*K/16 + i/16.  Per step, with lp = logf(p + 1e-10) taken here in f32:
 //
@@ -28,8 +32,10 @@
 // calls on the GPU, so the plain twin agrees bit for bit.
 //
 // What bounds it.  The DP is sequential in t and independent across rows.
-// Per step a row reads K+1 floats of posterior and writes K bytes of
-// traceback: 5 bytes a state, streamed once.  At the basecall paths'
+// Per step a row reads K+1 elements of posterior and writes K bytes of
+// traceback: 5 bytes a state, streamed once (3 from a bf16 posterior, which
+// moved the times by under 1% but at B = 1,024, 0.90x: PERF.md §6).
+// At the basecall paths'
 // batches (B = 8 to 64, one row a block) a block's step bounds the kernel:
 // the design before this one loaded each posterior row into registers one
 // step ahead, and half of its 1,237-cycle step waited for that row
@@ -45,9 +51,11 @@
 // separates the reads of step t from the writes of step t+1.  The
 // posterior rows come into rings of shared-memory slots by bulk
 // asynchronous copies (cp.async.bulk) on each slot's mbarrier, ahead of the
-// step.  A row is 4 (K+1) bytes at a stride of B 4 (K+1), 16-byte aligned
-// for one row in four, so a copy takes the row's aligned superset and the
-// reader starts at the row's offset into it; a superset that would run
+// step.  A row is s (K+1) bytes at a stride of B s (K+1) (s = 4 for f32,
+// 2 for bf16), 16-byte aligned for one row in 16 / s at most, so a copy
+// takes the row's aligned superset (s (K+1) + 16 - s bytes at most: a
+// ring slot, row_bytes) and the reader starts at the row's offset into it,
+// in elements; a superset that would run
 // past the tensor's storage (its last row) is not copied, and that row is
 // read from device memory.  A wait on a slot's barrier tests it first
 // (mbarrier.test_wait): a blocking try_wait on a completed phase cost
@@ -107,18 +115,18 @@ constexpr int kPairPostSlots = 2;  // the log block's posterior slots
 // DPT r + DPT - 1, which share one skip group (DPT <= 16).
 // With 4 destinations a thread a block has its SM alone (the plan), and
 // may take up to 64 registers a thread; with 8, blocks share an SM.
-template <int DPT>
+template <int DPT, typename E>
 __global__ void __launch_bounds__(DPT == 4 ? 1024 : 512, DPT == 4 ? 1 : 2)
-viterbi_fwd_kernel(const float* __restrict__ post, int8_t* __restrict__ tb,
+viterbi_fwd_kernel(const E* __restrict__ post, int8_t* __restrict__ tb,
                    float* __restrict__ vfinal, int T, int B, int K,
-                   float skip_pen, int nslots, int row_floats,
+                   float skip_pen, int nslots, int row_bytes,
                    unsigned long long post_end) {
   constexpr int kGroups = DPT / 4;      // step groups a thread
   extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem);        // [nslots]
-  float* ring = reinterpret_cast<float*>(smem + kBarBytes);  // [nslots][row]
-  float* cur = ring + (size_t)nslots * row_floats;  // [K] scores at t-1
-  float* nxt = cur + K;                             // [K] scores at t
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // [nslots]
+  unsigned char* ring = smem + kBarBytes;               // [nslots][row_bytes]
+  float* cur = reinterpret_cast<float*>(ring + (size_t)nslots * row_bytes);
+  float* nxt = cur + K;                 // [K] scores at t; cur: at t-1
   const int b = blockIdx.x;
   const int r = threadIdx.x;
   const int nrem_step = K >> 2;
@@ -131,33 +139,32 @@ viterbi_fwd_kernel(const float* __restrict__ post, int8_t* __restrict__ tb,
     for (int k = 0; k < nslots; ++k) mbar_init(&full[k], 1);
     mbar_init_fence();
     // frame 1 + k into slot k
-    const float* row = post + ((size_t)B + b) * nst;
+    const E* row = post + ((size_t)B + b) * nst;
     for (int k = 0; k < nslots && 1 + k < T; ++k, row += row_step)
-      fill(row, nst, post_end, ring + (size_t)k * row_floats, &full[k]);
+      fill(row, nst, post_end, ring + (size_t)k * row_bytes, &full[k]);
   }
   {
     // t = 0: the scores are the row's kmer log-posteriors
-    const float* row = post + (size_t)b * nst + 1 + DPT * r;
+    const E* row = post + (size_t)b * nst + 1 + DPT * r;
 #pragma unroll
     for (int i = 0; i < DPT; i += 4)
       reinterpret_cast<float4*>(cur + DPT * r)[i / 4] = make_float4(
-          logf(row[i] + kEta), logf(row[i + 1] + kEta),
-          logf(row[i + 2] + kEta), logf(row[i + 3] + kEta));
+          logf(upcast(row[i]) + kEta), logf(upcast(row[i + 1]) + kEta),
+          logf(upcast(row[i + 2]) + kEta), logf(upcast(row[i + 3]) + kEta));
 #pragma unroll
     for (int i = 0; i < DPT; i += 4)
       reinterpret_cast<char4*>(tb + (size_t)b * K + DPT * r)[i / 4] =
           make_char4(-1, -1, -1, -1);
   }
   // only the last row of the storage can be left out of the ring
-  const float* last = post + ((size_t)(T - 1) * B + b) * nst;
   const bool last_copied =
-      (((unsigned long long)last + 4ull * nst + 15ull) & ~15ull) <= post_end;
+      in_storage(post + ((size_t)(T - 1) * B + b) * nst, nst, post_end);
   __syncthreads();
 
   int slot = 0;
   unsigned phase = 0;
-  const float* row_g = post + ((size_t)B + b) * nst;   // frame t's row
-  const float* fill_row = row_g + nslots * row_step;   // frame t + nslots's
+  const E* row_g = post + ((size_t)B + b) * nst;   // frame t's row
+  const E* fill_row = row_g + nslots * row_step;   // frame t + nslots's
   int8_t* tb_row = tb + ((size_t)B + b) * K;
   const size_t tb_step = (size_t)B * K;
 #ifdef VITERBI_FWD_CLOCKS
@@ -169,14 +176,15 @@ viterbi_fwd_kernel(const float* __restrict__ post, int8_t* __restrict__ tb,
     float p0, pk[DPT];
     if (t < T - 1 || last_copied) {
       mbar_wait_tested(&full[slot], phase);
-      const float* p = ring + slot * row_floats + (((uintptr_t)row_g >> 2) & 3);
-      p0 = p[0];
+      const E* p = reinterpret_cast<const E*>(ring + (size_t)slot * row_bytes) +
+                   superset_offset(row_g);
+      p0 = upcast(p[0]);
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) pk[i] = p[1 + DPT * r + i];
+      for (int i = 0; i < DPT; ++i) pk[i] = upcast(p[1 + DPT * r + i]);
     } else {
-      p0 = row_g[0];
+      p0 = upcast(row_g[0]);
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) pk[i] = row_g[1 + DPT * r + i];
+      for (int i = 0; i < DPT; ++i) pk[i] = upcast(row_g[1 + DPT * r + i]);
     }
 #ifdef VITERBI_FWD_CLOCKS
     asm volatile("" ::"f"(p0), "f"(pk[0]), "f"(pk[DPT - 1]));
@@ -250,7 +258,8 @@ viterbi_fwd_kernel(const float* __restrict__ post, int8_t* __restrict__ tb,
     __syncthreads();
     // every thread has read frame t: its slot takes frame t + nslots
     if (r == 0 && t + nslots < T)
-      fill(fill_row, nst, post_end, ring + slot * row_floats, &full[slot]);
+      fill(fill_row, nst, post_end, ring + (size_t)slot * row_bytes,
+           &full[slot]);
     if (++slot == nslots) {
       slot = 0;
       phase ^= 1u;
@@ -369,12 +378,15 @@ __device__ __forceinline__ void dp_barrier(int n) {
 // where it completes on the slot's barrier.  Block 0 runs the step of
 // viterbi_fwd_kernel<4> on its first max(32, K / 4) threads and frees a
 // log slot by a remote arrival on the log block's barrier.  Slot c % n of
-// each ring holds chunk c, frames 1 + cG .. (c + 1)G.
+// each ring holds chunk c, frames 1 + cG .. (c + 1)G.  A posterior slot is
+// G row_bytes (the rows' supersets, f32 or bf16), a log slot G log rows of
+// K + 4 floats (the same bytes where E is float).
+template <typename E>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(1024, 1)
-viterbi_fwd_pair_kernel(const float* __restrict__ post,
+viterbi_fwd_pair_kernel(const E* __restrict__ post,
                         int8_t* __restrict__ tb, float* __restrict__ vfinal,
                         int T, int B, int K, float skip_pen, int G,
-                        int nslots, int P, int row_floats,
+                        int nslots, int P, int row_bytes,
                         unsigned long long post_end) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // log block: copied
@@ -382,8 +394,10 @@ viterbi_fwd_pair_kernel(const float* __restrict__ post,
   uint64_t* logged = freed + kMaxSlots;                 // DP block: logs in
   // the DP block: nslots log slots, then the scores; the log block: P
   // posterior slots, then nslots staging slots
-  float* ring = reinterpret_cast<float*>(smem + kPairBarBytes);
-  const int chunk_floats = G * row_floats;
+  unsigned char* ring = smem + kPairBarBytes;
+  const int log_floats = K + 4;             // a log row: kmers, then stay
+  const int chunk_floats = G * log_floats;  // a log slot
+  const size_t post_chunk = (size_t)G * row_bytes;   // a posterior slot
   const unsigned rank = cluster_rank();
   const int b = blockIdx.x >> 1;
   const int r = threadIdx.x;
@@ -411,7 +425,7 @@ viterbi_fwd_pair_kernel(const float* __restrict__ post,
     auto span = [&](int c, int q, unsigned long long& a0) -> unsigned {
       const unsigned long long a = (unsigned long long)(
           post + ((size_t)(1 + c * G + q) * B + b) * nst);
-      const unsigned long long e = (a + 4ull * nst + 15ull) & ~15ull;
+      const unsigned long long e = (a + sizeof(E) * nst + 15ull) & ~15ull;
       a0 = a & ~15ull;
       return 1 + c * G + q < T && e <= post_end ? (unsigned)(e - a0) : 0u;
     };
@@ -427,16 +441,15 @@ viterbi_fwd_pair_kernel(const float* __restrict__ post,
         for (int q = r >> 5; q < G; q += nwarps) {
           const unsigned bytes = span(c, q, a0);
           if (bytes)
-            bulk_copy(ring + (size_t)(c % P) * chunk_floats +
-                          (size_t)q * row_floats,
-                      reinterpret_cast<const float*>(a0), bytes, bar);
+            bulk_copy(ring + (c % P) * post_chunk + (size_t)q * row_bytes,
+                      reinterpret_cast<const void*>(a0), bytes, bar);
         }
       }
     };
     for (int c = 0; c < P && c < nchunks; ++c) refill(c);
     // thread r takes kmers 4 kk .. 4 kk + 3 of frames q0, q0 + per, ...
     const int kk = r % nstep, q0 = r / nstep, per = blockDim.x / nstep;
-    float* stage = ring + (size_t)P * chunk_floats;
+    float* stage = reinterpret_cast<float*>(ring + P * post_chunk);
     const uint32_t dp_ring = map_rank(ring, 0);
     const uint32_t dp_logged = map_rank(logged, 0);
     int pslot = 0, slot = 0;
@@ -444,21 +457,23 @@ viterbi_fwd_pair_kernel(const float* __restrict__ post,
     for (int c = 0; c < nchunks; ++c) {
       mbar_wait_tested(&full[pslot], pphase);
       if (c >= nslots) mbar_wait_cluster(&freed[slot], phase ^ 1u);
-      const float* src = ring + pslot * chunk_floats;
+      const unsigned char* src = ring + pslot * post_chunk;
       float* dst = stage + slot * chunk_floats;
       if (q0 < per) {
         for (int q = q0; q < G && 1 + c * G + q < T; q += per) {
-          const float* row = post + ((size_t)(1 + c * G + q) * B + b) * nst;
-          const unsigned long long a = (unsigned long long)row;
-          const bool copied =
-              ((a + 4ull * nst + 15ull) & ~15ull) <= post_end;
-          const float* p =
-              copied ? src + q * row_floats + ((a >> 2) & 3) : row;
-          float* d = dst + q * row_floats;
-          reinterpret_cast<float4*>(d)[kk] = make_float4(
-              logf(p[1 + 4 * kk] + kEta), logf(p[2 + 4 * kk] + kEta),
-              logf(p[3 + 4 * kk] + kEta), logf(p[4 + 4 * kk] + kEta));
-          if (kk == 0) d[K] = logf(p[0] + kEta);
+          const E* row = post + ((size_t)(1 + c * G + q) * B + b) * nst;
+          const E* p =
+              in_storage(row, nst, post_end)
+                  ? reinterpret_cast<const E*>(src + (size_t)q * row_bytes) +
+                        superset_offset(row)
+                  : row;
+          float* d = dst + q * log_floats;
+          reinterpret_cast<float4*>(d)[kk] =
+              make_float4(logf(upcast(p[1 + 4 * kk]) + kEta),
+                          logf(upcast(p[2 + 4 * kk]) + kEta),
+                          logf(upcast(p[3 + 4 * kk]) + kEta),
+                          logf(upcast(p[4 + 4 * kk]) + kEta));
+          if (kk == 0) d[K] = logf(upcast(p[0]) + kEta);
         }
       }
       fence_proxy_async();       // these writes come before the copy's reads
@@ -484,7 +499,9 @@ viterbi_fwd_pair_kernel(const float* __restrict__ post,
 
   // the DP block: threads r < ndp (whole warps) run the step; r < K / 4
   // own a step group
-  float* cur = ring + (size_t)nslots * chunk_floats;    // scores at t-1
+  const float* lring = reinterpret_cast<const float*>(ring);
+  float* cur = reinterpret_cast<float*>(ring) +
+               (size_t)nslots * chunk_floats;           // scores at t-1
   float* nxt = cur + K;                                 // scores at t
   const int ndp = nstep < 32 ? 32 : nstep;
   if (r >= ndp) {
@@ -496,10 +513,10 @@ viterbi_fwd_pair_kernel(const float* __restrict__ post,
   const int s = r >> 2;                // skip group
   if (active) {
     // t = 0: the scores are the row's kmer log-posteriors
-    const float* row = post + (size_t)b * nst + 1 + 4 * r;
-    reinterpret_cast<float4*>(cur)[r] =
-        make_float4(logf(row[0] + kEta), logf(row[1] + kEta),
-                    logf(row[2] + kEta), logf(row[3] + kEta));
+    const E* row = post + (size_t)b * nst + 1 + 4 * r;
+    reinterpret_cast<float4*>(cur)[r] = make_float4(
+        logf(upcast(row[0]) + kEta), logf(upcast(row[1]) + kEta),
+        logf(upcast(row[2]) + kEta), logf(upcast(row[3]) + kEta));
     reinterpret_cast<char4*>(tb + (size_t)b * K)[r] =
         make_char4(-1, -1, -1, -1);
   }
@@ -519,7 +536,7 @@ viterbi_fwd_pair_kernel(const float* __restrict__ post,
   for (int t = 1; t < T; ++t) {
     if (row == 0) mbar_wait_tested(&logged[slot], phase);
     if (active) {
-      const float* lrow = ring + slot * chunk_floats + row * row_floats;
+      const float* lrow = lring + slot * chunk_floats + row * log_floats;
       const float4 lk = reinterpret_cast<const float4*>(lrow)[r];
       const float lps = lrow[K];
 #ifdef VITERBI_FWD_CLOCKS
@@ -705,9 +722,9 @@ __device__ __forceinline__ float first_max(const float* p, int stride, int n,
 }
 
 // The bytes of one ring slot: the stay's 16-byte unit, then the aligned
-// superset of a block's KC kmers
-__host__ __device__ constexpr int general_slot_bytes(int KC) {
-  return 16 + ((4 * KC + 12 + 15) & ~15);
+// superset of a block's KC kmers of `esize` bytes each
+__host__ __device__ constexpr int general_slot_bytes(int KC, int esize) {
+  return 16 + ((esize * KC + 16 - esize + 15) & ~15);
 }
 
 __host__ __device__ constexpr int general_round4(int n) {
@@ -726,20 +743,25 @@ __host__ __device__ constexpr size_t general_arrays(int K, int C) {
 
 // kNbase: 4, the bases of the JAX package's models, for which the loops
 // over a group's predecessors and states unroll (4,136 cycles a step
-// against 5,466 at klen 7, C = 8: PERF.md §6), or 0, any nbase_arg
-template <bool kShared, int kNbase>
+// against 5,466 at klen 7, C = 8: PERF.md §6), or 0, any nbase_arg.  E:
+// the posterior's element.  Where it is float the frame's logs are taken
+// ahead of the update, in place in the slot, while the inputs arrive; a
+// bf16 slice has no room for its f32 logs, so the update takes them from
+// the slot (the same arithmetic: logf(upcast(p) + 1e-10)).
+template <bool kShared, int kNbase, typename E>
 __global__ void __launch_bounds__(1024, 1)
-viterbi_fwd_general_kernel(const float* __restrict__ post,
+viterbi_fwd_general_kernel(const E* __restrict__ post,
                            int8_t* __restrict__ tb,
                            float* __restrict__ vfinal, float* work, int T,
                            int B, int K, int nbase_arg, float skip_pen, int C,
                            int nslots, int work_floats,
                            unsigned long long post_end) {
+  constexpr bool kLogsAhead = std::is_same<E, float>::value;
   const int nbase = kNbase ? kNbase : nbase_arg;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);        // [nslots]
   uint64_t* inbar = full + 14;                               // [2]
-  float* ring = reinterpret_cast<float*>(smem + kBarBytes);  // [nslots][slot]
+  unsigned char* ring = smem + kBarBytes;   // [nslots][slot_bytes]
   const int c = (int)cluster_rank();
   const int b = blockIdx.x / C;
   const int r = threadIdx.x, nt = blockDim.x;
@@ -748,10 +770,11 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
   const int nrs = K / nbase, nrk = K / nskip;
   const int KC = K / C, KC4 = general_round4(KC);
   const int L1 = KC / nbase, L2 = L1 / nbase;
-  const int slot_floats = general_slot_bytes(KC) / 4;
+  const int slot_bytes = general_slot_bytes(KC, (int)sizeof(E));
   const unsigned magic = magic_of((unsigned)nbase);
-  float* sc = kShared ? ring + (size_t)nslots * slot_floats
-                      : work + (size_t)b * work_floats;  // [KC4] scores
+  float* sc = kShared
+                  ? reinterpret_cast<float*>(ring + (size_t)nslots * slot_bytes)
+                  : work + (size_t)b * work_floats;  // [KC4] scores
   float* in = C > 1 ? sc + KC4 : sc;         // [2][in_floats] inputs
   const int in_floats = C > 1 ? 2 * KC4 : KC4;
   uint32_t* remote = reinterpret_cast<uint32_t*>(in + 2 * in_floats);
@@ -774,10 +797,10 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
     cluster_sync();  // every barrier set up before any store or arrival
   // frame t's stay unit and kmer slice into slot k
   auto refill = [&](int t, int k) {
-    const float* row = post + ((size_t)t * B + b) * nst;
-    float* slot = ring + (size_t)k * slot_floats;
+    const E* row = post + ((size_t)t * B + b) * nst;
+    unsigned char* slot = ring + (size_t)k * slot_bytes;
     fill(row, 1, post_end, slot, &full[k]);
-    fill(row + 1 + c * KC, KC, post_end, slot + 4, &full[k]);
+    fill(row + 1 + c * KC, KC, post_end, slot + 16, &full[k]);
   };
   if (r == 0)
     for (int k = 0; k < nslots && 1 + k < T; ++k) refill(1 + k, k);
@@ -804,12 +827,12 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
   {
     // t = 0: the scores are the slice's kmer log-posteriors (each thread
     // its own groups' states)
-    const float* row = post + (size_t)b * nst + 1 + c * KC;
+    const E* row = post + (size_t)b * nst + 1 + c * KC;
     int8_t* tb0 = tb + (size_t)b * K + c * KC;
     for (int j = r; j < L1; j += nt) {
       const int i = nbase * j;
       for (int q = 0; q < nbase; ++q) {
-        sc[i + q] = logf(row[i + q] + kEta);
+        sc[i + q] = logf(upcast(row[i + q]) + kEta);
         tb0[i + q] = -1;
       }
       if (C == 1 || T < 2) continue;
@@ -830,25 +853,32 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
   PHASE_CLOCK_START();
 #endif
   for (int t = 1; t < T; ++t) {
-    // frame t's logs of this thread's states, in place in its slot, while
-    // the inputs arrive
-    const float* row = post + ((size_t)t * B + b) * nst;
-    const float* kr = row + 1 + c * KC;
-    float* lg = ring + (size_t)slot * slot_floats + 4 + superset_offset(kr);
+    // frame t's logs of this thread's states (f32: in place in its slot,
+    // while the inputs arrive; lg), or the posterior that the update takes
+    // them of (pr)
+    const E* row = post + ((size_t)t * B + b) * nst;
+    const E* kr = row + 1 + c * KC;
+    const bool ahead = kLogsAhead && nslots > 0;
+    float* lg = nullptr;
+    const E* pr = kr;
     float stay;
     if (nslots > 0) {
       mbar_wait_tested(&full[slot], phase);
-      const float* sl = ring + (size_t)slot * slot_floats;
-      stay = in_storage(row, 1, post_end) ? sl[superset_offset(row)]
-                                          : row[0];
+      unsigned char* sl = ring + (size_t)slot * slot_bytes;
+      stay = upcast(in_storage(row, 1, post_end)
+                        ? reinterpret_cast<const E*>(sl)[superset_offset(row)]
+                        : row[0]);
       FWD_CLOCK(0);
-      const float* p = in_storage(kr, KC, post_end) ? lg : kr;
-      for (int i = nbase * r; i < KC; i += nbase * nt)
-        for (int q = 0; q < nbase; ++q) lg[i + q] = logf(p[i + q] + kEta);
-      fence_proxy_async();   // before a bulk copy refills the slot
+      if (in_storage(kr, KC, post_end))
+        pr = reinterpret_cast<const E*>(sl + 16) + superset_offset(kr);
+      if constexpr (kLogsAhead) {
+        lg = reinterpret_cast<float*>(sl + 16) + superset_offset(kr);
+        for (int i = nbase * r; i < KC; i += nbase * nt)
+          for (int q = 0; q < nbase; ++q) lg[i + q] = logf(pr[i + q] + kEta);
+        fence_proxy_async();   // before a bulk copy refills the slot
+      }
     } else {
-      stay = row[0];
-      lg = const_cast<float*>(kr);     // the logs are taken at the update
+      stay = upcast(row[0]);
     }
     const float lps = logf(stay + kEta);
     FWD_CLOCK(1);
@@ -882,7 +912,7 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
         float l[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          l[q] = nslots > 0 ? lg[4 * j + q] : logf(lg[4 * j + q] + kEta);
+          l[q] = ahead ? lg[4 * j + q] : logf(upcast(pr[4 * j + q]) + kEta);
         const float4 o = reinterpret_cast<const float4*>(old)[j];
         float4 sv;
         char4 cd;
@@ -901,7 +931,8 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
       } else {
         for (int q = 0; q < nbase; ++q) {
           const int i = nbase * j + q;
-          const float nw = (nslots > 0 ? lg[i] : logf(lg[i] + kEta)) + m;
+          const float nw =
+              (ahead ? lg[i] : logf(upcast(pr[i]) + kEta)) + m;
           const float st = old[i] + lps;
           tb_row[i] = nw > st ? (int8_t)code : (int8_t)-1;
           const float v = nw > st ? nw : st;
@@ -980,67 +1011,98 @@ viterbi_fwd_general_kernel(const float* __restrict__ post,
   if (C > 1) cluster_sync();   // no block leaves while another stores to it
 }
 
-template <int DPT>
+template <int DPT, typename E>
 int launch(const void* post, void* tb, void* vfinal, int T, int B, int K,
-           float skip_pen, int nslots, int smem, int row_floats,
+           float skip_pen, int nslots, int smem, int row_bytes,
            unsigned long long post_end, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        viterbi_fwd_kernel<DPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        viterbi_fwd_kernel<DPT, E>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  viterbi_fwd_kernel<DPT><<<B, K / DPT, smem, stream>>>(
-      (const float*)post, (int8_t*)tb, (float*)vfinal, T, B, K, skip_pen,
-      nslots, row_floats, post_end);
+  viterbi_fwd_kernel<DPT, E><<<B, K / DPT, smem, stream>>>(
+      (const E*)post, (int8_t*)tb, (float*)vfinal, T, B, K, skip_pen, nslots,
+      row_bytes, post_end);
   return (int)cudaGetLastError();
+}
+
+// the tuned routes of viterbi_fwd for a posterior of E
+template <typename E>
+int launch_tuned(const void* post, void* tb, void* vfinal, int T, int B,
+                 int K, float skip_pen, int dpt, int G, int nslots, int smem,
+                 int row_bytes, unsigned long long post_end,
+                 cudaStream_t s) {
+  if (dpt == 4)
+    return launch<4, E>(post, tb, vfinal, T, B, K, skip_pen, nslots, smem,
+                        row_bytes, post_end, s);
+  if (dpt == 8)
+    return launch<8, E>(post, tb, vfinal, T, B, K, skip_pen, nslots, smem,
+                        row_bytes, post_end, s);
+  if (dpt == 0) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          viterbi_fwd_pair_kernel<E>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    viterbi_fwd_pair_kernel<E><<<2 * B, pair_threads(K), smem, s>>>(
+        (const E*)post, (int8_t*)tb, (float*)vfinal, T, B, K, skip_pen, G,
+        nslots, kPairPostSlots, row_bytes, post_end);
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// the general kernel's instance: scores in shared memory or in `work`, 4
+// bases unrolled or any, the posterior's element
+template <typename E>
+const void* general_kernel(bool shared, int nbase) {
+  return !shared      ? (const void*)viterbi_fwd_general_kernel<false, 0, E>
+         : nbase == 4 ? (const void*)viterbi_fwd_general_kernel<true, 4, E>
+                      : (const void*)viterbi_fwd_general_kernel<true, 0, E>;
+}
+
+// a posterior row's aligned superset: esize (K + 1) bytes from any
+// esize-aligned start, rounded up to 16 bytes (a ring slot of a row)
+constexpr int superset_bytes(int n, int esize) {
+  return (esize * n + 16 - esize + 15) & ~15;
 }
 
 }  // namespace
 
-// post (T, B, K+1) f32; tb (T, B, K) int8; vfinal (B, K) f32.  K = 4^klen
-// for klen 2..6.  The plan comes from the caller
-// (ops/viterbi_kernel.py::viterbi_fwd_plan): dpt destinations a thread (4
-// or 8; K / dpt threads a block; 0: a cluster of two blocks of K / 4
-// threads a row, the logs taken by the second), the rings' nslots slots of
-// G frames (G = 1 but for the pairs) and the dynamic shared memory smem.
-// post_end: the address one past the last byte of post's storage.
-// Returns the cudaError_t of the launch; cudaErrorInvalidValue (1) for a
-// plan that does not fit.
+// post (T, B, K+1) f32 (esize 4) or bf16 (esize 2); tb (T, B, K) int8;
+// vfinal (B, K) f32.  K = 4^klen for klen 2..6.  The plan comes from the
+// caller (ops/viterbi_kernel.py::viterbi_fwd_plan): dpt destinations a
+// thread (4 or 8; K / dpt threads a block; 0: a cluster of two blocks of
+// K / 4 threads a row, the logs taken by the second), the rings' nslots
+// slots of G frames (G = 1 but for the pairs) and the dynamic shared
+// memory smem.  post_end: the address one past the last byte of post's
+// storage.  Returns the cudaError_t of the launch; cudaErrorInvalidValue
+// (1) for a plan that does not fit.
 extern "C" int viterbi_fwd(const void* post, void* tb, void* vfinal, int T,
                            int B, int K, float skip_pen, int dpt, int G,
-                           int nslots, int smem, unsigned long long post_end,
-                           void* stream) {
-  const int row_bytes = (4 * (K + 1) + 12 + 15) & ~15;
+                           int nslots, int smem, int esize,
+                           unsigned long long post_end, void* stream) {
+  const int row_bytes = superset_bytes(K + 1, esize);
+  // the pair route: the DP block's log slots ([G][K + 4] floats) and the
+  // log block's posterior slots (G rows each) beside them
   const size_t need =
       dpt ? kBarBytes + (size_t)nslots * row_bytes
-          : kPairBarBytes +
-                (size_t)(nslots + kPairPostSlots) * G * row_bytes;
+          : kPairBarBytes + (size_t)G * ((size_t)nslots * 4 * (K + 4) +
+                                         (size_t)kPairPostSlots * row_bytes);
   if (T < 1 || B < 1 || K < 16 || K > 4096 || (K & (K - 1)) ||
-      nslots < 2 || nslots > kMaxSlots || (uintptr_t)post % 4 ||
-      (dpt ? G != 1 : (G < 1 || G > 32)) ||
+      (esize != 4 && esize != 2) || nslots < 2 || nslots > kMaxSlots ||
+      (uintptr_t)post % esize || (dpt ? G != 1 : (G < 1 || G > 32)) ||
       (size_t)smem < need + 8 * (size_t)K)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dpt == 4)
-    return launch<4>(post, tb, vfinal, T, B, K, skip_pen, nslots, smem,
-                     row_bytes / 4, post_end, s);
-  if (dpt == 8)
-    return launch<8>(post, tb, vfinal, T, B, K, skip_pen, nslots, smem,
-                     row_bytes / 4, post_end, s);
-  if (dpt == 0) {
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          viterbi_fwd_pair_kernel,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    viterbi_fwd_pair_kernel<<<2 * B, pair_threads(K), smem, s>>>(
-        (const float*)post, (int8_t*)tb, (float*)vfinal, T, B, K, skip_pen,
-        G, nslots, kPairPostSlots, row_bytes / 4, post_end);
-    return (int)cudaGetLastError();
-  }
-  return (int)cudaErrorInvalidValue;
+  return esize == 4
+             ? launch_tuned<float>(post, tb, vfinal, T, B, K, skip_pen, dpt,
+                                   G, nslots, smem, row_bytes, post_end, s)
+             : launch_tuned<__nv_bfloat16>(post, tb, vfinal, T, B, K,
+                                           skip_pen, dpt, G, nslots, smem,
+                                           row_bytes, post_end, s);
 }
 
 // The general route (viterbi_fwd_general_kernel) for K = nbase^klen states
@@ -1048,15 +1110,15 @@ extern "C" int viterbi_fwd(const void* post, void* tb, void* vfinal, int T,
 // a power of two up to 16 and nbase^2 that divides the K / nbase^2 skip
 // groups into ranges of a multiple of 4) of `threads` each, a ring of
 // nslots (0 or 2-12) slots in smem bytes, and the scores in smem (work
-// null) or in work, work_floats floats a row (C = 1 only).  The plan
-// comes from ops/viterbi_kernel.py::viterbi_general_plan.  Returns the
-// cudaError_t of the launch; cudaErrorInvalidValue (1) for a plan that
-// does not fit.
+// null) or in work, work_floats floats a row (C = 1 only); post f32
+// (esize 4) or bf16 (esize 2).  The plan comes from ops/viterbi_kernel.py::
+// viterbi_general_plan.  Returns the cudaError_t of the launch;
+// cudaErrorInvalidValue (1) for a plan that does not fit.
 extern "C" int viterbi_fwd_general(const void* post, void* tb, void* vfinal,
                                    void* work, int T, int B, int K,
                                    int nbase, float skip_pen, int C,
                                    int nslots, int threads, int smem,
-                                   int work_floats,
+                                   int work_floats, int esize,
                                    unsigned long long post_end,
                                    void* stream) {
   const int nskip = nbase * nbase;
@@ -1067,14 +1129,15 @@ extern "C" int viterbi_fwd_general(const void* post, void* tb, void* vfinal,
       nrk % C || (!shared && C != 1) || nslots < 0 || nslots == 1 ||
       nslots > kGeneralMaxSlots || threads < 32 || threads > 1024 ||
       threads % 32 || (C > 1 && (K / (nskip * C)) % 4) ||
-      (uintptr_t)post % 4 ||
-      (size_t)smem < kBarBytes + (size_t)nslots * general_slot_bytes(K / C) +
+      (esize != 4 && esize != 2) || (uintptr_t)post % esize ||
+      (size_t)smem < kBarBytes +
+                         (size_t)nslots * general_slot_bytes(K / C, esize) +
                          (shared ? general_arrays(K, C) : 0) ||
       (!shared && (size_t)work_floats < 2 * (size_t)general_round4(K)))
     return (int)cudaErrorInvalidValue;
-  auto kernel = !shared       ? viterbi_fwd_general_kernel<false, 0>
-                : nbase == 4 ? viterbi_fwd_general_kernel<true, 4>
-                             : viterbi_fwd_general_kernel<true, 0>;
+  const void* kernel = esize == 4
+                           ? general_kernel<float>(shared, nbase)
+                           : general_kernel<__nv_bfloat16>(shared, nbase);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess && C > 8)
@@ -1093,9 +1156,10 @@ extern "C" int viterbi_fwd_general(const void* post, void* tb, void* vfinal,
   config.stream = (cudaStream_t)stream;
   config.attrs = cluster;
   config.numAttrs = 1;
-  e = cudaLaunchKernelEx(&config, kernel, (const float*)post, (int8_t*)tb,
-                         (float*)vfinal, (float*)work, T, B, K, nbase,
-                         skip_pen, C, nslots, work_floats, post_end);
+  void* args[] = {(void*)&post,  &tb,     &vfinal, &work,   &T,
+                  &B,            &K,      &nbase,  &skip_pen, &C,
+                  &nslots,       &work_floats, &post_end};
+  e = cudaLaunchKernelExC(&config, kernel, args);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -1104,7 +1168,7 @@ extern "C" int viterbi_fwd_general(const void* post, void* tb, void* vfinal,
 // *clusters.  Returns the cudaError_t.
 extern "C" int viterbi_fwd_general_clusters(int C, int threads, int smem,
                                             int* clusters) {
-  const auto kernel = viterbi_fwd_general_kernel<true, 4>;
+  const auto kernel = viterbi_fwd_general_kernel<true, 4, float>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess && C > 8)
@@ -1130,15 +1194,15 @@ extern "C" int viterbi_fwd_general_clusters(int C, int threads, int smem,
 // that the device runs at once, into *clusters.  Returns the cudaError_t.
 extern "C" int viterbi_fwd_pairs(int K, int smem, int* clusters) {
   cudaError_t e = cudaFuncSetAttribute(
-      viterbi_fwd_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      viterbi_fwd_pair_kernel<float>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(2, 1, 1);
   config.blockDim = dim3(pair_threads(K), 1, 1);
   config.dynamicSmemBytes = smem;
   return (int)cudaOccupancyMaxActiveClusters(
-      clusters, (const void*)viterbi_fwd_pair_kernel, &config);
+      clusters, (const void*)viterbi_fwd_pair_kernel<float>, &config);
 }
 
 #ifdef VITERBI_FWD_CLOCKS

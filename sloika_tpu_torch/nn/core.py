@@ -11,7 +11,7 @@ made from a seed has the same weights on every device.
 import numpy as np
 import torch
 
-from sloika_tpu_torch import activations
+from sloika_tpu_torch import activations, config
 from sloika_tpu_torch.config import sloika_dtype
 
 
@@ -35,11 +35,55 @@ def truncated_normal(sd, rs):
 
 def affine(x, W, b=None):
     """``x @ W.T (+ b)`` over the trailing feature axis; ``W`` has the
-    reference layout ``(out_features, in_features)``."""
-    y = torch.matmul(x, W.t())
+    reference layout ``(out_features, in_features)``.  Under
+    ``config.compute_dtype`` bfloat16 the product takes x and W rounded to
+    bfloat16 and is float32 (cf. ``sloika_tpu/nn/core.py:53-69``, a
+    ``dot_general`` with ``preferred_element_type=float32``): never
+    bfloat16."""
+    if config.compute_dtype == torch.bfloat16:
+        y = Bf16Product.apply(x, W)
+    else:
+        y = torch.matmul(x, W.t())
     if b is not None:
         y = y + b
     return y
+
+
+class Bf16Product(torch.autograd.Function):
+    """``x @ W.T`` of x and W rounded to bfloat16, in float32.
+
+    A product of two bfloat16 values is exact in float32, so on the CPU the
+    product of the rounded operands upcast to float32 is the plain form; on
+    the GPU ``torch.mm(..., out_dtype=torch.float32)`` takes the bfloat16
+    operands and keeps the float32 accumulator (``torch.matmul`` of two
+    bfloat16 tensors would round it to bfloat16).  The gradients are those
+    of the plain form, as JAX's: the float32 cotangent times the other
+    rounded operand, rounded to bfloat16 (the transpose of the casts).
+    """
+
+    @staticmethod
+    def forward(ctx, x, W):
+        xb = x.to(torch.bfloat16).reshape(-1, x.shape[-1])
+        Wb = W.to(torch.bfloat16)
+        ctx.save_for_backward(xb, Wb)
+        ctx.lead = x.shape[:-1]
+        if xb.is_cuda:
+            y = torch.mm(xb, Wb.t(), out_dtype=torch.float32)
+        else:
+            y = xb.float() @ Wb.float().t()
+        return y.reshape(*ctx.lead, W.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, Wb = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1]).float()
+        dx = dW = None
+        if ctx.needs_input_grad[0]:
+            dx = (g @ Wb.float()).to(torch.bfloat16).float().reshape(
+                *ctx.lead, xb.shape[-1])
+        if ctx.needs_input_grad[1]:
+            dW = (g.t() @ xb.float()).to(torch.bfloat16).float()
+        return dx, dW
 
 
 def tree_items(tree, prefix=""):

@@ -37,7 +37,9 @@ def viterbi_forward_plain(post, klen, skip_pen=0.0, nbase=4, log=False):
     """Viterbi forward pass.
 
     :param post: (T, B, nbase**klen + 1) posteriors, probabilities unless
-        ``log`` (then log-probabilities)
+        ``log`` (then log-probabilities); a bfloat16 row is upcast to
+        float32 before the log, as the Pallas kernel's ``_row`` does, so
+        the DP is float32
     :returns: (vfinal (B, K) float32, traceback codes (T, B, K) int8)
     """
     T, B, nst = post.shape
@@ -49,7 +51,8 @@ def viterbi_forward_plain(post, klen, skip_pen=0.0, nbase=4, log=False):
     nrs, nrk = K // nstep, K // nskip
 
     def lrow(t):
-        return post[t] if log else torch.log(post[t] + _ETA)
+        row = post[t].to(torch.promote_types(post.dtype, torch.float32))
+        return row if log else torch.log(row + _ETA)
 
     tb = torch.empty((T, B, K), dtype=torch.int8, device=post.device)
     tb[0] = -1

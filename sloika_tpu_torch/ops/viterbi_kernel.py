@@ -25,6 +25,12 @@ bases) takes the same sources' general route (``viterbi_fwd_general``,
 forward's row over a cluster of blocks), by the shape rule
 :func:`kernel_route`.  ``launches`` counts kernel launches of either route,
 ``general_launches`` those of the general route.
+
+The forward takes a float32 or a bfloat16 posterior (POST_DTYPES), on every
+route: the JAX package's ``Basecaller`` streams it in bfloat16 when its
+compute dtype is bfloat16, and its Pallas kernel upcasts each row to
+float32 before the log, as the CUDA kernels and the plain twin do.  The
+plans size the rings in bytes, so a bfloat16 row takes about half a slot.
 """
 import ctypes
 
@@ -61,6 +67,9 @@ BACK_MAX_SLOTS, BACK_MIN_SLOTS = 16, 2
 #: and at least; the clusters of blocks a row it may take, most first
 GENERAL_MAX_THREADS, GENERAL_MAX_SLOTS, GENERAL_MIN_SLOTS = 1024, 8, 2
 GENERAL_CLUSTERS = (16, 8, 4, 2, 1)
+#: the posterior dtypes the forward takes (``viterbi_fwd.cu``'s element
+#: types)
+POST_DTYPES = (torch.float32, torch.bfloat16)
 #: the clusters of C one-block-an-SM blocks that an H100 SXM runs at once
 #: (``cudaOccupancyMaxActiveClusters`` at 256-1,024 threads, on an H100
 #: 80GB HBM3 at 700 W, PERF.md §6): its 132 SMs lie in GPCs of uneven size,
@@ -112,8 +121,17 @@ def _budget(blocks, optin):
     return min(optin, SM_SMEM // blocks - BLOCK_RESERVED)
 
 
-def viterbi_fwd_plan(B, K, sms=H100_SMS, optin=SMEM_OPTIN, pairs=None):
-    """The launch plan of ``viterbi_fwd.cu`` for B rows of K states.
+def _row_bytes(n, esize):
+    """A ring slot of a row of n elements of ``esize`` bytes: its
+    16-byte-aligned superset from any ``esize``-aligned start
+    (``viterbi_fwd.cu::superset_bytes``)."""
+    return _round(esize * n + 16 - esize, 16)
+
+
+def viterbi_fwd_plan(B, K, sms=H100_SMS, optin=SMEM_OPTIN, pairs=None,
+                     esize=4):
+    """The launch plan of ``viterbi_fwd.cu`` for B rows of K states of a
+    posterior of ``esize``-byte elements (4: float32, 2: bfloat16).
 
     Where the card runs a cluster of two blocks for every row at once (B
     <= ``pairs``, the clusters it holds, by default ``sms // 2``), route
@@ -121,11 +139,12 @@ def viterbi_fwd_plan(B, K, sms=H100_SMS, optin=SMEM_OPTIN, pairs=None):
     1,024), a DP block, whose first K/4 run the step, and a log block,
     which streams the row's posterior through its own ring
     (FWD_PAIR_POST_SLOTS slots of G frames), takes ``logf(p + 1e-10)`` of
-    four frames at once and copies G frames of logs at a time into the DP
-    block's log ring (``nslots`` slots).  G: the most of FWD_PAIR_ROWS
-    with two log slots in ``optin`` bytes; then up to FWD_PAIR_MAX_SLOTS
-    log slots.  Each block takes at least half an
-    SM's shared memory, so that the two run on two SMs.
+    four frames at once and copies G frames of logs (K + 4 floats a frame)
+    at a time into the DP block's log ring (``nslots`` slots).  G: the most
+    of FWD_PAIR_ROWS with two log slots beside the posterior slots in
+    ``optin`` bytes; then up to FWD_PAIR_MAX_SLOTS log slots.  Each block
+    takes at least half an SM's shared memory, so that the two run on two
+    SMs.
 
     Else route "single": a block a row, K / dpt threads of dpt
     destinations each: 4 where the batch leaves each block an SM of its own
@@ -141,22 +160,29 @@ def viterbi_fwd_plan(B, K, sms=H100_SMS, optin=SMEM_OPTIN, pairs=None):
     to FWD_MAX_SLOTS, with which that many blocks fit the SM's shared
     memory: 4 slots at B = 1,024 and K = 1,024.
 
-    A row's frame is its 16-byte-aligned superset, ``4 (K+1) + 12`` bytes
-    rounded up to 16 (a log row, K + 4 floats, is as long).
+    A row's frame is its 16-byte-aligned superset, ``esize (K+1) + 16 -
+    esize`` bytes rounded up to 16 (a log row, K + 4 floats, is as long as
+    a float32 row).
 
     :returns: dict of route, dpt (0 for "pair"), threads, blocks (an SM),
         G, nslots, row_bytes, smem (dynamic bytes)
     """
     _states(K)
+    if esize not in (2, 4):
+        raise ValueError("viterbi_fwd reads 4- or 2-byte elements (got {})"
+                         .format(esize))
     pairs = sms // 2 if pairs is None else pairs
-    row_bytes = _round(4 * (K + 1) + 12, 16)
+    row_bytes = _row_bytes(K + 1, esize)
     if B <= pairs:
         fixed = FWD_PAIR_BAR_BYTES + 8 * K
-        chunks = lambda g: (optin - fixed) // (g * row_bytes)
-        G = next(g for g in FWD_PAIR_ROWS
-                 if chunks(g) >= FWD_PAIR_POST_SLOTS + FWD_MIN_SLOTS)
-        nslots = min(FWD_PAIR_MAX_SLOTS, chunks(G) - FWD_PAIR_POST_SLOTS)
-        smem = max(fixed + (nslots + FWD_PAIR_POST_SLOTS) * G * row_bytes,
+        log_bytes = 4 * (K + 4)
+        # log slots of g frames beside the log block's posterior slots
+        logs = lambda g: ((optin - fixed - FWD_PAIR_POST_SLOTS * g
+                           * row_bytes) // (g * log_bytes))
+        G = next(g for g in FWD_PAIR_ROWS if logs(g) >= FWD_MIN_SLOTS)
+        nslots = min(FWD_PAIR_MAX_SLOTS, logs(G))
+        smem = max(fixed + G * (nslots * log_bytes
+                                + FWD_PAIR_POST_SLOTS * row_bytes),
                    SM_SMEM // 2)
         return {"route": "pair", "dpt": 0,
                 "threads": min(1024, max(32, K)), "blocks": 1,
@@ -210,10 +236,11 @@ def viterbi_back_plan(B, K, T, sms=H100_SMS, optin=SMEM_OPTIN):
             "blocks": blocks, "smem": smem}
 
 
-def _general_slot_bytes(KC):
+def _general_slot_bytes(KC, esize=4):
     """A general ring slot: the stay's 16-byte unit, then the aligned
-    superset of a block's KC kmers (``viterbi_fwd.cu::general_slot_bytes``)."""
-    return 16 + _round(4 * KC + 12, 16)
+    superset of a block's KC kmers of ``esize`` bytes
+    (``viterbi_fwd.cu::general_slot_bytes``)."""
+    return 16 + _row_bytes(KC, esize)
 
 
 def _general_arrays(K, C):
@@ -226,10 +253,11 @@ def _general_arrays(K, C):
     return 4 * (5 * KC4 + _round(2 * C, 4)) if C > 1 else 4 * 2 * KC4
 
 
-def general_cluster_shapes(K, nbase, optin=SMEM_OPTIN):
+def general_cluster_shapes(K, nbase, optin=SMEM_OPTIN, esize=4):
     """{C: {threads, nslots, smem}}: each cluster size of GENERAL_CLUSTERS
-    at which the general kernel takes K states over nbase bases with its
-    arrays in shared memory.  C divides the K / nbase^2 skip groups (so a
+    at which the general kernel takes K states over nbase bases, from a
+    posterior of ``esize``-byte elements, with its arrays in shared
+    memory.  C divides the K / nbase^2 skip groups (so a
     block's states, step groups and skip groups are whole ranges), into
     ranges of a multiple of 4 where C > 1 (a group's 4 scores go to their
     consumers as one 16-byte store), and is at most nbase^2 (so that every
@@ -248,7 +276,7 @@ def general_cluster_shapes(K, nbase, optin=SMEM_OPTIN):
         threads = min(GENERAL_MAX_THREADS,
                       max(32, _round(K // (nbase * C), 32)))
         fixed = FWD_BAR_BYTES + _general_arrays(K, C)
-        slot = _general_slot_bytes(K // C)
+        slot = _general_slot_bytes(K // C, esize)
         nslots = min(GENERAL_MAX_SLOTS, max(0, optin - fixed) // slot)
         if nslots < GENERAL_MIN_SLOTS:
             continue
@@ -259,13 +287,17 @@ def general_cluster_shapes(K, nbase, optin=SMEM_OPTIN):
     return shapes
 
 
-def viterbi_general_plan(B, K, nbase, optin=SMEM_OPTIN, clusters=None):
+def viterbi_general_plan(B, K, nbase, optin=SMEM_OPTIN, clusters=None,
+                         esize=4):
     """The launch plan of the general route (``viterbi_fwd_general``) for B
-    rows of K = nbase^klen states: a cluster of C blocks a row.
+    rows of K = nbase^klen states of a posterior of ``esize``-byte elements:
+    a cluster of C blocks a row.
 
     ``clusters``: {C: the clusters of C blocks that the card runs at once
     at :func:`general_cluster_shapes`' sizes} (``ViterbiForward.
-    general_clusters`` asks the card; default H100_CLUSTERS).  C is the
+    general_clusters`` asks the card, at the float32 sizes: a block of
+    either takes at least half an SM's shared memory, so the card holds as
+    many; default H100_CLUSTERS).  C is the
     largest of those shapes' sizes whose B clusters all run in one wave:
     8 at klen 7 and B = 8 on the H100, where 16 would leave a row for a
     second wave and double the time.  Where no size runs in one wave, the
@@ -279,18 +311,18 @@ def viterbi_general_plan(B, K, nbase, optin=SMEM_OPTIN, clusters=None):
     :returns: dict of C, threads, shared, nslots, slot_bytes, work_floats,
         smem (dynamic bytes)
     """
-    shapes = general_cluster_shapes(K, nbase, optin)
+    shapes = general_cluster_shapes(K, nbase, optin, esize)
     clusters = H100_CLUSTERS if clusters is None else clusters
     wave = [C for C in shapes if B <= clusters.get(C, 0)]
     if wave or shapes:
         C = max(wave) if wave else min(shapes)
         plan = dict(shapes[C], C=C, shared=True, work_floats=0,
-                    slot_bytes=_general_slot_bytes(K // C))
+                    slot_bytes=_general_slot_bytes(K // C, esize))
         if not wave:
             plan["smem"] = (FWD_BAR_BYTES + _general_arrays(K, C)
                             + plan["nslots"] * plan["slot_bytes"])
         return plan
-    slot = _general_slot_bytes(K)
+    slot = _general_slot_bytes(K, esize)
     nslots = min(GENERAL_MAX_SLOTS, max(0, optin - FWD_BAR_BYTES) // slot)
     nslots = nslots if nslots >= GENERAL_MIN_SLOTS else 0
     return {"C": 1, "threads": min(GENERAL_MAX_THREADS,
@@ -308,19 +340,19 @@ def _device_limits(dev):
 
 
 class ViterbiForward:
-    """(vfinal (B, K), traceback (T, B, K) int8) from a probability-domain
-    posterior (T, B, K+1), column 0 = stay.  Replaces the Pallas TPU
-    kernels ``sloika_tpu/ops/pallas/viterbi.py::_fwd_kernel_sm`` and
-    ``_fwd_kernel`` with ``csrc/viterbi_fwd.cu``, launched with
-    :func:`viterbi_fwd_plan`."""
+    """(vfinal (B, K) float32, traceback (T, B, K) int8) from a
+    probability-domain posterior (T, B, K+1) of float32 or bfloat16, column
+    0 = stay.  Replaces the Pallas TPU kernels
+    ``sloika_tpu/ops/pallas/viterbi.py::_fwd_kernel_sm`` and ``_fwd_kernel``
+    with ``csrc/viterbi_fwd.cu``, launched with :func:`viterbi_fwd_plan`."""
 
     _ARGTYPES = {"viterbi_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                 + [ctypes.c_float] + [ctypes.c_int] * 4
+                 + [ctypes.c_float] + [ctypes.c_int] * 5
                  + [ctypes.c_ulonglong, ctypes.c_void_p],
                  "viterbi_fwd_pairs": [ctypes.c_int] * 2 + [ctypes.c_void_p],
                  "viterbi_fwd_general": [ctypes.c_void_p] * 4
                  + [ctypes.c_int] * 4 + [ctypes.c_float]
-                 + [ctypes.c_int] * 5 + [ctypes.c_ulonglong,
+                 + [ctypes.c_int] * 6 + [ctypes.c_ulonglong,
                                           ctypes.c_void_p],
                  "viterbi_fwd_general_clusters": [ctypes.c_int] * 3
                  + [ctypes.c_void_p]}
@@ -333,7 +365,9 @@ class ViterbiForward:
 
     def pairs(self, K, device):
         """The clusters of the pair route's blocks for K states that the
-        card runs at once (queried once for each device and K)."""
+        card runs at once (queried once for each device and K, at the
+        float32 plan: a block of either dtype's plan takes at least half an
+        SM's shared memory, so the card holds as many)."""
         key = (str(device), K)
         if key not in self._pairs:
             smem = viterbi_fwd_plan(0, K, *_device_limits(device),
@@ -371,6 +405,9 @@ class ViterbiForward:
         return cuda_build.load("viterbi_fwd", self._ARGTYPES)
 
     def __call__(self, post, klen, skip_pen=0.0, nbase=4):
+        if post.dtype not in POST_DTYPES:
+            raise ValueError("viterbi_forward takes a float32 or bfloat16 "
+                             "posterior (got {})".format(post.dtype))
         if post.device.type == "cpu":
             return viterbi_forward_plain(post, klen, skip_pen=skip_pen,
                                          nbase=nbase)
@@ -381,8 +418,8 @@ class ViterbiForward:
                              "bases needs {}".format(nst, klen, nbase,
                                                      nbase ** klen + 1))
         route = kernel_route(K, klen, nbase)
-        cuda_build.check_tensor(post, (T, B, nst), torch.float32,
-                                post.device, "post")
+        cuda_build.check_tensor(post, (T, B, nst), post.dtype, post.device,
+                                "post")
         tb = torch.empty((T, B, K), dtype=torch.int8, device=post.device)
         vfinal = torch.empty((B, K), dtype=torch.float32, device=post.device)
         if T == 0 or B == 0:
@@ -390,14 +427,15 @@ class ViterbiForward:
         if route == "general":
             self._general(post, tb, vfinal, nbase, skip_pen)
             return vfinal, tb
+        esize = post.element_size()
         plan = viterbi_fwd_plan(B, K, *_device_limits(post.device),
-                                pairs=self.pairs(K, post.device))
+                                pairs=self.pairs(K, post.device), esize=esize)
         lib = self._library()
         with torch.cuda.device(post.device):
             err = lib.viterbi_fwd(post.data_ptr(), tb.data_ptr(),
                                   vfinal.data_ptr(), T, B, K,
                                   float(skip_pen), plan["dpt"], plan["G"],
-                                  plan["nslots"], plan["smem"],
+                                  plan["nslots"], plan["smem"], esize,
                                   cuda_build.storage_end(post),
                                   torch.cuda.current_stream().cuda_stream)
         cuda_build.check(err, "viterbi_fwd")
@@ -408,9 +446,10 @@ class ViterbiForward:
         """The general route into ``tb`` and ``vfinal``."""
         T, B, nst = post.shape
         K = nst - 1
+        esize = post.element_size()
         plan = viterbi_general_plan(
             B, K, nbase, _device_limits(post.device)[1],
-            self.general_clusters(K, nbase, post.device))
+            self.general_clusters(K, nbase, post.device), esize)
         work = None
         if not plan["shared"]:
             work = torch.empty(B * plan["work_floats"], dtype=torch.float32,
@@ -421,7 +460,7 @@ class ViterbiForward:
                 post.data_ptr(), tb.data_ptr(), vfinal.data_ptr(),
                 None if work is None else work.data_ptr(), T, B, K, nbase,
                 float(skip_pen), plan["C"], plan["nslots"], plan["threads"],
-                plan["smem"], plan["work_floats"],
+                plan["smem"], plan["work_floats"], esize,
                 cuda_build.storage_end(post),
                 torch.cuda.current_stream().cuda_stream)
         cuda_build.check(err, "viterbi_fwd_general")

@@ -420,3 +420,33 @@ def test_basecaller_gpu_posterior_matches_cpu(cuda_device):
         dev = tbc._move_records(path.to(cuda_device), moved.to(cuda_device),
                                 3, gpu._f_splits)
         assert all(torch.equal(h, d.cpu()) for h, d in zip(host, dev))
+
+
+@pytest.mark.gpu
+def test_bf16_affine_on_the_card_matches_the_plain_form(cuda_device,
+                                                        monkeypatch):
+    """Under ``config.compute_dtype`` bfloat16, ``affine`` on the card (a
+    bfloat16 product with a float32 accumulator) returns float32 within
+    float32 summation order of the CPU's plain form, and its gradients
+    likewise (each rounded to bfloat16: within one bfloat16 ulp)."""
+    from sloika_tpu_torch import config
+    monkeypatch.setattr(config, "compute_dtype", torch.bfloat16)
+    config.disable_tf32()
+    rs = np.random.RandomState(3)
+    x = rs.normal(size=(50, 16, 96)).astype(np.float32)
+    W = rs.normal(size=(432, 96)).astype(np.float32)
+    b = rs.normal(size=(432,)).astype(np.float32)
+    g = rs.normal(size=(50, 16, 432)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        xt, Wt, bt = (torch.tensor(a, device=dev, requires_grad=True)
+                      for a in (x, W, b))
+        y = tnn.affine(xt, Wt, bt)
+        y.backward(torch.tensor(g, device=dev))
+        out[str(dev)] = [t.detach().cpu() for t in (y, xt.grad, Wt.grad)]
+        assert y.dtype == torch.float32
+    (y, dx, dW), (y_ref, dx_ref, dW_ref) = out[str(cuda_device)], out["cpu"]
+    assert float((y - y_ref).abs().max()) <= 1e-5 * float(y_ref.abs().max())
+    for got, ref in ((dx, dx_ref), (dW, dW_ref)):
+        assert float((got - ref).abs().max()) <= 2 ** -7 * float(
+            ref.abs().max())

@@ -481,3 +481,112 @@ def test_the_general_route_clocked_build_gives_the_same_bits(cuda_device):
     assert split["cluster_barrier_cycles"] > 0
     assert split["remote_load_cycles"] > 0
     assert 0 < split["design_floor_ms"] < split["ms"]
+
+
+#: (klen, nbase, T, B) of every route of the forward at bfloat16: the pair
+#: route (B = 8), the single route with 4 destinations a thread (B = 100)
+#: and with 8 (B = 1,024), K = 4,096 (klen 6), a short read whose last row
+#: runs past its storage's end, and the general route at klen 7 and at
+#: nbase 3
+BF16_ROUTES = [(5, 4, 300, 8), (5, 4, 40, 100), (5, 4, 20, 1024),
+               (6, 4, 60, 8), (6, 4, 30, 140), (3, 4, 17, 3), (2, 4, 37, 1),
+               (7, 4, 40, 2), (4, 3, 60, 3), (7, 4, 30, 9)]
+
+
+def _bf16_equals_f32_on_the_upcast(post, klen, nbase=4):
+    """The forward on a bfloat16 posterior: the bits of the forward fed its
+    float32 upcast and of the plain twin on it (codes, final scores), and
+    the same decoded path."""
+    v, tb = vk.viterbi_forward(post, klen, skip_pen=5.0, nbase=nbase)
+    v32, tb32 = vk.viterbi_forward(post.float(), klen, skip_pen=5.0,
+                                   nbase=nbase)
+    v_ref, tb_ref = decode.viterbi_forward_plain(post, klen, skip_pen=5.0,
+                                                 nbase=nbase)
+    assert v.dtype == torch.float32 and tb.dtype == torch.int8
+    assert torch.equal(v, v32) and torch.equal(tb, tb32)
+    assert torch.equal(v, v_ref) and torch.equal(tb, tb_ref)
+    last = torch.argmax(v, dim=1)
+    got = vk.viterbi_backtrace(tb, last, nbase=nbase)
+    ref = vk.viterbi_backtrace(tb32, torch.argmax(v32, dim=1), nbase=nbase)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["peaked", "ties"])
+@pytest.mark.parametrize("klen,nbase,T,B", BF16_ROUTES)
+def test_viterbi_fwd_bf16_every_route(cuda_device, klen, nbase, T, B, kind):
+    post = _softmax_posterior(klen, nbase, T, B, seed=klen + B)
+    if kind == "ties":
+        post = torch.round(post * 8) / 8 + 1e-3
+    post = post.to(torch.bfloat16).to(cuda_device)
+    wrappers = (vk.viterbi_forward, vk.viterbi_backtrace)
+    before = [(k.launches, k.general_launches) for k in wrappers]
+    _bf16_equals_f32_on_the_upcast(post, klen, nbase)
+    general = vk.kernel_route(nbase ** klen, klen, nbase) == "general"
+    # the two forwards and the two backtraces of the check launched
+    assert [(k.launches - n, k.general_launches - g)
+            for k, (n, g) in zip(wrappers, before)] == [
+        (2, 2 * general), (2, 2 * general)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("klen,nbase", [(5, 4), (4, 3)])
+@pytest.mark.parametrize("shift", range(1, 8))
+def test_viterbi_fwd_bf16_views_at_every_offset(cuda_device, klen, nbase,
+                                                shift):
+    """A bfloat16 posterior that starts ``shift`` elements (2 shift bytes)
+    into its storage and whose last row ends at the storage's end: each
+    row's offset into its 16-byte superset, and the rows left out of the
+    ring."""
+    post = _softmax_posterior(klen, nbase, 23, 3, seed=shift)
+    base = torch.zeros(post.numel() + shift, dtype=torch.bfloat16)
+    base[shift:] = post.flatten().to(torch.bfloat16)
+    view = base.to(cuda_device)[shift:].view(post.shape)
+    _bf16_equals_f32_on_the_upcast(view, klen, nbase)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optin", [1000, 4096, 20000])
+def test_viterbi_fwd_bf16_general_route_small_cards(cuda_device, monkeypatch,
+                                                    optin):
+    """The general route at bfloat16 on a card of little shared memory: the
+    scores in device memory, a ring of no slots or of a few."""
+    monkeypatch.setattr(vk, "_device_limits", lambda dev: (SMS, optin))
+    post = _softmax_posterior(7, 4, 12, 2, seed=optin)
+    _bf16_equals_f32_on_the_upcast(post.to(torch.bfloat16).to(cuda_device),
+                                   7)
+
+
+@pytest.mark.gpu
+def test_basecaller_streams_a_bf16_posterior_on_the_card(cuda_device,
+                                                         monkeypatch):
+    """Under ``config.compute_dtype`` bfloat16 the Basecaller's posterior
+    is bfloat16 and reaches the kernels; its calls equal those of a
+    float32-posterior Basecaller fed the same posterior's upcast."""
+    from sloika_tpu_torch import basecall as tbc, config, models
+    monkeypatch.setattr(config, "compute_dtype", torch.bfloat16)
+    layer = models.network_factory("raw_1_00_rGr")(
+        klen=3, sd=0.5, sizes=(16, 12, 16, 12), stride=5, seed=4)
+    caller = tbc.Basecaller(layer, 3, device=cuda_device)
+    assert caller.post_dtype == torch.bfloat16
+    rs = np.random.RandomState(12)
+    x = torch.from_numpy(rs.normal(size=(3000, 2, 1)).astype(np.float32))
+    lengths = torch.tensor([3000, 2100])
+    with torch.inference_mode():
+        post, _ = caller._floored_masked_post(x.to(cuda_device),
+                                              lengths.to(cuda_device))
+        assert post.dtype == torch.bfloat16
+        before = vk.viterbi_forward.launches
+        got = caller._forward_decode_states(x.to(cuda_device),
+                                            lengths.to(cuda_device))
+        assert vk.viterbi_forward.launches == before + 1
+        ref = vk.viterbi(post.float(), 3, skip_pen=caller.skip)
+    assert torch.equal(got[0], ref[0])
+    assert torch.equal(got[2], ref[1]) and torch.equal(got[3], ref[2])
+
+
+def test_viterbi_forward_rejects_other_dtypes():
+    post = _posterior(2, "peaked", T=4, B=1)
+    for dtype in (torch.float16, torch.float64, torch.int8):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            vk.viterbi_forward(post.to(dtype), 2)
