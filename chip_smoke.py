@@ -144,19 +144,20 @@ Phases, each printing one line and raising on failure:
     before it: ``viterbi_fwd`` on a bfloat16 posterior at the chunk
     (T = 3,277, B = 64, pair route), production (B = 1,024, single
     route), events (T = 9,000, B = 64) and whole-read (B = 8) shapes, and
-    on the general route at klen 7 and at nbase 3, klen 4 (T = 200,
-    B = 2): codes, final scores and decoded paths bit-identical to the
-    float32 kernel fed the upcast, the first 64 frames' codes of rows 0-7
-    to the plain twin, both dtypes timed in turns (f32, bf16, bf16, f32)
-    beside their bounds; the chunked DAC, whole-read raw and events paths
+    on the general route at klen 7 and at nbase 3, klen 4 (T = 200, B = 2,
+    then the whole-read shape): codes, final scores and decoded paths
+    bit-identical to the float32 kernel fed the upcast, the first 64
+    frames' codes of rows 0-7 to the plain twin, both dtypes timed in turns
+    (f32, bf16, bf16, f32) beside their bounds at every shape but
+    T = 200; the chunked DAC, whole-read raw and events paths
     run in float32 and under ``config.compute_dtype`` bfloat16 (every
     kernel of the path launched, no general route), with samples/s or
     events/s, peak device memory and the share of reads called the same,
     and a batch's posterior against float32's (max abs difference < 0.05,
     argmax agreement > 0.95: tests/test_bf16.py:40-45; the events model at
     sd 1.5, whose posterior is peaked, and at phase 12's 0.5, printed);
-    a profile of the chunked path's bfloat16 call, and the floor, mask and
-    cast pass timed at both dtypes.
+    a profile of the chunked path's bfloat16 call, where the floor, mask
+    and cast show as elementwise kernels.
 
 Every path (5-14) sets the kernels' launch counts to 0 before it runs and
 reads them after, and fails if a Viterbi wrapper took its general route
@@ -260,9 +261,11 @@ BF16_TWIN_T = 64
 BF16_POST_TOL, BF16_ARGMAX = 0.05, 0.95
 # the events model's weight sd in that check: at phase 12's 0.5 its
 # posterior is near-uniform over 1,025 states, so bf16 moves it by ~4e-6
-# and yet flips the argmax of ~9% of frames (near-ties); at 1.5 it is
-# peaked, as a trained model's is (the stand-in remaps at 1.5 for the
-# same reason, phase 9).  Both are printed; the check holds at 1.5
+# and yet moves the argmax of ~9% of frames, each a tie that the bf16
+# rounding makes (the JAX package's own bf16 stream does the same:
+# tests/test_torch_bf16_events.py); at 1.5 it is peaked, as a trained
+# model's is (the stand-in remaps at 1.5 for the same reason, phase 9).
+# Both are printed; the check holds at 1.5
 BF16_EVENTS_SD = 1.5
 # the published peaks of one H100 SXM (NVIDIA data sheet) the bounds use
 HBM_BYTES_PER_S = 3.35e12
@@ -1027,7 +1030,6 @@ def phase_basecall_raw(dev, standin, counters):
     """The default raw path: whole reads through ``Basecaller(output=
     "states").basecall_signals``, then one profiled call; two short reads
     against the CPU plain path."""
-    from torch.profiler import ProfilerActivity
     from sloika_tpu_torch import basecall as bc
     sigs = raw_signals(synthetic_reads())
     caller = bc.Basecaller(standin, 5, batch_size=RAW_BATCH, output="states",
@@ -1059,16 +1061,10 @@ def phase_basecall_raw(dev, standin, counters):
         if len(call) == 0 or not np.isfinite(score):
             raise AssertionError("raw read {}: bad call (score {}, {} "
                                  "states)".format(i, score, len(call)))
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        caller.basecall_signals(sigs)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
     print("whole-read raw basecall profile (one call, profiled; batches of "
           "{} reads at T = {} frames): ".format(
               RAW_BATCH, raw_batch_frames(standin, sigs)) +
-          profile_table(prof.events(), 1, wall), flush=True)
+          profiled_call(lambda: caller.basecall_signals(sigs)), flush=True)
     # the least time of the call's GRU launches: each layer over each
     # batch's valid frames
     conv = standin.layers[0]
@@ -1117,6 +1113,18 @@ def profile_table(events, nsteps, wall_ms=None):
     return head + "; by kernel: " + "; ".join(
         "{} {:.2f} ms x{:.0f}".format(name[:48], ms, n)
         for ms, n, name in by_kernel[:10])
+
+
+def profiled_call(fn):
+    """``profile_table`` of one call of ``fn`` under the profiler."""
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    return profile_table(prof.events(), 1, wall)
 
 
 def timed_once(fn):
@@ -1334,15 +1342,8 @@ def phase_remap(dev, counters):
                              "{}".format(launches))
 
     # where the time goes: one more call under the profiler
-    from torch.profiler import ProfilerActivity
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        remapper.remap_dac_signals(reads, refs)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    print("remap profile (one call, profiled): " +
-          profile_table(prof.events(), 1, wall), flush=True)
+    print("remap profile (one call, profiled): " + profiled_call(
+        lambda: remapper.remap_dac_signals(reads, refs)), flush=True)
 
     for i, ((d, n4), (score, table, path, _)) in enumerate(zip(reads, out)):
         if not (np.isfinite(score) and np.all(np.diff(path) >= 0)
@@ -1618,7 +1619,6 @@ def lstm_wgrad_split(h, c, dxp, ms, einsum_ms, rows):
 
 
 def phase_basecall_events(dev, counters, reads):
-    from torch.profiler import ProfilerActivity
     from sloika_tpu_torch import basecall as bc
     from sloika_tpu_torch import models
     layer = seeded_weights(models.network_factory("baseline_lstm")(
@@ -1654,14 +1654,8 @@ def phase_basecall_events(dev, counters, reads):
             raise AssertionError("event read {}: bad call (score {}, {} "
                                  "states)".format(i, score, len(call)))
 
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        caller.basecall_signals(reads)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    print("events basecall profile (one call, profiled): " +
-          profile_table(prof.events(), 1, wall), flush=True)
+    print("events basecall profile (one call, profiled): " + profiled_call(
+        lambda: caller.basecall_signals(reads)), flush=True)
 
     # the posterior of 4 reads on the card against the plain CPU forward
     four = reads[:4]
@@ -1945,77 +1939,10 @@ def phase_bf16(dev, standin, counters, event_feats):
     whole_T = max(raw_batch_frames(standin, [d for d, _ in
                                              synthetic_reads()]))
     shapes = bf16_viterbi_shapes(dev, whole_T)
-    general = bf16_viterbi_general(dev)
+    general = bf16_viterbi_general(dev, whole_T)
     paths = bf16_basecall_paths(dev, standin, counters, event_feats)
     return {"at_shapes": shapes, "general_route": general,
-            "basecall_paths": paths, "floor_pass": bf16_floor(dev, standin)}
-
-
-def bf16_floor(dev, standin):
-    """The floor, stay mask and cast (``Basecaller._floor_mask``) of the
-    chunked path's window batch (BATCH windows of CHUNK samples), writing a
-    float32 and a bfloat16 posterior, timed in turns f32, bf16, bf16, f32,
-    each beside its bytes (the posterior read, the stream written); and
-    the peak device memory of each of the model's layers and of the floor
-    over its input, at each dtype."""
-    from sloika_tpu_torch import basecall as bc, config
-    dac = synthetic_reads()
-    sig = np.concatenate([bc.normalise_dac_f32(d, n) for d, n in dac])
-    x = torch.from_numpy(sig[:BATCH * CHUNK].reshape(BATCH, CHUNK).T.copy()
-                         [:, :, None]).to(dev)
-    lengths = torch.full((BATCH,), CHUNK, dtype=torch.int64, device=dev)
-    callers = {d: bc.Basecaller(standin, 5, chunk_size=CHUNK,
-                                overlap=OVERLAP, output="bases", device=dev,
-                                post_dtype=d)
-               for d in ("float32", "bfloat16")}
-    peaks = {}
-    try:
-        for d in ("float32", "bfloat16"):
-            config.compute_dtype = getattr(torch, d)
-            peaks[d] = layer_peaks(standin, x, lengths, callers[d])
-    finally:
-        config.compute_dtype = torch.float32
-    print("peak device memory over each stage's input at the chunked batch "
-          "(MiB, f32 / bf16): " + "; ".join(
-              "{} {:.0f} / {:.0f}".format(n, a, b) for (n, a), (_, b) in
-              zip(peaks["float32"], peaks["bfloat16"])), flush=True)
-    with torch.inference_mode():
-        post, out_len = standin.apply_with_lengths(x, lengths)
-        runs = [cuda_ms(lambda: callers[d]._floor_mask(post, out_len), 5)
-                for d in ("float32", "bfloat16", "bfloat16", "float32")]
-    ms = {"float32": (runs[0] + runs[3]) / 2,
-          "bfloat16": (runs[1] + runs[2]) / 2}
-    bounds = {d: bound(post.numel() * (4 + e), 0)[0]
-              for d, e in (("float32", 4), ("bfloat16", 2))}
-    print("floor, stay mask and cast of the chunked batch ({} x {} x {}, "
-          "three passes): f32 {:.3f} ms (bytes bound {:.3f}), bf16 {:.3f} "
-          "ms (bytes bound {:.3f}) [{}]".format(
-              *post.shape, ms["float32"], bounds["float32"],
-              ms["bfloat16"], bounds["bfloat16"], card_line()), flush=True)
-    return {"shape": "T={} B={} nstate={}".format(*post.shape), "ms": ms,
-            "bytes_bound_ms": bounds, "peak_mib_by_stage": peaks}
-
-
-def layer_peaks(layer, x, lengths, caller):
-    """[(stage, MiB)]: the peak device memory of each layer of a Serial
-    model, and of ``caller``'s floor, mask and cast, over what was
-    allocated before it, run one after another on (x, lengths)."""
-    out = []
-    with torch.inference_mode():
-        y, ylen = x, lengths
-        for stage in list(layer.layers) + [None]:
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            if stage is None:
-                y = caller._floor_mask(y, ylen)
-            else:
-                y, ylen = stage.apply_with_lengths(y, ylen)
-            torch.cuda.synchronize()
-            out.append((type(stage).__name__ if stage is not None
-                        else "floor",
-                        (torch.cuda.max_memory_allocated() - base) / 2 ** 20))
-    return out
+            "basecall_paths": paths}
 
 
 def bf16_against_f32(post16, klen, nbase=4):
@@ -2090,39 +2017,62 @@ def bf16_viterbi_shapes(dev, whole_T):
     return out
 
 
-def bf16_viterbi_general(dev):
+def bf16_viterbi_general(dev, whole_T):
     """The general route on bfloat16 posteriors, klen 7 and nbase 3 at klen
-    4 (KLEN7_T, KLEN7_B): the float32 kernel's bits on the upcast, the
-    twin's codes, ``general_launches`` up by two."""
+    4: at KLEN7_T, KLEN7_B the float32 kernel's bits on the upcast and the
+    twin's codes; at the whole-read raw path's batch (RAW_BATCH reads of
+    ``whole_T`` frames, the shape a klen-7 model decodes at) the float32
+    kernel's bits on the upcast and both dtypes timed in turns, each beside
+    its bound and its plan.  Each check takes the general route twice
+    (``general_launches`` up by two)."""
     from sloika_tpu_torch.ops import viterbi_kernel as vk
+    from sloika_tpu_torch.scripts import bench_viterbi
+    optin = vk._device_limits(dev)[1]
     out = {}
     for klen, nbase in ((7, 4), (4, 3)):
-        gen = torch.Generator(device=dev).manual_seed(171 + nbase)
-        post16 = torch.softmax(4.0 * torch.randn(
-            (KLEN7_T, KLEN7_B, nbase ** klen + 1), generator=gen,
-            device=dev), dim=2).to(torch.bfloat16)
-        before = vk.viterbi_forward.general_launches
-        up, same, same_path, same_twin = bf16_against_f32(post16, klen,
-                                                          nbase)
-        routed = vk.viterbi_forward.general_launches - before == 2
-        ms32, ms16 = f32_bf16_ms(post16, up, klen, nbase)
         K = nbase ** klen
-        b32 = bound(*viterbi_fwd_bound(KLEN7_T, KLEN7_B, K))
-        b16 = bound(*viterbi_fwd_bound(KLEN7_T, KLEN7_B, K, esize=2))
-        print("viterbi_fwd bf16 general route klen {} nbase {} T={} B={}: "
-              "general route {}; bit_identical to the f32 kernel on the "
-              "upcast {} (paths {}), codes equal to the twin {}; f32 {:.3f} "
-              "ms (bound {:.4f} ms), bf16 {:.3f} ms (bound {:.4f} ms)".format(
-                  klen, nbase, KLEN7_T, KLEN7_B, routed, same, same_path,
-                  same_twin, ms32, b32[0], ms16, b16[0]), flush=True)
-        if not (routed and same and same_path and same_twin):
-            raise AssertionError("the general route on a bf16 posterior "
-                                 "differs at klen {} nbase {}".format(
-                                     klen, nbase))
-        out["klen {} nbase {}".format(klen, nbase)] = {
-            "shape": "T={} B={} K={}".format(KLEN7_T, KLEN7_B, K),
-            "ms_f32": ms32, "ms_bf16": ms16, "bound_ms_f32": b32[0],
-            "bound_ms_bf16": b16[0]}
+        entry = out["klen {} nbase {}".format(klen, nbase)] = {}
+        for T, B, seed in ((KLEN7_T, KLEN7_B, 171 + nbase),
+                           (whole_T, RAW_BATCH, 271 + nbase)):
+            post16 = bench_viterbi.posterior(T, B, dev, seed=seed,
+                                             nstate=K + 1).to(torch.bfloat16)
+            before = vk.viterbi_forward.general_launches
+            up, same, same_path, same_twin = bf16_against_f32(post16, klen,
+                                                              nbase)
+            routed = vk.viterbi_forward.general_launches - before == 2
+            print("viterbi_fwd bf16 general route klen {} nbase {} T={} "
+                  "B={}: general route {}; bit_identical to the f32 kernel "
+                  "on the upcast {} (paths {}), rows 0-{} codes of {} frames "
+                  "equal to the twin {}".format(
+                      klen, nbase, T, B, routed, same, same_path,
+                      min(B, RAW_BATCH) - 1, min(T, BF16_TWIN_T), same_twin),
+                  flush=True)
+            if not (routed and same and same_path and same_twin):
+                raise AssertionError("the general route on a bf16 posterior "
+                                     "differs at klen {} nbase {} T={} B={}"
+                                     .format(klen, nbase, T, B))
+            if T == KLEN7_T:
+                entry["checked_at"] = "T={} B={}".format(T, B)
+                del post16, up
+                continue
+            ms32, ms16 = f32_bf16_ms(post16, up, klen, nbase)
+            del post16, up
+            torch.cuda.empty_cache()
+            clusters = vk.viterbi_forward.general_clusters(K, nbase, dev)
+            C = {e: vk.viterbi_general_plan(B, K, nbase, optin, clusters,
+                                            e)["C"] for e in (4, 2)}
+            b32 = bound(*viterbi_fwd_bound(T, B, K))
+            b16 = bound(*viterbi_fwd_bound(T, B, K, esize=2))
+            print("viterbi_fwd bf16 general route klen {} nbase {} T={} B={} "
+                  "(f32, bf16, bf16, f32): f32 {:.3f} ms (plan C={}, bound "
+                  "{:.3f} ms, {}), bf16 {:.3f} ms (plan C={}, bound {:.3f} "
+                  "ms, {}), bf16/f32 {:.3f} [{}]".format(
+                      klen, nbase, T, B, ms32, C[4], *b32, ms16, C[2], *b16,
+                      ms16 / ms32, card_line()), flush=True)
+            entry.update(shape="T={} B={} K={}".format(T, B, K),
+                         plan_C_f32=C[4], plan_C_bf16=C[2], ms_f32=ms32,
+                         ms_bf16=ms16, bound_ms_f32=b32[0],
+                         bound_ms_bf16=b16[0], bound_by=b16[1])
     return out
 
 
@@ -2286,18 +2236,6 @@ def padded_batch(seqs):
     for b, s in enumerate(seqs):
         x[:len(s), b] = s.reshape(len(s), nfeat)
     return torch.from_numpy(x), torch.from_numpy(lengths)
-
-
-def profiled_call(fn):
-    """``profile_table`` of one call of ``fn`` under the profiler."""
-    from torch.profiler import ProfilerActivity
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    return profile_table(prof.events(), 1, wall)
 
 
 

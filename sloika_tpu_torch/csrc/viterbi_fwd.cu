@@ -33,8 +33,9 @@
 //
 // What bounds it.  The DP is sequential in t and independent across rows.
 // Per step a row reads K+1 elements of posterior and writes K bytes of
-// traceback: 5 bytes a state, streamed once (3 from a bf16 posterior, which
-// moved the times by under 1% but at B = 1,024, 0.90x: PERF.md §6).
+// traceback: 5 bytes a state, streamed once (3 from a bf16 posterior: the
+// single and pair routes' times moved by +0.5% to +1.2% at the decode
+// paths' shapes and by 0.90x at B = 1,024; PERF.md §6).
 // At the basecall paths'
 // batches (B = 8 to 64, one row a block) a block's step bounds the kernel:
 // the design before this one loaded each posterior row into registers one
@@ -104,6 +105,12 @@ __device__ long long viterbi_fwd_clocks[32 * 8];
 #endif
 
 namespace {
+
+// the aligned superset of n elements of esize bytes from any esize-aligned
+// start, rounded up to 16 bytes (a ring slot of a row at n = K + 1)
+__host__ __device__ constexpr int superset_bytes(int n, int esize) {
+  return (esize * n + 16 - esize + 15) & ~15;
+}
 
 constexpr int kMaxSlots = 16;
 constexpr int kBarBytes = 128;     // the slots' full mbarriers
@@ -724,7 +731,7 @@ __device__ __forceinline__ float first_max(const float* p, int stride, int n,
 // The bytes of one ring slot: the stay's 16-byte unit, then the aligned
 // superset of a block's KC kmers of `esize` bytes each
 __host__ __device__ constexpr int general_slot_bytes(int KC, int esize) {
-  return 16 + ((esize * KC + 16 - esize + 15) & ~15);
+  return 16 + superset_bytes(KC, esize);
 }
 
 __host__ __device__ constexpr int general_round4(int n) {
@@ -1061,12 +1068,6 @@ const void* general_kernel(bool shared, int nbase) {
   return !shared      ? (const void*)viterbi_fwd_general_kernel<false, 0, E>
          : nbase == 4 ? (const void*)viterbi_fwd_general_kernel<true, 4, E>
                       : (const void*)viterbi_fwd_general_kernel<true, 0, E>;
-}
-
-// a posterior row's aligned superset: esize (K + 1) bytes from any
-// esize-aligned start, rounded up to 16 bytes (a ring slot of a row)
-constexpr int superset_bytes(int n, int esize) {
-  return (esize * n + 16 - esize + 15) & ~15;
 }
 
 }  // namespace
