@@ -157,11 +157,34 @@ Phases, each printing one line and raising on failure:
     argmax agreement > 0.95: tests/test_bf16.py:40-45; the events model at
     sd 1.5, whose posterior is peaked, and at phase 12's 0.5, printed);
     a profile of the chunked path's bfloat16 call, where the floor, mask
-    and cast show as elementwise kernels.
+    and cast show as elementwise kernels;
+16. zoo, the models the port loads besides the main paths': (a) the
+    stand-in pickled in the reference's layout (``write_reference_pickle``:
+    ``sloika.layers.*`` classes, parameters in Theano shared-variable
+    stubs, GRU ``iW`` (3S, I) block-wise, ``sloika.activation.*``
+    globals), read by ``cli.basecall.load_model``, basecalls the 16 reads
+    whole as 5b does: calls, scores and a batch's posterior bit-identical
+    to the stand-in's; (b) ``bigger_raw_gru`` at its published widths
+    (32/96/128, stride 2, seeded weights) basecalls the 16 reads whole, two
+    20,000-sample reads' posterior within 1e-4 of the CPU forward, then 10
+    training steps at B = 100 x 2,000 samples (losses finite) and one
+    batch's gradients against the CPU twins' (<= 1e-3 relative), with
+    samples/s and chunks/s; (c) a pickle of every other convertible type
+    at small widths (``zoo_graph``: ten cells on the eager scan route, a
+    relu GRU among them, a peephole LSTM on the kernel, the parameter-free
+    layers, ``Reverse`` over a feed-forward layer) forward on the card
+    within 1e-4 of the CPU at T = 500, B = 4 (``scan_route`` counts the
+    ten cells); a Studentise events model through ``Basecaller(output=
+    "bases")``, which falls back to whole reads at batch 1 (one Viterbi
+    launch a read) with the CPU route's calls; ``baseline_gru`` (size 64)
+    basecalling 4 event reads; ``verify`` and ``dump_json`` through their
+    ``main`` on the card.
 
-Every path (5-14) sets the kernels' launch counts to 0 before it runs and
+Every path (5-16) sets the kernels' launch counts to 0 before it runs and
 reads them after, and fails if a Viterbi wrapper took its general route
-(``general_launches``): the paths decode klen 5 over 4 bases.
+(``general_launches``): the paths decode klen 5 over 4 bases; and if a
+recurrence took the eager scan route (``nn.rnn.scan_route``), but for the
+zoo pickle's ten cells.
 
 Then one JSON line of per-kernel numbers (``viterbi_fwd``'s with the
 bfloat16 phase's under "bf16"; with the least time the card
@@ -170,11 +193,15 @@ larger of its bytes at 3.35 TB/s and its float32 operations at
 67 TFLOP/s), the card line again, and last ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX and no h5py.
 """
+import contextlib
 import copy
 import io
 import json
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -267,6 +294,13 @@ BF16_POST_TOL, BF16_ARGMAX = 0.05, 0.95
 # model's is (the stand-in remaps at 1.5 for the same reason, phase 9).
 # Both are printed; the check holds at 1.5
 BF16_EVENTS_SD = 1.5
+# the zoo (phase 16): the zoo pickle's input (T, B), its tolerance against
+# the CPU, and its cells on the scan route (zoo_graph); the events of each
+# read the Studentise model basecalls; bigger_raw_gru's training steps, the
+# first BIG_TRAIN_WARM of them left out of the rate
+ZOO_T, ZOO_B, ZOO_TOL, ZOO_SCAN_CELLS = 500, 4, 1e-4, 10
+STUDENTISE_EVENTS = 1000
+BIG_TRAIN_STEPS, BIG_TRAIN_WARM = 10, 2
 # the published peaks of one H100 SXM (NVIDIA data sheet) the bounds use
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -281,23 +315,32 @@ def card_line():
 
 
 def zero_counts(counters):
-    """Set every wrapper's launch count, and the Viterbi wrappers' count of
-    general-route launches, to 0."""
+    """Set every wrapper's launch count, the Viterbi wrappers' count of
+    general-route launches and the recurrences' scan-route calls to 0."""
+    from sloika_tpu_torch.nn.rnn import scan_route
     for k in counters.values():
         k.launches = 0
         if hasattr(k, "general_launches"):
             k.general_launches = 0
+    scan_route.calls = 0
 
 
-def read_counts(counters):
+def read_counts(counters, scan_calls=0):
     """The launches of each kernel since :func:`zero_counts`; raises if a
     Viterbi wrapper launched its general route (``general_launches``): the
-    main paths decode klen 5 over nbase 4, the tuned kernels' range."""
+    main paths decode klen 5 over 4 bases, the tuned kernels' range; and
+    unless the recurrences took the eager scan route (``nn.rnn.
+    scan_route``) ``scan_calls`` times: 0 on every main path, whose GRUs
+    and LSTMs are the kernels' tanh/sigmoid cells."""
+    from sloika_tpu_torch.nn.rnn import scan_route
     general = {n: k.general_launches for n, k in counters.items()
                if getattr(k, "general_launches", 0)}
     if general:
         raise AssertionError("a main path took the general Viterbi route: "
                              "general_launches {}".format(general))
+    if scan_route.calls != scan_calls:
+        raise AssertionError("the scan route ran {} times, {} expected"
+                             .format(scan_route.calls, scan_calls))
     return {n: k.launches for n, k in counters.items()}
 
 
@@ -894,10 +937,20 @@ def phase_train(dev, counters):
 
     # one batch's gradients on the card against the plain CPU twins, at
     # the trained weights
+    gradients_against_cpu(layer, data, 5, dev, "training gradients (B=4, "
+                          "T={})".format(TRAIN_T))
+    return counts, peak
+
+
+def gradients_against_cpu(layer, data, stride, dev, what):
+    """One batch's gradients (B = 4 chunks of TRAIN_SAMPLES) on the card
+    against the plain CPU twins': max|gpu - cpu| / max|cpu| <= GRAD_RTOL for
+    every parameter."""
+    from sloika_tpu_torch import training
     cpu_layer = copy.deepcopy(layer).cpu()
     x, labels, weights = training.ChunkSampler(
-        data, 4, TRAIN_SAMPLES, TRAIN_SAMPLES, 5, np.ones(1025, np.float32),
-        seed=2).sample()
+        data, 4, TRAIN_SAMPLES, TRAIN_SAMPLES, stride,
+        np.ones(1025, np.float32), seed=2).sample()
     grads = []
     for lyr, d in ((layer, dev), (cpu_layer, torch.device("cpu"))):
         lyr.zero_grad(set_to_none=True)
@@ -909,13 +962,12 @@ def phase_train(dev, counters):
         grads.append([p.grad.cpu() for p in lyr.parameters()])
     errs = [rel_err(a, b)[1] for a, b in zip(*grads)]
     names = [n for n, _ in layer.named_parameters()]
-    print("training gradients (B=4, T={}), GPU kernels vs CPU plain twins: "
-          "worst max|d|/max|g_cpu| {:.3e} ({})".format(
-              TRAIN_T, max(errs), names[int(np.argmax(errs))]), flush=True)
+    print("{}, GPU kernels vs CPU plain twins: worst max|d|/max|g_cpu| "
+          "{:.3e} ({})".format(what, max(errs),
+                               names[int(np.argmax(errs))]), flush=True)
     if not max(errs) <= GRAD_RTOL:
         raise AssertionError("GPU gradients differ from the CPU ones: {}"
                              .format(dict(zip(names, errs))))
-    return counts, peak
 
 
 def synthetic_reads(n=16, seed=5):
@@ -1100,7 +1152,7 @@ def phase_basecall_raw(dev, standin, counters):
     if not rel <= RAW_SCORE_RTOL:
         raise AssertionError("whole-read raw scores differ from the CPU path "
                              "by {} > {}".format(rel, RAW_SCORE_RTOL))
-    return counts
+    return counts, out
 
 
 def profile_table(events, nsteps, wall_ms=None):
@@ -2238,6 +2290,405 @@ def padded_batch(seqs):
     return torch.from_numpy(x), torch.from_numpy(lengths)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the zoo.  Reference-layout pickles are written here from the
+# port's layers, as the reference's train_network.py pickled its layers
+# (tests/test_torch_theano_pickle.py feeds the same bytes to both packages)
+# ---------------------------------------------------------------------------
+
+class RefGlobal:
+    """A module-level global of the reference (an activation function),
+    pickled by its module and name."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+
+    def __reduce__(self):
+        return self.name
+
+
+_REF_CLASSES = {}
+
+
+def ref_object(module, name, **state):
+    """An object whose class pickles as the global ``module.name``, with
+    ``state`` as its attributes."""
+    key = (module, name)
+    if key not in _REF_CLASSES:
+        _REF_CLASSES[key] = type(name, (), {"ref_module": module})
+    obj = _REF_CLASSES[key]()
+    obj.__dict__.update(state)
+    return obj
+
+
+class RefPickler(pickle._Pickler):
+    """Pickle protocol 2 (the reference's cPickle.HIGHEST_PROTOCOL), each
+    global under the reference's name for it: the stub classes and
+    activations under ``sloika.*`` and ``theano.*``, numpy's array
+    reconstruction under ``numpy.core`` (numpy 2 calls it ``numpy._core``).
+    The pure-Python pickler lets ``save_global`` write the names."""
+
+    def __init__(self, fh):
+        super().__init__(fh, protocol=2)
+
+    def save_global(self, obj, name=None):
+        if isinstance(obj, RefGlobal):
+            module, name = obj.module, obj.name
+        else:
+            module = getattr(obj, "ref_module", None) or obj.__module__
+            name = name or obj.__qualname__
+        if module.startswith("numpy._core"):
+            module = "numpy.core" + module[len("numpy._core"):]
+        self.write(pickle.GLOBAL + "{}\n{}\n".format(module, name).encode())
+        self.memoize(obj)
+
+
+def ref_shared(a):
+    """A Theano shared variable: its container's storage holds the array."""
+    return ref_object("theano.tensor.sharedvar", "TensorSharedVariable",
+                      container=ref_object("theano.gof.link", "Container",
+                                           storage=[np.asarray(a,
+                                                               np.float32)]))
+
+
+def reference_stub(layer):
+    """The object the reference pickles for a port layer: class
+    ``sloika.layers.<kind>``, parameters in shared variables in its flat
+    layouts (GRU, Forget, Genmut and LstmO block-wise; Lstm and LstmCIFG
+    row G*u + g for unit u, gate g), activations as ``sloika.activation``
+    globals, and Scrn's alpha on the diagonal of ``ssW``."""
+    kind = type(layer).__name__
+    t = {k: v.detach().cpu().numpy()
+         for k, v in layer.named_parameters(recurse=False)}
+
+    def obj(**state):
+        return ref_object("sloika.layers", kind, **state)
+
+    def act(f):
+        return RefGlobal("sloika.activation", f.__name__)
+
+    if kind in ("Serial", "Parallel"):
+        return obj(layers=[reference_stub(l) for l in layer.layers])
+    if kind in ("Reverse", "Residual"):
+        return obj(layer=reference_stub(layer.layer))
+    if kind in ("Identity", "Studentise", "NormaliseL1"):
+        return obj(_insize=layer.insize)
+    if kind == "Window":
+        return obj(insize=layer.insize, w=layer.w)
+    if kind == "MaxPool":
+        return obj(_insize=layer.insize, pool_size=layer.pool_size,
+                   stride=layer.stride, padding_mode=layer.padding_mode)
+    st = {k: ref_shared(v) for k, v in t.items()}
+    if hasattr(layer, "fun"):
+        st["fun"] = act(layer.fun)
+    # the reference's Forget never assigns its gate function
+    if hasattr(layer, "gatefun") and kind != "Forget":
+        st["gatefun"] = act(layer.gatefun)
+    if kind != "Scrn":
+        st["has_bias"] = layer.has_bias
+    if hasattr(layer, "has_peep"):
+        st["has_peep"] = layer.has_peep
+    S = layer.size
+    if kind == "Convolution":
+        st.update(stride=layer.stride, padding_mode=layer.padding_mode)
+    elif kind in ("Gru", "Forget", "Genmut", "LstmO"):
+        for k in ("iW", "xW", "sW", "b"):
+            if k in t:
+                st[k] = ref_shared(t[k].reshape(-1, *t[k].shape[2:]))
+    elif kind in ("Lstm", "LstmCIFG"):
+        for k in ("iW", "sW", "b"):
+            gm = t[k]            # (G, S, ...) -> row G*u + g is (u, g)
+            st[k] = ref_shared(np.swapaxes(gm, 0, 1).reshape(
+                gm.shape[0] * S, *gm.shape[2:]))
+    elif kind == "Scrn":
+        st["ssW"] = ref_shared(layer.alpha * np.eye(layer.slow_size))
+    return obj(**st)
+
+
+def write_reference_pickle(layer):
+    """The bytes of ``layer`` pickled in the reference's layout."""
+    buf = io.BytesIO()
+    RefPickler(buf).dump(reference_stub(layer))
+    return buf.getvalue()
+
+
+def load_pickled(layer, name, tmp):
+    """``layer`` written as a reference pickle ``name`` in ``tmp`` and read
+    back through the basecall CLI's ``load_model``; returns (the loaded
+    layer, the path)."""
+    from sloika_tpu_torch.cli.basecall import load_model
+    path = os.path.join(tmp, name)
+    with open(path, "wb") as fh:
+        fh.write(write_reference_pickle(layer))
+    return load_model(path), path
+
+
+def zoo_graph(seed=31):
+    """Every type the pickle bridge converts but the stand-in's, at small
+    widths over 4 features: ZOO_SCAN_CELLS cells on the scan route (a GRU
+    with relu among them), a peephole LSTM on the kernels, and the
+    parameter-free layers."""
+    from sloika_tpu_torch import activations, nn
+    F, S = 4, 16
+    return seeded_weights(nn.Serial([
+        nn.Identity(F), nn.NormaliseL1(F), nn.Window(F, 3),
+        nn.Recurrent(3 * F, S, has_bias=True),
+        nn.Parallel([nn.LstmCIFG(S, S // 2, has_bias=True, has_peep=True),
+                     nn.Reverse(nn.LstmO(S, S // 2, has_bias=True,
+                                         has_peep=True))]),
+        nn.Forget(S, S, has_bias=True),
+        nn.Scrn(S, 10, S - 10, alpha=0.9),
+        nn.Residual(nn.Mut1(S, S, has_bias=True)),
+        nn.Mut2(S, S, has_bias=True), nn.Mut3(S, S, has_bias=True),
+        nn.Genmut(S, S, has_bias=True),
+        nn.Lstm(S, S, has_bias=True, has_peep=True),
+        nn.Reverse(nn.Gru(S, S, has_bias=True, fun=activations.relu)),
+        nn.MaxPool(S, 3, 2),
+        nn.Reverse(nn.FeedForward(S, S, has_bias=True)),
+        nn.SoftmaxTheano(S, S, has_bias=True)]), seed)
+
+
+def studentise_graph(seed=43):
+    """An events model with a Studentise front: Studentise -> Window ->
+    biGRU -> Softmax over the 1,025 states of k = 5, weights at sd 1.5 (a
+    peaked posterior, as a trained model's: few near-ties)."""
+    from sloika_tpu_torch import nn
+    return seeded_weights(nn.Serial([
+        nn.Studentise(4), nn.Window(4, 3),
+        nn.birnn(nn.Gru(12, 32, has_bias=True),
+                 nn.Gru(12, 32, has_bias=True)),
+        nn.Softmax(64, 1025, has_bias=True)]), seed, sd=1.5)
+
+
+def timed_path(counters, fn, scan_calls=0):
+    """(result, seconds, launches by kernel) of one run of ``fn``."""
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts(counters, scan_calls)
+
+
+def need_launches(counts, names, what):
+    """The launches of ``names``; raises unless each launched."""
+    launched = [counts[n] for n in names]
+    if min(launched) <= 0:
+        raise AssertionError("a kernel of the {} path never launched: {}"
+                             .format(what, dict(zip(names, launched))))
+    return launched
+
+
+def check_calls(out, what):
+    for i, (score, call) in enumerate(out):
+        if len(call) == 0 or not np.isfinite(score):
+            raise AssertionError("{} read {}: bad call (score {}, {} states)"
+                                 .format(what, i, score, len(call)))
+
+
+def phase_zoo(dev, standin, counters, raw_calls, event_feats):
+    """16a: the stand-in through a reference pickle; 16b: bigger_raw_gru
+    basecalling and training; 16c: the zoo pickle, a Studentise model,
+    baseline_gru, ``verify`` and ``dump_json``.
+
+    :returns: the launches of each path"""
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = {"zoo_pkl": zoo_pickled_standin(dev, standin, counters,
+                                                   raw_calls, tmp)}
+        launches.update(zoo_bigger_raw_gru(dev, counters))
+        launches.update(zoo_cells(dev, counters, event_feats, tmp))
+    return launches
+
+
+def zoo_pickled_standin(dev, standin, counters, raw_calls, tmp):
+    """16a: the stand-in's weights written as a reference pickle, loaded by
+    ``load_model``, basecall the 16 reads whole as phase 5b does: posterior
+    and calls bit-identical to the stand-in's own."""
+    from sloika_tpu_torch import basecall as bc
+    loaded, _ = load_pickled(standin, "standin.pkl", tmp)
+    sigs = raw_signals(synthetic_reads())
+    caller = bc.Basecaller(loaded, 5, batch_size=RAW_BATCH, output="states",
+                           device=dev)
+    caller.basecall_signals(sigs)                    # warm-up
+    out, dt, counts = timed_path(counters,
+                                 lambda: caller.basecall_signals(sigs))
+    launched = need_launches(counts, PATH_KERNELS["basecall_raw"], ".pkl")
+    same = [s1 == s2 and np.array_equal(c1, c2)
+            for (s1, c1), (s2, c2) in zip(out, raw_calls)]
+    x, lengths = padded_batch(sigs[:2])
+    with torch.inference_mode():
+        got, _ = caller._floored_masked_post(x.to(dev), lengths.to(dev))
+        ref, _ = bc.Basecaller(standin, 5, output="states", device=dev) \
+            ._floored_masked_post(x.to(dev), lengths.to(dev))
+    same_post = torch.equal(got, ref)
+    nsamples = sum(len(s) for s in sigs)
+    print("zoo .pkl path: the stand-in pickled in the reference's layout, "
+          "loaded by load_model: {} reads {} samples in {:.3f} s: {:.1f} "
+          "samples/s, launches gru_fwd {} viterbi_fwd {} viterbi_back {}; "
+          "calls and scores bit-identical to phase 5b's {}/{}, posterior of "
+          "2 reads bit-identical {} [{}]".format(
+              len(sigs), nsamples, dt, nsamples / dt, *launched, sum(same),
+              len(same), same_post, card_line()), flush=True)
+    if not (all(same) and same_post):
+        raise AssertionError("the pickled stand-in departs from the stand-in")
+    return counts
+
+
+def zoo_bigger_raw_gru(dev, counters):
+    """16b: bigger_raw_gru at its published widths basecalls the 16 reads
+    whole, two short reads' posterior against the CPU forward, then
+    BIG_TRAIN_STEPS steps of training at B = 100 x 2,000 samples and one
+    batch's gradients against the CPU twins'."""
+    from sloika_tpu_torch import basecall as bc, models, training
+    from sloika_tpu_torch.profile_train import StepMarks, synthetic_chunks
+    layer = models.network_factory("bigger_raw_gru")(klen=5, sd=0.5, seed=0)
+    cpu_layer = copy.deepcopy(layer)
+    sigs = raw_signals(synthetic_reads())
+    caller = bc.Basecaller(layer, 5, batch_size=RAW_BATCH, output="states",
+                           device=dev)
+    caller.basecall_signals(sigs)                    # warm-up
+    out, dt, counts = timed_path(counters,
+                                 lambda: caller.basecall_signals(sigs))
+    launched = need_launches(counts, PATH_KERNELS["basecall_raw"],
+                             "bigger_raw_gru basecall")
+    check_calls(out, "bigger_raw_gru")
+    nsamples = sum(len(s) for s in sigs)
+    short = raw_signals([(d[:RAW_SHORT], n4) for d, n4 in
+                         synthetic_reads(n=2, seed=9)])
+    x, lengths = padded_batch(short)
+    with torch.inference_mode():
+        got, _ = caller._floored_masked_post(x.to(dev), lengths.to(dev))
+        ref, _ = bc.Basecaller(cpu_layer, 5, output="states", device="cpu") \
+            ._floored_masked_post(x, lengths)
+    d = float((got.cpu().float() - ref.float()).abs().max())
+    print("zoo bigger_raw_gru (32/96/128, stride 2) whole-read basecall: {} "
+          "reads {} samples in {:.3f} s: {:.1f} samples/s, launches gru_fwd "
+          "{} viterbi_fwd {} viterbi_back {}; posterior of 2 reads of {:,} "
+          "samples vs the CPU forward: max_abs_err {:.3e} [{}]".format(
+              len(sigs), nsamples, dt, nsamples / dt, *launched, RAW_SHORT,
+              d, card_line()), flush=True)
+    if not d <= POST_TOL:
+        raise AssertionError("bigger_raw_gru posterior differs from the CPU "
+                             "forward by {} > {}".format(d, POST_TOL))
+
+    data = synthetic_chunks(stride=2)
+    clock = StepMarks(sync=True)
+    (_, history), wall, train_counts = timed_path(
+        counters, lambda: training.train(
+            layer, data, batch_size=TRAIN_B, chunk_len_range=(1.0, 1.0),
+            drop=20, niteration=BIG_TRAIN_STEPS, seed=1, log=clock,
+            device=dev))
+    trained = need_launches(train_counts, PATH_KERNELS["train"],
+                            "bigger_raw_gru training")
+    steps = BIG_TRAIN_STEPS - BIG_TRAIN_WARM
+    sdt = clock.marks[-1] - clock.marks[BIG_TRAIN_WARM - 1]
+    print("zoo bigger_raw_gru training: {} ADAMski steps of B={} x {} "
+          "samples in {:.3f} s; steps {}-{}: {:.2f} ms a step, {:.1f} "
+          "chunks/s; loss {:.4f} -> {:.4f}; launches gru_fwd {} gru_bwd {} "
+          "gru_wgrad {} [{}]".format(
+              BIG_TRAIN_STEPS, TRAIN_B, TRAIN_SAMPLES, wall,
+              BIG_TRAIN_WARM + 1, BIG_TRAIN_STEPS, 1e3 * sdt / steps,
+              steps * TRAIN_B / sdt, history[0, 0], history[-1, 0],
+              *trained, card_line()), flush=True)
+    if len(history) != BIG_TRAIN_STEPS or not np.isfinite(history).all():
+        raise AssertionError("bigger_raw_gru losses not all finite: {}"
+                             .format(history[:, 0]))
+    gradients_against_cpu(layer, data, 2, dev, "bigger_raw_gru gradients "
+                          "(B=4, T={})".format(TRAIN_SAMPLES // 2))
+    return {"zoo_bigger_raw_gru": counts,
+            "zoo_bigger_raw_gru_train": train_counts}
+
+
+def zoo_cells(dev, counters, event_feats, tmp):
+    """16c: the zoo pickle on the card against the CPU; a Studentise model
+    through ``Basecaller(output="bases")``, which falls back to whole reads
+    at batch 1; baseline_gru on 4 event reads; ``verify`` and
+    ``dump_json`` through their ``main``."""
+    from sloika_tpu_torch import basecall as bc, models
+    from sloika_tpu_torch.cli import dump_json, verify
+    launches = {}
+    zoo, zoo_pkl = load_pickled(zoo_graph(), "zoo.pkl", tmp)
+    cpu_zoo = copy.deepcopy(zoo)
+    zoo.to(dev).eval()
+    x = torch.from_numpy(np.random.RandomState(41).normal(
+        size=(ZOO_T, ZOO_B, 4)).astype(np.float32))
+    with torch.inference_mode():
+        got, dt, counts = timed_path(counters, lambda: zoo(x.to(dev)),
+                                     scan_calls=ZOO_SCAN_CELLS)
+        ref = cpu_zoo(x)
+    launches["zoo_cells"] = counts
+    d = float((got.cpu() - ref).abs().max())
+    print("zoo pickle (every other convertible type, T={} B={}) on the "
+          "card: {:.3f} s, {} scan-route cells ({:.1f} us a cell-step), "
+          "lstm_fwd launches {}; vs the CPU forward: max_abs_err {:.3e} [{}]"
+          .format(ZOO_T, ZOO_B, dt, ZOO_SCAN_CELLS,
+                  1e6 * dt / (ZOO_SCAN_CELLS * ZOO_T), counts["lstm_fwd"], d,
+                  card_line()), flush=True)
+    need_launches(counts, ("lstm_fwd",), "zoo pickle")
+    if not d <= ZOO_TOL:
+        raise AssertionError("the zoo pickle's card forward differs from "
+                             "the CPU's by {} > {}".format(d, ZOO_TOL))
+
+    feats = [r[:STUDENTISE_EVENTS] for r in event_feats[:4]]
+    stud = studentise_graph()
+    callers = [bc.Basecaller(layer, 5, output="bases", device=d)
+               for layer, d in ((copy.deepcopy(stud), "cpu"), (stud, dev))]
+    if any(c.output != "states" for c in callers):
+        raise AssertionError("the Studentise model did not fall back to "
+                             "whole reads")
+    out, dt, counts = timed_path(
+        counters, lambda: callers[1].basecall_signals(feats))
+    launches["zoo_studentise"] = counts
+    ref = callers[0].basecall_signals(feats)
+    same = [np.array_equal(a[1], b[1]) for a, b in zip(out, ref)]
+    rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(out, ref))
+    print("zoo Studentise events model through Basecaller(output=\"bases\"):"
+          " whole reads at batch 1, {} reads of {} events in {:.3f} s, "
+          "launches gru_fwd {} viterbi_fwd {}; calls identical to the CPU "
+          "route's {}/{}, score max rel err {:.3e}".format(
+              len(feats), STUDENTISE_EVENTS, dt, counts["gru_fwd"],
+              counts["viterbi_fwd"], sum(same), len(same), rel), flush=True)
+    if counts["viterbi_fwd"] != len(feats) or \
+            counts["gru_fwd"] != 2 * len(feats):
+        raise AssertionError("the Studentise route did not run one read a "
+                             "batch: {}".format(counts))
+    if not (all(same) and rel <= RAW_SCORE_RTOL):
+        raise AssertionError("the Studentise route's calls depart from the "
+                             "CPU's")
+
+    bg = seeded_weights(models.network_factory("baseline_gru")(
+        klen=5, sd=0.5), seed=47)
+    caller = bc.Basecaller(bg, 5, batch_size=4, output="states", device=dev)
+    out, dt, counts = timed_path(
+        counters, lambda: caller.basecall_signals(event_feats[:4]))
+    launches["zoo_baseline_gru"] = counts
+    launched = need_launches(counts, ("gru_fwd", "viterbi_fwd",
+                                      "viterbi_back"), "baseline_gru")
+    check_calls(out, "baseline_gru")
+    nev = sum(len(r) for r in event_feats[:4])
+    print("zoo baseline_gru (size 64) events basecall: 4 reads {} events in "
+          "{:.3f} s: {:.1f} events/s, launches gru_fwd {} viterbi_fwd {} "
+          "viterbi_back {}".format(nev, dt, nev / dt, *launched), flush=True)
+
+    buf = io.StringIO()
+    zero_counts(counters)
+    with contextlib.redirect_stdout(buf):
+        rc = verify.main(["baseline_raw_gru", "--stride", "2"])
+    read_counts(counters)
+    json_path = os.path.join(tmp, "zoo.json")
+    rc_dump = dump_json.main(["--out_file", json_path, zoo_pkl])
+    with open(json_path) as fh:
+        dumped = json.load(fh)
+    same_json = dumped == json.loads(json.dumps(cpu_zoo.to_json(True)))
+    print("zoo CLIs on the card: verify baseline_raw_gru rc {} ({}); "
+          "dump_json of the zoo pickle rc {}, equal to the CPU layer's JSON "
+          "{}".format(rc, buf.getvalue().strip().splitlines()[0], rc_dump,
+                      same_json), flush=True)
+    if rc != 0 or "* OK" not in buf.getvalue() or rc_dump != 0 \
+            or not same_json:
+        raise AssertionError("verify or dump_json failed on the card")
+    return launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2289,7 +2740,8 @@ def main():
         lstm_wgrad, bench_gru_unroll.gru_unroll,
         bench_viterbi_parts.viterbi_parts, bench_dma.hbm_ring)))
     launches = {"basecall": phase_main(dev, standin, counters)}
-    launches["basecall_raw"] = phase_basecall_raw(dev, standin, counters)
+    launches["basecall_raw"], raw_calls = phase_basecall_raw(dev, standin,
+                                                             counters)
     launches["train"], _ = phase_train(dev, counters)
     launches["remap"] = phase_remap(dev, counters)
     launches["basecall_events"] = phase_basecall_events(dev, counters, reads)
@@ -2298,6 +2750,7 @@ def main():
     by_name.update((k["name"], k) for k in diag)
     by_name["viterbi_fwd"]["bf16"] = phase_bf16(dev, standin, counters,
                                                 reads)
+    launches.update(phase_zoo(dev, standin, counters, raw_calls, reads))
     for path, counts in launches.items():
         for name, n in counts.items():
             entry = by_name[name]

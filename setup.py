@@ -50,6 +50,11 @@ setup(
             "sloika-torch-basecall=sloika_tpu_torch.cli.basecall:main",
             "sloika-torch-train=sloika_tpu_torch.cli.train:main",
             "sloika-torch-chunkify=sloika_tpu_torch.cli.chunkify:main",
+            "sloika-torch-validate=sloika_tpu_torch.cli.validate:main",
+            "sloika-torch-verify=sloika_tpu_torch.cli.verify:main",
+            "sloika-torch-dump-json=sloika_tpu_torch.cli.dump_json:main",
+            "sloika-torch-model-convert="
+            "sloika_tpu_torch.cli.model_convert:main",
         ],
     },
 )

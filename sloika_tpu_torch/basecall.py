@@ -45,17 +45,32 @@ _GROUP_SAMPLES = 1 << 24
 
 
 def _infer_stride(layer):
-    """Total temporal downsampling factor of a layer graph."""
+    """Total temporal downsampling factor of a layer graph (copied from
+    sloika_tpu/basecall.py:43-57)."""
     if isinstance(layer, nn.Serial):
         s = 1
         for l in layer.layers:
             s *= _infer_stride(l)
         return s
-    if isinstance(layer, nn.Convolution):
+    if isinstance(layer, (nn.Convolution, nn.MaxPool)):
         return layer.stride
-    if isinstance(layer, nn.Reverse):
+    if isinstance(layer, (nn.Reverse, nn.Residual)):
         return _infer_stride(layer.layer)
+    if isinstance(layer, nn.Parallel):
+        return _infer_stride(layer.layers[0])
     return 1
+
+
+def _contains_studentise(layer):
+    """True if the layer graph contains a Studentise layer anywhere (copied
+    from sloika_tpu/basecall.py:60-69)."""
+    if isinstance(layer, nn.Studentise):
+        return True
+    if isinstance(layer, (nn.Serial, nn.Parallel)):
+        return any(_contains_studentise(l) for l in layer.layers)
+    if isinstance(layer, (nn.Reverse, nn.Residual)):
+        return _contains_studentise(layer.layer)
+    return False
 
 
 def _window_jobs(read_lens, chunk_size, overlap):
@@ -79,7 +94,12 @@ def _window_jobs(read_lens, chunk_size, overlap):
 
 
 class Basecaller(object):
-    """Batched chunked basecaller for a transducer model.
+    """Batched basecaller for a transducer model.
+
+    A model with a ``Studentise`` layer, whose statistics span the whole
+    batch, runs one unpadded read at a time (batch 1) in either mode, and
+    returns kmer-state calls: ``output`` falls back to "states", as the JAX
+    package's ``chunked`` does (sloika_tpu/basecall.py:187-199).
 
     :param layer: the network (a :class:`sloika_tpu_torch.nn.Layer`) over
         the 4-letter alphabet; it is moved to ``device`` in place
@@ -106,8 +126,11 @@ class Basecaller(object):
                 "output must be 'bases' (chunked) or 'states' (whole reads)")
         expected = nstate(kmer_len, transducer=True, bad_state=False)
         if layer.size != expected:
-            raise ValueError("model emits {} states, decode expects {}".format(
-                layer.size, expected))
+            raise ValueError(
+                "model emits {} states, a transducer of kmer length {} emits "
+                "{}: only transducer models are ported (the host decoder of "
+                "other models is not)".format(layer.size, kmer_len,
+                                              expected))
         self.device = config.resolve_device(device)
         config.disable_tf32()
         self.layer = layer.to(self.device).eval()
@@ -120,6 +143,13 @@ class Basecaller(object):
         if chunk_size <= 2 * overlap:
             raise ValueError("chunk_size must exceed 2*overlap")
         self.model_stride = _infer_stride(layer)
+        self.studentise = _contains_studentise(layer)
+        if self.studentise and output == "bases":
+            sys.stderr.write(
+                "Model contains a Studentise layer: batched padded/chunked "
+                "decoding is undefined for it; falling back to exact "
+                "per-read basecalling (slower).\n")
+            output = "states"
         self.output = output
         #: the Viterbi kernels upcast each row to float32 before the log,
         #: so a bfloat16 posterior halves their dominant read and leaves
@@ -210,6 +240,8 @@ class Basecaller(object):
         ``batch_size`` in order of length (sloika_tpu/basecall.py:424-443);
         returns (score, kmer-state call) per read.
         """
+        if self.studentise:
+            return self._basecall_per_read(signals)
         if self.output == "states":
             out = [None] * len(signals)
             order = np.argsort([len(s) for s in signals])
@@ -288,6 +320,29 @@ class Basecaller(object):
                         torch.from_numpy(norms).to(self.device))
                     _collect([(r, w) for r, w, _, _ in batch], out, results)
         return self._stitch_bases(results, read_lens)
+
+    def _basecall_per_read(self, signals):
+        """The Studentise route (sloika_tpu/basecall.py:445-469): one
+        unpadded forward per read at batch 1, so the statistics are the
+        read's own, decoded on the device by the Viterbi kernels (the JAX
+        package decodes it on the host, ``decode_post_host``; the paths
+        are the same, ties included)."""
+        out = []
+        for s in signals:
+            nfeat = 1 if s.ndim == 1 else s.shape[1]
+            x = torch.from_numpy(np.ascontiguousarray(
+                s.reshape(len(s), 1, nfeat), dtype=config.sloika_dtype))
+            with torch.inference_mode():
+                post = self.layer(x.to(self.device))
+                frames = torch.full((1,), post.shape[0], dtype=torch.int64,
+                                    device=self.device)
+                score, path, moved = viterbi_kernel.viterbi(
+                    self._floor_mask(post, frames), self.kmer_len,
+                    skip_pen=self.skip)
+            out.append((float(score[0]), collapse_path(
+                path[0].cpu().numpy(), moved[0].cpu().numpy(),
+                post.shape[0])))
+        return out
 
     def _run_batch(self, sigs, idx, out):
         """One batch of whole reads (sloika_tpu/basecall.py:853-886).  The

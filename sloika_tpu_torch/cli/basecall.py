@@ -7,13 +7,17 @@ Two subcommands::
     python -m sloika_tpu_torch.cli.basecall events model.npz reads/ \\
         --device cuda --output calls.fa
 
+The model is a ``.npz`` checkpoint or a model JSON of either package, or
+a reference Theano pickle (``.pkl``).
+
 Both decode as the JAX package does by default: whole reads in batches of
 ``--batch``, in order of length (``--no-chunked``), ``raw`` from signals
 normalised on the host (``--trim``, ``--open_pore_fraction``), ``events``
 from event features (``--section``, ``--trim``).  With ``--chunked`` they
 run the chunked "bases" mode: ``raw`` ships int16 DAC samples and windows
 and normalises them on the device, ``events`` windows the feature
-matrices.
+matrices.  A model with a ``Studentise`` layer runs whole reads one at a
+time, unpadded, in either mode (``Basecaller``).
 FASTA goes to stdout unless ``--output`` is given.  ``--device cuda``
 raises when no GPU is present.
 """
@@ -61,7 +65,8 @@ def make_parser():
                         action=display_version_and_exit(__version__),
                         help='Display version')
     common.add_argument('model', action=FileExists,
-                        help='Checkpoint (.npz) or model JSON')
+                        help='Checkpoint (.npz), model JSON or reference '
+                             'pickle (.pkl)')
     common.add_argument('input_folder', action=FileExists,
                         help='Directory containing fast5 files')
 
@@ -88,7 +93,9 @@ def make_parser():
 
 
 def load_model(path):
-    """Load a layer (holding its parameters) from a checkpoint or JSON."""
+    """Load a layer (holding its parameters) from a checkpoint, a model
+    JSON or a reference Theano pickle (cf. ``sloika_tpu/cli/basecall.py:
+    101-112``)."""
     from sloika_tpu_torch import serialize
     if path.endswith('.npz'):
         return serialize.load_checkpoint(path)[0]
@@ -97,7 +104,11 @@ def load_model(path):
         if params is None:
             raise ValueError('model JSON has no parameters')
         return layer
-    raise ValueError('model must be a .npz checkpoint or a .json model')
+    if path.endswith('.pkl'):
+        from sloika_tpu_torch.compat import theano_pickle
+        return theano_pickle.load_model(path)[0]
+    raise ValueError('model must be a .npz checkpoint, a .json model or a '
+                     'reference .pkl')
 
 
 def main(argv=None):
@@ -105,12 +116,14 @@ def main(argv=None):
     events = args.command == 'events'
     from sloika_tpu_torch import basecall as bc
 
-    output = 'bases' if args.chunked else 'states'
     caller = bc.Basecaller(load_model(args.model), args.kmer_len,
                            min_prob=args.min_prob, skip=args.skip,
                            batch_size=args.batch, chunk_size=args.chunk_size,
-                           overlap=args.overlap, output=output,
+                           overlap=args.overlap,
+                           output='bases' if args.chunked else 'states',
                            device=args.device)
+    # a Studentise model falls back to whole reads, "states"
+    output = caller.output
     datatype = 'events' if events else 'samples'
     printer = bc.SeqPrinter(datatype=datatype, fname=args.output,
                             kmer_len=args.kmer_len)

@@ -97,7 +97,8 @@ def make_parser():
                    help='Directory containing fast5 files')
     p.add_argument('output', help='Output HDF5 file')
     p.add_argument('model', action=FileExists,
-                   help='Model for remapping (.npz checkpoint or .json)')
+                   help='Model for remapping (.npz checkpoint, .json '
+                        'or reference .pkl)')
     p.add_argument('references', action=FileExists,
                    help='FASTA of per-read references')
     return parser

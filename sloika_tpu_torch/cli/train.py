@@ -7,7 +7,8 @@ Subcommands ``raw`` and ``events``::
     python -m sloika_tpu_torch.cli.train events baseline_lstm out/ \\
         event_chunks.hdf5 --device cuda
 
-The model is a registered name of :mod:`sloika_tpu_torch.models` or a
+The model is a registered name of :mod:`sloika_tpu_torch.models`, a
+``.py`` model file (copied into the output directory as ``model.py``), or a
 ``.npz`` checkpoint of either package to resume, optimiser state included.
 ``--device cuda`` raises when no GPU is present.  Not ported (see ROADMAP):
 ``--steps_per_dispatch``, ``--data_on_device``, ``--ndevice`` and
@@ -15,6 +16,7 @@ The model is a registered name of :mod:`sloika_tpu_torch.models` or a
 """
 import argparse
 import os
+import shutil
 import sys
 
 from sloika_tpu_torch import __version__
@@ -85,7 +87,8 @@ def make_parser():
                         action=display_version_and_exit(__version__),
                         help='Display version')
     common.add_argument('model',
-                        help='Model name, or checkpoint (.npz) to resume')
+                        help='Model name, python model file, or checkpoint '
+                             '(.npz) to resume')
     common.add_argument('output', help='Output directory')
     common.add_argument('input', action=FileExists,
                         help='HDF5 file containing chunks')
@@ -144,6 +147,9 @@ def main(argv=None):
             layer, _, opt_state = serialize.load_checkpoint(args.model)
         else:
             log.write('* Building network {}\n'.format(args.model))
+            if args.model.endswith('.py') and os.path.exists(args.model):
+                shutil.copyfile(args.model,
+                                os.path.join(args.output, 'model.py'))
             layer = network_factory(args.model)(
                 klen=klen, sd=args.sd, nbase=len(alphabet),
                 nfeature=data['chunks'].shape[-1], winlen=args.winlen,

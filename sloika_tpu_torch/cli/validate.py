@@ -34,7 +34,8 @@ def make_parser():
                         action=display_version_and_exit(__version__),
                         help='Display version')
     parser.add_argument('model', action=FileExists,
-                        help='Checkpoint (.npz) or model JSON')
+                        help='Checkpoint (.npz), model JSON or reference '
+                             'pickle (.pkl)')
     parser.add_argument('input', action=FileExists,
                         help='HDF5 file containing chunks')
     return parser

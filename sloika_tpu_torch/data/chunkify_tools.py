@@ -69,8 +69,8 @@ def _guard_overwrite(args, *paths):
 
 
 def _load_remap_model(args):
-    """The Remapper of the CLI's options, from a model ``.npz`` checkpoint
-    or JSON (sloika_tpu/data/chunkify_tools.py:212)."""
+    """The Remapper of the CLI's options, from a model ``.npz`` checkpoint,
+    JSON or reference ``.pkl`` (sloika_tpu/data/chunkify_tools.py:212)."""
     from sloika_tpu_torch.cli.basecall import load_model
     from sloika_tpu_torch.remap import Remapper
     band = args.band

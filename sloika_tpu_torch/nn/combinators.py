@@ -1,5 +1,5 @@
-"""Layer combinators of the ported slice: ``Serial``, ``Parallel``,
-``Reverse`` and ``birnn`` (cf. ``sloika_tpu/nn/combinators.py``).
+"""Layer combinators: ``Serial``, ``Parallel``, ``Reverse``, ``Residual``
+and ``birnn`` (cf. ``sloika_tpu/nn/combinators.py``).
 Parameter trees nest as in the JAX package: ``{"sublayers": (...)}`` and
 ``{"sublayer": ...}``."""
 import torch
@@ -8,26 +8,14 @@ from sloika_tpu_torch.nn.core import Layer, register, from_json
 from sloika_tpu_torch.nn.rnn import RNNBase
 
 
-@register("reverse")
-class Reverse(Layer):
-    """Run a recurrent layer backwards in time: it scans in reverse, with no
-    flips.  (Only recurrent sublayers are ported.)"""
+class _Wrapper(Layer):
+    """A layer around one sublayer, with the JAX package's
+    ``{"sublayer": ...}`` parameter tree and JSON."""
 
     def __init__(self, layer):
         super().__init__()
-        if not isinstance(layer, RNNBase):
-            raise NotImplementedError("Reverse is ported for recurrent "
-                                      "sublayers only")
         self.layer = layer
         self.insize, self.size = layer.insize, layer.size
-
-    def forward(self, x):
-        return self.layer(x, reverse=True)
-
-    def apply_with_lengths(self, x, lengths):
-        mask = (torch.arange(x.shape[0], device=x.device)[:, None]
-                < lengths[None, :])
-        return self.layer(x, reverse=True, mask=mask), lengths
 
     def param_tensors(self):
         return {"sublayer": self.layer.param_tensors()}
@@ -43,6 +31,46 @@ class Reverse(Layer):
     def _from_json(cls, obj):
         sub, sub_tree = from_json(obj["sublayer"])
         return cls(sub), None if sub_tree is None else {"sublayer": sub_tree}
+
+
+@register("reverse")
+class Reverse(_Wrapper):
+    """Run a layer backwards in time (cf. ``sloika_tpu/nn/combinators.py:
+    13-56``): a recurrent sublayer scans in reverse, with no flips; any
+    other is applied to the time-flipped input and its output flipped
+    back."""
+
+    def forward(self, x):
+        if isinstance(self.layer, RNNBase):
+            return self.layer(x, reverse=True)
+        return self.layer(x.flip(0)).flip(0)
+
+    def apply_with_lengths(self, x, lengths):
+        if not isinstance(self.layer, RNNBase):
+            raise NotImplementedError("Reverse with variable lengths is only "
+                                      "defined for RNN sublayers")
+        mask = (torch.arange(x.shape[0], device=x.device)[:, None]
+                < lengths[None, :])
+        return self.layer(x, reverse=True, mask=mask), lengths
+
+
+@register("residual")
+class Residual(_Wrapper):
+    """``x + layer(x)``; the sublayer keeps the width
+    (cf. ``sloika_tpu/nn/combinators.py:115-156``)."""
+
+    def __init__(self, layer):
+        if layer.insize != layer.size:
+            raise ValueError("Residual connections require input and output "
+                             "sizes to be equal")
+        super().__init__(layer)
+
+    def forward(self, x):
+        return x + self.layer(x)
+
+    def apply_with_lengths(self, x, lengths):
+        y, out_lengths = self.layer.apply_with_lengths(x, lengths)
+        return x + y, out_lengths
 
 
 class _Sublayers(Layer):

@@ -1,7 +1,9 @@
-"""Non-recurrent layers of the ported slice (cf. ``sloika_tpu/nn/layers.py``):
-``Convolution``, ``FeedForward`` (JSON ``feed-forward``), ``Window``,
-``Softmax`` (JSON ``softmax_old``) and ``SoftmaxTheano`` (JSON
-``softmax``).  Initialisation scaling matches the JAX package."""
+"""Non-recurrent layers (cf. ``sloika_tpu/nn/layers.py``): ``Identity``,
+``FeedForward`` (JSON ``feed-forward``), ``Softmax`` (JSON
+``softmax_old``), ``SoftmaxTheano`` (JSON ``softmax``), ``Studentise``,
+``NormaliseL1`` (JSON ``normaliseL1``), ``Window``, ``Convolution`` and
+``MaxPool`` (JSON ``max_pool``).  Initialisation scaling matches the JAX
+package."""
 import numpy as np
 import torch
 
@@ -10,6 +12,25 @@ from sloika_tpu_torch.nn.core import (Layer, register, zeros_init, affine,
                                       activation_name, activation_from_name,
                                       params_from_json)
 from sloika_tpu_torch.ops import conv as convops
+
+
+@register("identity")
+class Identity(Layer):
+    """(cf. ``sloika_tpu/nn/layers.py:19-37``)"""
+
+    def __init__(self, insize):
+        super().__init__()
+        self.insize = self.size = insize
+
+    def forward(self, x):
+        return x
+
+    def _json_config(self):
+        return {"insize": self.insize}
+
+    @classmethod
+    def _from_json(cls, obj):
+        return cls(obj.get("insize", 0)), {}
 
 
 class _Affine(Layer):
@@ -81,6 +102,59 @@ class SoftmaxTheano(Softmax):
     with reference dumps."""
 
 
+@register("studentise")
+class Studentise(Layer):
+    """Normalise each feature over the (time, batch) axes
+    (cf. ``sloika_tpu/nn/layers.py:116-144``).  Its statistics span the
+    whole batch, so it has no meaning for a padded batch:
+    :meth:`apply_with_lengths` raises, as in the JAX package, and the
+    Basecaller runs such a model one unpadded read at a time."""
+
+    def __init__(self, insize, epsilon=1e-4):
+        super().__init__()
+        self.insize = self.size = insize
+        self.epsilon = epsilon
+
+    def forward(self, x):
+        m = torch.mean(x, dim=(0, 1), keepdim=True)
+        v = torch.var(x, dim=(0, 1), keepdim=True, correction=0)
+        return (x - m) / torch.sqrt(v + self.epsilon)
+
+    def apply_with_lengths(self, x, lengths):
+        raise NotImplementedError(
+            "Studentise mixes statistics across the whole batch and is not "
+            "defined for padded variable-length batches")
+
+    def _json_config(self):
+        return {"insize": self.insize}
+
+    @classmethod
+    def _from_json(cls, obj):
+        return cls(obj.get("insize", 0)), {}
+
+
+@register("normaliseL1")
+class NormaliseL1(Layer):
+    """Divide by the L1 norm over the features
+    (cf. ``sloika_tpu/nn/layers.py:147-171``)."""
+
+    def __init__(self, insize, epsilon=1e-4):
+        super().__init__()
+        self.insize = self.size = insize
+        self.epsilon = epsilon
+
+    def forward(self, x):
+        return x / (self.epsilon + torch.sum(torch.abs(x), dim=2,
+                                             keepdim=True))
+
+    def _json_config(self):
+        return {"insize": self.insize}
+
+    @classmethod
+    def _from_json(cls, obj):
+        return cls(obj.get("insize", 0)), {}
+
+
 @register("convolution")
 class Convolution(Layer):
     """1-D temporal convolution with stride and padding modes."""
@@ -128,9 +202,54 @@ class Convolution(Layer):
                     stride=obj.get("stride", 1),
                     has_bias=obj.get("bias", False),
                     fun=activation_from_name(obj.get("activation", "tanh")),
-                    padding_mode=tuple(mode) if isinstance(mode, list)
-                    else mode)
+                    padding_mode=_padding_mode_from_json(mode))
         return _with_params(layer, obj)
+
+
+@register("max_pool")
+class MaxPool(Layer):
+    """1-D temporal max pooling over zero padding
+    (cf. ``sloika_tpu/nn/layers.py:271-306``)."""
+
+    def __init__(self, insize, pool_size, stride, fun=activations.linear,
+                 padding_mode='same'):
+        super().__init__()
+        self.insize = self.size = insize
+        self.pool_size = pool_size
+        self.stride = stride
+        self.fun = fun
+        self.padding_mode = padding_mode
+        self.padding = convops.calculate_padding(padding_mode, pool_size)
+
+    def forward(self, x):
+        return self.fun(convops.pool_1d(x, self.pool_size, self.stride,
+                                        self.padding))
+
+    def apply_with_lengths(self, x, lengths):
+        out_lengths = 1 + torch.div(
+            lengths + sum(self.padding) - self.pool_size, self.stride,
+            rounding_mode="floor")
+        return self(x), out_lengths
+
+    def _json_config(self):
+        return {"insize": self.insize, "pool_size": self.pool_size,
+                "stride": self.stride, "padding_mode": self.padding_mode,
+                "padding": list(self.padding),
+                "activation": activation_name(self.fun)}
+
+    @classmethod
+    def _from_json(cls, obj):
+        layer = cls(obj["insize"], obj["pool_size"], obj["stride"],
+                    fun=activation_from_name(obj.get("activation",
+                                                     "linear")),
+                    padding_mode=_padding_mode_from_json(
+                        obj.get("padding_mode", "same")))
+        return layer, {}
+
+
+def _padding_mode_from_json(mode):
+    """JSON round-trips (int, int) padding modes as lists."""
+    return tuple(mode) if isinstance(mode, list) else mode
 
 
 @register("window")

@@ -1,4 +1,4 @@
-"""1-D temporal convolution over time-major tensors
+"""1-D temporal convolution and max pooling over time-major tensors
 (cf. ``sloika_tpu/ops/conv.py``).
 
 A strided cross-correlation (no filter flip) with the reference weight
@@ -55,3 +55,15 @@ def conv_1d(x, W, stride=1, padding=(0, 0)):
     lhs = F.pad(x.permute(1, 2, 0), tuple(padding))   # (batch, feature, time)
     out = F.conv1d(lhs, W, stride=stride)
     return out.permute(2, 0, 1)                        # (time, batch, feature)
+
+
+def pool_1d(x, pool_size, stride, padding=(0, 0)):
+    """Temporal max pool with *zero* padding (cf. ``sloika_tpu/ops/conv.py:
+    68-84``): the input is zero-padded first, so padded positions compete
+    as 0.0, not as -inf (``F.max_pool1d``'s own padding).
+
+    :param x: input ``(time, batch, features)``
+    :returns: ``(1 + (time + pad - pool_size)//stride, batch, features)``
+    """
+    xp = F.pad(x, (0, 0, 0, 0) + tuple(padding))
+    return xp.unfold(0, pool_size, stride).amax(dim=-1)

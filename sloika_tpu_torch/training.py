@@ -256,6 +256,11 @@ def make_train_step(layer, opt_update, min_prob=0.0, l2=0.0, drop=0):
         layer.zero_grad(set_to_none=True)
         loss, acc = loss_fn(x, labels, weights)
         loss.backward()
+        for p in layer.parameters():
+            # a parameter no output reads (MUT3's W_xu and b_u, the
+            # peepholes of a scanned LSTM without them): JAX's zero
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         opt_state = opt_update(layer, opt_state, lr)
         return opt_state, loss.detach(), acc
 

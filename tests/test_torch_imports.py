@@ -48,6 +48,17 @@ import sloika_tpu_torch.scripts.bench_viterbi_parts
 import sloika_tpu_torch.scripts.bench_dma
 import sloika_tpu_torch.scripts.bench_gru
 import sloika_tpu_torch.scripts.bench_lstm
+import sloika_tpu_torch.activations
+import sloika_tpu_torch.compat.theano_pickle
+import sloika_tpu_torch.module_tools
+import sloika_tpu_torch.nn.decode_layer
+import sloika_tpu_torch.models.tiny_gru
+import sloika_tpu_torch.models.baseline_gru
+import sloika_tpu_torch.models.baseline_raw_gru
+import sloika_tpu_torch.models.bigger_raw_gru
+import sloika_tpu_torch.cli.verify
+import sloika_tpu_torch.cli.dump_json
+import sloika_tpu_torch.cli.model_convert
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "h5py", "sloika_tpu")
                 and sys.modules[m] is not None)
@@ -136,3 +147,25 @@ def test_train_and_validate_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         training.validate(layer, {})
     assert all(p.device.type == "cpu" for p in layer.parameters())
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("verify", ["tiny_gru"]),
+    ("dump_json", ["MODEL"]),
+    ("model_convert", ["MODEL", "OUT.npz"])])
+def test_model_clis_default_to_the_card(cli, argv, tmp_path):
+    """``verify``, ``dump_json`` and ``model_convert`` run on the card
+    unless given ``--device cpu``, and raise where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import importlib
+    from sloika_tpu_torch import serialize
+    mod = importlib.import_module("sloika_tpu_torch.cli." + cli)
+    model = str(tmp_path / "m.npz")
+    serialize.save_checkpoint(model, tmodels.network_factory("tiny_gru")(
+        klen=3, sd=0.5))
+    argv = [a.replace("MODEL", model).replace("OUT", str(tmp_path / "o"))
+            for a in argv]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv)
+    assert not (tmp_path / "o.npz").exists()
