@@ -240,7 +240,11 @@ PATH_KERNELS = {"basecall": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
                 "basecall_events": ("lstm_fwd", "viterbi_fwd",
                                     "viterbi_back"),
                 "train_events": ("lstm_fwd", "lstm_bwd", "lstm_wgrad"),
-                "diagnostics": ("gru_unroll", "viterbi_parts", "hbm_ring")}
+                "diagnostics": ("gru_unroll", "viterbi_parts", "hbm_ring"),
+                "call_chunked_states": ("gru_fwd", "viterbi_fwd",
+                                        "viterbi_back"),
+                "call_nbase5": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
+                "call_nontransducer": ("gru_fwd",)}
 # whole-read raw basecalling: reads a batch, the short reads' samples (their
 # CPU twin takes seconds), the score tolerance against the CPU path
 RAW_BATCH, RAW_SHORT, RAW_SCORE_RTOL = 8, 20000, 1e-4
@@ -301,6 +305,19 @@ BF16_EVENTS_SD = 1.5
 ZOO_T, ZOO_B, ZOO_TOL, ZOO_SCAN_CELLS = 500, 4, 1e-4, 10
 STUDENTISE_EVENTS = 1000
 BIG_TRAIN_STEPS, BIG_TRAIN_WARM = 10, 2
+# call and score (phase 17): CALL_READS reads of CALL_BASES bases simulated
+# from one genome; the chunked "states" route's windows and batch; its CPU
+# twin on the first CALL_TWIN_READS reads, the least agreement (mean
+# accuracy of the card's calls aligned to the twin's) held; the 5-letter
+# transducer's batch of whole reads (its CPU twin on two reads cut to
+# RAW_SHORT samples); the non-transducer's reads (shorter: the host decoder
+# takes ~0.5 ms a frame); the stand-in's FLOPs a sample
+CALL_READS, CALL_BASES, CALL_GENOME = 16, 6000, 200000
+CALL_CHUNK, CALL_OVERLAP, CALL_BATCH = 8192, 400, 64
+CALL_TWIN_READS, CALL_AGREEMENT = 4, 0.99
+NBASE5_BATCH = 8
+NONTRANS_READS, NONTRANS_BASES = 4, 1000
+STANDIN_FLOPS = 157382.4
 # the published peaks of one H100 SXM (NVIDIA data sheet) the bounds use
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -325,19 +342,20 @@ def zero_counts(counters):
     scan_route.calls = 0
 
 
-def read_counts(counters, scan_calls=0):
+def read_counts(counters, scan_calls=0, general=False):
     """The launches of each kernel since :func:`zero_counts`; raises if a
-    Viterbi wrapper launched its general route (``general_launches``): the
-    main paths decode klen 5 over 4 bases, the tuned kernels' range; and
-    unless the recurrences took the eager scan route (``nn.rnn.
-    scan_route``) ``scan_calls`` times: 0 on every main path, whose GRUs
-    and LSTMs are the kernels' tanh/sigmoid cells."""
+    Viterbi wrapper launched its general route (``general_launches``)
+    unless ``general``: the main paths decode klen 5 over 4 bases, the
+    tuned kernels' range, and only phase 17's 5-letter transducer takes the
+    general route; and unless the recurrences took the eager scan route
+    (``nn.rnn.scan_route``) ``scan_calls`` times: 0 on every main path,
+    whose GRUs and LSTMs are the kernels' tanh/sigmoid cells."""
     from sloika_tpu_torch.nn.rnn import scan_route
-    general = {n: k.general_launches for n, k in counters.items()
-               if getattr(k, "general_launches", 0)}
-    if general:
+    gen = {n: k.general_launches for n, k in counters.items()
+           if getattr(k, "general_launches", 0)}
+    if gen and not general:
         raise AssertionError("a main path took the general Viterbi route: "
-                             "general_launches {}".format(general))
+                             "general_launches {}".format(gen))
     if scan_route.calls != scan_calls:
         raise AssertionError("the scan route ran {} times, {} expected"
                              .format(scan_route.calls, scan_calls))
@@ -2460,14 +2478,15 @@ def studentise_graph(seed=43):
         nn.Softmax(64, 1025, has_bias=True)]), seed, sd=1.5)
 
 
-def timed_path(counters, fn, scan_calls=0):
+def timed_path(counters, fn, scan_calls=0, general=False):
     """(result, seconds, launches by kernel) of one run of ``fn``."""
     zero_counts(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, read_counts(counters, scan_calls)
+    return out, time.perf_counter() - t0, read_counts(counters, scan_calls,
+                                                      general)
 
 
 def need_launches(counts, names, what):
@@ -2690,6 +2709,300 @@ def zoo_cells(dev, counters, event_feats, tmp):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: call and score.  Reads simulated with known references
+# (``data/simulate.py``) go through the basecall routes beside the main
+# paths (the chunked "states" route, a 5-letter transducer on the general
+# Viterbi route, a non-transducer decoded on the host), and ``align.py``
+# scores the card's calls against the references and the CPU twin's calls
+# ---------------------------------------------------------------------------
+
+def simulated_call_reads(n, bases, seed=0):
+    """(references, signals) of ``n`` reads of ``bases`` bases from one
+    random genome, simulated in memory (the card's machine has no h5py):
+    the int16 counts ``write_fast5`` would store, read back as pA as the
+    file's channel scaling does (unchanged), trimmed and normalised as
+    ``load_raw_signal`` does."""
+    from sloika_tpu_torch.basecall import prepare_raw_signal
+    from sloika_tpu_torch.data import simulate
+    genome = simulate.random_genome(CALL_GENOME, seed=seed)
+    levels = simulate.pore_model(5)
+    rs = np.random.RandomState(seed + 1)
+    refs, sigs = [], []
+    for _ in range(n):
+        read = simulate.simulate_read(genome, rs, read_len=bases,
+                                      levels=levels, noise_sd=0.3)
+        refs.append(read["sequence"].decode())
+        sigs.append(prepare_raw_signal(
+            simulate.quantise(read["signal"]).astype(np.float32)))
+    return refs, sigs
+
+
+def call_sequence(call, alphabet="ACGT", klen=5):
+    """The bases of a transducer's kmer-state call, as ``SeqPrinter.write``
+    writes them."""
+    from sloika_tpu_torch import bio
+    kmers = bio.all_kmers(klen, alphabet=alphabet)
+    return bio.kmers_to_sequence([kmers[i] for i in call], always_move=True)
+
+
+def same_calls(got, ref, what):
+    """(identical, max score rel err, first differing state of each read)
+    of two lists of (score, call); prints them."""
+    rel = max(abs(g[0] - r[0]) / abs(r[0]) for g, r in zip(got, ref))
+    same = [len(g[1]) == len(r[1]) and bool(np.all(g[1] == r[1]))
+            for g, r in zip(got, ref)]
+    first = [None if s else first_difference(np.asarray(g[1]),
+                                             np.asarray(r[1]))
+             for s, g, r in zip(same, got, ref)]
+    print("{} against the CPU twin: calls identical {}/{} (first differing "
+          "state {}), score max rel err {:.3e}".format(
+              what, sum(same), len(same), first, rel), flush=True)
+    return all(same), rel, first
+
+
+def phase_call_and_score(dev, standin, counters):
+    """17a: CALL_READS simulated reads; 17b: the chunked "states" route;
+    17c: a 5-letter transducer on the general Viterbi route; 17d: a
+    non-transducer with a bad state, decoded on the host; 17e: the card's
+    calls scored by ``align.evaluate_basecalls``; 17f: the stand-in's FLOPs
+    a sample.
+
+    :returns: ({path: launches}, the general route's entry at nbase 5)
+    """
+    from sloika_tpu_torch.nn import flops
+    t0 = time.perf_counter()
+    refs, sigs = simulated_call_reads(CALL_READS, CALL_BASES)
+    print("call and score (17a): {} reads of {:,} bases from one genome of "
+          "{:,}, {:,} samples, normalised as load_raw_signal does".format(
+              len(sigs), CALL_BASES, CALL_GENOME, sum(len(s) for s in sigs)),
+          flush=True)
+    launches = {}
+    calls, twin, launches["call_chunked_states"] = call_chunked_states(
+        dev, standin, counters, sigs)
+    launches["call_nbase5"], nbase5 = call_nbase5(dev, counters, sigs)
+    launches["call_nontransducer"] = call_nontransducer(dev, standin,
+                                                        counters)
+    score_calls(calls, twin, refs)
+    fl = flops.flops_per_input_frame(standin)
+    print("call and score (17f): the stand-in's forward {:,.1f} FLOP a "
+          "sample ({:,.1f} a training sample), nn/flops.py".format(
+              fl, flops.training_flops_per_input_frame(standin)), flush=True)
+    if abs(fl - STANDIN_FLOPS) > 1e-6:
+        raise AssertionError("the stand-in counts {} FLOP a sample, {} "
+                             "expected".format(fl, STANDIN_FLOPS))
+    print("call and score took {:.1f} s".format(time.perf_counter() - t0),
+          flush=True)
+    return launches, nbase5
+
+
+def call_chunked_states(dev, standin, counters, sigs):
+    """17b: ``Basecaller(chunked=True, output="states")``: window batches
+    through the forward, the floor and the tuned Viterbi kernels on the
+    card, stitched on the host; the CPU twin on the first CALL_TWIN_READS
+    reads, calls identical and scores within RAW_SCORE_RTOL.
+
+    :returns: (card calls, twin calls, launches)"""
+    from sloika_tpu_torch import basecall as bc
+    kw = dict(chunked=True, output="states", chunk_size=CALL_CHUNK,
+              overlap=CALL_OVERLAP, batch_size=CALL_BATCH)
+    caller = bc.Basecaller(standin, 5, device=dev, **kw)
+    caller.basecall_signals(sigs)                    # warm-up
+    out, dt, counts = timed_path(counters,
+                                 lambda: caller.basecall_signals(sigs))
+    check_calls(out, "chunked states")
+    nwin = len(bc._window_jobs([len(s) for s in sigs], CALL_CHUNK,
+                               CALL_OVERLAP))
+    nbatch = -(-nwin // CALL_BATCH)
+    launched = {n: counts[n] for n in PATH_KERNELS["call_chunked_states"]}
+    nsamples = sum(len(s) for s in sigs)
+    print("call and score (17b) chunked states route: {} reads {} windows "
+          "{} samples -> {} states in {:.3f} s: {:.1f} samples/s, launches "
+          "{} in {} batches of {} [{}]".format(
+              len(sigs), nwin, nsamples, sum(len(c) for _, c in out), dt,
+              nsamples / dt, launched, nbatch, CALL_BATCH, card_line()),
+          flush=True)
+    if launched != {"gru_fwd": 3 * nbatch, "viterbi_fwd": nbatch,
+                    "viterbi_back": nbatch}:
+        raise AssertionError("the chunked states route launched {}, "
+                             "{} batches expected".format(launched, nbatch))
+    twin = bc.Basecaller(copy.deepcopy(standin).cpu(), 5, device="cpu",
+                         **kw).basecall_signals(sigs[:CALL_TWIN_READS])
+    same, rel, first = same_calls(out[:CALL_TWIN_READS], twin,
+                                  "call and score (17b) chunked states, {} "
+                                  "reads".format(CALL_TWIN_READS))
+    if not (same and rel <= RAW_SCORE_RTOL):
+        raise AssertionError("the chunked states calls depart from the CPU "
+                             "twin's: first differing states {}, score rel "
+                             "err {}".format(first, rel))
+    return out, twin, counts
+
+
+def call_nbase5(dev, counters, sigs):
+    """17c: the stand-in's widths over 5 bases (softmax 3,126, K = 3,125)
+    on whole reads in batches of NBASE5_BATCH: the general Viterbi route
+    (``general_launches`` of both wrappers > 0); two reads cut to RAW_SHORT
+    samples against the CPU twin, calls identical; the general route timed
+    at the longest batch beside its bound.
+
+    :returns: (launches, the route's entry)"""
+    from sloika_tpu_torch import basecall as bc, models
+    from sloika_tpu_torch.ops import viterbi_kernel as vk
+    layer = models.pretrained_standin(nbase=5)
+    cpu_layer = copy.deepcopy(layer)
+    caller = bc.Basecaller(layer, 5, alphabet=b"ACGTX",
+                           batch_size=NBASE5_BATCH, device=dev)
+    caller.basecall_signals(sigs[:NBASE5_BATCH])     # warm-up
+    out, dt, counts = timed_path(
+        counters, lambda: caller.basecall_signals(sigs), general=True)
+    general = [vk.viterbi_forward.general_launches,
+               vk.viterbi_backtrace.general_launches]
+    check_calls(out, "nbase 5")
+    nbatch = -(-len(sigs) // NBASE5_BATCH)
+    launched = {n: counts[n] for n in PATH_KERNELS["call_nbase5"]}
+    nsamples = sum(len(s) for s in sigs)
+    print("call and score (17c) 5-letter transducer (K = 3,125) whole "
+          "reads: {} reads {} samples in {:.3f} s: {:.1f} samples/s, "
+          "launches {}, general route launches viterbi_fwd {} viterbi_back "
+          "{} [{}]".format(len(sigs), nsamples, dt, nsamples / dt, launched,
+                           *general, card_line()), flush=True)
+    if general != [nbatch, nbatch] or launched != {
+            "gru_fwd": 3 * nbatch, "viterbi_fwd": nbatch,
+            "viterbi_back": nbatch}:
+        raise AssertionError("the 5-letter transducer did not take the "
+                             "general route once a batch: {} {}".format(
+                                 launched, general))
+
+    short = [s[:RAW_SHORT] for s in sigs[:2]]
+    got = caller.basecall_signals(short)
+    ref = bc.Basecaller(cpu_layer, 5, alphabet=b"ACGTX", batch_size=2,
+                        device="cpu").basecall_signals(short)
+    same, rel, first = same_calls(got, ref, "call and score (17c) 5-letter "
+                                  "transducer, 2 reads of {:,} samples"
+                                  .format(RAW_SHORT))
+    if not (same and rel <= RAW_SCORE_RTOL):
+        raise AssertionError("the 5-letter transducer's calls depart from "
+                             "the CPU twin's: first differing states {}, "
+                             "score rel err {}".format(first, rel))
+
+    # the general route timed at the longest batch's floored posterior
+    order = np.argsort([len(s) for s in sigs])
+    x, lengths = padded_batch([sigs[i] for i in order[-NBASE5_BATCH:]])
+    with torch.inference_mode():
+        post, _ = caller._floored_masked_post(x.to(dev), lengths.to(dev))
+        T, B, nst = post.shape
+        K = nst - 1
+        fwd = lambda: vk.viterbi_forward(post, 5, skip_pen=5.0, nbase=5)
+        vfinal, tb = fwd()
+        last = torch.argmax(vfinal, dim=1)
+        fwd_ms = cuda_ms(fwd, 3)
+        back_ms = cuda_ms(lambda: vk.viterbi_backtrace(tb, last, nbase=5), 5)
+    plan = vk.viterbi_general_plan(
+        B, K, 5, vk._device_limits(post.device)[1],
+        vk.viterbi_forward.general_clusters(K, 5, post.device))
+    fwd_bound = bound(*viterbi_fwd_bound(T, B, K))
+    back_bound = bound(*viterbi_back_bound(T, B))
+    print("call and score (17c) general route at T={} B={} K={}: "
+          "viterbi_fwd {:.3f} ms ({:.3f} us a step; bound {:.3f} ms, {}; "
+          "plan C={} threads={} nslots={}), viterbi_back {:.3f} ms (bound "
+          "{:.4f} ms, {}) [{}]".format(
+              T, B, K, fwd_ms, 1e3 * fwd_ms / T, fwd_bound[0], fwd_bound[1],
+              plan["C"], plan["threads"], plan["nslots"], back_ms,
+              back_bound[0], back_bound[1], card_line()), flush=True)
+    entry = {"T": T, "B": B, "K": K, "fwd_ms": fwd_ms,
+             "fwd_bound_ms": fwd_bound[0], "back_ms": back_ms,
+             "back_bound_ms": back_bound[0], "plan": plan,
+             "general_launches": general,
+             "calls_equal_to_cpu_twin": same, "score_rel_err": rel}
+    return counts, entry
+
+
+def call_nontransducer(dev, standin, counters):
+    """17d: the stand-in's 1,025 outputs read as a non-transducer with a
+    bad state, on NONTRANS_READS whole reads: the forward and the floor on
+    the card, the legacy decoder on the host; calls equal to the CPU
+    forward's through the same decoder.
+
+    :returns: launches"""
+    from sloika_tpu_torch import basecall as bc
+    _, sigs = simulated_call_reads(NONTRANS_READS, NONTRANS_BASES, seed=3)
+    kw = dict(transducer=False, bad=True, batch_size=NONTRANS_READS)
+    caller = bc.Basecaller(standin, 5, device=dev, **kw)
+    out, dt, counts = timed_path(counters,
+                                 lambda: caller.basecall_signals(sigs))
+    check_calls(out, "non-transducer")
+    launched = {n: counts[n] for n in ("gru_fwd", "viterbi_fwd",
+                                       "viterbi_back")}
+    # the device's share: the forward, the floor and the copy to the host
+    x, lengths = padded_batch(sigs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        post, _ = caller._floored_masked_post(x.to(dev), lengths.to(dev))
+        post = post.cpu()
+    dev_dt = time.perf_counter() - t0
+    nframes = sum(len(c) for _, c in out)
+    print("call and score (17d) non-transducer with a bad state: {} reads "
+          "{} samples -> {} events in {:.3f} s: device (forward, floor, "
+          "copy of the {:.1f} MB posterior) {:.1f} ms, host decode {:.1f} "
+          "ms ({:.1f} us a frame); launches {} [{}]".format(
+              len(sigs), sum(len(s) for s in sigs), nframes, dt,
+              post.numel() * 4 / 1e6, 1e3 * dev_dt, 1e3 * (dt - dev_dt),
+              1e6 * (dt - dev_dt) / nframes, launched, card_line()),
+          flush=True)
+    if launched != {"gru_fwd": 3, "viterbi_fwd": 0, "viterbi_back": 0}:
+        raise AssertionError("the non-transducer launched {}".format(
+            launched))
+    ref = bc.Basecaller(copy.deepcopy(standin).cpu(), 5, device="cpu",
+                        **kw).basecall_signals(sigs)
+    same, rel, first = same_calls(out, ref, "call and score (17d) "
+                                  "non-transducer, the same host decoder")
+    if not (same and rel <= RAW_SCORE_RTOL):
+        raise AssertionError("the non-transducer's calls depart from the "
+                             "CPU forward's: first differing states {}, "
+                             "score rel err {}".format(first, rel))
+    return counts
+
+
+def score_calls(calls, twin, refs):
+    """17e: the native aligner is built; the card's chunked-states calls of
+    the first CALL_TWIN_READS reads aligned (``align.evaluate_basecalls``,
+    one thread a read: the aligner releases the interpreter lock) to their
+    simulated references and to the CPU twin's calls.  Accuracy against
+    the references means nothing with random weights; the agreement with
+    the twin is held."""
+    from concurrent.futures import ThreadPoolExecutor
+    from sloika_tpu_torch import align, native
+    if not native.available():
+        raise AssertionError("the native aligner did not build")
+    names = ["read_{:02d}".format(i) for i in range(CALL_TWIN_READS)]
+    seqs = [call_sequence(c) for _, c in calls[:CALL_TWIN_READS]]
+    jobs = [(n, s, r) for n, s, r in zip(names, seqs, refs)] + \
+        [(n, s, call_sequence(t[1])) for n, s, t in zip(names, seqs, twin)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        rows = list(pool.map(lambda j: align.evaluate_basecalls(
+            {j[0]: j[1]}, {j[0]: j[2]}), jobs))
+    dt = time.perf_counter() - t0
+    to_ref = [r for rs in rows[:CALL_TWIN_READS] for r in rs]
+    to_twin = [r for rs in rows[CALL_TWIN_READS:] for r in rs]
+    for rs, what in ((to_ref, "the simulated references (random weights: "
+                      "the accuracy means nothing)"),
+                     (to_twin, "the CPU twin's calls (the agreement)")):
+        print("call and score (17e) card calls of {} reads against {}: {}"
+              .format(CALL_TWIN_READS, what, " | ".join(
+                  l.strip() for l in align.summary(rs, "17b").splitlines()
+                  if l.strip() and not l.startswith("***"))), flush=True)
+    agreement = np.mean([r["accuracy"] for r in to_twin]) if to_twin else 0
+    print("call and score (17e): {} alignments in {:.1f} s on {} threads; "
+          "agreement with the CPU twin {:.5f} (held >= {})".format(
+              len(jobs), dt, len(jobs), agreement, CALL_AGREEMENT),
+          flush=True)
+    if len(to_twin) != CALL_TWIN_READS or agreement < CALL_AGREEMENT:
+        raise AssertionError("the card's calls agree with the CPU twin's "
+                             "at {} < {}".format(agreement, CALL_AGREEMENT))
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
@@ -2751,6 +3064,9 @@ def main():
     by_name["viterbi_fwd"]["bf16"] = phase_bf16(dev, standin, counters,
                                                 reads)
     launches.update(phase_zoo(dev, standin, counters, raw_calls, reads))
+    call_launches, by_name["viterbi_fwd"]["nbase5"] = phase_call_and_score(
+        dev, standin, counters)
+    launches.update(call_launches)
     for path, counts in launches.items():
         for name, n in counts.items():
             entry = by_name[name]

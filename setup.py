@@ -29,8 +29,10 @@ setup(
     packages=find_packages(include=["sloika_tpu", "sloika_tpu.*",
                                     "sloika_tpu_torch",
                                     "sloika_tpu_torch.*"]),
-    # the PyTorch port's CUDA sources, compiled by nvcc at first use
-    package_data={"sloika_tpu_torch": ["csrc/*.cu"]},
+    # the PyTorch port's CUDA sources, compiled by nvcc at first use, and
+    # its host C++ helpers, compiled by g++ at first use
+    package_data={"sloika_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                       "csrc/*.cpp"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "h5py", "scipy"],
     extras_require={"torch": ["torch"]},
@@ -55,6 +57,11 @@ setup(
             "sloika-torch-dump-json=sloika_tpu_torch.cli.dump_json:main",
             "sloika-torch-model-convert="
             "sloika_tpu_torch.cli.model_convert:main",
+            "sloika-torch-align=sloika_tpu_torch.cli.align:main",
+            "sloika-torch-extract-reference="
+            "sloika_tpu_torch.cli.extract_reference:main",
+            "sloika-torch-get-refs-from-sam="
+            "sloika_tpu_torch.cli.get_refs_from_sam:main",
         ],
     },
 )

@@ -1,22 +1,33 @@
 """Basecalling on the GPU (cf. ``sloika_tpu/basecall.py``).
 
-Two modes are ported.  ``output="bases"`` is the transfer-lean chunked
-transducer path: reads are cut into overlapping windows (C samples,
-``overlap`` on each side), windows run through the forward pass in device
-batches, the posterior gets the ``min_prob`` floor with padded frames turned
-into one-hot stays, a transducer Viterbi decodes it, and the path collapses
-on the device to packed 2-bit base codes; the host stitches the windows at
-their seams.  From raw int16 DAC samples (:meth:`Basecaller.
-basecall_dac_reads`) the windowing and the exact float32 normalisation
-``((dac + offset) * scale - med) / mad`` run on the device too.
+Every route of the JAX package's :class:`Basecaller` is ported:
 
-``output="states"``, the default, is the JAX package's default,
-non-chunked mode (``chunked=False``): whole reads, sorted by length, run in
-batches; each read's Viterbi path is cut at its own frame count and
-collapsed on the host to the kmer states entered by a move
-(:meth:`Basecaller.basecall_signals`, :meth:`SeqPrinter.write`), from raw
-reads normalised on the host (:func:`load_raw_signal`) or event features
-(:func:`load_event_features`).
+* ``output="states"``, ``chunked=False`` (the default): whole reads, sorted
+  by length, run in batches; each read's Viterbi path is cut at its own
+  frame count and collapsed on the host to the kmer states entered by a
+  move (:meth:`Basecaller.basecall_signals`, :meth:`SeqPrinter.write`),
+  from raw reads normalised on the host (:func:`load_raw_signal`) or event
+  features (:func:`load_event_features`).
+* ``output="states"``, ``chunked=True``: reads are cut into overlapping
+  windows (C samples, ``overlap`` on each side) that run in device batches
+  through the forward pass, the ``min_prob`` floor and the Viterbi kernels;
+  the paths and move flags come back to the host, which stitches them at
+  each window's core frames.
+* ``output="bases"`` (chunked, a 4-letter transducer): each window's path
+  collapses on the device to packed 2-bit base codes, and the host
+  stitches the windows' codes at their seams.  From raw int16 DAC samples
+  (:meth:`Basecaller.basecall_dac_reads`) the windowing and the exact
+  float32 normalisation ``((dac + offset) * scale - med) / mad`` run on the
+  device too.
+* A non-transducer model (``transducer=False``, with or without a ``bad``
+  state) runs its forward pass and the floor on the device; the float32
+  posterior then comes to the host, where :func:`decode_post_host` decodes
+  each read with the legacy decoder (``ops/olddecode.py``), as the JAX
+  package does.
+
+A transducer over any alphabet (nbase its length) decodes on the device:
+the tuned Viterbi kernels take 4 bases and klen 2-6, any other shape their
+general route (``ops/viterbi_kernel.kernel_route``).
 
 PyTorch runs eagerly, so there is no compile cache and no batch or length
 bucketing: each batch runs at its own size.  Host <-> device copies are
@@ -36,8 +47,10 @@ from sloika_tpu_torch.data import features, fast5
 from sloika_tpu_torch.data.batching import (normalise_raw_signal,
                                             trim_open_pore)
 from sloika_tpu_torch.variables import DEFAULT_ALPHABET, nstate
-from sloika_tpu_torch.ops import viterbi_kernel
+from sloika_tpu_torch.ops import decode_np, olddecode, viterbi_kernel
 from sloika_tpu_torch.ops.decode import collapse_path
+
+_ETA = 1e-10
 
 #: reads are packed into groups of about this many samples; one group is
 #: one flat int16 buffer on the device (32 MB)
@@ -94,43 +107,67 @@ def _window_jobs(read_lens, chunk_size, overlap):
 
 
 class Basecaller(object):
-    """Batched basecaller for a transducer model.
+    """Batched basecaller (cf. ``sloika_tpu/basecall.py:120``).
 
     A model with a ``Studentise`` layer, whose statistics span the whole
-    batch, runs one unpadded read at a time (batch 1) in either mode, and
-    returns kmer-state calls: ``output`` falls back to "states", as the JAX
-    package's ``chunked`` does (sloika_tpu/basecall.py:187-199).
+    batch, runs one unpadded read at a time (batch 1) in any mode, and
+    returns kmer-state calls: ``chunked`` falls back to False and
+    ``output`` to "states", as in the JAX package
+    (sloika_tpu/basecall.py:187-199).
 
-    :param layer: the network (a :class:`sloika_tpu_torch.nn.Layer`) over
-        the 4-letter alphabet; it is moved to ``device`` in place
+    :param layer: the network (a :class:`sloika_tpu_torch.nn.Layer`); it is
+        moved to ``device`` in place
     :param kmer_len: kmer length of the output state space
+    :param transducer: decode with the kmer-transducer Viterbi on the
+        device; else the legacy decoder on the host
+    :param bad: the model has a bad state at column 0 (non-transducers)
     :param min_prob: posterior probability floor
     :param skip: transducer skip penalty
-    :param batch_size: windows decoded per device batch
+    :param trans: [stay, step, skip] prior of the legacy decoder
+    :param alphabet: the model's alphabet (bytes); nbase is its length
+    :param batch_size: windows (chunked) or reads decoded per device batch
+    :param chunked: cut reads into overlapping windows (transducers only);
+        None: chunked where ``output`` is "bases", which is always chunked
     :param chunk_size, overlap: window length and seam overlap (samples)
-    :param output: "states" (whole reads, kmer-state calls; the JAX
-        package's default) or "bases" (chunked, packed 2-bit base codes)
+    :param output: "states" (kmer-state calls; the JAX package's default)
+        or "bases" (packed 2-bit base codes collapsed on the device; a
+        chunked 4-letter transducer)
     :param device: torch device; "cuda" raises when no GPU is present
     :param post_dtype: dtype the posterior streams to the Viterbi in,
         "float32", "bfloat16" or "auto": bfloat16 where
         ``config.compute_dtype`` is bfloat16, as the JAX package's "auto"
         with its Pallas Viterbi (``sloika_tpu/basecall.py:202-219``), whose
-        counterpart the port's Viterbi is on the card and on the CPU alike
+        counterpart the port's Viterbi is on the card and on the CPU alike.
+        A non-transducer's posterior stays float32
+        (sloika_tpu/basecall.py:284)
     """
 
     def __init__(self, layer, kmer_len, min_prob=1e-5, skip=5.0,
                  batch_size=8, chunk_size=8192, overlap=400, output="states",
-                 device="cuda", post_dtype="auto"):
+                 device="cuda", post_dtype="auto", transducer=True,
+                 bad=False, trans=None, alphabet=DEFAULT_ALPHABET,
+                 chunked=None):
         if output not in ("bases", "states"):
-            raise NotImplementedError(
-                "output must be 'bases' (chunked) or 'states' (whole reads)")
-        expected = nstate(kmer_len, transducer=True, bad_state=False)
+            raise ValueError("output must be 'bases' or 'states'")
+        if isinstance(alphabet, str):
+            alphabet = alphabet.encode("ascii")
+        self.alphabet = alphabet
+        self.nbase = len(alphabet)
+        self.transducer = transducer
+        self.bad = bad
+        self.trans = trans
+        expected = nstate(kmer_len, transducer=transducer, bad_state=bad,
+                          nbase=self.nbase)
         if layer.size != expected:
-            raise ValueError(
-                "model emits {} states, a transducer of kmer length {} emits "
-                "{}: only transducer models are ported (the host decoder of "
-                "other models is not)".format(layer.size, kmer_len,
-                                              expected))
+            raise ValueError("model emits {} states, decode expects {}"
+                             .format(layer.size, expected))
+        if chunked is None:
+            chunked = output == "bases"
+        if output == "bases" and not (chunked and transducer
+                                      and self.nbase == 4):
+            # as sloika_tpu/basecall.py:183-185 asserts
+            raise ValueError("bases output requires chunked transducer "
+                             "mode (ACGT)")
         self.device = config.resolve_device(device)
         config.disable_tf32()
         self.layer = layer.to(self.device).eval()
@@ -144,17 +181,20 @@ class Basecaller(object):
             raise ValueError("chunk_size must exceed 2*overlap")
         self.model_stride = _infer_stride(layer)
         self.studentise = _contains_studentise(layer)
-        if self.studentise and output == "bases":
+        if self.studentise and chunked:
             sys.stderr.write(
                 "Model contains a Studentise layer: batched padded/chunked "
                 "decoding is undefined for it; falling back to exact "
                 "per-read basecalling (slower).\n")
-            output = "states"
+            chunked, output = False, "states"
+        self.chunked = chunked
         self.output = output
         #: the Viterbi kernels upcast each row to float32 before the log,
         #: so a bfloat16 posterior halves their dominant read and leaves
         #: the DP in float32
-        if post_dtype == "auto":
+        if not transducer:
+            self.post_dtype = torch.float32
+        elif post_dtype == "auto":
             self.post_dtype = config.compute_dtype
         else:
             self.post_dtype = {"float32": torch.float32,
@@ -190,6 +230,12 @@ class Basecaller(object):
         stay[0] = 1.0
         return torch.where(frame_mask[:, :, None], post, stay).contiguous()
 
+    def _viterbi(self, post):
+        """(score, path, moved) of a floored posterior through the Viterbi
+        kernels, tuned or general route by its shape."""
+        return viterbi_kernel.viterbi(post, self.kmer_len,
+                                      skip_pen=self.skip, nbase=self.nbase)
+
     def _forward_decode(self, x, lengths):
         """Posterior + Viterbi + collapse of one window batch.
 
@@ -198,8 +244,7 @@ class Basecaller(object):
             packed codes (B, ceil(2T'/4)) uint8) device tensors
         """
         post, _ = self._floored_masked_post(x, lengths)
-        score, path, moved = viterbi_kernel.viterbi(
-            post, self.kmer_len, skip_pen=self.skip)
+        score, path, moved = self._viterbi(post)
         return (score,) + _move_records(path, moved, self.kmer_len,
                                         self._f_splits)
 
@@ -217,57 +262,125 @@ class Basecaller(object):
         return self._forward_decode(x, lengths)
 
     def _forward_decode_states(self, x, lengths):
-        """Posterior + Viterbi of one batch of whole reads (the transducer
-        branch of ``_forward_decode``, sloika_tpu/basecall.py:315-325).
+        """Posterior + Viterbi of one batch (the transducer branch of
+        ``_forward_decode``, sloika_tpu/basecall.py:315-325).
 
         :returns: (score (B,), frames (B,), path (B, T'), moved (B, T'))
             device tensors
         """
         post, out_lengths = self._floored_masked_post(x, lengths)
-        score, path, moved = viterbi_kernel.viterbi(
-            post, self.kmer_len, skip_pen=self.skip)
+        score, path, moved = self._viterbi(post)
         return score, out_lengths, path, moved
 
     # -- public API ------------------------------------------------------
 
+    def basecall_to_sequences(self, signals):
+        """Basecall to base-code arrays: a list of (score, codes), where
+        ``codes`` index the alphabet, or None for a read that failed
+        (sloika_tpu/basecall.py:402-422).  In "bases" mode this is the
+        native form."""
+        out = self.basecall_signals(signals)
+        if self.output == "bases":
+            return out
+        kmers = bio.all_kmers(self.kmer_len, alphabet=self.alphabet)
+        lut = np.zeros(256, np.uint8)
+        for i, c in enumerate(bytearray(self.alphabet)):
+            lut[c] = i
+        res = []
+        for o in out:
+            if o is None:
+                res.append(None)
+                continue
+            score, call = o
+            seq = bio.kmers_to_sequence([kmers[i] for i in call],
+                                        always_move=self.transducer)
+            res.append((score, lut[np.frombuffer(seq, dtype=np.uint8)]))
+        return res
+
     def basecall_signals(self, signals):
         """Basecall a list of normalised 1-D signals (or (T, F) feature
-        matrices).
-
-        With ``output="bases"``, chunked (cf. ``_basecall_chunked_bases``,
-        sloika_tpu/basecall.py:473); returns (score, base codes) per read.
-        With ``output="states"``, whole reads in batches of
-        ``batch_size`` in order of length (sloika_tpu/basecall.py:424-443);
-        returns (score, kmer-state call) per read.
-        """
+        matrices), by the route the constructor chose
+        (sloika_tpu/basecall.py:424-443): (score, base codes) per read with
+        ``output="bases"``, else (score, call), the call a kmer-state
+        sequence (the states entered by a move for a transducer, one state
+        an event for the legacy decoder)."""
         if self.studentise:
             return self._basecall_per_read(signals)
-        if self.output == "states":
-            out = [None] * len(signals)
-            order = np.argsort([len(s) for s in signals])
-            for lo in range(0, len(order), self.batch_size):
-                idx = order[lo:lo + self.batch_size]
-                self._run_batch([signals[i] for i in idx], idx, out)
-            return out
+        if self.chunked and self.transducer:
+            if self.output == "bases":
+                return self._basecall_chunked_bases(signals)
+            return self._basecall_chunked(signals)
+        out = [None] * len(signals)
+        order = np.argsort([len(s) for s in signals])
+        for lo in range(0, len(order), self.batch_size):
+            idx = order[lo:lo + self.batch_size]
+            self._run_batch([signals[i] for i in idx], idx, out)
+        return out
+
+    def _window_batches(self, signals):
+        """The window batches of the chunked routes: (jobs, x (C, B, nfeat)
+        float32 on the device, lengths (B,) int64 on the device) for each
+        ``batch_size`` windows of :func:`_window_jobs`."""
         C = self.chunk_size
-        lens = [len(s) for s in signals]
-        jobs = _window_jobs(lens, C, self.overlap)
+        jobs = _window_jobs([len(s) for s in signals], C, self.overlap)
         nfeat = 1 if not signals or signals[0].ndim == 1 \
             else signals[0].shape[1]
+        for lo in range(0, len(jobs), self.batch_size):
+            batch = jobs[lo:lo + self.batch_size]
+            x = np.zeros((C, len(batch), nfeat), dtype=config.sloika_dtype)
+            lengths = np.zeros(len(batch), dtype=np.int64)
+            for b, (r, _, start, ln, _) in enumerate(batch):
+                x[:ln, b] = signals[r][start:start + ln].reshape(ln, nfeat)
+                lengths[b] = ln
+            yield (batch, torch.from_numpy(x).to(self.device),
+                   torch.from_numpy(lengths).to(self.device))
+
+    def _basecall_chunked_bases(self, signals):
+        """The chunked "bases" route (cf. ``_basecall_chunked_bases``,
+        sloika_tpu/basecall.py:473): (score, base codes) per read."""
         results = {}
         with torch.inference_mode():
-            for lo in range(0, len(jobs), self.batch_size):
-                batch = jobs[lo:lo + self.batch_size]
-                x = np.zeros((C, len(batch), nfeat), dtype=config.sloika_dtype)
-                lengths = np.zeros(len(batch), dtype=np.int64)
-                for b, (r, _, start, ln, _) in enumerate(batch):
-                    x[:ln, b] = signals[r][start:start + ln].reshape(ln, nfeat)
-                    lengths[b] = ln
-                out = self._forward_decode(
-                    torch.from_numpy(x).to(self.device),
-                    torch.from_numpy(lengths).to(self.device))
+            for batch, x, lengths in self._window_batches(signals):
+                out = self._forward_decode(x, lengths)
                 _collect([(r, w) for r, w, _, _, _ in batch], out, results)
-        return self._stitch_bases(results, lens)
+        return self._stitch_bases(results, [len(s) for s in signals])
+
+    def _basecall_chunked(self, signals):
+        """The chunked "states" route (sloika_tpu/basecall.py:786-851):
+        window batches through the forward pass, the floor and the Viterbi
+        kernels on the device; each window's path and move flags come to
+        the host, which keeps the states entered by a move in the window's
+        core frames (and the read's opening state) and joins them.  Calls
+        can differ from whole-read decoding within ~overlap samples of the
+        seams."""
+        C, V = self.chunk_size, self.overlap
+        d = self.model_stride
+        results = {}
+        with torch.inference_mode():
+            for batch, x, lengths in self._window_batches(signals):
+                score, frames, path, moved = (
+                    o.cpu().numpy()
+                    for o in self._forward_decode_states(x, lengths))
+                for b, (r, w, _, _, _) in enumerate(batch):
+                    results[(r, w)] = (float(score[b]), path[b], moved[b],
+                                       int(frames[b]))
+
+        out = [None] * len(signals)
+        call_parts, total_score = [], 0.0
+        for r, w, _, _, nwin in _window_jobs([len(s) for s in signals], C, V):
+            sc, path, moved, nframes = results[(r, w)]
+            total_score += sc
+            # the core frames of this window
+            f_lo = 0 if w == 0 else V // d
+            f_hi = nframes if w == nwin - 1 else (C - V) // d
+            keep = moved[f_lo:f_hi].copy()
+            if w == 0:
+                keep[0] = True     # the opening state of the read
+            call_parts.append(path[f_lo:f_hi][keep])
+            if w == nwin - 1:
+                out[r] = (total_score, np.concatenate(call_parts))
+                call_parts, total_score = [], 0.0
+        return out
 
     def basecall_dac_reads(self, reads):
         """Basecalling from raw int16 DAC samples (:func:`load_raw_dac`):
@@ -321,45 +434,71 @@ class Basecaller(object):
                     _collect([(r, w) for r, w, _, _ in batch], out, results)
         return self._stitch_bases(results, read_lens)
 
+    def _decode_host(self, post, floored):
+        """The legacy decoder of one read's (T', nstate) float32 posterior
+        on the host (:func:`decode_post_host`)."""
+        return decode_post_host(post[:, None, :], self.kmer_len, False,
+                                self.bad, self.min_prob, self.skip,
+                                self.trans, nbase=self.nbase,
+                                floored=floored)
+
     def _basecall_per_read(self, signals):
         """The Studentise route (sloika_tpu/basecall.py:445-469): one
         unpadded forward per read at batch 1, so the statistics are the
-        read's own, decoded on the device by the Viterbi kernels (the JAX
-        package decodes it on the host, ``decode_post_host``; the paths
-        are the same, ties included)."""
+        read's own.  A transducer decodes on the device by the Viterbi
+        kernels (the JAX package decodes it on the host, ``decode_post_
+        host``; the paths are the same, ties included), any other model on
+        the host.  A read that fails is reported and gives None."""
         out = []
         for s in signals:
-            nfeat = 1 if s.ndim == 1 else s.shape[1]
-            x = torch.from_numpy(np.ascontiguousarray(
-                s.reshape(len(s), 1, nfeat), dtype=config.sloika_dtype))
-            with torch.inference_mode():
-                post = self.layer(x.to(self.device))
-                frames = torch.full((1,), post.shape[0], dtype=torch.int64,
-                                    device=self.device)
-                score, path, moved = viterbi_kernel.viterbi(
-                    self._floor_mask(post, frames), self.kmer_len,
-                    skip_pen=self.skip)
-            out.append((float(score[0]), collapse_path(
-                path[0].cpu().numpy(), moved[0].cpu().numpy(),
-                post.shape[0])))
+            try:
+                out.append(self._call_one_read(s))
+            except Exception as e:          # per-read fault masking
+                sys.stderr.write("basecall failed: {!r}\n".format(e))
+                out.append(None)
         return out
+
+    def _call_one_read(self, s):
+        nfeat = 1 if s.ndim == 1 else s.shape[1]
+        x = torch.from_numpy(np.ascontiguousarray(
+            s.reshape(len(s), 1, nfeat), dtype=config.sloika_dtype))
+        with torch.inference_mode():
+            post = self.layer(x.to(self.device))
+            if not self.transducer:
+                return self._decode_host(post[:, 0].float().cpu().numpy(),
+                                         floored=False)
+            frames = torch.full((1,), post.shape[0], dtype=torch.int64,
+                                device=self.device)
+            score, path, moved = self._viterbi(self._floor_mask(post, frames))
+        return (float(score[0]), collapse_path(
+            path[0].cpu().numpy(), moved[0].cpu().numpy(), post.shape[0]))
 
     def _run_batch(self, sigs, idx, out):
         """One batch of whole reads (sloika_tpu/basecall.py:853-886).  The
         batch runs at its own size and longest length: the JAX package's
         bucketed padding adds frames that are exact one-hot stays, which
-        add nothing to the score and leave the path alone."""
+        add nothing to the score and leave the path alone.  A
+        non-transducer's floored posterior comes to the host, each read cut
+        at its own frame count and decoded there."""
         nfeat = 1 if sigs[0].ndim == 1 else sigs[0].shape[1]
         lengths = np.array([len(s) for s in sigs], dtype=np.int64)
         x = np.zeros((int(lengths.max()), len(sigs), nfeat),
                      dtype=config.sloika_dtype)
         for b, s in enumerate(sigs):
             x[:len(s), b] = s.reshape(len(s), nfeat)
+        x = torch.from_numpy(x).to(self.device)
+        lengths = torch.from_numpy(lengths).to(self.device)
         with torch.inference_mode():
-            score, frames, path, moved = (o.cpu().numpy() for o in
-                                          self._forward_decode_states(
-                torch.from_numpy(x).to(self.device),
-                torch.from_numpy(lengths).to(self.device)))
+            if not self.transducer:
+                post, frames = self._floored_masked_post(x, lengths)
+                post, frames = post.cpu().numpy(), frames.cpu().numpy()
+                for b, i in enumerate(idx):
+                    out[i] = self._decode_host(post[:int(frames[b]), b],
+                                               floored=True)
+                return
+            score, frames, path, moved = (
+                o.cpu().numpy() for o in self._forward_decode_states(
+                    x, lengths))
         for b, i in enumerate(idx):
             out[i] = (float(score[b]),
                       collapse_path(path[b], moved[b], int(frames[b])))
@@ -389,6 +528,40 @@ class Basecaller(object):
                 out[r] = (total_score, np.concatenate(parts))
                 parts, total_score = [], 0.0
         return out
+
+
+def decode_post_host(post, kmer_len, transducer, bad, min_prob, skip=5.0,
+                     trans=None, nbase=4, floored=False):
+    """Host decode of one read's (T, 1, nstate) posterior (copied from
+    sloika_tpu/basecall.py:960-978): a transducer by the numpy Viterbi,
+    any other model by the legacy decoder over 4 bases.  ``floored``: the
+    posterior already has the ``min_prob`` floor, so only the bad state's
+    frames and column are dropped (and the rest renormalised).
+
+    :returns: (score, call)
+    """
+    if post.shape[2] != nstate(kmer_len, transducer=transducer,
+                               bad_state=bad, nbase=nbase):
+        raise ValueError("posterior has {} states, the model's decode "
+                         "expects {}".format(post.shape[2], nstate(
+                             kmer_len, transducer=transducer, bad_state=bad,
+                             nbase=nbase)))
+    if floored:
+        post = np.squeeze(post, axis=1)
+        if bad and not transducer:
+            maxcall = np.argmax(post, axis=1)
+            post = post[maxcall > 0, 1:]
+            post = post / np.sum(post, axis=1, keepdims=True)
+    else:
+        post = decode_np.prepare_post(post, min_prob=min_prob,
+                                      drop_bad=bad and not transducer)
+    if transducer:
+        return decode_np.viterbi(post, kmer_len, skip_pen=skip, nbase=nbase)
+    if nbase != 4:
+        raise ValueError("Modified bases not supported by old decoder")
+    trans = olddecode.estimate_transitions(post, trans=trans)
+    return olddecode.decode_profile(post, trans=np.log(_ETA + trans),
+                                    log=False)
 
 
 def gather_normalise_dac(flat, starts, lengths, norms, C):
@@ -502,8 +675,8 @@ def normalise_dac_f32(dac, norm4):
 
 def load_raw_signal(fast5_file, trim=(200, 50), open_pore_fraction=0.3):
     """Raw read -> normalised signal (copied from sloika_tpu/basecall.py:
-    985-1001): pA scale, open-pore trim, edge trim, then per-read
-    (median, MAD) normalisation.  h5py is imported by the reader.
+    985-1001): pA scale, then :func:`prepare_raw_signal`.  h5py is imported
+    by the reader.
 
     :returns: (short_name, signal (T,) float32) or None
     """
@@ -514,12 +687,22 @@ def load_raw_signal(fast5_file, trim=(200, 50), open_pore_fraction=0.3):
         sys.stderr.write("Error getting raw data for file {}\n{!r}\n".format(
             fast5_file, e))
         return None
+    signal = prepare_raw_signal(signal, trim, open_pore_fraction)
+    if signal is None:
+        sys.stderr.write("Read too short in file {}\n".format(fast5_file))
+        return None
+    return sn, signal
+
+
+def prepare_raw_signal(signal, trim=(200, 50), open_pore_fraction=0.3):
+    """A read's pA signal trimmed (open pore, then ``trim`` samples from
+    each end) and normalised by its median and MAD, as
+    :func:`load_raw_signal` does; None where nothing is left."""
     start, end = trim_open_pore(signal, open_pore_fraction)
     signal = util.trim_array(signal[start:end], *trim)
     if signal.size == 0:
-        sys.stderr.write("Read too short in file {}\n".format(fast5_file))
         return None
-    return sn, normalise_raw_signal(signal)
+    return normalise_raw_signal(signal)
 
 
 def load_raw_dac(fast5_file, trim=(200, 50), open_pore_fraction=0.3):

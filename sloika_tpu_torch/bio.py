@@ -1,8 +1,12 @@
-"""Sequence helpers of the remap and event basecall paths, copied from
+"""Sequence helpers of the basecall, remap and scoring paths, copied from
 ``sloika_tpu/bio.py``."""
 from itertools import product
 
 import numpy as np
+
+_COMPLEMENT = {'A': 'T', 'T': 'A', 'C': 'G', 'G': 'C', 'X': 'X', 'N': 'N',
+               'a': 't', 't': 'a', 'c': 'g', 'g': 'c', 'x': 'x', 'n': 'n',
+               '-': '-'}
 
 
 def all_kmers(length, alphabet='ACGT'):
@@ -13,6 +17,11 @@ def all_kmers(length, alphabet='ACGT'):
         return [''.join(x).encode('utf-8')
                 for x in product(letters, repeat=length)]
     return [''.join(x) for x in product(alphabet, repeat=length)]
+
+
+def reverse_complement(seq, compdict=_COMPLEMENT):
+    """Reverse complement of a base string (sloika_tpu/bio.py:88)."""
+    return ''.join(compdict[b] for b in seq)[::-1]
 
 
 def seq_to_kmers(seq, length):

@@ -8,26 +8,34 @@ Two subcommands::
         --device cuda --output calls.fa
 
 The model is a ``.npz`` checkpoint or a model JSON of either package, or
-a reference Theano pickle (``.pkl``).
+a reference Theano pickle (``.pkl``); ``--transducer``, ``--bad``,
+``--alphabet`` and ``--kmer_len`` describe its output states.
 
 Both decode as the JAX package does by default: whole reads in batches of
 ``--batch``, in order of length (``--no-chunked``), ``raw`` from signals
 normalised on the host (``--trim``, ``--open_pore_fraction``), ``events``
 from event features (``--section``, ``--trim``).  With ``--chunked`` they
-run the chunked "bases" mode: ``raw`` ships int16 DAC samples and windows
-and normalises them on the device, ``events`` windows the feature
-matrices.  A model with a ``Studentise`` layer runs whole reads one at a
-time, unpadded, in either mode (``Basecaller``).
-FASTA goes to stdout unless ``--output`` is given.  ``--device cuda``
-raises when no GPU is present.
+cut the reads into windows.  ``--device_collapse`` ("auto": on for a
+chunked 4-letter transducer on a CUDA device, where the JAX package's TPU
+stands) collapses the calls to bases on the device; else the windows'
+paths are stitched on the host ("states").  ``--dac`` ("auto": on with
+device collapse) ships ``raw`` reads as int16 DAC samples, windowed and
+normalised on the device.  A non-transducer model (``--transducer false``)
+is decoded on the host with the legacy decoder.  A model with a
+``Studentise`` layer runs whole reads one at a time, unpadded
+(``Basecaller``).  ``--jobs`` threads load the reads, the next block's
+while the current block decodes.  FASTA goes to stdout unless ``--output``
+is given, in the order of the input files.  ``--device cuda`` raises when
+no GPU is present.
 """
 import argparse
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 from sloika_tpu_torch import __version__
-from sloika_tpu_torch.cmdargs import (AutoBool, FileExists, Maybe, NonNegative,
-                                      Positive, proportion,
+from sloika_tpu_torch.cmdargs import (AutoBool, ByteString, FileExists, Maybe,
+                                      NonNegative, Positive, proportion,
                                       display_version_and_exit)
 from sloika_tpu_torch.data.fast5 import iterate_fast5
 
@@ -37,6 +45,10 @@ def make_parser():
         description='Basecall reads with a transducer network (PyTorch/CUDA)',
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     common = argparse.ArgumentParser(add_help=False)
+    common.add_argument('--alphabet', default=b'ACGT', type=ByteString,
+                        help='Alphabet of the model')
+    common.add_argument('--bad', default=False, action=AutoBool,
+                        help='Model has a bad state')
     common.add_argument('--batch', default=8, metavar='n',
                         type=Positive(int),
                         help='Windows (chunked) or reads per device batch')
@@ -47,6 +59,17 @@ def make_parser():
                         help='Window size for chunked decoding')
     common.add_argument('--device', default='cuda',
                         help='Torch device to run on')
+    common.add_argument('--device_collapse', default='auto',
+                        choices=['auto', 'on', 'off'],
+                        help='Collapse calls to bases on the device (chunked '
+                             '4-letter transducer mode; "auto" = on for a '
+                             'CUDA device)')
+    common.add_argument('--dac', default='auto',
+                        choices=['auto', 'on', 'off'],
+                        help='Ship raw int16 DAC samples and window + '
+                             'normalise on the device (raw reads, device '
+                             'collapse; "auto" = on whenever device '
+                             'collapse is active)')
     common.add_argument('--overlap', default=400, type=Positive(int),
                         help='Window overlap for chunked decoding')
     common.add_argument('--kmer_len', default=5, type=Positive(int),
@@ -59,6 +82,13 @@ def make_parser():
                         help='Skip penalty for transducer decoding')
     common.add_argument('--strand_list', default=None, action=FileExists,
                         help='File containing reads to process')
+    common.add_argument('--transducer', default=True, action=AutoBool,
+                        help='Model is a transducer')
+    common.add_argument('--trans', nargs=3, default=None, type=float,
+                        metavar=('stay', 'step', 'skip'),
+                        help='Base transition probabilities (non-transducer)')
+    common.add_argument('--jobs', default=4, type=Positive(int),
+                        help='Host threads for read loading')
     common.add_argument('--output', default=None,
                         help='Output FASTA file (default stdout)')
     common.add_argument('--version', nargs=0,
@@ -115,18 +145,38 @@ def main(argv=None):
     args = make_parser().parse_args(argv)
     events = args.command == 'events'
     from sloika_tpu_torch import basecall as bc
+    from sloika_tpu_torch import config
 
+    if args.device_collapse == 'auto':
+        # the card stands where the JAX package's TPU stands
+        device_collapse = (config.resolve_device(args.device).type == 'cuda'
+                           and args.chunked and args.transducer
+                           and len(args.alphabet) == 4)
+    else:
+        device_collapse = args.device_collapse == 'on'
     caller = bc.Basecaller(load_model(args.model), args.kmer_len,
+                           transducer=args.transducer, bad=args.bad,
                            min_prob=args.min_prob, skip=args.skip,
-                           batch_size=args.batch, chunk_size=args.chunk_size,
-                           overlap=args.overlap,
-                           output='bases' if args.chunked else 'states',
+                           trans=args.trans, alphabet=args.alphabet,
+                           batch_size=args.batch, chunked=args.chunked,
+                           chunk_size=args.chunk_size, overlap=args.overlap,
+                           output='bases' if device_collapse else 'states',
                            device=args.device)
     # a Studentise model falls back to whole reads, "states"
     output = caller.output
+    if args.dac == 'auto':
+        dac = not events and output == 'bases'
+    else:
+        dac = args.dac == 'on'
+        if dac and (events or output != 'bases'):
+            # as sloika_tpu/cli/basecall.py:175-180 asserts
+            raise ValueError('--dac on requires raw reads and device '
+                             'collapse')
     datatype = 'events' if events else 'samples'
     printer = bc.SeqPrinter(datatype=datatype, fname=args.output,
-                            kmer_len=args.kmer_len)
+                            kmer_len=args.kmer_len,
+                            transducer=args.transducer,
+                            alphabet=args.alphabet)
     write = printer.write_codes if output == 'bases' else printer.write
     files = iterate_fast5(args.input_folder, strand_list=args.strand_list,
                           limit=args.limit)
@@ -134,34 +184,44 @@ def main(argv=None):
         load = lambda fn: bc.load_event_features(
             fn, section=args.section, segmentation=args.segmentation,
             trim=tuple(args.trim))
-    elif output == 'states':
-        load = lambda fn: bc.load_raw_signal(
+    elif dac:
+        load = lambda fn: bc.load_raw_dac(
             fn, trim=tuple(args.trim),
             open_pore_fraction=args.open_pore_fraction)
     else:
-        load = lambda fn: bc.load_raw_dac(
+        load = lambda fn: bc.load_raw_signal(
             fn, trim=tuple(args.trim),
             open_pore_fraction=args.open_pore_fraction)
 
     t0 = time.time()
     nbases = nsignal = nreads = 0
-    # bounded blocks keep host memory O(block)
+    # bounded blocks keep host memory O(block); the next block's loads are
+    # submitted before the current block decodes, so loading overlaps the
+    # device's work (sloika_tpu/cli/basecall.py:203-212)
     block = max(8 * args.batch, 512)
     try:
-        for lo in range(0, len(files), block):
-            loaded = [r for r in map(load, files[lo:lo + block])
-                      if r is not None]
-            if not loaded:
-                continue
-            if output == 'states' or events:
-                results = caller.basecall_signals([r[1] for r in loaded])
-            else:
-                results = caller.basecall_dac_reads(
-                    [(r[1], r[2]) for r in loaded])
-            for r, (score, call) in zip(loaded, results):
-                nbases += write(r[0], score, call, len(r[1]))
-                nsignal += len(r[1])
-                nreads += 1
+        with ThreadPoolExecutor(max_workers=args.jobs) as pool:
+            pending = [pool.submit(load, fn) for fn in files[:block]]
+            for lo in range(0, len(files), block):
+                current, pending = pending, [
+                    pool.submit(load, fn)
+                    for fn in files[lo + block:lo + 2 * block]]
+                loaded = [r for r in (f.result() for f in current)
+                          if r is not None]
+                if not loaded:
+                    continue
+                if dac:
+                    results = caller.basecall_dac_reads(
+                        [(r[1], r[2]) for r in loaded])
+                else:
+                    results = caller.basecall_signals([r[1] for r in loaded])
+                for r, res in zip(loaded, results):
+                    if res is None:
+                        continue
+                    score, call = res
+                    nbases += write(r[0], score, call, len(r[1]))
+                    nsignal += len(r[1])
+                    nreads += 1
     finally:
         printer.close()
     dt = time.time() - t0

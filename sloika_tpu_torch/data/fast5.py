@@ -1,7 +1,8 @@
 """The parts of the single-read fast5 reader that the port uses, copied from
 ``sloika_tpu/data/fast5.py``.  That module imports h5py at the top; here
-h5py is imported inside :func:`read_raw_signal` and
-:func:`read_section_events`, so the port imports on a machine without it."""
+h5py is imported inside the readers (:func:`read_raw_signal`,
+:func:`read_section_events`, :func:`read_reference_fasta`), so the port
+imports on a machine without it."""
 import glob
 import os
 import re
@@ -64,6 +65,23 @@ def read_section_events(path, section="template"):
             if events in h5:
                 return h5[events][:]
     raise ValueError("No events for section {!r} in {}".format(section, path))
+
+
+def read_reference_fasta(path, section="template"):
+    """The read's reference sequence (bytes), from the latest Alignment
+    analysis that holds one (``Fast5.get_reference_fasta``,
+    sloika_tpu/data/fast5.py:170)."""
+    import h5py
+    rel = "Aligned_{}/Fasta".format(section)
+    with h5py.File(path, "r") as h5:
+        grp = _latest(h5, "Alignment", contains=rel)
+        if grp is None:
+            raise ValueError("No reference fasta in {}".format(path))
+        fasta = h5["{}/{}".format(grp, rel)][()]
+    if isinstance(fasta, bytes):
+        fasta = fasta.decode("utf-8")
+    return "".join(l.strip() for l in str(fasta).split("\n")[1:]).encode(
+        "utf-8")
 
 
 def iterate_fast5(path, strand_list=None, limit=None):

@@ -44,9 +44,11 @@ def network_factory(model):
         model, sorted(REGISTRY)))
 
 
-def pretrained_standin(klen=5, sd=0.5, seed=0):
+def pretrained_standin(klen=5, sd=0.5, seed=0, nbase=4):
     """The headline model's graph at full width with seeded random
-    weights (see the module docstring)."""
+    weights (see the module docstring); over ``nbase`` bases its softmax
+    has nbase^klen + 1 states (3,126 at nbase 5, a modified-base
+    alphabet)."""
     return network_factory("raw_1_00_rGr")(
-        klen=klen, sd=sd, winlen=11, stride=5, seed=seed,
+        klen=klen, sd=sd, nbase=nbase, winlen=11, stride=5, seed=seed,
         sizes=PRETRAINED_SIZES)

@@ -59,6 +59,16 @@ import sloika_tpu_torch.models.bigger_raw_gru
 import sloika_tpu_torch.cli.verify
 import sloika_tpu_torch.cli.dump_json
 import sloika_tpu_torch.cli.model_convert
+import sloika_tpu_torch.ops.decode_np
+import sloika_tpu_torch.ops.olddecode
+import sloika_tpu_torch.native
+import sloika_tpu_torch.align
+import sloika_tpu_torch.data.sam
+import sloika_tpu_torch.data.simulate
+import sloika_tpu_torch.nn.flops
+import sloika_tpu_torch.cli.align
+import sloika_tpu_torch.cli.extract_reference
+import sloika_tpu_torch.cli.get_refs_from_sam
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "h5py", "sloika_tpu")
                 and sys.modules[m] is not None)

@@ -440,6 +440,71 @@ def test_basecaller_klen_7_decodes_on_the_card(cuda_device):
         float(ref[0][0]))
 
 
+def _peaked_model(nstate, seed, scale=8.0):
+    """A convolution (stride 5) and a softmax over ``nstate`` states with
+    weights of sd ``scale``: at 8 a peaked posterior, far from the
+    transducer Viterbi's round-off ties."""
+    from sloika_tpu_torch import nn
+    rs = np.random.RandomState(seed)
+    conv = nn.Convolution(1, 16, 11, stride=5)
+    out = nn.Softmax(16, nstate)
+    with torch.no_grad():
+        conv.W.copy_(torch.from_numpy(rs.normal(size=(16, 1, 11))
+                                      .astype(np.float32)))
+        out.W.copy_(torch.from_numpy(scale * rs.normal(size=(nstate, 16))
+                                     .astype(np.float32)))
+    reads = [rs.normal(size=n).astype(np.float32) for n in (1500, 2600)]
+    return nn.Serial([conv, out]), reads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunked", (False, True))
+def test_basecaller_nbase_5_decodes_on_the_card(cuda_device, chunked):
+    """A 5-letter transducer (``alphabet=b"ACGTX"``, 126 states at klen 3),
+    whole reads and the chunked "states" route: the CPU path's calls,
+    through the kernels' general route on every launch."""
+    from sloika_tpu_torch import basecall as tbc
+    layer, reads = _peaked_model(5 ** 3 + 1, 19)
+    kw = dict(alphabet=b"ACGTX", batch_size=2, chunked=chunked,
+              chunk_size=1000, overlap=100)
+    ref = tbc.Basecaller(copy.deepcopy(layer), 3, device="cpu",
+                         **kw).basecall_signals(reads)
+    wrappers = (vk.viterbi_forward, vk.viterbi_backtrace)
+    before = [(k.launches, k.general_launches) for k in wrappers]
+    got = tbc.Basecaller(layer, 3, device=cuda_device,
+                         **kw).basecall_signals(reads)
+    after = [(k.launches, k.general_launches) for k in wrappers]
+    assert all(a[0] - b[0] == a[1] - b[1] > 0
+               for a, b in zip(after, before))
+    for (gs, gc), (rs_, rc) in zip(got, ref):
+        assert np.array_equal(gc, rc) and len(gc) > 10
+        assert abs(gs - rs_) <= 1e-4 * abs(rs_)
+
+
+@pytest.mark.gpu
+def test_nontransducer_basecaller_runs_the_forward_on_the_card(cuda_device):
+    """A non-transducer with a bad state: the forward and the floor on the
+    card, no Viterbi launch, the legacy decoder on the host; the CPU path's
+    calls.  The weights are small (sd 0.5): no state sits at the
+    ``min_prob`` floor.  At sd 8, 95% of the floored posterior is the
+    floor, whose exact ties the legacy decoder breaks by the round-off of
+    the states just above it: a 1e-6 relative change of the posterior moves
+    its calls on the CPU alone."""
+    from sloika_tpu_torch import basecall as tbc
+    layer, reads = _peaked_model(4 ** 3 + 1, 23, scale=0.5)
+    kw = dict(transducer=False, bad=True, batch_size=2)
+    ref = tbc.Basecaller(copy.deepcopy(layer), 3, device="cpu",
+                         **kw).basecall_signals(reads)
+    before = vk.viterbi_forward.launches
+    caller = tbc.Basecaller(layer, 3, device=cuda_device, **kw)
+    assert next(caller.layer.parameters()).is_cuda
+    got = caller.basecall_signals(reads)
+    assert vk.viterbi_forward.launches == before
+    for (gs, gc), (rs_, rc) in zip(got, ref):
+        assert np.array_equal(gc, rc) and len(gc) > 10
+        assert abs(gs - rs_) <= 1e-4 * abs(rs_)
+
+
 @pytest.mark.gpu
 def test_viterbi_kernels_count_launches(cuda_device):
     post = _posterior(3, "peaked", T=20, B=2).to(cuda_device)

@@ -233,6 +233,15 @@ def test_studentise_fallback_calls_what_the_jax_fallback_calls():
 
 
 def test_a_non_transducer_model_is_refused_clearly():
+    """A model whose states are no decoder's is refused with its count and
+    the decoder's; a non-transducer is decoded on the host when it is
+    declared (``transducer=False``), and refused when it is not."""
     layer = tnn.Serial([tnn.Window(4, 3), tnn.Softmax(12, 4 ** KLEN + 2)])
-    with pytest.raises(ValueError, match="only transducer models"):
+    with pytest.raises(ValueError, match="model emits {} states, decode "
+                       "expects {}".format(4 ** KLEN + 2, 4 ** KLEN + 1)):
         tbc.Basecaller(layer, KLEN, device="cpu")
+    layer = tnn.Serial([tnn.Window(4, 3), tnn.Softmax(12, 4 ** KLEN)])
+    with pytest.raises(ValueError, match="model emits"):
+        tbc.Basecaller(layer, KLEN, device="cpu")
+    assert not tbc.Basecaller(layer, KLEN, transducer=False,
+                              device="cpu").transducer
