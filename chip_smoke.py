@@ -174,8 +174,8 @@ Phases, each printing one line and raising on failure:
     relu GRU among them, a peephole LSTM on the kernel, the parameter-free
     layers, ``Reverse`` over a feed-forward layer) forward on the card
     within 1e-4 of the CPU at T = 500, B = 4 (``scan_route`` counts the
-    ten cells); a Studentise events model through ``Basecaller(output=
-    "bases")``, which falls back to whole reads at batch 1 (one Viterbi
+    ten cells); a Studentise events model through ``Basecaller(chunked=
+    True, output="bases")``, which falls back to whole reads at batch 1 (one Viterbi
     launch a read) with the CPU route's calls; ``baseline_gru`` (size 64)
     basecalling 4 event reads; ``verify`` and ``dump_json`` through their
     ``main`` on the card.
@@ -1014,7 +1014,8 @@ def phase_main(dev, standin, counters):
     reads = synthetic_reads()
     cpu_layer = copy.deepcopy(standin).cpu()
     caller = bc.Basecaller(standin, 5, chunk_size=CHUNK, overlap=OVERLAP,
-                           batch_size=BATCH, output="bases", device=dev)
+                           batch_size=BATCH, chunked=True, output="bases",
+                           device=dev)
     caller.basecall_dac_reads(reads)                 # warm-up
     zero_counts(counters)
     torch.cuda.synchronize()
@@ -1050,8 +1051,8 @@ def phase_main(dev, standin, counters):
     with torch.inference_mode():
         got, _ = caller._floored_masked_post(x.to(dev), lengths.to(dev))
         ref, _ = bc.Basecaller(cpu_layer, 5, chunk_size=CHUNK,
-                               overlap=OVERLAP, output="bases",
-                               device="cpu") \
+                               overlap=OVERLAP, chunked=True,
+                               output="bases", device="cpu") \
             ._floored_masked_post(x, lengths)
     d = float((got.cpu() - ref).abs().max())
     print("posterior check (4 windows, GPU kernels vs CPU plain forward): "
@@ -2180,7 +2181,7 @@ def bf16_basecall_paths(dev, standin, counters, event_feats):
     paths = (
         ("chunked DAC", "basecall", standin,
          dict(chunk_size=CHUNK, overlap=OVERLAP, batch_size=BATCH,
-              output="bases"),
+              chunked=True, output="bases"),
          lambda c: c.basecall_dac_reads(dac), sum(len(d) for d, _ in dac),
          "samples", [wins[:, b] for b in range(4)]),
         ("whole-read raw", "basecall_raw", standin,
@@ -2620,9 +2621,9 @@ def zoo_bigger_raw_gru(dev, counters):
 
 def zoo_cells(dev, counters, event_feats, tmp):
     """16c: the zoo pickle on the card against the CPU; a Studentise model
-    through ``Basecaller(output="bases")``, which falls back to whole reads
-    at batch 1; baseline_gru on 4 event reads; ``verify`` and
-    ``dump_json`` through their ``main``."""
+    through ``Basecaller(chunked=True, output="bases")``, which falls back
+    to whole reads at batch 1; baseline_gru on 4 event reads; ``verify``
+    and ``dump_json`` through their ``main``."""
     from sloika_tpu_torch import basecall as bc, models
     from sloika_tpu_torch.cli import dump_json, verify
     launches = {}
@@ -2650,7 +2651,8 @@ def zoo_cells(dev, counters, event_feats, tmp):
 
     feats = [r[:STUDENTISE_EVENTS] for r in event_feats[:4]]
     stud = studentise_graph()
-    callers = [bc.Basecaller(layer, 5, output="bases", device=d)
+    callers = [bc.Basecaller(layer, 5, chunked=True, output="bases",
+                             device=d)
                for layer, d in ((copy.deepcopy(stud), "cpu"), (stud, dev))]
     if any(c.output != "states" for c in callers):
         raise AssertionError("the Studentise model did not fall back to "
@@ -2661,7 +2663,8 @@ def zoo_cells(dev, counters, event_feats, tmp):
     ref = callers[0].basecall_signals(feats)
     same = [np.array_equal(a[1], b[1]) for a, b in zip(out, ref)]
     rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(out, ref))
-    print("zoo Studentise events model through Basecaller(output=\"bases\"):"
+    print("zoo Studentise events model through Basecaller(chunked=True, "
+          "output=\"bases\"):"
           " whole reads at batch 1, {} reads of {} events in {:.3f} s, "
           "launches gru_fwd {} viterbi_fwd {}; calls identical to the CPU "
           "route's {}/{}, score max rel err {:.3e}".format(
@@ -2842,8 +2845,9 @@ def call_nbase5(dev, counters, sigs):
     """17c: the stand-in's widths over 5 bases (softmax 3,126, K = 3,125)
     on whole reads in batches of NBASE5_BATCH: the general Viterbi route
     (``general_launches`` of both wrappers > 0); two reads cut to RAW_SHORT
-    samples against the CPU twin, calls identical; the general route timed
-    at the longest batch beside its bound.
+    samples against the CPU twin, calls identical; at the longest batch
+    (the path's own T, B and K) both general kernels bit-identical to their
+    plain twins on the card, then timed beside their bounds.
 
     :returns: (launches, the route's entry)"""
     from sloika_tpu_torch import basecall as bc, models
@@ -2885,7 +2889,9 @@ def call_nbase5(dev, counters, sigs):
                              "the CPU twin's: first differing states {}, "
                              "score rel err {}".format(first, rel))
 
-    # the general route timed at the longest batch's floored posterior
+    # the general route at the longest batch's floored posterior: held
+    # bit for bit against the plain twins on the card, then timed
+    from sloika_tpu_torch.ops import decode
     order = np.argsort([len(s) for s in sigs])
     x, lengths = padded_batch([sigs[i] for i in order[-NBASE5_BATCH:]])
     with torch.inference_mode():
@@ -2895,8 +2901,31 @@ def call_nbase5(dev, counters, sigs):
         fwd = lambda: vk.viterbi_forward(post, 5, skip_pen=5.0, nbase=5)
         vfinal, tb = fwd()
         last = torch.argmax(vfinal, dim=1)
+        path, moved = vk.viterbi_backtrace(tb, last, nbase=5)
+        (v_ref, tb_ref), plain_ms = timed_once(
+            lambda: decode.viterbi_forward_plain(post, 5, skip_pen=5.0,
+                                                 nbase=5))
+        same_fwd = torch.equal(vfinal, v_ref) and torch.equal(tb, tb_ref)
+        err_fwd = max(float((vfinal - v_ref).abs().max()),
+                      float((tb != tb_ref).any()))
+        del v_ref, tb_ref
+        (path_ref, moved_ref), back_plain_ms = timed_once(
+            lambda: decode.viterbi_backtrace_plain(tb, last, nbase=5))
+        same_back = (torch.equal(path, path_ref)
+                     and torch.equal(moved, moved_ref))
+        err_back = max(float((path - path_ref).abs().max()),
+                       float((moved != moved_ref).any()))
         fwd_ms = cuda_ms(fwd, 3)
         back_ms = cuda_ms(lambda: vk.viterbi_backtrace(tb, last, nbase=5), 5)
+    del tb
+    torch.cuda.empty_cache()
+    print("call and score (17c) general route at T={} B={} K={}: forward "
+          "bit_identical to its plain twin on the card {} (max_abs_err "
+          "{:.3e}), backtrace bit_identical {}".format(
+              T, B, K, same_fwd, err_fwd, same_back), flush=True)
+    if not (same_fwd and same_back):
+        raise AssertionError("the general Viterbi route differs from its "
+                             "twins at T={} B={} K={}".format(T, B, K))
     plan = vk.viterbi_general_plan(
         B, K, 5, vk._device_limits(post.device)[1],
         vk.viterbi_forward.general_clusters(K, 5, post.device))
@@ -2904,16 +2933,23 @@ def call_nbase5(dev, counters, sigs):
     back_bound = bound(*viterbi_back_bound(T, B))
     print("call and score (17c) general route at T={} B={} K={}: "
           "viterbi_fwd {:.3f} ms ({:.3f} us a step; bound {:.3f} ms, {}; "
-          "plan C={} threads={} nslots={}), viterbi_back {:.3f} ms (bound "
-          "{:.4f} ms, {}) [{}]".format(
+          "plain {:.1f} ms; plan C={} threads={} nslots={}), viterbi_back "
+          "{:.3f} ms (bound {:.4f} ms, {}; plain {:.1f} ms) [{}]".format(
               T, B, K, fwd_ms, 1e3 * fwd_ms / T, fwd_bound[0], fwd_bound[1],
-              plan["C"], plan["threads"], plan["nslots"], back_ms,
-              back_bound[0], back_bound[1], card_line()), flush=True)
+              plain_ms, plan["C"], plan["threads"], plan["nslots"], back_ms,
+              back_bound[0], back_bound[1], back_plain_ms, card_line()),
+          flush=True)
     entry = {"T": T, "B": B, "K": K, "fwd_ms": fwd_ms,
-             "fwd_bound_ms": fwd_bound[0], "back_ms": back_ms,
-             "back_bound_ms": back_bound[0], "plan": plan,
+             "fwd_bound_ms": fwd_bound[0], "fwd_plain_ms": plain_ms,
+             "fwd_bit_identical_to_twin": same_fwd,
+             "fwd_max_abs_err": err_fwd, "back_ms": back_ms,
+             "back_bound_ms": back_bound[0], "back_plain_ms": back_plain_ms,
+             "back_bit_identical_to_twin": same_back,
+             "back_max_abs_err": err_back, "plan": plan,
              "general_launches": general,
-             "calls_equal_to_cpu_twin": same, "score_rel_err": rel}
+             "short_calls_equal_to_cpu_twin": same,
+             "short_calls_shape": "2 reads of {} samples".format(RAW_SHORT),
+             "score_rel_err": rel}
     return counts, entry
 
 
@@ -3064,8 +3100,11 @@ def main():
     by_name["viterbi_fwd"]["bf16"] = phase_bf16(dev, standin, counters,
                                                 reads)
     launches.update(phase_zoo(dev, standin, counters, raw_calls, reads))
-    call_launches, by_name["viterbi_fwd"]["nbase5"] = phase_call_and_score(
-        dev, standin, counters)
+    call_launches, nbase5 = phase_call_and_score(dev, standin, counters)
+    by_name["viterbi_fwd"]["nbase5"] = nbase5
+    for name, err in (("viterbi_fwd", nbase5["fwd_max_abs_err"]),
+                      ("viterbi_back", nbase5["back_max_abs_err"])):
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
     launches.update(call_launches)
     for path, counts in launches.items():
         for name, n in counts.items():

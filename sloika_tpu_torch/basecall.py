@@ -126,8 +126,7 @@ class Basecaller(object):
     :param trans: [stay, step, skip] prior of the legacy decoder
     :param alphabet: the model's alphabet (bytes); nbase is its length
     :param batch_size: windows (chunked) or reads decoded per device batch
-    :param chunked: cut reads into overlapping windows (transducers only);
-        None: chunked where ``output`` is "bases", which is always chunked
+    :param chunked: cut reads into overlapping windows (transducers only)
     :param chunk_size, overlap: window length and seam overlap (samples)
     :param output: "states" (kmer-state calls; the JAX package's default)
         or "bases" (packed 2-bit base codes collapsed on the device; a
@@ -146,7 +145,7 @@ class Basecaller(object):
                  batch_size=8, chunk_size=8192, overlap=400, output="states",
                  device="cuda", post_dtype="auto", transducer=True,
                  bad=False, trans=None, alphabet=DEFAULT_ALPHABET,
-                 chunked=None):
+                 chunked=False):
         if output not in ("bases", "states"):
             raise ValueError("output must be 'bases' or 'states'")
         if isinstance(alphabet, str):
@@ -161,8 +160,6 @@ class Basecaller(object):
         if layer.size != expected:
             raise ValueError("model emits {} states, decode expects {}"
                              .format(layer.size, expected))
-        if chunked is None:
-            chunked = output == "bases"
         if output == "bases" and not (chunked and transducer
                                       and self.nbase == 4):
             # as sloika_tpu/basecall.py:183-185 asserts
@@ -437,9 +434,8 @@ class Basecaller(object):
     def _decode_host(self, post, floored):
         """The legacy decoder of one read's (T', nstate) float32 posterior
         on the host (:func:`decode_post_host`)."""
-        return decode_post_host(post[:, None, :], self.kmer_len, False,
-                                self.bad, self.min_prob, self.skip,
-                                self.trans, nbase=self.nbase,
+        return decode_post_host(post[:, None, :], self.kmer_len, self.bad,
+                                self.min_prob, self.trans, nbase=self.nbase,
                                 floored=floored)
 
     def _basecall_per_read(self, signals):
@@ -530,33 +526,29 @@ class Basecaller(object):
         return out
 
 
-def decode_post_host(post, kmer_len, transducer, bad, min_prob, skip=5.0,
-                     trans=None, nbase=4, floored=False):
-    """Host decode of one read's (T, 1, nstate) posterior (copied from
-    sloika_tpu/basecall.py:960-978): a transducer by the numpy Viterbi,
-    any other model by the legacy decoder over 4 bases.  ``floored``: the
-    posterior already has the ``min_prob`` floor, so only the bad state's
-    frames and column are dropped (and the rest renormalised).
+def decode_post_host(post, kmer_len, bad, min_prob, trans=None, nbase=4,
+                     floored=False):
+    """Host decode of one non-transducer read's (T, 1, nstate) posterior by
+    the legacy decoder over 4 bases (the non-transducer branch of
+    sloika_tpu/basecall.py:960-978; a transducer decodes on the device).
+    ``floored``: the posterior already has the ``min_prob`` floor, so only
+    the bad state's frames and column are dropped (and the rest
+    renormalised).
 
-    :returns: (score, call)
+    :returns: (score, one state an event)
     """
-    if post.shape[2] != nstate(kmer_len, transducer=transducer,
-                               bad_state=bad, nbase=nbase):
+    want = nstate(kmer_len, transducer=False, bad_state=bad, nbase=nbase)
+    if post.shape[2] != want:
         raise ValueError("posterior has {} states, the model's decode "
-                         "expects {}".format(post.shape[2], nstate(
-                             kmer_len, transducer=transducer, bad_state=bad,
-                             nbase=nbase)))
+                         "expects {}".format(post.shape[2], want))
     if floored:
         post = np.squeeze(post, axis=1)
-        if bad and not transducer:
+        if bad:
             maxcall = np.argmax(post, axis=1)
             post = post[maxcall > 0, 1:]
             post = post / np.sum(post, axis=1, keepdims=True)
     else:
-        post = decode_np.prepare_post(post, min_prob=min_prob,
-                                      drop_bad=bad and not transducer)
-    if transducer:
-        return decode_np.viterbi(post, kmer_len, skip_pen=skip, nbase=nbase)
+        post = decode_np.prepare_post(post, min_prob=min_prob, drop_bad=bad)
     if nbase != 4:
         raise ValueError("Modified bases not supported by old decoder")
     trans = olddecode.estimate_transitions(post, trans=trans)

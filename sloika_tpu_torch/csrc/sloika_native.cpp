@@ -1,13 +1,10 @@
-// Host helpers of the port, compiled by g++ (not nvcc): a copy of the JAX
+// The port's host aligner, compiled by g++ (not nvcc): a copy of the JAX
 // package's native/sloika_native.cpp, built apart from it.
 //
-// 1. slip_update: the geometric-slip DP recurrence (the reference's
-//    sloika/viterbi_helpers.pyx:12-35), a host oracle of the remap DP.
-// 2. align_semiglobal: banded affine-gap alignment of a query (basecall)
-//    against a reference sequence with free end gaps on the reference,
-//    emitting the counts a SAM-based evaluator derives (match, mismatch,
-//    insertion, deletion and the spans); used by ``align.py`` to score
-//    calls.
+// align_semiglobal: banded affine-gap alignment of a query (basecall)
+// against a reference sequence with free end gaps on the reference,
+// emitting the counts a SAM-based evaluator derives (match, mismatch,
+// insertion, deletion and the spans); used by ``align.py`` to score calls.
 //
 // Build: ``sloika_tpu_torch/native.py`` runs
 //     g++ -O3 -shared -fPIC -std=c++17 csrc/sloika_native.cpp \
@@ -20,28 +17,6 @@
 #include <vector>
 
 extern "C" {
-
-void slip_update(const float* x, int64_t n, float slip,
-                 float* from_score, int64_t* from_pos) {
-    if (n <= 0) return;
-    for (int64_t i = 0; i < n && i < 2; ++i) {
-        from_score[i] = -1e38f;
-        from_pos[i] = 0;
-    }
-    if (n <= 2) return;
-    from_score[2] = x[0] - slip;
-    from_pos[2] = 0;
-    for (int64_t j = 3; j < n; ++j) {
-        if (from_score[j - 1] >= x[j - 2]) {
-            from_pos[j] = from_pos[j - 1];
-            from_score[j] = from_score[j - 1];
-        } else {
-            from_pos[j] = j - 2;
-            from_score[j] = x[j - 2];
-        }
-        from_score[j] -= slip;
-    }
-}
 
 // Alignment op codes in the traceback
 enum Op : uint8_t { OP_STOP = 0, OP_DIAG = 1, OP_UP = 2, OP_LEFT = 3,

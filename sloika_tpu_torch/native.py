@@ -1,13 +1,11 @@
-"""ctypes bindings of the port's host C++ helpers (``csrc/sloika_native.cpp``;
+"""ctypes bindings of the port's host C++ aligner (``csrc/sloika_native.cpp``;
 cf. ``sloika_tpu/native.py``).
 
-:func:`slip_update` (the geometric-slip DP recurrence) and
-:func:`align_semiglobal` (the banded affine aligner that scores basecalls in
-:mod:`sloika_tpu_torch.align`).  The library is built with ``g++`` at first
-use into ``_build/libsloika_native.so`` (git-ignored), and rebuilt when the
-source is newer.  Without a compiler the fallbacks run (the aligner's
-numpy form, as in the JAX package, and the torch form of the slip
-recurrence, ``ops/remap.py``); :func:`available` says which.
+:func:`align_semiglobal` is the banded affine aligner that scores basecalls
+in :mod:`sloika_tpu_torch.align`.  The library is built with ``g++`` at
+first use into ``_build/libsloika_native.so`` (git-ignored), and rebuilt
+when the source is newer.  Without a compiler the aligner's numpy form
+runs, as in the JAX package; :func:`available` says which.
 """
 import ctypes
 import os
@@ -55,10 +53,6 @@ def _load():
             _lib = False
             return _lib
     lib = ctypes.CDLL(_LIB)
-    lib.slip_update.argtypes = [
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_float,
-        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64)]
-    lib.slip_update.restype = None
     lib.align_semiglobal.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
@@ -72,32 +66,6 @@ def available():
     """True where the C++ library is built and loaded (else the numpy
     fallbacks run)."""
     return bool(_load())
-
-
-def slip_update(x, slip):
-    """Geometric-slip DP scores (sloika_tpu/native.py:58): position j gets
-    the best ``x[k] - slip * (j-1-k)`` over ``k <= j-2`` and that k;
-    positions 0 and 1 are unreachable (-1e38).
-
-    :returns: (from_score, from_pos)
-    """
-    lib = _load()
-    x = np.ascontiguousarray(x, dtype=np.float32)
-    n = len(x)
-    if not lib:
-        # the same recurrence in the port's torch form (ops/remap.py)
-        import torch
-        from sloika_tpu_torch.ops.remap import slip_update as torch_slip
-        score, pos = torch_slip(torch.from_numpy(x)[None], float(slip))
-        return score[0].numpy(), pos[0].numpy().astype(np.int64)
-    from_score = np.zeros(n, dtype=np.float32)
-    from_pos = np.zeros(n, dtype=np.int64)
-    lib.slip_update(
-        x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n,
-        ctypes.c_float(slip),
-        from_score.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        from_pos.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
-    return from_score, from_pos
 
 
 class Alignment(object):

@@ -1,17 +1,13 @@
-"""Host (numpy) decoders of kmer-transducer posteriors, copied from
+"""Host (numpy) helpers of the legacy decoder, copied from
 ``sloika_tpu/ops/decode_np.py`` (that package's module imports nothing of
-jax, but the port keeps its own copy).
+jax, but the port keeps its own copy): the posterior's preparation and the
+kmer predecessor tables.  A transducer decodes on the device
+(``ops/viterbi_kernel.py``, its plain twin ``ops/decode.py``).
 
-State space: column 0 is the stay/blank state, columns 1..nkmer are kmers in
-lexicographic order.  A "step" moves one base (the new kmer's prefix is the
-old kmer's suffix), a "skip" two (penalised by ``skip_pen``), a "stay" emits
-blank.
+Kmers are in lexicographic order.  A "step" moves one base (the new kmer's
+prefix is the old kmer's suffix), a "skip" two.
 """
 import numpy as np
-
-from sloika_tpu_torch import variables as sv
-
-_ETA = 1e-10
 
 
 def prepare_post(post, min_prob=1e-5, drop_bad=False):
@@ -25,10 +21,6 @@ def prepare_post(post, min_prob=1e-5, drop_bad=False):
         weight = np.sum(post, axis=1, keepdims=True)
         post = post / weight
     return min_prob + (1.0 - min_prob) * post
-
-
-#: traceback code for "emitted blank, stayed in place"
-_STAY = -1
 
 
 def predecessor_table(nkmer, nbase, order):
@@ -46,62 +38,3 @@ def predecessor_table(nkmer, nbase, order):
     lead = np.arange(width, dtype=np.int64) * (nkmer // width)
     kept_prefix = np.arange(nkmer, dtype=np.int64) // width
     return (kept_prefix[:, None] + lead[None, :]).astype(np.int32)
-
-
-def _best_predecessor(prev_scores, pred_table):
-    """(best score, best predecessor state) of each state over its row of
-    ``pred_table``."""
-    gathered = prev_scores[pred_table]
-    choice = np.argmax(gathered, axis=1)
-    rows = np.arange(pred_table.shape[0])
-    return gathered[rows, choice], pred_table[rows, choice]
-
-
-def viterbi(post, klen, skip_pen=0.0, log=False, nbase=4):
-    """Viterbi decoding of a kmer transducer with stay/step/skip moves
-    (sloika_tpu/ops/decode_np.py:83).  A skip beats an equal-scoring step;
-    a stay beats an equal-scoring move.
-
-    :param post: (T, nbase**klen + 1) posterior
-    :returns: (score, best path of kmer states with stays collapsed)
-    """
-    nev, nst = post.shape
-    if klen < 3:
-        raise ValueError("Kmer not long enough to apply Viterbi with skips")
-    nkmer = sv.nkmer(klen, nbase=nbase)
-    if sv.nstate(klen, transducer=True, nbase=nbase) != nst:
-        raise ValueError("posterior has {} states, klen {} over {} bases "
-                         "needs {}".format(nst, klen, nbase, nkmer + 1))
-
-    step_pred = predecessor_table(nkmer, nbase, 1)
-    skip_pred = predecessor_table(nkmer, nbase, 2)
-
-    lpost = post if log else np.log(post + _ETA)
-    vscore = lpost[0, 1:].copy()
-    # tb[t]: the move into event t+1, a predecessor state or _STAY
-    tb = np.empty((nev - 1, nkmer), dtype=np.int32)
-    for t in range(nev - 1):
-        best_step, from_step = _best_predecessor(vscore, step_pred)
-        best_skip, from_skip = _best_predecessor(vscore, skip_pred)
-        best_skip = best_skip - skip_pen
-
-        took_step = best_step > best_skip           # skip wins ties
-        move_score = np.where(took_step, best_step, best_skip)
-        move_from = np.where(took_step, from_step, from_skip)
-
-        emit = lpost[t + 1]
-        moved = emit[1:] + move_score
-        stayed = emit[0] + vscore
-        took_move = moved > stayed                  # stay wins ties
-        tb[t] = np.where(took_move, move_from, _STAY)
-        vscore = np.where(took_move, moved, stayed)
-
-    state = int(np.argmax(vscore))
-    calls = [state]
-    for t in range(nev - 2, -1, -1):
-        pred = int(tb[t, state])
-        if pred != _STAY:
-            state = pred
-            calls.append(state)
-    calls.reverse()
-    return np.amax(vscore), calls

@@ -73,24 +73,23 @@ def test_the_port_builds_its_own_library():
     assert not native._LIB.startswith(os.path.dirname(jnative._LIB))
 
 
-@pytest.mark.parametrize("slip", (0.0, 1.5, 6.0))
-def test_slip_update_equals_jax_and_its_fallback(slip, monkeypatch):
-    """The C++ recurrence bit-equal to the JAX package's build; without the
-    library, the port's torch form: the same origins, and scores within the
-    float32 round-off of the values it sums (it adds slip * k before its
-    running max and takes slip * (j - 1) off after: values up to
-    slip * n, so 4 float32 ulps of that)."""
-    x = np.random.RandomState(11).normal(size=200).astype(np.float32)
-    got = native.slip_update(x, slip)
-    same = jnative.slip_update(x, slip)
-    np.testing.assert_array_equal(got[0], same[0])
-    np.testing.assert_array_equal(got[1], same[1])
-    monkeypatch.setattr(native, "_lib", False)
-    twin = native.slip_update(x, slip)
-    assert twin[0].dtype == np.float32 and twin[1].dtype == np.int64
-    atol = 4 * np.finfo(np.float32).eps * (1 + slip * len(x))
-    np.testing.assert_allclose(got[0], twin[0], rtol=1e-6, atol=atol)
-    np.testing.assert_array_equal(got[1], twin[1])
+@pytest.mark.parametrize("scoring", [(1, -1, -2, -1), (2, -3, 0, -4),
+                                     (5, -4, -10, -1)])
+def test_align_semiglobal_scoring_equals_jax(setup, scoring):
+    """The port's build bit-equal to the JAX package's under other match,
+    mismatch, gap-open and gap-extend scores, banded and widened."""
+    match, mismatch, gap_open, gap_extend = scoring
+    for name, call in setup["calls"].items():
+        ref = setup["refs"][name]
+        for band in (None, 24):
+            kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
+                      gap_extend=gap_extend, band=band, auto_widen=True)
+            a = native.align_semiglobal(call, ref, **kw)
+            b = jnative.align_semiglobal(call, ref, **kw)
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert [getattr(a, f) for f in a.__slots__] == \
+                    [getattr(b, f) for f in b.__slots__]
 
 
 @pytest.mark.parametrize("seed", (0, 1, 2, 3))

@@ -166,7 +166,8 @@ def test_basecall_to_sequences_of_the_bases_route(setup):
     """In "bases" mode the codes are the route's own output."""
     caller = tbc.Basecaller(
         tser.load_checkpoint(setup["models"]["transducer"][2])[0], KLEN,
-        output="bases", chunk_size=CHUNK, overlap=OVERLAP, device="cpu")
+        chunked=True, output="bases", chunk_size=CHUNK, overlap=OVERLAP,
+        device="cpu")
     assert caller.chunked
     got = caller.basecall_to_sequences(setup["sigs"])
     ref = caller.basecall_signals(setup["sigs"])
@@ -195,9 +196,10 @@ def test_a_failed_read_gives_none(setup, monkeypatch):
 
 
 @pytest.mark.parametrize("name,kw,error", [
-    ("nontransducer", dict(output="bases", transducer=False),
+    ("nontransducer", dict(chunked=True, output="bases", transducer=False),
      "requires chunked"),
-    ("nbase5", dict(output="bases", alphabet=b"ACGTX"), "requires chunked"),
+    ("nbase5", dict(chunked=True, output="bases", alphabet=b"ACGTX"),
+     "requires chunked"),
     ("transducer", dict(output="bases", chunked=False), "requires chunked"),
     ("transducer", dict(transducer=False), "model emits"),
     ("transducer", dict(alphabet=b"ACGTX"), "model emits")])
@@ -211,7 +213,7 @@ def test_basecaller_refuses_what_the_jax_package_asserts(setup, name, kw,
 def test_decode_post_host_refuses_modified_bases_for_the_old_decoder():
     post = np.full((5, 1, 5 ** KLEN), 1.0 / 5 ** KLEN, np.float32)
     with pytest.raises(ValueError, match="Modified bases"):
-        tbc.decode_post_host(post, KLEN, False, False, 1e-5, nbase=5)
+        tbc.decode_post_host(post, KLEN, False, 1e-5, nbase=5)
 
 
 #: (model, extra CLI arguments) of each CLI case

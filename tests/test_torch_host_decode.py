@@ -1,6 +1,9 @@
-"""The port's host decoders against the JAX package's (CPU): the numpy
-transducer Viterbi (``ops/decode_np.py``), the legacy non-transducer decoder
-(``ops/olddecode.py``) and ``decode_post_host`` on both of its branches.
+"""The port's host decoders against the JAX package's (CPU): the legacy
+non-transducer decoder (``ops/olddecode.py`` over ``ops/decode_np.py``'s
+tables) and ``decode_post_host`` on both of its branches (a raw posterior,
+or one floored on the device); and the JAX package's host transducer
+Viterbi (``ops/decode_np.py``), which the port replaces by its device
+route, against that route's plain twin (``ops/decode.py``) at nbase 4 and 5.
 
 One shared shape: 40 events of posteriors over klen 3 (65 states, or 64 and
 65 for a non-transducer without and with a bad state; 126 at nbase 5), drawn
@@ -60,34 +63,21 @@ def test_predecessor_and_successor_tables_equal_jax(nbase, klen):
 @pytest.mark.parametrize("nbase", (4, 5))
 @pytest.mark.parametrize("skip", (0.0, 5.0))
 @pytest.mark.parametrize("seed", (3, 4))
-def test_numpy_viterbi_equals_jax(nbase, skip, seed):
+def test_the_plain_twin_is_the_jax_host_viterbi(nbase, skip, seed):
+    """The JAX package decodes a transducer read on the host (``decode_np.
+    viterbi``); the port decodes it by the device route, whose plain twin
+    gives the same call and the same score within float32 round-off, from
+    probabilities and from log-probabilities."""
     post = posterior(nbase ** KLEN + 1, seed)
-    same(tdnp.viterbi(post, KLEN, skip_pen=skip, nbase=nbase),
-         jdnp.viterbi(post, KLEN, skip_pen=skip, nbase=nbase))
-    lpost = np.log(post + 1e-10)
-    same(tdnp.viterbi(lpost, KLEN, skip_pen=skip, log=True, nbase=nbase),
-         jdnp.viterbi(lpost, KLEN, skip_pen=skip, log=True, nbase=nbase))
-
-
-@pytest.mark.parametrize("seed", (5, 6))
-def test_host_viterbi_at_nbase_5_is_the_card_routes_twin(seed):
-    """At nbase 5 the host Viterbi's call is the one the device route (its
-    plain twin here) collapses to, and its score the same within float32
-    round-off: the Basecaller decodes a 5-letter transducer on the card."""
-    post = posterior(5 ** KLEN + 1, seed)
-    score, call = tdnp.viterbi(post, KLEN, skip_pen=5.0, nbase=5)
-    dscore, path, moved = tdecode.viterbi(
-        torch.from_numpy(post)[:, None], KLEN, skip_pen=5.0, nbase=5)
-    np.testing.assert_array_equal(
-        tdecode.collapse_path(path[0].numpy(), moved[0].numpy()), call)
-    assert float(dscore[0]) == pytest.approx(score, rel=1e-5)
-
-
-def test_numpy_viterbi_refuses_short_kmers_and_other_state_counts():
-    with pytest.raises(ValueError):
-        tdnp.viterbi(posterior(17, 0), 2)
-    with pytest.raises(ValueError):
-        tdnp.viterbi(posterior(66, 0), KLEN)
+    for p, log in ((post, False), (np.log(post + 1e-10), True)):
+        score, call = jdnp.viterbi(p, KLEN, skip_pen=skip, log=log,
+                                   nbase=nbase)
+        dscore, path, moved = tdecode.viterbi(
+            torch.from_numpy(p)[:, None], KLEN, skip_pen=skip, log=log,
+            nbase=nbase)
+        np.testing.assert_array_equal(
+            tdecode.collapse_path(path[0].numpy(), moved[0].numpy()), call)
+        assert float(dscore[0]) == pytest.approx(score, rel=1e-5)
 
 
 @pytest.mark.parametrize("slip", (0.0, 0.1))
@@ -114,29 +104,30 @@ def test_estimate_transitions_refuses_other_priors():
         told.estimate_transitions(posterior(64, 0), trans=[0.5, 0.5])
 
 
-@pytest.mark.parametrize("transducer,bad", [(True, False), (False, False),
-                                            (False, True)])
+@pytest.mark.parametrize("bad", (False, True))
 @pytest.mark.parametrize("floored", (False, True))
 @pytest.mark.parametrize("trans", (None, [0.3, 0.6, 0.1]))
-def test_decode_post_host_equals_jax(transducer, bad, floored, trans):
+def test_decode_post_host_equals_jax(bad, floored, trans):
     """Both branches: a posterior floored on the device (``floored``: only
     the bad frames and column dropped) or raw (``prepare_post``)."""
-    nstate = 4 ** KLEN + (transducer or bad)
+    nstate = 4 ** KLEN + bad
     post = posterior(nstate, 9)[:, None]
     if floored:
         post = 1e-5 + (1.0 - 1e-5) * post
-    args = (post, KLEN, transducer, bad, 1e-5, 5.0, trans)
-    got = tbc.decode_post_host(*args, floored=floored)
-    ref = jbc.decode_post_host(*args, floored=floored)
+    got = tbc.decode_post_host(post, KLEN, bad, 1e-5, trans,
+                               floored=floored)
+    ref = jbc.decode_post_host(post, KLEN, False, bad, 1e-5, 5.0, trans,
+                               floored=floored)
     same(got, ref)
-    if not transducer:
-        # one state an event, but for the bad frames dropped
-        assert len(got[1]) <= T and (bad or len(got[1]) == T)
+    # one state an event, but for the bad frames dropped
+    assert len(got[1]) <= T and (bad or len(got[1]) == T)
 
 
-def test_decode_post_host_at_nbase_5():
-    post = posterior(5 ** KLEN + 1, 10)[:, None]
-    same(tbc.decode_post_host(post, KLEN, True, False, 1e-5, nbase=5),
-         jbc.decode_post_host(post, KLEN, True, False, 1e-5, nbase=5))
-    with pytest.raises(ValueError, match="posterior has"):
-        tbc.decode_post_host(post, KLEN, True, False, 1e-5, nbase=4)
+@pytest.mark.parametrize("bad", (False, True))
+def test_decode_post_host_refuses_other_state_counts(bad):
+    """A transducer's posterior (one state more than a non-transducer's
+    without a bad state) or one over 5 bases is not the legacy decoder's."""
+    for nstate in (4 ** KLEN + 1 + bad, 5 ** KLEN + bad):
+        with pytest.raises(ValueError, match="posterior has"):
+            tbc.decode_post_host(posterior(nstate, 10)[:, None], KLEN, bad,
+                                 1e-5)

@@ -404,14 +404,15 @@ def test_basecaller_gpu_posterior_matches_cpu(cuda_device):
     layer = tmodels.network_factory("raw_1_00_rGr")(
         klen=3, sd=0.5, sizes=(16, 12, 16, 12), stride=5, seed=4)
     cpu = tbc.Basecaller(layer, 3, chunk_size=2048, overlap=100,
-                         output="bases", device="cpu")
+                         chunked=True, output="bases", device="cpu")
     rs = np.random.RandomState(9)
     x = torch.from_numpy(rs.normal(size=(2048, 3, 1)).astype(np.float32))
     lengths = torch.tensor([2048, 1500, 333])
     with torch.inference_mode():
         ref, _ = cpu._floored_masked_post(x, lengths)
         gpu = tbc.Basecaller(layer, 3, chunk_size=2048, overlap=100,
-                             output="bases", device=cuda_device)
+                             chunked=True, output="bases",
+                             device=cuda_device)
         got, _ = gpu._floored_masked_post(x.to(cuda_device),
                                           lengths.to(cuda_device))
         assert float((got.cpu() - ref).abs().max()) <= 1e-4

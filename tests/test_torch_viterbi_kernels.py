@@ -481,28 +481,97 @@ def test_basecaller_nbase_5_decodes_on_the_card(cuda_device, chunked):
         assert abs(gs - rs_) <= 1e-4 * abs(rs_)
 
 
-@pytest.mark.gpu
-def test_nontransducer_basecaller_runs_the_forward_on_the_card(cuda_device):
-    """A non-transducer with a bad state: the forward and the floor on the
-    card, no Viterbi launch, the legacy decoder on the host; the CPU path's
-    calls.  The weights are small (sd 0.5): no state sits at the
-    ``min_prob`` floor.  At sd 8, 95% of the floored posterior is the
-    floor, whose exact ties the legacy decoder breaks by the round-off of
-    the states just above it: a 1e-6 relative change of the posterior moves
-    its calls on the CPU alone."""
+def _legacy_decoder_inputs(caller, read):
+    """The floored posterior of one read as the legacy decoder sees it (the
+    bad state's frames and column dropped, rows renormalised) and its
+    log-scaled per-event transition weights, as ``decode_post_host``
+    computes them."""
+    from sloika_tpu_torch.ops import olddecode
+    x = torch.from_numpy(read.reshape(len(read), 1, 1)).to(caller.device)
+    lengths = torch.tensor([len(read)], device=caller.device)
+    with torch.inference_mode():
+        post, frames = caller._floored_masked_post(x, lengths)
+    post = post[:int(frames[0]), 0].float().cpu().numpy()
+    post = post[np.argmax(post, axis=1) > 0, 1:]
+    post = post / np.sum(post, axis=1, keepdims=True)
+    trans = olddecode.estimate_transitions(post)
+    return post, np.log(1e-10 + trans)
+
+
+def _legacy_path_score(post, ltrans, path):
+    """The legacy decoder's objective (``olddecode.decode_profile``, no
+    slip) for one state path: each event's log posterior plus the best
+    weight of the moves (stay, step, skip, slip) that join its state to the
+    next."""
+    eta = 1e-10
+    lpost = np.log(np.asarray(post, dtype=float) + eta)
+    nkmer = post.shape[1]
+    w = np.array(ltrans, dtype=float)[:len(post) - 1].copy()
+    w[:, 1] -= np.log(4)
+    w[:, 2] -= np.log(16)
+    score = lpost[0, path[0]]
+    for ev in range(len(path) - 1):
+        a, b = int(path[ev]), int(path[ev + 1])
+        cand = [np.log(eta)]
+        if a == b:
+            cand.append(w[ev, 0])
+        if b in (a * 4 + np.arange(4)) % nkmer:
+            cand.append(w[ev, 1])
+        if b in (a * 16 + np.arange(16)) % nkmer:
+            cand.append(w[ev, 2])
+        score += max(cand) + lpost[ev + 1, b]
+    return score
+
+
+@pytest.mark.parametrize("scale", (0.5, 8.0))
+def test_the_legacy_decoders_score_is_its_paths_score(scale):
+    """``_legacy_path_score`` of the CPU path's own call is the score the
+    legacy decoder returned, flat and peaked posteriors alike."""
     from sloika_tpu_torch import basecall as tbc
-    layer, reads = _peaked_model(4 ** 3 + 1, 23, scale=0.5)
+    layer, reads = _peaked_model(4 ** 3 + 1, 23, scale=scale)
+    caller = tbc.Basecaller(layer, 3, device="cpu", transducer=False,
+                            bad=True, batch_size=2)
+    for (score, path), read in zip(caller.basecall_signals(reads), reads):
+        post, ltrans = _legacy_decoder_inputs(caller, read)
+        assert len(path) == len(post) > 10
+        assert abs(_legacy_path_score(post, ltrans, path) - score) <= \
+            1e-9 * abs(score)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", (0.5, 8.0))
+def test_nontransducer_basecaller_runs_the_forward_on_the_card(cuda_device,
+                                                               scale):
+    """A non-transducer with a bad state: the forward and the floor on the
+    card, no Viterbi launch, the legacy decoder on the host.
+
+    At sd 0.5 no state sits at the ``min_prob`` floor, and the calls are
+    the CPU path's.  At sd 8 (a peaked posterior, as a trained model's is)
+    most of the floored posterior is the floor, whose exact ties the legacy
+    decoder breaks by the round-off of the states just above it: a 1e-6
+    relative change of the posterior can move its path between paths of
+    equal score.  There the card's score is the CPU's within 1e-4, and the
+    card's path, scored on the CPU's posterior, is as good as the CPU's
+    within 1e-4."""
+    from sloika_tpu_torch import basecall as tbc
+    layer, reads = _peaked_model(4 ** 3 + 1, 23, scale=scale)
     kw = dict(transducer=False, bad=True, batch_size=2)
-    ref = tbc.Basecaller(copy.deepcopy(layer), 3, device="cpu",
-                         **kw).basecall_signals(reads)
+    cpu = tbc.Basecaller(copy.deepcopy(layer), 3, device="cpu", **kw)
+    ref = cpu.basecall_signals(reads)
     before = vk.viterbi_forward.launches
     caller = tbc.Basecaller(layer, 3, device=cuda_device, **kw)
     assert next(caller.layer.parameters()).is_cuda
     got = caller.basecall_signals(reads)
     assert vk.viterbi_forward.launches == before
-    for (gs, gc), (rs_, rc) in zip(got, ref):
-        assert np.array_equal(gc, rc) and len(gc) > 10
+    for (gs, gc), (rs_, rc), read in zip(got, ref, reads):
+        assert len(gc) == len(rc) > 10
         assert abs(gs - rs_) <= 1e-4 * abs(rs_)
+        if scale < 1:
+            assert np.array_equal(gc, rc)
+        else:
+            post, ltrans = _legacy_decoder_inputs(cpu, read)
+            assert abs(_legacy_path_score(post, ltrans, gc) - rs_) <= \
+                1e-4 * abs(rs_)
 
 
 @pytest.mark.gpu

@@ -16,7 +16,7 @@ package (CPU).
   objects; ``model_convert`` of a ``.pkl`` writes a ``.npz`` the JAX
   package loads to the same tree;
 * a Studentise events model's whole-read fallback, from the chunked mode
-  (``Basecaller(output="bases")``, the port's chunked mode), calls what
+  (``Basecaller(chunked=True, output="bases")``), calls what
   the JAX ``Basecaller(chunked=True)``'s fallback calls on synthetic event
   features: states equal, scores within 1e-5 relative.
 """
@@ -223,8 +223,8 @@ def test_studentise_fallback_calls_what_the_jax_fallback_calls():
     feats = _event_features(3, 7)
     ref = jbc.Basecaller(jlayer, params, KLEN, chunked=True,
                          batch_size=4).basecall_signals(feats)
-    caller = tbc.Basecaller(port, KLEN, output="bases", batch_size=4,
-                            device="cpu")
+    caller = tbc.Basecaller(port, KLEN, chunked=True, output="bases",
+                            batch_size=4, device="cpu")
     assert caller.output == "states" and caller.studentise
     got = caller.basecall_signals(feats)
     for (gs, gc), (rs_, rc) in zip(got, ref):
