@@ -91,7 +91,20 @@ Phases, each printing one line and raising on failure:
    is nearly flat and barely follows the signal, so each step's frame is
    a near-tie that round-off flips; and against a random reference every
    banded path misses its sequence ends and is re-run exact at a window
-   of ~14,848 positions (a 68 GB traceback at this batch);
+   of ~14,848 positions (a 68 GB traceback at this batch).  Then the wide
+   route of ``remap_banded`` (windows past 16,384 positions), on purpose,
+   the only path that may take it (``wide_launches``): (a) two reads of
+   10,000 samples whose references, 13,000 kmers longer than their
+   frames, bucket to 22,145 positions, remapped exactly at W = 22,272; the DP's inputs of that call
+   through the plain twins on the CPU give bit-identical scores and paths;
+   both kernels timed there, with the bound; (b) reads of 15,500 samples
+   whose references run 18,900 kmers past their frames, so that the bands
+   of 768, 3,072 and 12,288 all miss their ends, in a batch sized from
+   ``torch.cuda.mem_get_info()`` (a ballast tensor holds all but 16 GiB of
+   the card) so that its exact re-run needs 1.2 times the free memory: a
+   real ``torch.OutOfMemoryError`` halves it (the
+   Remapper's ``_oom_sizes``), and the reads are identical to those
+   remapped in batches of half;
 10. LSTM forward: the kernel (the inference variant, and the training
     variant with the cell and gate traces) against its plain twin at
     S = 64, ragged lengths, forward and reverse, at the two event paths'
@@ -180,10 +193,28 @@ Phases, each printing one line and raising on failure:
     basecalling 4 event reads; ``verify`` and ``dump_json`` through their
     ``main`` on the card.
 
-Every path (5-16) sets the kernels' launch counts to 0 before it runs and
+17. call and score (see ``phase_call_and_score``);
+18. chunkify events remap: the ``remap`` chunkify's device part
+    (``chunkify_tools.remap_event_records``) on 16 seeded event tables of
+    3,000-9,000 events in memory, with ``baseline_lstm`` at full width
+    (sd 1.5: a peaked posterior) and references its posterior favours
+    along each read: ``lstm_fwd``, ``remap_banded`` and ``remap_back``
+    must launch, every read must chunk, and the two shortest reads'
+    chunks, labels and bad flags must equal the CPU path's; events/s;
+19. train fused: ``training.train`` of raw_0.98_rgrgr (B = 100 x 2,000)
+    and of ``baseline_lstm`` (B = 100 x 500), 30 steps each at K = 1
+    (streaming, eager) and at K = 10 (the chunk set resident, a CUDA
+    graph replay a group): ms a steady step, chunks/s, replays, launches
+    a step and peak memory side by side; the losses within 1e-4
+    relative; and the parameters after one group of 10 against 10 eager
+    steps under cuDNN's deterministic algorithms (bit-identical is
+    reported; held to 1e-6 absolute, the JAX test's).
+
+Every path (5-19) sets the kernels' launch counts to 0 before it runs and
 reads them after, and fails if a Viterbi wrapper took its general route
-(``general_launches``): the paths decode klen 5 over 4 bases; and if a
-recurrence took the eager scan route (``nn.rnn.scan_route``), but for the
+(``general_launches``): the paths decode klen 5 over 4 bases; if a remap
+wrapper ran at a window wider than 16,384 (``wide_launches``) but in
+phase 9's wide checks; and if a recurrence took the eager scan route (``nn.rnn.scan_route``), but for the
 zoo pickle's ten cells.
 
 Then one JSON line of per-kernel numbers (``viterbi_fwd``'s with the
@@ -244,7 +275,12 @@ PATH_KERNELS = {"basecall": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
                 "call_chunked_states": ("gru_fwd", "viterbi_fwd",
                                         "viterbi_back"),
                 "call_nbase5": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
-                "call_nontransducer": ("gru_fwd",)}
+                "call_nontransducer": ("gru_fwd",),
+                "chunkify_events": ("lstm_fwd", "remap_banded",
+                                    "remap_back"),
+                "train_fused": ("gru_fwd", "gru_bwd", "gru_wgrad"),
+                "train_fused_events": ("lstm_fwd", "lstm_bwd",
+                                       "lstm_wgrad")}
 # whole-read raw basecalling: reads a batch, the short reads' samples (their
 # CPU twin takes seconds), the score tolerance against the CPU path
 RAW_BATCH, RAW_SHORT, RAW_SCORE_RTOL = 8, 20000, 1e-4
@@ -263,6 +299,28 @@ REMAP_SHORT = 13500
 REMAP_SCORE_RTOL, REMAP_SAME_POS = 1e-4, 0.99
 # init sd of the remap path's stand-in weights (see phase 9)
 REMAP_SD = 1.5
+# phase 9's wide checks: (a) WIDE_READS reads of WIDE_SAMPLES samples (2,000
+# frames) whose references, WIDE_EXCESS kmers longer than their frames,
+# bucket to 22,145 positions, remapped exactly at W = 22,272; (b) reads of OOM_SAMPLES samples (3,100 frames,
+# 3,328 with the bucket's stay frames and whole blocks) with references
+# OOM_EXCESS kmers longer than their frames (22,000 positions, in the
+# 22,145 bucket): a window that moves a position a frame at most reaches
+# at most W positions past the frames, so the bands of 768, 3,072 and
+# 12,288 all miss the ends (by more than a half band) and the re-run is
+# exact; in a batch sized from the free memory so that its exact re-run
+# needs OOM_OVERSIZE times it, with a ballast tensor holding all but
+# OOM_FREE_BYTES of the card (the exhaustion is the card's all the same;
+# at the whole card the batch is 628 reads and takes ~50 s)
+WIDE_READS, WIDE_SAMPLES, WIDE_EXCESS, WIDE_W = 2, 10000, 13000, 22272
+OOM_SAMPLES, OOM_EXCESS, OOM_OVERSIZE = 15500, 18900, 1.2
+OOM_FREE_BYTES = 16 * 2 ** 30
+# chunkify events remap: reads, their event counts, the reads checked
+# against the CPU path, the stand-in's weight sd (a peaked posterior, see
+# BF16_EVENTS_SD) and the chunks' events
+CHUNK_EV_READS, CHUNK_EV_CPU, CHUNK_EV_SD, CHUNK_EV_LEN = 16, 2, 1.5, 500
+# train fused: optimiser steps a group; the eager check's tolerance where
+# an op picks another algorithm under capture (tests/test_training.py's)
+FUSED_K, FUSED_ATOL, FUSED_LOSS_RTOL = 10, 1e-6, 1e-4
 # event paths: baseline_lstm's width; 64 reads of 3,000-9,000 events in one
 # batch; training batches of 100 chunks of 500 events
 LSTM_S = 64
@@ -333,29 +391,38 @@ def card_line():
 
 def zero_counts(counters):
     """Set every wrapper's launch count, the Viterbi wrappers' count of
-    general-route launches and the recurrences' scan-route calls to 0."""
+    general-route launches, the remap wrappers' count of wide-window
+    launches and the recurrences' scan-route calls to 0."""
     from sloika_tpu_torch.nn.rnn import scan_route
     for k in counters.values():
         k.launches = 0
-        if hasattr(k, "general_launches"):
-            k.general_launches = 0
+        for extra in ("general_launches", "wide_launches"):
+            if hasattr(k, extra):
+                setattr(k, extra, 0)
     scan_route.calls = 0
 
 
-def read_counts(counters, scan_calls=0, general=False):
+def read_counts(counters, scan_calls=0, general=False, wide=False):
     """The launches of each kernel since :func:`zero_counts`; raises if a
     Viterbi wrapper launched its general route (``general_launches``)
     unless ``general``: the main paths decode klen 5 over 4 bases, the
     tuned kernels' range, and only phase 17's 5-letter transducer takes the
     general route; and unless the recurrences took the eager scan route
     (``nn.rnn.scan_route``) ``scan_calls`` times: 0 on every main path,
-    whose GRUs and LSTMs are the kernels' tanh/sigmoid cells."""
+    whose GRUs and LSTMs are the kernels' tanh/sigmoid cells; and if a
+    remap wrapper ran at a window wider than the tuned route's
+    (``wide_launches``) unless ``wide``: only phase 9's wide checks do."""
     from sloika_tpu_torch.nn.rnn import scan_route
     gen = {n: k.general_launches for n, k in counters.items()
            if getattr(k, "general_launches", 0)}
     if gen and not general:
         raise AssertionError("a main path took the general Viterbi route: "
                              "general_launches {}".format(gen))
+    wide_n = {n: k.wide_launches for n, k in counters.items()
+              if getattr(k, "wide_launches", 0)}
+    if wide_n and not wide:
+        raise AssertionError("a main path took the wide remap route: "
+                             "wide_launches {}".format(wide_n))
     if scan_route.calls != scan_calls:
         raise AssertionError("the scan route ran {} times, {} expected"
                              .format(scan_route.calls, scan_calls))
@@ -1324,15 +1391,16 @@ def phase_remap_kernels(dev):
                    3 * Tp * REMAP_B)]
 
 
-def diagonal_references(layer, reads, dev, overlong=(), samples_per_base=9):
+def diagonal_references(layer, reads, dev, overlong=(), samples_per_base=9,
+                        excess=REMAP_OVERLONG_EXCESS):
     """A reference of about L/9 bases for each DAC read: the kmers the
     model's posterior favours along the read's diagonal, kmer j at frame
     j * nframes / npos, each extending the one before by the best of the
     four bases.  (With random weights the posterior is nearly flat; a
     random reference would leave every banded path off its anchors.)  The
-    reads indexed in ``overlong`` get REMAP_OVERLONG_EXCESS more kmers than
-    frames instead: a band that moves a position a frame at most cannot
-    reach their ends."""
+    reads indexed in ``overlong`` get ``excess`` more kmers than frames
+    instead: a band that moves a position a frame at most cannot reach
+    their ends."""
     from sloika_tpu_torch import remap as tremap
     from sloika_tpu_torch.basecall import gather_normalise_dac
     L = np.array([len(d) for d, _ in reads], np.int64)
@@ -1346,28 +1414,9 @@ def diagonal_references(layer, reads, dev, overlong=(), samples_per_base=9):
         post, nframes = layer.apply_with_lengths(x, t(L))
         nkmer = L // samples_per_base - 4
         for i in overlong:
-            nkmer[i] = int(nframes[i]) + REMAP_OVERLONG_EXCESS
-        rows = torch.arange(len(reads), device=dev)
-        j = torch.arange(int(nkmer.max()), device=dev)
-        frame = torch.minimum(j[None, :] * nframes[:, None]
-                              // t(nkmer)[:, None], nframes[:, None] - 1)
-        state = torch.argmax(post[frame[:, 0], rows, 1:], dim=1)
-        kmers = [state]
-        four = torch.arange(4, device=dev)
-        for i in range(1, frame.shape[1]):
-            cand = (state % 256)[:, None] * 4 + four
-            best = torch.argmax(torch.gather(post[frame[:, i], rows], 1,
-                                             cand + 1), dim=1)
-            state = cand[rows, best]
-            kmers.append(state)
-        kmers = torch.stack(kmers, dim=1).cpu().numpy()
+            nkmer[i] = int(nframes[i]) + excess
+        refs = favoured_references(post, nframes, nkmer)
         del post, x
-    alphabet = np.frombuffer(b"ACGT", np.uint8)
-    refs = []
-    for b, n in enumerate(nkmer):
-        first = (kmers[b, 0] >> (2 * np.arange(4, -1, -1))) & 3
-        refs.append(alphabet[np.concatenate([first, kmers[b, 1:n] & 3])]
-                    .tobytes())
     return refs
 
 
@@ -1449,6 +1498,356 @@ def phase_remap(dev, counters):
                              "score rel err {}, same position {}".format(
                                  rel, same))
     return counts
+
+
+def phase_remap_wide(dev, counters):
+    """Phase 9's wide checks (a) and (b); returns the wide route's entries
+    for ``remap_banded`` and ``remap_back``."""
+    from sloika_tpu_torch import models
+    from sloika_tpu_torch import remap as tremap
+    from sloika_tpu_torch.ops import remap_kernel as rk
+    standin = models.pretrained_standin(sd=REMAP_SD, seed=0).to(dev).eval()
+
+    # (a) two reads remapped exactly at W = 22,272: the wide route, its DP
+    # inputs recorded and run through the plain twins on the CPU
+    reads = [(d[:WIDE_SAMPLES], n4)
+             for d, n4 in synthetic_reads(n=WIDE_READS, seed=21)]
+    refs = diagonal_references(standin, reads, dev,
+                               overlong=range(WIDE_READS), excess=WIDE_EXCESS)
+    remapper = tremap.Remapper(standin, 5, batch_size=WIDE_READS, band=None,
+                               device=dev)
+    recorded = []
+    real = rk.map_to_sequence_banded
+
+    def record(*args):
+        out = real(*args)
+        recorded.append((args, out))
+        return out
+    tremap.remap_kernel.map_to_sequence_banded = record
+    try:
+        zero_counts(counters)
+        out, ms_call = timed_once(
+            lambda: remapper.remap_dac_signals(reads, refs))
+        counts = read_counts(counters, wide=True)
+    finally:
+        tremap.remap_kernel.map_to_sequence_banded = real
+    wide = (rk.remap_banded.wide_launches, rk.remap_backtrack.wide_launches)
+    args, (score, path) = recorded[0]
+    W = args[-1]
+    if dict(remapper.windows) != {WIDE_W: 1} or wide != (1, 1):
+        raise AssertionError("the exact remap did not take the wide route "
+                             "once at W = {}: windows {}, wide_launches {}"
+                             .format(WIDE_W, dict(remapper.windows), wide))
+    cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    (score_p, path_p), plain_ms = timed_once(
+        lambda: rk.map_to_sequence_banded(*cpu_args))
+    same = (torch.equal(score.cpu(), score_p) and
+            torch.equal(path.cpu(), path_p))
+    rel = float(((score.cpu() - score_p).abs() / score_p.abs()).max())
+    ltrans_t, seq, slip, p0, p1, mask, nframes, npos, _ = args
+    T, B = ltrans_t.shape[:2]
+    P = seq.shape[1]
+    TB = rk.block_len(W)
+    Tp = -(-T // TB) * TB
+    starts = rk.band_starts_blocked(nframes, npos, Tp, W, TB)
+    kargs = (ltrans_t, seq, mask, p0, starts, slip, W)
+    ms = cuda_ms(lambda: rk.remap_banded(*kargs), 2)
+    tb, vfinal = rk.remap_banded(*kargs)
+    last = rk.finish_banded(tb, vfinal, starts, p1, rk.remap_backtrack)[1][-1]
+    back_ms = cuda_ms(lambda: rk.remap_backtrack(tb, starts, last), 3)
+    back_plan = rk.remap_back_plan(W)
+    shape = "T={} Tp={} B={} W={} P={}".format(T, Tp, B, W, P)
+    print("remap wide route (a): {} reads of {:,} samples, references {} "
+          "kmers, exact at W={} ({}): paths and scores bit-identical to the "
+          "plain CPU twins {} (score max rel err {:.1e}); remap_banded "
+          "{:.3f} ms ({:.2f} us a step, bound {:.3f} ms by {}), remap_back "
+          "{:.3f} ms (copy {}); twins on the CPU {:.0f} ms; the call {:.0f} "
+          "ms; wide_launches {}; launches {} [{}]".format(
+              WIDE_READS, WIDE_SAMPLES, [len(r) - 4 for r in refs], W, shape,
+              same, rel, ms, 1e3 * ms / Tp,
+              *bound(remap_bytes(T, Tp, B, W, P), 13 * Tp * B * W), back_ms,
+              back_plan["copy"], plain_ms, ms_call, wide,
+              {n: c for n, c in counts.items() if c}, card_line()),
+          flush=True)
+    if not (same and rel <= REMAP_SCORE_RTOL):
+        raise AssertionError("the wide route differs from the plain twins")
+    entries = [
+        with_bound({"shape": shape, "ms": ms, "us_per_step": 1e3 * ms / Tp,
+                    "plain_ms": plain_ms, "max_abs_err": 0.0 if same else
+                    float((path.cpu() - path_p).abs().max()),
+                    "launches": wide[0]},
+                   remap_bytes(T, Tp, B, W, P), 13 * Tp * B * W),
+        with_bound({"shape": shape, "ms": back_ms, "copy": back_plan["copy"],
+                    "max_abs_err": 0.0 if same else
+                    float((path.cpu() - path_p).abs().max()),
+                    "launches": wide[1]},
+                   Tp * B * (2 + 4 + 4) + B * 4, 3 * Tp * B)]
+    del recorded, args, kargs, tb, vfinal, ltrans_t
+    torch.cuda.empty_cache()
+
+    # (b) a batch whose exact re-run exhausts the card: halved on a real
+    # torch.OutOfMemoryError; the same reads in batches that fit
+    frames = tremap.bucket_length(OOM_SAMPLES) // 5
+    per_read = -(-frames // 256) * 256 * WIDE_W * 2 + frames * 1025 * 4
+    free, total = torch.cuda.mem_get_info()
+    ballast = torch.empty(max(0, free - OOM_FREE_BYTES), dtype=torch.uint8,
+                          device=dev)
+    free, total = torch.cuda.mem_get_info()
+    half = int(np.ceil(OOM_OVERSIZE * free / per_read / 2))
+    # each read cut or repeated to OOM_SAMPLES samples
+    reads = [(np.resize(d, OOM_SAMPLES), n4)
+             for d, n4 in synthetic_reads(n=2 * half, seed=31)]
+    refs = diagonal_references(standin, reads, dev,
+                               overlong=range(len(reads)), excess=OOM_EXCESS)
+    big = tremap.Remapper(standin, 5, batch_size=2 * half, device=dev)
+    torch.cuda.empty_cache()
+    zero_counts(counters)
+    out, ms_big = timed_once(lambda: big.remap_dac_signals(reads, refs))
+    read_counts(counters, wide=True)
+    fits = tremap.Remapper(standin, 5, batch_size=half, device=dev)
+    ref, ms_fit = timed_once(lambda: fits.remap_dac_signals(reads, refs))
+    identical = all(
+        np.array_equal(a[2], b[2]) and a[0] == b[0] for a, b in zip(out, ref))
+    print("remap wide route (b): {} reads of {:,} samples, references {}-{} "
+          "kmers, {:.1f} GB free of {:.1f} GB (a ballast holds the rest), "
+          "~{:.2f} GB a read at the "
+          "exact window; reads re-run by band {}; DP batches by window {}; "
+          "oom_sizes {}; in {:.1f} s, and in batches of {} that fit in "
+          "{:.1f} s (windows {}): reads identical {}".format(
+              len(reads), OOM_SAMPLES, min(map(len, refs)) - 4,
+              max(map(len, refs)) - 4, free / 1e9, total / 1e9,
+              per_read / 1e9, dict(big.reruns), dict(big.windows),
+              sorted(big._oom_sizes), ms_big / 1e3, half, ms_fit / 1e3,
+              dict(fits.windows), identical), flush=True)
+    if (not big._oom_sizes or big.windows.get(WIDE_W, 0) < 2
+            or big.reruns.get(None, 0) != len(reads)):
+        raise AssertionError("no out-of-memory halving at the exact window: "
+                             "{} {}".format(big._oom_sizes,
+                                            dict(big.windows)))
+    if not identical:
+        raise AssertionError("reads remapped after the halving differ from "
+                             "those remapped in batches that fit")
+    entries[0]["oom_halving"] = {"reads": len(reads),
+                                 "oom_sizes": sorted(map(list,
+                                                         big._oom_sizes)),
+                                 "windows": dict(big.windows)}
+    del big, fits, out, ref, ballast
+    torch.cuda.empty_cache()
+    return entries
+
+
+def event_tables(n, seed):
+    """``n`` seeded event tables (mean, stdv, start, length) of
+    EVENTS_MIN-EVENTS_MAX events, as ``data.fast5.read_section_events``
+    gives them."""
+    rs = np.random.RandomState(seed)
+    tables = []
+    for L in rs.randint(EVENTS_MIN, EVENTS_MAX + 1, size=n):
+        ev = np.zeros(L, dtype=[("mean", "f8"), ("stdv", "f8"),
+                                ("start", "f8"), ("length", "f8")])
+        ev["mean"] = 90 + 12 * rs.normal(size=L)
+        ev["stdv"] = rs.uniform(0.5, 3.0, size=L)
+        ev["length"] = rs.geometric(0.1, size=L) / 4000.0
+        ev["start"] = np.cumsum(ev["length"])
+        tables.append(ev)
+    return tables
+
+
+def favoured_references(post, nframes, nkmer):
+    """A reference a read: kmer j the state the posterior ``post`` (T, B,
+    1025) favours at frame j * nframes / nkmer, each kmer extending the one
+    before by the best of the four bases (see diagonal_references)."""
+    dev = post.device
+    B = post.shape[1]
+    rows = torch.arange(B, device=dev)
+    nk = torch.as_tensor(nkmer, device=dev)
+    j = torch.arange(int(nk.max()), device=dev)
+    frame = torch.minimum(j[None, :] * nframes[:, None] // nk[:, None],
+                          nframes[:, None] - 1)
+    state = torch.argmax(post[frame[:, 0], rows, 1:], dim=1)
+    kmers = [state]
+    four = torch.arange(4, device=dev)
+    for i in range(1, frame.shape[1]):
+        cand = (state % 256)[:, None] * 4 + four
+        best = torch.argmax(torch.gather(post[frame[:, i], rows], 1,
+                                         cand + 1), dim=1)
+        state = cand[rows, best]
+        kmers.append(state)
+    kmers = torch.stack(kmers, dim=1).cpu().numpy()
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    refs = []
+    for b, n in enumerate(np.asarray(nkmer)):
+        first = (kmers[b, 0] >> (2 * np.arange(4, -1, -1))) & 3
+        refs.append(alphabet[np.concatenate([first, kmers[b, 1:n] & 3])]
+                    .tobytes())
+    return refs
+
+
+def phase_chunkify_events(dev, counters):
+    """The ``remap`` chunkify's device part (``chunkify_tools.
+    remap_event_records``) on event tables in memory."""
+    import argparse
+    from sloika_tpu_torch import models
+    from sloika_tpu_torch import remap as tremap
+    from sloika_tpu_torch.data import chunkify_tools
+    from sloika_tpu_torch.data.features import from_events
+    layer = seeded_weights(models.network_factory("baseline_lstm")(
+        klen=5, sd=0.5, size=LSTM_S), seed=41, sd=CHUNK_EV_SD).to(dev).eval()
+    tables = event_tables(CHUNK_EV_READS, seed=43)
+    names = ["read_{:02d}".format(i) for i in range(len(tables))]
+    x, lengths = padded_batch([from_events(ev, tag="") for ev in tables])
+    with torch.inference_mode():
+        post, nframes = layer.apply_with_lengths(x.to(dev), lengths.to(dev))
+        refs = favoured_references(post, nframes, lengths.numpy() // 2)
+        del post
+    args = argparse.Namespace(chunk_len=CHUNK_EV_LEN, kmer_len=5,
+                              use_scaled=False, normalisation="per-read",
+                              alphabet=b"ACGT")
+    remapper = tremap.Remapper(layer, 5, batch_size=CHUNK_EV_READS,
+                               device=dev)
+    with contextlib.redirect_stdout(io.StringIO()):      # warm-up
+        chunkify_tools.remap_event_records(remapper, names, tables, refs,
+                                           args)
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        records = chunkify_tools.remap_event_records(remapper, names, tables,
+                                                     refs, args)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts(counters)
+    launches = [counts[n] for n in PATH_KERNELS["chunkify_events"]]
+    nev = sum(len(ev) for ev in tables)
+    # the shortest reads through the CPU path: the same chunks and labels
+    short = list(np.argsort([len(ev) for ev in tables])[:CHUNK_EV_CPU])
+    cpu = tremap.Remapper(copy.deepcopy(layer).cpu(), 5, band=remapper.band,
+                          batch_size=CHUNK_EV_CPU, device="cpu")
+    sub = lambda xs: [xs[i] for i in short]
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = chunkify_tools.remap_event_records(
+            remapper, sub(names), sub(tables), sub(refs), args)
+        want = chunkify_tools.remap_event_records(
+            cpu, sub(names), sub(tables), sub(refs), args)
+    same = len(got) == len(want) == CHUNK_EV_CPU and all(
+        np.array_equal(g[k], w[k]) for g, w in zip(got, want)
+        for k in ("chunks", "labels", "bad"))
+    print("chunkify events remap: {} reads, {} events, references {}-{} "
+          "kmers, baseline_lstm (size {}, sd {}), band {}: {} reads "
+          "chunked into {} chunks of {} events in {:.3f} s, {:.0f} events/s; "
+          "launches lstm_fwd {} remap_banded {} remap_back {}; {} reads' "
+          "chunks and labels equal to the CPU path's {} [{}]".format(
+              len(tables), nev, min(map(len, refs)) - 4,
+              max(map(len, refs)) - 4, LSTM_S, CHUNK_EV_SD, remapper.band,
+              len(records), sum(len(r["chunks"]) for r in records),
+              CHUNK_EV_LEN, dt, nev / dt, *launches, CHUNK_EV_CPU, same,
+              card_line()), flush=True)
+    if len(records) != len(tables) or min(launches) <= 0:
+        raise AssertionError("the chunkify events remap path did not chunk "
+                             "every read through its kernels: {} records, "
+                             "launches {}".format(len(records), launches))
+    if not same:
+        raise AssertionError("chunks on the card differ from the CPU path's")
+    return counts
+
+
+def fused_run(counters, layer, data, K, steps, dev, **kw):
+    """``training.train`` of ``steps`` steps at K a group, timed by a sync
+    at each group's progress mark: (history, stats, counts, ms a steady
+    step, chunks/s, peak bytes, launches a step), the first group left out
+    of the steady state (its graph's warm-up and capture)."""
+    from sloika_tpu_torch import training
+    from sloika_tpu_torch.profile_train import StepMarks
+    clock = StepMarks(sync=True)
+    stats = {}
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, history = training.train(layer, data, niteration=steps, log=clock,
+                                steps_per_dispatch=K, stats=stats,
+                                device=dev, **kw)
+    counts = read_counts(counters)
+    warm = max(K, TRAIN_WARM)
+    first = warm // K - 1
+    dt = clock.marks[-1] - clock.marks[first]
+    n = steps - warm
+    if stats["captured"]:
+        per_step = sum(c for (_, kind), c in stats["captured"].items()
+                       if kind == "launches") / K
+    else:
+        per_step = sum(counts.values()) / steps
+    return (history, stats, counts, 1e3 * dt / n, n * kw["batch_size"] / dt,
+            torch.cuda.max_memory_allocated(), per_step)
+
+
+def phase_train_fused(dev, counters):
+    """raw_0.98_rgrgr at K = 1 (streaming) and K = FUSED_K (resident), then
+    baseline_lstm at both; the parameters after one group held to the eager
+    steps'."""
+    from sloika_tpu_torch import models, training
+    from sloika_tpu_torch.profile_train import (synthetic_chunks,
+                                                synthetic_event_chunks)
+    cases = (("raw", "raw_0.98_rgrgr", synthetic_chunks(), TRAIN_B,
+              TRAIN_SAMPLES, "train_fused"),
+             ("events", "baseline_lstm", synthetic_event_chunks(),
+              EVENTS_TRAIN_B, EVENTS_TRAIN_T, "train_fused_events"))
+    launches = {}
+    for name, model, data, B, T, path in cases:
+        def fresh():
+            layer = models.network_factory(model)(klen=5, sd=0.5, seed=0)
+            return (seeded_weights(layer, seed=25, sd=0.5)
+                    if name == "events" else layer).to(dev)
+        kw = dict(batch_size=B, chunk_len_range=(1.0, 1.0), drop=20, seed=1)
+        eager = fused_run(counters, fresh(), data, 1, TRAIN_STEPS, dev,
+                          data_on_device=False, **kw)
+        fused = fused_run(counters, fresh(), data, FUSED_K, TRAIN_STEPS, dev,
+                          data_on_device=True, **kw)
+        launches[path] = fused[2]
+        rel = float(np.max(np.abs(fused[0][:, 0] - eager[0][:, 0])
+                           / np.abs(eager[0][:, 0])))
+        # one group against FUSED_K eager steps, cuDNN's deterministic
+        # algorithms for the check (its convolution weight gradient may
+        # sum with atomics)
+        torch.backends.cudnn.deterministic = True
+        try:
+            layers = [fresh(), fresh()]
+            for layer, K in zip(layers, (FUSED_K, 1)):
+                training.train(layer, data, niteration=FUSED_K,
+                               steps_per_dispatch=K, data_on_device=K > 1,
+                               log=training.Logger(None, True), device=dev,
+                               **kw)
+            torch.cuda.synchronize()
+            diffs = {n: float((a - b).detach().abs().max()) for (n, a), b in zip(
+                layers[0].named_parameters(), layers[1].parameters())}
+        finally:
+            torch.backends.cudnn.deterministic = False
+        bits = all(d == 0.0 for d in diffs.values())
+        worst = max(diffs, key=diffs.get)
+        print("train fused {}: {} at B={} x {} {}, {} steps, resident: K=1 "
+              "{:.3f} ms a step, {:.1f} chunks/s, {:.1f} launches a step, "
+              "peak {:.1f} MiB; K={} {:.3f} ms a step, {:.1f} chunks/s, "
+              "{} graph replays, {:.1f} launches a step (captured), peak "
+              "{:.1f} MiB; losses over {} steps max rel diff {:.2e}; "
+              "parameters after one group bit-identical to {} eager steps "
+              "{} (worst {} {:.2e}) [{}]".format(
+                  name, model, B, T, "samples" if name == "raw" else "events",
+                  TRAIN_STEPS, eager[3], eager[4], eager[6], eager[5] / 2 ** 20,
+                  FUSED_K, fused[3], fused[4], fused[1]["replays"], fused[6],
+                  fused[5] / 2 ** 20, TRAIN_STEPS, rel, FUSED_K, bits, worst,
+                  diffs[worst], card_line()), flush=True)
+        if fused[1]["replays"] != TRAIN_STEPS // FUSED_K or not (
+                fused[1]["resident"]):
+            raise AssertionError("the fused run did not replay its graph "
+                                 "each group: {}".format(fused[1]))
+        if not (np.isfinite(fused[0]).all() and rel <= FUSED_LOSS_RTOL):
+            raise AssertionError("fused losses differ from the eager ones "
+                                 "by {} relative".format(rel))
+        if not all(d <= FUSED_ATOL for d in diffs.values()):
+            raise AssertionError("parameters after one group differ from "
+                                 "the eager steps': {}".format(diffs))
+        if min(fused[2][k] for k in PATH_KERNELS[path]) <= 0:
+            raise AssertionError("a kernel of {} never launched".format(path))
+    return launches
 
 
 def event_reads(n=EVENTS_READS, seed=13):
@@ -3093,6 +3492,9 @@ def main():
                                                              counters)
     launches["train"], _ = phase_train(dev, counters)
     launches["remap"] = phase_remap(dev, counters)
+    wide = phase_remap_wide(dev, counters)
+    by_name["remap_banded"]["wide_route"] = wide[0]
+    by_name["remap_back"]["wide_route"] = wide[1]
     launches["basecall_events"] = phase_basecall_events(dev, counters, reads)
     launches["train_events"], _ = phase_train_events(dev, counters)
     diag, launches["diagnostics"] = phase_diagnostics(dev, counters)
@@ -3106,6 +3508,8 @@ def main():
                       ("viterbi_back", nbase5["back_max_abs_err"])):
         by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
     launches.update(call_launches)
+    launches["chunkify_events"] = phase_chunkify_events(dev, counters)
+    launches.update(phase_train_fused(dev, counters))
     for path, counts in launches.items():
         for name, n in counts.items():
             entry = by_name[name]

@@ -10,9 +10,11 @@ Subcommands ``raw`` and ``events``::
 The model is a registered name of :mod:`sloika_tpu_torch.models`, a
 ``.py`` model file (copied into the output directory as ``model.py``), or a
 ``.npz`` checkpoint of either package to resume, optimiser state included.
-``--device cuda`` raises when no GPU is present.  Not ported (see ROADMAP):
-``--steps_per_dispatch``, ``--data_on_device``, ``--ndevice`` and
-``--profile``.
+``--device cuda`` raises when no GPU is present.  ``--steps_per_dispatch
+k`` runs k optimiser steps a group (one CUDA graph replay on the card; a
+fixed chunk length, ``--chunk_len_range x x``), ``--data_on_device`` keeps
+the chunk set on the device for such groups, ``--profile dir`` writes a
+``torch.profiler`` Chrome trace.  Not ported (see ROADMAP): ``--ndevice``.
 """
 import argparse
 import os
@@ -79,6 +81,22 @@ def make_parser():
                         help='Standard deviation for initialisation')
     common.add_argument('--seed', default=None, metavar='integer',
                         type=Positive(int), help='Random number seed')
+    common.add_argument('--steps_per_dispatch', metavar='k',
+                        type=Positive(int), default=1,
+                        help='Fuse k optimiser steps a group, one CUDA '
+                             'graph replay on the card (fixed chunk length '
+                             'only; identical maths)')
+    common.add_argument('--data_on_device', default='auto',
+                        choices=('auto', 'on', 'off'),
+                        help='Keep the whole chunk set resident in device '
+                             'memory and gather batches there (the host '
+                             'ships sampler indices only; bit-identical '
+                             'training).  auto = on when '
+                             '--steps_per_dispatch > 1 and the set fits '
+                             'SLOIKA_TPU_RESIDENT_BYTES (1.2 GB)')
+    common.add_argument('--profile', default=None, metavar='dir',
+                        help='Write a torch.profiler Chrome trace of the '
+                             'steady steps under dir')
     common.add_argument('--smooth', default=0.45, metavar='factor',
                         type=proportion, help='Progress smoothing factor')
     common.add_argument('--transducer', default=True, action=AutoBool,
@@ -164,7 +182,11 @@ def main(argv=None):
             save_every=args.save_every, seed=args.seed, smooth=args.smooth,
             transducer=args.transducer, bad=args.bad, log=log,
             opt_state=opt_state, optimiser=args.optimiser,
-            lr_warmup=args.lr_warmup, device=dev)
+            lr_warmup=args.lr_warmup, profile_dir=args.profile,
+            steps_per_dispatch=args.steps_per_dispatch,
+            data_on_device={"auto": "auto", "on": True,
+                            "off": False}[args.data_on_device],
+            device=dev)
     finally:
         log.close()
     return 0

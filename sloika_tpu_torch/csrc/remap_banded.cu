@@ -669,7 +669,199 @@ int launch(const void* lt, const void* seq, const void* pos_mask,
   return (int)cudaGetLastError();
 }
 
+// The wide route: windows of 16,385 .. 32,767 positions, past what the
+// block above holds (10 bytes a position of shared memory and PPT <= 16
+// positions a thread in registers).  The exact DP of a reference in the
+// 22,145-position bucket takes W = 22,272.  A simple design that is right:
+// one block of 1,024 threads a row, ppt = ceil(W / 1024) contiguous
+// positions a thread (17..32), and the window's carried scores (two
+// buffers, read one step and written the next), prefix maxima and their
+// positions kept in device memory (scratch, 16 bytes a position a row:
+// 22.8 MB at B = 64, W = 22,272, which the 50 MB L2 holds).  A step:
+//   1. each thread's running max of y = p + slip*j over its positions, a
+//      __shfl_up_sync scan of those in the warp, lane 31 publishes the
+//      warp's total; barrier;
+//   2. the fold of the warp totals before the thread's warp, then each
+//      position's prefix max and its position written to scratch; the
+//      traceback row of the step before is copied out of shared memory
+//      (staged there so that the block writes it contiguously); barrier;
+//   3. the update at every position, as the moved-window branch above
+//      (that branch is the general formula; d = 0 inside a block), its
+//      delta staged in shared memory by the parity of t.
+// The same rounding as above (no fused multiply-add), so the traceback and
+// the final scores are bit-identical to the plain twin's.  What bounds it:
+// the W positions a step on one SM, ~80 instructions and ~35 bytes of
+// L1/L2 traffic each, and two block barriers a step.
+constexpr int kWideThreads = 1024;
+
+__global__ void __launch_bounds__(kWideThreads)
+remap_banded_wide_kernel(const float* __restrict__ lt,
+                         const int32_t* __restrict__ seq,
+                         const uint8_t* __restrict__ pos_mask,
+                         const float* __restrict__ prior0,
+                         const int32_t* __restrict__ starts,
+                         int16_t* __restrict__ tb, float* __restrict__ vfinal,
+                         float* scratch, int T, int B, int NS, int P, int W,
+                         int Tp, int ppt, float slip) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Wc = ppt * kWideThreads;
+  int16_t* stage = reinterpret_cast<int16_t*>(smem);     // [2][Wc] deltas
+  __shared__ float wtot_v[kWideThreads / 32];
+  __shared__ int wtot_i[kWideThreads / 32];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int j0 = tid * ppt;
+  const int32_t* seq_b = seq + (size_t)b * P;
+  const uint8_t* mask_b = pos_mask + (size_t)b * P;
+  float* pc = scratch + (size_t)b * 4 * Wc;   // scores, this step
+  float* pn = pc + Wc;                        // scores, the next
+  float* ys = pn + Wc;                        // prefix max
+  int* yi = reinterpret_cast<int*>(ys + Wc);  // its position
+
+  // copy staged traceback row t (buffer t & 1) to device memory
+  auto flush = [&](int t) {
+    const int16_t* src = stage + (size_t)(t & 1) * Wc;
+    int16_t* dst = tb + ((size_t)t * B + b) * W;
+    for (int j = tid; j < W; j += kWideThreads) dst[j] = src[j];
+  };
+
+  // t = 0: the initialisation row (sloika_tpu/ops/pallas/remap.py:311-315)
+  int s_prev = starts[b];
+  {
+    const float* row = lt + (size_t)b * NS;
+    const float stay0 = row[0];
+    for (int i = 0; i < ppt; ++i) {
+      const int j = j0 + i;
+      const int a = s_prev + j;
+      const int idx = min(max(a, 0), P - 1);
+      const bool ok = j < W && a < P && mask_b[idx];
+      const float em = ok ? row[min(max(seq_b[idx], 0), NS - 1)] : kNeg;
+      pc[j] = em > kNeg * 0.5f
+                  ? __fadd_rn(prior0[(size_t)b * P + idx], fmaxf(em, stay0))
+                  : kNeg;
+      stage[j] = 0;
+    }
+  }
+  for (int t = 1; t < Tp; ++t) {
+    const int s = starts[(size_t)t * B + b];
+    const int d = s - s_prev;
+    // 1. the thread's running max of y, then the warp's inclusive scan
+    // (the earlier total wins ties)
+    float bv = -INFINITY;
+    int bi = 0;
+    for (int i = 0; i < ppt; ++i) {
+      const int j = j0 + i;
+      later(bv, bi, __fadd_rn(pc[j], __fmul_rn(slip, (float)j)), j);
+    }
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float ov = __shfl_up_sync(kFull, bv, o);
+      const int oi = __shfl_up_sync(kFull, bi, o);
+      const bool take = lane >= o && !(bv > ov);
+      bv = take ? ov : bv;
+      bi = take ? oi : bi;
+    }
+    float ev = __shfl_up_sync(kFull, bv, 1);
+    int ei = __shfl_up_sync(kFull, bi, 1);
+    if (lane == 31) {
+      wtot_v[warp] = bv;
+      wtot_i[warp] = bi;
+    }
+    __syncthreads();
+    // 2. the prefix max before this thread's positions: the warps before
+    // this one, then the lanes before this one, then through its positions
+    float cv = -INFINITY;
+    int ci = 0;
+    for (int k = 0; k < warp; ++k) later(cv, ci, wtot_v[k], wtot_i[k]);
+    if (lane > 0) later(cv, ci, ev, ei);
+    for (int i = 0; i < ppt; ++i) {
+      const int j = j0 + i;
+      later(cv, ci, __fadd_rn(pc[j], __fmul_rn(slip, (float)j)), j);
+      ys[j] = cv;
+      yi[j] = ci;
+    }
+    flush(t - 1);
+    __syncthreads();
+    // 3. stay, then step, then slip, each under strict >
+    const bool live = t < T;
+    const float* row = lt + ((size_t)(live ? t : 0) * B + b) * NS;
+    const float stay = live ? row[0] : 0.0f;
+    const float df = (float)d;
+    int16_t* st_row = stage + (size_t)(t & 1) * Wc;
+    for (int i = 0; i < ppt; ++i) {
+      const int j = j0 + i;
+      const int a = s + j;
+      const int idx = min(max(a, 0), P - 1);
+      const bool ok = j < W && a < P && mask_b[idx];
+      const float em =
+          (ok && live) ? row[min(max(seq_b[idx], 0), NS - 1)] : kNeg;
+      const int src = j + d;
+      const float q = (src >= 0 && src < W) ? pc[src] : kNeg;
+      const float qm1 = (j > 0 && src >= 1 && src - 1 < W) ? pc[src - 1] : kNeg;
+      const float z = (src >= 2 && src < W) ? ys[src - 2] : kNeg;
+      float c = __fadd_rn(q, stay);
+      int delta = 0;
+      const float step = __fadd_rn(qm1, em);
+      if (step > c) {
+        c = step;
+        delta = 1;
+      }
+      const float fs = __fsub_rn(
+          z, __fmul_rn(slip, __fadd_rn(__fsub_rn((float)j, 1.0f), df)));
+      const float sl = __fadd_rn(fs, em);
+      if (sl > c) {
+        int zw = src - 2;              // the twin's roll: mod W
+        if (zw < 0) zw += W;
+        else if (zw >= W) zw %= W;
+        delta = src - yi[zw];
+        c = sl;
+      }
+      pn[j] = ok ? c : kNeg;
+      st_row[j] = (int16_t)delta;
+    }
+    float* tmp = pc;
+    pc = pn;
+    pn = tmp;
+    s_prev = s;
+  }
+  __syncthreads();
+  flush(Tp - 1);
+  for (int i = 0; i < ppt; ++i) {
+    const int j = j0 + i;
+    if (j < W) vfinal[(size_t)b * W + j] = pc[j];
+  }
+}
+
 }  // namespace
+
+// The wide route (see remap_banded_wide_kernel): the same arguments as
+// remap_banded but for the plan's ppt (ceil(W / 1024)) and smem (2 * ppt *
+// 1024 * 2 bytes of staged traceback rows), and scratch, (B, 4, ppt *
+// 1024) floats of device memory.  Returns the launch's cudaError_t;
+// cudaErrorInvalidValue (1) for a window outside 1..32,767 or a plan that
+// does not cover it.
+extern "C" int remap_banded_wide(const void* lt, const void* seq,
+                                 const void* pos_mask, const void* prior0,
+                                 const void* starts, void* tb, void* vfinal,
+                                 void* scratch, int T, int B, int NS, int P,
+                                 int W, int Tp, float slip, int ppt,
+                                 int smem, void* stream) {
+  if (W < 1 || W > 32767 || ppt < 1 || ppt * kWideThreads < W || T < 1 ||
+      Tp < T || smem < 4 * ppt * kWideThreads || (uintptr_t)lt % 4)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      remap_banded_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  remap_banded_wide_kernel<<<B, kWideThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)lt, (const int32_t*)seq, (const uint8_t*)pos_mask,
+      (const float*)prior0, (const int32_t*)starts, (int16_t*)tb,
+      (float*)vfinal, (float*)scratch, T, B, NS, P, W, Tp, ppt, slip);
+  return (int)cudaGetLastError();
+}
 
 // lt (T, B, NS) f32; seq (B, P) int32; pos_mask (B, P) uint8; prior0 (B, P)
 // f32; starts (Tp, B) int32; tb (Tp, B, W) int16; vfinal (B, W) f32.  The

@@ -1,9 +1,16 @@
-"""The ``raw_remap`` chunkify main of the port (cf.
-``sloika_tpu/data/chunkify_tools.py``): raw reads are loaded and trimmed on
-host threads, remapped against their references in device batches
-(:class:`sloika_tpu_torch.remap.Remapper`), then cut into labelled chunks
-and written to HDF5 with a strand summary.  One process; the outputs are
-those of the JAX package's single-process run.
+"""The chunkify mains of the port (cf. ``sloika_tpu/data/
+chunkify_tools.py``): ``identity`` and ``raw_identity`` chunk reads by the
+mapping tables in their files; ``remap`` and ``raw_remap`` remap event or
+raw reads against their references in device batches
+(:class:`sloika_tpu_torch.remap.Remapper`) first.  Reads are loaded on host
+threads; the chunks are written to HDF5 (and, for the remap mains, a
+strand summary) in read order.  One process; the outputs are those of the
+JAX package's single-process run.
+
+A read that cannot be loaded, trimmed, remapped or chunked is reported on
+stderr and skipped; it never aborts the run.  The remap mains' device parts,
+:func:`remap_event_records` and :func:`remap_raw_records`, take reads in
+memory (no h5py), so they run where h5py is missing.
 """
 import os
 import sys
@@ -11,8 +18,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from sloika_tpu_torch import util
-from sloika_tpu_torch.data import batching, hdf5, raw_chunkify
+from sloika_tpu_torch import bio, util
+from sloika_tpu_torch.data import batching, features, hdf5, raw_chunkify
+from sloika_tpu_torch.data import fast5
 from sloika_tpu_torch.data.fast5 import (filename_short, iterate_fast5,
                                          read_raw_signal)
 
@@ -68,6 +76,191 @@ def _guard_overwrite(args, *paths):
                 sys.exit(1)
 
 
+def _chunk_pool(args, worker, files):
+    """``worker(fn)`` over the files on ``args.jobs`` threads; the records
+    of the reads that gave one, in read order."""
+    records, i = [], 0
+    with ThreadPoolExecutor(max_workers=args.jobs) as pool:
+        for res in pool.map(worker, files):
+            if res is not None:
+                i = util.progress_report(i)
+                chunks, labels, bad_ev = res
+                records.append({"chunks": np.ascontiguousarray(chunks),
+                                "labels": np.ascontiguousarray(labels),
+                                "bad": np.ascontiguousarray(bad_ev)})
+    return records
+
+
+def chunkify_with_identity_main(args):
+    """Chunk mapped event files (sloika_tpu/data/chunkify_tools.py:94-137)."""
+    _guard_overwrite(args, args.output)
+    files = iterate_fast5(args.input_folder, limit=args.limit,
+                          strand_list=args.input_strand_list)
+    print('* Processing data using', args.jobs, 'threads')
+
+    def worker(fn):
+        try:
+            ev, _ = fast5.get_any_mapping_data(fn, args.section)
+        except Exception as e:        # a malformed file: skip the read
+            sys.stderr.write('Failed to get mapping data from {}.\n{}\n'
+                             .format(fn, repr(e)))
+            return None
+        try:
+            ev = batching.trim_ends_and_filter(ev, tuple(args.trim),
+                                               args.min_length,
+                                               args.chunk_len)
+            if ev is None:
+                sys.stderr.write('{} is too short.\n'.format(fn))
+                return None
+            return batching.chunkify(ev, args.chunk_len, args.kmer_len,
+                                     args.use_scaled, args.normalisation,
+                                     alphabet=args.alphabet)
+        except Exception as e:        # e.g. kmers outside the alphabet
+            sys.stderr.write('Failed to chunk {}.\n{}\n'.format(fn, repr(e)))
+            return None
+
+    _finalise(args, _chunk_pool(args, worker, files), 'events')
+
+
+def raw_chunkify_with_identity_main(args):
+    """Chunk raw signal by the mapping tables in the files
+    (sloika_tpu/data/chunkify_tools.py:144-204)."""
+    _guard_overwrite(args, args.output)
+    files = iterate_fast5(args.input_folder, limit=args.limit,
+                          strand_list=args.input_strand_list)
+    print('* Processing data using', args.jobs, 'threads')
+
+    def worker(fn):
+        try:
+            mapping_table, att = fast5.get_any_mapping_data(fn, 'template')
+            sig = read_raw_signal(fn)
+            rate = fast5.sample_rate(fn)
+            start_sample = fast5.raw_start_sample(fn)
+        except Exception as e:        # a malformed file: skip the read
+            sys.stderr.write('Failed to get mapping data from {}.\n{}\n'
+                             .format(fn, repr(e)))
+            return None
+        try:
+            mapping_table = raw_chunkify.convert_mapping_times_to_samples(
+                mapping_table, start_sample, rate)
+            map_start = mapping_table['start'][0] + args.trim[0]
+            map_end = (mapping_table['start'][-1]
+                       + mapping_table['length'][-1] - args.trim[1])
+            mapped_signal, mapping_table = \
+                raw_chunkify.trim_signal_and_mapping(
+                    sig, mapping_table, map_start, map_end)
+            if not raw_chunkify.mapping_table_is_registered(mapped_signal,
+                                                            mapping_table):
+                sys.stderr.write('Failed to register signal and mapping in '
+                                 '{}.\n'.format(fn))
+                return None
+            if len(mapped_signal) < max(args.chunk_len, args.min_length):
+                sys.stderr.write('{} is too short.\n'.format(fn))
+                return None
+            return raw_chunkify.raw_chunkify(
+                mapped_signal, mapping_table, args.chunk_len, args.kmer_len,
+                args.normalisation, args.downsample_factor,
+                args.interpolation, att, alphabet=args.alphabet)
+        except Exception as e:        # an empty or foreign mapping table
+            sys.stderr.write('Failed to chunk {}.\n{}\n'.format(fn, repr(e)))
+            return None
+
+    _finalise(args, _chunk_pool(args, worker, files), 'raw')
+
+
+def remap_event_records(remapper, names, events, references, args):
+    """The device part of ``remap``: remap trimmed event tables against
+    their references and chunk them (sloika_tpu/data/chunkify_tools.py:
+    383-419).  In memory: no file is read or written.
+
+    :param names: read names;  :param events: their event record arrays
+    :param references: their reference sequences (bytes)
+    :param args: chunk_len, kmer_len, use_scaled, normalisation, alphabet
+    :returns: [{"chunks", "labels", "bad", "strand"}] of the reads that
+        chunked, in order
+    """
+    import numpy.lib.recfunctions as nprf
+    feats = [features.from_events(ev, tag='') for ev in events]
+    print('* Remapping {} reads on {}'.format(len(names), remapper.device))
+    results = remapper.remap_signals(feats, references)
+    records = []
+    i = 0
+    for sn, ev, ref, res in zip(names, events, references, results):
+        if res is None:
+            continue
+        score, _mapping, path, seq = res
+        kmers = np.array(bio.seq_to_kmers(ref, args.kmer_len))
+        try:
+            ev2 = nprf.append_fields(
+                ev, ['seq_pos', 'kmer', 'good_emission'],
+                [path, kmers[path], np.repeat(True, len(ev))])
+            chunks, labels, bad_ev = batching.chunkify(
+                ev2, args.chunk_len, args.kmer_len, args.use_scaled,
+                args.normalisation, alphabet=args.alphabet)
+        except Exception as e:        # e.g. kmers outside the alphabet
+            sys.stderr.write('Failure chunking {}.\n{}\n'.format(sn, repr(e)))
+            continue
+        i = util.progress_report(i)
+        row = '\t'.join(str(x) for x in [
+            sn + '.fast5', len(ev), -score / len(ev),
+            int(np.sum(np.ediff1d(path, to_begin=1) == 0)), len(seq),
+            int(path.min()), int(path.max())]) + '\n'
+        records.append({"chunks": chunks, "labels": labels, "bad": bad_ev,
+                        "strand": row})
+    return records
+
+
+def chunkify_with_remap_main(args):
+    """Remap event reads against references, then chunk
+    (sloika_tpu/data/chunkify_tools.py:330-421)."""
+    _guard_overwrite(args, args.output, args.output_strand_list)
+    if args.dac:
+        sys.stderr.write('--dac applies to raw_remap only (event features '
+                         'are not DAC samples); ignored.\n')
+    files = iterate_fast5(args.input_folder, limit=args.limit,
+                          strand_list=args.input_strand_list)
+    references = util.fasta_file_to_dict(args.references)
+    remapper = _load_remap_model(args)
+
+    def load(fn):
+        """(name, trimmed events) of one read, or None.  ``--segmentation``
+        names an analysis the reader does not consult: both of the JAX
+        reader's calls read the Basecall_1D/2D event table
+        (sloika_tpu/data/chunkify_tools.py:350-355)."""
+        try:
+            sn = filename_short(fn)
+            ev = fast5.read_section_events(fn, args.section)
+        except Exception as e:        # a malformed file: skip the read
+            sys.stderr.write('Failure reading events from {}.\n{}\n'
+                             .format(fn, repr(e)))
+            return None
+        if sn not in references:
+            sys.stderr.write('No reference found for {}.\n'.format(sn))
+            return None
+        try:
+            ev = batching.trim_ends_and_filter(ev, tuple(args.trim),
+                                               args.min_length,
+                                               args.chunk_len)
+        except Exception as e:
+            sys.stderr.write('Failure trimming events from {}.\n{}\n'
+                             .format(fn, repr(e)))
+            return None
+        if ev is None:
+            sys.stderr.write('{} is too short.\n'.format(fn))
+            return None
+        return sn, ev
+
+    with ThreadPoolExecutor(max_workers=args.jobs) as pool:
+        loaded = [r for r in pool.map(load, files) if r is not None]
+    names = [r[0] for r in loaded]
+    records = remap_event_records(remapper, names, [r[1] for r in loaded],
+                                  [references[n] for n in names], args)
+    _finalise(args, records, 'events',
+              strand_header='\t'.join(['filename', 'nev', 'score', 'nstay',
+                                       'seqlen', 'start', 'end']) + '\n',
+              strand_path=args.output_strand_list)
+
+
 def _load_remap_model(args):
     """The Remapper of the CLI's options, from a model ``.npz`` checkpoint,
     JSON or reference ``.pkl`` (sloika_tpu/data/chunkify_tools.py:212)."""
@@ -82,6 +275,52 @@ def _load_remap_model(args):
                     min_prob=args.min_prob, slip=args.slip,
                     prior=tuple(args.prior), alphabet=args.alphabet,
                     batch_size=args.batch, band=band, device=args.device)
+
+
+def remap_raw_records(remapper, loaded, references, args):
+    """The device part of ``raw_remap``: remap raw reads against their
+    references and chunk them (sloika_tpu/data/chunkify_tools.py:288-321).
+    In memory: no file is read or written.
+
+    :param loaded: per read (name, trimmed pA signal) or, with ``args.dac``,
+        (name, signal, (dac, norm4)) as :func:`load_raw_dac` gives
+    :param references: their reference sequences (bytes)
+    :param args: chunk_len, kmer_len, normalisation, downsample_factor,
+        interpolation, alphabet, dac
+    :returns: [{"chunks", "labels", "bad", "strand"}] of the reads that
+        chunked, in order
+    """
+    print('* Remapping {} reads on {}'.format(len(loaded), remapper.device))
+    if args.dac:
+        results = remapper.remap_dac_signals([r[2] for r in loaded],
+                                             references)
+    else:
+        results = remapper.remap_signals(
+            [batching.normalise_raw_signal(r[1]) for r in loaded], references)
+
+    records = []
+    i = 0
+    for (sn, signal, *_), ref, res in zip(loaded, references, results):
+        if res is None:
+            continue
+        score, mapping_table, path, seq = res
+        mapping_attrs = {'reference': ref, 'direction': '+', 'ref_start': 0}
+        try:
+            chunks, labels, bad_ev = raw_chunkify.raw_chunkify(
+                signal.astype(np.float32), mapping_table, args.chunk_len,
+                args.kmer_len, args.normalisation, args.downsample_factor,
+                args.interpolation, mapping_attrs, alphabet=args.alphabet)
+        except Exception as e:        # e.g. kmers outside the alphabet
+            sys.stderr.write('Failure chunking {}.\n{}\n'.format(sn, repr(e)))
+            continue
+        i = util.progress_report(i)
+        row = '\t'.join(str(x) for x in [
+            sn + '.fast5', len(mapping_table), -score / len(mapping_table),
+            int(np.sum(np.ediff1d(path, to_begin=1) == 0)), len(seq),
+            int(path.min()), int(path.max())]) + '\n'
+        records.append({"chunks": chunks, "labels": labels, "bad": bad_ev,
+                        "strand": row})
+    return records
 
 
 def raw_chunkify_with_remap_main(args):
@@ -130,37 +369,8 @@ def raw_chunkify_with_remap_main(args):
 
     with ThreadPoolExecutor(max_workers=args.jobs) as pool:
         loaded = [r for r in pool.map(load, files) if r is not None]
-    names = [r[0] for r in loaded]
-    refs = [references[n] for n in names]
-
-    print('* Remapping {} reads on {}'.format(len(names), remapper.device))
-    if args.dac:
-        results = remapper.remap_dac_signals([r[2] for r in loaded], refs)
-    else:
-        results = remapper.remap_signals(
-            [batching.normalise_raw_signal(r[1]) for r in loaded], refs)
-
-    records = []
-    i = 0
-    for (sn, signal, *_), (score, mapping_table, path, seq) in zip(loaded,
-                                                                    results):
-        mapping_attrs = {'reference': references[sn], 'direction': '+',
-                         'ref_start': 0}
-        try:
-            chunks, labels, bad_ev = raw_chunkify.raw_chunkify(
-                signal.astype(np.float32), mapping_table, args.chunk_len,
-                args.kmer_len, args.normalisation, args.downsample_factor,
-                args.interpolation, mapping_attrs, alphabet=args.alphabet)
-        except (ValueError, IndexError) as e:
-            sys.stderr.write('Failure chunking {}.\n{}\n'.format(sn, repr(e)))
-            continue
-        i = util.progress_report(i)
-        row = '\t'.join(str(x) for x in [
-            sn + '.fast5', len(mapping_table), -score / len(mapping_table),
-            int(np.sum(np.ediff1d(path, to_begin=1) == 0)), len(seq),
-            int(path.min()), int(path.max())]) + '\n'
-        records.append({"chunks": chunks, "labels": labels, "bad": bad_ev,
-                        "strand": row})
+    records = remap_raw_records(remapper, loaded,
+                                [references[r[0]] for r in loaded], args)
     _finalise(args, records, 'raw',
               strand_header='\t'.join(['filename', 'nblocks', 'score',
                                        'nstay', 'seqlen', 'start',

@@ -1,8 +1,9 @@
 """The parts of the single-read fast5 reader that the port uses, copied from
 ``sloika_tpu/data/fast5.py``.  That module imports h5py at the top; here
 h5py is imported inside the readers (:func:`read_raw_signal`,
-:func:`read_section_events`, :func:`read_reference_fasta`), so the port
-imports on a machine without it."""
+:func:`read_section_events`, :func:`read_reference_fasta`,
+:func:`get_any_mapping_data`, :func:`sample_rate`,
+:func:`raw_start_sample`), so the port imports on a machine without it."""
 import glob
 import os
 import re
@@ -26,6 +27,23 @@ def read_raw_signal(path):
         meta = dict(h5["UniqueGlobalKey/channel_id"].attrs)
     sig = (sig + meta["offset"]) * meta["range"] / meta["digitisation"]
     return sig.astype(np.float32)
+
+
+def sample_rate(path):
+    """The channel's sampling rate (``Fast5.sample_rate``,
+    sloika_tpu/data/fast5.py:48)."""
+    import h5py
+    with h5py.File(path, "r") as h5:
+        return float(h5["UniqueGlobalKey/channel_id"].attrs["sampling_rate"])
+
+
+def raw_start_sample(path):
+    """The first read's start time in samples (``Fast5.raw_start_sample``,
+    sloika_tpu/data/fast5.py:81)."""
+    import h5py
+    with h5py.File(path, "r") as h5:
+        reads = h5["Raw/Reads"]
+        return int(reads[sorted(reads.keys())[0]].attrs["start_time"])
 
 
 def _latest(h5, base, contains=None):
@@ -65,6 +83,51 @@ def read_section_events(path, section="template"):
             if events in h5:
                 return h5[events][:]
     raise ValueError("No events for section {!r} in {}".format(section, path))
+
+
+def _to_str(x):
+    """(sloika_tpu/data/fast5.py:181)"""
+    return x.decode("utf-8") if isinstance(x, bytes) else str(x)
+
+
+def get_any_mapping_data(path, section="template"):
+    """Mapping table (events aligned to a reference) and its attributes,
+    from the latest AlignToRef analysis that holds one
+    (``Fast5.get_any_mapping_data``, sloika_tpu/data/fast5.py:127-168).
+    A table without a ``move`` column gets one, the ``seq_pos`` steps;
+    ``seq_pos`` indexes the per-read reference, so ``ref_start`` and
+    ``ref_stop`` are read-local.
+
+    :returns: (mapping_table, attrs) with attrs keys direction, ref_start,
+        ref_stop, genome_start, genome_end, reference
+    """
+    import h5py
+    ev_rel = "CurrentSpaceMapped_{}/Events".format(section)
+    with h5py.File(path, "r") as h5:
+        grp = _latest(h5, "AlignToRef", contains=ev_rel)
+        if grp is None:
+            raise ValueError("No mapping data in {}".format(path))
+        ev = h5["{}/{}".format(grp, ev_rel)][:]
+        summ = "{}/Summary/current_space_map_{}".format(grp, section)
+        a = dict(h5[summ].attrs) if summ in h5 else {}
+    if ev.dtype.names and 'move' not in ev.dtype.names:
+        import numpy.lib.recfunctions as nprf
+        move = np.ediff1d(ev['seq_pos'], to_begin=1)
+        if len(move) > 1 and np.all(move[1:] <= 0):
+            raise ValueError(
+                "mapping table seq_pos is non-increasing in {} — "
+                "unsupported coordinate layout".format(path))
+        ev = nprf.append_fields(ev, 'move', move, usemask=False)
+    reference = read_reference_fasta(path, section=section)
+    attrs = {
+        "direction": _to_str(a.get("direction", "+")),
+        "ref_start": 0,
+        "ref_stop": len(reference),
+        "genome_start": int(a.get("genome_start", 0)),
+        "genome_end": int(a.get("genome_end", 0)),
+        "reference": reference,
+    }
+    return ev, attrs
 
 
 def read_reference_fasta(path, section="template"):

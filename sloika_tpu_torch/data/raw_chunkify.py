@@ -1,12 +1,42 @@
 """Raw-signal chunking and labelling of remapped reads, copied from
 ``sloika_tpu/data/raw_chunkify.py`` (numpy; that module imports jax through
-``data/batching.py``).  Only what ``raw_remap`` calls is copied."""
+``data/batching.py``).  Only what ``raw_remap`` and ``raw_identity`` call
+is copied."""
 import numpy as np
 
 from sloika_tpu_torch import maths
 from sloika_tpu_torch.data.batching import (AVAILABLE_NORMALISATIONS,
                                             kmer_array_to_states)
 from sloika_tpu_torch.variables import DEFAULT_ALPHABET
+
+
+def convert_mapping_times_to_samples(mapping_table, start_sample,
+                                     sample_rate):
+    """Replace time coordinates (seconds) with raw-signal sample indices
+    (copied from sloika_tpu/data/raw_chunkify.py:14).  Raises where the
+    mapped blocks are not contiguous."""
+    new_field_types = {'start': '<i8', 'length': '<i8'}
+    # dtype[name].str (not .descr) strips h5py's metadata wrappers
+    new_dtype = [(name, new_field_types.get(name,
+                                            mapping_table.dtype[name].str))
+                 for name in mapping_table.dtype.names]
+
+    if not np.allclose(mapping_table['start'][:-1]
+                       + mapping_table['length'][:-1],
+                       mapping_table['start'][1:]):
+        raise ValueError("mapping table blocks are not contiguous in time")
+
+    starts = np.around(mapping_table['start'] * sample_rate
+                       - start_sample).astype(int)
+    lengths = np.around(mapping_table['length'] * sample_rate).astype(int)
+    if not np.all(starts[:-1] + lengths[:-1] == starts[1:]):
+        raise ValueError("mapping table blocks are not contiguous in "
+                         "samples")
+
+    new_mapping_table = mapping_table.copy().astype(new_dtype)
+    new_mapping_table['start'] = starts
+    new_mapping_table['length'] = lengths
+    return new_mapping_table
 
 
 def trim_signal_and_mapping(signal, mapping_table, start_sample, end_sample):

@@ -12,7 +12,14 @@ with ``csrc/remap_back.cu``: the reverse walk ``pos -= delta``.
 Both kernels take their launch plans from Python: :func:`remap_banded_plan`
 (consumer warps, positions a thread, the posterior ring's slots, shared
 memory) and :func:`remap_back_plan` (frames a slot of the traceback ring,
-slots, shared memory).
+slots, shared memory).  A window wider than :data:`MAX_W` (the exact DP of
+a reference in the 22,145-position bucket takes W = 22,272) goes to
+``remap_banded.cu``'s wide route, whose scores live in device memory
+(:func:`kernel_route`, decided by shape before any build); both wrappers
+count launches at such a window in ``wide_launches`` as well as
+``launches``.  Past :data:`WIDE_MAX_W` the int16 position deltas cannot
+hold a slip (the JAX kernel's float-to-int16 cast saturates there and its
+traceback walks to a wrong position), so the plans refuse the window.
 
 Both dispatch on the device of their input: the kernel for a CUDA tensor,
 the plain twin (:func:`remap_banded_plain`, :func:`remap_backtrack_plain`)
@@ -35,8 +42,13 @@ from sloika_tpu_torch.nn.fused_gru import SMEM_OPTIN, _round
 from sloika_tpu_torch.ops.remap import NEG_LARGE
 from sloika_tpu_torch.ops.remap_banded import band_starts
 
-#: the widest window the banded kernel takes
+#: the widest window the banded kernel's tuned route takes
 MAX_W = 16384
+#: the widest window of the wide route, and of both kernels: the largest
+#: int16 position delta
+WIDE_MAX_W = 32767
+#: the wide route's block: threads, each of ceil(W / 1024) positions
+WIDE_THREADS = 1024
 #: posterior states of the models the port remaps with (the plans' default)
 NSTATE = 1025
 #: remap_banded.cu: the ring's mbarriers ahead of its slots; the statically
@@ -85,9 +97,31 @@ def band_starts_blocked(nframes, npos, T, W, TB):
     return base[kidx]
 
 
+def _check_window(W):
+    if not 1 <= W <= WIDE_MAX_W:
+        raise ValueError(
+            "the remap kernels take a window of 1..{} positions, the widest "
+            "whose slips the int16 traceback holds (got W = {})".format(
+                WIDE_MAX_W, W))
+
+
+def kernel_route(W):
+    """"tuned" for a window of at most :data:`MAX_W` positions, "wide" up
+    to :data:`WIDE_MAX_W`; raises past that.  A shape rule, decided before
+    any build."""
+    _check_window(W)
+    return "tuned" if W <= MAX_W else "wide"
+
+
 def remap_banded_plan(W, nstate=NSTATE, optin=SMEM_OPTIN):
     """The launch plan of ``remap_banded.cu`` for a window of W positions
     and posterior rows of ``nstate`` states.
+
+    Past :data:`MAX_W`, the wide route's plan (:func:`kernel_route`):
+    ``{"route": "wide", "threads": 1024, "ppt": ceil(W / 1024), "smem":
+    two staged traceback rows of ppt * 1024 int16, "scratch": floats of
+    device memory a row (two score buffers, the prefix max and its
+    position)}``.  Else the tuned route's, as follows.
 
     Positions a thread ``ppt``: the fewest of BANDED_PPTS, up to 8, that
     cover W on 6 consumer warps (6 x 4 at W = 768), else the fewest that
@@ -109,13 +143,15 @@ def remap_banded_plan(W, nstate=NSTATE, optin=SMEM_OPTIN):
     size, the least of 256, 512 and 1,024 threads that holds the block
     (BANDED_BUILDS lists the instances).
 
-    :returns: dict of warps (consumers), producer (0 or 1), threads, maxt,
-        ppt, rows, nslots, slot_bytes (a frame's), vec (bytes a traceback
-        store), smem (dynamic bytes)
+    :returns: dict of route ("tuned"), warps (consumers), producer (0 or
+        1), threads, maxt, ppt, rows, nslots, slot_bytes (a frame's), vec
+        (bytes a traceback store), smem (dynamic bytes)
     """
-    if not 1 <= W <= MAX_W:
-        raise ValueError("remap_banded takes a window of 1..{} positions "
-                         "(got W = {})".format(MAX_W, W))
+    if kernel_route(W) == "wide":
+        ppt = -(-W // WIDE_THREADS)
+        wc = ppt * WIDE_THREADS
+        return {"route": "wide", "threads": WIDE_THREADS, "ppt": ppt,
+                "smem": 2 * 2 * wc, "scratch": 4 * wc}
     ppt = next((p for aim, most in BANDED_TIERS for p in BANDED_PPTS
                 if p <= most and W <= 32 * aim * p), BANDED_PPTS[-1])
     warps = -(-W // (32 * ppt))
@@ -134,8 +170,8 @@ def remap_banded_plan(W, nstate=NSTATE, optin=SMEM_OPTIN):
     producer = int(nslots > 0 and warps < 32)
     threads = 32 * (warps + producer)
     maxt = next(m for m in (256, 512, 1024) if threads <= m)
-    return {"warps": warps, "producer": producer, "threads": threads,
-            "maxt": maxt, "ppt": ppt, "rows": rows, "nslots": nslots,
+    return {"route": "tuned", "warps": warps, "producer": producer,
+            "threads": threads, "maxt": maxt, "ppt": ppt, "rows": rows, "nslots": nslots,
             "slot_bytes": slot_bytes, "vec": vec, "smem": smem}
 
 
@@ -159,8 +195,7 @@ def remap_back_plan(W, optin=SMEM_OPTIN):
         slot_bytes (K frames, 128-byte aligned for a box), smem (dynamic
         bytes)
     """
-    if W < 1:
-        raise ValueError("remap_back takes W >= 1 (got {})".format(W))
+    _check_window(W)
     inner = next((i for i in range(BACK_BOX_LANES, 0, -8)
                   if W % 8 == 0 and W % i == 0
                   and W // i <= BACK_BOX_LANES), 0)
@@ -319,17 +354,22 @@ class RemapBanded:
     """(traceback (Tp, B, W) int16, vfinal (B, W) f32) of the banded DP.
     Replaces the Pallas TPU kernel ``sloika_tpu/ops/pallas/remap.py::
     _banded_kernel`` with ``csrc/remap_banded.cu``; runs
-    :func:`remap_banded_plain` for CPU tensors."""
+    :func:`remap_banded_plain` for CPU tensors.  A window wider than
+    :data:`MAX_W` takes the wide route (counted in ``wide_launches``)."""
 
     #: the widest window the kernel takes (:func:`remap_banded_plan`)
-    MAX_W = MAX_W
+    MAX_W = WIDE_MAX_W
 
     _ARGTYPES = {"remap_banded": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                  + [ctypes.c_float] + [ctypes.c_int] * 8
-                 + [ctypes.c_ulonglong, ctypes.c_void_p]}
+                 + [ctypes.c_ulonglong, ctypes.c_void_p],
+                 "remap_banded_wide": [ctypes.c_void_p] * 8
+                 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                 + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 
     def __init__(self):
         self.launches = 0
+        self.wide_launches = 0
 
     def _library(self):
         return cuda_build.load("remap_banded", self._ARGTYPES)
@@ -339,9 +379,7 @@ class RemapBanded:
         if ltrans_t.device.type == "cpu":
             return remap_banded_plain(ltrans_t, seq_states, pos_mask,
                                       prior_initial, starts, slip, W)
-        if not 1 <= W <= self.MAX_W:
-            raise ValueError("remap_banded takes a window of 1..{} positions "
-                             "(got W = {})".format(self.MAX_W, W))
+        route = kernel_route(W)
         T, B, nstate = ltrans_t.shape
         P = seq_states.shape[1]
         Tp = starts.shape[0]
@@ -364,6 +402,21 @@ class RemapBanded:
             return traceback, vfinal
         plan = remap_banded_plan(W, nstate)
         lib = self._library()
+        if route == "wide":
+            scratch = torch.empty((B, plan["scratch"]), dtype=torch.float32,
+                                  device=dev)
+            with torch.cuda.device(dev):
+                err = lib.remap_banded_wide(
+                    ltrans_t.data_ptr(), seq_states.data_ptr(),
+                    pos_mask.data_ptr(), prior_initial.data_ptr(),
+                    starts.data_ptr(), traceback.data_ptr(),
+                    vfinal.data_ptr(), scratch.data_ptr(), T, B, nstate, P,
+                    W, Tp, float(slip), plan["ppt"], plan["smem"],
+                    torch.cuda.current_stream().cuda_stream)
+            cuda_build.check(err, "remap_banded_wide")
+            self.launches += 1
+            self.wide_launches += 1
+            return traceback, vfinal
         with torch.cuda.device(dev):
             err = lib.remap_banded(
                 ltrans_t.data_ptr(), seq_states.data_ptr(),
@@ -385,13 +438,16 @@ class RemapBacktrack:
     each row's last position.  Replaces the Pallas TPU kernel
     ``sloika_tpu/ops/pallas/remap.py::_backtrack_kernel`` with
     ``csrc/remap_back.cu``; runs :func:`remap_backtrack_plain` for CPU
-    tensors."""
+    tensors.  One kernel at every window; launches at a window wider than
+    :data:`MAX_W` (the banded DP's wide route) are also counted in
+    ``wide_launches``."""
 
     _ARGTYPES = {"remap_back": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                  + [ctypes.c_ulonglong, ctypes.c_void_p]}
 
     def __init__(self):
         self.launches = 0
+        self.wide_launches = 0
 
     def _library(self):
         return cuda_build.load("remap_back", self._ARGTYPES)
@@ -419,6 +475,8 @@ class RemapBacktrack:
                                  torch.cuda.current_stream().cuda_stream)
         cuda_build.check(err, "remap_back")
         self.launches += 1
+        if kernel_route(W) == "wide":
+            self.wide_launches += 1
         return path
 
 

@@ -13,6 +13,14 @@ updates the parameters and the state's tensors in place, and returns the
 new state.  The state is :class:`OptState` / :class:`SGDState` with trees
 shaped like the JAX package's parameter tree, so checkpoints interchange.
 
+``update`` is ``update.apply(layer, state, *update.scalars(state, lr)[0])``
+with the new state from ``scalars``: ``scalars`` computes a step's
+step-size factors on the host, in float32, and ``apply`` takes them as
+Python floats or as 0-d float32 tensors on the device.  A CUDA graph of
+several steps (``training``) captures ``apply`` on device tensors that each
+replay refills, so no host value is frozen into it; a float32 product by a
+0-d tensor gives the bits of the product by the same float.
+
 The step-size arithmetic follows the JAX package in float32: the constants
 ``m_k``, ``ld0``, ``ld1``, ``m_rate`` and the step count are float32, and
 the count is a 0-d float32 tensor kept on the CPU (so reading it never
@@ -49,6 +57,13 @@ def _leaves(tree):
     return [leaf for _, leaf in tree_items(tree)]
 
 
+def state_tensors(state):
+    """The optimiser state's tensors (the count, a CPU scalar, aside)."""
+    if isinstance(state, SGDState):
+        return _leaves(state.vel)
+    return _leaves(state.mu) + _leaves(state.nu)
+
+
 def state_to(state, device):
     """The optimiser state with its tensor trees on ``device`` (the count
     stays on the CPU)."""
@@ -68,17 +83,30 @@ def sgd(momentum, clip=5.0):
     def init(layer):
         return SGDState(vel=_zeros_like_params(layer))
 
-    def update(layer, state, lr):
-        lr = float(np.float32(lr))
+    def scalars(state, lr):
+        """((lr,), the state after the step)"""
+        return (float(np.float32(lr)),), state
+
+    def apply(layer, state, lr):
         with torch.no_grad():
             for p, v in zip(_leaves(layer.param_tensors()),
                             _leaves(state.vel)):
                 # vel = momentum * vel - lr * clip(g); p = p + vel
                 v.mul_(momentum).sub_(clip_grad(p.grad, clip) * lr)
                 p.add_(v)
-        return state
 
-    return init, update
+    return init, _update(scalars, apply)
+
+
+def _update(scalars, apply):
+    """``update(layer, state, lr)`` from an optimiser's ``scalars`` and
+    ``apply``, which it carries as attributes."""
+    def update(layer, state, lr):
+        values, new_state = scalars(state, lr)
+        apply(layer, state, *values)
+        return new_state
+    update.scalars, update.apply = scalars, apply
+    return update
 
 
 def adamski(decay=(0.9, 0.999), epsilon=1e-8, clip=5.0, mrate=0.0005):
@@ -111,7 +139,9 @@ def adamski(decay=(0.9, 0.999), epsilon=1e-8, clip=5.0, mrate=0.0005):
                         mu=_zeros_like_params(layer),
                         nu=_zeros_like_params(layer))
 
-    def update(layer, state, lr):
+    def scalars(state, lr):
+        """((lr_t, momentum_decay), the state after the step): float32
+        values on the host, exact as Python floats"""
         t_old = state.count
         t_new = t_old + 1.0
         momentum_factor = (m_k_t * torch.expm1(t_old * ld0_m_rate_t)
@@ -119,8 +149,10 @@ def adamski(decay=(0.9, 0.999), epsilon=1e-8, clip=5.0, mrate=0.0005):
         lr_t = (f32(lr) * torch.sqrt(-torch.expm1(t_new * ld1_t))
                 / momentum_factor)
         momentum_decay = -d0 * torch.expm1(t_new * m_rate_t)
-        # float32 values, exact as Python floats
-        lr_t, momentum_decay = float(lr_t), float(momentum_decay)
+        return ((float(lr_t), float(momentum_decay)),
+                OptState(count=t_new, mu=state.mu, nu=state.nu))
+
+    def apply(layer, state, lr_t, momentum_decay):
         with torch.no_grad():
             for p, m, v in zip(_leaves(layer.param_tensors()),
                                _leaves(state.mu), _leaves(state.nu)):
@@ -128,9 +160,8 @@ def adamski(decay=(0.9, 0.999), epsilon=1e-8, clip=5.0, mrate=0.0005):
                 m.mul_(momentum_decay).add_((1.0 - d0) * g)
                 v.mul_(d1).add_((1.0 - d1) * torch.square(g))
                 p.sub_(lr_t * m / (torch.sqrt(v) + epsilon))
-        return OptState(count=t_new, mu=state.mu, nu=state.nu)
 
-    return init, update
+    return init, _update(scalars, apply)
 
 
 def adam(decay=(0.9, 0.999), epsilon=1e-8, clip=5.0):

@@ -65,14 +65,15 @@ def synthetic_event_chunks(n=1000, T=WORKLOADS["events"][1], klen=KLEN,
 
 
 class StepMarks:
-    """A training log that records the host time at each step's progress
-    mark, after a device sync if ``sync``, and steps a profiler if given."""
+    """A training log that records the host time at each progress mark (a
+    step's, or a group's of ``steps_per_dispatch`` steps), after a device
+    sync if ``sync``, and steps a profiler if given."""
 
     def __init__(self, sync, prof=None):
         self.sync, self.prof, self.marks = sync, prof, []
 
     def write(self, message):
-        if message in (".", "C"):
+        if message and not message.strip(".C"):
             if self.sync:
                 torch.cuda.synchronize()
             self.marks.append(time.perf_counter())

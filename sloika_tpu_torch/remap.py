@@ -17,6 +17,7 @@ exact and the bucketed T adds stay frames to the DP: given the same band,
 the device never changes a result.
 """
 import collections
+import sys
 
 import numpy as np
 import torch
@@ -28,6 +29,10 @@ from sloika_tpu_torch.ops import remap_kernel
 from sloika_tpu_torch.variables import DEFAULT_ALPHABET
 
 _LOG_ETA = float(np.log(1e-10))
+
+#: a DAC batch's flat int16 sample buffer stays below this many samples
+#: (128 MB; sloika_tpu/basecall.py:34): a larger batch is split in halves
+_MAX_GROUP_SAMPLES = 1 << 26
 
 
 def _round_up(n, k):
@@ -80,6 +85,12 @@ class Remapper(object):
         #: band of the re-run (None: exact), and DP batches by window width
         self.reruns = collections.Counter()
         self.windows = collections.Counter()
+        #: re-run reads whose banded path misses a sequence end with wider
+        #: bands, then exact (sloika_tpu/remap.py:56-58)
+        self.fallback = True
+        #: batch shapes (:meth:`_oom_key`) known to exhaust device memory:
+        #: later batches of such a shape go straight to halves
+        self._oom_sizes = set()
 
     def remap_signals(self, signals, references):
         """Remap normalised signals against reference sequences.
@@ -116,9 +127,9 @@ class Remapper(object):
         pending = []
         for lo in range(0, len(order), self.batch_size):
             idx = order[lo:lo + self.batch_size]
-            pending.append(self._dispatch_batch(
-                [signals[i] for i in idx], [references[i] for i in idx], idx,
-                self.band, dac))
+            self._dispatch_batch_safe([signals[i] for i in idx],
+                                      [references[i] for i in idx], idx,
+                                      self.band, dac, pending)
             while len(pending) > 1:
                 self._collect_batch(pending.pop(0), out)
         while pending:
@@ -128,11 +139,12 @@ class Remapper(object):
         # misses a sequence end by more than band/2 is re-run with a 4x
         # band, then exact
         band = self.band
-        while band is not None:
+        while band is not None and self.fallback:
             tol = band // 2
             retry = [i for i, o in enumerate(out)
-                     if len(o[3]) > band and (o[2].min() > tol or
-                                              o[2].max() < len(o[3]) - 1 - tol)]
+                     if o is not None and len(o[3]) > band
+                     and (o[2].min() > tol or
+                          o[2].max() < len(o[3]) - 1 - tol)]
             if not retry:
                 break
             band = band * 4 if band * 4 < max(
@@ -140,10 +152,81 @@ class Remapper(object):
             self.reruns[band] += len(retry)
             for lo in range(0, len(retry), self.batch_size):
                 idx = retry[lo:lo + self.batch_size]
-                self._collect_batch(self._dispatch_batch(
-                    [signals[i] for i in idx], [references[i] for i in idx],
-                    idx, band, dac), out)
+                self._run_batch_safe([signals[i] for i in idx],
+                                     [references[i] for i in idx], idx, out,
+                                     band, dac)
         return out
+
+    def _oom_key(self, sigs, refs, band, dac):
+        """The shape a batch runs at, for the memory-exhaustion memo
+        (copied from sloika_tpu/remap.py:240): (batch, bucketed frames,
+        bucketed positions, band, wire), so an OOM on long reads does not
+        demote short-read batches of the same size."""
+        return (len(sigs),
+                bucket_length(max(self._sig_len(s, dac) for s in sigs)),
+                bucket_length(max(len(r) for r in refs) - self.kmer_len + 1,
+                              min_len=256),
+                band, dac)
+
+    def _run_batch_safe(self, sigs, refs, idx, out, band, dac):
+        """Dispatch and collect one batch under the guards (the anchor-miss
+        re-runs; sloika_tpu/remap.py:303)."""
+        self._submit_safe(
+            sigs, refs, idx, band, dac,
+            lambda s, r, i: self._collect_batch(
+                self._dispatch_batch(s, r, i, band, dac), out))
+
+    def _dispatch_batch_safe(self, sigs, refs, idx, band, dac, pending):
+        """Dispatch one batch under the guards, its record appended to
+        ``pending`` (sloika_tpu/remap.py:312)."""
+        self._submit_safe(
+            sigs, refs, idx, band, dac,
+            lambda s, r, i: pending.append(
+                self._dispatch_batch(s, r, i, band, dac)))
+
+    def _submit_safe(self, sigs, refs, idx, band, dac, submit):
+        """``submit(sigs, refs, idx)`` under the batch guards
+        (sloika_tpu/remap.py:321-368): a DAC batch whose flat sample buffer
+        would pass ``_MAX_GROUP_SAMPLES`` is split in halves; a single DAC
+        read needing more than 2^30 samples of buffer is refused; and a
+        batch that exhausts device memory (``torch.OutOfMemoryError``) is
+        retried as two halves, after the allocator's cache is emptied, its
+        shape remembered so that later batches of that shape go straight
+        to halves.  Any other exception is raised."""
+        if dac and len(sigs) > 1:
+            T = bucket_length(max(self._sig_len(s, True) for s in sigs))
+            total = sum(self._sig_len(s, True) for s in sigs)
+            if bucket_length(total + T, min_len=1 << 18) > \
+                    _MAX_GROUP_SAMPLES:
+                h = len(sigs) // 2
+                self._submit_safe(sigs[:h], refs[:h], idx[:h], band, dac,
+                                  submit)
+                self._submit_safe(sigs[h:], refs[h:], idx[h:], band, dac,
+                                  submit)
+                return
+        if dac and len(sigs) == 1:
+            L = self._sig_len(sigs[0], True)
+            if bucket_length(L + bucket_length(L),
+                             min_len=1 << 18) > 2 ** 30:
+                raise ValueError(
+                    "single remap read of {} samples needs a >2 GB device "
+                    "buffer; split the read or use remap_signals".format(L))
+        key = self._oom_key(sigs, refs, band, dac)
+        if key not in self._oom_sizes:
+            try:
+                return submit(sigs, refs, idx)
+            except torch.OutOfMemoryError:
+                if len(sigs) <= 1:
+                    raise
+                self._oom_sizes.add(key)
+            # out of the handler, so its traceback's tensors are freed
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            sys.stderr.write("Remap batch of {} exceeds device memory; "
+                             "retrying as two halves\n".format(len(sigs)))
+        h = len(sigs) // 2
+        self._submit_safe(sigs[:h], refs[:h], idx[:h], band, dac, submit)
+        self._submit_safe(sigs[h:], refs[h:], idx[h:], band, dac, submit)
 
     def _dispatch_batch(self, sigs, refs, idx, band, dac):
         """Queue one batch on the device; returns its record with device
@@ -153,7 +236,18 @@ class Remapper(object):
         T = bucket_length(int(lengths.max()))
         seqs = [bio.kmer_state_array(r, self.kmer_len, self.alphabet) + 1
                 for r in refs]
-        P = bucket_length(max(len(s) for s in seqs), min_len=256)
+        npos_max = max(len(s) for s in seqs)
+        P = bucket_length(npos_max, min_len=256)
+        W = band
+        if band is None or P <= band:
+            # the window holds every position: the exact DP
+            W = max(256, _round_up(P, 128))
+            if W > remap_kernel.WIDE_MAX_W:
+                raise ValueError(
+                    "the exact remap of a reference of {} k-mers needs a "
+                    "window of {} positions (P bucketed to {}), past {}, "
+                    "the widest whose slips the int16 traceback "
+                    "holds".format(npos_max, W, P, remap_kernel.WIDE_MAX_W))
         seq_states = np.zeros((B, P), dtype=np.int32)
         pos_mask = np.zeros((B, P), dtype=bool)
         p0 = np.zeros((B, P), dtype=np.float32)
@@ -191,14 +285,14 @@ class Remapper(object):
                 x = dev(xh)
             out_lengths, score, path = self._device_dp(
                 x, dev(lengths), dev(seq_states), dev(pos_mask), dev(p0),
-                dev(p1), band)
+                dev(p1), W)
         return {"sigs": sigs, "refs": refs, "idx": idx, "seqs": seqs,
                 "dac": dac, "out_lengths": out_lengths, "score": score,
                 "path": path}
 
-    def _device_dp(self, x, lengths, seq_states, pos_mask, p0, p1, band):
-        """Forward, floor, log, stay padding and the DP
-        (sloika_tpu/remap.py:115-178, its on-TPU branch).
+    def _device_dp(self, x, lengths, seq_states, pos_mask, p0, p1, W):
+        """Forward, floor, log, stay padding and the DP at a window of W
+        positions (sloika_tpu/remap.py:115-178, its on-TPU branch).
 
         :returns: (out_lengths (B,), score (B,), path (B, T') int32)
         """
@@ -214,11 +308,6 @@ class Remapper(object):
                           device=post.device)
         stay[0] = 0.0
         post[pad] = stay                  # one-hot stays in log space
-        P = seq_states.shape[1]
-        W = band
-        if band is None or P <= band:
-            # the window holds every position: the exact DP
-            W = max(256, _round_up(P, 128))
         self.windows[W] += 1
         npos = pos_mask.sum(dim=1).to(torch.int32)
         score, path = remap_kernel.map_to_sequence_banded(

@@ -10,17 +10,24 @@ The step is the JAX package's step (``training.py:109-172``):
   GPU, their plain twins on the CPU);
 * ADAMski (default), Adam or SGD from :mod:`sloika_tpu_torch.optim`.
 
-:func:`train` is the JAX package's training loop, one optimiser step per
-batch.  It draws the same batches from the same seed (:class:`ChunkSampler`
-is a verbatim copy) and writes the same ``model.log`` lines and
-checkpoints.  :func:`validate` is its held-out evaluation.
+:func:`train` is the JAX package's training loop.  It draws the same
+batches from the same seed (:class:`ChunkSampler` is a verbatim copy) and
+writes the same ``model.log`` lines and checkpoints.  With
+``steps_per_dispatch`` K > 1 (a fixed chunk length) it runs K optimiser
+steps a group: on a CUDA device one replay of a CUDA graph of the K
+forward, backward and update steps (:class:`GroupGraph`), fed by one copy of
+the group's stacked batches or, with the chunk set resident on the device,
+of its sampler indices; on the CPU, K eager steps.  A worker thread
+prefetches the next group.  :func:`validate` is its held-out evaluation.
 
 The numpy-only helpers below are copied, with their source lines, because
 ``sloika_tpu/training.py`` imports jax.
 """
 import os
+import socket
 import sys
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -292,11 +299,185 @@ def _make_optimiser(optimiser, adam):
     raise ValueError("unknown optimiser {!r}".format(optimiser))
 
 
+def _put(dev, *arrays):
+    """Host arrays on ``dev``: on a CUDA device copied asynchronously from
+    pinned memory (PyTorch's host allocator keeps a pinned block until the
+    copy that reads it is done), so the host does not wait on the card."""
+    out = []
+    for a in arrays:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if dev.type == "cuda":
+            t = t.pin_memory().to(dev, non_blocking=True)
+        out.append(t)
+    return tuple(out)
+
+
 def _to_device(batch, dev):
     x, labels, weights = batch
-    return (torch.from_numpy(x).to(dev),
-            torch.from_numpy(labels.astype(np.int64)).to(dev),
-            torch.from_numpy(weights).to(dev))
+    return _put(dev, x, labels.astype(np.int64), weights)
+
+
+def gather_batch(chunks_d, labels_d, lwts_d, idx, start, chunk_len, stride):
+    """One batch gathered from the chunk set resident on the device
+    (``make_train_multi_step_resident``, sloika_tpu/training.py:259-268):
+    rows ``idx``, the window at ``start``, time-major.  The elements the
+    host sampler copies (:meth:`ChunkSampler.materialise`), so training on
+    it is bit-identical to streaming.
+
+    :param chunks_d: (N, Tdata, F) f32;  :param labels_d: (N, Ldata) int64
+    :param lwts_d: (nlabel,) f32;  :param idx: (B,) int64
+    :param start: 0-d int64 tensor (on the device: no host value is read)
+    :returns: (x (chunk_len, B, F), labels (L, B) int64, weights (L, B))
+    """
+    dev = chunks_d.device
+    tidx = start + torch.arange(chunk_len, device=dev)
+    x = chunks_d[idx[:, None], tidx[None, :]].transpose(0, 1).contiguous()
+    lidx = start // stride + torch.arange(chunk_len // stride, device=dev)
+    labels = labels_d[idx[:, None], lidx[None, :]].t().contiguous()
+    return x, labels, lwts_d[labels]
+
+
+def kernel_wrappers():
+    """The port's kernel wrappers, whose ``launches`` (and
+    ``general_launches``, ``wide_launches``) a graph replay adds to."""
+    from sloika_tpu_torch.nn import fused_gru, fused_lstm
+    from sloika_tpu_torch.ops import remap_kernel, viterbi_kernel
+    return (fused_gru.gru_forward, fused_gru.gru_backward,
+            fused_gru.gru_wgrad, fused_lstm.lstm_forward,
+            fused_lstm.lstm_backward, fused_lstm.lstm_wgrad,
+            viterbi_kernel.viterbi_forward, viterbi_kernel.viterbi_backtrace,
+            remap_kernel.remap_banded, remap_kernel.remap_backtrack)
+
+
+_COUNTS = ("launches", "general_launches", "wide_launches")
+
+
+def _counts():
+    return {(w, c): getattr(w, c) for w in kernel_wrappers()
+            for c in _COUNTS if hasattr(w, c)}
+
+
+def _group_body(layer, loss_fn, apply, opt_state, K, batch_at, scalars):
+    """K optimiser steps, as ``make_train_step``'s but for the update's
+    step-size factors, which are read from ``scalars`` (nscal, K) on the
+    device.
+
+    :returns: (K, 2) tensor of each step's (loss, accuracy)
+    """
+    params = list(layer.parameters())
+    out = []
+    for j in range(K):
+        x, labels, weights = batch_at(j)
+        layer.zero_grad(set_to_none=True)
+        loss, acc = loss_fn(x, labels, weights)
+        loss.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        apply(layer, opt_state, *(s[j] for s in scalars))
+        out.append(torch.stack([loss.detach(), acc]))
+    return torch.stack(out)
+
+
+class GroupGraph:
+    """K optimiser steps captured as one CUDA graph on static buffers.
+
+    The inputs are the group's stacked batches, xs (K, T, B, F), labels and
+    weights (K, L, B), or, with ``resident`` = (chunks_d, labels_d, lwts_d)
+    on the device, its sampler draws idx (K, B) and starts (K,), gathered in
+    the graph (:func:`gather_batch`); and the optimiser's step-size factors
+    (nscal, K), computed on the host for each group (``update.scalars``).
+    :meth:`run` copies them into the static buffers and replays the graph.
+
+    The capture follows a warm-up of the whole group on a side stream with
+    the first group's inputs: it builds and loads every kernel (nvcc runs
+    there, never in the capture).  (A launcher's ``cudaFuncSetAttribute``
+    is legal in a capture: a captured launch that calls it replays to the
+    eager bits on the card.)  The parameters and the
+    optimiser's tensors are restored after the warm-up, so the first replay
+    takes the first group's steps; the gradients are allocated in the
+    graph's memory pool during the capture.  A failed capture raises.
+
+    The wrappers' launch counts do not tick on a replay: the launches
+    captured into the graph are counted once (``captured``) and added on
+    each replay.
+    """
+
+    def __init__(self, layer, loss_fn, apply, opt_state, K, first, scalars,
+                 resident=None, chunk_len=None, stride=None):
+        self.replays = 0
+        dev = scalars.device
+        self.static = [torch.empty_like(t) for t in first]
+        self.scalars = torch.empty_like(scalars)
+        if resident is None:
+            xs, labels, weights = self.static
+            batch_at = lambda j: (xs[j].clone(), labels[j].clone(),
+                                  weights[j].clone())
+        else:
+            idx, starts = self.static
+            batch_at = lambda j: gather_batch(*resident, idx[j], starts[j],
+                                              chunk_len, stride)
+
+        def body():
+            return _group_body(layer, loss_fn, apply, opt_state, K, batch_at,
+                               self.scalars)
+
+        tensors = list(layer.parameters()) + optim.state_tensors(opt_state)
+        saved = [t.detach().clone() for t in tensors]
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._load(first, scalars)
+            body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        with torch.no_grad():
+            for t, v in zip(tensors, saved):
+                t.copy_(v)
+        layer.zero_grad(set_to_none=True)
+        before = _counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = body()
+        after = _counts()
+        #: kernel launches in one replay, by (wrapper, counter)
+        self.captured = {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}
+        for (w, c), n in before.items():
+            setattr(w, c, n)
+
+    def _load(self, inputs, scalars):
+        for t, v in zip(self.static, inputs):
+            t.copy_(v)
+        self.scalars.copy_(scalars)
+
+    def run(self, inputs, scalars):
+        """One group: (K, 2) (loss, accuracy) of its steps."""
+        self._load(inputs, scalars)
+        self.graph.replay()
+        self.replays += 1
+        for (w, c), n in self.captured.items():
+            setattr(w, c, getattr(w, c) + n)
+        return self.out.clone()
+
+
+def _group_scalars(opt_update, opt_state, lrs):
+    """The step-size factors (nscal, K) of K steps from ``opt_state`` at
+    learning rates ``lrs``, and the state after them (its tensors are
+    those the steps update in place)."""
+    values = []
+    for lr in lrs:
+        v, opt_state = opt_update.scalars(opt_state, lr)
+        values.append(v)
+    return np.asarray(values, np.float32).T.copy(), opt_state
+
+
+def _profile_path(profile_dir):
+    """Where JAX's ``profile_dir`` puts a run's trace
+    (``plugins/profile/<run>/<host>``), for the Chrome trace."""
+    run = time.strftime("%Y_%m_%d_%H_%M_%S")
+    path = os.path.join(profile_dir, "plugins", "profile", run)
+    os.makedirs(path, exist_ok=True)
+    return os.path.join(path, socket.gethostname() + ".pt.trace.json")
 
 
 def train(layer, data, *, output=None, adam=(1e-3, 0.9, 0.999),
@@ -305,17 +486,33 @@ def train(layer, data, *, output=None, adam=(1e-3, 0.9, 0.999),
           quiet=False, save_every=5000, seed=None, smooth=0.45,
           transducer=True, bad=True, log=None, opt_state=None,
           n_length_buckets=4, optimiser="adamski", lr_warmup=0,
-          device="cuda"):
+          steps_per_dispatch=1, prefetch=True, data_on_device="auto",
+          profile_dir=None, stats=None, device="cuda"):
     """Train a network on labelled chunks: the JAX package's
-    ``training.train`` (``sloika_tpu/training.py:404-753``) with one
-    optimiser step per batch.  The layer is moved to ``device`` and trained
-    in place.
+    ``training.train`` (``sloika_tpu/training.py:404-753``).  The layer is
+    moved to ``device`` and trained in place.
 
     :param data: dict from
         :func:`sloika_tpu_torch.data.hdf5.load_labelled_chunks`
     :param optimiser: ``"adamski"`` (default), ``"adam"`` or ``"sgd"``
         (``adam[1]`` is then the momentum)
     :param lr_warmup: run the first N iterations at lr 0
+    :param steps_per_dispatch: K, optimiser steps a group (a fixed chunk
+        length only; else 1, logged): one CUDA graph replay on a card, K
+        eager steps on the CPU.  A tail shorter than K runs as single
+        steps; a checkpoint lands at the end of the group that crosses
+        ``save_every``
+    :param prefetch: sample (and copy) the next group on a worker thread,
+        in the serial loop's order
+    :param data_on_device: "auto" keeps the chunk set on the device for
+        K > 1 when it fits ``SLOIKA_TPU_RESIDENT_BYTES`` (read at the call;
+        default 1.2 GB) and gathers the batches there; True requires that;
+        False streams the batches
+    :param profile_dir: write a ``torch.profiler`` Chrome trace of the
+        steady groups (from the second on) under this directory
+    :param stats: a dict to fill with the run's K, whether the data was
+        resident, the graph's replays and the launches captured in it
+        (``{(wrapper, counter): n}``)
     :param opt_state: optimiser state to resume from (e.g. from
         :func:`sloika_tpu_torch.serialize.load_checkpoint`); a state of
         another optimiser's type is logged and replaced by a fresh one
@@ -342,7 +539,9 @@ def train(layer, data, *, output=None, adam=(1e-3, 0.9, 0.999),
                       save_every=save_every, seed=seed, smooth=smooth,
                       transducer=transducer, bad=bad, opt_state=opt_state,
                       n_length_buckets=n_length_buckets, optimiser=optimiser,
-                      lr_warmup=lr_warmup)
+                      lr_warmup=lr_warmup, steps_per_dispatch=steps_per_dispatch,
+                      prefetch=prefetch, data_on_device=data_on_device,
+                      profile_dir=profile_dir, stats=stats)
     finally:
         if own_log:
             log.close()
@@ -351,7 +550,8 @@ def train(layer, data, *, output=None, adam=(1e-3, 0.9, 0.999),
 def _train(layer, data, dev, log, *, output, adam, batch_size,
            chunk_len_range, drop, ilf, l2, lrdecay, min_prob, niteration,
            save_every, seed, smooth, transducer, bad, opt_state,
-           n_length_buckets, optimiser, lr_warmup):
+           n_length_buckets, optimiser, lr_warmup, steps_per_dispatch,
+           prefetch, data_on_device, profile_dir, stats):
     all_chunks = data["chunks"]
     all_labels = data["labels"]
     all_bad = data["bad"]
@@ -403,6 +603,38 @@ def _train(layer, data, dev, log, *, output, adam, batch_size,
             return 0.0
         return adam[0] / (1.0 + (i - warmup) / lrdecay)
 
+    K = max(1, int(steps_per_dispatch))
+    if K > 1 and min_chunk != max_chunk:
+        log.write('* steps_per_dispatch needs a fixed chunk length '
+                  '(--chunk_len_range x x); falling back to 1\n')
+        K = 1
+    # the chunk set resident on the device: the host ships the sampler's
+    # indices only (sloika_tpu/training.py:539-560)
+    budget = int(os.environ.get("SLOIKA_TPU_RESIDENT_BYTES", 1_200_000_000))
+    resident_bytes = (all_chunks.nbytes + all_labels.nbytes
+                      + label_weights.nbytes)
+    resident_ok = K > 1 and resident_bytes <= budget
+    if data_on_device == "auto":
+        resident = resident_ok
+    elif data_on_device:
+        if not resident_ok:
+            raise ValueError(
+                "data_on_device=True needs steps_per_dispatch > 1 (fixed "
+                "chunk length) and <= {} resident bytes (have {})".format(
+                    budget, resident_bytes))
+        resident = True
+    else:
+        resident = False
+    fixed_len = int(sampler.bucket_lengths[0])
+    if resident:
+        resident_d = _put(dev, np.ascontiguousarray(all_chunks,
+                                                    dtype=np.float32),
+                          np.ascontiguousarray(all_labels, dtype=np.int64),
+                          label_weights.astype(np.float32))
+        log.write('* Chunk set resident on device ({:.1f} MB); dispatches '
+                  'ship sampler indices only\n'.format(resident_bytes / 1e6))
+
+    loss_fn = make_loss_fn(layer, min_prob=min_prob, l2=l2, drop=drop)
     step = make_train_step(layer, opt_update, min_prob=min_prob, l2=l2,
                            drop=drop)
     score_smoothed = ExponentialSmoother(smooth)
@@ -416,41 +648,127 @@ def _train(layer, data, dev, log, *, output, adam, batch_size,
     total_ev = 0
     t0 = time.time()
     log.write('* Training\n')
-    # per-step (loss, acc) stay on the device until the 50-iteration
-    # progress line reads them, so the loop does not wait on each step
+
+    def put_group():
+        """Sample a group of K same-shape batches (or, resident, their
+        draws) and start their copy to the device."""
+        if resident:
+            draws = [sampler.sample_indices() for _ in range(K)]
+            idx = np.stack([d[0] for d in draws]).astype(np.int64)
+            starts = np.asarray([d[1] for d in draws], np.int64)
+            return _put(dev, idx, starts), idx.size * (draws[0][2] // stride)
+        bs = [sampler.sample() for _ in range(K)]
+        if K == 1:
+            return _to_device(bs[0], dev), bs[0][1].size
+        return (_put(dev, np.stack([b[0] for b in bs]),
+                     np.stack([b[1] for b in bs]).astype(np.int64),
+                     np.stack([b[2] for b in bs])),
+                sum(b[1].size for b in bs))
+
+    def lr_of(i):
+        return float(np.float32(sched(i)))
+
+    def eager(batches, g, nsteps):
+        """nsteps single steps from iteration g: the tail, the CPU's
+        groups, and K = 1"""
+        nonlocal opt_state
+        out = []
+        for j in range(nsteps):
+            opt_state, loss, acc = step(opt_state, *batches(j), lr_of(g + j))
+            out.append(torch.stack([loss, acc]))
+        return torch.stack(out)
+
+    graph = None
+    pool = ThreadPoolExecutor(max_workers=1) if prefetch else None
+    profiler = None
     pending, history = [], []
-    for i in range(niteration):
-        batch = sampler.sample()
-        opt_state, loss, acc = step(opt_state, *_to_device(batch, dev),
-                                    float(np.float32(sched(i))))
-        total_ev += batch[1].size
-        pending.append(torch.stack([loss, acc]))
+    try:
+        submit = pool.submit if pool is not None else _done
+        next_group = submit(put_group)
+        for g in range(0, niteration, K):
+            nsteps = min(K, niteration - g)
+            inputs, nev = next_group.result()
+            full = nsteps == K and K > 1
+            if full and dev.type == "cuda" and graph is None:
+                # captured before the worker runs again: no other thread
+                # touches the card during a capture
+                scal, _ = _group_scalars(opt_update, opt_state,
+                                         [lr_of(i) for i in range(g, g + K)])
+                graph = GroupGraph(
+                    layer, loss_fn, opt_update.apply, opt_state, K, inputs,
+                    _put(dev, scal)[0],
+                    resident=resident_d if resident else None,
+                    chunk_len=fixed_len, stride=stride)
+            if g + K < niteration:
+                next_group = submit(put_group)
+            if profile_dir and profiler is None and (
+                    g > 0 or niteration <= K):
+                profiler = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU] + (
+                    [torch.profiler.ProfilerActivity.CUDA]
+                    if dev.type == "cuda" else []))
+                profiler.start()
+            if resident:
+                batches = lambda j: gather_batch(
+                    *resident_d, inputs[0][j], inputs[1][j], fixed_len,
+                    stride)
+            elif K == 1:
+                batches = lambda j: inputs
+            else:
+                batches = lambda j: tuple(t[j].clone() for t in inputs)
+            if full and graph is not None:
+                scal, opt_state = _group_scalars(
+                    opt_update, opt_state,
+                    [lr_of(i) for i in range(g, g + K)])
+                got = graph.run(inputs, _put(dev, scal)[0])
+            else:
+                # the CPU's groups, K = 1, and a tail (its resident draws
+                # gathered as a group's are: the host sampler's elements)
+                got = eager(batches, g, nsteps)
+                nev = nev // K * nsteps
+            total_ev += nev
+            pending.append(got)
 
-        if output and (i + 1) % save_every == 0:
-            serialize.save_checkpoint(
-                os.path.join(output, 'model_checkpoint_{:05d}.npz'.format(
-                    (i + 1) // save_every)), layer, opt_state)
-            log.write('C')
-        else:
-            log.write('.')
+            i_last = min(g + K, niteration) - 1
+            if output and (i_last + 1) // save_every > g // save_every:
+                serialize.save_checkpoint(
+                    os.path.join(output, 'model_checkpoint_{:05d}.npz'.format(
+                        (i_last + 1) // save_every)), layer, opt_state)
+                log.write('C')
+            else:
+                log.write('.' * nsteps)
 
-        if (i + 1) % 50 == 0:
-            got = torch.stack(pending).cpu().numpy()
-            pending = []
-            history.append(got)
-            for v, a in got:
-                score_smoothed.update(float(v))
-                acc_smoothed.update(float(a))
-            tn = time.time()
-            dt = tn - t0
-            log.write(' {:5d} {:5.3f}  {:5.2f}%  {:5.2f}s ({:.2f} kev/s)\n'
-                      .format((i + 1) // 50, score_smoothed.value,
-                              100.0 * acc_smoothed.value, dt,
-                              total_ev / 1000.0 / dt))
-            total_ev = 0
-            t0 = tn
+            # per-step (loss, acc) stay on the device until the 50-iteration
+            # progress line reads them, so the loop does not wait on a group
+            if (i_last + 1) // 50 > g // 50:
+                got = torch.cat(pending).cpu().numpy()
+                pending = []
+                history.append(got)
+                for v, a in got:
+                    score_smoothed.update(float(v))
+                    acc_smoothed.update(float(a))
+                tn = time.time()
+                dt = tn - t0
+                log.write(' {:5d} {:5.3f}  {:5.2f}%  {:5.2f}s ({:.2f} kev/s)\n'
+                          .format((i_last + 1) // 50, score_smoothed.value,
+                                  100.0 * acc_smoothed.value, dt,
+                                  total_ev / 1000.0 / dt))
+                total_ev = 0
+                t0 = tn
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True)
+        if profiler is not None:
+            profiler.stop()
     if pending:
-        history.append(torch.stack(pending).cpu().numpy())
+        history.append(torch.cat(pending).cpu().numpy())
+    if profiler is not None:
+        profiler.export_chrome_trace(_profile_path(profile_dir))
+        log.write('* Wrote profiler trace to {}\n'.format(profile_dir))
+    if stats is not None:
+        stats.update(steps_per_dispatch=K, resident=resident,
+                     replays=graph.replays if graph else 0,
+                     captured=graph.captured if graph else {})
 
     if output:
         serialize.save_checkpoint(os.path.join(output, 'model_final.npz'),
@@ -458,6 +776,14 @@ def _train(layer, data, dev, log, *, output, adam, batch_size,
     history = (np.concatenate(history) if history
                else np.zeros((0, 2), np.float32))
     return opt_state, history
+
+
+def _done(fn):
+    """A finished future of ``fn()``: the serial loop's stand-in for the
+    prefetch worker's."""
+    future = Future()
+    future.set_result(fn())
+    return future
 
 
 def validate(layer, data, *, batch_size=200, min_prob=1e-30, drop=0,

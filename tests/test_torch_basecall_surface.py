@@ -330,3 +330,85 @@ def test_viterbi_general_plan_at_nbase_5_klen_5():
     # the bf16 posterior halves the slots
     plan16 = vk.viterbi_general_plan(8, K, 5, esize=2)
     assert plan16["C"] == 1 and plan16["slot_bytes"] < plan["slot_bytes"]
+
+
+# ---------------------------------------------------------------------------
+# The ``events`` CLI: the same models over 4 event features (a convolution
+# of 4 -> 8 in place of 1 -> 8), on copies of the reads given an event
+# table (the mapping table's blocks, with a seeded spread)
+# ---------------------------------------------------------------------------
+
+EVENTS = "Analyses/Basecall_1D_000/BaseCalled_template/Events"
+MAPPING = "Analyses/AlignToRef_000/CurrentSpaceMapped_template/Events"
+
+
+@pytest.fixture(scope="module")
+def event_setup(setup):
+    import glob
+    import shutil
+    import h5py
+    tmp = setup["tmp"]
+    reads = str(tmp / "event_reads")
+    shutil.copytree(setup["reads"], reads)
+    rs = np.random.RandomState(17)
+    for f in sorted(glob.glob(reads + "/*.fast5")):
+        with h5py.File(f, "r+") as h5:
+            mt = h5[MAPPING][:]
+            ev = np.zeros(len(mt), dtype=[("mean", "f8"), ("stdv", "f8"),
+                                          ("start", "f8"), ("length", "f8")])
+            ev["mean"] = mt["mean"] + 0.05 * rs.normal(size=len(mt))
+            ev["stdv"] = rs.uniform(0.5, 3.0, size=len(mt))
+            ev["start"], ev["length"] = mt["start"], mt["length"]
+            h5[EVENTS] = ev
+    models = {}
+    for name, (transducer, bad, alphabet) in MODELS.items():
+        layer = jnn.Serial([
+            jnn.Convolution(4, 8, 11, 5, has_bias=True),
+            jnn.Gru(8, 12, has_bias=True),
+            jnn.Softmax(12, _nstate(transducer, bad, alphabet),
+                        has_bias=True),
+        ])
+        params = jax.tree_util.tree_map(
+            lambda a: (3.0 * rs.normal(size=a.shape)
+                       / np.sqrt(a.shape[-1])).astype(a.dtype),
+            jax.eval_shape(layer.init, jax.random.PRNGKey(0)))
+        ckpt = str(tmp / "events_{}.npz".format(name))
+        jser.save_checkpoint(ckpt, layer, params)
+        models[name] = ckpt
+    return {"models": models, "reads": reads, "tmp": tmp}
+
+
+#: (model, extra CLI arguments) of each events CLI case
+EVENT_CASES = {
+    "nontransducer": ("nontransducer", ["--no-transducer"]),
+    "nontransducer_bad": ("nontransducer_bad", ["--no-transducer", "--bad"]),
+    "alphabet": ("nbase5", ["--alphabet", "ACGTX"]),
+    "chunked_states": ("transducer", ["--chunked", "--device_collapse", "off",
+                                      "--chunk_size", "200", "--overlap",
+                                      "40"]),
+    "chunked_states_alphabet": ("nbase5", [
+        "--chunked", "--device_collapse", "off", "--alphabet", "ACGTX",
+        "--chunk_size", "200", "--overlap", "40"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EVENT_CASES))
+def test_events_cli_fasta_equals_jax(event_setup, case):
+    """The port's ``events`` CLI on the CPU writes the JAX CLI's FASTA for
+    each flag set; ``--jobs 1`` and ``--jobs 3`` give the same file."""
+    name, extra = EVENT_CASES[case]
+    argv = ["events", event_setup["models"][name], event_setup["reads"],
+            "--kmer_len", str(KLEN), "--batch", "2", "--trim", "5",
+            "5"] + extra
+    tmp = event_setup["tmp"]
+    jout = str(tmp / "events_{}.jax.fa".format(case))
+    assert jcli.main(argv + ["--output", jout]) == 0
+    outs = []
+    for jobs in (1, 3):
+        tout = str(tmp / "events_{}.port{}.fa".format(case, jobs))
+        assert tcli.main(argv + ["--device", "cpu", "--jobs", str(jobs),
+                                 "--output", tout]) == 0
+        outs.append(open(tout).read())
+    jax_fa = open(jout).read()
+    assert outs[0].count(">") == NREADS
+    assert outs[0] == outs[1] == jax_fa

@@ -69,6 +69,8 @@ import sloika_tpu_torch.nn.flops
 import sloika_tpu_torch.cli.align
 import sloika_tpu_torch.cli.extract_reference
 import sloika_tpu_torch.cli.get_refs_from_sam
+import sloika_tpu_torch.scripts.bench_remap
+import sloika_tpu_torch.scripts.bench_viterbi
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "h5py", "sloika_tpu")
                 and sys.modules[m] is not None)
@@ -82,6 +84,57 @@ def test_port_imports_with_jax_and_h5py_blocked():
                         capture_output=True, text=True, timeout=120)
     assert cp.returncode == 0, cp.stderr
     assert cp.stdout.strip() == "ok"
+
+
+_DEVICE_PARTS = """
+import sys
+sys.modules["jax"] = None
+sys.modules["h5py"] = None
+sys.modules["sloika_tpu"] = None
+import argparse
+import numpy as np
+from sloika_tpu_torch import models
+from sloika_tpu_torch.data import chunkify_tools
+from sloika_tpu_torch.remap import Remapper
+rs = np.random.RandomState(0)
+args = argparse.Namespace(chunk_len=100, kmer_len=3, use_scaled=False,
+                          normalisation="per-read", alphabet=b"ACGT",
+                          downsample_factor=1, interpolation=False,
+                          dac=False)
+refs = [bytes(rs.choice(list(b"ACGT"), 90).astype(np.uint8))
+        for _ in range(2)]
+ev = np.zeros(300, dtype=[("mean", "f8"), ("stdv", "f8"), ("start", "f8"),
+                          ("length", "f8")])
+ev["mean"], ev["stdv"] = rs.normal(size=300), rs.uniform(1, 2, size=300)
+ev["length"] = 0.01
+lstm = models.network_factory("baseline_lstm")(klen=3, sd=0.5, size=8)
+rec = chunkify_tools.remap_event_records(
+    Remapper(lstm, 3, device="cpu"), ["a", "b"], [ev, ev[:250]], refs, args)
+assert [len(r["chunks"]) for r in rec] == [3, 2], rec
+gru = models.network_factory("raw_1_00_rGr")(
+    klen=3, sd=0.5, sizes=(8, 8, 8, 8), stride=5)
+sig = [rs.normal(size=500).astype(np.float32) for _ in range(2)]
+args.chunk_len = 200
+rec = chunkify_tools.remap_raw_records(
+    Remapper(gru, 3, device="cpu"), [("a", sig[0]), ("b", sig[1])], refs,
+    args)
+assert len(rec) == 2 and all(r["strand"].startswith(n + ".fast5")
+                             for r, n in zip(rec, "ab")), rec
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "h5py", "sloika_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_chunkify_device_parts_run_without_h5py():
+    """The remap mains' device parts take reads in memory: they run where
+    h5py is missing, as on the card's machine."""
+    cp = subprocess.run([sys.executable, "-c", _DEVICE_PARTS],
+                        capture_output=True, text=True, timeout=300)
+    assert cp.returncode == 0, cp.stderr
+    assert cp.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_the_jax_package():

@@ -124,9 +124,53 @@ def test_remap_widest_window(cuda_device):
 @pytest.mark.gpu
 def test_remap_window_out_of_range_raises(cuda_device):
     lt, seq, mask, p0, starts = _inputs([40], [30], 40, 64, 32, cuda_device)
-    with pytest.raises(ValueError, match="window of 1..16384"):
+    with pytest.raises(ValueError, match="window of 1..32767"):
         rk.remap_banded(lt, seq, mask, p0, starts, 3.0,
                         rk.RemapBanded.MAX_W + 1)
+
+
+#: the wide route's cases (W, P, T): the exact window of the 22,145 bucket,
+#: the first wide width (not a multiple of 8, so remap_back copies bulk
+#: rows), an odd width, and the widest
+WIDE_CASES = ((22272, 22145, 120), (16385, 16385, 80), (20001, 19000, 70),
+              (32767, 32767, 40))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,P,T", WIDE_CASES)
+def test_remap_wide_route_bit_identical_to_plain(cuda_device, W, P, T):
+    """Windows past MAX_W: the wide route's traceback, final scores and
+    paths are the twins' bits, twice, and count in ``wide_launches``."""
+    assert rk.kernel_route(W) == "wide"
+    nframes = [T, T - 5, T // 2]
+    nposs = [P, P - 2000, 700]
+    lt, seq, mask, p0, starts = _inputs(nframes, nposs, T, P, W, cuda_device,
+                                        seed=W % 89)
+    w0 = rk.remap_banded.wide_launches, rk.remap_backtrack.wide_launches
+    _twice_against_twins(lt, seq, mask, p0, starts, 3.0, W)
+    assert (rk.remap_banded.wide_launches,
+            rk.remap_backtrack.wide_launches) == (w0[0] + 2, w0[1] + 2)
+
+
+@pytest.mark.gpu
+def test_remap_wide_route_banded_schedule(cuda_device):
+    """The wide route where the window moves (W < P): every window jump
+    d in [0, TB] realigns the scores as the twin does."""
+    W, P, T = 16392, 40000, 900
+    lt, seq, mask, p0, starts = _inputs([T, T - 100], [P, P - 9000], T, P,
+                                        W, cuda_device, seed=3)
+    assert int((starts[1:] - starts[:-1]).max()) > 0
+    _twice_against_twins(lt, seq, mask, p0, starts, 3.0, W)
+
+
+@pytest.mark.gpu
+def test_the_tuned_route_counts_no_wide_launch(cuda_device):
+    lt, seq, mask, p0, starts = _inputs([60, 45], [30, 20], 60, 40, 16,
+                                        cuda_device)
+    w0 = rk.remap_banded.wide_launches, rk.remap_backtrack.wide_launches
+    _twice_against_twins(lt, seq, mask, p0, starts, 3.0, 16)
+    assert (rk.remap_banded.wide_launches,
+            rk.remap_backtrack.wide_launches) == w0
 
 
 #: the widths the plans are checked over, and the plan's layout boundaries
@@ -251,10 +295,66 @@ def test_remap_back_plan_copy_forms():
     assert rk.remap_back_plan(7)["copy"] == "bulk rows"
 
 
-@pytest.mark.parametrize("W", (0, rk.MAX_W + 1))
+@pytest.mark.parametrize("W", (0, rk.WIDE_MAX_W + 1))
 def test_remap_banded_plan_rejects_out_of_range_windows(W):
-    with pytest.raises(ValueError, match="window of 1..16384"):
+    with pytest.raises(ValueError, match="window of 1..32767"):
         rk.remap_banded_plan(W)
+
+
+#: every tier of the plans: the tuned route's layout boundaries, its limit,
+#: and the wide route's positions a thread (17 .. 32) at each boundary
+WIDE_BOUNDARIES = tuple(w for p in range(16, 33) for w in
+                        (1024 * p, 1024 * p + 1)
+                        if rk.MAX_W < w <= rk.WIDE_MAX_W) + (rk.WIDE_MAX_W,)
+
+
+@pytest.mark.parametrize("lo,hi,step", [
+    (1, rk.MAX_W + 1, 1),                            # every tuned width
+    (rk.MAX_W + 1, rk.WIDE_MAX_W + 1, 1),            # every wide width
+])
+def test_every_window_gets_a_plan_or_the_stated_refusal(lo, hi, step):
+    """Every W from 1 to 32,767 has a plan of both kernels, tuned up to
+    MAX_W and wide past it, each covering the window; 0 and 32,768 are
+    refused with the int16 reason."""
+    for W in range(lo, hi, step):
+        plan = rk.remap_banded_plan(W)
+        assert plan["route"] == rk.kernel_route(W)
+        assert plan["route"] == ("tuned" if W <= rk.MAX_W else "wide")
+        assert plan["threads"] * plan["ppt"] >= W
+        if plan["route"] == "wide":
+            assert plan["threads"] == rk.WIDE_THREADS
+            assert (plan["ppt"] - 1) * rk.WIDE_THREADS < W
+            assert plan["smem"] == 4 * plan["ppt"] * rk.WIDE_THREADS
+            assert plan["smem"] + 256 <= rk.SMEM_OPTIN
+            assert plan["scratch"] == 4 * plan["ppt"] * rk.WIDE_THREADS
+        back = rk.remap_back_plan(W)
+        assert back["smem"] <= rk.SMEM_OPTIN
+        assert rk.BACK_MIN_SLOTS <= back["nslots"]
+    for W in (0, rk.WIDE_MAX_W + 1, 40000):
+        with pytest.raises(ValueError, match="int16 traceback"):
+            rk.kernel_route(W)
+        with pytest.raises(ValueError, match="window of 1..32767"):
+            rk.remap_back_plan(W)
+
+
+@pytest.mark.parametrize("W", WIDE_BOUNDARIES + (22272,))
+def test_remap_wide_plan_at_its_boundaries(W):
+    plan = rk.remap_banded_plan(W)
+    assert plan["route"] == "wide"
+    assert plan["ppt"] == -(-W // 1024) and 17 <= plan["ppt"] <= 32
+    back = rk.remap_back_plan(W)
+    assert back["K"] == 1
+    assert back["copy"] == ("tensor" if W % 8 == 0 else "bulk rows")
+
+
+def test_remap_back_plan_at_the_exact_window_of_the_22145_bucket():
+    """The exact window of a reference in the 22,145-position bucket:
+    the tensor copy (a box of 256 x 87 lanes) and 5 slots of one frame;
+    a width that no box divides copies bulk rows."""
+    plan = rk.remap_back_plan(22272)
+    assert (plan["copy"], plan["inner"], plan["K"], plan["nslots"]) == (
+        "tensor", 256, 1, 5)
+    assert rk.remap_back_plan(22273)["copy"] == "bulk rows"
 
 
 def test_storage_end_counts_from_a_views_start():

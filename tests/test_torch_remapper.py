@@ -213,3 +213,155 @@ def test_remapper_on_cuda_raises_without_a_gpu():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tremap.Remapper(port, KLEN, device="cuda")
     assert all(p.device.type == "cpu" for p in port.parameters())
+
+
+# ---------------------------------------------------------------------------
+# The batch guards (sloika_tpu/remap.py:240-368), each against the JAX
+# package: the conv model, exact DP, batches of 4
+# ---------------------------------------------------------------------------
+
+def _guarded_pair(batch_size=4):
+    layer, params = _jax_models()["conv"]
+    kw = dict(slip=5.0, prior=(10.0, 10.0), batch_size=batch_size, band=None)
+    jr = jremap.Remapper(layer, params, KLEN, **kw)
+    tr = tremap.Remapper(_port(layer, params), KLEN, device="cpu", **kw)
+    return jr, tr
+
+
+def _same_results(got, ref):
+    for (s_t, m_t, p_t, q_t), (s_j, m_j, p_j, q_j) in zip(got, ref):
+        assert s_t == pytest.approx(s_j, rel=SCORE_RTOL)
+        np.testing.assert_array_equal(p_t, p_j)
+        np.testing.assert_array_equal(q_t, q_j)
+        for field in m_j.dtype.names:
+            np.testing.assert_array_equal(m_t[field], m_j[field])
+
+
+def test_dac_group_guard_halves_as_in_jax(monkeypatch):
+    """A DAC batch whose flat sample buffer would pass _MAX_GROUP_SAMPLES
+    is split in halves, recursively, in both packages alike (the limit
+    monkeypatched below the 2^18-sample bucket floor, so every batch of
+    two or more splits down to single reads)."""
+    dacs, _, refs = _reads()
+    monkeypatch.setattr(jremap, "_MAX_GROUP_SAMPLES", 1 << 17)
+    monkeypatch.setattr(tremap, "_MAX_GROUP_SAMPLES", 1 << 17)
+    jr, tr = _guarded_pair()
+    j_calls, t_calls = _spy_dispatches(jr), _spy_dispatches(tr)
+    ref = jr.remap_dac_signals(dacs, refs)
+    got = tr.remap_dac_signals(dacs, refs)
+    assert t_calls == j_calls
+    assert all(len(idx) == 1 for idx, _ in t_calls) and len(t_calls) == 4
+    _same_results(got, ref)
+    assert not tr._oom_sizes
+
+
+def test_out_of_memory_halves_as_in_jax():
+    """A batch above 2 reads that exhausts device memory is re-run as two
+    halves, in both packages at the same place (the port's dispatch raises
+    ``torch.OutOfMemoryError``, the JAX one an error naming
+    RESOURCE_EXHAUSTED); the shape is remembered, so a second call goes
+    straight to halves; the results are the JAX package's."""
+    _, sigs, refs = _reads()
+    jr, tr = _guarded_pair()
+
+    def failing(remapper, error):
+        calls = []
+        dispatch = remapper._dispatch_batch
+
+        def spy(s, r, idx, band, dac=False):
+            calls.append(tuple(int(i) for i in idx))
+            if len(s) > 2:
+                raise error("RESOURCE_EXHAUSTED: out of memory allocating "
+                            "the traceback")
+            return dispatch(s, r, idx, band, dac)
+        remapper._dispatch_batch = spy
+        return calls
+
+    j_calls = failing(jr, RuntimeError)
+    t_calls = failing(tr, torch.OutOfMemoryError)
+    ref = jr.remap_signals(sigs, refs)
+    got = tr.remap_signals(sigs, refs)
+    assert t_calls == j_calls
+    assert [len(c) for c in t_calls] == [4, 2, 2]
+    _same_results(got, ref)
+    key = tr._oom_key(sigs, refs, None, False)
+    assert tr._oom_sizes == {key}
+    del t_calls[:]
+    tr.remap_signals(sigs, refs)
+    assert [len(c) for c in t_calls] == [2, 2]
+
+
+def test_a_non_oom_error_is_raised():
+    _, sigs, refs = _reads()
+    _, tr = _guarded_pair()
+
+    def broken(s, r, idx, band, dac=False):
+        raise RuntimeError("CUDA error: an illegal memory access")
+    tr._dispatch_batch = broken
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        tr.remap_signals(sigs, refs)
+    assert not tr._oom_sizes
+
+
+def test_out_of_memory_on_one_read_is_raised():
+    _, sigs, refs = _reads()
+    _, tr = _guarded_pair(batch_size=1)
+
+    def oom(s, r, idx, band, dac=False):
+        raise torch.OutOfMemoryError("out of memory")
+    tr._dispatch_batch = oom
+    with pytest.raises(torch.OutOfMemoryError):
+        tr.remap_signals(sigs[:1], refs[:1])
+
+
+def test_a_single_read_past_2_30_samples_is_refused():
+    """One DAC read whose buffer would pass 2^30 samples is refused before
+    any allocation, in both packages (a broadcast array of 6e8 samples
+    takes no memory)."""
+    dacs, _, refs = _reads()
+    big = (np.broadcast_to(np.int16(0), (600_000_000,)), dacs[0][1])
+    jr, tr = _guarded_pair()
+    with pytest.raises(AssertionError, match=">2 GB device buffer"):
+        jr.remap_dac_signals([big], refs[:1])
+    with pytest.raises(ValueError, match=">2 GB device buffer"):
+        tr.remap_dac_signals([big], refs[:1])
+    # a read inside the limit passes the guard (its dispatch is replaced:
+    # only the guard is under test)
+    L = 200_000_000
+    assert tremap.bucket_length(L + tremap.bucket_length(L),
+                                min_len=1 << 18) <= 2 ** 30
+    seen = []
+
+    def dispatch(s, r, idx, band, dac=False):
+        seen.append(len(s[0][0]))
+        raise torch.OutOfMemoryError("out of memory")
+    tr._dispatch_batch = dispatch
+    with pytest.raises(torch.OutOfMemoryError):
+        tr.remap_dac_signals([(np.broadcast_to(np.int16(0), (L,)),
+                               dacs[0][1])], refs[:1])
+    assert seen == [L]
+
+
+def test_exact_window_of_the_22145_bucket_matches_jax():
+    """A reference in the 22,145-position bucket remaps exactly at
+    W = 22,272, the kernel's wide route on a card (here its plain twin),
+    and gives the JAX package's path."""
+    from sloika_tpu_torch.ops import remap_kernel as rk
+    rs = np.random.RandomState(11)
+    dacs, sigs, _ = _reads()
+    ref = bytes(rs.choice([65, 67, 71, 84], size=15000).astype(np.uint8))
+    jr, tr = _guarded_pair()
+    got = tr.remap_signals(sigs[2:3], [ref])
+    want = jr.remap_signals(sigs[2:3], [ref])
+    assert tr.windows == collections.Counter({22272: 1})
+    assert rk.kernel_route(22272) == "wide"
+    _same_results(got, want)
+
+
+def test_an_exact_window_past_32767_names_the_reference_length():
+    rs = np.random.RandomState(12)
+    _, sigs, _ = _reads()
+    ref = bytes(rs.choice([65, 67, 71, 84], size=25000).astype(np.uint8))
+    _, tr = _guarded_pair()
+    with pytest.raises(ValueError, match="reference of 24998 k-mers"):
+        tr.remap_signals(sigs[:1], [ref])

@@ -321,3 +321,250 @@ def test_cli_train_then_validate(tmp_path):
     tl, ta = ttraining.validate(tlayer, data, batch_size=5, device="cpu")
     assert tl == pytest.approx(jl, rel=1e-5)
     assert ta == pytest.approx(ja, abs=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K optimiser steps a group (sloika_tpu/training.py:404-753): the port's
+# CPU route runs a group as K eager steps
+# ---------------------------------------------------------------------------
+
+#: fixed-length training, K = 4 over 10 iterations: two groups and a tail
+GROUPED = dict(batch_size=8, niteration=10, drop=2, seed=5, quiet=True,
+               chunk_len_range=(1.0, 1.0), save_every=3)
+
+
+def _jax_grouped(monkeypatch, layer, params, data, **kw):
+    """JAX ``train`` with every step's loss recorded, in order: the fused
+    groups' (K,) losses and the single steps' of the tail."""
+    losses = []
+
+    def recording(make):
+        def wrapped(*a, **k):
+            step = make(*a, **k)
+
+            def run(*args):
+                out = step(*args)
+                losses.extend(np.atleast_1d(np.asarray(out[2])).tolist())
+                return out
+            return run
+        return wrapped
+
+    for name in ("make_train_step", "make_train_multi_step",
+                 "make_train_multi_step_resident"):
+        monkeypatch.setattr(jtraining, name,
+                            recording(getattr(jtraining, name)))
+    params, opt_state = jtraining.train(layer, params, data, **kw)
+    return _numpy(params), opt_state, losses
+
+
+@pytest.fixture(scope="module")
+def grouped_runs(jax_model, tmp_path_factory):
+    """K = 4 in both packages, streaming and resident, from the same
+    weights and seed, each with its output directory."""
+    layer, params = jax_model
+    tmp = tmp_path_factory.mktemp("grouped")
+    data = _data(nchunk=24, chunk_len=100)
+    runs = {}
+    for resident in (False, True):
+        tag = "resident" if resident else "stream"
+        with pytest.MonkeyPatch.context() as mp:
+            runs["jax", tag] = _jax_grouped(
+                mp, layer, jax.tree_util.tree_map(jnp.asarray, params), data,
+                output=str(tmp / ("jax_" + tag)), steps_per_dispatch=4,
+                data_on_device=resident, **GROUPED)
+        port = tmodels.network_factory("raw_0.98_rgrgr")(klen=KLEN, sd=SD,
+                                                         size=WIDTH)
+        tser.params_from_numpy(port, params)
+        stats = {}
+        state, history = ttraining.train(
+            port, data, output=str(tmp / ("port_" + tag)),
+            steps_per_dispatch=4, data_on_device=resident, stats=stats,
+            device="cpu", **GROUPED)
+        runs["port", tag] = (port, state, history, stats)
+    return tmp, data, runs
+
+
+@pytest.mark.parametrize("tag", ["stream", "resident"])
+def test_steps_per_dispatch_4_matches_jax(grouped_runs, tag):
+    """Two groups of 4 and a tail of 2, against the JAX package's fused
+    groups: losses within rtol 1e-5, parameters within 1e-5."""
+    _, _, runs = grouped_runs
+    jparams, jstate, jlosses = runs["jax", tag]
+    port, state, history, stats = runs["port", tag]
+    assert len(jlosses) == len(history) == 10
+    np.testing.assert_allclose(history[:, 0], jlosses, rtol=1e-5)
+    for a, b in zip(_leaves(port.param_tree()),
+                    jax.tree_util.tree_leaves(jparams)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    assert float(state.count) == float(jstate.count) == 10.0
+    assert stats["steps_per_dispatch"] == 4
+    assert stats["resident"] == (tag == "resident")
+    assert stats["replays"] == 0          # the CPU route: eager steps
+
+
+@pytest.mark.parametrize("tag", ["stream", "resident"])
+def test_grouped_checkpoints_and_log_equal_jax(grouped_runs, tag):
+    """Checkpoints land at the end of the group that crosses save_every
+    (3): after iterations 4, 8 and 10; the log is the JAX package's, line
+    for line (no progress line in 10 iterations)."""
+    tmp, _, _ = grouped_runs
+    files = lambda d: sorted(os.listdir(tmp / d))
+    assert files("port_" + tag) == files("jax_" + tag) == sorted(
+        ["model.log", "model_final.npz", "model_final.npz.json"]
+        + ["model_checkpoint_{:05d}.npz{}".format(i, ext)
+           for i in range(4) for ext in ("", ".json")])
+    log = lambda d: open(tmp / d / "model.log").read()
+    assert log("port_" + tag) == log("jax_" + tag)
+    if tag == "resident":
+        assert "* Chunk set resident on device" in log("port_" + tag)
+    for i in (1, 2, 3):
+        name = "model_checkpoint_{:05d}.npz".format(i)
+        _, jp, js = jser.load_checkpoint(str(tmp / ("jax_" + tag) / name))
+        tl, _, ts = tser.load_checkpoint(str(tmp / ("port_" + tag) / name))
+        assert float(ts.count) == float(js.count) == (4, 8, 10)[i - 1]
+        for a, b in zip(_leaves(tl.param_tree()),
+                        jax.tree_util.tree_leaves(_numpy(jp))):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+def _port_run(jax_model, data, **kw):
+    layer, params = jax_model
+    port = tmodels.network_factory("raw_0.98_rgrgr")(klen=KLEN, sd=SD,
+                                                     size=WIDTH)
+    tser.params_from_numpy(port, params)
+    state, history = ttraining.train(port, data, device="cpu", **kw)
+    return port, state, history
+
+
+def _bit_equal(a, b):
+    assert np.array_equal(a[2], b[2])
+    for x, y in zip(_leaves(a[0].param_tree()), _leaves(b[0].param_tree())):
+        assert np.array_equal(x, y)
+    for x, y in zip(toptim.state_tensors(a[1]), toptim.state_tensors(b[1])):
+        assert torch.equal(x, y)
+
+
+def test_resident_and_streaming_and_prefetch_are_bit_equal(jax_model):
+    """Within the port: the resident gather and the streamed batches, and
+    the prefetch worker and the serial loop, give the same bits, tail
+    included (7 = 2 x 3 + 1)."""
+    data = _data(nchunk=20, chunk_len=100)
+    kw = dict(batch_size=4, chunk_len_range=(1.0, 1.0), drop=2,
+              niteration=7, steps_per_dispatch=3, seed=5, quiet=True)
+    res = _port_run(jax_model, data, data_on_device=True, **kw)
+    stream = _port_run(jax_model, data, data_on_device=False, **kw)
+    serial = _port_run(jax_model, data, data_on_device=True, prefetch=False,
+                       **kw)
+    single = _port_run(jax_model, data, **dict(kw, steps_per_dispatch=1))
+    _bit_equal(res, stream)
+    _bit_equal(res, serial)
+    # K eager steps a group are the single steps' maths on the same draws
+    _bit_equal(res, single)
+
+
+def test_variable_chunk_length_falls_back_to_single_steps(jax_model,
+                                                          tmp_path):
+    """K > 1 needs a fixed chunk length: else the JAX log line and K = 1."""
+    data = _data(nchunk=20, chunk_len=100)
+    stats = {}
+    kw = dict(batch_size=4, drop=2, niteration=3, seed=5, quiet=True,
+              n_length_buckets=2)
+    _, _, history = _port_run(jax_model, data, steps_per_dispatch=4,
+                              stats=stats, output=str(tmp_path / "p"), **kw)
+    assert stats["steps_per_dispatch"] == 1 and not stats["resident"]
+    layer, params = jax_model
+    jtraining.train(layer, jax.tree_util.tree_map(jnp.asarray, params), data,
+                    steps_per_dispatch=4, output=str(tmp_path / "j"), **kw)
+    log = lambda d: open(tmp_path / d / "model.log").read()
+    assert log("p") == log("j")
+    assert "falling back to 1" in log("p")
+    assert len(history) == 3
+
+
+def test_data_on_device_refused_without_groups(jax_model):
+    data = _data(nchunk=20, chunk_len=100)
+    with pytest.raises(ValueError, match="steps_per_dispatch > 1"):
+        _port_run(jax_model, data, data_on_device=True, niteration=1,
+                  batch_size=4, drop=2, quiet=True)
+
+
+def test_resident_budget_is_read_at_the_call(jax_model, monkeypatch):
+    """"auto" keeps the set on the device only within
+    SLOIKA_TPU_RESIDENT_BYTES, read when ``train`` is called."""
+    data = _data(nchunk=20, chunk_len=100)
+    kw = dict(batch_size=4, chunk_len_range=(1.0, 1.0), drop=2,
+              niteration=3, steps_per_dispatch=3, seed=5, quiet=True)
+    stats = {}
+    monkeypatch.setenv("SLOIKA_TPU_RESIDENT_BYTES", "100")
+    _port_run(jax_model, data, stats=stats, **kw)
+    assert not stats["resident"]
+    monkeypatch.delenv("SLOIKA_TPU_RESIDENT_BYTES")
+    _port_run(jax_model, data, stats=stats, **kw)
+    assert stats["resident"]
+
+
+def test_profile_writes_a_chrome_trace(jax_model, tmp_path):
+    """``profile_dir``: a torch.profiler Chrome trace of the steady groups
+    where JAX's profile_dir puts a run's trace (plugins/profile/<run>/)."""
+    import glob
+    import json
+    data = _data(nchunk=20, chunk_len=100)
+    prof = str(tmp_path / "prof")
+    _port_run(jax_model, data, batch_size=4, chunk_len_range=(1.0, 1.0),
+              drop=2, niteration=4, steps_per_dispatch=2, seed=5, quiet=True,
+              profile_dir=prof, output=str(tmp_path / "out"))
+    traces = glob.glob(os.path.join(prof, "plugins", "profile", "*",
+                                    "*.pt.trace.json"))
+    assert len(traces) == 1
+    with open(traces[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any("aten::" in str(e.get("name", "")) for e in events)
+    assert "* Wrote profiler trace to {}".format(prof) in open(
+        tmp_path / "out" / "model.log").read()
+
+
+#: strings each flag's type is applied to
+PROBES = ("0", "1", "2", "-1", "0.5", "2.5", "100", "None", "x")
+
+
+def _flag_table(parser):
+    table = {}
+    sub = next(a for a in parser._actions
+               if a.__class__.__name__ == "_SubParsersAction")
+    for name, p in sub.choices.items():
+        flags = {}
+        for a in p._actions:
+            if a.dest in ("help", "version"):
+                continue
+            probed = None
+            if a.type is not None:
+                probed = []
+                for s in PROBES:
+                    try:
+                        probed.append(repr(a.type(s)))
+                    except Exception as e:
+                        probed.append(type(e).__name__)
+            flags[a.dest] = (a.default, a.nargs, a.choices, probed)
+        table[name] = flags
+    return table
+
+
+def test_train_parser_flags_equal_jax():
+    """Every flag of ``train raw`` and ``train events`` takes the JAX
+    parser's default, type (its results on probe strings), nargs and
+    choices, ``--steps_per_dispatch``, ``--data_on_device`` and
+    ``--profile`` among them; the port adds ``--device`` and has no
+    ``--ndevice`` (a multi-device mesh)."""
+    from sloika_tpu.cli import train as jcli_train
+    from sloika_tpu_torch.cli import train as tcli_train
+    ours = _flag_table(tcli_train.make_parser())
+    ref = _flag_table(jcli_train.make_parser())
+    assert set(ours) == set(ref) == {"raw", "events"}
+    for name in ref:
+        assert set(ours[name]) == (set(ref[name]) - {"ndevice"}) | {
+            "device"}, name
+        for dest, row in ref[name].items():
+            if dest != "ndevice":
+                assert ours[name][dest] == row, (name, dest)
+        for dest in ("steps_per_dispatch", "data_on_device", "profile"):
+            assert dest in ours[name]
