@@ -208,9 +208,27 @@ Phases, each printing one line and raising on failure:
     a step and peak memory side by side; the losses within 1e-4
     relative; and the parameters after one group of 10 against 10 eager
     steps under cuDNN's deterministic algorithms (bit-identical is
-    reported; held to 1e-6 absolute, the JAX test's).
+    reported; held to 1e-6 absolute, the JAX test's);
+20. ranks (``sloika_tpu_torch.parallel``; ``phase_ranks``): two ranks
+    sharing cuda:0 over gloo, started by ``parallel.spawn.run`` as a
+    launcher would, run (a) ``training.train`` of raw_0.98_rgrgr at
+    global B = 100 x 2,000, K = 1, 5 steps (the ranks' parameters
+    bit-identical; losses within 1e-5 relative and parameters within 1e-4
+    of one rank on the same global batches; each rank's ms a step), (c)
+    ``basecall raw --devices 2`` through the CLI's ``main`` on the 16
+    synthetic reads, whole, with the stand-in (the merged FASTA byte for
+    byte the merge of single-rank runs of each rank's strided share; names
+    in order and call agreement >= 0.999 through ``align.
+    evaluate_basecalls`` against one rank over all 16) and (d) ``chunkify
+    raw_remap --dac --devices 2`` on 8 of phase 9's reads (chunks, labels,
+    bad flags and strand rows against the shares' single-rank runs
+    merged, scores within 1e-4 relative); the CLIs list and load the reads
+    from memory and write the chunks with numpy (the card's machine has no
+    h5py); (b) one rank of an NCCL group trains K = 10 steps as one CUDA
+    graph with each all-reduce captured, bit-identical to 10 eager steps.
+    Phase 20's launches are the ranks' own counts, summed.
 
-Every path (5-19) sets the kernels' launch counts to 0 before it runs and
+Every path (5-20) sets the kernels' launch counts to 0 before it runs and
 reads them after, and fails if a Viterbi wrapper took its general route
 (``general_launches``): the paths decode klen 5 over 4 bases; if a remap
 wrapper ran at a window wider than 16,384 (``wide_launches``) but in
@@ -280,7 +298,11 @@ PATH_KERNELS = {"basecall": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
                                     "remap_back"),
                 "train_fused": ("gru_fwd", "gru_bwd", "gru_wgrad"),
                 "train_fused_events": ("lstm_fwd", "lstm_bwd",
-                                       "lstm_wgrad")}
+                                       "lstm_wgrad"),
+                "ranks_train": ("gru_fwd", "gru_bwd", "gru_wgrad"),
+                "ranks_graph": ("gru_fwd", "gru_bwd", "gru_wgrad"),
+                "ranks_basecall": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
+                "ranks_chunkify": ("gru_fwd", "remap_banded", "remap_back")}
 # whole-read raw basecalling: reads a batch, the short reads' samples (their
 # CPU twin takes seconds), the score tolerance against the CPU path
 RAW_BATCH, RAW_SHORT, RAW_SCORE_RTOL = 8, 20000, 1e-4
@@ -321,6 +343,21 @@ CHUNK_EV_READS, CHUNK_EV_CPU, CHUNK_EV_SD, CHUNK_EV_LEN = 16, 2, 1.5, 500
 # train fused: optimiser steps a group; the eager check's tolerance where
 # an op picks another algorithm under capture (tests/test_training.py's)
 FUSED_K, FUSED_ATOL, FUSED_LOSS_RTOL = 10, 1e-6, 1e-4
+# ranks (phase 20): ranks sharing the card; training steps, the losses'
+# tolerance against one rank (tests/test_multihost.py:70) and the
+# parameters' (max abs difference over max abs value, per parameter: where
+# a weight's gradient is near round-off, ADAMski's step g / sqrt(v) moves
+# by a share of the learning rate when the ranks sum in another order; the
+# softmax weights read 3.3e-5 on the H100, the rest below 4e-7); the
+# basecall CLI's call agreement with one rank over all reads; phase 9's
+# reads the chunkify CLI remaps, and its scores' tolerance against the
+# shares' single-rank runs (tests/test_multihost.py:236-239); seconds the
+# ranks may take
+RANKS, RANKS_STEPS = 2, 5
+RANKS_TRAIN_RTOL, RANKS_PARAM_RTOL = 1e-5, 1e-4
+RANKS_CALL_AGREEMENT = 0.999
+RANKS_REMAP_READS, RANKS_SCORE_RTOL = 8, 1e-4
+RANKS_TIMEOUT = 300
 # event paths: baseline_lstm's width; 64 reads of 3,000-9,000 events in one
 # batch; training batches of 100 chunks of 500 events
 LSTM_S = 64
@@ -3438,6 +3475,412 @@ def score_calls(calls, twin, refs):
                              "at {} < {}".format(agreement, CALL_AGREEMENT))
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: ranks.  The port's process groups (``sloika_tpu_torch.parallel``)
+# on the one card.  Two ranks sharing cuda:0 over gloo (``ranks_body``, one
+# spawn) run (a) training, (c) the ``basecall raw`` CLI with ``--devices 2``
+# and (d) the ``chunkify raw_remap`` CLI with ``--devices 2``, each held to
+# single-rank runs in this process; (b) one rank of an NCCL group trains a
+# group of K steps as one CUDA graph, its all-reduce captured.  The card's
+# machine has no h5py: the CLIs list and load the synthetic reads from
+# memory and write the chunks with numpy (``rank_reads``).
+# ---------------------------------------------------------------------------
+
+def kernel_counters():
+    """{kernel name: its wrapper}, whose launch counts the paths read."""
+    from sloika_tpu_torch.nn.fused_gru import (gru_backward, gru_forward,
+                                               gru_wgrad)
+    from sloika_tpu_torch.nn.fused_lstm import (lstm_backward, lstm_forward,
+                                                lstm_wgrad)
+    from sloika_tpu_torch.ops import remap_kernel, viterbi_kernel
+    from sloika_tpu_torch.scripts import bench_dma, bench_gru_unroll
+    from sloika_tpu_torch.scripts import bench_viterbi_parts
+    return dict(zip(KERNELS, (
+        gru_forward, gru_backward, gru_wgrad, viterbi_kernel.viterbi_forward,
+        viterbi_kernel.viterbi_backtrace, remap_kernel.remap_banded,
+        remap_kernel.remap_backtrack, lstm_forward, lstm_backward,
+        lstm_wgrad, bench_gru_unroll.gru_unroll,
+        bench_viterbi_parts.viterbi_parts, bench_dma.hbm_ring)))
+
+
+def read_names(n):
+    return ["read_{:02d}".format(i) for i in range(n)]
+
+
+@contextlib.contextmanager
+def rank_reads(listing, signals=None, dacs=None):
+    """The CLIs' fast5 listing and loaders read ``listing`` from memory
+    (``signals``: name -> normalised signal, as ``load_raw_signal`` gives;
+    ``dacs``: name -> (dac, norm4), as ``load_raw_dac``), and the chunkify
+    HDF5 writer writes its arrays with numpy (each read's chunk count in
+    ``counts``)."""
+    from sloika_tpu_torch import basecall as bc
+    from sloika_tpu_torch.cli import basecall as bcli
+    from sloika_tpu_torch.data import chunkify_tools, hdf5
+
+    def write_chunks(path, blanks, attrs, chunks, labels, bad):
+        with open(path, "wb") as fh:
+            np.savez(fh, chunks=np.concatenate(chunks),
+                     labels=np.concatenate(labels), bad=np.concatenate(bad),
+                     counts=np.array([len(c) for c in chunks]),
+                     blanks=blanks)
+
+    saved = [(bcli, "iterate_fast5"), (chunkify_tools, "iterate_fast5"),
+             (bc, "load_raw_signal"), (bc, "load_raw_dac"),
+             (hdf5, "create_labelled_chunks_hdf5")]
+    saved = [(m, a, getattr(m, a)) for m, a in saved]
+    bcli.iterate_fast5 = chunkify_tools.iterate_fast5 = \
+        lambda *a, **k: list(listing)
+    bc.load_raw_signal = lambda fn, **k: (fn, signals[fn])
+    bc.load_raw_dac = lambda fn, **k: (fn,) + tuple(dacs[fn])
+    hdf5.create_labelled_chunks_hdf5 = write_chunks
+    try:
+        yield
+    finally:
+        for m, a, v in saved:
+            setattr(m, a, v)
+
+
+def ranks_train_kwargs():
+    return dict(niteration=RANKS_STEPS, batch_size=TRAIN_B,
+                chunk_len_range=(1.0, 1.0), drop=20, seed=1)
+
+
+def ranks_basecall_argv(tmp, model, out):
+    return ["raw", model, tmp, "--output", out]
+
+
+def ranks_chunkify_argv(tmp, model, refs, out):
+    return ["raw_remap", tmp, out, model, refs, "--dac", "--overwrite",
+            "--output_strand_list", out + ".txt"]
+
+
+def ranks_body(argv):
+    """One of phase 20's two ranks, sharing cuda:0 over gloo: (a), (c) and
+    (d), each between :func:`zero_counts` and :func:`read_counts`; writes
+    rank<r>.json and train<r>.npz in ``argv[0]``."""
+    tmp, standin, remap_model, refs = argv
+    from sloika_tpu_torch import config, models, training
+    from sloika_tpu_torch.cli import basecall as bcli
+    from sloika_tpu_torch.cli import chunkify as ccli
+    from sloika_tpu_torch.parallel import mesh
+    from sloika_tpu_torch.profile_train import StepMarks, synthetic_chunks
+    mesh.maybe_init_distributed("cuda", RANKS)
+    dev = mesh.local_device("cuda")
+    config.disable_tf32()
+    counters, r = kernel_counters(), mesh.rank()
+    out = {"device": str(dev), "backend": mesh.backend(),
+           "ranks_per_card": mesh.ranks_per_card(),
+           "describe": mesh.describe(dev)}
+
+    layer = models.network_factory("raw_0.98_rgrgr")(klen=5, sd=0.5, seed=0)
+    clock = StepMarks(sync=True)
+    zero_counts(counters)
+    _, hist = training.train(layer, synthetic_chunks(), log=clock,
+                             device=dev, **ranks_train_kwargs())
+    out["train"] = read_counts(counters)
+    out["ms_a_step"] = (1e3 * (clock.marks[-1] - clock.marks[0])
+                        / (len(clock.marks) - 1))
+    np.savez(os.path.join(tmp, "train{}.npz".format(r)), history=hist,
+             **{n: p.detach().cpu().numpy()
+                for n, p in layer.named_parameters()})
+
+    reads = synthetic_reads()
+    names = read_names(len(reads))
+    with rank_reads(names, signals=dict(zip(names, raw_signals(reads)))):
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        rc = bcli.main(ranks_basecall_argv(
+            tmp, standin, os.path.join(tmp, "calls.ranks.fa"))
+            + ["--devices", str(RANKS)])
+        out["basecall_s"] = time.perf_counter() - t0
+        out["basecall"] = read_counts(counters)
+    if rc:
+        raise AssertionError("basecall --devices {} returned {}".format(
+            RANKS, rc))
+
+    reads = synthetic_reads(n=REMAP_B)[:RANKS_REMAP_READS]
+    names = read_names(len(reads))
+    with rank_reads(names, dacs=dict(zip(names, reads))):
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        rc = ccli.main(ranks_chunkify_argv(
+            tmp, remap_model, refs, os.path.join(tmp, "chunks.ranks"))
+            + ["--devices", str(RANKS)])
+        out["chunkify_s"] = time.perf_counter() - t0
+        out["chunkify"] = read_counts(counters)
+    if rc:
+        raise AssertionError("chunkify --devices {} returned {}".format(
+            RANKS, rc))
+    with open(os.path.join(tmp, "rank{}.json".format(r)), "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def fasta_records(path):
+    """[(name, record text)] of a FASTA of one sequence line a record."""
+    lines = open(path).read().splitlines(keepends=True)
+    return [(lines[i][1:].split()[0], lines[i] + lines[i + 1])
+            for i in range(0, len(lines), 2)]
+
+
+def chunk_records(path):
+    """[(name, strand row fields, chunks, labels, bad)] of each read of a
+    chunkify output written by :func:`rank_reads`."""
+    z = np.load(path)
+    rows = [l.rstrip("\n").split("\t")
+            for l in open(path + ".txt").readlines()[1:]]
+    cut = np.cumsum(z["counts"])[:-1]
+    return [(row[0].split(".")[0], row, c, lab, b) for row, c, lab, b in zip(
+        rows, *(np.split(z[k], cut) for k in ("chunks", "labels", "bad")))]
+
+
+def merged(shares, names):
+    """Per-read records of each rank's share merged in read order."""
+    got = {r[0]: r for share in shares for r in share}
+    return [got[n] for n in names if n in got]
+
+
+def phase_ranks(dev, counters):
+    """Phase 20, parts (a)-(d): the launches of each part's main path."""
+    from sloika_tpu_torch import models, serialize
+    from sloika_tpu_torch.parallel import spawn
+    with tempfile.TemporaryDirectory() as tmp:
+        standin = os.path.join(tmp, "standin.json")
+        serialize.save_model_json(standin, models.pretrained_standin(seed=0))
+        remap_layer = models.pretrained_standin(sd=REMAP_SD, seed=0)
+        remap_model = os.path.join(tmp, "remap.json")
+        serialize.save_model_json(remap_model, remap_layer)
+        reads = synthetic_reads(n=REMAP_B)[:RANKS_REMAP_READS]
+        refs = diagonal_references(remap_layer.to(dev).eval(), reads, dev)
+        refs_fa = os.path.join(tmp, "refs.fa")
+        with open(refs_fa, "w") as fh:
+            for n, ref in zip(read_names(len(reads)), refs):
+                fh.write(">{}\n{}\n".format(n, ref.decode()))
+        t0 = time.perf_counter()
+        rc = spawn.run(ranks_body, [tmp, standin, remap_model, refs_fa],
+                       RANKS, timeout=RANKS_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+        if rc:
+            raise AssertionError("a rank of phase 20 failed ({})".format(rc))
+        ranks = [json.load(open(os.path.join(tmp, "rank{}.json".format(r))))
+                 for r in range(RANKS)]
+        print("ranks: {} ranks spawned and joined in {:.1f} s: {} [{}]"
+              .format(RANKS, spawn_s, ranks[0]["describe"], card_line()),
+              flush=True)
+        if not (ranks[0]["backend"] == "gloo"
+                and ranks[0]["ranks_per_card"] == RANKS):
+            raise AssertionError("two ranks on one card must share it over "
+                                 "gloo: {}".format(ranks[0]))
+        # the ranks' launches on each path, summed over the ranks
+        launches = {"ranks_" + part: {n: sum(r[part][n] for r in ranks)
+                                      for n in KERNELS}
+                    for part in ("train", "basecall", "chunkify")}
+        ranks_train(dev, tmp, ranks)
+        launches["ranks_graph"] = ranks_graph(dev, counters, tmp)
+        ranks_basecall(tmp, standin, ranks)
+        ranks_chunkify(tmp, remap_model, refs_fa, ranks)
+    for path, counts in launches.items():
+        if min(counts[k] for k in PATH_KERNELS[path]) <= 0:
+            raise AssertionError("a kernel of {} never launched: {}".format(
+                path, counts))
+    return launches
+
+
+def ranks_train(dev, tmp, ranks):
+    """(a): the ranks' parameters bit-identical to each other; losses and
+    parameters after RANKS_STEPS steps within RANKS_TRAIN_RTOL and
+    RANKS_PARAM_RTOL of one rank on the same global batches."""
+    from sloika_tpu_torch import models, training
+    from sloika_tpu_torch.profile_train import StepMarks, synthetic_chunks
+    got = [np.load(os.path.join(tmp, "train{}.npz".format(r)))
+           for r in range(RANKS)]
+    names = [k for k in got[0].files if k != "history"]
+    same = all(np.array_equal(got[0][k], g[k]) for g in got[1:]
+               for k in got[0].files)
+    layer = models.network_factory("raw_0.98_rgrgr")(klen=5, sd=0.5, seed=0)
+    clock = StepMarks(sync=True)
+    _, hist = training.train(layer, synthetic_chunks(), log=clock,
+                             device=dev, **ranks_train_kwargs())
+    one_ms = 1e3 * (clock.marks[-1] - clock.marks[0]) / (len(clock.marks)
+                                                         - 1)
+    loss_rel = float(np.max(np.abs(got[0]["history"][:, 0] - hist[:, 0])
+                            / np.abs(hist[:, 0])))
+    params = {n: p.detach().cpu().numpy()
+              for n, p in layer.named_parameters()}
+    rel = {n: float(np.abs(got[0][n] - params[n]).max()
+                    / np.abs(params[n]).max()) for n in names}
+    worst = max(rel, key=rel.get)
+    print("ranks (a) training raw_0.98_rgrgr, global B={} x {} samples, "
+          "{} steps, K=1, {} ranks on {} over {}: ms a step (steps 2-{}) "
+          "{}; one rank {:.3f}; ranks' parameters bit-identical {}; losses "
+          "against one rank max rel diff {:.2e} (held <= {}), parameters "
+          "max rel diff {:.2e} ({}) (held <= {}) [{}]".format(
+              TRAIN_B, TRAIN_SAMPLES, RANKS_STEPS, RANKS,
+              sorted({r["device"] for r in ranks}), ranks[0]["backend"],
+              RANKS_STEPS, " / ".join("rank {} {:.3f}".format(i, r[
+                  "ms_a_step"]) for i, r in enumerate(ranks)), one_ms, same,
+              loss_rel, RANKS_TRAIN_RTOL, rel[worst], worst, RANKS_PARAM_RTOL,
+              card_line()),
+          flush=True)
+    if not (same and np.isfinite(hist).all() and loss_rel <= RANKS_TRAIN_RTOL
+            and rel[worst] <= RANKS_PARAM_RTOL):
+        raise AssertionError("two-rank training departs from one rank: "
+                             "same {}, loss {}, parameters {}".format(
+                                 same, loss_rel, rel))
+
+
+def ranks_graph(dev, counters, tmp):
+    """(b): one rank of an NCCL group, a group of FUSED_K steps as one CUDA
+    graph with each step's all-reduce captured, against FUSED_K eager steps
+    of the same group, bit for bit (cuDNN's deterministic algorithms)."""
+    import datetime
+    import torch.distributed as dist
+    from sloika_tpu_torch import models, training
+    from sloika_tpu_torch.parallel import mesh
+    from sloika_tpu_torch.profile_train import synthetic_chunks
+    data = synthetic_chunks()
+    kw = dict(ranks_train_kwargs(), niteration=FUSED_K, device=dev,
+              log=training.Logger(None, True))
+    reduce_calls, real = [], mesh.all_reduce_grads
+
+    def counted(*a, **k):
+        reduce_calls.append(1)
+        return real(*a, **k)
+
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(tmp, "nccl_store"),
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=RANKS_TIMEOUT))
+    torch.backends.cudnn.deterministic = True
+    mesh.all_reduce_grads = counted
+    try:
+        layers = [models.network_factory("raw_0.98_rgrgr")(
+            klen=5, sd=0.5, seed=0).to(dev) for _ in range(2)]
+        stats = {}
+        zero_counts(counters)
+        training.train(layers[0], data, steps_per_dispatch=FUSED_K,
+                       data_on_device=True, stats=stats, **kw)
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        in_graph = len(reduce_calls)
+        training.train(layers[1], data, steps_per_dispatch=1,
+                       data_on_device=False, **kw)
+        torch.cuda.synchronize()
+        diffs = {n: float((a - b).detach().abs().max()) for (n, a), b in zip(
+            layers[0].named_parameters(), layers[1].parameters())}
+        backend = mesh.backend()
+        names = {id(w): n for n, w in counters.items()}
+        captured = {names[id(w)]: n for (w, c), n in stats["captured"].items()
+                    if c == "launches"}
+    finally:
+        mesh.all_reduce_grads = real
+        torch.backends.cudnn.deterministic = False
+        mesh.shutdown()
+    bits = all(d == 0.0 for d in diffs.values())
+    print("ranks (b) one rank of an {} group, raw_0.98_rgrgr B={} x {}: "
+          "K={} steps one CUDA graph ({} replay, all-reduce calls in its "
+          "warm-up and capture {}, captured launches {}); parameters after "
+          "the group bit-identical to {} eager steps {} (worst {:.2e}) [{}]"
+          .format(backend, TRAIN_B, TRAIN_SAMPLES, FUSED_K, stats["replays"],
+                  in_graph, captured,
+                  FUSED_K, bits, max(diffs.values()), card_line()),
+          flush=True)
+    if not (backend == "nccl" and stats["replays"] == 1
+            and in_graph == 2 * FUSED_K and bits):
+        raise AssertionError("the NCCL group's graph departs from the eager "
+                             "steps: {} {}".format(stats, diffs))
+    return counts
+
+
+def ranks_basecall(tmp, standin, ranks):
+    """(c): the ranks' merged FASTA against single-rank runs of each rank's
+    strided share merged in read order (byte for byte), and against one
+    single-rank run of all reads (names and order; call agreement through
+    ``align.evaluate_basecalls``)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from sloika_tpu_torch import align
+    from sloika_tpu_torch.cli import basecall as bcli
+    reads = synthetic_reads()
+    names = read_names(len(reads))
+    sigs = dict(zip(names, raw_signals(reads)))
+    runs = {}
+    for tag, listing in [("share{}".format(r), names[r::RANKS])
+                         for r in range(RANKS)] + [("all", names)]:
+        path = os.path.join(tmp, "calls.{}.fa".format(tag))
+        with rank_reads(listing, signals=sigs):
+            if bcli.main(ranks_basecall_argv(tmp, standin, path)):
+                raise AssertionError("basecall of {} failed".format(tag))
+        runs[tag] = fasta_records(path)
+    got = fasta_records(os.path.join(tmp, "calls.ranks.fa"))
+    merge = merged([runs["share{}".format(r)] for r in range(RANKS)], names)
+    bytes_equal = "".join(t for _, t in got) == "".join(t for _, t in merge)
+    seq = lambda recs: {n: t.splitlines()[1] for n, t in recs}
+    ours, one = seq(got), seq(runs["all"])
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        rows = list(pool.map(lambda n: align.evaluate_basecalls(
+            {n: ours[n]}, {n: one[n]}), names))
+    agree = float(np.mean([r["accuracy"] for rs in rows for r in rs]))
+    same_order = [n for n, _ in got] == [n for n, _ in runs["all"]] == names
+    print("ranks (c) basecall raw --devices {} through the CLI, {} reads "
+          "whole: {:.2f} s a rank; merged FASTA byte-identical to the merged "
+          "single-rank runs of each share {}; against one rank over all "
+          "reads: names in order {}, calls identical {}, agreement {:.5f} "
+          "(held >= {}) [{}]".format(
+              RANKS, len(names), max(r["basecall_s"] for r in ranks),
+              bytes_equal, same_order, ours == one, agree,
+              RANKS_CALL_AGREEMENT, card_line()), flush=True)
+    if not (bytes_equal and same_order and len(rows) == len(names)
+            and agree >= RANKS_CALL_AGREEMENT):
+        raise AssertionError("basecall --devices {} departs from its single-"
+                             "rank runs".format(RANKS))
+
+
+def ranks_chunkify(tmp, remap_model, refs_fa, ranks):
+    """(d): the ranks' chunks, labels, bad flags and strand list against
+    single-rank runs of each share merged in read order (the score column
+    within RANKS_SCORE_RTOL, the rest equal)."""
+    from sloika_tpu_torch.cli import chunkify as ccli
+    reads = synthetic_reads(n=REMAP_B)[:RANKS_REMAP_READS]
+    names = read_names(len(reads))
+    dacs = dict(zip(names, reads))
+    shares = []
+    for r in range(RANKS):
+        path = os.path.join(tmp, "chunks.share{}".format(r))
+        with rank_reads(names[r::RANKS], dacs=dacs):
+            if ccli.main(ranks_chunkify_argv(tmp, remap_model, refs_fa,
+                                             path)):
+                raise AssertionError("chunkify of share {} failed".format(r))
+        shares.append(chunk_records(path))
+    got = chunk_records(os.path.join(tmp, "chunks.ranks"))
+    merge = merged(shares, names)
+    arrays = all(all(np.array_equal(a, b) for a, b in zip(g[2:], m[2:]))
+                 for g, m in zip(got, merge))
+    rows = all(g[1][:2] + g[1][3:] == m[1][:2] + m[1][3:]
+               for g, m in zip(got, merge))
+    rel = max(abs(float(g[1][2]) - float(m[1][2])) / abs(float(m[1][2]))
+              for g, m in zip(got, merge))
+    order = [g[0] for g in got] == [m[0] for m in merge] == names
+    bytes_equal = (open(os.path.join(tmp, "chunks.ranks.txt")).read()
+                   == "".join(["\t".join(["filename", "nblocks", "score",
+                                          "nstay", "seqlen", "start",
+                                          "end"]) + "\n"]
+                              + ["\t".join(m[1]) + "\n" for m in merge]))
+    nchunk = sum(len(g[2]) for g in got)
+    print("ranks (d) chunkify raw_remap --devices {} through the CLI, {} "
+          "reads, {} chunks: {:.2f} s a rank; against single-rank runs of "
+          "each share merged in read order: reads in order {}, chunks, "
+          "labels and bad flags identical {}, strand rows identical but the "
+          "score {}, score max rel diff {:.2e} (held <= {}), strand list "
+          "byte-identical {} [{}]".format(
+              RANKS, len(names), nchunk, max(r["chunkify_s"] for r in ranks),
+              order, arrays, rows, rel, RANKS_SCORE_RTOL, bytes_equal,
+              card_line()), flush=True)
+    if not (order and arrays and rows and rel <= RANKS_SCORE_RTOL):
+        raise AssertionError("chunkify --devices {} departs from its "
+                             "single-rank runs".format(RANKS))
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs a GPU")
@@ -3447,13 +3890,6 @@ def main():
         torch.cuda.device_count()), flush=True)
 
     from sloika_tpu_torch import config, cuda_build, models
-    from sloika_tpu_torch.nn.fused_gru import (gru_backward, gru_forward,
-                                               gru_wgrad)
-    from sloika_tpu_torch.nn.fused_lstm import (lstm_backward, lstm_forward,
-                                                lstm_wgrad)
-    from sloika_tpu_torch.ops import remap_kernel, viterbi_kernel
-    from sloika_tpu_torch.scripts import bench_dma, bench_gru_unroll
-    from sloika_tpu_torch.scripts import bench_viterbi_parts
     config.disable_tf32()
     t0 = time.time()
     cuda_build.build_all(KERNELS + CLOCKED)
@@ -3481,12 +3917,7 @@ def main():
     kernels = [gru_fwd] + viterbi + bwd + remap + lstm
     by_name = {k["name"]: k for k in kernels}
     # every count is set to 0 before each path and all are read after it
-    counters = dict(zip(KERNELS, (
-        gru_forward, gru_backward, gru_wgrad, viterbi_kernel.viterbi_forward,
-        viterbi_kernel.viterbi_backtrace, remap_kernel.remap_banded,
-        remap_kernel.remap_backtrack, lstm_forward, lstm_backward,
-        lstm_wgrad, bench_gru_unroll.gru_unroll,
-        bench_viterbi_parts.viterbi_parts, bench_dma.hbm_ring)))
+    counters = kernel_counters()
     launches = {"basecall": phase_main(dev, standin, counters)}
     launches["basecall_raw"], raw_calls = phase_basecall_raw(dev, standin,
                                                              counters)
@@ -3510,6 +3941,7 @@ def main():
     launches.update(call_launches)
     launches["chunkify_events"] = phase_chunkify_events(dev, counters)
     launches.update(phase_train_fused(dev, counters))
+    launches.update(phase_ranks(dev, counters))
     for path, counts in launches.items():
         for name, n in counts.items():
             entry = by_name[name]

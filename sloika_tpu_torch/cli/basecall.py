@@ -27,8 +27,20 @@ is decoded on the host with the legacy decoder.  A model with a
 while the current block decodes.  FASTA goes to stdout unless ``--output``
 is given, in the order of the input files.  ``--device cuda`` raises when
 no GPU is present.
+
+``--devices N`` basecalls over N ranks, one a device
+(:mod:`sloika_tpu_torch.parallel`): the command starts them itself, or,
+under ``torchrun``, checks N against the launcher's ``WORLD_SIZE``.  Each
+rank takes a strided share of the reads, rank 0 gathers the FASTA records
+and writes them in the order of the input files, and the report counts
+every rank's reads (``sloika_tpu/cli/basecall.py:153-172, 243-262``)::
+
+    python -m sloika_tpu_torch.cli.basecall raw model.npz reads/ \
+        --devices 2 --output calls.fa
 """
 import argparse
+import io
+import json
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -70,6 +82,9 @@ def make_parser():
                              'normalise on the device (raw reads, device '
                              'collapse; "auto" = on whenever device '
                              'collapse is active)')
+    common.add_argument('--devices', default=1, type=Positive(int),
+                        help='Ranks (one a device) to share the reads '
+                             'over')
     common.add_argument('--overlap', default=400, type=Positive(int),
                         help='Window overlap for chunked decoding')
     common.add_argument('--kmer_len', default=5, type=Positive(int),
@@ -145,13 +160,16 @@ def main(argv=None):
     args = make_parser().parse_args(argv)
     events = args.command == 'events'
     from sloika_tpu_torch import basecall as bc
-    from sloika_tpu_torch import config
+    from sloika_tpu_torch.parallel import mesh, multihost
 
+    code = mesh.launch(main, argv, args.devices, args.device)
+    if code is not None:            # the ranks this command started
+        return code
+    dev = mesh.local_device(args.device)
     if args.device_collapse == 'auto':
         # the card stands where the JAX package's TPU stands
-        device_collapse = (config.resolve_device(args.device).type == 'cuda'
-                           and args.chunked and args.transducer
-                           and len(args.alphabet) == 4)
+        device_collapse = (dev.type == 'cuda' and args.chunked
+                           and args.transducer and len(args.alphabet) == 4)
     else:
         device_collapse = args.device_collapse == 'on'
     caller = bc.Basecaller(load_model(args.model), args.kmer_len,
@@ -161,7 +179,7 @@ def main(argv=None):
                            batch_size=args.batch, chunked=args.chunked,
                            chunk_size=args.chunk_size, overlap=args.overlap,
                            output='bases' if device_collapse else 'states',
-                           device=args.device)
+                           device=str(dev))
     # a Studentise model falls back to whole reads, "states"
     output = caller.output
     if args.dac == 'auto':
@@ -173,13 +191,21 @@ def main(argv=None):
             raise ValueError('--dac on requires raw reads and device '
                              'collapse')
     datatype = 'events' if events else 'samples'
-    printer = bc.SeqPrinter(datatype=datatype, fname=args.output,
+    # several ranks: each writes its records into a buffer, rank 0 the file
+    multi = mesh.world_size() > 1
+    capture = io.StringIO() if multi else None
+    printer = bc.SeqPrinter(datatype=datatype,
+                            fname=None if multi else args.output,
                             kmer_len=args.kmer_len,
                             transducer=args.transducer,
-                            alphabet=args.alphabet)
+                            alphabet=args.alphabet, fh=capture)
     write = printer.write_codes if output == 'bases' else printer.write
     files = iterate_fast5(args.input_folder, strand_list=args.strand_list,
                           limit=args.limit)
+    indices = list(range(len(files)))
+    if multi:
+        share = multihost.process_shard(files, with_indices=True)
+        indices, files = [i for i, _ in share], [f for _, f in share]
     if events:
         load = lambda fn: bc.load_event_features(
             fn, section=args.section, segmentation=args.segmentation,
@@ -195,6 +221,7 @@ def main(argv=None):
 
     t0 = time.time()
     nbases = nsignal = nreads = 0
+    records = []                # several ranks: (read index, FASTA text)
     # bounded blocks keep host memory O(block); the next block's loads are
     # submitted before the current block decodes, so loading overlaps the
     # device's work (sloika_tpu/cli/basecall.py:203-212)
@@ -206,25 +233,49 @@ def main(argv=None):
                 current, pending = pending, [
                     pool.submit(load, fn)
                     for fn in files[lo + block:lo + 2 * block]]
-                loaded = [r for r in (f.result() for f in current)
+                loaded = [(i, r) for i, r in zip(indices[lo:lo + block],
+                                                 (f.result() for f in current))
                           if r is not None]
                 if not loaded:
                     continue
                 if dac:
                     results = caller.basecall_dac_reads(
-                        [(r[1], r[2]) for r in loaded])
+                        [(r[1], r[2]) for _, r in loaded])
                 else:
-                    results = caller.basecall_signals([r[1] for r in loaded])
-                for r, res in zip(loaded, results):
+                    results = caller.basecall_signals(
+                        [r[1] for _, r in loaded])
+                for (i, r), res in zip(loaded, results):
                     if res is None:
                         continue
                     score, call = res
                     nbases += write(r[0], score, call, len(r[1]))
                     nsignal += len(r[1])
                     nreads += 1
+                    if multi:
+                        records.append((i, capture.getvalue()))
+                        capture.seek(0)
+                        capture.truncate(0)
     finally:
         printer.close()
     dt = time.time() - t0
+    if multi:
+        # the counters to every rank, the records to rank 0, which writes
+        # them in the order of the input files
+        counts = multihost.allgather_records([[nreads, nbases, nsignal]])
+        nreads, nbases, nsignal = (sum(c[k] for c in counts)
+                                   for k in range(3))
+        payloads = multihost.gather_bytes_to_rank0(
+            json.dumps(records).encode())
+        if payloads is not None:
+            merged = sorted((r for p in payloads
+                             for r in json.loads(p.decode())),
+                            key=lambda r: r[0])
+            fh = open(args.output, 'w') if args.output else sys.stdout
+            try:
+                fh.writelines(text for _, text in merged)
+            finally:
+                if args.output:
+                    fh.close()
     sys.stderr.write(
         'Called {} reads in {:.2f}s ({:.1f} bases/s, {:.1f} {}/s)\n'
         .format(nreads, dt, nbases / dt, nsignal / dt, datatype))

@@ -10,7 +10,18 @@ references with a model on the device::
         model.json refs.fa --device cuda
 
 ``--device cuda`` raises when no GPU is present.  Every flag takes the JAX
-CLI's default and type; ``--devices`` (a multi-device mesh) is not ported.
+CLI's default and type.
+
+``--devices N`` (the remap subcommands) remaps over N ranks, one a device
+(:mod:`sloika_tpu_torch.parallel`): the command starts them itself, or,
+under ``torchrun``, checks N against the launcher's ``WORLD_SIZE``.  Each
+rank chunks a strided share of the reads, and rank 0 writes the HDF5 and
+the strand list in the order of a single process.  ``identity`` and
+``raw_identity`` share their reads the same way over the ranks of a
+launcher::
+
+    python -m sloika_tpu_torch.cli.chunkify raw_remap reads/ chunks.hdf5 \
+        model.json refs.fa --devices 2
 """
 import argparse
 
@@ -109,6 +120,9 @@ def make_parser():
     remap_common.add_argument('--slip', default=5.0,
                               type=Maybe(NonNegative(float)),
                               help='Slip penalty')
+    remap_common.add_argument('--devices', default=1, type=Positive(int),
+                              help='Ranks (one a device) to share the '
+                                   'reads over')
     remap_common.add_argument('--dac', default=False, action=AutoBool,
                               help='Ship raw int16 DAC samples and '
                                    'normalise on the device (raw_remap '
@@ -158,6 +172,13 @@ def make_parser():
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
+    from sloika_tpu_torch.parallel import mesh
+    # identity and raw_identity run on the host: their ranks are the
+    # launcher's, on the CPU
+    code = mesh.launch(main, argv, getattr(args, 'devices', None),
+                       getattr(args, 'device', 'cpu'))
+    if code is not None:            # the ranks this command started
+        return code
     args.command_action(args)
     return 0
 

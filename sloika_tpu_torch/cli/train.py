@@ -14,7 +14,18 @@ The model is a registered name of :mod:`sloika_tpu_torch.models`, a
 k`` runs k optimiser steps a group (one CUDA graph replay on the card; a
 fixed chunk length, ``--chunk_len_range x x``), ``--data_on_device`` keeps
 the chunk set on the device for such groups, ``--profile dir`` writes a
-``torch.profiler`` Chrome trace.  Not ported (see ROADMAP): ``--ndevice``.
+``torch.profiler`` Chrome trace.
+
+``--ndevice N`` trains data-parallel over N ranks, one a device
+(:mod:`sloika_tpu_torch.parallel`; default: every visible card, or one
+rank on the CPU): the command starts the N ranks itself, or, under
+``torchrun``, checks N against the launcher's ``WORLD_SIZE``.  Only rank 0
+writes the output directory::
+
+    python -m sloika_tpu_torch.cli.train raw raw_0.98_rgrgr out/ \
+        chunks.hdf5 --ndevice 2
+    torchrun --nproc_per_node 4 -m sloika_tpu_torch.cli.train raw \
+        raw_0.98_rgrgr out/ chunks.hdf5 --ndevice 4
 """
 import argparse
 import os
@@ -53,6 +64,9 @@ def make_parser():
                         help='Weight objective by inverse label frequency')
     common.add_argument('--l2', default=0.0, metavar='penalty',
                         type=NonNegative(float), help='L2 penalty on parameters')
+    common.add_argument('--ndevice', default=None, type=Positive(int),
+                        help='Number of devices (ranks) for data '
+                             'parallelism (default: all)')
     common.add_argument('--lrdecay', default=5000, metavar='n',
                         type=Positive(float),
                         help='LR for batch i is adam.rate / (1.0 + i / n)')
@@ -136,17 +150,27 @@ def main(argv=None):
     from sloika_tpu_torch import config, serialize, training
     from sloika_tpu_torch.data import hdf5
     from sloika_tpu_torch.models import network_factory
+    from sloika_tpu_torch.parallel import mesh
     from sloika_tpu_torch.variables import DEFAULT_ALPHABET
 
-    dev = config.resolve_device(args.device)
+    code = mesh.launch(main, argv, args.ndevice, args.device)
+    if code is not None:            # the ranks this command started
+        return code
+    dev = mesh.local_device(args.device)
     config.disable_tf32()
-    if os.path.exists(args.output) and not args.overwrite:
-        sys.stderr.write('Error: Output directory {} exists but --overwrite '
-                         'is false\n'.format(args.output))
+    lead = mesh.rank() == 0
+    clash = lead and os.path.exists(args.output) and not args.overwrite
+    if mesh.agree(clash):
+        if lead:
+            sys.stderr.write('Error: Output directory {} exists but '
+                             '--overwrite is false\n'.format(args.output))
         return 1
-    os.makedirs(args.output, exist_ok=True)
+    if lead:
+        os.makedirs(args.output, exist_ok=True)
 
-    log = training.Logger(os.path.join(args.output, 'model.log'), args.quiet)
+    log = training.Logger(
+        os.path.join(args.output, 'model.log') if lead else None,
+        args.quiet or not lead)
     try:
         log.write('* Command line\n' + ' '.join(sys.argv) + '\n')
         log.write('* Loading data from {}\n'.format(args.input))
@@ -157,7 +181,7 @@ def main(argv=None):
         alphabet = data['attrs'].get('alphabet', DEFAULT_ALPHABET)
         if isinstance(alphabet, str):
             alphabet = alphabet.encode('utf-8')
-        log.write('* Device: {}\n'.format(dev))
+        log.write('* Device: {}\n'.format(mesh.describe(dev)))
 
         opt_state = None
         if args.model.endswith('.npz'):
@@ -165,7 +189,8 @@ def main(argv=None):
             layer, _, opt_state = serialize.load_checkpoint(args.model)
         else:
             log.write('* Building network {}\n'.format(args.model))
-            if args.model.endswith('.py') and os.path.exists(args.model):
+            if (lead and args.model.endswith('.py')
+                    and os.path.exists(args.model)):
                 shutil.copyfile(args.model,
                                 os.path.join(args.output, 'model.py'))
             layer = network_factory(args.model)(

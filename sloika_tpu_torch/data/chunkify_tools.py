@@ -4,8 +4,14 @@ mapping tables in their files; ``remap`` and ``raw_remap`` remap event or
 raw reads against their references in device batches
 (:class:`sloika_tpu_torch.remap.Remapper`) first.  Reads are loaded on host
 threads; the chunks are written to HDF5 (and, for the remap mains, a
-strand summary) in read order.  One process; the outputs are those of the
-JAX package's single-process run.
+strand summary) in read order: the outputs of the JAX package's
+single-process run.
+
+Under a process group (``--devices``, :mod:`sloika_tpu_torch.parallel`)
+each rank takes a strided share of the read list on its own device; the
+records travel with their index in the read list to rank 0, which writes
+the outputs in single-process order (``sloika_tpu/data/chunkify_tools.py:
+25-56``).
 
 A read that cannot be loaded, trimmed, remapped or chunked is reported on
 stderr and skipped; it never aborts the run.  The remap mains' device parts,
@@ -23,21 +29,31 @@ from sloika_tpu_torch.data import batching, features, hdf5, raw_chunkify
 from sloika_tpu_torch.data import fast5
 from sloika_tpu_torch.data.fast5 import (filename_short, iterate_fast5,
                                          read_raw_signal)
+from sloika_tpu_torch.parallel import mesh, multihost
 
 
 def _finalise(args, records, input_type, strand_header=None,
               strand_path=None):
-    """Write the strand list and the HDF5 (sloika_tpu/data/
-    chunkify_tools.py:25, without the multihost gather).
+    """Gather every rank's records to rank 0, which writes the strand list
+    and the HDF5 in read-list order (sloika_tpu/data/chunkify_tools.py:
+    25-50).
 
-    :param records: [{"chunks", "labels", "bad", "strand"}] in the read
-        list's order
+    :param records: [{"index", "chunks", "labels", "bad"[, "strand"]}],
+        ``index`` the read's position in the read list
     """
+    records = multihost.gather_indexed_arrays([
+        (rec["index"], {k: (np.frombuffer(v.encode(), np.uint8)
+                            if k == "strand" else v)
+                        for k, v in rec.items() if k != "index"})
+        for rec in records])
+    if mesh.rank() != 0:
+        return
+    records = [rec for _, rec in records]
     if strand_path is not None:
         with open(strand_path, 'w') as slfh:
             slfh.write(strand_header)
             for rec in records:
-                slfh.write(rec["strand"])
+                slfh.write(rec["strand"].tobytes().decode())
     _write_output(args, [rec["chunks"] for rec in records],
                   [rec["labels"] for rec in records],
                   [rec["bad"] for rec in records], input_type)
@@ -76,26 +92,36 @@ def _guard_overwrite(args, *paths):
                 sys.exit(1)
 
 
-def _chunk_pool(args, worker, files):
-    """``worker(fn)`` over the files on ``args.jobs`` threads; the records
-    of the reads that gave one, in read order."""
-    records, i = [], 0
+def _map_share(args, load):
+    """``load(fn)`` over this rank's strided share of the read list
+    (sloika_tpu/data/chunkify_tools.py:53-56, ``_process_share``) on
+    ``args.jobs`` threads: (index in the read list, result) of the reads
+    that gave one, in read order."""
+    share = multihost.process_shard(
+        iterate_fast5(args.input_folder, limit=args.limit,
+                      strand_list=args.input_strand_list), with_indices=True)
     with ThreadPoolExecutor(max_workers=args.jobs) as pool:
-        for res in pool.map(worker, files):
+        for (idx, _), res in zip(share,
+                                 pool.map(load, [fn for _, fn in share])):
             if res is not None:
-                i = util.progress_report(i)
-                chunks, labels, bad_ev = res
-                records.append({"chunks": np.ascontiguousarray(chunks),
-                                "labels": np.ascontiguousarray(labels),
-                                "bad": np.ascontiguousarray(bad_ev)})
+                yield idx, res
+
+
+def _chunk_pool(args, worker):
+    """The records of the reads of this rank's share that ``worker(fn)``
+    chunked, in read order."""
+    records, i = [], 0
+    for idx, (chunks, labels, bad_ev) in _map_share(args, worker):
+        i = util.progress_report(i)
+        records.append({"index": idx, "chunks": np.ascontiguousarray(chunks),
+                        "labels": np.ascontiguousarray(labels),
+                        "bad": np.ascontiguousarray(bad_ev)})
     return records
 
 
 def chunkify_with_identity_main(args):
     """Chunk mapped event files (sloika_tpu/data/chunkify_tools.py:94-137)."""
     _guard_overwrite(args, args.output)
-    files = iterate_fast5(args.input_folder, limit=args.limit,
-                          strand_list=args.input_strand_list)
     print('* Processing data using', args.jobs, 'threads')
 
     def worker(fn):
@@ -119,15 +145,13 @@ def chunkify_with_identity_main(args):
             sys.stderr.write('Failed to chunk {}.\n{}\n'.format(fn, repr(e)))
             return None
 
-    _finalise(args, _chunk_pool(args, worker, files), 'events')
+    _finalise(args, _chunk_pool(args, worker), 'events')
 
 
 def raw_chunkify_with_identity_main(args):
     """Chunk raw signal by the mapping tables in the files
     (sloika_tpu/data/chunkify_tools.py:144-204)."""
     _guard_overwrite(args, args.output)
-    files = iterate_fast5(args.input_folder, limit=args.limit,
-                          strand_list=args.input_strand_list)
     print('* Processing data using', args.jobs, 'threads')
 
     def worker(fn):
@@ -165,10 +189,11 @@ def raw_chunkify_with_identity_main(args):
             sys.stderr.write('Failed to chunk {}.\n{}\n'.format(fn, repr(e)))
             return None
 
-    _finalise(args, _chunk_pool(args, worker, files), 'raw')
+    _finalise(args, _chunk_pool(args, worker), 'raw')
 
 
-def remap_event_records(remapper, names, events, references, args):
+def remap_event_records(remapper, names, events, references, args,
+                        indices=None):
     """The device part of ``remap``: remap trimmed event tables against
     their references and chunk them (sloika_tpu/data/chunkify_tools.py:
     383-419).  In memory: no file is read or written.
@@ -176,8 +201,10 @@ def remap_event_records(remapper, names, events, references, args):
     :param names: read names;  :param events: their event record arrays
     :param references: their reference sequences (bytes)
     :param args: chunk_len, kmer_len, use_scaled, normalisation, alphabet
-    :returns: [{"chunks", "labels", "bad", "strand"}] of the reads that
-        chunked, in order
+    :param indices: the reads' positions in the read list (default: their
+        order here)
+    :returns: [{"index", "chunks", "labels", "bad", "strand"}] of the reads
+        that chunked, in order
     """
     import numpy.lib.recfunctions as nprf
     feats = [features.from_events(ev, tag='') for ev in events]
@@ -185,7 +212,9 @@ def remap_event_records(remapper, names, events, references, args):
     results = remapper.remap_signals(feats, references)
     records = []
     i = 0
-    for sn, ev, ref, res in zip(names, events, references, results):
+    indices = range(len(names)) if indices is None else indices
+    for idx, sn, ev, ref, res in zip(indices, names, events, references,
+                                     results):
         if res is None:
             continue
         score, _mapping, path, seq = res
@@ -205,8 +234,8 @@ def remap_event_records(remapper, names, events, references, args):
             sn + '.fast5', len(ev), -score / len(ev),
             int(np.sum(np.ediff1d(path, to_begin=1) == 0)), len(seq),
             int(path.min()), int(path.max())]) + '\n'
-        records.append({"chunks": chunks, "labels": labels, "bad": bad_ev,
-                        "strand": row})
+        records.append({"index": idx, "chunks": chunks, "labels": labels,
+                        "bad": bad_ev, "strand": row})
     return records
 
 
@@ -217,8 +246,6 @@ def chunkify_with_remap_main(args):
     if args.dac:
         sys.stderr.write('--dac applies to raw_remap only (event features '
                          'are not DAC samples); ignored.\n')
-    files = iterate_fast5(args.input_folder, limit=args.limit,
-                          strand_list=args.input_strand_list)
     references = util.fasta_file_to_dict(args.references)
     remapper = _load_remap_model(args)
 
@@ -250,11 +277,11 @@ def chunkify_with_remap_main(args):
             return None
         return sn, ev
 
-    with ThreadPoolExecutor(max_workers=args.jobs) as pool:
-        loaded = [r for r in pool.map(load, files) if r is not None]
-    names = [r[0] for r in loaded]
-    records = remap_event_records(remapper, names, [r[1] for r in loaded],
-                                  [references[n] for n in names], args)
+    loaded = list(_map_share(args, load))
+    names = [r[0] for _, r in loaded]
+    records = remap_event_records(remapper, names, [r[1] for _, r in loaded],
+                                  [references[n] for n in names], args,
+                                  indices=[i for i, _ in loaded])
     _finalise(args, records, 'events',
               strand_header='\t'.join(['filename', 'nev', 'score', 'nstay',
                                        'seqlen', 'start', 'end']) + '\n',
@@ -274,10 +301,11 @@ def _load_remap_model(args):
     return Remapper(load_model(args.model), args.kmer_len,
                     min_prob=args.min_prob, slip=args.slip,
                     prior=tuple(args.prior), alphabet=args.alphabet,
-                    batch_size=args.batch, band=band, device=args.device)
+                    batch_size=args.batch, band=band,
+                    device=mesh.local_device(args.device))
 
 
-def remap_raw_records(remapper, loaded, references, args):
+def remap_raw_records(remapper, loaded, references, args, indices=None):
     """The device part of ``raw_remap``: remap raw reads against their
     references and chunk them (sloika_tpu/data/chunkify_tools.py:288-321).
     In memory: no file is read or written.
@@ -287,8 +315,10 @@ def remap_raw_records(remapper, loaded, references, args):
     :param references: their reference sequences (bytes)
     :param args: chunk_len, kmer_len, normalisation, downsample_factor,
         interpolation, alphabet, dac
-    :returns: [{"chunks", "labels", "bad", "strand"}] of the reads that
-        chunked, in order
+    :param indices: the reads' positions in the read list (default: their
+        order here)
+    :returns: [{"index", "chunks", "labels", "bad", "strand"}] of the reads
+        that chunked, in order
     """
     print('* Remapping {} reads on {}'.format(len(loaded), remapper.device))
     if args.dac:
@@ -300,7 +330,9 @@ def remap_raw_records(remapper, loaded, references, args):
 
     records = []
     i = 0
-    for (sn, signal, *_), ref, res in zip(loaded, references, results):
+    indices = range(len(loaded)) if indices is None else indices
+    for idx, (sn, signal, *_), ref, res in zip(indices, loaded, references,
+                                               results):
         if res is None:
             continue
         score, mapping_table, path, seq = res
@@ -318,8 +350,8 @@ def remap_raw_records(remapper, loaded, references, args):
             sn + '.fast5', len(mapping_table), -score / len(mapping_table),
             int(np.sum(np.ediff1d(path, to_begin=1) == 0)), len(seq),
             int(path.min()), int(path.max())]) + '\n'
-        records.append({"chunks": chunks, "labels": labels, "bad": bad_ev,
-                        "strand": row})
+        records.append({"index": idx, "chunks": chunks, "labels": labels,
+                        "bad": bad_ev, "strand": row})
     return records
 
 
@@ -329,8 +361,6 @@ def raw_chunkify_with_remap_main(args):
     from sloika_tpu_torch.basecall import load_raw_dac, scale_dac_f32
 
     _guard_overwrite(args, args.output, args.output_strand_list)
-    files = iterate_fast5(args.input_folder, limit=args.limit,
-                          strand_list=args.input_strand_list)
     references = util.fasta_file_to_dict(args.references)
     remapper = _load_remap_model(args)
 
@@ -367,10 +397,10 @@ def raw_chunkify_with_remap_main(args):
             return None
         return sn, signal
 
-    with ThreadPoolExecutor(max_workers=args.jobs) as pool:
-        loaded = [r for r in pool.map(load, files) if r is not None]
-    records = remap_raw_records(remapper, loaded,
-                                [references[r[0]] for r in loaded], args)
+    loaded = list(_map_share(args, load))
+    records = remap_raw_records(remapper, [r for _, r in loaded],
+                                [references[r[0]] for _, r in loaded], args,
+                                indices=[i for i, _ in loaded])
     _finalise(args, records, 'raw',
               strand_header='\t'.join(['filename', 'nblocks', 'score',
                                        'nstay', 'seqlen', 'start',

@@ -20,6 +20,20 @@ the group's stacked batches or, with the chunk set resident on the device,
 of its sampler indices; on the CPU, K eager steps.  A worker thread
 prefetches the next group.  :func:`validate` is its held-out evaluation.
 
+Under a process group (:mod:`sloika_tpu_torch.parallel.mesh`, one rank a
+device) training is data-parallel as the JAX package's over its mesh
+(``sloika_tpu/training.py:112-142, 483, 523, 562, 581-620``): the sampler's
+batch is a multiple of the world size, every rank draws the same global
+batch from the shared seed and steps on its contiguous block of it, and
+between each backward and the update one all-reduce of a flat buffer
+averages the gradients and sums the step's loss, correct and valid
+counts, so the loss reported is the global batch's mean and the accuracy
+its Σcorrect / Σvalid.  Parameters start as rank 0's.  Only rank 0 writes
+checkpoints, the log and a profile.  A resident chunk set needs a single
+rank.  Under NCCL the all-reduce is captured in each group's CUDA graph; a
+gloo collective cannot be, so K > 1 on a card under gloo (ranks sharing a
+card) raises.
+
 The numpy-only helpers below are copied, with their source lines, because
 ``sloika_tpu/training.py`` imports jax.
 """
@@ -35,6 +49,7 @@ import torch
 from sloika_tpu_torch import config, optim, serialize
 from sloika_tpu_torch.nn.combinators import Serial
 from sloika_tpu_torch.nn.layers import Softmax
+from sloika_tpu_torch.parallel import mesh
 
 
 class ExponentialSmoother(object):
@@ -213,10 +228,11 @@ def terminal_softmax_logits(layer):
     return None
 
 
-def make_loss_fn(layer, min_prob=0.0, l2=0.0, drop=0):
+def make_loss_fn(layer, min_prob=0.0, l2=0.0, drop=0, counts=False):
     """Weighted cross-entropy loss + accuracy over time-major batches
     (``sloika_tpu/training.py:109-144``).
 
+    :param counts: return the accuracy's terms, (loss, correct, valid)
     :returns: ``loss_fn(x, labels, weights) -> (loss, acc)`` where x
         (T, B, F); labels (int64), weights (T', B) at label resolution
     """
@@ -244,32 +260,48 @@ def make_loss_fn(layer, min_prob=0.0, l2=0.0, drop=0):
         correct = (torch.argmax(post, dim=2) == labels)[ldrop:udrop]
         # accuracy over positions with nonzero weight
         valid = (weights > 0)[ldrop:udrop]
-        acc = (torch.sum(correct & valid)
-               / torch.clamp(torch.sum(valid), min=1)).float()
-        return loss, acc
+        ncorrect, nvalid = torch.sum(correct & valid), torch.sum(valid)
+        if counts:
+            return loss, ncorrect, nvalid
+        return loss, (ncorrect / torch.clamp(nvalid, min=1)).float()
 
     return loss_fn
 
 
+def _backward(layer, loss_fn, x, labels, weights):
+    """One step's loss and gradients, the gradients averaged over the
+    ranks of a group: (loss, accuracy) of the global batch."""
+    params = list(layer.parameters())
+    layer.zero_grad(set_to_none=True)
+    loss, ncorrect, nvalid = loss_fn(x, labels, weights)
+    loss.backward()
+    for p in params:
+        # a parameter no output reads (MUT3's W_xu and b_u, the peepholes
+        # of a scanned LSTM without them): JAX's zero
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if not mesh.active():
+        return loss.detach(), (ncorrect / torch.clamp(nvalid, min=1)).float()
+    # the loss is a mean over equal blocks: their mean is the global one
+    sums = mesh.all_reduce_grads(params, torch.stack(
+        [loss.detach(), ncorrect.float(), nvalid.float()]))
+    return sums[0] / mesh.world_size(), sums[1] / torch.clamp(sums[2], min=1)
+
+
 def make_train_step(layer, opt_update, min_prob=0.0, l2=0.0, drop=0):
-    """The train step (``sloika_tpu/training.py:147-172``, one device).
+    """The train step (``sloika_tpu/training.py:147-172``); under a group,
+    the data-parallel step over the ranks.
 
     :returns: ``step(opt_state, x, labels, weights, lr) -> (opt_state,
         loss, acc)``; the layer's parameters are updated in place
     """
-    loss_fn = make_loss_fn(layer, min_prob=min_prob, l2=l2, drop=drop)
+    loss_fn = make_loss_fn(layer, min_prob=min_prob, l2=l2, drop=drop,
+                           counts=True)
 
     def step(opt_state, x, labels, weights, lr):
-        layer.zero_grad(set_to_none=True)
-        loss, acc = loss_fn(x, labels, weights)
-        loss.backward()
-        for p in layer.parameters():
-            # a parameter no output reads (MUT3's W_xu and b_u, the
-            # peepholes of a scanned LSTM without them): JAX's zero
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        loss, acc = _backward(layer, loss_fn, x, labels, weights)
         opt_state = opt_update(layer, opt_state, lr)
-        return opt_state, loss.detach(), acc
+        return opt_state, loss, acc
 
     return step
 
@@ -362,20 +394,14 @@ def _group_body(layer, loss_fn, apply, opt_state, K, batch_at, scalars):
     step-size factors, which are read from ``scalars`` (nscal, K) on the
     device.
 
+    :param loss_fn: a ``make_loss_fn(..., counts=True)``
     :returns: (K, 2) tensor of each step's (loss, accuracy)
     """
-    params = list(layer.parameters())
     out = []
     for j in range(K):
-        x, labels, weights = batch_at(j)
-        layer.zero_grad(set_to_none=True)
-        loss, acc = loss_fn(x, labels, weights)
-        loss.backward()
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        loss, acc = _backward(layer, loss_fn, *batch_at(j))
         apply(layer, opt_state, *(s[j] for s in scalars))
-        out.append(torch.stack([loss.detach(), acc]))
+        out.append(torch.stack([loss, acc]))
     return torch.stack(out)
 
 
@@ -397,6 +423,13 @@ class GroupGraph:
     optimiser's tensors are restored after the warm-up, so the first replay
     takes the first group's steps; the gradients are allocated in the
     graph's memory pool during the capture.  A failed capture raises.
+
+    Under an NCCL group each step's all-reduce is captured too: the warm-up
+    group's collectives start the communicator before the capture, and the
+    capture runs in the thread-local mode, since ``ProcessGroupNCCL``'s
+    watchdog thread queries events while the stream captures (the global
+    mode, kept without a group, would fail it).  A gloo collective cannot
+    be captured: :func:`train` refuses K > 1 on a card under gloo.
 
     The wrappers' launch counts do not tick on a replay: the launches
     captured into the graph are counted once (``captured``) and added on
@@ -436,7 +469,8 @@ class GroupGraph:
         layer.zero_grad(set_to_none=True)
         before = _counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        mode = "thread_local" if mesh.active() else "global"
+        with torch.cuda.graph(self.graph, capture_error_mode=mode):
             self.out = body()
         after = _counts()
         #: kernel launches in one replay, by (wrapper, counter)
@@ -505,9 +539,9 @@ def train(layer, data, *, output=None, adam=(1e-3, 0.9, 0.999),
     :param prefetch: sample (and copy) the next group on a worker thread,
         in the serial loop's order
     :param data_on_device: "auto" keeps the chunk set on the device for
-        K > 1 when it fits ``SLOIKA_TPU_RESIDENT_BYTES`` (read at the call;
-        default 1.2 GB) and gathers the batches there; True requires that;
-        False streams the batches
+        K > 1 on a single rank when it fits ``SLOIKA_TPU_RESIDENT_BYTES``
+        (read at the call; default 1.2 GB) and gathers the batches there;
+        True requires that; False streams the batches
     :param profile_dir: write a ``torch.profiler`` Chrome trace of the
         steady groups (from the second on) under this directory
     :param stats: a dict to fill with the run's K, whether the data was
@@ -517,20 +551,26 @@ def train(layer, data, *, output=None, adam=(1e-3, 0.9, 0.999),
         :func:`sloika_tpu_torch.serialize.load_checkpoint`); a state of
         another optimiser's type is logged and replaced by a fresh one
     :param device: torch device, the card unless the caller asks for the
-        CPU; a CUDA device without a card raises
+        CPU; a CUDA device without a card raises.  Under a group, "cuda" is
+        the rank's card (:func:`~sloika_tpu_torch.parallel.mesh.
+        local_device`)
     :returns: (opt_state, history) with history an (niteration, 2) float32
-        array of each iteration's (loss, accuracy)
+        array of each iteration's (loss, accuracy), the global batch's
     """
-    dev = config.resolve_device(device)
+    dev = mesh.local_device(device)
     if dev.type == "cuda":
         config.disable_tf32()
     layer.to(dev)
+    mesh.broadcast_params(layer)
+    lead = mesh.rank() == 0
+    if not lead:
+        output, profile_dir = None, None
     if output:
         os.makedirs(output, exist_ok=True)
     own_log = log is None
     if own_log:
         log = Logger(os.path.join(output, 'model.log') if output else None,
-                     quiet)
+                     quiet or not lead)
     try:
         return _train(layer, data, dev, log, output=output, adam=adam,
                       batch_size=batch_size, chunk_len_range=chunk_len_range,
@@ -579,11 +619,14 @@ def _train(layer, data, dev, log, *, output, adam, batch_size,
         all_labels = apply_bad_mask(all_labels, all_bad)
 
     label_weights = label_frequency_weights(all_labels, data["weights"], ilf)
+    nrank = mesh.world_size()
+    # the same seed on every rank: each draws the global batch
     sampler = ChunkSampler({"chunks": all_chunks, "labels": all_labels,
                             "weights": data["weights"]},
                            batch_size, min_chunk, max_chunk, stride,
                            label_weights, seed=seed,
-                           n_buckets=n_length_buckets)
+                           n_buckets=n_length_buckets,
+                           device_multiple=nrank)
 
     opt_init, opt_update, state_type = _make_optimiser(optimiser, adam)
     if opt_state is not None and not isinstance(opt_state, state_type):
@@ -613,18 +656,24 @@ def _train(layer, data, dev, log, *, output, adam, batch_size,
     budget = int(os.environ.get("SLOIKA_TPU_RESIDENT_BYTES", 1_200_000_000))
     resident_bytes = (all_chunks.nbytes + all_labels.nbytes
                       + label_weights.nbytes)
-    resident_ok = K > 1 and resident_bytes <= budget
+    resident_ok = K > 1 and nrank == 1 and resident_bytes <= budget
     if data_on_device == "auto":
         resident = resident_ok
     elif data_on_device:
         if not resident_ok:
             raise ValueError(
                 "data_on_device=True needs steps_per_dispatch > 1 (fixed "
-                "chunk length) and <= {} resident bytes (have {})".format(
-                    budget, resident_bytes))
+                "chunk length), a single rank (have {}) and <= {} resident "
+                "bytes (have {})".format(nrank, budget, resident_bytes))
         resident = True
     else:
         resident = False
+    if K > 1 and dev.type == "cuda" and mesh.backend() == "gloo":
+        raise ValueError(
+            "steps_per_dispatch {} runs a group as one CUDA graph, and a "
+            "gloo all-reduce cannot be captured in one (ranks sharing a "
+            "card run gloo): use steps_per_dispatch 1, or one card a rank "
+            "(NCCL)".format(K))
     fixed_len = int(sampler.bucket_lengths[0])
     if resident:
         resident_d = _put(dev, np.ascontiguousarray(all_chunks,
@@ -634,7 +683,8 @@ def _train(layer, data, dev, log, *, output, adam, batch_size,
         log.write('* Chunk set resident on device ({:.1f} MB); dispatches '
                   'ship sampler indices only\n'.format(resident_bytes / 1e6))
 
-    loss_fn = make_loss_fn(layer, min_prob=min_prob, l2=l2, drop=drop)
+    loss_fn = make_loss_fn(layer, min_prob=min_prob, l2=l2, drop=drop,
+                           counts=True)
     step = make_train_step(layer, opt_update, min_prob=min_prob, l2=l2,
                            drop=drop)
     score_smoothed = ExponentialSmoother(smooth)
@@ -658,12 +708,13 @@ def _train(layer, data, dev, log, *, output, adam, batch_size,
             starts = np.asarray([d[1] for d in draws], np.int64)
             return _put(dev, idx, starts), idx.size * (draws[0][2] // stride)
         bs = [sampler.sample() for _ in range(K)]
+        nev = sum(b[1].size for b in bs)       # the global batches' labels
+        bs = [tuple(mesh.local_batch(a) for a in b) for b in bs]
         if K == 1:
-            return _to_device(bs[0], dev), bs[0][1].size
+            return _to_device(bs[0], dev), nev
         return (_put(dev, np.stack([b[0] for b in bs]),
                      np.stack([b[1] for b in bs]).astype(np.int64),
-                     np.stack([b[2] for b in bs])),
-                sum(b[1].size for b in bs))
+                     np.stack([b[2] for b in bs])), nev)
 
     def lr_of(i):
         return float(np.float32(sched(i)))

@@ -71,6 +71,12 @@ import sloika_tpu_torch.cli.extract_reference
 import sloika_tpu_torch.cli.get_refs_from_sam
 import sloika_tpu_torch.scripts.bench_remap
 import sloika_tpu_torch.scripts.bench_viterbi
+import sloika_tpu_torch.iterators
+import sloika_tpu_torch.parallel
+import sloika_tpu_torch.parallel.imap
+import sloika_tpu_torch.parallel.mesh
+import sloika_tpu_torch.parallel.multihost
+import sloika_tpu_torch.parallel.spawn
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "h5py", "sloika_tpu")
                 and sys.modules[m] is not None)

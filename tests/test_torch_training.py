@@ -552,19 +552,17 @@ def _flag_table(parser):
 def test_train_parser_flags_equal_jax():
     """Every flag of ``train raw`` and ``train events`` takes the JAX
     parser's default, type (its results on probe strings), nargs and
-    choices, ``--steps_per_dispatch``, ``--data_on_device`` and
-    ``--profile`` among them; the port adds ``--device`` and has no
-    ``--ndevice`` (a multi-device mesh)."""
+    choices, ``--steps_per_dispatch``, ``--data_on_device``, ``--profile``
+    and ``--ndevice`` among them; the port adds ``--device``."""
     from sloika_tpu.cli import train as jcli_train
     from sloika_tpu_torch.cli import train as tcli_train
     ours = _flag_table(tcli_train.make_parser())
     ref = _flag_table(jcli_train.make_parser())
     assert set(ours) == set(ref) == {"raw", "events"}
     for name in ref:
-        assert set(ours[name]) == (set(ref[name]) - {"ndevice"}) | {
-            "device"}, name
+        assert set(ours[name]) == set(ref[name]) | {"device"}, name
         for dest, row in ref[name].items():
-            if dest != "ndevice":
-                assert ours[name][dest] == row, (name, dest)
-        for dest in ("steps_per_dispatch", "data_on_device", "profile"):
+            assert ours[name][dest] == row, (name, dest)
+        for dest in ("steps_per_dispatch", "data_on_device", "profile",
+                     "ndevice"):
             assert dest in ours[name]
