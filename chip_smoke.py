@@ -6,9 +6,10 @@ Needs one CUDA card; exits non-zero, printing no result, without one.
 Phases, each printing one line and raising on failure:
 
 1. environment: the card's name and power limit, the CUDA version;
-2. build: the thirteen kernels, from ``sloika_tpu_torch/csrc``, and the
-   clocked builds the phases split steps with (CLOCKED), one nvcc each, all
-   started together;
+2. build: the thirteen kernels, from ``sloika_tpu_torch/csrc``, the
+   clocked builds the phases split steps with (CLOCKED) and the parents of
+   the two kernels redesigned last (PARENTS), one nvcc each, all started
+   together;
 3. GRU: the forward kernel against its plain twin at S = 112 and 144,
    T = 3277, B = 64, ragged lengths, forward and reverse (max abs difference
    on valid steps <= 1e-4: float32 summation order over 3277 recurrent
@@ -27,11 +28,15 @@ Phases, each printing one line and raising on failure:
    do not take, klen 7 (16,384 states) and nbase 3 at klen 4 (T = 200,
    B = 2): the wrappers launch the kernels' general route
    (``general_launches`` up by one) and the paths equal the CPU twin's;
-   then klen 8 (65,536 states, T = 1,000, B = 8), the forward
-   bit-identical to its twin, and klen 7 at the whole-read batch (B = 8),
-   both general kernels timed against their plain twins on the card and
-   bit-identical to them, the forward's plan (a cluster of C blocks a row)
-   and its step split by the clocked build, with its design floor;
+   then klen 8 (65,536 states, T = 1,000, B = 8), both general kernels
+   bit-identical to their twins, and klen 7 at the whole-read batch (B =
+   8), both general kernels timed against their plain twins on the card
+   and bit-identical to them, the forward's plan (a cluster of C blocks a
+   row) and its step split by the clocked build, with its design floor;
+   the general backtrace (redesigned: a shared-memory ring) timed at klen
+   7 and 8 beside its parent's design (a thread a row) in the order
+   parent, change, change, parent, and split by its clocked build, with
+   its chain floor;
 5. basecall main path: the headline model's graph at full width (seeded
    random weights) basecalls 16 synthetic DAC reads through
    ``Basecaller.basecall_dac_reads``; every kernel of the path must have
@@ -97,7 +102,11 @@ Phases, each printing one line and raising on failure:
    10,000 samples whose references, 13,000 kmers longer than their
    frames, bucket to 22,145 positions, remapped exactly at W = 22,272; the DP's inputs of that call
    through the plain twins on the CPU give bit-identical scores and paths;
-   both kernels timed there, with the bound; (b) reads of 15,500 samples
+   both kernels timed there, with the bound; the wide route (redesigned: a
+   cluster of blocks a row) beside its parent's design (one block a row,
+   scores in device memory) in the order parent, change, change, parent,
+   the parent's bits equal, its step split by its clocked build (its
+   first two blocks) and its design floor (a cluster barrier a step); (b) reads of 15,500 samples
    whose references run 18,900 kmers past their frames, so that the bands
    of 768, 3,072 and 12,288 all miss their ends, in a batch sized from
    ``torch.cuda.mem_get_info()`` (a ballast tensor holds all but 16 GiB of
@@ -281,6 +290,10 @@ KERNELS = ("gru_fwd", "gru_bwd", "gru_wgrad", "viterbi_fwd", "viterbi_back",
 CLOCKED = tuple((n, n.upper() + "_CLOCKS") for n in (
     "viterbi_fwd", "viterbi_back", "remap_banded", "remap_back",
     "lstm_wgrad", "gru_unroll", "hbm_ring"))
+#: the parents of the two kernels redesigned last, built beside them and
+#: timed beside them in phases 4, 9a and 17c (``scripts.redesign_parents``:
+#: no path loads them)
+PARENTS = ("redesign_parents",)
 #: the kernels each main path must launch
 PATH_KERNELS = {"basecall": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
                 "basecall_raw": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
@@ -480,6 +493,18 @@ def with_bound(entry, nbytes, nflop, library_ms=None):
     entry["bound_ms"], entry["bound_by"] = bound(nbytes, nflop)
     entry["library_ms"] = library_ms
     return entry
+
+
+def against_parent(change, parent, reps=3):
+    """Milliseconds of a redesigned kernel's call ``change`` and of its
+    parent's design ``parent`` on the same inputs, in one process in the
+    order parent, change, change, parent (each the best of 2 rounds of
+    ``reps`` calls by CUDA events): (change's two, parent's two)."""
+    p1 = cuda_ms(parent, reps, 2)
+    c1 = cuda_ms(change, reps, 2)
+    c2 = cuda_ms(change, reps, 2)
+    p2 = cuda_ms(parent, reps, 2)
+    return [c1, c2], [p1, p2]
 
 
 def phase_gru(dev, standin):
@@ -688,6 +713,7 @@ def viterbi_general_route(dev, whole_T):
     :returns: (viterbi_fwd's, viterbi_back's) general-route entries
     """
     from sloika_tpu_torch.ops import decode, viterbi_kernel as vk
+    from sloika_tpu_torch.scripts import redesign_parents
     wrappers = (vk.viterbi_forward, vk.viterbi_backtrace)
     checks = {}
     for klen, nbase in ((7, 4), (4, 3)):
@@ -732,22 +758,39 @@ def viterbi_general_route(dev, whole_T):
     (v_ref, tb_ref), plain8 = timed_once(
         lambda: decode.viterbi_forward_plain(post, 8, skip_pen=5.0))
     same8 = torch.equal(v, v_ref) and torch.equal(tb, tb_ref)
+    # the general backtrace at klen 8 (a 65,552-byte frame a slot): its
+    # twin's bits, then timed beside its parent's design
+    last8 = torch.argmax(v, dim=1)
+    before = vk.viterbi_backtrace.general_launches
+    got8 = vk.viterbi_backtrace(tb, last8)
+    launched8b = vk.viterbi_backtrace.general_launches - before
+    ref8 = decode.viterbi_backtrace_plain(tb, last8)
+    same8b = all(map(torch.equal, got8, ref8))
+    back8, back8_parent = against_parent(
+        lambda: vk.viterbi_backtrace(tb, last8),
+        lambda: redesign_parents.viterbi_back_general_parent(tb, last8, 4))
     del post, v, tb, v_ref, tb_ref
     torch.cuda.empty_cache()
     print("viterbi general route klen 8 (K = 65,536) T={} B={}: plan C={} "
           "threads={} nslots={} shared={}; bit_identical to the twin on the "
           "card {}; forward kernel {:.3f} ms ({:.3f} us a step, the first "
-          "call) plain {:.1f} ms; launches {}".format(
+          "call) plain {:.1f} ms; launches {}; backtrace bit_identical {} "
+          "(general launches {}), {:.3f} / {:.3f} ms, the parent's design "
+          "{:.3f} / {:.3f} ms (parent, change, change, parent)".format(
               KLEN8_T, RAW_BATCH, plan8["C"], plan8["threads"],
               plan8["nslots"], plan8["shared"], same8, ms8,
-              1e3 * ms8 / KLEN8_T, plain8, launched8), flush=True)
-    if not (same8 and launched8 == 1):
+              1e3 * ms8 / KLEN8_T, plain8, launched8, same8b, launched8b,
+              *back8, *back8_parent), flush=True)
+    if not (same8 and launched8 == 1 and same8b and launched8b == 1):
         raise AssertionError("the general Viterbi route differs from its "
-                             "twin at klen 8")
+                             "twins at klen 8")
     checks["klen 8 nbase 4"] = {"bit_identical_to_twin": same8,
                                 "shape": "T={} B={}".format(KLEN8_T,
                                                             RAW_BATCH),
-                                "plan": plan8, "ms_first_call": ms8}
+                                "plan": plan8, "ms_first_call": ms8,
+                                "back_bit_identical_to_twin": same8b,
+                                "back_ms": back8,
+                                "back_parent_ms": back8_parent}
     # klen 7 at the whole-read batch: the kernels against the twins on the
     # card, the forward's plan and its step split by the clocked build
     T, B, K = whole_T, RAW_BATCH, 4 ** 7
@@ -772,11 +815,35 @@ def viterbi_general_route(dev, whole_T):
     err_back = max(float((path - path_ref).abs().max()),
                    float((moved != moved_ref).any()))
     ms = min(ms, cuda_ms(lambda: vk.viterbi_forward(post, 7, 5.0), 2))
-    back_ms = min(back_ms, cuda_ms(lambda: vk.viterbi_backtrace(tb, last),
-                                   2))
+    # the general backtrace beside its parent's design (a thread a row),
+    # then split by its clocked build
+    back_runs, back_parent = against_parent(
+        lambda: vk.viterbi_backtrace(tb, last),
+        lambda: redesign_parents.viterbi_back_general_parent(tb, last, 4))
+    back_ms = min(back_runs)
     split = bench_viterbi.fwd_clocks(post, (v, tb), klen=7)
+    bsplit = bench_viterbi.back_clocks(tb, last, (path, moved))
+    back_floors = bench_viterbi.back_design_bounds(T, B, K, bsplit)
     del post, tb
     torch.cuda.empty_cache()
+    back_plan = vk.viterbi_back_general_plan(B, K, T, 4)
+    print("viterbi general backtrace klen 7 (K = 16,384) T={} B={} "
+          "(redesigned: frames streamed through a shared-memory ring, plan "
+          "F={} nslots={} frame_bytes={}): {:.3f} / {:.3f} ms ({:.1f} / "
+          "{:.1f} ns a frame), the parent's design (a thread a row) {:.3f} / "
+          "{:.3f} ms, in the order parent, change, change, parent; walker "
+          "{:.1f} cycles a frame {} at {:.2f} GHz, copier {}, "
+          "{:.1f} cycles a shared-memory read: chain floor {:.3f} ms, the "
+          "traceback's bytes {:.3f} ms [{}]".format(
+              T, B, back_plan["F"], back_plan["nslots"],
+              back_plan["frame_bytes"], *back_runs,
+              *(1e6 * x / T for x in back_runs), *back_parent,
+              bsplit["cycles_per_step"],
+              {k: round(x, 1) for k, x in bsplit["walker"].items()},
+              bsplit["ghz"],
+              {k: round(x, 1) for k, x in bsplit["copier"].items()},
+              bsplit["smem_chase_cycles"], back_floors["chain_floor_ms"],
+              back_floors["design_bytes_ms"], card_line()), flush=True)
     clusters = vk.viterbi_forward.general_clusters(K, 4, dev)
     print("viterbi general route klen 7 (K = 16,384) T={} B={}: plan C={} "
           "threads={} nslots={} (the card runs {} clusters of C blocks at "
@@ -810,10 +877,23 @@ def viterbi_general_route(dev, whole_T):
                       "floor_cycles": {
                           k: split[k] for k in (
                               "cluster_barrier_cycles",
-                              "remote_load_cycles", "push_hop_cycles")}},
+                              "remote_load_cycles", "push_hop_cycles",
+                              "ghz")}},
                      *viterbi_fwd_bound(T, B, K))
     back = with_bound({"shape": shape, "max_abs_err": err_back,
-                       "ms": back_ms, "plain_ms": back_plain_ms},
+                       "ms": back_ms, "plain_ms": back_plain_ms,
+                       "redesigned": "frames streamed through a "
+                       "shared-memory ring (tensor-map boxes at klen 7, 1-D "
+                       "bulk copies otherwise), a walker and a copier warp "
+                       "a row",
+                       "ms_runs": back_runs, "parent_ms": back_parent,
+                       "plan": back_plan,
+                       "cycles_per_frame": bsplit["cycles_per_step"],
+                       "cycles_per_frame_by_phase": {
+                           "walker": bsplit["walker"],
+                           "copier": bsplit["copier"]},
+                       "smem_chase_cycles": bsplit["smem_chase_cycles"],
+                       **back_floors},
                       *viterbi_back_bound(T, B))
     return fwd, back
 
@@ -1537,12 +1617,20 @@ def phase_remap(dev, counters):
     return counts
 
 
-def phase_remap_wide(dev, counters):
+def phase_remap_wide(dev, counters, card_clocks):
     """Phase 9's wide checks (a) and (b); returns the wide route's entries
-    for ``remap_banded`` and ``remap_back``."""
+    for ``remap_banded`` and ``remap_back``.  ``card_clocks``: the cycles
+    of a cluster barrier and the clock they were read at
+    (``cluster_barrier_cycles``, ``ghz``), as phase 4's clocked general
+    forward measures them (its entry's ``general_route["floor_cycles"]``),
+    for the wide route's design floor."""
+    if not {"cluster_barrier_cycles", "ghz"} <= set(card_clocks):
+        raise ValueError("phase_remap_wide needs phase 4's cluster barrier "
+                         "cycles and clock, got {}".format(card_clocks))
     from sloika_tpu_torch import models
     from sloika_tpu_torch import remap as tremap
     from sloika_tpu_torch.ops import remap_kernel as rk
+    from sloika_tpu_torch.scripts import bench_remap, redesign_parents
     standin = models.pretrained_standin(sd=REMAP_SD, seed=0).to(dev).eval()
 
     # (a) two reads remapped exactly at W = 22,272: the wide route, its DP
@@ -1588,12 +1676,47 @@ def phase_remap_wide(dev, counters):
     Tp = -(-T // TB) * TB
     starts = rk.band_starts_blocked(nframes, npos, Tp, W, TB)
     kargs = (ltrans_t, seq, mask, p0, starts, slip, W)
-    ms = cuda_ms(lambda: rk.remap_banded(*kargs), 2)
+    # the redesigned wide route beside its parent's design (one block of
+    # 1,024 threads a row, the scores in device memory), parent, change,
+    # change, parent; the parent gives the same bits
+    runs, parent = against_parent(
+        lambda: rk.remap_banded(*kargs),
+        lambda: redesign_parents.remap_banded_wide_parent(*kargs), reps=2)
+    ms = min(runs)
     tb, vfinal = rk.remap_banded(*kargs)
+    same_parent = all(map(torch.equal, (tb, vfinal),
+                          redesign_parents.remap_banded_wide_parent(*kargs)))
+    plan = rk.remap_banded_plan(W, ltrans_t.shape[2])
+    split = bench_remap.banded_clocks(kargs, (tb, vfinal))
+    # the design floor: a cluster barrier a step (its cycles measured by
+    # phase 4's clocked general forward, at the clock it ran at)
+    floor_ms = Tp * card_clocks["cluster_barrier_cycles"] / (
+        card_clocks["ghz"] * 1e6)
     last = rk.finish_banded(tb, vfinal, starts, p1, rk.remap_backtrack)[1][-1]
     back_ms = cuda_ms(lambda: rk.remap_backtrack(tb, starts, last), 3)
     back_plan = rk.remap_back_plan(W)
     shape = "T={} Tp={} B={} W={} P={}".format(T, Tp, B, W, P)
+    print("remap wide route (a) redesigned (a cluster of {} blocks a row "
+          "of {} positions, {} warps x {} positions, ring {} x {}): {:.3f} / "
+          "{:.3f} ms ({:.2f} / {:.2f} us a step), the parent's design (one "
+          "block a row, scores in device memory) {:.3f} / {:.3f} ms ({:.2f} "
+          "/ {:.2f} us a step), parent, change, change, parent; the same "
+          "bits {}; the step by phase (cycles, clocked build at {:.2f} GHz, "
+          "{:.3f} ms): block 0 {:.0f} {}, block 1 {:.0f} {}; design floor "
+          "(a cluster barrier of {:.0f} cycles a step) {:.3f} ms [{}]".format(
+              plan["cluster"], plan["blocks"], plan["warps"], plan["ppt"],
+              plan["rows"],
+              plan["nslots"], *runs, *(1e3 * x / Tp for x in runs),
+              *parent, *(1e3 * x / Tp for x in parent), same_parent,
+              split["ghz"], split["ms"], split["cycles_per_step"],
+              {k: round(x) for k, x in split["phases_mean"].items()},
+              split["block1"]["cycles_per_step"],
+              {k: round(x) for k, x in
+               split["block1"]["phases_mean"].items()},
+              card_clocks["cluster_barrier_cycles"], floor_ms, card_line()),
+          flush=True)
+    if not same_parent:
+        raise AssertionError("the wide route's parent gave other bits")
     print("remap wide route (a): {} reads of {:,} samples, references {} "
           "kmers, exact at W={} ({}): paths and scores bit-identical to the "
           "plain CPU twins {} (score max rel err {:.1e}); remap_banded "
@@ -1612,7 +1735,17 @@ def phase_remap_wide(dev, counters):
         with_bound({"shape": shape, "ms": ms, "us_per_step": 1e3 * ms / Tp,
                     "plain_ms": plain_ms, "max_abs_err": 0.0 if same else
                     float((path.cpu() - path_p).abs().max()),
-                    "launches": wide[0]},
+                    "launches": wide[0],
+                    "redesigned": "a cluster of blocks a row, each "
+                    "holding its share of the window in registers and "
+                    "shared memory",
+                    "ms_runs": runs, "parent_ms": parent,
+                    "parent_us_per_step": [1e3 * x / Tp for x in parent],
+                    "plan": plan, "design_floor_ms": floor_ms,
+                    "cycles_per_step": split["cycles_per_step"],
+                    "cycles_per_step_by_phase": {
+                        "block0": split["phases_mean"],
+                        "block1": split["block1"]["phases_mean"]}},
                    remap_bytes(T, Tp, B, W, P), 13 * Tp * B * W),
         with_bound({"shape": shape, "ms": back_ms, "copy": back_plan["copy"],
                     "max_abs_err": 0.0 if same else
@@ -3283,7 +3416,9 @@ def call_nbase5(dev, counters, sigs):
     (``general_launches`` of both wrappers > 0); two reads cut to RAW_SHORT
     samples against the CPU twin, calls identical; at the longest batch
     (the path's own T, B and K) both general kernels bit-identical to their
-    plain twins on the card, then timed beside their bounds.
+    plain twins on the card, then timed beside their bounds, and the
+    general backtrace beside its parent's design (parent, change, change,
+    parent) and split by its clocked build.
 
     :returns: (launches, the route's entry)"""
     from sloika_tpu_torch import basecall as bc, models
@@ -3328,6 +3463,7 @@ def call_nbase5(dev, counters, sigs):
     # the general route at the longest batch's floored posterior: held
     # bit for bit against the plain twins on the card, then timed
     from sloika_tpu_torch.ops import decode
+    from sloika_tpu_torch.scripts import bench_viterbi, redesign_parents
     order = np.argsort([len(s) for s in sigs])
     x, lengths = padded_batch([sigs[i] for i in order[-NBASE5_BATCH:]])
     with torch.inference_mode():
@@ -3352,7 +3488,14 @@ def call_nbase5(dev, counters, sigs):
         err_back = max(float((path - path_ref).abs().max()),
                        float((moved != moved_ref).any()))
         fwd_ms = cuda_ms(fwd, 3)
-        back_ms = cuda_ms(lambda: vk.viterbi_backtrace(tb, last, nbase=5), 5)
+        # the general backtrace beside its parent's design
+        back_runs, back_parent = against_parent(
+            lambda: vk.viterbi_backtrace(tb, last, nbase=5),
+            lambda: redesign_parents.viterbi_back_general_parent(tb, last,
+                                                                 5), reps=5)
+        back_ms = min(back_runs)
+        bsplit = bench_viterbi.back_clocks(tb, last, (path, moved), 5)
+        back_floors = bench_viterbi.back_design_bounds(T, B, K, bsplit)
     del tb
     torch.cuda.empty_cache()
     print("call and score (17c) general route at T={} B={} K={}: forward "
@@ -3375,13 +3518,31 @@ def call_nbase5(dev, counters, sigs):
               plain_ms, plan["C"], plan["threads"], plan["nslots"], back_ms,
               back_bound[0], back_bound[1], back_plain_ms, card_line()),
           flush=True)
+    print("call and score (17c) general backtrace (redesigned: a "
+          "shared-memory ring) at T={} B={} K={}: {:.3f} / {:.3f} ms ({:.1f} "
+          "/ {:.1f} ns a frame), the parent's design (a thread a row) {:.3f} "
+          "/ {:.3f} ms, parent, change, change, parent; walker {:.1f} "
+          "cycles a frame at {:.2f} GHz, chain floor {:.3f} ms, the "
+          "traceback's bytes {:.3f} ms [{}]".format(
+              T, B, K, *back_runs, *(1e6 * x / T for x in back_runs),
+              *back_parent, bsplit["cycles_per_step"], bsplit["ghz"],
+              back_floors["chain_floor_ms"], back_floors["design_bytes_ms"],
+              card_line()), flush=True)
     entry = {"T": T, "B": B, "K": K, "fwd_ms": fwd_ms,
              "fwd_bound_ms": fwd_bound[0], "fwd_plain_ms": plain_ms,
              "fwd_bit_identical_to_twin": same_fwd,
              "fwd_max_abs_err": err_fwd, "back_ms": back_ms,
              "back_bound_ms": back_bound[0], "back_plain_ms": back_plain_ms,
              "back_bit_identical_to_twin": same_back,
-             "back_max_abs_err": err_back, "plan": plan,
+             "back_max_abs_err": err_back, "back_ms_runs": back_runs,
+             "back_parent_ms": back_parent,
+             "back_plan": vk.viterbi_back_general_plan(B, K, T, 5),
+             "back_cycles_per_frame": bsplit["cycles_per_step"],
+             "back_cycles_per_frame_by_phase": {
+                 "walker": bsplit["walker"], "copier": bsplit["copier"]},
+             "back_chain_floor_ms": back_floors["chain_floor_ms"],
+             "back_design_bytes_ms": back_floors["design_bytes_ms"],
+             "plan": plan,
              "general_launches": general,
              "short_calls_equal_to_cpu_twin": same,
              "short_calls_shape": "2 reads of {} samples".format(RAW_SHORT),
@@ -3892,7 +4053,7 @@ def main():
     from sloika_tpu_torch import config, cuda_build, models
     config.disable_tf32()
     t0 = time.time()
-    cuda_build.build_all(KERNELS + CLOCKED)
+    cuda_build.build_all(KERNELS + CLOCKED + PARENTS)
     ptxas = " | ".join(
         "{} ({:.1f} s): {}".format(n, sec, " ".join(
             l.split(":", 1)[-1].strip() for l in log.splitlines()
@@ -3923,7 +4084,9 @@ def main():
                                                              counters)
     launches["train"], _ = phase_train(dev, counters)
     launches["remap"] = phase_remap(dev, counters)
-    wide = phase_remap_wide(dev, counters)
+    wide = phase_remap_wide(
+        dev, counters,
+        by_name["viterbi_fwd"]["general_route"]["floor_cycles"])
     by_name["remap_banded"]["wide_route"] = wide[0]
     by_name["remap_back"]["wide_route"] = wide[1]
     launches["basecall_events"] = phase_basecall_events(dev, counters, reads)

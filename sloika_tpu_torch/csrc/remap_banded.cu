@@ -84,6 +84,37 @@
 // dependent compares and selects on the half-rate integer pipe; with one
 // warp a scheduler they run at ~3 cycles each (PERF.md §6), so the
 // plan spreads W over more warps than schedulers.
+//
+// The wide route: windows of 16,385 .. 32,767 positions, past what one block
+// holds (10 bytes a position of shared memory beside the ring, and 16
+// positions a thread in registers at 1,024 threads). The exact DP of a
+// reference in the 22,145-position bucket takes W = 22,272. A row is a
+// cluster of nblk blocks (the plan, ops/remap_kernel.py::wide_plan: 8 of
+// 2,816 positions at 8 a thread at W = 22,272), each the design above on its
+// share of the window, in its own registers, with its own posterior ring and
+// its own arrays for the moved window. Every block before the last holds hb
+// positions, a multiple of its warps' 32 ppt, so that no position past its
+// own lies in it. Blocks of at most 15 consumer warps and a producer keep to
+// 512 threads and 128 registers a thread. (Two blocks cannot cover the
+// route: beside the producer warp, a block of 1,024 threads holds 31
+// consumer warps, 15,872 positions at 16 a thread, and two hold 31,744.)
+// The fold of a block's warp totals is one scan across a warp (every
+// warp reads all the totals), not a serial fold. Across the splits, a step
+// that does not move (d = 0, all but one step in 256) needs only, in block
+// r, the total prefix max (value, position) of each block before it, and the
+// block before's last score and prefix max at its last position but one.
+// After the step's block barrier each producer warp scans its block's warp
+// totals and stores those into the shared memory of the blocks after it (by
+// the parity of t), then arrives at the step's cluster barrier: it has no
+// stores of its own for the release to wait for. The consumers arrive as the
+// step before ends, before its traceback stores; block r > 0 waits before
+// its fold takes the totals, block 0 last, at the step's end, so the
+// barrier's hop is on the later blocks' path only. A moved step publishes
+// every block's arrays and takes a second cluster barrier; the sources in
+// another block (a block's last d + 2 positions, and a wrapped slip
+// position) are read over distributed shared memory. Between two moves the
+// steps' barriers order every reuse. The traceback row goes out as above,
+// each block writing its share.
 #include <math.h>
 
 #include "bulk_copy.cuh"
@@ -91,16 +122,19 @@
 #ifdef REMAP_BANDED_CLOCKS
 // Step-phase clocks (scripts/bench_remap.py --clocks builds this source
 // with -DREMAP_BANDED_CLOCKS into a library of its own): lane 0 of each warp
-// of block 0 sums, over the steps, the SM clock cycles of the traceback
-// stores, the masking of the next emissions (where their reads land) and
-// the step's head with the issue of the next window's loads (0), the issue
-// of the next frame's gather (1), the local and warp scans with the
-// publication (2), the barrier (3), the fold of the warp totals (4), the
-// update (5) and the wait for a slot's copies (6); slot 7 holds the loop's
-// cycles.  The
-// producer warp stamps its barrier and refill (3) and its window moves'
-// barriers (5).
-__device__ long long remap_banded_clocks[32 * 8];
+// of row 0's block (the wide route: of its first two blocks, block r's
+// warps from 32 r) sums, over the steps, the SM clock cycles of the
+// traceback stores, the masking of the next emissions (where their reads
+// land) and the step's head with the issue of the next window's loads (0),
+// the issue of the next frame's gather (1), the local and warp scans with
+// the publication (2), the barrier (3), the fold of the warp totals (4; the
+// wide route: with block 0's send of its edge and block 1's merge of it),
+// the update (5) and the wait for a slot's copies (6; the wide route: the
+// waits at the cluster barriers, its slot waits going to 1); slot 7 holds
+// the loop's cycles.  The producer warp stamps its barrier and refill (3)
+// and its window moves' barriers (5; the wide route: every cluster
+// barrier).
+__device__ long long remap_banded_clocks[2 * 32 * 8];
 #define BAND_CLOCK(k) PHASE_CLOCK(k)
 #else
 #define BAND_CLOCK(k) \
@@ -114,6 +148,13 @@ constexpr float kNeg = -1.0e30f;   // NEG_LARGE, sloika_tpu/ops/remap_jax.py:29
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSlots = 16;
 constexpr int kBarBytes = 256;     // the slots' full mbarriers
+// the wide route: its mbarriers, then the edges the blocks before this
+// one send it (by the parity of t: every earlier block's total, float2 [2]
+// [8] from kXtotOffset; the block before's last score and prefix max at its
+// last position but one, float4 [2] from kXedgeOffset), then the ring
+constexpr int kWideBarBytes = 512;
+constexpr int kXtotOffset = 128, kXedgeOffset = 256;
+constexpr int kMaxCluster = 8;     // blocks a row at most (portable)
 
 // The states and validity bits of a thread's positions for the window
 // starting at s (_block_emissions :230-242, by gather); positions past the
@@ -179,6 +220,78 @@ __device__ __forceinline__ void later(float& av, int& ai, float bv, int bi) {
   const bool take = bv > av;
   av = take ? bv : av;
   ai = take ? bi : ai;
+}
+
+// The wide route's cluster of blocks (sm_90): the address of `p` in
+// the shared memory of the cluster's block `rank`, weak loads and stores
+// at such an address, and the split cluster barrier (an arrival releases
+// this thread's earlier writes, local and remote; a wait acquires those of
+// every thread that arrived)
+__device__ __forceinline__ uint32_t map_rank(const void* p, unsigned rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int ld_cluster_s16(uint32_t a) {
+  int v;
+  asm volatile("ld.shared::cluster.s16 %0, [%1];\n" : "=r"(v) : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t a, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   a),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t a, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(a),
+               "f"(v.x), "f"(v.y)
+               : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the inclusive scan of (value, position) pairs across a warp, in lane
+// order, the earlier lane's winning ties
+__device__ __forceinline__ void warp_scan_later(float& v, int& vi, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float ov = __shfl_up_sync(kFull, v, o);
+    const int oi = __shfl_up_sync(kFull, vi, o);
+    const bool take = lane >= o && !(v > ov);
+    v = take ? ov : v;
+    vi = take ? oi : vi;
+  }
 }
 
 __device__ __forceinline__ uint32_t pack2(int lo, int hi) {
@@ -252,7 +365,10 @@ struct StartWindow {
   }
 };
 
-template <int PPT, int MAXT>
+// The kernel of both routes.  WIDE: the wide route, one block of a cluster
+// of nblk a row, this block's positions those from rank * hb (the header
+// says how the blocks meet; its producer warp is always there).
+template <int PPT, int MAXT, bool WIDE>
 __global__ void __launch_bounds__(MAXT)
 remap_banded_kernel(const float* __restrict__ lt,
                     const int32_t* __restrict__ seq,
@@ -262,12 +378,18 @@ remap_banded_kernel(const float* __restrict__ lt,
                     int16_t* __restrict__ tb, float* __restrict__ vfinal,
                     int T, int B, int NS, int P, int W, int Tp, int nwarps,
                     int producer, int G, int nslots, int slot_floats, int vec,
-                    unsigned long long lt_end, float slip) {
+                    unsigned long long lt_end, float slip, int hb,
+                    int nblk) {
   constexpr int kWarps = MAXT / 32;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);           // [nslots]
-  float* ring = reinterpret_cast<float*>(smem + kBarBytes);     // [nslots][G][slot]
-  const int Wc = (W + 7) & ~7;
+  // the wide route's edges from the blocks before this one
+  float2* xtot = reinterpret_cast<float2*>(smem + kXtotOffset);   // [2][8]
+  float4* xedge = reinterpret_cast<float4*>(smem + kXedgeOffset); // [2]
+  float* ring = reinterpret_cast<float*>(
+      smem + (WIDE ? kWideBarBytes : kBarBytes));               // [nslots][G][slot]
+  // the moved window's arrays: the block's own positions (from `base`)
+  const int Wc = WIDE ? hb : (W + 7) & ~7;
   float* psh = ring + (size_t)nslots * G * slot_floats;         // [Wc] scores
   float* ysh = psh + Wc;                                        // [Wc] prefix max
   int16_t* ish = reinterpret_cast<int16_t*>(ysh + Wc);          // [Wc] its position
@@ -277,11 +399,13 @@ remap_banded_kernel(const float* __restrict__ lt,
   __shared__ float4 edge[2][kWarps];
   __shared__ int edge_i[2][kWarps];
 
-  const int b = blockIdx.x;
+  const int rank = WIDE ? (int)cluster_rank() : 0;
+  const int b = WIDE ? (int)blockIdx.x / nblk : (int)blockIdx.x;
+  const int base = WIDE ? rank * hb : 0;        // the block's first position
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int j0 = tid * PPT;
+  const int j0 = base + tid * PPT;
   const int32_t* seq_b = seq + (size_t)b * P;
   const uint8_t* mask_b = pos_mask + (size_t)b * P;
   const size_t chunk_floats = (size_t)G * slot_floats;
@@ -294,6 +418,8 @@ remap_banded_kernel(const float* __restrict__ lt,
     mbar_init_fence();
   }
   __syncthreads();
+  // the wide route: every block runs before any remote access
+  if constexpr (WIDE) cluster_sync();
   if (warp == filler) {
     // chunk k holds frames 1 + kG .. (k + 1)G, in slot k % nslots
     for (int k = 0; k < nslots; ++k)
@@ -313,6 +439,9 @@ remap_banded_kernel(const float* __restrict__ lt,
   }
 #ifdef REMAP_BANDED_CLOCKS
   PHASE_CLOCK_START();
+  // row 0's blocks 0 and 1
+  long long* clocks_out = remap_banded_clocks + (min(rank, 1) * 32 + warp) * 8;
+  const bool clocked = b == 0 && lane == 0 && rank < 2;
 #endif
   if (warp == nwarps) {
     // the producer: the step's barriers; after the one that ends a chunk,
@@ -323,7 +452,43 @@ remap_banded_kernel(const float* __restrict__ lt,
       const int s = s_next;
       s_next = sw.at(t + 1);
       __syncthreads();
-      if (++row == G) {
+      if constexpr (WIDE) {
+        // the wide route: from the warps' edges, this block's total prefix
+        // max (value, position) to every block after it, and its last
+        // score and prefix max at its last position but one to the next,
+        // then the step's arrival (this warp has no stores of its own for
+        // the release to wait for)
+        const int par = t & 1;
+        float sv = -INFINITY;
+        int si = 0;
+        if (lane < nwarps) {
+          const float2 e = *reinterpret_cast<const float2*>(&edge[par][lane]);
+          sv = e.x;
+          si = __float_as_int(e.y);
+        }
+        warp_scan_later(sv, si, lane);
+        const float ov = __shfl_sync(kFull, sv, nwarps - 1);
+        const int oi = __shfl_sync(kFull, si, nwarps - 1);
+        float yv = __shfl_sync(kFull, sv, max(nwarps - 2, 0));
+        int yi = __shfl_sync(kFull, si, max(nwarps - 2, 0));
+        if (nwarps < 2) {
+          yv = -INFINITY;
+          yi = 0;
+        }
+        const float4 last = edge[par][nwarps - 1];
+        later(yv, yi, last.w, edge_i[par][nwarps - 1]);
+        if (lane > rank && lane < nblk)
+          st_cluster(map_rank(&xtot[par * kMaxCluster + rank], lane),
+                     make_float2(ov, __int_as_float(oi)));
+        if (lane == rank + 1 && lane < nblk)
+          st_cluster(map_rank(&xedge[par], lane),
+                     make_float4(last.z, yv, __int_as_float(yi), 0.0f));
+        __syncwarp();
+        cluster_arrive();
+        cluster_wait();
+      }
+      // (no ring: the wide route's producer only sends the edges)
+      if (nslots > 0 && ++row == G) {
         row = 0;
         const int f0 = t + 1 + (nslots - 1) * G;
         if (f0 < T)
@@ -332,7 +497,9 @@ remap_banded_kernel(const float* __restrict__ lt,
         slot = slot + 1 == nslots ? 0 : slot + 1;
       }
       BAND_CLOCK(3);
-      if (s != s_prev) {           // the consumers' two more barriers
+      if constexpr (WIDE) {
+        if (s != s_prev) cluster_sync();  // the moved window's second
+      } else if (s != s_prev) {      // the consumers' two more barriers
         __syncthreads();
         __syncthreads();
       }
@@ -341,11 +508,12 @@ remap_banded_kernel(const float* __restrict__ lt,
     }
 #ifdef REMAP_BANDED_CLOCKS
     clk[7] = PHASE_CLOCK_TOTAL();
-    if (b == 0 && lane == 0) {
+    if (clocked) {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) remap_banded_clocks[warp * 8 + k] = clk[k];
+      for (int k = 0; k < 8; ++k) clocks_out[k] = clk[k];
     }
 #endif
+    if constexpr (WIDE) cluster_sync();  // no block leaves while read
     return;
   }
 
@@ -396,7 +564,7 @@ remap_banded_kernel(const float* __restrict__ lt,
         if (row == 0) {
           BAND_CLOCK(1);
           mbar_wait_tested(&full[slot], phase);
-          BAND_CLOCK(6);
+          BAND_CLOCK(WIDE ? 1 : 6);
         }
         const float* r = ring + slot * chunk_floats + row * slot_floats +
                          (((uintptr_t)row_g >> 2) & 3);
@@ -421,6 +589,35 @@ remap_banded_kernel(const float* __restrict__ lt,
       phase ^= slot == 0 ? 1u : 0u;
     }
   };
+  // the moved window's arrays at a position g of the whole window: this
+  // block's, or (the wide route) block g / hb's over the cluster
+  auto psh_at = [&](int g) -> float {
+    if constexpr (WIDE) {
+      if ((unsigned)(g - base) >= (unsigned)hb) {
+        const int k = g / hb;
+        return ld_cluster_f32(map_rank(psh + (g - k * hb), k));
+      }
+    }
+    return psh[g - base];
+  };
+  auto ysh_at = [&](int g) -> float {
+    if constexpr (WIDE) {
+      if ((unsigned)(g - base) >= (unsigned)hb) {
+        const int k = g / hb;
+        return ld_cluster_f32(map_rank(ysh + (g - k * hb), k));
+      }
+    }
+    return ysh[g - base];
+  };
+  auto ish_at = [&](int g) -> int {
+    if constexpr (WIDE) {
+      if ((unsigned)(g - base) >= (unsigned)hb) {
+        const int k = g / hb;
+        return ld_cluster_s16(map_rank(ish + (g - k * hb), k));
+      }
+    }
+    return (int)ish[g - base];
+  };
   int s_next = Tp > 1 ? sw.at(1) : s_prev;
   ok_next = ok;
   if (Tp > 1) {
@@ -432,6 +629,10 @@ remap_banded_kernel(const float* __restrict__ lt,
   }
   int16_t* tb_row = tb + ((size_t)B + b) * W;
   const size_t tb_step = (size_t)B * W;
+  // the wide route: the consumers arrive at each step's cluster barrier as
+  // the step before ends (their reads of the edges before it done), the
+  // producer warp once it has sent this block's edges
+  if constexpr (WIDE) cluster_arrive();
 #ifdef REMAP_BANDED_CLOCKS
   asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(stamp) : : "memory");
   const long long loop_start = stamp;
@@ -459,14 +660,7 @@ remap_banded_kernel(const float* __restrict__ lt,
       later(bv, bi, wv[i], j0 + i);
     }
     // ...then across the warp (the earlier lane's total wins ties)
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float ov = __shfl_up_sync(kFull, bv, o);
-      const int oi = __shfl_up_sync(kFull, bi, o);
-      const bool take = lane >= o && !(bv > ov);
-      bv = take ? ov : bv;
-      bi = take ? oi : bi;
-    }
+    warp_scan_later(bv, bi, lane);
     // the warp's prefix max before this thread's positions...
     float ev = __shfl_up_sync(kFull, bv, 1);
     int ei = __shfl_up_sync(kFull, bi, 1);
@@ -516,30 +710,87 @@ remap_banded_kernel(const float* __restrict__ lt,
     // then of the warps before this one (xv), folded in order
     float xv1 = -INFINITY;
     int xi1 = 0;
-    if constexpr (kWarps <= 16) {
-      // every total first (all in flight at once), then the fold
-      float2 e[kWarps - 2];
-#pragma unroll
-      for (int k = 0; k < kWarps - 2; ++k)
-        e[k] = *reinterpret_cast<const float2*>(&edge[par][k]);
-#pragma unroll
-      for (int k = 0; k < kWarps - 2; ++k) {
-        if (k + 1 < warp) later(xv1, xi1, e[k].x, __float_as_int(e[k].y));
-      }
-    } else {
-      for (int k = 0; k + 1 < warp; ++k) {
-        const float4 e = edge[par][k];
-        later(xv1, xi1, e.x, __float_as_int(e.y));
-      }
-    }
-    float xv = xv1;
-    int xi = xi1;
+    float xv;
+    int xi;
     float4 eb = make_float4(0.0f, 0.0f, kNeg, -INFINITY);
     int eb_i = 0;
-    if (warp > 0) {
-      eb = edge[par][warp - 1];       // the warp before's edge
-      eb_i = edge_i[par][warp - 1];
-      later(xv, xi, eb.x, __float_as_int(eb.y));
+    // the wide route's blocks after the first: the prefix max before the
+    // block's first position and before the one before it (value,
+    // position: tv, tv1), and the block before's last score (xe.x)
+    float4 xe = make_float4(kNeg, 0.0f, 0.0f, 0.0f);
+    float tv = -INFINITY, tv1 = -INFINITY;
+    int ti = 0, ti1 = 0;
+    if constexpr (WIDE) {
+      // every warp's total at once, scanned across the warp in warp order
+      float sv = -INFINITY;
+      int si = 0;
+      if (lane < nwarps) {
+        const float2 e = *reinterpret_cast<const float2*>(&edge[par][lane]);
+        sv = e.x;
+        si = __float_as_int(e.y);
+      }
+      warp_scan_later(sv, si, lane);
+      const float a1 = __shfl_sync(kFull, sv, max(warp - 2, 0));
+      const int a1i = __shfl_sync(kFull, si, max(warp - 2, 0));
+      const float a = __shfl_sync(kFull, sv, max(warp - 1, 0));
+      const int ai = __shfl_sync(kFull, si, max(warp - 1, 0));
+      xv1 = warp > 1 ? a1 : xv1;
+      xi1 = warp > 1 ? a1i : xi1;
+      xv = warp > 0 ? a : -INFINITY;
+      xi = warp > 0 ? ai : 0;
+      if (warp > 0) {
+        eb = edge[par][warp - 1];
+        eb_i = edge_i[par][warp - 1];
+      }
+      if (rank > 0) {
+        BAND_CLOCK(4);
+        cluster_wait();
+        BAND_CLOCK(6);
+        // the blocks before this one come first, in block order
+        for (int k = 0; k < rank; ++k) {
+          if (k + 1 == rank) {
+            tv1 = tv;
+            ti1 = ti;
+          }
+          const float2 e = xtot[par * kMaxCluster + k];
+          later(tv, ti, e.x, __float_as_int(e.y));
+        }
+        xe = xedge[par];
+        float v = tv;
+        int vi = ti;
+        later(v, vi, xv1, xi1);
+        xv1 = v;
+        xi1 = vi;
+        v = tv;
+        vi = ti;
+        later(v, vi, xv, xi);
+        xv = v;
+        xi = vi;
+      }
+    } else {
+      if constexpr (kWarps <= 16) {
+        // every total first (all in flight at once), then the fold
+        float2 e[kWarps - 2];
+#pragma unroll
+        for (int k = 0; k < kWarps - 2; ++k)
+          e[k] = *reinterpret_cast<const float2*>(&edge[par][k]);
+#pragma unroll
+        for (int k = 0; k < kWarps - 2; ++k) {
+          if (k + 1 < warp) later(xv1, xi1, e[k].x, __float_as_int(e[k].y));
+        }
+      } else {
+        for (int k = 0; k + 1 < warp; ++k) {
+          const float4 e = edge[par][k];
+          later(xv1, xi1, e.x, __float_as_int(e.y));
+        }
+      }
+      xv = xv1;
+      xi = xi1;
+      if (warp > 0) {
+        eb = edge[par][warp - 1];       // the warp before's edge
+        eb_i = edge_i[par][warp - 1];
+        later(xv, xi, eb.x, __float_as_int(eb.y));
+      }
     }
     BAND_CLOCK(4);
 
@@ -548,7 +799,8 @@ remap_banded_kernel(const float* __restrict__ lt,
     // falling order, so that p[i - 1] is still the old score when read
     if (d == 0) {
       // sources at j, j - 1 and j - 2: lane - 1's last score and its
-      // prefix maxima at its last two positions (lane 0: the warp before's)
+      // prefix maxima at its last two positions (lane 0: the warp before's;
+      // the wide route's block 1, warp 0: block 0's)
       float pl = pl_up, fv1 = xv, fv2 = xv;
       int fi1 = xi, fi2 = xi;
       if (lane > 0) {
@@ -559,6 +811,13 @@ remap_banded_kernel(const float* __restrict__ lt,
         fv2 = xv1;
         fi2 = xi1;
         later(fv2, fi2, eb.w, eb_i);
+      } else if (WIDE && rank > 0) {
+        // the block before's last score and its prefix max at its last
+        // position but one, after the blocks before it
+        pl = xe.x;
+        fv2 = tv1;
+        fi2 = ti1;
+        later(fv2, fi2, xe.y, __float_as_int(xe.z));
       }
 #pragma unroll
       for (int i = PPT - 1; i >= 0; --i) {
@@ -588,21 +847,29 @@ remap_banded_kernel(const float* __restrict__ lt,
           float v = xv;
           int vi = xi;
           later(v, vi, wv[i], wi[i]);
-          psh[j0 + i] = p[i];
-          ysh[j0 + i] = v;
-          ish[j0 + i] = (int16_t)vi;
+          psh[j0 + i - base] = p[i];
+          ysh[j0 + i - base] = v;
+          ish[j0 + i - base] = (int16_t)vi;
         }
       }
-      __syncthreads();
+      if constexpr (WIDE) {
+        // both blocks' arrays published, over a second cluster barrier
+        BAND_CLOCK(5);
+        if (rank == 0) cluster_wait();
+        cluster_sync();
+        BAND_CLOCK(6);
+      } else {
+        __syncthreads();
+      }
       const float df = (float)d;
 #pragma unroll
       for (int i = 0; i < PPT; ++i) {
         const int j = j0 + i;
         const int src = j + d;
-        const float q = (src >= 0 && src < W) ? psh[src] : kNeg;
+        const float q = (src >= 0 && src < W) ? psh_at(src) : kNeg;
         const float qm1 =
-            (j > 0 && src >= 1 && src - 1 < W) ? psh[src - 1] : kNeg;
-        const float z = (src >= 2 && src < W) ? ysh[src - 2] : kNeg;
+            (j > 0 && src >= 1 && src - 1 < W) ? psh_at(src - 1) : kNeg;
+        const float z = (src >= 2 && src < W) ? ysh_at(src - 2) : kNeg;
         float c = __fadd_rn(q, stay);
         int delta = 0;
         const float step = __fadd_rn(qm1, em[i]);
@@ -617,15 +884,28 @@ remap_banded_kernel(const float* __restrict__ lt,
           int zw = src - 2;              // the twin's roll: mod W
           if (zw < 0) zw += W;
           else if (zw >= W) zw %= W;
-          delta = src - (int)ish[zw];
+          delta = src - ish_at(zw);
           c = sl;
         }
         p[i] = ((ok >> i) & 1u) ? c : kNeg;
         dl[i] = delta;
       }
-      __syncthreads();    // the next move's writers wait for these reads
+      // the next move's writers wait for these reads (the wide route: the
+      // steps' cluster barriers between two moves order them)
+      if constexpr (!WIDE) __syncthreads();
     }
     BAND_CLOCK(5);
+    if constexpr (WIDE) {
+      // block 0 waits for the step's cluster barrier last (on a moved step
+      // it waited before the second); then every consumer arrives at the
+      // next step's, before this step's traceback stores
+      if (rank == 0 && d == 0) {
+        BAND_CLOCK(0);
+        cluster_wait();
+        BAND_CLOCK(6);
+      }
+      cluster_arrive();
+    }
     store_row<PPT>(tb_row, j0, W, dl, vec);
     tb_row += tb_step;
     // the next step's emissions, masked by its window's validity bits
@@ -637,15 +917,16 @@ remap_banded_kernel(const float* __restrict__ lt,
   }
 #ifdef REMAP_BANDED_CLOCKS
   clk[7] = stamp - loop_start;
-  if (b == 0 && lane == 0) {
+  if (clocked) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) remap_banded_clocks[warp * 8 + k] = clk[k];
+    for (int k = 0; k < 8; ++k) clocks_out[k] = clk[k];
   }
 #endif
 #pragma unroll
   for (int i = 0; i < PPT; ++i) {
     if (j0 + i < W) vfinal[(size_t)b * W + j0 + i] = p[i];
   }
+  if constexpr (WIDE) cluster_wait();  // no block leaves while read
 }
 
 template <int PPT, int MAXT>
@@ -655,7 +936,7 @@ int launch(const void* lt, const void* seq, const void* pos_mask,
            int warps, int producer, int G, int nslots, int slot_floats,
            int vec, int smem, unsigned long long lt_end,
            cudaStream_t stream) {
-  auto kernel = remap_banded_kernel<PPT, MAXT>;
+  auto kernel = remap_banded_kernel<PPT, MAXT, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -665,202 +946,107 @@ int launch(const void* lt, const void* seq, const void* pos_mask,
       (const float*)lt, (const int32_t*)seq, (const uint8_t*)pos_mask,
       (const float*)prior0, (const int32_t*)starts, (int16_t*)tb,
       (float*)vfinal, T, B, NS, P, W, Tp, warps, producer, G, nslots,
-      slot_floats, vec, lt_end, slip);
+      slot_floats, vec, lt_end, slip, 0, 1);
   return (int)cudaGetLastError();
 }
 
-// The wide route: windows of 16,385 .. 32,767 positions, past what the
-// block above holds (10 bytes a position of shared memory and PPT <= 16
-// positions a thread in registers).  The exact DP of a reference in the
-// 22,145-position bucket takes W = 22,272.  A simple design that is right:
-// one block of 1,024 threads a row, ppt = ceil(W / 1024) contiguous
-// positions a thread (17..32), and the window's carried scores (two
-// buffers, read one step and written the next), prefix maxima and their
-// positions kept in device memory (scratch, 16 bytes a position a row:
-// 22.8 MB at B = 64, W = 22,272, which the 50 MB L2 holds).  A step:
-//   1. each thread's running max of y = p + slip*j over its positions, a
-//      __shfl_up_sync scan of those in the warp, lane 31 publishes the
-//      warp's total; barrier;
-//   2. the fold of the warp totals before the thread's warp, then each
-//      position's prefix max and its position written to scratch; the
-//      traceback row of the step before is copied out of shared memory
-//      (staged there so that the block writes it contiguously); barrier;
-//   3. the update at every position, as the moved-window branch above
-//      (that branch is the general formula; d = 0 inside a block), its
-//      delta staged in shared memory by the parity of t.
-// The same rounding as above (no fused multiply-add), so the traceback and
-// the final scores are bit-identical to the plain twin's.  What bounds it:
-// the W positions a step on one SM, ~80 instructions and ~35 bytes of
-// L1/L2 traffic each, and two block barriers a step.
-constexpr int kWideThreads = 1024;
+// the wide route's launch configuration: a cluster of nblk blocks a row
+cudaLaunchConfig_t wide_config(int B, int nblk, int threads, int smem,
+                               cudaLaunchAttribute* cluster,
+                               cudaStream_t stream) {
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = nblk;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(nblk * B, 1, 1);
+  config.blockDim = dim3(threads, 1, 1);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  return config;
+}
 
-__global__ void __launch_bounds__(kWideThreads)
-remap_banded_wide_kernel(const float* __restrict__ lt,
-                         const int32_t* __restrict__ seq,
-                         const uint8_t* __restrict__ pos_mask,
-                         const float* __restrict__ prior0,
-                         const int32_t* __restrict__ starts,
-                         int16_t* __restrict__ tb, float* __restrict__ vfinal,
-                         float* scratch, int T, int B, int NS, int P, int W,
-                         int Tp, int ppt, float slip) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Wc = ppt * kWideThreads;
-  int16_t* stage = reinterpret_cast<int16_t*>(smem);     // [2][Wc] deltas
-  __shared__ float wtot_v[kWideThreads / 32];
-  __shared__ int wtot_i[kWideThreads / 32];
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int j0 = tid * ppt;
-  const int32_t* seq_b = seq + (size_t)b * P;
-  const uint8_t* mask_b = pos_mask + (size_t)b * P;
-  float* pc = scratch + (size_t)b * 4 * Wc;   // scores, this step
-  float* pn = pc + Wc;                        // scores, the next
-  float* ys = pn + Wc;                        // prefix max
-  int* yi = reinterpret_cast<int*>(ys + Wc);  // its position
-
-  // copy staged traceback row t (buffer t & 1) to device memory
-  auto flush = [&](int t) {
-    const int16_t* src = stage + (size_t)(t & 1) * Wc;
-    int16_t* dst = tb + ((size_t)t * B + b) * W;
-    for (int j = tid; j < W; j += kWideThreads) dst[j] = src[j];
-  };
-
-  // t = 0: the initialisation row (sloika_tpu/ops/pallas/remap.py:311-315)
-  int s_prev = starts[b];
-  {
-    const float* row = lt + (size_t)b * NS;
-    const float stay0 = row[0];
-    for (int i = 0; i < ppt; ++i) {
-      const int j = j0 + i;
-      const int a = s_prev + j;
-      const int idx = min(max(a, 0), P - 1);
-      const bool ok = j < W && a < P && mask_b[idx];
-      const float em = ok ? row[min(max(seq_b[idx], 0), NS - 1)] : kNeg;
-      pc[j] = em > kNeg * 0.5f
-                  ? __fadd_rn(prior0[(size_t)b * P + idx], fmaxf(em, stay0))
-                  : kNeg;
-      stage[j] = 0;
-    }
-  }
-  for (int t = 1; t < Tp; ++t) {
-    const int s = starts[(size_t)t * B + b];
-    const int d = s - s_prev;
-    // 1. the thread's running max of y, then the warp's inclusive scan
-    // (the earlier total wins ties)
-    float bv = -INFINITY;
-    int bi = 0;
-    for (int i = 0; i < ppt; ++i) {
-      const int j = j0 + i;
-      later(bv, bi, __fadd_rn(pc[j], __fmul_rn(slip, (float)j)), j);
-    }
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float ov = __shfl_up_sync(kFull, bv, o);
-      const int oi = __shfl_up_sync(kFull, bi, o);
-      const bool take = lane >= o && !(bv > ov);
-      bv = take ? ov : bv;
-      bi = take ? oi : bi;
-    }
-    float ev = __shfl_up_sync(kFull, bv, 1);
-    int ei = __shfl_up_sync(kFull, bi, 1);
-    if (lane == 31) {
-      wtot_v[warp] = bv;
-      wtot_i[warp] = bi;
-    }
-    __syncthreads();
-    // 2. the prefix max before this thread's positions: the warps before
-    // this one, then the lanes before this one, then through its positions
-    float cv = -INFINITY;
-    int ci = 0;
-    for (int k = 0; k < warp; ++k) later(cv, ci, wtot_v[k], wtot_i[k]);
-    if (lane > 0) later(cv, ci, ev, ei);
-    for (int i = 0; i < ppt; ++i) {
-      const int j = j0 + i;
-      later(cv, ci, __fadd_rn(pc[j], __fmul_rn(slip, (float)j)), j);
-      ys[j] = cv;
-      yi[j] = ci;
-    }
-    flush(t - 1);
-    __syncthreads();
-    // 3. stay, then step, then slip, each under strict >
-    const bool live = t < T;
-    const float* row = lt + ((size_t)(live ? t : 0) * B + b) * NS;
-    const float stay = live ? row[0] : 0.0f;
-    const float df = (float)d;
-    int16_t* st_row = stage + (size_t)(t & 1) * Wc;
-    for (int i = 0; i < ppt; ++i) {
-      const int j = j0 + i;
-      const int a = s + j;
-      const int idx = min(max(a, 0), P - 1);
-      const bool ok = j < W && a < P && mask_b[idx];
-      const float em =
-          (ok && live) ? row[min(max(seq_b[idx], 0), NS - 1)] : kNeg;
-      const int src = j + d;
-      const float q = (src >= 0 && src < W) ? pc[src] : kNeg;
-      const float qm1 = (j > 0 && src >= 1 && src - 1 < W) ? pc[src - 1] : kNeg;
-      const float z = (src >= 2 && src < W) ? ys[src - 2] : kNeg;
-      float c = __fadd_rn(q, stay);
-      int delta = 0;
-      const float step = __fadd_rn(qm1, em);
-      if (step > c) {
-        c = step;
-        delta = 1;
-      }
-      const float fs = __fsub_rn(
-          z, __fmul_rn(slip, __fadd_rn(__fsub_rn((float)j, 1.0f), df)));
-      const float sl = __fadd_rn(fs, em);
-      if (sl > c) {
-        int zw = src - 2;              // the twin's roll: mod W
-        if (zw < 0) zw += W;
-        else if (zw >= W) zw %= W;
-        delta = src - yi[zw];
-        c = sl;
-      }
-      pn[j] = ok ? c : kNeg;
-      st_row[j] = (int16_t)delta;
-    }
-    float* tmp = pc;
-    pc = pn;
-    pn = tmp;
-    s_prev = s;
-  }
-  __syncthreads();
-  flush(Tp - 1);
-  for (int i = 0; i < ppt; ++i) {
-    const int j = j0 + i;
-    if (j < W) vfinal[(size_t)b * W + j] = pc[j];
-  }
+// the wide route's kernel at a (positions a thread, block size) instance
+// (ops/remap_kernel.py::WIDE_BUILDS), or null
+using WideKernel = void (*)(const float*, const int32_t*, const uint8_t*,
+                            const float*, const int32_t*, int16_t*, float*,
+                            int, int, int, int, int, int, int, int, int, int,
+                            int, int, unsigned long long, float, int, int);
+WideKernel wide_kernel(int ppt, int maxt) {
+  if (ppt == 8 && maxt == 512) return remap_banded_kernel<8, 512, true>;
+  if (ppt == 12 && maxt == 512) return remap_banded_kernel<12, 512, true>;
+  return nullptr;
 }
 
 }  // namespace
 
-// The wide route (see remap_banded_wide_kernel): the same arguments as
-// remap_banded but for the plan's ppt (ceil(W / 1024)) and smem (2 * ppt *
-// 1024 * 2 bytes of staged traceback rows), and scratch, (B, 4, ppt *
-// 1024) floats of device memory.  Returns the launch's cudaError_t;
-// cudaErrorInvalidValue (1) for a window outside 1..32,767 or a plan that
-// does not cover it.
+// The wide route: windows of 16,385 .. 32,767 positions, a cluster of nblk
+// blocks a row (see the header).  The same arguments as remap_banded but
+// for the plan's (ops/remap_kernel.py::remap_banded_plan, route "wide"):
+// hb, a block's positions (a multiple of 32 ppt; the blocks before the
+// last hold hb each, the last the rest), nblk blocks (2-8), consumer
+// warps hb / (32 ppt) a block, the producer warp, the instance (ppt,
+// maxt), frames a ring slot G, ring slots, the traceback's store width vec
+// and smem bytes a block.  Returns the cudaError_t of the launch
+// (cudaErrorClusterOutOfResources where the card cannot place such a
+// cluster); cudaErrorInvalidValue (1) for a plan that does not cover the
+// window.
 extern "C" int remap_banded_wide(const void* lt, const void* seq,
                                  const void* pos_mask, const void* prior0,
                                  const void* starts, void* tb, void* vfinal,
-                                 void* scratch, int T, int B, int NS, int P,
-                                 int W, int Tp, float slip, int ppt,
-                                 int smem, void* stream) {
-  if (W < 1 || W > 32767 || ppt < 1 || ppt * kWideThreads < W || T < 1 ||
-      Tp < T || smem < 4 * ppt * kWideThreads || (uintptr_t)lt % 4)
+                                 int T, int B, int NS, int P, int W, int Tp,
+                                 float slip, int hb, int nblk, int warps,
+                                 int producer, int ppt, int maxt, int G,
+                                 int nslots, int vec, int smem,
+                                 unsigned long long lt_end, void* stream) {
+  const int slot_bytes = (4 * NS + 12 + 15) & ~15;
+  const int threads = 32 * (warps + producer);
+  const WideKernel kernel = wide_kernel(ppt, maxt);
+  if (kernel == nullptr || W < 2 || W > 32767 || nblk < 2 ||
+      nblk > kMaxCluster || hb < 1 || hb % (32 * ppt) ||
+      (nblk - 1) * hb >= W || nblk * hb < W || warps != hb / (32 * ppt) ||
+      warps > 32 || threads > maxt || G < 1 || G > 32 || nslots == 1 ||
+      nslots < 0 || nslots > kMaxSlots || producer != 1 || T < 1 ||
+      Tp < T ||
+      (vec == 16 && (W % 8 || ppt % 8)) || (vec == 8 && (W % 4 || ppt % 4)) ||
+      (vec == 4 && (W % 2 || ppt % 2)) ||
+      (vec != 16 && vec != 8 && vec != 4 && vec != 2) || (uintptr_t)lt % 4 ||
+      (size_t)smem < kWideBarBytes + (size_t)nslots * G * slot_bytes +
+                         10 * (size_t)hb)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute cluster[1];
+  const cudaLaunchConfig_t config =
+      wide_config(B, nblk, threads, smem, cluster, (cudaStream_t)stream);
+  e = cudaLaunchKernelEx(&config, kernel, (const float*)lt,
+                         (const int32_t*)seq, (const uint8_t*)pos_mask,
+                         (const float*)prior0, (const int32_t*)starts,
+                         (int16_t*)tb, (float*)vfinal, T, B, NS, P, W, Tp,
+                         warps, producer, G, nslots, slot_bytes / 4, vec,
+                         lt_end, slip, hb, nblk);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// The clusters of the wide route's nblk blocks (the instance (ppt, maxt),
+// threads and smem bytes a block) that the device runs at once, into
+// *clusters.  Returns the cudaError_t.
+extern "C" int remap_banded_wide_clusters(int nblk, int ppt, int maxt,
+                                          int threads, int smem,
+                                          int* clusters) {
+  const WideKernel kernel = wide_kernel(ppt, maxt);
+  if (kernel == nullptr || nblk < 2 || nblk > kMaxCluster)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
-      remap_banded_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  remap_banded_wide_kernel<<<B, kWideThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)lt, (const int32_t*)seq, (const uint8_t*)pos_mask,
-      (const float*)prior0, (const int32_t*)starts, (int16_t*)tb,
-      (float*)vfinal, (float*)scratch, T, B, NS, P, W, Tp, ppt, slip);
-  return (int)cudaGetLastError();
+  cudaLaunchAttribute cluster[1];
+  const cudaLaunchConfig_t config =
+      wide_config(1, nblk, threads, smem, cluster, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &config);
 }
 
 // lt (T, B, NS) f32; seq (B, P) int32; pos_mask (B, P) uint8; prior0 (B, P)
@@ -920,7 +1106,8 @@ extern "C" int remap_banded(const void* lt, const void* seq,
 }
 
 #ifdef REMAP_BANDED_CLOCKS
-// copy the step-phase clocks of the last launch, [warp][8], to host memory
+// copy the step-phase clocks of the last launch, [block][warp][8], to host
+// memory
 extern "C" int remap_banded_clocks_read(void* host) {
   return (int)cudaMemcpyFromSymbol(host, remap_banded_clocks,
                                    sizeof(remap_banded_clocks));

@@ -14,7 +14,8 @@ Both kernels take their launch plans from Python: :func:`remap_banded_plan`
 memory) and :func:`remap_back_plan` (frames a slot of the traceback ring,
 slots, shared memory).  A window wider than :data:`MAX_W` (the exact DP of
 a reference in the 22,145-position bucket takes W = 22,272) goes to
-``remap_banded.cu``'s wide route, whose scores live in device memory
+``remap_banded.cu``'s wide route, a cluster of eight blocks a row that
+split the window between their registers and shared memories
 (:func:`kernel_route`, decided by shape before any build); both wrappers
 count launches at such a window in ``wide_launches`` as well as
 ``launches``.  Past :data:`WIDE_MAX_W` the int16 position deltas cannot
@@ -47,8 +48,15 @@ MAX_W = 16384
 #: the widest window of the wide route, and of both kernels: the largest
 #: int16 position delta
 WIDE_MAX_W = 32767
-#: the wide route's block: threads, each of ceil(W / 1024) positions
-WIDE_THREADS = 1024
+#: the wide route: blocks a row (a cluster, the most a portable cluster
+#: holds), consumer warps a block at most (with the producer, a block of
+#: 512 threads of up to 128 registers), positions a thread, fewest first,
+#: and the (positions a thread, block size) instances remap_banded.cu
+#: builds for it; its mbarriers and the edges the blocks send each other,
+#: ahead of its ring
+WIDE_CLUSTER, WIDE_WARPS, WIDE_PPTS = 8, 15, (8, 12)
+WIDE_BUILDS = ((8, 512), (12, 512))
+WIDE_BAR_BYTES = 512
 #: posterior states of the models the port remaps with (the plans' default)
 NSTATE = 1025
 #: remap_banded.cu: the ring's mbarriers ahead of its slots; the statically
@@ -113,15 +121,28 @@ def kernel_route(W):
     return "tuned" if W <= MAX_W else "wide"
 
 
+def _ring(arrays, nstate, optin):
+    """The deepest posterior ring, (frames a slot, slots), whose slots (each
+    frame's 16-byte-aligned superset, ``4 * nstate + 12`` bytes rounded up
+    to 16) fit ``optin`` bytes beside ``arrays`` and the static shared
+    memory; (1, 0) where none of two slots does."""
+    slot_bytes = _round(4 * nstate + 12, 16)
+    fits = lambda smem: smem + BANDED_STATIC_BYTES <= optin
+    rows, nslots = next(((r, n) for r in BANDED_ROWS for n in BANDED_SLOTS
+                         if fits(arrays + n * r * slot_bytes)), (1, 0))
+    smem = arrays + nslots * rows * slot_bytes
+    return rows, nslots, slot_bytes, smem, fits(smem)
+
+
+def _store_width(W, ppt):
+    return (16 if W % 8 == 0 and ppt % 8 == 0 else
+            8 if W % 4 == 0 and ppt % 4 == 0 else
+            4 if W % 2 == 0 and ppt % 2 == 0 else 2)
+
+
 def remap_banded_plan(W, nstate=NSTATE, optin=SMEM_OPTIN):
     """The launch plan of ``remap_banded.cu`` for a window of W positions
     and posterior rows of ``nstate`` states.
-
-    Past :data:`MAX_W`, the wide route's plan (:func:`kernel_route`):
-    ``{"route": "wide", "threads": 1024, "ppt": ceil(W / 1024), "smem":
-    two staged traceback rows of ppt * 1024 int16, "scratch": floats of
-    device memory a row (two score buffers, the prefix max and its
-    position)}``.  Else the tuned route's, as follows.
 
     Positions a thread ``ppt``: the fewest of BANDED_PPTS, up to 8, that
     cover W on 6 consumer warps (6 x 4 at W = 768), else the fewest that
@@ -143,36 +164,71 @@ def remap_banded_plan(W, nstate=NSTATE, optin=SMEM_OPTIN):
     size, the least of 256, 512 and 1,024 threads that holds the block
     (BANDED_BUILDS lists the instances).
 
-    :returns: dict of route ("tuned"), warps (consumers), producer (0 or
-        1), threads, maxt, ppt, rows, nslots, slot_bytes (a frame's), vec
-        (bytes a traceback store), smem (dynamic bytes)
+    Past :data:`MAX_W`, the wide route's plan (:func:`kernel_route`): a
+    cluster of WIDE_CLUSTER blocks a row, each the block above on its share
+    of the window (:func:`wide_plan`).
+
+    :returns: dict of route ("tuned" or "wide"), warps (consumers a
+        block), producer (0 or 1), threads, maxt, ppt, rows, nslots,
+        slot_bytes (a frame's), vec (bytes a traceback store), smem
+        (dynamic bytes a block); the wide route also cluster, hb and
+        blocks
     """
     if kernel_route(W) == "wide":
-        ppt = -(-W // WIDE_THREADS)
-        wc = ppt * WIDE_THREADS
-        return {"route": "wide", "threads": WIDE_THREADS, "ppt": ppt,
-                "smem": 2 * 2 * wc, "scratch": 4 * wc}
+        return wide_plan(W, nstate, optin)
     ppt = next((p for aim, most in BANDED_TIERS for p in BANDED_PPTS
                 if p <= most and W <= 32 * aim * p), BANDED_PPTS[-1])
     warps = -(-W // (32 * ppt))
-    vec = (16 if W % 8 == 0 and ppt % 8 == 0 else
-           8 if W % 4 == 0 and ppt % 4 == 0 else
-           4 if W % 2 == 0 and ppt % 2 == 0 else 2)
-    slot_bytes = _round(4 * nstate + 12, 16)
-    arrays = BANDED_BAR_BYTES + BANDED_POSITION_BYTES * _round(W, 8)
-    fits = lambda smem: smem + BANDED_STATIC_BYTES <= optin
-    rows, nslots = next(((r, n) for r in BANDED_ROWS for n in BANDED_SLOTS
-                         if fits(arrays + n * r * slot_bytes)), (1, 0))
-    smem = arrays + nslots * rows * slot_bytes
-    if not fits(smem):
+    rows, nslots, slot_bytes, smem, fits = _ring(
+        BANDED_BAR_BYTES + BANDED_POSITION_BYTES * _round(W, 8), nstate,
+        optin)
+    if not fits:
         raise ValueError("remap_banded: a window of {} positions does not "
                          "fit {} bytes of shared memory".format(W, optin))
     producer = int(nslots > 0 and warps < 32)
     threads = 32 * (warps + producer)
     maxt = next(m for m in (256, 512, 1024) if threads <= m)
     return {"route": "tuned", "warps": warps, "producer": producer,
-            "threads": threads, "maxt": maxt, "ppt": ppt, "rows": rows, "nslots": nslots,
-            "slot_bytes": slot_bytes, "vec": vec, "smem": smem}
+            "threads": threads, "maxt": maxt, "ppt": ppt, "rows": rows,
+            "nslots": nslots, "slot_bytes": slot_bytes,
+            "vec": _store_width(W, ppt), "smem": smem}
+
+
+def wide_plan(W, nstate=NSTATE, optin=SMEM_OPTIN):
+    """The wide route's plan (:func:`remap_banded_plan` past MAX_W): a
+    cluster of WIDE_CLUSTER blocks a row, each the tuned block at ``ppt``
+    positions a thread (the fewest of WIDE_PPTS that keep a block within
+    WIDE_WARPS consumer warps: 8 up to W = 30,720, else 12).  Every block
+    but the last holds ``hb`` positions, W / cluster rounded up to whole
+    warps (32 ppt), so that no block before the last holds a position past
+    its own; the last holds the rest (``blocks``: the positions of each).  Each has ``hb / (32
+    ppt)`` consumer warps, the moved window's arrays of ``hb`` positions
+    and a ring as the tuned plan sets it; ``maxt``: the least block size of
+    WIDE_BUILDS at ``ppt`` that holds the block.  Raises where a block's
+    arrays do not fit.  At W = 22,272: 8 blocks of 2,816 positions, 11
+    warps x 8."""
+    cluster = WIDE_CLUSTER
+    ppt = next((p for p in WIDE_PPTS if _round(-(-W // cluster), 32 * p)
+                <= 32 * p * WIDE_WARPS), WIDE_PPTS[-1])
+    hb = _round(-(-W // cluster), 32 * ppt)
+    warps = hb // (32 * ppt)
+    rows, nslots, slot_bytes, smem, fits = _ring(
+        WIDE_BAR_BYTES + BANDED_POSITION_BYTES * hb, nstate, optin)
+    # the producer warp also sends the block's edge to the blocks after it
+    threads = 32 * (warps + 1)
+    maxt = next((m for p, m in WIDE_BUILDS if p == ppt and threads <= m),
+                None)
+    if not fits or maxt is None or (cluster - 1) * hb >= W:
+        raise ValueError("remap_banded: a window of {} positions over a "
+                         "cluster of {} blocks of {} positions, {} a thread, "
+                         "does not fit {} bytes of shared memory".format(
+                             W, cluster, hb, ppt, optin))
+    return {"route": "wide", "cluster": cluster, "hb": hb,
+            "blocks": (hb,) * (cluster - 1) + (W - (cluster - 1) * hb,),
+            "warps": warps, "producer": 1, "threads": threads,
+            "maxt": maxt, "ppt": ppt, "rows": rows, "nslots": nslots,
+            "slot_bytes": slot_bytes, "vec": _store_width(W, ppt),
+            "smem": smem}
 
 
 def remap_back_plan(W, optin=SMEM_OPTIN):
@@ -355,7 +411,9 @@ class RemapBanded:
     Replaces the Pallas TPU kernel ``sloika_tpu/ops/pallas/remap.py::
     _banded_kernel`` with ``csrc/remap_banded.cu``; runs
     :func:`remap_banded_plain` for CPU tensors.  A window wider than
-    :data:`MAX_W` takes the wide route (counted in ``wide_launches``)."""
+    :data:`MAX_W` takes the wide route, a cluster of eight blocks a row
+    (counted in ``wide_launches``); where the card cannot run such a
+    cluster, it raises with the plan named."""
 
     #: the widest window the kernel takes (:func:`remap_banded_plan`)
     MAX_W = WIDE_MAX_W
@@ -363,16 +421,39 @@ class RemapBanded:
     _ARGTYPES = {"remap_banded": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                  + [ctypes.c_float] + [ctypes.c_int] * 8
                  + [ctypes.c_ulonglong, ctypes.c_void_p],
-                 "remap_banded_wide": [ctypes.c_void_p] * 8
+                 "remap_banded_wide": [ctypes.c_void_p] * 7
                  + [ctypes.c_int] * 6 + [ctypes.c_float]
-                 + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
+                 + [ctypes.c_int] * 10 + [ctypes.c_ulonglong,
+                                           ctypes.c_void_p],
+                 "remap_banded_wide_clusters": [ctypes.c_int] * 5
+                 + [ctypes.c_void_p]}
 
     def __init__(self):
         self.launches = 0
         self.wide_launches = 0
+        self._clusters = {}
 
     def _library(self):
         return cuda_build.load("remap_banded", self._ARGTYPES)
+
+    def wide_clusters(self, plan, device):
+        """The clusters of the wide plan's blocks that the card runs at
+        once (queried once for each device and plan); raises, naming the
+        plan, where it runs none."""
+        key = (str(device), plan["cluster"], plan["ppt"], plan["maxt"],
+               plan["threads"], plan["smem"])
+        if key not in self._clusters:
+            n = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                cuda_build.check(self._library().remap_banded_wide_clusters(
+                    plan["cluster"], plan["ppt"], plan["maxt"],
+                    plan["threads"], plan["smem"], ctypes.byref(n)),
+                    "remap_banded_wide_clusters")
+            if n.value < 1:
+                raise RuntimeError("remap_banded: the card runs no cluster "
+                                   "of the wide plan {}".format(plan))
+            self._clusters[key] = n.value
+        return self._clusters[key]
 
     def __call__(self, ltrans_t, seq_states, pos_mask, prior_initial, starts,
                  slip, W):
@@ -403,17 +484,19 @@ class RemapBanded:
         plan = remap_banded_plan(W, nstate)
         lib = self._library()
         if route == "wide":
-            scratch = torch.empty((B, plan["scratch"]), dtype=torch.float32,
-                                  device=dev)
+            self.wide_clusters(plan, dev)
             with torch.cuda.device(dev):
                 err = lib.remap_banded_wide(
                     ltrans_t.data_ptr(), seq_states.data_ptr(),
                     pos_mask.data_ptr(), prior_initial.data_ptr(),
                     starts.data_ptr(), traceback.data_ptr(),
-                    vfinal.data_ptr(), scratch.data_ptr(), T, B, nstate, P,
-                    W, Tp, float(slip), plan["ppt"], plan["smem"],
+                    vfinal.data_ptr(), T, B, nstate, P, W, Tp, float(slip),
+                    plan["hb"], plan["cluster"], plan["warps"],
+                    plan["producer"], plan["ppt"], plan["maxt"],
+                    plan["rows"], plan["nslots"], plan["vec"],
+                    plan["smem"], storage_end(ltrans_t),
                     torch.cuda.current_stream().cuda_stream)
-            cuda_build.check(err, "remap_banded_wide")
+            cuda_build.check(err, "remap_banded_wide (plan {})".format(plan))
             self.launches += 1
             self.wide_launches += 1
             return traceback, vfinal

@@ -13,11 +13,12 @@ and writes int8 traceback codes (T, B, K) and the final scores (B, K).
 
 Both kernels take their launch plans from Python:
 :func:`viterbi_fwd_plan` (a cluster of two blocks a row, one taking the
-logs, or one block a row, and the rings' slots and shared memory) and
-:func:`viterbi_back_plan` (frames a slot of the traceback ring, slots,
-shared memory).  Both dispatch on the device of their input: the kernel for
-a CUDA tensor, the plain twin of :mod:`sloika_tpu_torch.ops.decode` for a
-CPU tensor.  The tuned kernels take nbase = 4 and klen 2..6 (K = 16 ..
+logs, or one block a row, and the rings' slots and shared memory),
+:func:`viterbi_back_plan` and, for the general route,
+:func:`viterbi_back_general_plan` (frames a slot of the traceback ring,
+slots, shared memory).  Both dispatch on the device of their input: the
+kernel for a CUDA tensor, the plain twin of
+:mod:`sloika_tpu_torch.ops.decode` for a CPU tensor.  The tuned kernels take nbase = 4 and klen 2..6 (K = 16 ..
 4,096 states); every other posterior that the Pallas kernel takes (its
 ``nbase`` and ``klen`` are parameters: klen 7 over 4 bases, or 3 or 5
 bases) takes the same sources' general route (``viterbi_fwd_general``,
@@ -63,6 +64,9 @@ FWD_PAIR_ROWS, FWD_PAIR_MAX_SLOTS = (8, 4, 2, 1), 4
 BACK_THREADS, BACK_BAR_BYTES = 64, 256
 BACK_FRAMES, BACK_SLOT_BYTES = (32, 16, 8, 4, 2, 1), 16384
 BACK_MAX_SLOTS, BACK_MIN_SLOTS = 16, 2
+#: the general backtrace: the bytes a slot of bulk-copied frames is aimed
+#: at, and the largest frame it copies (PERF.md §6)
+GENERAL_SLOT_BYTES, GENERAL_RING_BYTES = 65536, 32768
 #: the general route: threads a block at most, the ring's depth at most
 #: and at least; the clusters of blocks a row it may take, most first
 GENERAL_MAX_THREADS, GENERAL_MAX_SLOTS, GENERAL_MIN_SLOTS = 1024, 8, 2
@@ -220,6 +224,16 @@ def viterbi_back_plan(B, K, T, sms=H100_SMS, optin=SMEM_OPTIN):
     :returns: dict of F, nslots, slot_bytes, blocks, smem (dynamic bytes)
     """
     _states(K)
+    plan = _back_ring(B, K, T, sms, optin)
+    if plan["smem"] > optin:
+        raise ValueError("viterbi_back: K = {} does not fit {} bytes of "
+                         "shared memory".format(K, optin))
+    return plan
+
+
+def _back_ring(B, K, T, sms, optin):
+    """:func:`viterbi_back_plan`'s ring of tensor-map boxes for any K a
+    power of two, which may not fit ``optin``."""
     blocks = _resident(B, BACK_THREADS, sms)
     budget = _budget(blocks, optin) - BACK_BAR_BYTES
     F = next((f for f in BACK_FRAMES if f * K <= BACK_SLOT_BYTES
@@ -228,12 +242,74 @@ def viterbi_back_plan(B, K, T, sms=H100_SMS, optin=SMEM_OPTIN):
     chunks = -(-max(T - 1, 0) // F)
     nslots = max(BACK_MIN_SLOTS, min(BACK_MAX_SLOTS, budget // slot_bytes,
                                      chunks))
-    smem = BACK_BAR_BYTES + nslots * slot_bytes
-    if smem > optin:
-        raise ValueError("viterbi_back: K = {} does not fit {} bytes of "
-                         "shared memory".format(K, optin))
     return {"F": F, "nslots": nslots, "slot_bytes": slot_bytes,
-            "blocks": blocks, "smem": smem}
+            "blocks": blocks, "smem": BACK_BAR_BYTES + nslots * slot_bytes}
+
+
+def viterbi_back_general_plan(B, K, T, nbase, sms=H100_SMS,
+                              optin=SMEM_OPTIN, aligned=True):
+    """The launch plan of ``viterbi_back.cu``'s general route for B rows of
+    T frames of K = nbase^klen states (any nbase whose codes fit int8).
+
+    As :func:`viterbi_back_plan`, a block a row of BACK_THREADS threads
+    whose walker chases the state through a ring of frames in shared
+    memory, by one of three copies (``copy``):
+
+    - "tensor" where nbase is 4, K a power of two (klen 7 over 4 bases)
+      and the traceback starts on a 16-byte boundary (``aligned``): one
+      tensor-map box of F frames a slot, as :func:`viterbi_back_plan` sets
+      it (``viterbi_back.cu``'s tuned kernel, whose decode holds for any
+      power of two over 4 bases);
+    - "bulk" otherwise: each frame a 1-D bulk copy of its 16-byte-aligned
+      superset (``frame_bytes``: K + 15 rounded up to 16), issued by lane q
+      of the copier for frame q of a slot, so that a slot's copies go out
+      together; F the most of BACK_FRAMES whose slot is at most
+      GENERAL_SLOT_BYTES and of which two fit the budget of the blocks an
+      SM must hold (a slot's copies issued together run faster than one at
+      a time, PERF.md §6).  16 frames of 3,152 bytes and 4 slots at nbase 5
+      (K = 3,125) and B = 8;
+    - "none" where a frame is larger than GENERAL_RING_BYTES (klen 8 over 4
+      bases) or two slots do not fit ``optin`` bytes: no ring, the walker
+      reads each frame's code from device memory (a 64 KB frame takes
+      longer to copy into one SM than a dependent load takes, PERF.md §6).
+
+    Then as many slots as fit, up to BACK_MAX_SLOTS and to the row's chunks
+    of F frames, and at least BACK_MIN_SLOTS.  Raises, naming the shape,
+    for codes that are not nbase^klen over an alphabet whose codes fit
+    int8, or K of 2^24 states or more (the decode's reciprocals).
+
+    :returns: dict of copy, F, nslots, frame_bytes, slot_bytes, blocks,
+        smem (dynamic bytes)
+    """
+    nskip = nbase * nbase
+    if (nbase < 2 or nbase + nskip > 128 or K < nskip or K % nskip
+            or K >= 1 << 24):
+        raise ValueError("viterbi_back_general: K = {} states over nbase {} "
+                         "are not nbase^klen codes of int8 below 2^24".format(
+                             K, nbase))
+    frame_bytes = _row_bytes(K, 1)
+    if nbase == 4 and aligned and K & (K - 1) == 0:
+        plan = dict(_back_ring(B, K, T, sms, optin), copy="tensor",
+                    frame_bytes=K)
+    else:
+        blocks = _resident(B, BACK_THREADS, sms)
+        budget = _budget(blocks, optin) - BACK_BAR_BYTES
+        F = next((f for f in BACK_FRAMES if f * frame_bytes
+                  <= GENERAL_SLOT_BYTES
+                  and BACK_MIN_SLOTS * f * frame_bytes <= budget), 1)
+        chunks = -(-max(T - 1, 0) // F)
+        nslots = max(BACK_MIN_SLOTS, min(
+            BACK_MAX_SLOTS, budget // (F * frame_bytes), chunks))
+        plan = {"copy": "bulk", "F": F, "nslots": nslots,
+                "frame_bytes": frame_bytes, "slot_bytes": F * frame_bytes,
+                "blocks": blocks,
+                "smem": BACK_BAR_BYTES + nslots * F * frame_bytes}
+    if plan["frame_bytes"] > GENERAL_RING_BYTES or plan["smem"] > optin:
+        # the bulk kernel without a ring
+        return {"copy": "none", "F": 1, "nslots": 0,
+                "frame_bytes": frame_bytes, "slot_bytes": 0,
+                "blocks": plan["blocks"], "smem": BACK_BAR_BYTES}
+    return plan
 
 
 def _general_slot_bytes(KC, esize=4):
@@ -472,12 +548,14 @@ class ViterbiBacktrace:
     """(path (B, T) int32, moved (B, T) bool) from traceback codes
     (T, B, K) int8 and the last state of each row.  Replaces the XLA
     backtrace of ``sloika_tpu/ops/pallas/viterbi.py::_viterbi_impl`` with
-    ``csrc/viterbi_back.cu``, launched with :func:`viterbi_back_plan`."""
+    ``csrc/viterbi_back.cu``, launched with :func:`viterbi_back_plan`
+    (the general route with :func:`viterbi_back_general_plan`)."""
 
     _ARGTYPES = {"viterbi_back": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                  + [ctypes.c_void_p],
                  "viterbi_back_general": [ctypes.c_void_p] * 4
-                 + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+                 + [ctypes.c_int] * 8 + [ctypes.c_ulonglong,
+                                          ctypes.c_void_p]}
 
     def __init__(self):
         self.launches = 0
@@ -502,10 +580,26 @@ class ViterbiBacktrace:
         if T == 0 or B == 0:
             return path, moved
         if route == "general":
+            plan = viterbi_back_general_plan(B, K, T, nbase,
+                                             *_device_limits(tb.device),
+                                             aligned=tb.data_ptr() % 16 == 0)
+            if plan["copy"] == "tensor":
+                with torch.cuda.device(tb.device):
+                    err = self._library().viterbi_back(
+                        tb.data_ptr(), last.data_ptr(), path.data_ptr(),
+                        moved.data_ptr(), T, B, K, plan["F"],
+                        plan["nslots"], plan["smem"],
+                        torch.cuda.current_stream().cuda_stream)
+                cuda_build.check(err, "viterbi_back (general, tensor copies)")
+                self.launches += 1
+                self.general_launches += 1
+                return path, moved
             with torch.cuda.device(tb.device):
                 err = self._library().viterbi_back_general(
                     tb.data_ptr(), last.data_ptr(), path.data_ptr(),
-                    moved.data_ptr(), T, B, K, nbase,
+                    moved.data_ptr(), T, B, K, nbase, plan["F"],
+                    plan["nslots"], plan["frame_bytes"], plan["smem"],
+                    cuda_build.storage_end(tb),
                     torch.cuda.current_stream().cuda_stream)
             cuda_build.check(err, "viterbi_back_general")
             self.launches += 1

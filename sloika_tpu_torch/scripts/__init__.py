@@ -68,10 +68,11 @@ def clocked_library(name, flag, functions, read):
 
 def read_clocks(lib, read, warps, slots=8):
     """The stamps of a clocked library's last launch: ``slots`` sums of
-    cycles for each of ``warps`` warps of block 0."""
+    cycles for each of ``warps`` warps (block 0's 32, then, where a
+    library stamps two blocks, the second block's)."""
     from sloika_tpu_torch import cuda_build
     torch.cuda.synchronize()
-    raw = (ctypes.c_longlong * (32 * slots))()
+    raw = (ctypes.c_longlong * (64 * slots))()    # two blocks' warps at most
     cuda_build.check(getattr(lib, read)(raw), read)
     return [[raw[w * slots + k] for k in range(slots)] for w in range(warps)]
 

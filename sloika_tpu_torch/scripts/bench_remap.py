@@ -6,7 +6,10 @@ Shapes (T frames, B rows, P positions, W window): "main", the remap main
 path's DP batch in ``chip_smoke.py`` (64 reads bucketed to 35,429 frames,
 references to 14,763 positions, band 768); "rerun", its re-run batch (the
 four reads whose references the band cannot reach, bucketed to 10,497
-frames and 9,842 positions, at W = 3,072).  The posterior is
+frames and 9,842 positions, at W = 3,072); "wide", the exact re-run of
+two references in the 22,145-position bucket at W = 22,272 (the wide
+route, a cluster of eight blocks a row; ``chip_smoke.py`` phase 9a's
+shape).  The posterior is
 ``log_softmax(2 x N(0, 1))`` over 1,025 states, drawn on the card from a
 seed, and the rows' frame and position counts are ragged, as in
 ``chip_smoke.py`` phase 8.  It times ``remap_banded`` and ``remap_back``
@@ -42,12 +45,18 @@ import numpy as np
 import torch
 
 #: name -> (T, B, P, W)
-SHAPES = {"main": (35429, 64, 14763, 768), "rerun": (10497, 4, 9842, 3072)}
+SHAPES = {"main": (35429, 64, 14763, 768), "rerun": (10497, 4, 9842, 3072),
+          "wide": (2074, 2, 22145, 22272)}
 NSTATE = 1025
 SLIP = 5.0
 #: the phases of a step that each clocked build stamps, in order
 BANDED_PHASES = ("stores_head", "gather_issue", "scans_publish", "barrier",
                  "fold", "update", "slot_wait")
+#: the wide route's: its slot waits go to gather_issue, its waits at the
+#: cluster barriers to cluster_wait, block 0's send and block 1's merge of
+#: block 0's edge to fold_exchange
+WIDE_PHASES = ("stores_head", "gather_slot_wait", "scans_publish",
+               "barrier", "fold_exchange", "update", "cluster_wait")
 #: remap_back's warps: the walker (0) and the copier (1)
 BACK_PHASES = ("slot_wait", "walk", "release", "copy_issue")
 
@@ -104,17 +113,27 @@ def banded_clocks(args, ref):
         raise AssertionError("the clocked build of remap_banded gave other "
                              "bits")
     plan = remap_banded_plan(args[6], args[0].shape[2])
-    raw = read_clocks(lib, "remap_banded_clocks_read", 32)
-    split = split_clocks(raw[:plan["warps"]], args[4].shape[0] - 1, ms,
-                   BANDED_PHASES)
-    if plan["producer"]:
+    raw = read_clocks(lib, "remap_banded_clocks_read", 64)
+    steps = args[4].shape[0] - 1
+    wide = plan["route"] == "wide"
+    phases = WIDE_PHASES if wide else BANDED_PHASES
+    split = split_clocks(raw[:plan["warps"]], steps, ms, phases)
+
+    def producer(w):
         # the producer warp: its barriers with the refill, and its window
-        # moves' barriers
-        w = raw[plan["warps"]]
-        steps = args[4].shape[0] - 1
-        split["producer"] = {"barrier_refill": w[3] / steps,
-                             "move_barriers": w[5] / steps,
-                             "loop": w[7] / steps}
+        # moves' barriers (the wide route: every cluster barrier)
+        return {"barrier_refill": w[3] / steps,
+                "move_barriers": w[5] / steps, "loop": w[7] / steps}
+    if plan["producer"]:
+        split["producer"] = producer(raw[plan["warps"]])
+    if wide:
+        # block 1 of row 0's cluster, its warps from 32
+        second = split_clocks(raw[32:32 + plan["warps"]], steps, ms, phases)
+        split["block1"] = {k: second[k] for k in (
+            "cycles_per_step", "phases_mean", "phases_by_warp")}
+        if plan["producer"]:
+            split["block1"]["producer"] = producer(raw[32 + plan["warps"]])
+        split["plan"] = plan
     return split
 
 

@@ -11,9 +11,12 @@ whole reads (22,543 frames).  The posterior is ``softmax(4 x N(0, 1))``
 over 1,025 states, drawn on the card from a seed, as in ``chip_smoke.py``
 phase 4.  It times ``viterbi_fwd`` and ``viterbi_back`` (the best of 2
 rounds of 3 back-to-back calls by CUDA events).  The general route's
-shapes (GENERAL_SHAPES, klen 7 and 8 over 4 bases: "whole7", the whole
-read batch at 16,384 states; "klen8", T 1,000, B 8 at 65,536) time
-``viterbi_fwd``'s general route alone.
+shapes (GENERAL_SHAPES: "whole7", the whole read batch at 16,384 states,
+klen 7 over 4 bases; "klen8", T 1,000, B 8 at 65,536; "nbase5", the
+5-letter call's batch, T 10,870, B 8 at 3,125 states over 5 bases) time
+both kernels' general routes, the backtrace also on a copy of its codes
+one byte off a 16-byte boundary (at klen 7, the 1-D bulk copies beside
+the aligned codes' tensor-map boxes).
 
 Another tree's kernels, e.g. a parent commit unpacked with ``git
 archive``, are timed by that tree's own copy of this script::
@@ -61,7 +64,8 @@ SHAPES = {"chunk": (3277, 64), "production": (3277, 1024),
           "events": (9000, 64), "whole": (22543, 8)}
 KLEN, NSTATE, SKIP_PEN = 5, 1025, 5.0
 #: the general route's shapes over 4 bases: name -> (T, B, klen)
-GENERAL_SHAPES = {"whole7": (22543, 8, 7), "klen8": (1000, 8, 8)}
+GENERAL_SHAPES = {"whole7": (22543, 8, 7, 4), "klen8": (1000, 8, 8, 4),
+                  "nbase5": (10870, 8, 5, 5)}
 #: the phases of a step that each clocked build stamps, in order
 FWD_PHASES = ("row", "logs", "maxima", "update_store", "barrier")
 GENERAL_PHASES = ("slot_wait", "logs", "input_wait", "maxima", "update",
@@ -79,7 +83,7 @@ def posterior(T, B, dev, seed, nstate=NSTATE):
     return torch.softmax(x.mul_(4.0), dim=2).contiguous()
 
 
-def fwd_clocks(post, ref, klen=KLEN):
+def fwd_clocks(post, ref, klen=KLEN, nbase=4):
     """Run the clocked build of ``viterbi_fwd`` on ``post`` (it must give
     ``ref``, the port's build's (vfinal, traceback)); returns its time, the
     clock it ran at and the cycles a step of each phase (GENERAL_PHASES
@@ -95,7 +99,7 @@ def fwd_clocks(post, ref, klen=KLEN):
         def _library(self):
             return lib
 
-    run = lambda: Clocked()(post, klen, SKIP_PEN)
+    run = lambda: Clocked()(post, klen, SKIP_PEN, nbase=nbase)
     ms = cuda_ms(run, 3, 2)
     if not all(map(torch.equal, run(), ref)):
         raise AssertionError("the clocked build of viterbi_fwd gave other "
@@ -103,8 +107,8 @@ def fwd_clocks(post, ref, klen=KLEN):
     # the DP warps of row 0's block, each of which stamps
     T, B, nst = post.shape
     K = nst - 1
-    if vk.kernel_route(K, klen, 4) == "general":
-        plan = general_plan(B, K, post.device)
+    if vk.kernel_route(K, klen, nbase) == "general":
+        plan = general_plan(B, K, post.device, nbase)
         warps = plan["threads"] // 32
         raw = read_clocks(lib, "viterbi_fwd_clocks_read", warps)
         split = split_clocks(raw, max(T - 1, 1), ms, GENERAL_PHASES)
@@ -134,21 +138,22 @@ def fwd_clocks(post, ref, klen=KLEN):
     return split_clocks(raw, T - 1, ms, FWD_PHASES)
 
 
-def general_plan(B, K, dev):
-    """The general route's launch plan for B rows of K states over 4 bases
-    on ``dev`` (a tree before the cluster route plans without the card's
-    clusters)."""
+def general_plan(B, K, dev, nbase=4):
+    """The general route's launch plan for B rows of K states over nbase
+    bases on ``dev`` (a tree before the cluster route plans without the
+    card's clusters)."""
     from sloika_tpu_torch.ops import viterbi_kernel as vk
     optin = vk._device_limits(dev)[1]
     if not hasattr(vk.viterbi_forward, "general_clusters"):
-        return vk.viterbi_general_plan(B, K, 4, optin)
+        return vk.viterbi_general_plan(B, K, nbase, optin)
     return vk.viterbi_general_plan(
-        B, K, 4, optin, vk.viterbi_forward.general_clusters(K, 4, dev))
+        B, K, nbase, optin,
+        vk.viterbi_forward.general_clusters(K, nbase, dev))
 
 
-def back_clocks(tb, last, ref):
+def back_clocks(tb, last, ref, nbase=4):
     """The same for ``viterbi_back`` (it must give ``ref``, the path and
-    moves)."""
+    moves), on the general route where ``tb``'s shape takes it."""
     from sloika_tpu_torch.ops.viterbi_kernel import ViterbiBacktrace
     from sloika_tpu_torch.scripts import (clocked_library, cuda_ms,
                                          read_clocks, split_clocks)
@@ -160,14 +165,16 @@ def back_clocks(tb, last, ref):
         def _library(self):
             return lib
 
-    run = lambda: Clocked()(tb, last)
+    run = lambda: Clocked()(tb, last, nbase=nbase)
     ms = cuda_ms(run, 3, 2)
     if not all(map(torch.equal, run(), ref)):
         raise AssertionError("the clocked build of viterbi_back gave other "
                              "bits")
     raw = read_clocks(lib, "viterbi_back_clocks_read", 2)
     split = split_clocks(raw, max(tb.shape[0] - 1, 1), ms, BACK_PHASES)
-    split["walker"], split["copier"] = split.pop("phases_by_warp")
+    # the copier stamps nothing where the general route has no ring
+    warps = split.pop("phases_by_warp")
+    split["walker"], split["copier"] = warps[0], (warps + [None])[1]
     del split["phases_mean"]
     split["cycles_per_step"] = split["walker"]["loop"]
     # thread 0's chase of 64 dependent shared-memory reads
@@ -211,23 +218,52 @@ def bench_shape(name, dev, clocks):
 
 
 def bench_general(name, dev, clocks):
-    """Time the general route of ``viterbi_fwd`` at one of GENERAL_SHAPES
-    (and split its step)."""
+    """Time the general routes of ``viterbi_fwd`` and ``viterbi_back`` at
+    one of GENERAL_SHAPES (and split their steps)."""
     from sloika_tpu_torch.ops import viterbi_kernel as vk
     from sloika_tpu_torch.scripts import cuda_ms
-    T, B, klen = GENERAL_SHAPES[name]
-    K = 4 ** klen
+    T, B, klen, nbase = GENERAL_SHAPES[name]
+    K = nbase ** klen
     post = posterior(T, B, dev, seed=T + B, nstate=K + 1)
-    ref = vk.viterbi_forward(post, klen, SKIP_PEN)
-    ms = cuda_ms(lambda: vk.viterbi_forward(post, klen, SKIP_PEN), 3, 2)
-    out = {"T": T, "B": B, "K": K,
+    fwd = lambda: vk.viterbi_forward(post, klen, SKIP_PEN, nbase=nbase)
+    ref = fwd()
+    last = torch.argmax(ref[0], dim=1)
+    back = lambda: vk.viterbi_backtrace(ref[1], last, nbase=nbase)
+    path = back()
+    ms = cuda_ms(fwd, 3, 2)
+    back_ms = cuda_ms(back, 3, 2)
+    out = {"T": T, "B": B, "K": K, "nbase": nbase,
            "viterbi_fwd_general": {"ms": ms, "us_per_step": 1e3 * ms / T,
-                                   "plan": general_plan(B, K, dev)}}
+                                   "plan": general_plan(B, K, dev, nbase)},
+           "viterbi_back_general": {"ms": back_ms,
+                                    "us_per_step": 1e3 * back_ms / T}}
+    if hasattr(vk, "viterbi_back_general_plan"):
+        out["viterbi_back_general"]["plan"] = vk.viterbi_back_general_plan(
+            B, K, T, nbase)
+    # the backtrace of the same codes one byte off a 16-byte boundary (the
+    # plan's other copy form where the aligned codes take tensor-map boxes)
+    view = torch.empty(ref[1].numel() + 1, dtype=torch.int8,
+                       device=dev)[1:].view(ref[1].shape)
+    view.copy_(ref[1])
+    off = lambda: vk.viterbi_backtrace(view, last, nbase=nbase)
+    if not all(map(torch.equal, off(), path)):
+        raise AssertionError("the backtrace of an unaligned view gave other "
+                             "bits")
+    out["viterbi_back_general"]["unaligned_ms"] = cuda_ms(off, 3, 2)
+    if hasattr(vk, "viterbi_back_general_plan"):
+        out["viterbi_back_general"]["unaligned_plan"] = (
+            vk.viterbi_back_general_plan(B, K, T, nbase, aligned=False))
+    del view
     if hasattr(vk.viterbi_forward, "general_clusters"):
         out["viterbi_fwd_general"]["cards_clusters"] = (
-            vk.viterbi_forward.general_clusters(K, 4, dev))
+            vk.viterbi_forward.general_clusters(K, nbase, dev))
     if clocks:
-        out["viterbi_fwd_general_clocks"] = fwd_clocks(post, ref, klen)
+        out["viterbi_fwd_general_clocks"] = fwd_clocks(post, ref, klen,
+                                                       nbase)
+        split = back_clocks(ref[1], last, path, nbase)
+        out["viterbi_back_general_clocks"] = split
+        out["viterbi_back_general"].update(back_design_bounds(T, B, K,
+                                                              split))
     return out
 
 

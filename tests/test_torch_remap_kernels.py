@@ -153,6 +153,54 @@ def test_remap_wide_route_bit_identical_to_plain(cuda_device, W, P, T):
 
 
 @pytest.mark.gpu
+def test_remap_wide_route_moves_across_the_split(cuda_device):
+    """W = 22,272 over longer references: the window jumps by d = 256
+    (the largest move, one block of frames) with the positions within 258
+    of each of the cluster's splits live, so that each block's last
+    positions read their sources in the next block over distributed
+    shared memory."""
+    W, P, T = 22272, 40000, 900
+    plan = rk.remap_banded_plan(W)
+    lt, seq, mask, p0, starts = _inputs([T, T - 100], [P, P - 2000], T, P,
+                                        W, cuda_device, seed=5)
+    jumps = starts[1:] - starts[:-1]
+    assert int(jumps.max()) == rk.block_len(W) == 256
+    # a jump of 256 where the positions around every split are real
+    t = int(torch.nonzero(jumps[:, 0] == 256)[0, 0]) + 1
+    for k in range(1, plan["cluster"]):
+        edge = int(starts[t - 1, 0]) + k * plan["hb"]
+        assert bool(mask[0, edge - 258:edge + 258].all())
+    _twice_against_twins(lt, seq, mask, p0, starts, 3.0, W)
+
+
+@pytest.mark.gpu
+def test_remap_wide_route_without_a_ring(cuda_device):
+    """Posterior rows of 65,537 states (klen 8) at the first wide width:
+    no ring of two slots fits beside a block's arrays, so the consumers
+    gather the emissions from device memory while the producer warp only
+    sends the block's edges; the twins' bits."""
+    W, P, T = rk.MAX_W + 1, rk.MAX_W + 1, 40
+    nstate = 65537
+    assert rk.remap_banded_plan(W, nstate)["nslots"] == 0
+    lt, seq, mask, p0, starts = _inputs([T, T - 9], [P, 700], T, P, W,
+                                        cuda_device, seed=3, nstate=nstate)
+    _twice_against_twins(lt, seq, mask, p0, starts, 3.0, W)
+
+
+@pytest.mark.gpu
+def test_remap_wide_route_tie_heavy(cuda_device):
+    """The tie-heavy posterior of ``test_remap_kernels_tie_heavy`` at the
+    exact window of the 22,145 bucket: equal slip sources on both sides of
+    the cluster's splits, where the earlier block's total wins the ties."""
+    W, P, T = 22272, 22145, 150
+    lt, seq, mask, p0, starts = _inputs([T, T - 20, 90], [P, P - 400, 600],
+                                        T, P, W, cuda_device, seed=7)
+    lt = torch.round(lt / 4.0) * 4.0
+    p0 = torch.round(p0)
+    _twice_against_twins(lt, seq, mask, p0, starts, 0.0, W)
+
+
+@pytest.mark.gpu
 def test_remap_wide_route_banded_schedule(cuda_device):
     """The wide route where the window moves (W < P): every window jump
     d in [0, TB] realigns the scores as the twin does."""
@@ -301,8 +349,38 @@ def test_remap_banded_plan_rejects_out_of_range_windows(W):
         rk.remap_banded_plan(W)
 
 
+def _check_wide_plan(plan, W, nstate=rk.NSTATE):
+    """A wide plan: a cluster of WIDE_CLUSTER blocks of 8 or 12 positions a
+    thread, each before the last holding hb positions in whole warps, the
+    last the rest, the blocks covering W; each within WIDE_WARPS consumer
+    warps and a producer warp (a 512-thread instance), its arrays and ring
+    in shared memory; no device scratch."""
+    assert plan["route"] == "wide" and plan["cluster"] == rk.WIDE_CLUSTER
+    assert "scratch" not in plan
+    hb, blocks = plan["hb"], plan["blocks"]
+    assert len(blocks) == plan["cluster"] and sum(blocks) == W
+    assert all(n == hb for n in blocks[:-1]) and 1 <= blocks[-1] <= hb
+    assert plan["ppt"] in rk.WIDE_PPTS and hb % (32 * plan["ppt"]) == 0
+    # the fewest positions a thread whose blocks keep within WIDE_WARPS
+    assert plan["ppt"] == (8 if W <= 8 * 32 * 8 * rk.WIDE_WARPS else 12)
+    assert plan["warps"] == hb // (32 * plan["ppt"]) <= rk.WIDE_WARPS
+    assert plan["producer"] == 1
+    assert plan["threads"] == 32 * (plan["warps"] + 1) <= plan["maxt"]
+    assert (plan["ppt"], plan["maxt"]) in rk.WIDE_BUILDS
+    assert plan["smem"] == (rk.WIDE_BAR_BYTES + rk.BANDED_POSITION_BYTES
+                            * hb + plan["nslots"] * plan["rows"]
+                            * plan["slot_bytes"])
+    assert plan["smem"] + rk.BANDED_STATIC_BYTES <= rk.SMEM_OPTIN
+    assert plan["slot_bytes"] == -(-(4 * nstate + 12) // 16) * 16
+    assert plan["nslots"] == 0 or 2 <= plan["nslots"] <= 4
+    ppt = plan["ppt"]
+    assert plan["vec"] == (16 if W % 8 == 0 and ppt % 8 == 0 else
+                           8 if W % 4 == 0 and ppt % 4 == 0 else
+                           4 if W % 2 == 0 and ppt % 2 == 0 else 2)
+
+
 #: every tier of the plans: the tuned route's layout boundaries, its limit,
-#: and the wide route's positions a thread (17 .. 32) at each boundary
+#: and widths where the wide route's warps a block change
 WIDE_BOUNDARIES = tuple(w for p in range(16, 33) for w in
                         (1024 * p, 1024 * p + 1)
                         if rk.MAX_W < w <= rk.WIDE_MAX_W) + (rk.WIDE_MAX_W,)
@@ -320,13 +398,11 @@ def test_every_window_gets_a_plan_or_the_stated_refusal(lo, hi, step):
         plan = rk.remap_banded_plan(W)
         assert plan["route"] == rk.kernel_route(W)
         assert plan["route"] == ("tuned" if W <= rk.MAX_W else "wide")
-        assert plan["threads"] * plan["ppt"] >= W
+        # the threads of a block (the wide route: of each of its cluster's
+        # blocks) cover the window
+        assert plan.get("cluster", 1) * plan["threads"] * plan["ppt"] >= W
         if plan["route"] == "wide":
-            assert plan["threads"] == rk.WIDE_THREADS
-            assert (plan["ppt"] - 1) * rk.WIDE_THREADS < W
-            assert plan["smem"] == 4 * plan["ppt"] * rk.WIDE_THREADS
-            assert plan["smem"] + 256 <= rk.SMEM_OPTIN
-            assert plan["scratch"] == 4 * plan["ppt"] * rk.WIDE_THREADS
+            _check_wide_plan(plan, W)
         back = rk.remap_back_plan(W)
         assert back["smem"] <= rk.SMEM_OPTIN
         assert rk.BACK_MIN_SLOTS <= back["nslots"]
@@ -340,8 +416,14 @@ def test_every_window_gets_a_plan_or_the_stated_refusal(lo, hi, step):
 @pytest.mark.parametrize("W", WIDE_BOUNDARIES + (22272,))
 def test_remap_wide_plan_at_its_boundaries(W):
     plan = rk.remap_banded_plan(W)
-    assert plan["route"] == "wide"
-    assert plan["ppt"] == -(-W // 1024) and 17 <= plan["ppt"] <= 32
+    _check_wide_plan(plan, W)
+    # a block's warps: W over the cluster in runs of 32 ppt
+    assert plan["warps"] == -(-(-(-W // rk.WIDE_CLUSTER))
+                              // (32 * plan["ppt"]))
+    if W == 22272:
+        assert (plan["hb"], plan["warps"], plan["ppt"], plan["threads"],
+                plan["maxt"], plan["rows"], plan["nslots"], plan["vec"]) == (
+                    2816, 11, 8, 384, 512, 4, 4, 16)
     back = rk.remap_back_plan(W)
     assert back["K"] == 1
     assert back["copy"] == ("tensor" if W % 8 == 0 else "bulk rows")
@@ -355,6 +437,55 @@ def test_remap_back_plan_at_the_exact_window_of_the_22145_bucket():
     assert (plan["copy"], plan["inner"], plan["K"], plan["nslots"]) == (
         "tensor", 256, 1, 5)
     assert rk.remap_back_plan(22273)["copy"] == "bulk rows"
+
+
+@pytest.mark.parametrize("nstate", NSTATES)
+@pytest.mark.parametrize("W", (rk.MAX_W + 1, 22272, 24576, 24577,
+                               rk.WIDE_MAX_W))
+def test_remap_wide_plan_reaches_large_posteriors(W, nstate):
+    """The wide plan at kmer lengths 5 to 8: a ring beside each block's
+    arrays wherever two slots fit (always for rows of 1,025 and 4,097
+    states), else none and the emissions gathered from device memory (the
+    producer warp stays: it sends the block's edges to the later
+    blocks)."""
+    plan = rk.remap_banded_plan(W, nstate)
+    _check_wide_plan(plan, W, nstate)
+    two = (rk.WIDE_BAR_BYTES + rk.BANDED_POSITION_BYTES * plan["hb"]
+           + 2 * plan["slot_bytes"] + rk.BANDED_STATIC_BYTES)
+    assert (plan["nslots"] > 0) == (two <= rk.SMEM_OPTIN)
+    assert plan["nslots"] > 0 or nstate > 4097
+
+
+def test_remap_wide_builds_are_the_plans_pairs():
+    """remap_banded.cu instantiates the wide kernel at exactly WIDE_BUILDS,
+    and the plans of every width reach each of them."""
+    src = os.path.join(os.path.dirname(rk.__file__), os.pardir, "csrc",
+                       "remap_banded.cu")
+    with open(src) as f:
+        built = {(int(a), int(b)) for a, b, c, d in re.findall(
+            r"if \(ppt == (\d+) && maxt == (\d+)\) return "
+            r"remap_banded_kernel<(\d+), (\d+), true>;", f.read())
+            if (a, b) == (c, d)}
+    assert built == set(rk.WIDE_BUILDS)
+    reached = {(plan["ppt"], plan["maxt"]) for plan in map(
+        rk.remap_banded_plan, range(rk.MAX_W + 1, rk.WIDE_MAX_W + 1, 7))}
+    assert reached == built == {(8, 512), (12, 512)}
+
+
+def test_the_parents_copy_is_loaded_by_no_path():
+    """``csrc/redesign_parents.cu`` (the two redesigned kernels' parents,
+    timed beside them by chip_smoke.py) is loaded only by
+    ``scripts/redesign_parents.py``, which no module of the port imports."""
+    pkg = os.path.join(os.path.dirname(rk.__file__), os.pardir)
+    users = []
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(root, name)
+                with open(path) as f:
+                    if "redesign_parents" in f.read():
+                        users.append(os.path.relpath(path, pkg))
+    assert users == [os.path.join("scripts", "redesign_parents.py")]
 
 
 def test_storage_end_counts_from_a_views_start():
@@ -437,7 +568,8 @@ def test_remap_kernels_tie_heavy(cuda_device, W, P):
 @pytest.mark.gpu
 def test_remap_clocked_builds_give_the_same_bits(cuda_device):
     """``bench_remap --clocks``: the clocked builds compute what the port's
-    builds compute, and report cycles for every phase."""
+    builds compute, and report cycles for every phase, on the tuned route
+    and on the wide route's cluster."""
     from sloika_tpu_torch.scripts import bench_remap
     T, W = 300, 768
     lt, seq, mask, p0, starts = _inputs([300, 290, 200], [900, 800, 400], T,
@@ -451,6 +583,17 @@ def test_remap_clocked_builds_give_the_same_bits(cuda_device):
     path = rk.remap_backtrack(tb, starts, last)
     back = bench_remap.back_clocks((tb, starts, last), path)
     assert back["walker"]["loop"] > 0 and back["copier"]["loop"] > 0
+    # the wide route's: blocks 0 and 1 of row 0's cluster stamp, block 1
+    # its waits for block 0's edge
+    W, P = 22272, 22145
+    lt, seq, mask, p0, starts = _inputs([80, 70], [P, P - 500], 80, P, W,
+                                        cuda_device)
+    args = (lt, seq, mask, p0, starts, 3.0, W)
+    split = bench_remap.banded_clocks(args, rk.remap_banded(*args))
+    assert set(split["phases_mean"]) == set(bench_remap.WIDE_PHASES)
+    assert split["cycles_per_step"] > 0
+    assert split["block1"]["cycles_per_step"] > 0
+    assert split["block1"]["phases_mean"]["cluster_wait"] > 0
 
 
 @pytest.mark.gpu

@@ -209,6 +209,86 @@ def test_viterbi_general_plan_fits(nbase, klen, B, limits):
         assert (C, plan["shared"]) == (8, True)
 
 
+#: (nbase, klen) of every alphabet whose codes fit int8 (nbase + nbase^2
+#: <= 128), from klen 2 to the first K whose two frames no longer fit
+#: shared memory; klen 7 and 8 over 4 bases among them
+BACK_GENERAL_SHAPES = [(n, k) for n in range(2, 11) for k in range(2, 18)
+                       if k == 2 or 2 * -(-(n ** (k - 1) + 15) // 16) * 16
+                       + vk.BACK_BAR_BYTES <= SMEM_OPTIN]
+
+
+@pytest.mark.parametrize("B", (8, 1024))
+@pytest.mark.parametrize("nbase,klen", BACK_GENERAL_SHAPES)
+def test_viterbi_back_general_plan_fits_or_reads_device_memory(nbase, klen,
+                                                               B):
+    """The general backtrace's plan covers every shape the general route
+    takes: tensor-map boxes over 4 bases at a power-of-two K, else each
+    frame's 16-byte-aligned superset by a bulk copy, F frames a slot, two
+    to BACK_MAX_SLOTS slots in shared memory; where a frame is larger than
+    GENERAL_RING_BYTES or two slots do not fit, no ring (every frame read
+    from device memory)."""
+    K, T = nbase ** klen, 22543
+    plan = vk.viterbi_back_general_plan(B, K, T, nbase)
+    tensor = nbase == 4
+    superset = -(-(K + 15) // 16) * 16
+    frame = K if tensor else superset
+    assert plan["F"] in vk.BACK_FRAMES
+    assert plan["smem"] == (vk.BACK_BAR_BYTES
+                            + plan["nslots"] * plan["slot_bytes"])
+    assert plan["smem"] <= SMEM_OPTIN
+    assert plan["blocks"] >= _resident(B, vk.BACK_THREADS)
+    if (frame > vk.GENERAL_RING_BYTES
+            or vk.BACK_BAR_BYTES + 2 * frame > SMEM_OPTIN):
+        # the bulk kernel without a ring
+        assert plan["copy"] == "none" and plan["frame_bytes"] == superset
+        assert plan["nslots"] == 0 and plan["F"] == 1
+        return
+    assert plan["frame_bytes"] == frame
+    assert vk.BACK_MIN_SLOTS <= plan["nslots"] <= vk.BACK_MAX_SLOTS
+    if tensor:
+        assert plan["copy"] == "tensor"
+        assert plan["slot_bytes"] == -(-plan["F"] * K // 128) * 128
+        assert plan["F"] == 1 or plan["F"] * K <= vk.BACK_SLOT_BYTES
+    else:
+        assert plan["copy"] == "bulk" and frame % 16 == 0
+        assert plan["slot_bytes"] == plan["F"] * frame
+        assert (plan["F"] == 1
+                or plan["F"] * frame <= vk.GENERAL_SLOT_BYTES)
+    if (nbase, klen, B) == (4, 7, 8):
+        assert (plan["copy"], plan["F"], plan["nslots"]) == ("tensor", 1, 14)
+    if (nbase, klen, B) == (5, 5, 8):
+        assert (plan["F"], plan["nslots"], frame) == (16, 4, 3152)
+
+
+@pytest.mark.parametrize("optin,copy", [(1000, "none"), (4096, "none"),
+                                        (40000, "tensor")])
+def test_viterbi_back_general_plan_on_small_cards(optin, copy):
+    """A card of little shared memory: the ring where two slots fit, else
+    none."""
+    plan = vk.viterbi_back_general_plan(2, 4 ** 7, 40, 4, optin=optin)
+    assert plan["smem"] <= optin and plan["copy"] == copy
+    assert plan["nslots"] == (0 if copy == "none" else 2)
+
+
+def test_viterbi_back_general_plan_copies_by_alignment():
+    """A traceback off a 16-byte boundary takes the bulk copies at klen 7
+    (the tensor map reads 16-byte units)."""
+    plan = vk.viterbi_back_general_plan(8, 4 ** 7, 100, 4, aligned=False)
+    assert (plan["copy"], plan["frame_bytes"]) == ("bulk", 16400)
+
+
+@pytest.mark.parametrize("K,nbase", [(80, 3), (12, 4), (130, 11), (1, 2)])
+def test_viterbi_back_general_plan_rejects_other_codes(K, nbase):
+    with pytest.raises(ValueError, match="K = {} states over nbase {}"
+                       .format(K, nbase)):
+        vk.viterbi_back_general_plan(8, K, 100, nbase)
+
+
+def test_viterbi_back_general_plan_rejects_2_to_the_24_states():
+    with pytest.raises(ValueError, match="K = 16777216 states over nbase 2"):
+        vk.viterbi_back_general_plan(8, 2 ** 24, 100, 2)
+
+
 @pytest.mark.parametrize("K,nbase", [(16385, 4), (4097, 4), (80, 3), (1, 4)])
 def test_the_backtrace_rejects_state_counts_of_no_kmer(K, nbase):
     tb = torch.full((3, 1, K), -1, dtype=torch.int8)
@@ -338,11 +418,11 @@ def _softmax_posterior(klen, nbase, T, B, seed):
     (7, 4, 40, 2), (4, 3, 60, 3), (2, 3, 30, 1), (6, 5, 12, 2),
     (2, 2, 25, 5), (2, 10, 9, 2), (9, 3, 5, 1), (7, 4, 1, 2),
     (8, 4, 6, 2), (14, 2, 7, 1), (4, 10, 8, 2), (7, 4, 30, 9),
-    (5, 8, 6, 2)])
+    (5, 8, 6, 2), (3, 7, 70, 3), (5, 5, 80, 3), (8, 4, 40, 1)])
 def test_the_general_route_equals_the_twins(cuda_device, monkeypatch, klen,
                                             nbase, T, B, optin, cluster):
-    """klen 7 (16,384 states), klen 8 (65,536) and nbase 2, 3, 5, 8 and 10
-    take the kernels' general route on the card: the twins' bits (scores,
+    """klen 7 (16,384 states), klen 8 (65,536) and nbase 2, 3, 5, 7, 8 and
+    10 take the kernels' general route on the card: the twins' bits (scores,
     codes, path and moves), on the card's own device, counted in
     ``launches`` and ``general_launches``.  ``optin``: a card of that little
     shared memory, so the step's scores lie in device memory (and the ring
@@ -407,6 +487,33 @@ def test_the_general_route_reads_a_view(cuda_device):
     got = vk.viterbi(view, 4, skip_pen=5.0, nbase=3)
     ref = decode.viterbi(view, 4, skip_pen=5.0, nbase=3)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 8, 16])
+@pytest.mark.parametrize("klen,nbase,T,B", [(5, 5, 90, 3), (7, 4, 40, 2),
+                                            (8, 4, 12, 2), (4, 3, 300, 3),
+                                            (3, 7, 50, 1)])
+def test_the_general_backtrace_reads_a_view(cuda_device, klen, nbase, T, B,
+                                            offset):
+    """The general backtrace on a traceback that starts ``offset`` bytes
+    into its storage (16: aligned; 1 and 8: not, so every frame's superset
+    starts below it) and ends at the storage's end, where the last frames'
+    supersets would run past it (those are read from device memory): the
+    twin's path and moves."""
+    post = _softmax_posterior(klen, nbase, T, B, seed=klen + offset)
+    v, tb = vk.viterbi_forward(post.to(cuda_device), klen, skip_pen=5.0,
+                               nbase=nbase)
+    base = torch.empty(tb.numel() + offset, dtype=torch.int8,
+                       device=cuda_device)
+    view = base[offset:].view(tb.shape)
+    view.copy_(tb)
+    last = torch.argmax(v, dim=1)
+    n = vk.viterbi_backtrace.general_launches
+    got = vk.viterbi_backtrace(view, last, nbase=nbase)
+    ref = decode.viterbi_backtrace_plain(tb, last, nbase=nbase)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert vk.viterbi_backtrace.general_launches == n + 1
 
 
 @pytest.mark.gpu
@@ -604,7 +711,9 @@ def test_viterbi_clocked_builds_give_the_same_bits(cuda_device):
 def test_the_general_route_clocked_build_gives_the_same_bits(cuda_device):
     """``bench_viterbi --clocks`` at klen 7: the clocked general kernel
     computes the port's bits, stamps every phase and measures a cluster
-    barrier, a remote load and a push's hop."""
+    barrier, a remote load and a push's hop; the clocked general
+    backtrace computes the port's path and moves at klen 7 and nbase 5 and
+    stamps its walker and copier."""
     from sloika_tpu_torch.scripts import bench_viterbi
     post = _softmax_posterior(7, 4, 50, 2, seed=9).to(cuda_device)
     ref = vk.viterbi_forward(post, 7, bench_viterbi.SKIP_PEN)
@@ -615,6 +724,16 @@ def test_the_general_route_clocked_build_gives_the_same_bits(cuda_device):
     assert split["cluster_barrier_cycles"] > 0
     assert split["remote_load_cycles"] > 0
     assert 0 < split["design_floor_ms"] < split["ms"]
+    # the general backtrace's clocked build, at klen 7 and at nbase 5
+    for klen, nbase, post in ((7, 4, post), (5, 5, _softmax_posterior(
+            5, 5, 70, 2, seed=3).to(cuda_device))):
+        v, tb = vk.viterbi_forward(post, klen, 5.0, nbase=nbase)
+        last = torch.argmax(v, dim=1)
+        back = bench_viterbi.back_clocks(
+            tb, last, vk.viterbi_backtrace(tb, last, nbase=nbase), nbase)
+        assert back["walker"]["loop"] > 0 and back["copier"]["loop"] > 0
+        assert back["walker"]["walk"] > 0
+        assert back["smem_chase_cycles"] > 0
 
 
 #: (klen, nbase, T, B) of every route of the forward at bfloat16: the pair
