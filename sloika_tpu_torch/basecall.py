@@ -31,7 +31,9 @@ general route (``ops/viterbi_kernel.kernel_route``).
 
 PyTorch runs eagerly, so there is no compile cache and no batch or length
 bucketing: each batch runs at its own size.  Host <-> device copies are
-plain ``.to(device)``.
+plain ``.to(device)`` and ``.cpu()``, through :mod:`tracing`, which counts
+their bytes, and the host's work between them is in the tracer's
+``basecall.*`` spans.
 
 The host helpers are copied from ``sloika_tpu/basecall.py`` (their source
 lines are given), because that module imports jax.
@@ -42,7 +44,7 @@ import sys
 import numpy as np
 import torch
 
-from sloika_tpu_torch import bio, config, maths, nn, util
+from sloika_tpu_torch import bio, config, maths, nn, tracing, util
 from sloika_tpu_torch.data import features, fast5
 from sloika_tpu_torch.data.batching import (normalise_raw_signal,
                                             trim_open_pore)
@@ -301,18 +303,19 @@ class Basecaller(object):
         ``output="bases"``, else (score, call), the call a kmer-state
         sequence (the states entered by a move for a transducer, one state
         an event for the legacy decoder)."""
-        if self.studentise:
-            return self._basecall_per_read(signals)
-        if self.chunked and self.transducer:
-            if self.output == "bases":
-                return self._basecall_chunked_bases(signals)
-            return self._basecall_chunked(signals)
-        out = [None] * len(signals)
-        order = np.argsort([len(s) for s in signals])
-        for lo in range(0, len(order), self.batch_size):
-            idx = order[lo:lo + self.batch_size]
-            self._run_batch([signals[i] for i in idx], idx, out)
-        return out
+        with tracing.span("basecall.signals"):
+            if self.studentise:
+                return self._basecall_per_read(signals)
+            if self.chunked and self.transducer:
+                if self.output == "bases":
+                    return self._basecall_chunked_bases(signals)
+                return self._basecall_chunked(signals)
+            out = [None] * len(signals)
+            order = np.argsort([len(s) for s in signals])
+            for lo in range(0, len(order), self.batch_size):
+                idx = order[lo:lo + self.batch_size]
+                self._run_batch([signals[i] for i in idx], idx, out)
+            return out
 
     def _window_batches(self, signals):
         """The window batches of the chunked routes: (jobs, x (C, B, nfeat)
@@ -324,13 +327,19 @@ class Basecaller(object):
             else signals[0].shape[1]
         for lo in range(0, len(jobs), self.batch_size):
             batch = jobs[lo:lo + self.batch_size]
-            x = np.zeros((C, len(batch), nfeat), dtype=config.sloika_dtype)
-            lengths = np.zeros(len(batch), dtype=np.int64)
-            for b, (r, _, start, ln, _) in enumerate(batch):
-                x[:ln, b] = signals[r][start:start + ln].reshape(ln, nfeat)
-                lengths[b] = ln
-            yield (batch, torch.from_numpy(x).to(self.device),
-                   torch.from_numpy(lengths).to(self.device))
+            with tracing.span("basecall.pack"):
+                x = np.zeros((C, len(batch), nfeat),
+                             dtype=config.sloika_dtype)
+                lengths = np.zeros(len(batch), dtype=np.int64)
+                for b, (r, _, start, ln, _) in enumerate(batch):
+                    x[:ln, b] = signals[r][start:start + ln].reshape(ln,
+                                                                     nfeat)
+                    lengths[b] = ln
+            with tracing.span("basecall.h2d"):
+                x = tracing.to_device(torch.from_numpy(x), self.device)
+                lengths = tracing.to_device(torch.from_numpy(lengths),
+                                            self.device)
+            yield batch, x, lengths
 
     def _basecall_chunked_bases(self, signals):
         """The chunked "bases" route (cf. ``_basecall_chunked_bases``,
@@ -338,7 +347,8 @@ class Basecaller(object):
         results = {}
         with torch.inference_mode():
             for batch, x, lengths in self._window_batches(signals):
-                out = self._forward_decode(x, lengths)
+                with tracing.span("basecall.launch"):
+                    out = self._forward_decode(x, lengths)
                 _collect([(r, w) for r, w, _, _, _ in batch], out, results)
         return self._stitch_bases(results, [len(s) for s in signals])
 
@@ -355,28 +365,32 @@ class Basecaller(object):
         results = {}
         with torch.inference_mode():
             for batch, x, lengths in self._window_batches(signals):
-                score, frames, path, moved = (
-                    o.cpu().numpy()
-                    for o in self._forward_decode_states(x, lengths))
+                with tracing.span("basecall.launch"):
+                    out = self._forward_decode_states(x, lengths)
+                with tracing.span("basecall.collect"):
+                    score, frames, path, moved = (
+                        tracing.to_host(o).numpy() for o in out)
                 for b, (r, w, _, _, _) in enumerate(batch):
                     results[(r, w)] = (float(score[b]), path[b], moved[b],
                                        int(frames[b]))
 
         out = [None] * len(signals)
         call_parts, total_score = [], 0.0
-        for r, w, _, _, nwin in _window_jobs([len(s) for s in signals], C, V):
-            sc, path, moved, nframes = results[(r, w)]
-            total_score += sc
-            # the core frames of this window
-            f_lo = 0 if w == 0 else V // d
-            f_hi = nframes if w == nwin - 1 else (C - V) // d
-            keep = moved[f_lo:f_hi].copy()
-            if w == 0:
-                keep[0] = True     # the opening state of the read
-            call_parts.append(path[f_lo:f_hi][keep])
-            if w == nwin - 1:
-                out[r] = (total_score, np.concatenate(call_parts))
-                call_parts, total_score = [], 0.0
+        with tracing.span("basecall.stitch"):
+            for r, w, _, _, nwin in _window_jobs([len(s) for s in signals],
+                                                 C, V):
+                sc, path, moved, nframes = results[(r, w)]
+                total_score += sc
+                # the core frames of this window
+                f_lo = 0 if w == 0 else V // d
+                f_hi = nframes if w == nwin - 1 else (C - V) // d
+                keep = moved[f_lo:f_hi].copy()
+                if w == 0:
+                    keep[0] = True     # the opening state of the read
+                call_parts.append(path[f_lo:f_hi][keep])
+                if w == nwin - 1:
+                    out[r] = (total_score, np.concatenate(call_parts))
+                    call_parts, total_score = [], 0.0
         return out
 
     def basecall_dac_reads(self, reads):
@@ -393,6 +407,10 @@ class Basecaller(object):
         if self.output != "bases":
             # as sloika_tpu/basecall.py:585 asserts
             raise ValueError("DAC mode requires output='bases'")
+        with tracing.span("basecall.dac"):
+            return self._basecall_dac(reads)
+
+    def _basecall_dac(self, reads):
         C = self.chunk_size
         read_lens = [len(d) for d, _ in reads]
         groups, cur, acc = [], [], 0
@@ -408,26 +426,32 @@ class Basecaller(object):
         results = {}
         with torch.inference_mode():
             for group in groups:
-                glens = [read_lens[r] for r in group]
-                offsets = np.concatenate([[0], np.cumsum(glens)]).astype(
-                    np.int64)
-                flat = np.zeros(int(offsets[-1]) + C, np.int16)
-                for r, o in zip(group, offsets):
-                    flat[o:o + read_lens[r]] = reads[r][0]
-                flat_d = torch.from_numpy(flat).to(self.device)
-                jobs = [(group[gr], w, int(offsets[gr]) + start, ln)
-                        for gr, w, start, ln, _ in _window_jobs(
-                            glens, C, self.overlap)]
+                with tracing.span("basecall.pack"):
+                    glens = [read_lens[r] for r in group]
+                    offsets = np.concatenate([[0], np.cumsum(glens)]).astype(
+                        np.int64)
+                    flat = np.zeros(int(offsets[-1]) + C, np.int16)
+                    for r, o in zip(group, offsets):
+                        flat[o:o + read_lens[r]] = reads[r][0]
+                    jobs = [(group[gr], w, int(offsets[gr]) + start, ln)
+                            for gr, w, start, ln, _ in _window_jobs(
+                                glens, C, self.overlap)]
+                with tracing.span("basecall.h2d"):
+                    flat_d = tracing.to_device(torch.from_numpy(flat),
+                                               self.device)
                 for lo in range(0, len(jobs), self.batch_size):
                     batch = jobs[lo:lo + self.batch_size]
-                    starts = np.array([j[2] for j in batch], np.int64)
-                    lengths = np.array([j[3] for j in batch], np.int64)
-                    norms = np.array([reads[j[0]][1] for j in batch],
-                                     np.float32).reshape(len(batch), 4)
-                    out = self._forward_decode_dac(
-                        flat_d, torch.from_numpy(starts).to(self.device),
-                        torch.from_numpy(lengths).to(self.device),
-                        torch.from_numpy(norms).to(self.device))
+                    with tracing.span("basecall.pack"):
+                        starts = np.array([j[2] for j in batch], np.int64)
+                        lengths = np.array([j[3] for j in batch], np.int64)
+                        norms = np.array([reads[j[0]][1] for j in batch],
+                                         np.float32).reshape(len(batch), 4)
+                    with tracing.span("basecall.h2d"):
+                        args = [tracing.to_device(torch.from_numpy(a),
+                                                  self.device)
+                                for a in (starts, lengths, norms)]
+                    with tracing.span("basecall.launch"):
+                        out = self._forward_decode_dac(flat_d, *args)
                     _collect([(r, w) for r, w, _, _ in batch], out, results)
         return self._stitch_bases(results, read_lens)
 
@@ -459,15 +483,17 @@ class Basecaller(object):
         x = torch.from_numpy(np.ascontiguousarray(
             s.reshape(len(s), 1, nfeat), dtype=config.sloika_dtype))
         with torch.inference_mode():
-            post = self.layer(x.to(self.device))
+            post = self.layer(tracing.to_device(x, self.device))
             if not self.transducer:
-                return self._decode_host(post[:, 0].float().cpu().numpy(),
-                                         floored=False)
+                return self._decode_host(
+                    tracing.to_host(post[:, 0].float()).numpy(),
+                    floored=False)
             frames = torch.full((1,), post.shape[0], dtype=torch.int64,
                                 device=self.device)
             score, path, moved = self._viterbi(self._floor_mask(post, frames))
         return (float(score[0]), collapse_path(
-            path[0].cpu().numpy(), moved[0].cpu().numpy(), post.shape[0]))
+            tracing.to_host(path[0]).numpy(),
+            tracing.to_host(moved[0]).numpy(), post.shape[0]))
 
     def _run_batch(self, sigs, idx, out):
         """One batch of whole reads (sloika_tpu/basecall.py:853-886).  The
@@ -477,27 +503,36 @@ class Basecaller(object):
         non-transducer's floored posterior comes to the host, each read cut
         at its own frame count and decoded there."""
         nfeat = 1 if sigs[0].ndim == 1 else sigs[0].shape[1]
-        lengths = np.array([len(s) for s in sigs], dtype=np.int64)
-        x = np.zeros((int(lengths.max()), len(sigs), nfeat),
-                     dtype=config.sloika_dtype)
-        for b, s in enumerate(sigs):
-            x[:len(s), b] = s.reshape(len(s), nfeat)
-        x = torch.from_numpy(x).to(self.device)
-        lengths = torch.from_numpy(lengths).to(self.device)
+        with tracing.span("basecall.pack"):
+            lengths = np.array([len(s) for s in sigs], dtype=np.int64)
+            x = np.zeros((int(lengths.max()), len(sigs), nfeat),
+                         dtype=config.sloika_dtype)
+            for b, s in enumerate(sigs):
+                x[:len(s), b] = s.reshape(len(s), nfeat)
+        with tracing.span("basecall.h2d"):
+            x = tracing.to_device(torch.from_numpy(x), self.device)
+            lengths = tracing.to_device(torch.from_numpy(lengths),
+                                        self.device)
         with torch.inference_mode():
             if not self.transducer:
-                post, frames = self._floored_masked_post(x, lengths)
-                post, frames = post.cpu().numpy(), frames.cpu().numpy()
+                with tracing.span("basecall.launch"):
+                    post, frames = self._floored_masked_post(x, lengths)
+                with tracing.span("basecall.collect"):
+                    post, frames = (tracing.to_host(post).numpy(),
+                                    tracing.to_host(frames).numpy())
                 for b, i in enumerate(idx):
                     out[i] = self._decode_host(post[:int(frames[b]), b],
                                                floored=True)
                 return
-            score, frames, path, moved = (
-                o.cpu().numpy() for o in self._forward_decode_states(
-                    x, lengths))
-        for b, i in enumerate(idx):
-            out[i] = (float(score[b]),
-                      collapse_path(path[b], moved[b], int(frames[b])))
+            with tracing.span("basecall.launch"):
+                got = self._forward_decode_states(x, lengths)
+            with tracing.span("basecall.collect"):
+                score, frames, path, moved = (tracing.to_host(o).numpy()
+                                              for o in got)
+        with tracing.span("basecall.collapse"):
+            for b, i in enumerate(idx):
+                out[i] = (float(score[b]),
+                          collapse_path(path[b], moved[b], int(frames[b])))
 
     def _stitch_bases(self, results, read_lens):
         """Concatenate per-window base emissions at the seam boundaries
@@ -508,21 +543,22 @@ class Basecaller(object):
         k = self.kmer_len
         out = [None] * len(read_lens)
         parts, total_score = [], 0.0
-        for r, w, start, ln, nwin in _window_jobs(read_lens,
-                                                  self.chunk_size,
-                                                  self.overlap):
-            sc, first, counts, recs = results[(r, w)]
-            total_score += sc
-            lo = 0 if w == 0 else int(counts[0])
-            hi = int(counts[2]) if w == nwin - 1 else int(counts[1])
-            if w == 0:
-                # opening call contributes its full kmer
-                parts.append(((first >> (2 * np.arange(k - 1, -1, -1)))
-                              & 3).astype(np.uint8))
-            parts.append(recs[lo:max(lo, hi)])
-            if w == nwin - 1:
-                out[r] = (total_score, np.concatenate(parts))
-                parts, total_score = [], 0.0
+        with tracing.span("basecall.stitch"):
+            for r, w, start, ln, nwin in _window_jobs(read_lens,
+                                                      self.chunk_size,
+                                                      self.overlap):
+                sc, first, counts, recs = results[(r, w)]
+                total_score += sc
+                lo = 0 if w == 0 else int(counts[0])
+                hi = int(counts[2]) if w == nwin - 1 else int(counts[1])
+                if w == 0:
+                    # opening call contributes its full kmer
+                    parts.append(((first >> (2 * np.arange(k - 1, -1, -1)))
+                                  & 3).astype(np.uint8))
+                parts.append(recs[lo:max(lo, hi)])
+                if w == nwin - 1:
+                    out[r] = (total_score, np.concatenate(parts))
+                    parts, total_score = [], 0.0
         return out
 
 
@@ -578,10 +614,14 @@ def gather_normalise_dac(flat, starts, lengths, norms, C):
 
 def _collect(keys, out, results):
     """Pull one batch's outputs to the host into ``results[key]``."""
-    score, first, counts, packed = (o.cpu().numpy() for o in out)
-    recs = _unpack_codes(packed)
-    for b, key in enumerate(keys):
-        results[key] = (float(score[b]), int(first[b]), counts[b], recs[b])
+    with tracing.span("basecall.collect"):
+        score, first, counts, packed = (tracing.to_host(o).numpy()
+                                        for o in out)
+    with tracing.span("basecall.unpack"):
+        recs = _unpack_codes(packed)
+        for b, key in enumerate(keys):
+            results[key] = (float(score[b]), int(first[b]), counts[b],
+                            recs[b])
 
 
 def _move_records(path, moved, klen, f_splits):

@@ -9,12 +9,14 @@ features, as its event-training phase does), and prints:
 
 1. the steady-state step time with and without a ``torch.cuda.synchronize()``
    at each step's progress mark (steps 6-30 of 30);
-2. the host's share of a step: ``ChunkSampler.sample`` and the pageable
-   host-to-device copy, each timed alone;
-3. a ``torch.profiler`` trace of 10 steady steps, each ended by a sync:
+2. a ``torch.profiler`` trace of 10 steady steps, each ended by a sync:
    the device's busy time a step (the union of its kernel and copy
    intervals), the span of those intervals, and the device time a step of
-   each kernel, largest first.
+   each kernel, largest first;
+3. the host's share of those steps, from the spans the training loop
+   records while the profiler runs (:mod:`sloika_tpu_torch.tracing`): the
+   self time a step of ``train.sample`` and ``train.h2d`` (on the prefetch
+   worker) and ``train.wait_group`` (the loop waiting on it).
 
 Needs a CUDA card.  ``--trace`` also writes the Chrome trace.  The script
 uses only the package's entry points, so it also profiles another tree's
@@ -99,23 +101,6 @@ def step_ms(workload, data, steps, warm, sync, dev):
     return 1e3 * (end - marks.marks[warm - 1]) / (steps - warm)
 
 
-def host_ms(workload, data, dev, reps=50):
-    """(sample ms, host-to-device copy ms) of one batch, each alone."""
-    from sloika_tpu_torch import training
-    _, length, stride = WORKLOADS[workload]
-    sampler = training.ChunkSampler(
-        data, TRAIN_B, length, length, stride,
-        np.ones(4 ** KLEN + 1, np.float32), seed=2)
-    t0 = time.perf_counter()
-    batches = [sampler.sample() for _ in range(reps)]
-    t1 = time.perf_counter()
-    for b in batches:
-        training._to_device(b, dev)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    return 1e3 * (t1 - t0) / reps, 1e3 * (t2 - t1) / reps
-
-
 def device_breakdown(events, nsteps):
     """(busy ms, span ms, [(ms, calls, name)]) a step, from the profiler's
     device events (kernels and copies; the device-side ranges of user
@@ -147,7 +132,11 @@ def device_breakdown(events, nsteps):
 
 
 def profile(workload, data, warm, active, dev, trace=None):
+    """The profiler's events over ``active`` steady steps, and the self
+    ns of the training loop's spans recorded meanwhile."""
     from torch.profiler import ProfilerActivity, schedule
+    from sloika_tpu_torch import tracing
+    tracing.reset()
     prof = torch.profiler.profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
         schedule=schedule(wait=warm, warmup=2, active=active, repeat=1))
@@ -158,7 +147,7 @@ def profile(workload, data, warm, active, dev, trace=None):
         torch.cuda.synchronize()
     if trace:
         prof.export_chrome_trace(trace)
-    return prof.events()
+    return prof.events(), tracing.self_ns()
 
 
 def main(argv=None):
@@ -180,10 +169,7 @@ def main(argv=None):
         print("{}: {:.3f} ms a step, {:.1f} chunks/s".format(
             "sync" if sync else "nosync", ms, 1e3 * TRAIN_B / ms),
             flush=True)
-    sample, copy = host_ms(workload, data, dev)
-    print("host: sample {:.3f} ms, host-to-device copy {:.3f} ms".format(
-        sample, copy), flush=True)
-    events = profile(workload, data, WARM, ACTIVE, dev, args.trace)
+    events, own = profile(workload, data, WARM, ACTIVE, dev, args.trace)
     busy, span, table = device_breakdown(events, ACTIVE)
     print("profiled {} steps: device busy {:.3f} ms a step, span {:.3f} ms "
           "a step, busy share of span {:.3f}; {:.0f} device events a step"
@@ -192,6 +178,9 @@ def main(argv=None):
     for ms, n, name in table[:TOP]:
         print("  {:8.3f} ms/step {:6.1f} calls/step  {}".format(
             ms, n, name[:100]))
+    print("host, self time a profiled step: " + ", ".join(
+        "{} {:.3f} ms".format(name, own.get(name, 0) / 1e6 / ACTIVE)
+        for name in ("train.sample", "train.h2d", "train.wait_group")))
     return 0
 
 

@@ -46,7 +46,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
-from sloika_tpu_torch import config, optim, serialize
+from sloika_tpu_torch import config, optim, serialize, tracing
 from sloika_tpu_torch.nn.combinators import Serial
 from sloika_tpu_torch.nn.layers import Softmax
 from sloika_tpu_torch.parallel import mesh
@@ -338,6 +338,7 @@ def _put(dev, *arrays):
     out = []
     for a in arrays:
         t = torch.from_numpy(np.ascontiguousarray(a))
+        tracing.count("h2d_bytes", t.nbytes)
         if dev.type == "cuda":
             t = t.pin_memory().to(dev, non_blocking=True)
         out.append(t)
@@ -557,34 +558,36 @@ def train(layer, data, *, output=None, adam=(1e-3, 0.9, 0.999),
     :returns: (opt_state, history) with history an (niteration, 2) float32
         array of each iteration's (loss, accuracy), the global batch's
     """
-    dev = mesh.local_device(device)
-    if dev.type == "cuda":
-        config.disable_tf32()
-    layer.to(dev)
-    mesh.broadcast_params(layer)
-    lead = mesh.rank() == 0
-    if not lead:
-        output, profile_dir = None, None
-    if output:
-        os.makedirs(output, exist_ok=True)
-    own_log = log is None
-    if own_log:
-        log = Logger(os.path.join(output, 'model.log') if output else None,
-                     quiet or not lead)
-    try:
-        return _train(layer, data, dev, log, output=output, adam=adam,
-                      batch_size=batch_size, chunk_len_range=chunk_len_range,
-                      drop=drop, ilf=ilf, l2=l2, lrdecay=lrdecay,
-                      min_prob=min_prob, niteration=niteration,
-                      save_every=save_every, seed=seed, smooth=smooth,
-                      transducer=transducer, bad=bad, opt_state=opt_state,
-                      n_length_buckets=n_length_buckets, optimiser=optimiser,
-                      lr_warmup=lr_warmup, steps_per_dispatch=steps_per_dispatch,
-                      prefetch=prefetch, data_on_device=data_on_device,
-                      profile_dir=profile_dir, stats=stats)
-    finally:
+    with tracing.span("train"):
+        dev = mesh.local_device(device)
+        if dev.type == "cuda":
+            config.disable_tf32()
+        layer.to(dev)
+        mesh.broadcast_params(layer)
+        lead = mesh.rank() == 0
+        if not lead:
+            output, profile_dir = None, None
+        if output:
+            os.makedirs(output, exist_ok=True)
+        own_log = log is None
         if own_log:
-            log.close()
+            log = Logger(os.path.join(output, 'model.log') if output
+                         else None, quiet or not lead)
+        try:
+            return _train(
+                layer, data, dev, log, output=output, adam=adam,
+                batch_size=batch_size, chunk_len_range=chunk_len_range,
+                drop=drop, ilf=ilf, l2=l2, lrdecay=lrdecay,
+                min_prob=min_prob, niteration=niteration,
+                save_every=save_every, seed=seed, smooth=smooth,
+                transducer=transducer, bad=bad, opt_state=opt_state,
+                n_length_buckets=n_length_buckets, optimiser=optimiser,
+                lr_warmup=lr_warmup, steps_per_dispatch=steps_per_dispatch,
+                prefetch=prefetch, data_on_device=data_on_device,
+                profile_dir=profile_dir, stats=stats)
+        finally:
+            if own_log:
+                log.close()
 
 
 def _train(layer, data, dev, log, *, output, adam, batch_size,
@@ -691,9 +694,10 @@ def _train(layer, data, dev, log, *, output, adam, batch_size,
     acc_smoothed = ExponentialSmoother(smooth)
 
     if output:
-        serialize.save_checkpoint(
-            os.path.join(output, 'model_checkpoint_00000.npz'), layer,
-            opt_state)
+        with tracing.span("train.checkpoint"):
+            serialize.save_checkpoint(
+                os.path.join(output, 'model_checkpoint_00000.npz'), layer,
+                opt_state)
 
     total_ev = 0
     t0 = time.time()
@@ -702,19 +706,25 @@ def _train(layer, data, dev, log, *, output, adam, batch_size,
     def put_group():
         """Sample a group of K same-shape batches (or, resident, their
         draws) and start their copy to the device."""
-        if resident:
-            draws = [sampler.sample_indices() for _ in range(K)]
-            idx = np.stack([d[0] for d in draws]).astype(np.int64)
-            starts = np.asarray([d[1] for d in draws], np.int64)
-            return _put(dev, idx, starts), idx.size * (draws[0][2] // stride)
-        bs = [sampler.sample() for _ in range(K)]
-        nev = sum(b[1].size for b in bs)       # the global batches' labels
-        bs = [tuple(mesh.local_batch(a) for a in b) for b in bs]
-        if K == 1:
-            return _to_device(bs[0], dev), nev
-        return (_put(dev, np.stack([b[0] for b in bs]),
-                     np.stack([b[1] for b in bs]).astype(np.int64),
-                     np.stack([b[2] for b in bs])), nev)
+        with tracing.span("train.sample"):
+            if resident:
+                draws = [sampler.sample_indices() for _ in range(K)]
+                arrays = (np.stack([d[0] for d in draws]).astype(np.int64),
+                          np.asarray([d[1] for d in draws], np.int64))
+                nev = arrays[0].size * (draws[0][2] // stride)
+            else:
+                bs = [sampler.sample() for _ in range(K)]
+                nev = sum(b[1].size for b in bs)  # the global batches' labels
+                bs = [tuple(mesh.local_batch(a) for a in b) for b in bs]
+                if K == 1:
+                    x, labels, weights = bs[0]
+                    arrays = (x, labels.astype(np.int64), weights)
+                else:
+                    arrays = (np.stack([b[0] for b in bs]),
+                              np.stack([b[1] for b in bs]).astype(np.int64),
+                              np.stack([b[2] for b in bs]))
+        with tracing.span("train.h2d"):
+            return _put(dev, *arrays), nev
 
     def lr_of(i):
         return float(np.float32(sched(i)))
@@ -735,23 +745,26 @@ def _train(layer, data, dev, log, *, output, adam, batch_size,
     pending, history = [], []
     try:
         submit = pool.submit if pool is not None else _done
-        next_group = submit(put_group)
+        next_group = submit(tracing.carry(put_group))
         for g in range(0, niteration, K):
             nsteps = min(K, niteration - g)
-            inputs, nev = next_group.result()
+            with tracing.span("train.wait_group"):
+                inputs, nev = next_group.result()
             full = nsteps == K and K > 1
             if full and dev.type == "cuda" and graph is None:
                 # captured before the worker runs again: no other thread
                 # touches the card during a capture
-                scal, _ = _group_scalars(opt_update, opt_state,
-                                         [lr_of(i) for i in range(g, g + K)])
-                graph = GroupGraph(
-                    layer, loss_fn, opt_update.apply, opt_state, K, inputs,
-                    _put(dev, scal)[0],
-                    resident=resident_d if resident else None,
-                    chunk_len=fixed_len, stride=stride)
+                with tracing.span("train.capture"):
+                    scal, _ = _group_scalars(
+                        opt_update, opt_state,
+                        [lr_of(i) for i in range(g, g + K)])
+                    graph = GroupGraph(
+                        layer, loss_fn, opt_update.apply, opt_state, K,
+                        inputs, _put(dev, scal)[0],
+                        resident=resident_d if resident else None,
+                        chunk_len=fixed_len, stride=stride)
             if g + K < niteration:
-                next_group = submit(put_group)
+                next_group = submit(tracing.carry(put_group))
             if profile_dir and profiler is None and (
                     g > 0 or niteration <= K):
                 profiler = torch.profiler.profile(activities=[
@@ -768,23 +781,28 @@ def _train(layer, data, dev, log, *, output, adam, batch_size,
             else:
                 batches = lambda j: tuple(t[j].clone() for t in inputs)
             if full and graph is not None:
-                scal, opt_state = _group_scalars(
-                    opt_update, opt_state,
-                    [lr_of(i) for i in range(g, g + K)])
-                got = graph.run(inputs, _put(dev, scal)[0])
+                with tracing.span("train.scalars"):
+                    scal, opt_state = _group_scalars(
+                        opt_update, opt_state,
+                        [lr_of(i) for i in range(g, g + K)])
+                    scal = _put(dev, scal)[0]
+                with tracing.span("train.replay"):
+                    got = graph.run(inputs, scal)
             else:
                 # the CPU's groups, K = 1, and a tail (its resident draws
                 # gathered as a group's are: the host sampler's elements)
-                got = eager(batches, g, nsteps)
+                with tracing.span("train.eager"):
+                    got = eager(batches, g, nsteps)
                 nev = nev // K * nsteps
             total_ev += nev
             pending.append(got)
 
             i_last = min(g + K, niteration) - 1
             if output and (i_last + 1) // save_every > g // save_every:
-                serialize.save_checkpoint(
-                    os.path.join(output, 'model_checkpoint_{:05d}.npz'.format(
-                        (i_last + 1) // save_every)), layer, opt_state)
+                with tracing.span("train.checkpoint"):
+                    serialize.save_checkpoint(os.path.join(
+                        output, 'model_checkpoint_{:05d}.npz'.format(
+                            (i_last + 1) // save_every)), layer, opt_state)
                 log.write('C')
             else:
                 log.write('.' * nsteps)
@@ -792,7 +810,8 @@ def _train(layer, data, dev, log, *, output, adam, batch_size,
             # per-step (loss, acc) stay on the device until the 50-iteration
             # progress line reads them, so the loop does not wait on a group
             if (i_last + 1) // 50 > g // 50:
-                got = torch.cat(pending).cpu().numpy()
+                with tracing.span("train.log_sync"):
+                    got = tracing.to_host(torch.cat(pending)).numpy()
                 pending = []
                 history.append(got)
                 for v, a in got:
@@ -812,7 +831,8 @@ def _train(layer, data, dev, log, *, output, adam, batch_size,
         if profiler is not None:
             profiler.stop()
     if pending:
-        history.append(torch.cat(pending).cpu().numpy())
+        with tracing.span("train.log_sync"):
+            history.append(tracing.to_host(torch.cat(pending)).numpy())
     if profiler is not None:
         profiler.export_chrome_trace(_profile_path(profile_dir))
         log.write('* Wrote profiler trace to {}\n'.format(profile_dir))
@@ -822,8 +842,9 @@ def _train(layer, data, dev, log, *, output, adam, batch_size,
                      captured=graph.captured if graph else {})
 
     if output:
-        serialize.save_checkpoint(os.path.join(output, 'model_final.npz'),
-                                  layer, opt_state)
+        with tracing.span("train.checkpoint"):
+            serialize.save_checkpoint(
+                os.path.join(output, 'model_final.npz'), layer, opt_state)
     history = (np.concatenate(history) if history
                else np.zeros((0, 2), np.float32))
     return opt_state, history

@@ -505,7 +505,8 @@ def test_resident_budget_is_read_at_the_call(jax_model, monkeypatch):
 
 def test_profile_writes_a_chrome_trace(jax_model, tmp_path):
     """``profile_dir``: a torch.profiler Chrome trace of the steady groups
-    where JAX's profile_dir puts a run's trace (plugins/profile/<run>/)."""
+    where JAX's profile_dir puts a run's trace (plugins/profile/<run>/),
+    with the training loop's own spans in it."""
     import glob
     import json
     data = _data(nchunk=20, chunk_len=100)
@@ -519,6 +520,13 @@ def test_profile_writes_a_chrome_trace(jax_model, tmp_path):
     with open(traces[0]) as fh:
         events = json.load(fh)["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
+    # the training loop's own spans, on the CPU its group of eager steps
+    spans = {e["name"] for e in events
+             if str(e.get("name", "")).startswith("train.")}
+    assert "train.eager" in spans
+    assert spans <= {"train.sample", "train.h2d", "train.wait_group",
+                     "train.capture", "train.scalars", "train.replay",
+                     "train.eager", "train.log_sync", "train.checkpoint"}
     assert "* Wrote profiler trace to {}".format(prof) in open(
         tmp_path / "out" / "model.log").read()
 
