@@ -6,7 +6,7 @@ Needs one CUDA card; exits non-zero, printing no result, without one.
 Phases, each printing one line and raising on failure:
 
 1. environment: the card's name and power limit, the CUDA version;
-2. build: the thirteen kernels, from ``sloika_tpu_torch/csrc``, the
+2. build: the fourteen kernels, from ``sloika_tpu_torch/csrc``, the
    clocked builds the phases split steps with (CLOCKED) and the parents of
    the two kernels redesigned last (PARENTS), one nvcc each, all started
    together;
@@ -37,6 +37,15 @@ Phases, each printing one line and raising on failure:
    7 and 8 beside its parent's design (a thread a row) in the order
    parent, change, change, parent, and split by its clocked build, with
    its chain floor;
+4b. output head: ``ops/output_head``'s kernel (projection, softmax,
+   ``min_prob`` floor, pad mask and cast, writing the posterior once)
+   against its plain version on the card, with the stand-in's softmax,
+   GRU-like inputs in (-1, 1) and ragged lengths, at the chunked cell's
+   batch (T = 3,277, B = 1,024, 112 -> 1,025) and at a whole-read batch
+   (T' = 23,389, B = 8): max abs difference <= 1e-4 and the pad frames'
+   stays bit for bit; each timed beside its bound, the plain version on
+   the card (the parent's chain: a cuBLAS product and the elementwise
+   passes) and cuBLAS's product alone;
 5. basecall main path: the headline model's graph at full width (seeded
    random weights) basecalls 16 synthetic DAC reads through
    ``Basecaller.basecall_dac_reads``; every kernel of the path must have
@@ -284,7 +293,7 @@ BWD_RTOL = 1e-4
 GRAD_RTOL = 1e-3
 KERNELS = ("gru_fwd", "gru_bwd", "gru_wgrad", "viterbi_fwd", "viterbi_back",
            "remap_banded", "remap_back", "lstm_fwd", "lstm_bwd", "lstm_wgrad",
-           "gru_unroll", "viterbi_parts", "hbm_ring")
+           "gru_unroll", "viterbi_parts", "hbm_ring", "output_head")
 #: the clocked builds the phases split steps with, compiled beside the
 #: kernels (``scripts.clocked_library``)
 CLOCKED = tuple((n, n.upper() + "_CLOCKS") for n in (
@@ -294,19 +303,19 @@ CLOCKED = tuple((n, n.upper() + "_CLOCKS") for n in (
 #: timed beside them in phases 4, 9a and 17c (``scripts.redesign_parents``:
 #: no path loads them)
 PARENTS = ("redesign_parents",)
-#: the kernels each main path must launch
-PATH_KERNELS = {"basecall": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
-                "basecall_raw": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
+#: the kernels each main path must launch (a basecall path's)
+CALL = ("gru_fwd", "viterbi_fwd", "viterbi_back", "output_head")
+PATH_KERNELS = {"basecall": CALL,
+                "basecall_raw": CALL,
                 "train": ("gru_fwd", "gru_bwd", "gru_wgrad"),
                 "remap": ("gru_fwd", "remap_banded", "remap_back"),
                 "basecall_events": ("lstm_fwd", "viterbi_fwd",
-                                    "viterbi_back"),
+                                    "viterbi_back", "output_head"),
                 "train_events": ("lstm_fwd", "lstm_bwd", "lstm_wgrad"),
                 "diagnostics": ("gru_unroll", "viterbi_parts", "hbm_ring"),
-                "call_chunked_states": ("gru_fwd", "viterbi_fwd",
-                                        "viterbi_back"),
-                "call_nbase5": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
-                "call_nontransducer": ("gru_fwd",),
+                "call_chunked_states": CALL,
+                "call_nbase5": CALL,
+                "call_nontransducer": ("gru_fwd", "output_head"),
                 "chunkify_events": ("lstm_fwd", "remap_banded",
                                     "remap_back"),
                 "train_fused": ("gru_fwd", "gru_bwd", "gru_wgrad"),
@@ -314,7 +323,7 @@ PATH_KERNELS = {"basecall": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
                                        "lstm_wgrad"),
                 "ranks_train": ("gru_fwd", "gru_bwd", "gru_wgrad"),
                 "ranks_graph": ("gru_fwd", "gru_bwd", "gru_wgrad"),
-                "ranks_basecall": ("gru_fwd", "viterbi_fwd", "viterbi_back"),
+                "ranks_basecall": CALL,
                 "ranks_chunkify": ("gru_fwd", "remap_banded", "remap_back")}
 # whole-read raw basecalling: reads a batch, the short reads' samples (their
 # CPU twin takes seconds), the score tolerance against the CPU path
@@ -426,6 +435,11 @@ CALL_TWIN_READS, CALL_AGREEMENT = 4, 0.99
 NBASE5_BATCH = 8
 NONTRANS_READS, NONTRANS_BASES = 4, 1000
 STANDIN_FLOPS = 157382.4
+# the output head's timed shapes (name, T, B): the chunked cell's batch of
+# 1,024 windows and the whole-read cell's longest batch of 8 reads
+HEAD_SHAPES = (("chunked batch", T_FRAMES, 1024), ("whole-read batch", 23389,
+                                                   8))
+HEAD_MIN_PROB = 1e-5
 # the published peaks of one H100 SXM (NVIDIA data sheet) the bounds use
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -599,6 +613,67 @@ def gru_at_shape(gru, T, B, dev):
     out["bound_ms"], out["bound_by"] = bound(
         *gru_fwd_bound(int(lengths.sum()), S))
     return out
+
+
+def phase_output_head(dev, standin):
+    """The output head's kernel against its plain version at HEAD_SHAPES
+    (see the module docstring, 4b); the entry of the first shape, the
+    other's under "whole_read"."""
+    from sloika_tpu_torch.ops import output_head as oh
+    softmax = standin.layers[-1]
+    W, b = softmax.W.detach(), softmax.b.detach()
+    I, K = softmax.insize, softmax.size
+    rs = np.random.RandomState(22)
+    entries = []
+    for name, T, B in HEAD_SHAPES:
+        lengths = rs.randint(T // 2, T + 1, size=B)
+        lengths[0] = T
+        ln = torch.from_numpy(lengths).to(dev)
+        # a GRU's outputs lie in (-1, 1)
+        x = torch.from_numpy(rs.uniform(-1, 1, size=(T, B, I)).astype(
+            np.float32)).to(dev)
+
+        def kernel():
+            return oh.output_head(x, W, b, ln, HEAD_MIN_PROB, torch.float32)
+
+        def plain():
+            return oh.output_head_plain(x, W, b, ln, HEAD_MIN_PROB,
+                                        torch.float32)
+
+        with torch.inference_mode():
+            got, ref = kernel(), plain()
+            mask = torch.arange(T, device=dev)[:, None] < ln[None, :]
+            err, same_stays = 0.0, True
+            for t0 in range(0, T, 256):
+                g, r = got[t0:t0 + 256], ref[t0:t0 + 256]
+                m = mask[t0:t0 + 256]
+                err = max(err, float((g - r).abs().max()))
+                same_stays &= torch.equal(g[~m], r[~m])
+            del got, ref
+            ms = cuda_ms(kernel, 3, 2)
+            plain_ms = cuda_ms(plain, 2, 1)
+            library_ms = cuda_ms(lambda: torch.addmm(b, x.reshape(-1, I),
+                                                     W.t()), 3, 2)
+        del x
+        torch.cuda.empty_cache()
+        entry = with_bound({"shape": "T={} B={} I={} K={}".format(
+            T, B, I, K), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}, 4 * T * B * (I + K), 2 * T * B * I * K,
+            library_ms)
+        entries.append(entry)
+        print("output head at the {} ({}): kernel {:.3f} ms, {:.1f}% of its "
+              "bound {:.3f} ms ({}); plain version (the parent's chain) "
+              "{:.3f} ms; cuBLAS product alone {:.3f} ms; max_abs_err "
+              "{:.3e} (<= {}), stays {} [{}]".format(
+                  name, entry["shape"], ms, 100 * entry["bound_ms"] / ms,
+                  entry["bound_ms"], entry["bound_by"], plain_ms, library_ms,
+                  err, POST_TOL, "bit-identical" if same_stays else "DIFFER",
+                  card_line()), flush=True)
+        if not (err <= POST_TOL and same_stays):
+            raise AssertionError("the output head departs from its plain "
+                                 "version at T={} B={}: {} {}".format(
+                                     T, B, err, same_stays))
+    return dict(entries[0], name="output_head", whole_read=entries[1])
 
 
 def phase_viterbi(dev, standin):
@@ -1216,7 +1291,8 @@ def phase_main(dev, standin, counters):
     nwin = len(bc._window_jobs([len(d) for d, _ in reads], CHUNK, OVERLAP))
     print("main path: {} reads {} windows {} samples -> {} bases in {:.3f} s: "
           "{:.1f} samples/s {:.1f} bases/s, peak memory {:.1f} MiB, "
-          "launches gru_fwd {} viterbi_fwd {} viterbi_back {} [{}]".format(
+          "launches gru_fwd {} viterbi_fwd {} viterbi_back {} output_head "
+          "{} [{}]".format(
               len(reads), nwin, nsamples, nbases, dt, nsamples / dt,
               nbases / dt, peak / 2 ** 20, *launches, card_line()))
     if min(launches) <= 0:
@@ -1305,7 +1381,8 @@ def phase_basecall_raw(dev, standin, counters):
     nbases = sum(printer.write("r", sc, call, 0) for sc, call in out)
     print("whole-read raw basecall path: {} reads {} samples -> {} bases in "
           "{:.3f} s: {:.1f} samples/s {:.1f} bases/s, peak memory {:.1f} "
-          "MiB, launches gru_fwd {} viterbi_fwd {} viterbi_back {} [{}]"
+          "MiB, launches gru_fwd {} viterbi_fwd {} viterbi_back {} "
+          "output_head {} [{}]"
           .format(len(sigs), nsamples, nbases, dt, nsamples / dt,
                   nbases / dt, peak / 2 ** 20, *launches, card_line()),
           flush=True)
@@ -2283,7 +2360,7 @@ def phase_basecall_events(dev, counters, reads):
     print("events basecall main path: baseline_lstm (size {}), {} reads "
           "{} events -> {} bases in {:.3f} s: {:.1f} events/s {:.1f} "
           "bases/s, peak memory {:.1f} MiB, launches lstm_fwd {} "
-          "viterbi_fwd {} viterbi_back {} [{}]".format(
+          "viterbi_fwd {} viterbi_back {} output_head {} [{}]".format(
               LSTM_S, len(reads), nev, nbases, dt, nev / dt, nbases / dt,
               peak / 2 ** 20, *launches, card_line()), flush=True)
     if min(launches) <= 0:
@@ -3113,7 +3190,8 @@ def zoo_pickled_standin(dev, standin, counters, raw_calls, tmp):
     nsamples = sum(len(s) for s in sigs)
     print("zoo .pkl path: the stand-in pickled in the reference's layout, "
           "loaded by load_model: {} reads {} samples in {:.3f} s: {:.1f} "
-          "samples/s, launches gru_fwd {} viterbi_fwd {} viterbi_back {}; "
+          "samples/s, launches gru_fwd {} viterbi_fwd {} viterbi_back {} "
+          "output_head {}; "
           "calls and scores bit-identical to phase 5b's {}/{}, posterior of "
           "2 reads bit-identical {} [{}]".format(
               len(sigs), nsamples, dt, nsamples / dt, *launched, sum(same),
@@ -3395,7 +3473,7 @@ def call_chunked_states(dev, standin, counters, sigs):
               nsamples / dt, launched, nbatch, CALL_BATCH, card_line()),
           flush=True)
     if launched != {"gru_fwd": 3 * nbatch, "viterbi_fwd": nbatch,
-                    "viterbi_back": nbatch}:
+                    "viterbi_back": nbatch, "output_head": nbatch}:
         raise AssertionError("the chunked states route launched {}, "
                              "{} batches expected".format(launched, nbatch))
     twin = bc.Basecaller(copy.deepcopy(standin).cpu(), 5, device="cpu",
@@ -3443,7 +3521,7 @@ def call_nbase5(dev, counters, sigs):
                            *general, card_line()), flush=True)
     if general != [nbatch, nbatch] or launched != {
             "gru_fwd": 3 * nbatch, "viterbi_fwd": nbatch,
-            "viterbi_back": nbatch}:
+            "viterbi_back": nbatch, "output_head": nbatch}:
         raise AssertionError("the 5-letter transducer did not take the "
                              "general route once a batch: {} {}".format(
                                  launched, general))
@@ -3565,7 +3643,7 @@ def call_nontransducer(dev, standin, counters):
                                  lambda: caller.basecall_signals(sigs))
     check_calls(out, "non-transducer")
     launched = {n: counts[n] for n in ("gru_fwd", "viterbi_fwd",
-                                       "viterbi_back")}
+                                       "viterbi_back", "output_head")}
     # the device's share: the forward, the floor and the copy to the host
     x, lengths = padded_batch(sigs)
     torch.cuda.synchronize()
@@ -3583,7 +3661,8 @@ def call_nontransducer(dev, standin, counters):
               post.numel() * 4 / 1e6, 1e3 * dev_dt, 1e3 * (dt - dev_dt),
               1e6 * (dt - dev_dt) / nframes, launched, card_line()),
           flush=True)
-    if launched != {"gru_fwd": 3, "viterbi_fwd": 0, "viterbi_back": 0}:
+    if launched != {"gru_fwd": 3, "viterbi_fwd": 0, "viterbi_back": 0,
+                    "output_head": 1}:
         raise AssertionError("the non-transducer launched {}".format(
             launched))
     ref = bc.Basecaller(copy.deepcopy(standin).cpu(), 5, device="cpu",
@@ -3653,7 +3732,7 @@ def kernel_counters():
                                                gru_wgrad)
     from sloika_tpu_torch.nn.fused_lstm import (lstm_backward, lstm_forward,
                                                 lstm_wgrad)
-    from sloika_tpu_torch.ops import remap_kernel, viterbi_kernel
+    from sloika_tpu_torch.ops import output_head, remap_kernel, viterbi_kernel
     from sloika_tpu_torch.scripts import bench_dma, bench_gru_unroll
     from sloika_tpu_torch.scripts import bench_viterbi_parts
     return dict(zip(KERNELS, (
@@ -3661,7 +3740,8 @@ def kernel_counters():
         viterbi_kernel.viterbi_backtrace, remap_kernel.remap_banded,
         remap_kernel.remap_backtrack, lstm_forward, lstm_backward,
         lstm_wgrad, bench_gru_unroll.gru_unroll,
-        bench_viterbi_parts.viterbi_parts, bench_dma.hbm_ring)))
+        bench_viterbi_parts.viterbi_parts, bench_dma.hbm_ring,
+        output_head.output_head)))
 
 
 def read_names(n):
@@ -4066,6 +4146,7 @@ def main():
     standin = models.pretrained_standin(seed=0).to(dev).eval()
     gru_fwd = phase_gru(dev, standin)
     viterbi = phase_viterbi(dev, standin)
+    head = phase_output_head(dev, standin)
     gru_fwd_train, bwd = phase_gru_bwd(dev)
     # the forward kernel is held to its twin at both paths' shapes
     gru_fwd["max_abs_err"] = max(gru_fwd["max_abs_err"],
@@ -4075,7 +4156,7 @@ def main():
     reads = event_reads()
     lstm = [phase_lstm(dev, max(len(r) for r in reads))] \
         + phase_lstm_bwd(dev)
-    kernels = [gru_fwd] + viterbi + bwd + remap + lstm
+    kernels = [gru_fwd] + viterbi + bwd + remap + lstm + [head]
     by_name = {k["name"]: k for k in kernels}
     # every count is set to 0 before each path and all are read after it
     counters = kernel_counters()

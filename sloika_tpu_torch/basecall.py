@@ -49,7 +49,8 @@ from sloika_tpu_torch.data import features, fast5
 from sloika_tpu_torch.data.batching import (normalise_raw_signal,
                                             trim_open_pore)
 from sloika_tpu_torch.variables import DEFAULT_ALPHABET, nstate
-from sloika_tpu_torch.ops import decode_np, olddecode, viterbi_kernel
+from sloika_tpu_torch.ops import (decode_np, olddecode, output_head,
+                                  viterbi_kernel)
 from sloika_tpu_torch.ops.decode import collapse_path
 
 _ETA = 1e-10
@@ -201,33 +202,33 @@ class Basecaller(object):
         #: the two seam frames of a window (move-record count boundaries)
         self._f_splits = (overlap // self.model_stride,
                           (chunk_size - overlap) // self.model_stride)
+        #: (body, terminal Softmax) where the head runs as one kernel: a
+        #: CUDA device and a network ending in a Softmax
+        self._head = (output_head.terminal_softmax(self.layer)
+                      if self.device.type == "cuda" else None)
 
     # -- device programs -------------------------------------------------
 
     def _floored_masked_post(self, x, lengths):
         """Forward pass + min_prob floor + pad-frame masking, in
-        ``post_dtype`` (sloika_tpu/basecall.py:274-289)."""
+        ``post_dtype`` (sloika_tpu/basecall.py:274-289): on the card, a
+        network ending in a Softmax runs the layers before it, then the
+        head as one kernel (``ops/output_head``); else the whole network,
+        then :meth:`_floor_mask`."""
+        if self._head is not None:
+            body, softmax = self._head
+            h, out_lengths = body(x, lengths)
+            return output_head.output_head(
+                h, softmax.W, softmax.b, out_lengths, self.min_prob,
+                self.post_dtype), out_lengths
         post, out_lengths = self.layer.apply_with_lengths(x, lengths)
         return self._floor_mask(post, out_lengths), out_lengths
 
     def _floor_mask(self, post, out_lengths):
-        """The min_prob floor of a (T, B, nstate) float32 posterior, and
-        one-hot stays on the frames past each row's ``out_lengths``, in
-        ``post_dtype``.  The cast comes after the floor and is exact on the
-        stays, so it folds into the floor's add (the float32 sum rounded to
-        ``post_dtype`` as it is stored) and the mask runs on the narrow
-        tensor: three passes at either dtype."""
-        scaled = (1.0 - self.min_prob) * post
-        post = torch.add(scaled, self.min_prob, out=torch.empty_like(
-            scaled, dtype=self.post_dtype))
-        del scaled
-        T = post.shape[0]
-        frame_mask = (torch.arange(T, device=post.device)[:, None]
-                      < out_lengths[None, :])
-        stay = torch.zeros(post.shape[2], dtype=post.dtype,
-                           device=post.device)
-        stay[0] = 1.0
-        return torch.where(frame_mask[:, :, None], post, stay).contiguous()
+        """The min_prob floor and pad-frame stays of a (T, B, nstate)
+        float32 posterior, in ``post_dtype`` (``output_head.floor_mask``)."""
+        return output_head.floor_mask(post, out_lengths, self.min_prob,
+                                      self.post_dtype)
 
     def _viterbi(self, post):
         """(score, path, moved) of a floored posterior through the Viterbi
