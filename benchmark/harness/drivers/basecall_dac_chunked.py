@@ -33,7 +33,7 @@ class Driver(BasecallDriver):
         return {"samples": float(self.lengths.sum()) * calls,
                 "gru_steps": [(l["size"], int(frames.sum()) * calls)
                               for l in self.layers if l["type"] == "gru"],
-                "viterbi_frames": int(frames.sum()) * calls,
+                "frames": int(frames.sum()) * calls,
                 "viterbi_rows": len(jobs) * calls}
 
     def reference(self, precision):

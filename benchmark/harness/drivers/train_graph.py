@@ -1,5 +1,7 @@
 """Training through ``training.train`` with the chunk set on the card and
-K steps a CUDA graph, at one fixed chunk length.
+K steps a CUDA graph, at one fixed chunk length (where ranks share the
+batch, each streams its block to its card instead: the program keeps a
+chunk set on the card for one rank only).
 
 Set-up builds the network and its optimiser state and drives them from the
 seed through their first K + 1 steps by the window's own call: step 1 as a
@@ -33,6 +35,7 @@ class Driver(Driver):
 
     def _train(self, niteration, K, tag, stats=None):
         from sloika_tpu_torch import training
+        from sloika_tpu_torch.parallel import mesh
         t = self.traffic
         self.opt_state, hist = training.train(
             self.layer, self.data, adam=tuple(t["adam"]),
@@ -40,12 +43,12 @@ class Driver(Driver):
             drop=t["drop"], min_prob=t["min_prob"], lrdecay=t["lrdecay"],
             niteration=niteration, quiet=True, seed=self.seeds[tag],
             opt_state=self.opt_state, steps_per_dispatch=K,
-            data_on_device=True, stats=stats, device=self.device)
+            data_on_device=mesh.world_size() == 1, stats=stats,
+            device=self.device)
         return hist
 
     def setup(self):
         t = self.traffic
-        K = t["steps_per_dispatch"]
         self.seeds = {tag: sub_seed(self.seed, 20 + i)
                       for i, tag in enumerate(("step1", "group", "window"))}
         with self.spans("inputs"):
@@ -54,6 +57,12 @@ class Driver(Driver):
             self.data = generators.chunks(t, self.seed)
         self.layer = port.load_weights(port.network(self.config),
                                        self.params)
+        self.steps_checked()
+
+    def steps_checked(self):
+        """Set-up's steps: step 1 as a call of one step, then one group of
+        K steps; the state that the comparison reads is kept."""
+        K = self.traffic["steps_per_dispatch"]
         self.opt_state = None
         named = lambda tree: port.named_tree(self.layer, tree)
         with self.spans("steps_checked"):
@@ -64,23 +73,31 @@ class Driver(Driver):
             sync(self.device)
         self.losses = [float(h1[0, 0])] + [float(v) for v in hg[:, 0]]
 
+    def window_steps(self, seconds):
+        """The window's steps: ``steps_per_second`` for each second asked
+        for, in whole groups, and at least two groups."""
+        K = self.traffic["steps_per_dispatch"]
+        return max(2 * K, int(round(seconds * self.traffic["steps_per_second"]
+                                    / K)) * K)
+
     def run_window(self, seconds):
         K = self.traffic["steps_per_dispatch"]
-        n = max(2 * K, int(round(seconds * self.traffic["steps_per_second"]
-                                 / K)) * K)
+        n = self.window_steps(seconds)
         self.stats = {}
         with self.spans(self.span_name):
             hist = self._train(n, K, "window", stats=self.stats)
         sync(self.device)
         failed = int((~np.isfinite(hist[:, 0])).sum())
         self.window_losses = [float(v) for v in hist[:2 * K, 0]]
+        from sloika_tpu_torch.parallel import mesh
         B = self.traffic["batch_size"]
+        b = B // mesh.world_size()          # this rank's block of the batch
         frames = self.traffic["chunk_samples"] // self.traffic["stride"]
         self.work.update({
-            "chunks": n * B, "steps": n,
-            "samples": n * B * self.traffic["chunk_samples"],
+            "chunks": n * b, "steps": n,
+            "samples": n * b * self.traffic["chunk_samples"],
             # the graph's warm-up group runs the same kernels, untrained
-            "gru_kernel_steps": [(l["size"], (n + K) * B * frames)
+            "gru_kernel_steps": [(l["size"], (n + K) * b * frames)
                                  for l in self.layers
                                  if l["type"] == "gru"]})
         return float(n * B), n, failed

@@ -1,9 +1,14 @@
 """Faults planted in the program, for the check that the comparisons
 catch them (``benchmark/readings.py --faults``, and the CPU tests): each
-is a context manager that breaks the timed path underneath the harness."""
+is a context manager that breaks the timed path underneath the harness.
+:data:`ACTIVE` names those entered, so that a cell whose ranks run in
+other processes (``benchmark/harness/ranks.py``) plants them there too."""
 import contextlib
 
 import numpy as np
+
+#: names of the faults entered in this process, in order
+ACTIVE = []
 
 
 @contextlib.contextmanager
@@ -100,7 +105,55 @@ def half_batch():
         yield
 
 
-FAULTS = {"answer_altered": answer_altered,
-          "tail_batch_altered": tail_batch_altered,
-          "state_unchanged": state_unchanged,
-          "half_batch": half_batch}
+@contextlib.contextmanager
+def exchange_skipped():
+    """The exchange between the ranks left out: each rank keeps its own
+    block's gradients and reports its own block's loss as the global
+    one."""
+    from sloika_tpu_torch.parallel import mesh
+
+    def local(params, stats=None):
+        return None if stats is None else stats * mesh.world_size()
+
+    with _patched(mesh, "all_reduce_grads", local):
+        yield
+
+
+@contextlib.contextmanager
+def rank_unaveraged():
+    """One rank's gradients left un-averaged: the last rank takes the
+    all-reduce's sum, not its mean over the ranks."""
+    from sloika_tpu_torch.parallel import mesh
+    reduce = mesh.all_reduce_grads
+
+    def broken(params, stats=None):
+        out = reduce(params, stats)
+        if mesh.rank() == mesh.world_size() - 1:
+            for p in params:
+                p.grad.mul_(mesh.world_size())
+        return out
+
+    with _patched(mesh, "all_reduce_grads", broken):
+        yield
+
+
+def _named(name, fault):
+    @contextlib.contextmanager
+    def entered():
+        ACTIVE.append(name)
+        try:
+            with fault():
+                yield
+        finally:
+            ACTIVE.remove(name)
+    entered.__doc__ = fault.__doc__
+    return entered
+
+
+FAULTS = {name: _named(name, fault) for name, fault in (
+    ("answer_altered", answer_altered),
+    ("tail_batch_altered", tail_batch_altered),
+    ("state_unchanged", state_unchanged),
+    ("half_batch", half_batch),
+    ("exchange_skipped", exchange_skipped),
+    ("rank_unaveraged", rank_unaveraged))}

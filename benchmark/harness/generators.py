@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from benchmark.harness.spec import sub_seed
+from benchmark.reference.layers import kind
 from benchmark.reference.model import param_shapes
 
 
@@ -19,10 +20,9 @@ def weights(layers, scheme, seed, device):
     """{name: tensor} of the configuration's parameters: one normal draw
     of a torch generator on ``device``, clipped at +/- 2, scaled by each
     weight's fan as sloika's initialiser scales it and by the traffic's
-    ``scheme``: ``sd`` for the weights, ``bias_sd`` for the biases, the
-    softmax's weights times ``softmax_gain``, and, where ``stay_logit`` is
-    a number, the stay state's row of the softmax (column 0 of the
-    posterior) zero and its bias that number."""
+    ``scheme``: ``sd`` for the weights, ``bias_sd`` for the biases, and the
+    rest as the last layer's kind takes it (its ``head_weights``, where it
+    has one)."""
     shapes = param_shapes(layers)
     sizes = [int(np.prod(s)) for _, s, _ in shapes]
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed, 1))
@@ -35,12 +35,9 @@ def weights(layers, scheme, seed, device):
             shape).contiguous()
         lo += n
     last = len(layers) - 1
-    if layers[last]["type"] == "softmax":
-        W, b = "{}.W".format(last), "{}.b".format(last)
-        out[W].mul_(scheme["softmax_gain"])
-        if scheme["stay_logit"] is not None:
-            out[W][0] = 0.0
-            out[b][0] = scheme["stay_logit"]
+    head = getattr(kind(layers[last]["type"]), "head_weights", None)
+    if head is not None:
+        head(layers[last], last, out, scheme)
     return out
 
 

@@ -8,8 +8,10 @@ Frozen copies (the program may change; these may not):
 (:func:`gru_fwd_bound`), ``chip_smoke.py:901-912`` (the two Viterbi
 bounds), ``chip_smoke.py:1397-1402`` (:func:`remap_bytes`), and the
 counting rule of ``sloika_tpu_torch/nn/flops.py:20-78``
-(:func:`flops_per_sample`).
+(:func:`flops_per_sample`, each layer kind's ``flops``).
 """
+
+from benchmark.reference.layers import kind
 
 #: NVIDIA H100 SXM data sheet, dense: float32 outside the tensor cores,
 #: and HBM3 bandwidth.  Every cell runs float32 with TF32 off.
@@ -56,6 +58,13 @@ def viterbi_back_bound(T, B):
     return T * B * (1 + 4 + 1) + B * 4, 3 * T * B
 
 
+def output_head_bound(frames, I, K):
+    """output_head's (bytes, flop) over ``frames`` valid frames: the float32
+    posterior (K states a frame) written once; the projection from I
+    features, 2·I·K a frame."""
+    return 4 * frames * K, 2 * I * K * frames
+
+
 def remap_bytes(T, Tp, B, W, P):
     """Bytes the banded remap DP must move: the posterior read once, its
     sequences, masks, priors and schedule, the int16 traceback and final
@@ -64,30 +73,14 @@ def remap_bytes(T, Tp, B, W, P):
         + B * W * 4
 
 
-def _dense(shape):
-    n = 1
-    for d in shape:
-        n *= d
-    return n
-
-
 def flops_per_sample(layers):
-    """Forward FLOPs a signal sample of a configuration's network: every
-    element of a dense weight is one multiply-accumulate (2 FLOPs) a frame
-    it is applied to, a strided layer charging its frame to ``stride``
-    samples and its successors running at its output rate; biases and
-    elementwise work left out."""
+    """Forward FLOPs a signal sample of a configuration's network: each
+    layer's FLOPs a frame at its input rate (its kind's ``flops``, by the
+    dense-weight rule of ``benchmark/reference/layers``), a strided layer's
+    successors running at its output rate."""
     total, rate = 0.0, 1.0
     for spec in layers:
-        kind, S, I = spec["type"], spec["size"], spec["insize"]
-        if kind == "convolution":
-            st = spec["stride"]
-            total += rate * 2.0 * _dense((S, I, spec["winlen"])) / st
-            rate /= st
-        elif kind == "gru":
-            total += rate * 2.0 * (3 * S * I + 2 * S * S + S * S)
-        elif kind == "softmax":
-            total += rate * 2.0 * S * I
-        else:
-            raise ValueError("unknown layer type {!r}".format(kind))
+        k = kind(spec["type"])
+        total += rate * k.flops(spec)
+        rate /= k.stride(spec)
     return total

@@ -1,9 +1,19 @@
 """The benchmark's data, found by name: ``BENCHMARK.json`` at the root of
 the checkout, each configuration's file, each traffic mix's file
 (``benchmark/traffic/<traffic>.json``), each per-layer metric's reader
-(``benchmark/metrics/<metric>.py``) and each traffic driver
-(``benchmark/harness/drivers/<driver>.py``).  Adding a cell, a mix, a
-configuration or a metric adds files and entries; no file here changes."""
+(``benchmark/metrics/<metric>.py``), each traffic driver
+(``benchmark/harness/drivers/<driver>.py``) and each layer kind of a
+configuration's ``layers`` (``benchmark/reference/layers/<type>.py``).
+
+Adding a cell, a mix, a configuration, a layer kind or a metric adds files
+and entries; no file here changes:
+
+* a new layer kind is a new file under ``benchmark/reference/layers/``
+  (its contract is that package's docstring);
+* a new cell is a ``workloads`` entry, and joins an end-to-end or
+  per-layer metric that lists its cells by its name appended to that
+  metric's ``workloads`` (a metric without the key applies to every
+  cell)."""
 import importlib.util
 import json
 import os
@@ -42,6 +52,7 @@ class Cell:
 
     def __init__(self, name, root=ROOT, bench_dir=None):
         bench_dir = bench_dir or os.path.join(root, "benchmark")
+        self.root = root
         self.bench = benchmark(root)
         self.workload = _by_name(self.bench["workloads"], name, "workload")
         self.name = name

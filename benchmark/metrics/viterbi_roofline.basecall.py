@@ -12,7 +12,7 @@ def read(ctx):
     took = ctx.trace.kernel_seconds("viterbi_fwd", "viterbi_back")
     if took <= 0:
         return None
-    frames, rows = ctx.work["viterbi_frames"], ctx.work["viterbi_rows"]
+    frames, rows = ctx.work["frames"], ctx.work["viterbi_rows"]
     T = frames / rows
     least = (roofline.bound(*roofline.viterbi_fwd_bound(T, rows))
              + roofline.bound(*roofline.viterbi_back_bound(T, rows)))

@@ -26,6 +26,8 @@ TINY = {
                            batch_size=2, check_reads=3, reference_rows=2),
     "train": dict(chunks=20, chunk_samples=200, batch_size=4,
                   steps_per_dispatch=3, drop=2),
+    "train_nccl4": dict(chunks=40, chunk_samples=200, batch_size=16,
+                        steps_per_dispatch=3, drop=2),
 }
 
 

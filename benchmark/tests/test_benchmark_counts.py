@@ -37,6 +37,8 @@ def test_benchmark_roofline_counts_by_hand():
     assert roofline.viterbi_fwd_bound(3, 2, K=4) == (
         3 * 2 * 5 * 4 + 3 * 2 * 4 + 2 * 4 * 4, 42 * 3 * 2 * 4)
     assert roofline.viterbi_back_bound(3, 2) == (3 * 2 * 6 + 8, 18)
+    # the head at 10 frames, I 3, K 5: 50 floats written, 2*3*5 a frame
+    assert roofline.output_head_bound(10, 3, 5) == (200, 300)
     assert roofline.remap_bytes(3, 2, 1, 4, 5) == (
         3 * 1025 * 4 + 45 + 8 + 2 * 4 * 2 + 16)
 
@@ -90,3 +92,23 @@ def test_benchmark_base_error_pools_the_reads():
     got = [np.zeros(88, np.uint8), np.array([1] * 9 + [2], np.uint8)]
     # two deletions and one substitution over 100 bases
     assert compare.base_error(got, want) == pytest.approx(0.03)
+
+
+def test_benchmark_output_head_reader_on_the_chunked_batch():
+    """The head's share at PERF.md's chunked batch: 1,024 rows of 3,277
+    frames, I 112, K 1,025, in 35.382 ms; the product bounds it at 11.499
+    ms (the posterior's 13.76 GB at 3.35 TB/s is 4.11 ms)."""
+    import importlib.util
+    from types import SimpleNamespace
+    path = "{}/benchmark/metrics/output_head_roofline.basecall.py".format(
+        spec.ROOT)
+    s = importlib.util.spec_from_file_location("head_reader", path)
+    mod = importlib.util.module_from_spec(s)
+    s.loader.exec_module(mod)
+    trace = SimpleNamespace(kernel_seconds=lambda *names: 0.035382 * (
+        names == ("output_head_kernel",)))
+    ctx = SimpleNamespace(trace=trace, work={"frames": 1024 * 3277},
+                          layers=_layers("sloika_pretrained"))
+    assert mod.read(ctx) == pytest.approx(100 * 11.499 / 35.382, rel=1e-3)
+    ctx.trace = SimpleNamespace(kernel_seconds=lambda *names: 0.0)
+    assert mod.read(ctx) is None

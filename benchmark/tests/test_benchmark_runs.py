@@ -96,6 +96,7 @@ import benchmark.harness.spec, benchmark.harness.trace
 import benchmark.harness.roofline, benchmark.harness.compare
 import benchmark.harness.generators, benchmark.harness.basecall
 import benchmark.harness.faults, benchmark.harness.port
+import benchmark.harness.ranks
 from benchmark.harness import spec
 for cell in [w["name"] for w in spec.benchmark()["workloads"]]:
     spec.Cell(cell)
@@ -112,6 +113,9 @@ def test_benchmark_reference_imports_nothing_of_the_program():
 import json
 import benchmark.reference.model, benchmark.reference.viterbi
 import benchmark.reference.train, benchmark.reference.steps
+from benchmark.reference.layers import kind
+for name in ("convolution", "gru", "softmax"):
+    kind(name)
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """)
     assert proc.returncode == 0, proc.stderr
