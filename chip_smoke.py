@@ -6,7 +6,7 @@ Needs one CUDA card; exits non-zero, printing no result, without one.
 Phases, each printing one line and raising on failure:
 
 1. environment: the card's name and power limit, the CUDA version;
-2. build: the fourteen kernels, from ``sloika_tpu_torch/csrc``, the
+2. build: the fifteen kernels, from ``sloika_tpu_torch/csrc``, the
    clocked builds the phases split steps with (CLOCKED) and the parents of
    the two kernels redesigned last (PARENTS), one nvcc each, all started
    together;
@@ -149,6 +149,25 @@ Phases, each printing one line and raising on failure:
     kernel of the path must have launched and every read must get a call,
     and the posterior of 4 reads must agree with the plain CPU forward
     (<= 1e-4); one more call under the profiler;
+12b. bonito's CRF-LSTM (``bonito_crf``; ``phase_crf``): (a) ``lstm_fwd``'s
+    wide route (two gate columns a lane, S 257-384) at the CRF cell's batch
+    (T' = 2,000, B = 512, S = 384, no peepholes, ragged lengths), forward
+    and reverse, against the plain twin on the card (<= 1e-4 on valid
+    steps, the same bits twice), timed beside its bound and cuDNN's LSTM
+    (``torch.nn.LSTM``, less its input product); (b) the CRF kernels
+    (``crf_decode``: ``crf_beta_kernel``, ``crf_forward_kernel``) at
+    N = 256 on the same batch of frames against their plain twin on the
+    card (at most 1e-4 of the labels differing, scores within 1e-5
+    relative, the same bits twice, one launch a call), timed beside their
+    bound; (c) the basecall path: ``Basecaller`` over the 16 synthetic DAC
+    reads with the model at its published widths under the CRF cell's
+    weight scheme, windows of 10,000 samples, overlap 250, batches of 64:
+    ``lstm_fwd`` five times and ``crf_decode`` once a batch and no other
+    kernel, every read called, and the two shortest reads' calls against
+    the CPU route's (identical, or agreement >= 0.999; scores within 1e-4
+    relative); (d) the ``basecall raw`` CLI on the card given the model as
+    the port's JSON, the reads from memory (``rank_reads``): every read in
+    order, the calls identical to (c)'s or agreeing >= 0.999;
 13. events training main path: ``training.train`` of ``baseline_lstm`` at
     full width for 30 ADAMski steps of B = 100 chunks of 500 events from
     1,000 synthetic chunks (drop 20); every loss must be finite, the three
@@ -246,7 +265,7 @@ Phases, each printing one line and raising on failure:
     graph with each all-reduce captured, bit-identical to 10 eager steps.
     Phase 20's launches are the ranks' own counts, summed.
 
-Every path (5-20) sets the kernels' launch counts to 0 before it runs and
+Every path (5-20, 12b) sets the kernels' launch counts to 0 before it runs and
 reads them after, and fails if a Viterbi wrapper took its general route
 (``general_launches``): the paths decode klen 5 over 4 bases; if a remap
 wrapper ran at a window wider than 16,384 (``wide_launches``) but in
@@ -293,7 +312,8 @@ BWD_RTOL = 1e-4
 GRAD_RTOL = 1e-3
 KERNELS = ("gru_fwd", "gru_bwd", "gru_wgrad", "viterbi_fwd", "viterbi_back",
            "remap_banded", "remap_back", "lstm_fwd", "lstm_bwd", "lstm_wgrad",
-           "gru_unroll", "viterbi_parts", "hbm_ring", "output_head")
+           "gru_unroll", "viterbi_parts", "hbm_ring", "output_head",
+           "crf_decode")
 #: the clocked builds the phases split steps with, compiled beside the
 #: kernels (``scripts.clocked_library``)
 CLOCKED = tuple((n, n.upper() + "_CLOCKS") for n in (
@@ -324,7 +344,8 @@ PATH_KERNELS = {"basecall": CALL,
                 "ranks_train": ("gru_fwd", "gru_bwd", "gru_wgrad"),
                 "ranks_graph": ("gru_fwd", "gru_bwd", "gru_wgrad"),
                 "ranks_basecall": CALL,
-                "ranks_chunkify": ("gru_fwd", "remap_banded", "remap_back")}
+                "ranks_chunkify": ("gru_fwd", "remap_banded", "remap_back"),
+                "basecall_crf": ("lstm_fwd", "crf_decode")}
 # whole-read raw basecalling: reads a batch, the short reads' samples (their
 # CPU twin takes seconds), the score tolerance against the CPU path
 RAW_BATCH, RAW_SHORT, RAW_SCORE_RTOL = 8, 20000, 1e-4
@@ -435,6 +456,19 @@ CALL_TWIN_READS, CALL_AGREEMENT = 4, 0.99
 NBASE5_BATCH = 8
 NONTRANS_READS, NONTRANS_BASES = 4, 1000
 STANDIN_FLOPS = 157382.4
+# bonito's CRF-LSTM (phase 12b): the CRF cell's window batch (T' frames of
+# B windows, LSTM width S, N CRF states), its traffic's windows and overlap
+# (samples), the basecall path's batch (several batches a call), the weight
+# sd and head gain and bias of its traffic; the share of the CRF kernels'
+# labels that may differ from the twin's on the card (the cell's own limit,
+# base_error 2e-3, over twenty times), their scores' relative tolerance; the
+# reads of the path's CPU twin, and the least call agreement (align) of the
+# card's path against the twin and of the CLI against the path
+CRF_T, CRF_B, CRF_S, CRF_N = 2000, 512, 384, 256
+CRF_CHUNK, CRF_OVERLAP, CRF_BATCH = 10000, 250, 64
+CRF_SD, CRF_GAIN, CRF_BIAS = 4.0, 2.0, -1.3
+CRF_LABEL_TOL, CRF_SCORE_RTOL = 1e-4, 1e-5
+CRF_TWIN_READS, CRF_AGREEMENT = 2, 0.999
 # the output head's timed shapes (name, T, B): the chunked cell's batch of
 # 1,024 windows and the whole-read cell's longest batch of 8 reads
 HEAD_SHAPES = (("chunked batch", T_FRAMES, 1024), ("whole-read batch", 23389,
@@ -2396,6 +2430,236 @@ def phase_basecall_events(dev, counters, reads):
     return counts
 
 
+def crf_bound(frames, N):
+    """crf_decode: the scores (5N float32 a valid row-frame) read once and
+    the labels (a byte a frame) written once; no operation count bounds
+    it (a few exp and log a transition)."""
+    return frames * (4 * 5 * N + 1), 0
+
+
+def cudnn_lstm_ms(T, B, S, dev):
+    """cuDNN's LSTM (``torch.nn.LSTM`` of S to S, float32, TF32 off) at
+    (T, B), and cuBLAS's input product of that layer alone: (layer ms,
+    product ms)."""
+    torch.manual_seed(3)
+    lstm = torch.nn.LSTM(S, S).to(dev)
+    x = torch.randn((T, B, S), device=dev)
+    W, b = lstm.weight_ih_l0, lstm.bias_ih_l0
+    with torch.inference_mode():
+        layer = cuda_ms(lambda: lstm(x), 3, 2)
+        product = cuda_ms(lambda: torch.addmm(b, x.view(-1, S), W.t()), 3, 2)
+    return layer, product
+
+
+def crf_network(seed=23):
+    """``bonito_crf`` at its published widths under the CRF cell's weight
+    scheme: weights at sd ``CRF_SD`` of the layers' own scale, biases 0,
+    the head's weights times ``CRF_GAIN`` and its biases ``CRF_BIAS``
+    (about half a base a frame)."""
+    from sloika_tpu_torch import models
+    layer = models.network_factory("bonito_crf")(sd=CRF_SD, seed=seed)
+    head = layer.layers[-1]
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            if name.rsplit(".", 1)[-1] == "b":
+                p.zero_()
+        head.W.mul_(CRF_GAIN)
+        head.b.fill_(CRF_BIAS)
+    return layer
+
+
+def bases_text(codes):
+    return "".join("ACGT"[c] for c in codes)
+
+
+def phase_crf(dev, counters):
+    """12b: bonito's CRF-LSTM.  ``lstm_fwd``'s wide route and the CRF
+    kernels against their plain twins on the card at the CRF cell's batch,
+    each timed beside its bound; the basecall path at the published widths
+    (``lstm_fwd`` five times and ``crf_decode`` once a batch) against its
+    CPU twin; and the ``basecall raw`` CLI given the model as the port's
+    JSON.  Returns (lstm_fwd's entry at this width, crf_decode's entry, the
+    path's launches)."""
+    from sloika_tpu_torch import align, serialize
+    from sloika_tpu_torch import basecall as bc
+    from sloika_tpu_torch.cli import basecall as bcli
+    from sloika_tpu_torch.nn.fused_lstm import (lstm_forward, lstm_fwd_plan,
+                                                lstm_scan_plain)
+    from sloika_tpu_torch.ops import crf_decode as cd
+    T, B, S, N = CRF_T, CRF_B, CRF_S, CRF_N
+    gen = torch.Generator(device=dev).manual_seed(29)
+    rs = np.random.RandomState(29)
+    lengths = rs.randint(T // 3, T + 1, size=B)
+    lengths[0], lengths[1] = T, 1
+    frames = torch.from_numpy(lengths).to(dev)
+    mask = torch.arange(T, device=dev)[:, None] < frames[None, :]
+    m = mask[:, :, None]
+    steps = int(lengths.sum())
+
+    # (a) lstm_fwd at S = 384, no peepholes, both directions
+    xp = torch.randn((T, B, 4 * S), generator=gen, device=dev)
+    sWT = torch.randn((S, 4 * S), generator=gen, device=dev) / np.sqrt(2 * S)
+    p = torch.zeros((3, S), device=dev)
+    plan = lstm_fwd_plan(B, S)
+    worst, lstm_entry = 0.0, None
+    for reverse in (False, True):
+        h, none = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
+                               emit_cout=False)
+        again, _ = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
+                                emit_cout=False)
+        (href, _), plain_ms = timed_once(
+            lambda: lstm_scan_plain(xp, sWT, p, mask, reverse))
+        d = float(((h - href).abs() * m).max())
+        same = bool(torch.equal(h, again))
+        del href, again
+        ms = cuda_ms(lambda: lstm_forward(xp, sWT, p, mask=mask,
+                                          reverse=reverse, emit_cout=False),
+                     3, 2)
+        worst = max(worst, d)
+        print("crf lstm S={} reverse={} T={} B={} (plan {}): max_abs_err "
+              "{:.3e}, same bits twice {}, {:.3f} ms ({:.3f} us a step); "
+              "plain {:.3f} ms".format(S, reverse, T, B, plan, d, same, ms,
+                                       1e3 * ms / T, plain_ms), flush=True)
+        if not (d <= GRU_TOL and same and none is None):
+            raise AssertionError("the LSTM forward's wide route differs from "
+                                 "its twin by {} (same bits twice {})"
+                                 .format(d, same))
+        if not reverse:
+            lstm_entry = {"shape": "T={} B={} S={}".format(T, B, S),
+                          "plan": plan, "ms": ms, "plain_ms": plain_ms}
+    del xp, h
+    layer_ms, product_ms = cudnn_lstm_ms(T, B, S, dev)
+    with_bound(lstm_entry, *lstm_bound(steps, S, 0),
+               library_ms=layer_ms - product_ms)
+    lstm_entry.update({"max_abs_err": worst, "library": "torch.nn.LSTM "
+                       "(cuDNN) {:.3f} ms less its input product {:.3f} ms"
+                       .format(layer_ms, product_ms)})
+    print("crf lstm: cuDNN's LSTM layer {:.3f} ms, its input product "
+          "{:.3f} ms; bound {:.3f} ms ({})".format(
+              layer_ms, product_ms, lstm_entry["bound_ms"],
+              lstm_entry["bound_by"]), flush=True)
+
+    # (b) the CRF kernels at N = 256, rows ragged (all, one, ~T/3.. frames)
+    scores = torch.tanh(torch.randn((T, B, 5 * N), generator=gen,
+                                    device=dev)) * 5
+    scores.view(T, B, N, 5)[..., 0] = 2.0
+    before = cd.crf_decode.launches
+    score, labels = cd.crf_decode(scores, frames)
+    again = cd.crf_decode(scores, frames)
+    one_call = cd.crf_decode.launches - before == 2
+    (want_score, want_labels), plain_ms = timed_once(
+        lambda: cd.crf_decode_plain(scores, frames))
+    differ = int((labels != want_labels).sum())
+    share = differ / steps
+    rel = float(((score - want_score).abs()
+                 / want_score.abs().clamp(min=1.0)).max())
+    same = bool(torch.equal(again[0], score) and torch.equal(again[1], labels))
+    ms = cuda_ms(lambda: cd.crf_decode(scores, frames), 3, 2)
+    crf_entry = with_bound(
+        {"name": "crf_decode", "route": "cuda",
+         "source": "sloika_tpu_torch/csrc/crf_decode.cu", "replaces": None,
+         "shape": "T={} B={} N={}".format(T, B, N), "ms": ms,
+         "plain_ms": plain_ms, "max_abs_err": rel,
+         "labels_differing": differ}, *crf_bound(steps, N))
+    print("crf decode T={} B={} N={}: labels differing from the twin {} of "
+          "{} ({:.2e}), score max rel err {:.3e}, same bits twice {}, one "
+          "launch a call {}; {:.3f} ms, bound {:.3f} ms ({}); plain {:.3f} "
+          "ms".format(T, B, N, differ, steps, share, rel, same, one_call, ms,
+                      crf_entry["bound_ms"], crf_entry["bound_by"],
+                      plain_ms), flush=True)
+    if not (share <= CRF_LABEL_TOL and rel <= CRF_SCORE_RTOL and same
+            and one_call):
+        raise AssertionError("the CRF kernels depart from their twin")
+    del scores, want_labels, labels, again
+
+    # (c) the basecall path at the published widths
+    reads = synthetic_reads()
+    layer = crf_network()
+    cpu_layer = copy.deepcopy(layer)
+    caller = bc.Basecaller(layer, None, batch_size=CRF_BATCH,
+                           chunk_size=CRF_CHUNK, overlap=CRF_OVERLAP,
+                           device=dev)
+    caller.basecall_dac_reads(reads)                 # warm-up
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = caller.basecall_dac_reads(reads)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    nwin = len(bc._window_jobs([len(d) for d, _ in reads], CRF_CHUNK,
+                               CRF_OVERLAP))
+    nbatch = -(-nwin // CRF_BATCH)
+    others = {k: n for k, n in counts.items()
+              if n and k not in PATH_KERNELS["basecall_crf"]}
+    nsamples = sum(len(d) for d, _ in reads)
+    nbases = sum(len(c) for _, c in out)
+    print("crf basecall path: bonito_crf (S {}), {} reads {} windows in {} "
+          "batches, {} samples -> {} bases in {:.3f} s: {:.1f} samples/s, "
+          "peak memory {:.1f} MiB, launches lstm_fwd {} crf_decode {} "
+          "(others {}) [{}]".format(
+              S, len(reads), nwin, nbatch, nsamples, nbases, dt,
+              nsamples / dt, peak / 2 ** 20, counts["lstm_fwd"],
+              counts["crf_decode"], others, card_line()), flush=True)
+    if (counts["lstm_fwd"] != 5 * nbatch or counts["crf_decode"] != nbatch
+            or others):
+        raise AssertionError("the CRF path launched {}, {} batches expected"
+                             .format(counts, nbatch))
+    for i, (score, codes) in enumerate(out):
+        if len(codes) == 0 or not np.isfinite(score) or codes.max() > 3:
+            raise AssertionError("read {}: bad call (score {}, {} bases)"
+                                 .format(i, score, len(codes)))
+    twin_reads = sorted(range(len(reads)), key=lambda r: len(reads[r][0]))
+    twin_reads = twin_reads[:CRF_TWIN_READS]
+    twin = bc.Basecaller(cpu_layer, None, batch_size=CRF_BATCH,
+                         chunk_size=CRF_CHUNK, overlap=CRF_OVERLAP,
+                         device="cpu").basecall_dac_reads(
+        [reads[r] for r in twin_reads])
+    got = [out[r] for r in twin_reads]
+    same, rel, _ = same_calls(got, twin, "crf basecall path (reads {})"
+                              .format(twin_reads))
+    rows = [row for g, w in zip(got, twin)
+            for row in align.evaluate_basecalls({"r": bases_text(g[1])},
+                                                {"r": bases_text(w[1])})]
+    agree = (float(np.mean([r["accuracy"] for r in rows]))
+             if len(rows) == len(got) else 0.0)
+    print("crf basecall path against its CPU twin: agreement {:.5f} (held "
+          ">= {} unless identical)".format(agree, CRF_AGREEMENT), flush=True)
+    if not (rel <= POST_TOL and (same or agree >= CRF_AGREEMENT)):
+        raise AssertionError("the CRF path departs from its CPU twin")
+
+    # (d) the basecall CLI, the model as the port's JSON, reads from memory
+    names = read_names(len(reads))
+    with tempfile.TemporaryDirectory() as tmp:
+        model = os.path.join(tmp, "bonito_crf.json")
+        serialize.save_model_json(model, cpu_layer)
+        calls = os.path.join(tmp, "calls.fa")
+        t0 = time.perf_counter()
+        with rank_reads(names, dacs=dict(zip(names, reads))):
+            code = bcli.main(["raw", model, tmp, "--output", calls,
+                              "--chunk_size", str(CRF_CHUNK), "--overlap",
+                              str(CRF_OVERLAP), "--batch", str(CRF_BATCH)])
+        cli_s = time.perf_counter() - t0
+        records = fasta_records(calls) if code == 0 else []
+    seqs = {n: t.splitlines()[1] for n, t in records}
+    path = {n: bases_text(c) for n, (_, c) in zip(names, out)}
+    rows = [row for n in names if n in seqs
+            for row in align.evaluate_basecalls({n: seqs[n]}, {n: path[n]})]
+    agree = (float(np.mean([r["accuracy"] for r in rows]))
+             if len(rows) == len(names) else 0.0)
+    print("crf basecall raw CLI (model JSON, {} reads, on the card): exit "
+          "{}, {:.1f} s, names in order {}, calls identical to the path's "
+          "{}, agreement {:.5f} (held >= {} unless identical)".format(
+              len(names), code, cli_s, [n for n, _ in records] == names,
+              seqs == path, agree, CRF_AGREEMENT), flush=True)
+    if not (code == 0 and [n for n, _ in records] == names
+            and (seqs == path or agree >= CRF_AGREEMENT)):
+        raise AssertionError("the basecall CLI departs from the CRF path")
+    return lstm_entry, crf_entry, counts
+
+
 def phase_train_events(dev, counters):
     from torch.profiler import ProfilerActivity, schedule
     from sloika_tpu_torch import models, training
@@ -3732,7 +3996,8 @@ def kernel_counters():
                                                gru_wgrad)
     from sloika_tpu_torch.nn.fused_lstm import (lstm_backward, lstm_forward,
                                                 lstm_wgrad)
-    from sloika_tpu_torch.ops import output_head, remap_kernel, viterbi_kernel
+    from sloika_tpu_torch.ops import (crf_decode, output_head, remap_kernel,
+                                      viterbi_kernel)
     from sloika_tpu_torch.scripts import bench_dma, bench_gru_unroll
     from sloika_tpu_torch.scripts import bench_viterbi_parts
     return dict(zip(KERNELS, (
@@ -3741,7 +4006,7 @@ def kernel_counters():
         remap_kernel.remap_backtrack, lstm_forward, lstm_backward,
         lstm_wgrad, bench_gru_unroll.gru_unroll,
         bench_viterbi_parts.viterbi_parts, bench_dma.hbm_ring,
-        output_head.output_head)))
+        output_head.output_head, crf_decode.crf_decode)))
 
 
 def read_names(n):
@@ -4171,6 +4436,11 @@ def main():
     by_name["remap_banded"]["wide_route"] = wide[0]
     by_name["remap_back"]["wide_route"] = wide[1]
     launches["basecall_events"] = phase_basecall_events(dev, counters, reads)
+    crf_lstm, by_name["crf_decode"], launches["basecall_crf"] = phase_crf(
+        dev, counters)
+    by_name["lstm_fwd"]["at_bonito_width"] = crf_lstm
+    by_name["lstm_fwd"]["max_abs_err"] = max(by_name["lstm_fwd"]["max_abs_err"],
+                                             crf_lstm["max_abs_err"])
     launches["train_events"], _ = phase_train_events(dev, counters)
     diag, launches["diagnostics"] = phase_diagnostics(dev, counters)
     by_name.update((k["name"], k) for k in diag)

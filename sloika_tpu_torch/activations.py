@@ -8,7 +8,8 @@ gradient, at the kinks too: JAX splits the gradient of ``maximum`` and
 as 1, so :func:`_max0`, :func:`_clip` and :func:`_abs` do the same.
 
 Three families:
-  * unbounded:             linear, relu, relu_smooth, softplus, elu, exp
+  * unbounded:             linear, relu, relu_smooth, softplus, elu, exp,
+                           swish
   * bounded, monotone:     tanh, sigmoid, erf, L1mL2, fair, retu, tanh_pm,
                            sigmoid_pm, bounded_linear
   * bounded, redescending: sin, cauchy, geman_mcclure, welsh
@@ -64,6 +65,12 @@ def elu(x):
 
 def exp(x):
     return torch.exp(x)
+
+
+def swish(x):
+    """``x * sigmoid(x)`` (SiLU), bonito's convolutions' activation; the
+    port's alone: the JAX package has no swish."""
+    return x * torch.sigmoid(x)
 
 
 #  Bounded and monotonic
@@ -125,7 +132,7 @@ def welsh(x):
     return x * torch.exp(-torch.square(x / 2.9846))
 
 
-_ALL = [linear, relu, relu_smooth, softplus, elu, exp,
+_ALL = [linear, relu, relu_smooth, softplus, elu, exp, swish,
         tanh, sigmoid, erf, L1mL2, fair, retu, tanh_pm, sigmoid_pm,
         bounded_linear, sin, cauchy, geman_mcclure, welsh]
 

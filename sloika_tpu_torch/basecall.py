@@ -24,6 +24,11 @@ Every route of the JAX package's :class:`Basecaller` is ported:
   posterior then comes to the host, where :func:`decode_post_host` decodes
   each read with the legacy decoder (``ops/olddecode.py``), as the JAX
   package does.
+* A CRF model (bonito's, a network ending in ``nn.LinearCRF``; the port's
+  alone) basecalls chunked to bases: each window batch's scores go
+  through the CTC-CRF decode on the device (``ops/crf_decode``), whose
+  labels collapse there to the same packed base codes and seam counts as
+  a transducer's path, stitched on the host alike.
 
 A transducer over any alphabet (nbase its length) decodes on the device:
 the tuned Viterbi kernels take 4 bases and klen 2-6, any other shape their
@@ -49,8 +54,8 @@ from sloika_tpu_torch.data import features, fast5
 from sloika_tpu_torch.data.batching import (normalise_raw_signal,
                                             trim_open_pore)
 from sloika_tpu_torch.variables import DEFAULT_ALPHABET, nstate
-from sloika_tpu_torch.ops import (decode_np, olddecode, output_head,
-                                  viterbi_kernel)
+from sloika_tpu_torch.ops import (crf_decode, decode_np, olddecode,
+                                  output_head, viterbi_kernel)
 from sloika_tpu_torch.ops.decode import collapse_path
 
 _ETA = 1e-10
@@ -75,6 +80,16 @@ def _infer_stride(layer):
     if isinstance(layer, nn.Parallel):
         return _infer_stride(layer.layers[0])
     return 1
+
+
+def crf_head(layer):
+    """The ``LinearCRF`` that ends the network (through ``Serial``), or
+    None: a CRF model decodes by ``ops/crf_decode``."""
+    if isinstance(layer, nn.LinearCRF):
+        return layer
+    if isinstance(layer, nn.Serial):
+        return crf_head(layer.layers[-1])
+    return None
 
 
 def _contains_studentise(layer):
@@ -118,6 +133,11 @@ class Basecaller(object):
     ``output`` to "states", as in the JAX package
     (sloika_tpu/basecall.py:187-199).
 
+    A CRF model (a network ending in ``nn.LinearCRF``) always basecalls
+    chunked to bases: ``chunked``, ``output``, ``transducer`` and
+    ``kmer_len`` do not apply to it (``kmer_len`` may be None), and its
+    alphabet is ACGT.
+
     :param layer: the network (a :class:`sloika_tpu_torch.nn.Layer`); it is
         moved to ``device`` in place
     :param kmer_len: kmer length of the output state space
@@ -133,7 +153,7 @@ class Basecaller(object):
     :param chunk_size, overlap: window length and seam overlap (samples)
     :param output: "states" (kmer-state calls; the JAX package's default)
         or "bases" (packed 2-bit base codes collapsed on the device; a
-        chunked 4-letter transducer)
+        chunked 4-letter transducer, or a CRF model, which takes only this)
     :param device: torch device; "cuda" raises when no GPU is present
     :param post_dtype: dtype the posterior streams to the Viterbi in,
         "float32", "bfloat16" or "auto": bfloat16 where
@@ -158,16 +178,24 @@ class Basecaller(object):
         self.transducer = transducer
         self.bad = bad
         self.trans = trans
-        expected = nstate(kmer_len, transducer=transducer, bad_state=bad,
-                          nbase=self.nbase)
-        if layer.size != expected:
-            raise ValueError("model emits {} states, decode expects {}"
-                             .format(layer.size, expected))
-        if output == "bases" and not (chunked and transducer
-                                      and self.nbase == 4):
-            # as sloika_tpu/basecall.py:183-185 asserts
-            raise ValueError("bases output requires chunked transducer "
-                             "mode (ACGT)")
+        #: the CRF head of a CRF model (which decodes by ops/crf_decode)
+        self._crf = crf_head(layer)
+        if self._crf is not None:
+            if not self.nbase == self._crf.nbase == 4:
+                raise ValueError("a CRF model basecalls ACGT, not {!r}"
+                                 .format(alphabet))
+            chunked, output, kmer_len = True, "bases", None
+        else:
+            expected = nstate(kmer_len, transducer=transducer, bad_state=bad,
+                              nbase=self.nbase)
+            if layer.size != expected:
+                raise ValueError("model emits {} states, decode expects {}"
+                                 .format(layer.size, expected))
+            if output == "bases" and not (chunked and transducer
+                                          and self.nbase == 4):
+                # as sloika_tpu/basecall.py:183-185 asserts
+                raise ValueError("bases output requires chunked transducer "
+                                 "mode (ACGT)")
         self.device = config.resolve_device(device)
         config.disable_tf32()
         self.layer = layer.to(self.device).eval()
@@ -241,8 +269,15 @@ class Basecaller(object):
 
         :param x: (C, B, nfeature) float32 windows;  :param lengths: (B,)
         :returns: (score (B,), first (B,) int16, counts (B, 3) int32,
-            packed codes (B, ceil(2T'/4)) uint8) device tensors
+            packed codes (B, ceil(2T'/4)) uint8) device tensors; a CRF
+            model's scores through the CRF decode instead (packed (B,
+            ceil(T'/4)): a frame emits a base at most)
         """
+        if self._crf is not None:
+            scores, frames = self.layer.apply_with_lengths(x, lengths)
+            score, labels = crf_decode.crf_decode(scores, frames)
+            return (score,) + crf_decode.label_records(labels,
+                                                       self._f_splits)
         post, _ = self._floored_masked_post(x, lengths)
         score, path, moved = self._viterbi(post)
         return (score,) + _move_records(path, moved, self.kmer_len,
@@ -307,7 +342,7 @@ class Basecaller(object):
         with tracing.span("basecall.signals"):
             if self.studentise:
                 return self._basecall_per_read(signals)
-            if self.chunked and self.transducer:
+            if self.chunked and (self.transducer or self._crf is not None):
                 if self.output == "bases":
                     return self._basecall_chunked_bases(signals)
                 return self._basecall_chunked(signals)
@@ -541,7 +576,9 @@ class Basecaller(object):
 
         :param results: {(read, window): (score, first_state, counts, codes)}
         """
-        k = self.kmer_len
+        # a read's first window opens with its first kmer's bases; a CRF
+        # call has none
+        k = 0 if self._crf is not None else self.kmer_len
         out = [None] * len(read_lens)
         parts, total_score = [], 0.0
         with tracing.span("basecall.stitch"):

@@ -21,7 +21,10 @@ stands) collapses the calls to bases on the device; else the windows'
 paths are stitched on the host ("states").  ``--dac`` ("auto": on with
 device collapse) ships ``raw`` reads as int16 DAC samples, windowed and
 normalised on the device.  A non-transducer model (``--transducer false``)
-is decoded on the host with the legacy decoder.  A model with a
+is decoded on the host with the legacy decoder.  A CRF model (bonito's,
+ending in ``LinearCRF``) is always chunked and collapsed to bases on the
+device, on any device (its CTC-CRF decode, ``ops/crf_decode``);
+``--device_collapse off`` is refused for it.  A model with a
 ``Studentise`` layer runs whole reads one at a time, unpadded
 (``Basecaller``).  ``--jobs`` threads load the reads, the next block's
 while the current block decodes.  FASTA goes to stdout unless ``--output``
@@ -166,13 +169,18 @@ def main(argv=None):
     if code is not None:            # the ranks this command started
         return code
     dev = mesh.local_device(args.device)
+    layer = load_model(args.model)
+    if bc.crf_head(layer) is not None and args.device_collapse == 'off':
+        raise ValueError('a CRF model collapses its calls to bases on the '
+                         'device: --device_collapse off does not apply')
     if args.device_collapse == 'auto':
         # the card stands where the JAX package's TPU stands
         device_collapse = (dev.type == 'cuda' and args.chunked
                            and args.transducer and len(args.alphabet) == 4)
     else:
         device_collapse = args.device_collapse == 'on'
-    caller = bc.Basecaller(load_model(args.model), args.kmer_len,
+    # a CRF model basecalls chunked to bases whatever is asked (Basecaller)
+    caller = bc.Basecaller(layer, args.kmer_len,
                            transducer=args.transducer, bad=args.bad,
                            min_prob=args.min_prob, skip=args.skip,
                            trans=args.trans, alphabet=args.alphabet,

@@ -24,6 +24,8 @@ REGISTRY = {
     "raw_0_98_rgrgr": "sloika_tpu_torch.models.raw_0_98_rgrgr",
     "raw_1.00_rGr": "sloika_tpu_torch.models.raw_1_00_rGr",
     "raw_1_00_rGr": "sloika_tpu_torch.models.raw_1_00_rGr",
+    # the port's alone: bonito's CRF-LSTM (the JAX package has no CRF)
+    "bonito_crf": "sloika_tpu_torch.models.bonito_crf",
 }
 
 #: widths of pretrained.pkl's graph: conv, GRU, GRU, GRU

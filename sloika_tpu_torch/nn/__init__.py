@@ -4,7 +4,7 @@ from sloika_tpu_torch.nn.core import (Layer, from_json, zeros_init,
 from sloika_tpu_torch.nn.layers import (Identity, FeedForward, Softmax,
                                         SoftmaxTheano, Studentise,
                                         NormaliseL1, Window, Convolution,
-                                        MaxPool)
+                                        MaxPool, LinearCRF)
 from sloika_tpu_torch.nn.rnn import (RNNBase, Recurrent, Gru, Lstm, LstmCIFG,
                                      LstmO, Forget, Scrn, Mut1, Mut2, Mut3,
                                      Genmut)
@@ -16,6 +16,7 @@ __all__ = [
     "Layer", "from_json", "zeros_init", "truncated_normal", "affine",
     "register", "Identity", "FeedForward", "Softmax", "SoftmaxTheano",
     "Studentise", "NormaliseL1", "Window", "Convolution", "MaxPool",
+    "LinearCRF",
     "RNNBase", "Recurrent", "Gru", "Lstm", "LstmCIFG", "LstmO", "Forget",
     "Scrn", "Mut1", "Mut2", "Mut3", "Genmut",
     "Serial", "Parallel", "Reverse", "Residual", "birnn", "Decode",

@@ -42,8 +42,12 @@ from sloika_tpu_torch import cuda_build
 from sloika_tpu_torch.nn.fused_gru import (H100_SMS, SMEM_OPTIN, _round,
                                            _rows_a_block, h_prev_of)
 
-#: the kernels' limit on S: a block has 4S threads (at most 1,024)
+#: the backward kernels' limit on S (and the forward's traces'): a block
+#: has 4S threads (at most 1,024)
 MAX_SIZE = 256
+#: the forward's limit on S: past MAX_SIZE a lane takes two gate columns
+#: (the "wide" route, inference only)
+FWD_MAX_SIZE = 384
 
 
 def _gates(lp, h, c, sWT, p):
@@ -226,13 +230,13 @@ def lstm_wgrad_plain(h_out, c_out, dxp, reverse):
     return dsWT, dp
 
 
-def _check_lstm_shapes(xp, sWT, p, mask):
+def _check_lstm_shapes(xp, sWT, p, mask, limit, what):
     T, B, S4 = xp.shape
     S = S4 // 4
     dev = xp.device
-    if not 0 < S <= MAX_SIZE or S4 != 4 * S:
-        raise ValueError("LSTM size {} outside the kernels' 1..{} (a block "
-                         "has 4S threads)".format(S4 / 4, MAX_SIZE))
+    if not 0 < S <= limit or S4 != 4 * S:
+        raise ValueError("LSTM size {} outside the {}' 1..{}".format(
+            S4 / 4, what, limit))
     cuda_build.check_tensor(xp, (T, B, S4), torch.float32, dev, "xp")
     cuda_build.check_tensor(sWT, (S, S4), torch.float32, dev, "sWT")
     cuda_build.check_tensor(p, (3, S), torch.float32, dev, "p")
@@ -252,27 +256,36 @@ FWD_REGISTER_MIN_S = 33
 FWD_MASK_WINDOWS = (16384, 4096, 1024)
 #: the forward's xp ring: its mbarriers' bytes, then slots of BR x 4S floats
 FWD_BAR_BYTES = 64
+#: rows a block of the wide route (``lstm_fwd.cu`` says why)
+FWD_WIDE_ROWS = 8
 
 
 def lstm_fwd_plan(B, S, sms=H100_SMS, optin=SMEM_OPTIN):
     """The launch plan of ``lstm_fwd.cu`` for a batch of B rows of width S.
 
-    Rows a block ``br``: the fewest of 1, 2, 4, 8 that fit the batch in one
-    wave over ``sms`` SMs.  Then the first of these that fits ``optin``
-    bytes of shared memory with an xp ring ``ns`` of 4 step slots (the
-    copies run 3 steps ahead), else 3, else 2, and the largest mask window
-    of FWD_MASK_WINDOWS: sWT's columns in registers ("registers", S from
-    FWD_REGISTER_MIN_S to FWD_REGISTER_KQ); sWT staged ("smem"); sWT read
-    from global memory ("global").
+    Gate columns a lane ``g``: 1 up to S = MAX_SIZE, else 2 (the "wide"
+    route, up to FWD_MAX_SIZE: sWT from global memory, FWD_WIDE_ROWS rows
+    a block).  Otherwise rows a block ``br``: the fewest of 1, 2, 4, 8
+    that fit the batch in one wave over ``sms`` SMs.  Then the first of
+    these that fits ``optin`` bytes of shared memory with an xp ring ``ns``
+    of 4 step slots (the copies run 3 steps ahead), else 3, else 2, and the
+    largest mask window of FWD_MASK_WINDOWS: sWT's columns in registers
+    ("registers", S from FWD_REGISTER_MIN_S to FWD_REGISTER_KQ); sWT staged
+    ("smem"); sWT read from global memory ("global").
 
-    :returns: dict of br, mode, kq, stage, ns, mw (mask window in steps),
-        smem (bytes), threads
+    :returns: dict of g, br, mode, kq, stage, ns, mw (mask window in
+        steps), smem (bytes), threads
     """
-    br = _rows_a_block(B, sms)
-    threads = _round(4 * S, 32)
+    if not 0 < S <= FWD_MAX_SIZE:
+        raise ValueError("LSTM size {} does not fit the forward kernel "
+                         "(1..{})".format(S, FWD_MAX_SIZE))
+    g = 1 if S <= MAX_SIZE else 2
+    br = _rows_a_block(B, sms) if g == 1 else FWD_WIDE_ROWS
+    threads = _round(4 * -(-S // g), 32)
     choices = ([("registers", FWD_REGISTER_KQ, 0)]
                if FWD_REGISTER_MIN_S <= S <= FWD_REGISTER_KQ else [])
-    choices += [("smem", 0, 1), ("global", 0, 0)]
+    choices += [("smem", 0, 1)] if g == 1 else []
+    choices += [("global", 0, 0)]
     for mode, kq, stage in choices:
         kk = kq or _round(S, 4)
         for ns in (4, 3, 2):
@@ -281,9 +294,9 @@ def lstm_fwd_plan(B, S, sms=H100_SMS, optin=SMEM_OPTIN):
                     ns * br * 4 * S + 2 * kk * br
                     + (4 * S * S if stage else 0)))
                 if nbytes <= optin:
-                    return {"br": br, "mode": mode, "kq": kq, "stage": stage,
-                            "ns": ns, "mw": window // br, "smem": nbytes,
-                            "threads": threads}
+                    return {"g": g, "br": br, "mode": mode, "kq": kq,
+                            "stage": stage, "ns": ns, "mw": window // br,
+                            "smem": nbytes, "threads": threads}
     raise ValueError("LSTM size {} does not fit the forward kernel".format(
         S))
 
@@ -350,7 +363,7 @@ class LstmForward:
     :func:`lstm_scan_plain` for CPU tensors.  ``launches`` counts kernel
     launches."""
 
-    _ARGTYPES = {"lstm_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+    _ARGTYPES = {"lstm_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
                  + [ctypes.c_void_p]}
 
     def __init__(self):
@@ -377,7 +390,12 @@ class LstmForward:
                                    emit_cout, emit_gates)
         if emit_gates and not emit_cout:
             raise ValueError("the gate trace comes with the cell trace")
-        T, B, S = _check_lstm_shapes(xp, sWT, p, mask)
+        T, B, S = _check_lstm_shapes(xp, sWT, p, mask, FWD_MAX_SIZE,
+                                     "forward kernel")
+        if emit_cout and S > MAX_SIZE:
+            raise ValueError("LSTM size {}: the forward writes its cell and "
+                             "gate traces (training) up to {}".format(
+                                 S, MAX_SIZE))
         new = lambda n: torch.empty((T, B, n), dtype=torch.float32,
                                     device=xp.device)
         h_out = new(S)
@@ -400,9 +418,10 @@ class LstmForward:
                                h_out.data_ptr(),
                                c_out.data_ptr() if emit_cout else None,
                                gates.data_ptr() if emit_gates else None,
-                               T, B, S, int(bool(reverse)), plan["br"],
-                               plan["kq"], plan["stage"], plan["ns"],
-                               plan["mw"], plan["smem"], plan["threads"],
+                               T, B, S, int(bool(reverse)), plan["g"],
+                               plan["br"], plan["kq"], plan["stage"],
+                               plan["ns"], plan["mw"], plan["smem"],
+                               plan["threads"],
                                torch.cuda.current_stream().cuda_stream)
         cuda_build.check(err, "lstm_fwd")
         self.launches += 1
@@ -488,6 +507,9 @@ class LstmWgrad:
             return lstm_wgrad_plain(h_out, c_out, dxp, reverse)
         T, B, S = h_out.shape
         dev = h_out.device
+        if not 0 < S <= MAX_SIZE:
+            raise ValueError("LSTM size {} outside the weight-cotangent "
+                             "kernel's 1..{}".format(S, MAX_SIZE))
         cuda_build.check_tensor(h_out, (T, B, S), torch.float32, dev, "h_out")
         cuda_build.check_tensor(c_out, (T, B, S), torch.float32, dev, "c_out")
         cuda_build.check_tensor(dxp, (T, B, 4 * S), torch.float32, dev, "dxp")
@@ -539,7 +561,8 @@ class LstmBackward:
         :param gates: (T, B, 4S) gate trace of the forward's training variant
         :returns: dxp (T, B, 4S)
         """
-        T, B, S = _check_lstm_shapes(gates, sWT, p, mask)
+        T, B, S = _check_lstm_shapes(gates, sWT, p, mask, MAX_SIZE,
+                                     "backward kernels")
         dev = gates.device
         for t, name in ((g, "g"), (c_out, "c_out")):
             cuda_build.check_tensor(t, (T, B, S), torch.float32, dev, name)

@@ -1,8 +1,9 @@
 """Non-recurrent layers (cf. ``sloika_tpu/nn/layers.py``): ``Identity``,
 ``FeedForward`` (JSON ``feed-forward``), ``Softmax`` (JSON
 ``softmax_old``), ``SoftmaxTheano`` (JSON ``softmax``), ``Studentise``,
-``NormaliseL1`` (JSON ``normaliseL1``), ``Window``, ``Convolution`` and
-``MaxPool`` (JSON ``max_pool``).  Initialisation scaling matches the JAX
+``NormaliseL1`` (JSON ``normaliseL1``), ``Window``, ``Convolution``,
+``MaxPool`` (JSON ``max_pool``) and, the port's alone, bonito's CRF head
+``LinearCRF`` (JSON ``linear_crf``).  Initialisation scaling matches the JAX
 package."""
 import numpy as np
 import torch
@@ -245,6 +246,53 @@ class MaxPool(Layer):
                     padding_mode=_padding_mode_from_json(
                         obj.get("padding_mode", "same")))
         return layer, {}
+
+
+@register("linear_crf")
+class LinearCRF(Layer):
+    """bonito's ``LinearCRFEncoder`` (``bonito/crf/model.py``), the head of
+    its CRF basecallers: scores ``tanh(x W^T + b) * scale``, W
+    (nbase^(state_len + 1), I), viewed as nbase^state_len groups of nbase,
+    with ``blank_score`` put in front of each group.  A frame's (nstate,
+    nbase + 1) scores are the CTC-CRF's transitions into each state s:
+    [s, 0] the stay, [s, k] the step from state (k - 1) nstate/nbase +
+    s // nbase (``ops/crf_decode.crf_idx``).  Its size is nstate x
+    (nbase + 1), 1,280 at nbase 4 and state_len 4."""
+
+    def __init__(self, insize, nbase=4, state_len=4, scale=5.0,
+                 blank_score=2.0, init=zeros_init, has_bias=True):
+        super().__init__()
+        self.insize = insize
+        self.nbase, self.state_len = nbase, state_len
+        self.scale, self.blank_score = float(scale), float(blank_score)
+        self.has_bias = has_bias
+        self.nstate = nbase ** state_len
+        self.size = self.nstate * (nbase + 1)
+        out = nbase ** (state_len + 1)
+        self.W = self._param(init((out, insize)) / np.sqrt(out + insize))
+        self.b = self._param(init((out,)) if has_bias
+                             else zeros_init((out,)))
+
+    def forward(self, x):
+        scores = torch.tanh(affine(x, self.W, self.b)) * self.scale
+        T, B, _ = scores.shape
+        scores = scores.reshape(T, B, self.nstate, self.nbase)
+        blank = scores.new_full((T, B, self.nstate, 1), self.blank_score)
+        return torch.cat([blank, scores], dim=3).reshape(T, B, self.size)
+
+    def _json_config(self):
+        return {"insize": self.insize, "nbase": self.nbase,
+                "state_len": self.state_len, "scale": self.scale,
+                "blank_score": self.blank_score, "bias": self.has_bias}
+
+    @classmethod
+    def _from_json(cls, obj):
+        layer = cls(obj["insize"], nbase=obj.get("nbase", 4),
+                    state_len=obj.get("state_len", 4),
+                    scale=obj.get("scale", 5.0),
+                    blank_score=obj.get("blank_score", 2.0),
+                    has_bias=obj.get("bias", True))
+        return _with_params(layer, obj)
 
 
 def _padding_mode_from_json(mode):

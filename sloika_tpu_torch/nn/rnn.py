@@ -268,7 +268,10 @@ class Lstm(_Peephole):
         if mask is None:
             mask = torch.ones(xp.shape[:2], dtype=torch.bool,
                               device=xp.device)
-        return LstmFunction.apply(xp, sWT, self.p, mask.bool(), reverse,
+        # outside grad mode the peephole parameter is no input to a graph:
+        # the forward then runs the kernel's inference variant
+        p = self.p if torch.is_grad_enabled() else self.p.detach()
+        return LstmFunction.apply(xp, sWT, p, mask.bool(), reverse,
                                   self.has_peep)
 
     def initial_state(self, nbatch, like):

@@ -374,13 +374,14 @@ def kernel_wrappers():
     """The port's kernel wrappers, whose ``launches`` (and
     ``general_launches``, ``wide_launches``) a graph replay adds to."""
     from sloika_tpu_torch.nn import fused_gru, fused_lstm
-    from sloika_tpu_torch.ops import output_head, remap_kernel, viterbi_kernel
+    from sloika_tpu_torch.ops import (crf_decode, output_head, remap_kernel,
+                                      viterbi_kernel)
     return (fused_gru.gru_forward, fused_gru.gru_backward,
             fused_gru.gru_wgrad, fused_lstm.lstm_forward,
             fused_lstm.lstm_backward, fused_lstm.lstm_wgrad,
             viterbi_kernel.viterbi_forward, viterbi_kernel.viterbi_backtrace,
             remap_kernel.remap_banded, remap_kernel.remap_backtrack,
-            output_head.output_head)
+            output_head.output_head, crf_decode.crf_decode)
 
 
 _COUNTS = ("launches", "general_launches", "wide_launches")

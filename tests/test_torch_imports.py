@@ -77,6 +77,9 @@ import sloika_tpu_torch.parallel.imap
 import sloika_tpu_torch.parallel.mesh
 import sloika_tpu_torch.parallel.multihost
 import sloika_tpu_torch.parallel.spawn
+import sloika_tpu_torch.models.bonito_crf
+import sloika_tpu_torch.models.bonito_crf_reference
+import sloika_tpu_torch.ops.crf_decode
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "h5py", "sloika_tpu")
                 and sys.modules[m] is not None)

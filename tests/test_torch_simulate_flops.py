@@ -108,7 +108,7 @@ def _jax_flops(name, **kw):
             jflops.downsample(layer))
 
 
-@pytest.mark.parametrize("name", sorted(set(tmodels.REGISTRY)))
+@pytest.mark.parametrize("name", sorted(set(jmodels.REGISTRY)))
 def test_flops_of_every_registered_model_equal_jax(name):
     layer = tmodels.network_factory(name)(klen=5, sd=0.5)
     fwd, train, stride = _jax_flops(name, klen=5, sd=0.5)

@@ -109,7 +109,8 @@ def test_zoo_model_matches_jax(name):
 
 
 def test_every_jax_model_name_builds_in_the_port():
-    assert set(tmodels.REGISTRY) == set(jmodels.REGISTRY)
+    # and bonito's CRF-LSTM, which the JAX package lacks
+    assert set(tmodels.REGISTRY) == set(jmodels.REGISTRY) | {"bonito_crf"}
     for name in jmodels.REGISTRY:
         layer = tmodels.network_factory(name)(klen=KLEN, sd=0.5)
         assert layer.size == 4 ** KLEN + 1
