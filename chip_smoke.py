@@ -319,6 +319,8 @@ KERNELS = ("gru_fwd", "gru_bwd", "gru_wgrad", "viterbi_fwd", "viterbi_back",
 CLOCKED = tuple((n, n.upper() + "_CLOCKS") for n in (
     "viterbi_fwd", "viterbi_back", "remap_banded", "remap_back",
     "lstm_wgrad", "gru_unroll", "hbm_ring"))
+#: sources of a kernel's other routes, built and reported beside KERNELS
+ROUTES = ("lstm_fwd_wide",)
 #: the parents of the two kernels redesigned last, built beside them and
 #: timed beside them in phases 4, 9a and 17c (``scripts.redesign_parents``:
 #: no path loads them)
@@ -500,16 +502,19 @@ def zero_counts(counters):
     scan_route.calls = 0
 
 
-def read_counts(counters, scan_calls=0, general=False, wide=False):
+def read_counts(counters, scan_calls=0, general=False, wide=False,
+                lstm_wide=0):
     """The launches of each kernel since :func:`zero_counts`; raises if a
     Viterbi wrapper launched its general route (``general_launches``)
     unless ``general``: the main paths decode klen 5 over 4 bases, the
     tuned kernels' range, and only phase 17's 5-letter transducer takes the
     general route; and unless the recurrences took the eager scan route
     (``nn.rnn.scan_route``) ``scan_calls`` times: 0 on every main path,
-    whose GRUs and LSTMs are the kernels' tanh/sigmoid cells; and if a
-    remap wrapper ran at a window wider than the tuned route's
-    (``wide_launches``) unless ``wide``: only phase 9's wide checks do."""
+    whose GRUs and LSTMs are the kernels' tanh/sigmoid cells; if a remap
+    wrapper ran at a window wider than the tuned route's
+    (``wide_launches``) unless ``wide``: only phase 9's wide checks do;
+    and unless the LSTM forward took its wide route (S above 256)
+    ``lstm_wide`` times: only phase 12b's CRF-LSTM does."""
     from sloika_tpu_torch.nn.rnn import scan_route
     gen = {n: k.general_launches for n, k in counters.items()
            if getattr(k, "general_launches", 0)}
@@ -517,10 +522,15 @@ def read_counts(counters, scan_calls=0, general=False, wide=False):
         raise AssertionError("a main path took the general Viterbi route: "
                              "general_launches {}".format(gen))
     wide_n = {n: k.wide_launches for n, k in counters.items()
-              if getattr(k, "wide_launches", 0)}
+              if getattr(k, "wide_launches", 0) and n != "lstm_fwd"}
     if wide_n and not wide:
         raise AssertionError("a main path took the wide remap route: "
                              "wide_launches {}".format(wide_n))
+    if counters["lstm_fwd"].wide_launches != lstm_wide:
+        raise AssertionError("the LSTM forward's wide route ran {} times, {} "
+                             "expected".format(
+                                 counters["lstm_fwd"].wide_launches,
+                                 lstm_wide))
     if scan_route.calls != scan_calls:
         raise AssertionError("the scan route ran {} times, {} expected"
                              .format(scan_route.calls, scan_calls))
@@ -2473,9 +2483,11 @@ def bases_text(codes):
 
 
 def phase_crf(dev, counters):
-    """12b: bonito's CRF-LSTM.  ``lstm_fwd``'s wide route and the CRF
-    kernels against their plain twins on the card at the CRF cell's batch,
-    each timed beside its bound; the basecall path at the published widths
+    """12b: bonito's CRF-LSTM.  ``lstm_fwd``'s wide route (a cluster of 16
+    blocks, ``lstm_fwd_wide.cu``) and the CRF kernels against their plain
+    twins on the card at the CRF cell's batch on ragged rows, each timed
+    beside its bound (and the LSTM beside cuDNN's recurrence); the basecall
+    path at the published widths
     (``lstm_fwd`` five times and ``crf_decode`` once a batch) against its
     CPU twin; and the ``basecall raw`` CLI given the model as the port's
     JSON.  Returns (lstm_fwd's entry at this width, crf_decode's entry, the
@@ -2500,13 +2512,17 @@ def phase_crf(dev, counters):
     xp = torch.randn((T, B, 4 * S), generator=gen, device=dev)
     sWT = torch.randn((S, 4 * S), generator=gen, device=dev) / np.sqrt(2 * S)
     p = torch.zeros((3, S), device=dev)
-    plan = lstm_fwd_plan(B, S)
+    plan = lstm_fwd_plan(B, S, clusters=lstm_forward.wide_clusters(dev))
     worst, lstm_entry = 0.0, None
     for reverse in (False, True):
+        wide0 = lstm_forward.wide_launches
         h, none = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
                                emit_cout=False)
         again, _ = lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
                                 emit_cout=False)
+        if lstm_forward.wide_launches != wide0 + 2:
+            raise AssertionError("S {} did not take the LSTM forward's wide "
+                                 "route".format(S))
         (href, _), plain_ms = timed_once(
             lambda: lstm_scan_plain(xp, sWT, p, mask, reverse))
         d = float(((h - href).abs() * m).max())
@@ -2580,6 +2596,9 @@ def phase_crf(dev, counters):
                            chunk_size=CRF_CHUNK, overlap=CRF_OVERLAP,
                            device=dev)
     caller.basecall_dac_reads(reads)                 # warm-up
+    nwin = len(bc._window_jobs([len(d) for d, _ in reads], CRF_CHUNK,
+                               CRF_OVERLAP))
+    nbatch = -(-nwin // CRF_BATCH)
     zero_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2587,11 +2606,8 @@ def phase_crf(dev, counters):
     out = caller.basecall_dac_reads(reads)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = read_counts(counters)
+    counts = read_counts(counters, lstm_wide=5 * nbatch)
     peak = torch.cuda.max_memory_allocated()
-    nwin = len(bc._window_jobs([len(d) for d, _ in reads], CRF_CHUNK,
-                               CRF_OVERLAP))
-    nbatch = -(-nwin // CRF_BATCH)
     others = {k: n for k, n in counts.items()
               if n and k not in PATH_KERNELS["basecall_crf"]}
     nsamples = sum(len(d) for d, _ in reads)
@@ -4398,13 +4414,13 @@ def main():
     from sloika_tpu_torch import config, cuda_build, models
     config.disable_tf32()
     t0 = time.time()
-    cuda_build.build_all(KERNELS + CLOCKED + PARENTS)
+    cuda_build.build_all(KERNELS + ROUTES + CLOCKED + PARENTS)
     ptxas = " | ".join(
         "{} ({:.1f} s): {}".format(n, sec, " ".join(
             l.split(":", 1)[-1].strip() for l in log.splitlines()
             if "registers" in l or "spill" in l))
         for n, (sec, log) in sorted(cuda_build.BUILD_LOG.items())
-        if n in KERNELS)
+        if n in KERNELS + ROUTES)
     print("build: {} kernels and {} clocked builds in {:.1f} s ({})".format(
         len(KERNELS), len(CLOCKED), time.time() - t0, ptxas), flush=True)
 

@@ -61,17 +61,9 @@
 // and a thread a column, the product took 58% of a step (PERF.md §6): 1,024
 // shared-memory wavefronts (every thread read its 64 weights and 64 h
 // values a word at a time), which registers and broadcasts cut to 128.
-// Threads are 4S, so this layout takes S <= 256.
-//
-// Wider cells (the "wide" route, G = 2: S from 257 to 384, bonito's LSTMs of
-// 384).  4S gate columns are more than a block's 1,024 threads, so lane
-// j = 4s + q owns two columns, qS + s and qS + s + SG (SG = ceil(S/2)), and
-// 2S threads do the step; sWT (S x 4S, 2.36 MB at S = 384) fits no SM's
-// shared memory, so it streams from L2 a step (the "global" mode), four k
-// of both columns' weights loaded ahead of their FMAs.  Every block reads
-// all of sWT a step, so the plan gives it 8 rows: half the L2 traffic of 4
-// rows a block at the same FMA rate per SM.  The route is inference only
-// (no cell or gate trace: the backward kernels stop at S = 256).
+// Threads are 4S, so S <= 256; wider cells (S 257-384, bonito's LSTMs of
+// 384, inference only) go to csrc/lstm_fwd_wide.cu, a cluster of blocks
+// that split the gate columns.
 //
 // Sums are plain f32 FMA: no TF32 and no fast-math (expf/tanhf are the
 // accurate versions).
@@ -97,59 +89,20 @@ namespace {
 
 constexpr int kMaxSlots = 4;
 constexpr int kBarFloats = 16;          // the slots' mbarriers, 64 bytes
-constexpr int kWideThreads = 768;       // the wide route's 2S at S = 384
-constexpr int kWideAhead = 4;           // k of weights loaded ahead
-
-// acc[g][r] = sum over k < K of v[k][r] * W[k][col[g]]: the wide route's
-// product, its G columns' weights read through L1 from device memory (L2),
-// kWideAhead k at a time, one chain a column and row (the same bits on
-// every run)
-template <int BR, int G>
-__device__ __forceinline__ void dot_cols(float (&acc)[G][BR], const float* v,
-                                         const float* __restrict__ W,
-                                         const int (&col)[G], int K,
-                                         int ld) {
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int r = 0; r < BR; ++r) acc[g][r] = 0.0f;
-  int k = 0;
-  for (; k + kWideAhead <= K; k += kWideAhead) {
-    float w[kWideAhead][G];
-#pragma unroll
-    for (int u = 0; u < kWideAhead; ++u)
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-        w[u][g] = __ldg(W + (size_t)(k + u) * ld + col[g]);
-#pragma unroll
-    for (int u = 0; u < kWideAhead; ++u)
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-        fma_rows<BR>(acc[g], v + (k + u) * BR, w[u][g]);
-  }
-  for (; k < K; ++k)
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      fma_rows<BR>(acc[g], v + k * BR, __ldg(W + (size_t)k * ld + col[g]));
-}
 
 // KQ (0 or >= S): the weights of its column a lane holds in registers;
 // otherwise they come from shared memory when `stage`, else through L1.
-// G: columns a lane (1, or 2 on the wide route, which takes KQ 0, no stage
-// and no traces).  ns: ring slots (2-4); mw: steps of the mask window
-template <int BR, int KQ, int G, bool EMIT_C>
-__global__ void __launch_bounds__(KQ > 0 ? 4 * KQ
-                                         : (G > 1 ? kWideThreads : 1024))
+// ns: ring slots (2-4); mw: steps of the mask window
+template <int BR, int KQ, bool EMIT_C>
+__global__ void __launch_bounds__(KQ > 0 ? 4 * KQ : 1024)
 lstm_fwd_kernel(const float* __restrict__ xp,
                 const uint8_t* __restrict__ mask,
                 const float* __restrict__ sWT, const float* __restrict__ p,
                 float* __restrict__ h_out, float* __restrict__ c_out,
                 float* __restrict__ gates, int T, int B, int S, int reverse,
                 int ns, int mw, int stage) {
-  static_assert(G == 1 || (KQ == 0 && !EMIT_C), "the wide route");
   extern __shared__ float4 smem4[];
   const int S4 = 4 * S;
-  const int SG = (S + G - 1) / G;                    // states a column group
   const int KK = KQ > 0 ? KQ : round4(S);            // k-rows of an h buffer
   const int slot_len = BR * S4;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem4);         // [ns]
@@ -161,18 +114,12 @@ lstm_fwd_kernel(const float* __restrict__ xp,
   const int j = threadIdx.x;
   const int b0 = blockIdx.x * BR;
   const int nrows = min(BR, B - b0);
-  // lanes past 4SG (when 4SG is not a multiple of 32), and a group's
-  // states past S, compute on state 0's columns and store nothing
-  const int q = j & 3;
-  int sg[G], col[G];
-  bool own[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    sg[g] = (j >> 2) + g * SG;
-    own[g] = j < 4 * SG && sg[g] < S;
-    col[g] = q * S + (own[g] ? sg[g] : 0);
-  }
-  const int jw = own[0] ? j : q;
+  // lanes past 4S (when 4S is not a multiple of 32) compute on state 0's
+  // columns and store nothing
+  const int s = j >> 2, q = j & 3;
+  const bool own = j < S4;
+  const int col = q * S + (own ? s : 0);
+  const int jw = own ? j : q;
   const int base = (j & 31) & ~3;                    // the quad's lane 0
   const unsigned bytes = (unsigned)(nrows * S4) * 4u;
   auto time_of = [&](int step) { return reverse ? T - 1 - step : step; };
@@ -192,20 +139,15 @@ lstm_fwd_kernel(const float* __restrict__ xp,
   if constexpr (KQ > 0) {
 #pragma unroll
     for (int k = 0; k < KQ; ++k)
-      w[k] = (own[0] && k < S) ? __ldg(sWT + (size_t)k * S4 + col[0]) : 0.0f;
+      w[k] = (own && k < S) ? __ldg(sWT + (size_t)k * S4 + col) : 0.0f;
   }
-  float p2[G], pq[G];                                // pq: lanes 1 and 2
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float p0 = 0.0f, p1 = 0.0f;
-    p2[g] = 0.0f;
-    if (own[g]) {
-      p0 = p[sg[g]];
-      p1 = p[S + sg[g]];
-      p2[g] = p[2 * S + sg[g]];
-    }
-    pq[g] = q == 1 ? p0 : p1;
+  float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;
+  if (own) {
+    p0 = p[s];
+    p1 = p[S + s];
+    p2 = p[2 * S + s];
   }
+  const float pq = q == 1 ? p0 : p1;                 // lanes 1 and 2
   if (j == 0) {
     for (int f = 0; f < ns; ++f) mbar_init(&full[f], 1);
     mbar_init_fence();
@@ -220,13 +162,10 @@ lstm_fwd_kernel(const float* __restrict__ xp,
     }
   }
 
-  // the carried state of each column group's state (the same in the quad's
-  // four lanes)
-  float c[G][BR], h[G][BR];
+  // the carried state of column s (the same in the quad's four lanes)
+  float c[BR], h[BR];
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int r = 0; r < BR; ++r) c[g][r] = h[g][r] = 0.0f;
+  for (int r = 0; r < BR; ++r) c[r] = h[r] = 0.0f;
   int slot = 0, mleft = 0, mi = 0;
   unsigned phase = 0;
 #ifdef LSTM_FWD_CLOCKS
@@ -249,62 +188,57 @@ lstm_fwd_kernel(const float* __restrict__ xp,
     const float* hv = hb + (step & 1) * KK * BR;
     float* hn = hb + ((step & 1) ^ 1) * KK * BR;
 
-    // columns col of h . sWT for the block's rows
-    float acc[G][BR];
-    if constexpr (G > 1) {
-      dot_cols<BR, G>(acc, hv, sWT, col, S, S4);
-    } else if constexpr (KQ > 0) {
-      dot_reg<BR, KQ>(acc[0], hv, w);
+    // column col of h . sWT for the block's rows
+    float acc[BR];
+    if constexpr (KQ > 0) {
+      dot_reg<BR, KQ>(acc, hv, w);
     } else if (stage) {
-      dot_col<BR>(acc[0], hv, [&](int k) { return ws[k * S4 + jw]; }, S);
+      dot_col<BR>(acc, hv, [&](int k) { return ws[k * S4 + jw]; }, S);
     } else {
-      dot_col<BR>(acc[0], hv,
-                  [&](int k) { return __ldg(sWT + (size_t)k * S4 + col[0]); },
+      dot_col<BR>(acc, hv,
+                  [&](int k) { return __ldg(sWT + (size_t)k * S4 + col); },
                   S);
     }
     FWD_CLOCK(0);
     mbar_wait(&full[slot], phase);
-    const uint8_t* valid = mks + mi * BR;
-    float mine[G][BR];
+    float g[BR];
+    const float* xs = ring + slot * slot_len + col;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float* xs = ring + slot * slot_len + col[g];
-#pragma unroll
-      for (int r = 0; r < BR; ++r) acc[g][r] += xs[r * S4];
-      FWD_CLOCK(1);
+    for (int r = 0; r < BR; ++r) g[r] = xs[r * S4] + acc[r];
+    FWD_CLOCK(1);
 
-      // this lane's activation: u, i, f, or g3 as it is
-      if (q == 0) {
+    // this lane's activation: u, i, f, or g3 as it is
+    float mine[BR];
+    if (q == 0) {
 #pragma unroll
-        for (int r = 0; r < BR; ++r) mine[g][r] = tanhf(acc[g][r]);
-      } else if (q < 3) {
+      for (int r = 0; r < BR; ++r) mine[r] = tanhf(g[r]);
+    } else if (q < 3) {
 #pragma unroll
-        for (int r = 0; r < BR; ++r)
-          mine[g][r] = sigmoid_f32(acc[g][r] + c[g][r] * pq[g]);
-      } else {
+      for (int r = 0; r < BR; ++r) mine[r] = sigmoid_f32(g[r] + c[r] * pq);
+    } else {
 #pragma unroll
-        for (int r = 0; r < BR; ++r) mine[g][r] = acc[g][r];
+      for (int r = 0; r < BR; ++r) mine[r] = g[r];
+    }
+    FWD_CLOCK(2);
+    const uint8_t* valid = mks + mi * BR;
+#pragma unroll
+    for (int r = 0; r < BR; ++r) {
+      const float u = __shfl_sync(0xffffffffu, mine[r], base);
+      const float i = __shfl_sync(0xffffffffu, mine[r], base + 1);
+      const float f = __shfl_sync(0xffffffffu, mine[r], base + 2);
+      const float g3 = __shfl_sync(0xffffffffu, mine[r], base + 3);
+      const float cn = c[r] * f + u * i;
+      const float o = sigmoid_f32(g3 + cn * p2);
+      const float hnew = tanhf(cn) * o;
+      if (q == 3) mine[r] = o;
+      if (valid[r]) {
+        h[r] = hnew;
+        c[r] = cn;
       }
-      FWD_CLOCK(2);
+    }
+    if (q == 0 && own) {
 #pragma unroll
-      for (int r = 0; r < BR; ++r) {
-        const float u = __shfl_sync(0xffffffffu, mine[g][r], base);
-        const float i = __shfl_sync(0xffffffffu, mine[g][r], base + 1);
-        const float f = __shfl_sync(0xffffffffu, mine[g][r], base + 2);
-        const float g3 = __shfl_sync(0xffffffffu, mine[g][r], base + 3);
-        const float cn = c[g][r] * f + u * i;
-        const float o = sigmoid_f32(g3 + cn * p2[g]);
-        const float hnew = tanhf(cn) * o;
-        if (q == 3) mine[g][r] = o;
-        if (valid[r]) {
-          h[g][r] = hnew;
-          c[g][r] = cn;
-        }
-      }
-      if (q == 0 && own[g]) {
-#pragma unroll
-        for (int r = 0; r < BR; ++r) hn[sg[g] * BR + r] = h[g][r];
-      }
+      for (int r = 0; r < BR; ++r) hn[s * BR + r] = h[r];
     }
     FWD_CLOCK(3);
     __syncthreads();
@@ -316,19 +250,15 @@ lstm_fwd_kernel(const float* __restrict__ xp,
                 xp + ((size_t)time_of(step + ns) * B + b0) * S4, bytes,
                 &full[slot]);
     }
-    const size_t row0 = (size_t)time_of(step) * B + b0;
+    if (own) {
+      const size_t row0 = (size_t)time_of(step) * B + b0;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (own[g]) {
-#pragma unroll
-        for (int r = 0; r < BR; ++r) {
-          if (r < nrows) {
-            if (q == 0) h_out[(row0 + r) * S + sg[g]] = h[g][r];
-            if constexpr (EMIT_C) {
-              if (q == 1) c_out[(row0 + r) * S + sg[g]] = c[g][r];
-              if (gates != nullptr)
-                gates[(row0 + r) * S4 + col[g]] = mine[g][r];
-            }
+      for (int r = 0; r < BR; ++r) {
+        if (r < nrows) {
+          if (q == 0) h_out[(row0 + r) * S + s] = h[r];
+          if constexpr (EMIT_C) {
+            if (q == 1) c_out[(row0 + r) * S + s] = c[r];
+            if (gates != nullptr) gates[(row0 + r) * S4 + col] = mine[r];
           }
         }
       }
@@ -350,18 +280,18 @@ lstm_fwd_kernel(const float* __restrict__ xp,
 #endif
 }
 
-template <int BR, int KQ, int G, bool EMIT_C>
+template <int BR, int KQ, bool EMIT_C>
 int launch(const void* xp, const void* mask, const void* sWT, const void* p,
            void* h_out, void* c_out, void* gates, int T, int B, int S,
            int reverse, int ns, int mw, int stage, int smem, int threads,
            cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lstm_fwd_kernel<BR, KQ, G, EMIT_C>,
+        lstm_fwd_kernel<BR, KQ, EMIT_C>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  lstm_fwd_kernel<BR, KQ, G, EMIT_C>
+  lstm_fwd_kernel<BR, KQ, EMIT_C>
       <<<(B + BR - 1) / BR, threads, smem, stream>>>(
           (const float*)xp, (const uint8_t*)mask, (const float*)sWT,
           (const float*)p, (float*)h_out, (float*)c_out, (float*)gates, T, B,
@@ -369,14 +299,14 @@ int launch(const void* xp, const void* mask, const void* sWT, const void* p,
   return (int)cudaGetLastError();
 }
 
-template <int KQ, int G, bool EMIT_C>
+template <int KQ, bool EMIT_C>
 int by_rows(int br, const void* xp, const void* mask, const void* sWT,
             const void* p, void* h_out, void* c_out, void* gates, int T,
             int B, int S, int reverse, int ns, int mw, int stage, int smem,
             int threads, cudaStream_t s) {
-#define LSTM_FWD_LAUNCH(BR)                                                  \
-  launch<BR, KQ, G, EMIT_C>(xp, mask, sWT, p, h_out, c_out, gates, T, B, S, \
-                            reverse, ns, mw, stage, smem, threads, s)
+#define LSTM_FWD_LAUNCH(BR)                                               \
+  launch<BR, KQ, EMIT_C>(xp, mask, sWT, p, h_out, c_out, gates, T, B, S, \
+                         reverse, ns, mw, stage, smem, threads, s)
   switch (br) {
     case 1: return LSTM_FWD_LAUNCH(1);
     case 2: return LSTM_FWD_LAUNCH(2);
@@ -393,44 +323,33 @@ int by_mode(int kq, int br, const void* xp, const void* mask,
             void* gates, int T, int B, int S, int reverse, int ns, int mw,
             int stage, int smem, int threads, cudaStream_t s) {
   if (kq == 64)
-    return by_rows<64, 1, EMIT_C>(br, xp, mask, sWT, p, h_out, c_out, gates,
-                                  T, B, S, reverse, ns, mw, stage, smem,
-                                  threads, s);
+    return by_rows<64, EMIT_C>(br, xp, mask, sWT, p, h_out, c_out, gates, T,
+                               B, S, reverse, ns, mw, stage, smem, threads, s);
   if (kq == 0)
-    return by_rows<0, 1, EMIT_C>(br, xp, mask, sWT, p, h_out, c_out, gates,
-                                 T, B, S, reverse, ns, mw, stage, smem,
-                                 threads, s);
+    return by_rows<0, EMIT_C>(br, xp, mask, sWT, p, h_out, c_out, gates, T,
+                              B, S, reverse, ns, mw, stage, smem, threads, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // The launch plan comes from the caller (nn/fused_lstm.py::lstm_fwd_plan):
-// columns a lane g (1, or 2: the wide route, S above 256), rows a block br
-// (1, 2, 4, 8), the register floats kq (64, or 0), stage (sWT in shared
-// memory when not in registers), ring depth ns (2-4), mask window mw
-// (steps), smem bytes and threads (4S / g rounded up to a warp).  xp
+// rows a block br (1, 2, 4, 8), the register floats kq (64, or 0), stage
+// (sWT in shared memory when not in registers), ring depth ns (2-4), mask
+// window mw (steps), smem bytes and threads (4S rounded up to a warp).  xp
 // 16-byte aligned.  c_out == nullptr selects the inference variant (no cell
 // trace, and gates must be nullptr); gates == nullptr leaves out the gate
-// trace.  The wide route is the inference variant alone, from L2.
+// trace.
 extern "C" int lstm_fwd(const void* xp, const void* mask, const void* sWT,
                         const void* p, void* h_out, void* c_out, void* gates,
-                        int T, int B, int S, int reverse, int g, int br,
-                        int kq, int stage, int ns, int mw, int smem,
-                        int threads, void* stream) {
-  if (g < 1 || g > 2) return (int)cudaErrorInvalidValue;
-  const int sg = (S + g - 1) / g;
-  if (ns < 2 || ns > kMaxSlots || mw < 1 ||
-      threads < 4 * sg || threads % 32 || (kq > 0 && kq < S) ||
-      (uintptr_t)xp % 16 || (c_out == nullptr && gates != nullptr) ||
-      (g > 1 && (kq != 0 || stage || c_out != nullptr ||
-                 threads > kWideThreads)))
+                        int T, int B, int S, int reverse, int br, int kq,
+                        int stage, int ns, int mw, int smem, int threads,
+                        void* stream) {
+  if (ns < 2 || ns > kMaxSlots || mw < 1 || threads < 4 * S ||
+      threads % 32 || (kq > 0 && kq < S) || (uintptr_t)xp % 16 ||
+      (c_out == nullptr && gates != nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (g > 1)
-    return by_rows<0, 2, false>(br, xp, mask, sWT, p, h_out, c_out, gates, T,
-                                B, S, reverse, ns, mw, stage, smem, threads,
-                                s);
   if (c_out == nullptr)
     return by_mode<false>(kq, br, xp, mask, sWT, p, h_out, c_out, gates, T, B,
                           S, reverse, ns, mw, stage, smem, threads, s);

@@ -176,6 +176,12 @@ def gru_wgrad_plain(h_out, rh, dxp, reverse):
 H100_SMS = 132
 #: shared memory a block may opt in to on sm_90 (bytes)
 SMEM_OPTIN = 232448
+#: the clusters of C one-block-an-SM blocks that an H100 SXM runs at once
+#: (``cudaOccupancyMaxActiveClusters`` at 256-1,024 threads, on an H100
+#: 80GB HBM3 at 700 W, PERF.md §6): its 132 SMs lie in GPCs of uneven size,
+#: so it holds 7 clusters of 16, not 8.  The plans' default where no card
+#: is asked
+H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 #: the forward kernel's modes (``csrc/gru_fwd.cu``): both weights staged in
 #: shared memory; weights held in registers (``kr`` rows of sWT's column
 #: and ``kh2`` rows of a half of sW2T's column a thread, sWT's rows past

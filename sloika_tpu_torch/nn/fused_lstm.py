@@ -3,7 +3,10 @@ the autograd function that joins them.
 
 :data:`lstm_forward` replaces the Pallas TPU kernels
 ``sloika_tpu/nn/pallas_lstm.py::_fwd_kernel`` and ``_fwd_kernel_nocout``
-(through ``_fwd_step``, driven by ``_pallas_scan``) with ``csrc/lstm_fwd.cu``.
+(through ``_fwd_step``, driven by ``_pallas_scan``) with ``csrc/lstm_fwd.cu``,
+and, at S above MAX_SIZE (inference only), with ``csrc/lstm_fwd_wide.cu``:
+a cluster of blocks that split the gate columns, each keeping its slice of
+the recurrent weights on chip and sharing h over distributed shared memory.
 :data:`lstm_backward` replaces the VJP kernel ``_bwd_kernel`` (driven by
 ``_pallas_scan_bwd``) with two: ``csrc/lstm_bwd.cu``, the reverse-time
 recurrence, and ``csrc/lstm_wgrad.cu`` (:data:`lstm_wgrad`), the
@@ -39,14 +42,16 @@ import itertools
 import torch
 
 from sloika_tpu_torch import cuda_build
-from sloika_tpu_torch.nn.fused_gru import (H100_SMS, SMEM_OPTIN, _round,
-                                           _rows_a_block, h_prev_of)
+from sloika_tpu_torch.nn.fused_gru import (H100_CLUSTERS, H100_SMS,
+                                           SMEM_OPTIN, _round, _rows_a_block,
+                                           h_prev_of)
 
 #: the backward kernels' limit on S (and the forward's traces'): a block
 #: has 4S threads (at most 1,024)
 MAX_SIZE = 256
-#: the forward's limit on S: past MAX_SIZE a lane takes two gate columns
-#: (the "wide" route, inference only)
+#: the forward's limit on S: past MAX_SIZE a cluster of blocks splits the
+#: gate columns (the "wide" route, ``csrc/lstm_fwd_wide.cu``, inference
+#: only)
 FWD_MAX_SIZE = 384
 
 
@@ -256,36 +261,91 @@ FWD_REGISTER_MIN_S = 33
 FWD_MASK_WINDOWS = (16384, 4096, 1024)
 #: the forward's xp ring: its mbarriers' bytes, then slots of BR x 4S floats
 FWD_BAR_BYTES = 64
-#: rows a block of the wide route (``lstm_fwd.cu`` says why)
-FWD_WIDE_ROWS = 8
+#: the wide route (``lstm_fwd_wide.cu``): blocks a cluster, states a block
+#: (S padded to their product), k groups (warps) a block, rows a chunk (the
+#: unit of its exchange), chunks a step at most, the mbarriers' bytes
+WIDE_CLUSTER, WIDE_STATES, WIDE_GROUPS = 16, 24, 12
+WIDE_CHUNK_ROWS, WIDE_MAX_CHUNKS, WIDE_BAR_BYTES = 8, 12, 192
+#: its threads: a warp a k group
+WIDE_THREADS = 32 * WIDE_GROUPS
 
 
-def lstm_fwd_plan(B, S, sms=H100_SMS, optin=SMEM_OPTIN):
-    """The launch plan of ``lstm_fwd.cu`` for a batch of B rows of width S.
+def wide_smem(rows):
+    """Shared-memory bytes of the wide route at ``rows`` rows a cluster
+    (rounded up to chunks): the barriers, h of every block's states, two
+    staging buffers and c of the block's own, a chunk's xp, and two
+    chunks' partial sums of its k groups."""
+    rp = _round(rows, WIDE_CHUNK_ROWS)
+    chunk = WIDE_CHUNK_ROWS * 4 * WIDE_STATES
+    return WIDE_BAR_BYTES + 4 * (rp * WIDE_STATES * (WIDE_CLUSTER + 3)
+                                 + chunk + 2 * WIDE_GROUPS * chunk)
 
-    Gate columns a lane ``g``: 1 up to S = MAX_SIZE, else 2 (the "wide"
-    route, up to FWD_MAX_SIZE: sWT from global memory, FWD_WIDE_ROWS rows
-    a block).  Otherwise rows a block ``br``: the fewest of 1, 2, 4, 8
-    that fit the batch in one wave over ``sms`` SMs.  Then the first of
-    these that fits ``optin`` bytes of shared memory with an xp ring ``ns``
-    of 4 step slots (the copies run 3 steps ahead), else 3, else 2, and the
-    largest mask window of FWD_MASK_WINDOWS: sWT's columns in registers
-    ("registers", S from FWD_REGISTER_MIN_S to FWD_REGISTER_KQ); sWT staged
-    ("smem"); sWT read from global memory ("global").
 
-    :returns: dict of g, br, mode, kq, stage, ns, mw (mask window in
-        steps), smem (bytes), threads
+def wide_rows(optin=SMEM_OPTIN):
+    """The most rows a cluster of the wide route takes: whole chunks whose
+    shared memory fits ``optin`` bytes, at most WIDE_MAX_CHUNKS."""
+    fits = [n * WIDE_CHUNK_ROWS for n in range(1, WIDE_MAX_CHUNKS + 1)
+            if wide_smem(n * WIDE_CHUNK_ROWS) <= optin]
+    if not fits:
+        raise ValueError("the wide route does not fit {} bytes of shared "
+                         "memory".format(optin))
+    return fits[-1]
+
+
+def lstm_fwd_wide_plan(B, S, optin=SMEM_OPTIN, clusters=None):
+    """The launch plan of ``lstm_fwd_wide.cu`` (S above MAX_SIZE) for a
+    batch of B rows.
+
+    ``clusters``: the clusters of WIDE_CLUSTER blocks the card runs at once
+    (:meth:`LstmForward.wide_clusters` asks the card; default
+    H100_CLUSTERS').  Rows a cluster at most: :func:`wide_rows`.  The batch
+    takes the fewest waves of those clusters that hold it, spread evenly:
+    ``rows`` = ceil(B / clusters launched), and as many clusters as B needs
+    at that.  A function of (B, S, optin, clusters) alone.
+
+    :returns: dict of mode ("cluster"), cluster, rows, clusters, chunks,
+        smem (bytes), threads
+    """
+    if not MAX_SIZE < S <= FWD_MAX_SIZE or B < 1:
+        raise ValueError("the wide route takes S {}..{} and B >= 1 (got S "
+                         "{}, B {})".format(MAX_SIZE + 1, FWD_MAX_SIZE, S, B))
+    active = H100_CLUSTERS[WIDE_CLUSTER] if clusters is None else clusters
+    if active < 1:
+        raise ValueError("the card runs no cluster of the wide route")
+    waves = -(-B // (active * wide_rows(optin)))
+    rows = -(-B // min(B, active * waves))
+    return {"mode": "cluster", "cluster": WIDE_CLUSTER, "rows": rows,
+            "clusters": -(-B // rows),
+            "chunks": -(-rows // WIDE_CHUNK_ROWS), "smem": wide_smem(rows),
+            "threads": WIDE_THREADS}
+
+
+def lstm_fwd_plan(B, S, sms=H100_SMS, optin=SMEM_OPTIN, clusters=None):
+    """The launch plan of ``lstm_fwd.cu`` for a batch of B rows of width S,
+    or past MAX_SIZE that of ``lstm_fwd_wide.cu`` (:func:`lstm_fwd_wide_plan`
+    with ``clusters``).
+
+    Rows a block ``br``: the fewest of 1, 2, 4, 8 that fit the batch in one
+    wave over ``sms`` SMs.  Then the first of these that fits ``optin``
+    bytes of shared memory with an xp ring ``ns`` of 4 step slots (the
+    copies run 3 steps ahead), else 3, else 2, and the largest mask window
+    of FWD_MASK_WINDOWS: sWT's columns in registers ("registers", S from
+    FWD_REGISTER_MIN_S to FWD_REGISTER_KQ); sWT staged ("smem"); sWT read
+    from global memory ("global").
+
+    :returns: dict of br, mode, kq, stage, ns, mw (mask window in steps),
+        smem (bytes), threads
     """
     if not 0 < S <= FWD_MAX_SIZE:
         raise ValueError("LSTM size {} does not fit the forward kernel "
                          "(1..{})".format(S, FWD_MAX_SIZE))
-    g = 1 if S <= MAX_SIZE else 2
-    br = _rows_a_block(B, sms) if g == 1 else FWD_WIDE_ROWS
-    threads = _round(4 * -(-S // g), 32)
+    if S > MAX_SIZE:
+        return lstm_fwd_wide_plan(B, S, optin, clusters)
+    br = _rows_a_block(B, sms)
+    threads = _round(4 * S, 32)
     choices = ([("registers", FWD_REGISTER_KQ, 0)]
                if FWD_REGISTER_MIN_S <= S <= FWD_REGISTER_KQ else [])
-    choices += [("smem", 0, 1)] if g == 1 else []
-    choices += [("global", 0, 0)]
+    choices += [("smem", 0, 1), ("global", 0, 0)]
     for mode, kq, stage in choices:
         kk = kq or _round(S, 4)
         for ns in (4, 3, 2):
@@ -294,7 +354,7 @@ def lstm_fwd_plan(B, S, sms=H100_SMS, optin=SMEM_OPTIN):
                     ns * br * 4 * S + 2 * kk * br
                     + (4 * S * S if stage else 0)))
                 if nbytes <= optin:
-                    return {"g": g, "br": br, "mode": mode, "kq": kq,
+                    return {"br": br, "mode": mode, "kq": kq,
                             "stage": stage, "ns": ns, "mw": window // br,
                             "smem": nbytes, "threads": threads}
     raise ValueError("LSTM size {} does not fit the forward kernel".format(
@@ -353,26 +413,74 @@ def lstm_bwd_plan(B, S, sms=H100_SMS, optin=SMEM_OPTIN):
         S))
 
 
+def _optin(device):
+    """The shared memory a block of ``device`` may opt in to (bytes)."""
+    return getattr(torch.cuda.get_device_properties(device),
+                   "shared_memory_per_block_optin", SMEM_OPTIN)
+
+
 class LstmForward:
     """The LSTM forward recurrence; replaces the Pallas TPU kernels
     ``sloika_tpu/nn/pallas_lstm.py::_fwd_kernel`` (with the cell trace) and
-    ``_fwd_kernel_nocout`` (without) with ``csrc/lstm_fwd.cu``, launched by
+    ``_fwd_kernel_nocout`` (without) with ``csrc/lstm_fwd.cu``, and past
+    S = MAX_SIZE with ``csrc/lstm_fwd_wide.cu``, launched by
     :func:`lstm_fwd_plan`.
 
-    Launches the CUDA kernel for CUDA tensors and runs
-    :func:`lstm_scan_plain` for CPU tensors.  ``launches`` counts kernel
-    launches."""
+    Launches a CUDA kernel for CUDA tensors and runs :func:`lstm_scan_plain`
+    for CPU tensors.  ``launches`` counts kernel launches, and
+    ``wide_launches`` those of the wide route."""
 
-    _ARGTYPES = {"lstm_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+    _ARGTYPES = {"lstm_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
                  + [ctypes.c_void_p]}
+    _WIDE_ARGTYPES = {"lstm_fwd_wide": [ctypes.c_void_p] * 5
+                      + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+                      "lstm_fwd_wide_clusters": [ctypes.c_int,
+                                                 ctypes.c_void_p]}
 
     def __init__(self):
         self.launches = 0
+        self.wide_launches = 0
+        self._clusters = {}
 
     def _library(self):
         """The loaded ``lstm_fwd`` library (``scripts/bench_lstm.py``
         swaps in its clocked build)."""
         return cuda_build.load("lstm_fwd", self._ARGTYPES)
+
+    def _wide_library(self):
+        """The loaded ``lstm_fwd_wide`` library (``scripts/bench_lstm.py``
+        swaps in its clocked build)."""
+        return cuda_build.load("lstm_fwd_wide", self._WIDE_ARGTYPES)
+
+    def wide_clusters(self, device):
+        """The clusters of the wide route's blocks that the card runs at
+        once (queried once for each device, at the route's largest shared
+        memory: a block takes the SM alone at any rows)."""
+        key = str(device)
+        if key not in self._clusters:
+            smem = wide_smem(wide_rows(_optin(device)))
+            n = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                cuda_build.check(self._wide_library().lstm_fwd_wide_clusters(
+                    smem, ctypes.byref(n)), "lstm_fwd_wide_clusters")
+            self._clusters[key] = n.value
+        return self._clusters[key]
+
+    def _wide(self, xp, sWT, p, mask8, h_out, reverse):
+        T, B, S = h_out.shape
+        dev = xp.device
+        plan = lstm_fwd_wide_plan(B, S, _optin(dev), self.wide_clusters(dev))
+        lib = self._wide_library()
+        with torch.cuda.device(dev):
+            err = lib.lstm_fwd_wide(xp.data_ptr(), mask8.data_ptr(),
+                                    sWT.data_ptr(), p.data_ptr(),
+                                    h_out.data_ptr(), T, B, S,
+                                    int(bool(reverse)), plan["rows"],
+                                    plan["clusters"], plan["smem"],
+                                    torch.cuda.current_stream().cuda_stream)
+        cuda_build.check(err, "lstm_fwd_wide")
+        self.launches += 1
+        self.wide_launches += 1
 
     def __call__(self, xp, sWT, p, mask=None, reverse=False, emit_cout=True,
                  emit_gates=False):
@@ -405,6 +513,9 @@ class LstmForward:
         if T == 0 or B == 0:
             return result
         mask8 = mask.to(torch.uint8).contiguous()
+        if S > MAX_SIZE:
+            self._wide(xp, sWT, p, mask8, h_out, reverse)
+            return result
         if xp.data_ptr() % 16:
             xp = xp.clone()             # the bulk copies read 16-byte units
         props = torch.cuda.get_device_properties(xp.device)
@@ -418,7 +529,7 @@ class LstmForward:
                                h_out.data_ptr(),
                                c_out.data_ptr() if emit_cout else None,
                                gates.data_ptr() if emit_gates else None,
-                               T, B, S, int(bool(reverse)), plan["g"],
+                               T, B, S, int(bool(reverse)),
                                plan["br"], plan["kq"], plan["stage"],
                                plan["ns"], plan["mw"], plan["smem"],
                                plan["threads"],

@@ -38,7 +38,8 @@ import ctypes
 import torch
 
 from sloika_tpu_torch import cuda_build
-from sloika_tpu_torch.nn.fused_gru import H100_SMS, SMEM_OPTIN, _round
+from sloika_tpu_torch.nn.fused_gru import (H100_CLUSTERS, H100_SMS,
+                                           SMEM_OPTIN, _round)
 from sloika_tpu_torch.ops.decode import (viterbi_backtrace_plain,
                                          viterbi_forward_plain)
 
@@ -74,12 +75,6 @@ GENERAL_CLUSTERS = (16, 8, 4, 2, 1)
 #: the posterior dtypes the forward takes (``viterbi_fwd.cu``'s element
 #: types)
 POST_DTYPES = (torch.float32, torch.bfloat16)
-#: the clusters of C one-block-an-SM blocks that an H100 SXM runs at once
-#: (``cudaOccupancyMaxActiveClusters`` at 256-1,024 threads, on an H100
-#: 80GB HBM3 at 700 W, PERF.md §6): its 132 SMs lie in GPCs of uneven size,
-#: so it holds 7 clusters of 16, not 8.  The plan's default where no card
-#: is asked
-H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 
 
 def _states(K):

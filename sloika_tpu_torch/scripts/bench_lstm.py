@@ -39,6 +39,12 @@ builds ``csrc/lstm_wgrad.cu`` with ``-DLSTM_WGRAD_CLOCKS`` and splits a
 slice of its block 0 (WGRAD_PHASES).  A clocked build must give the port's
 bits.
 
+With ``--wide`` it times the forward's wide route (``csrc/lstm_fwd_wide.cu``,
+a cluster of 16 blocks) at the CRF cell's batch, (T, B, S) = (2,000, 512,
+384), on ragged rows; with ``--clocks`` as well it builds that source with
+``-DLSTM_FWD_CLOCKS`` and splits a step of block 0 (WIDE_PHASES) the same
+way, the clocked build held to the port's bits.
+
 Prints one JSON line: the card and its power limit, the tree timed, and
 the times.
 """
@@ -53,12 +59,15 @@ import torch
 SHAPE = (500, 100, 64)
 #: the event basecall path's batch: 64 reads of up to 9,000 events
 SERVING = (9000, 64)
+#: the CRF cell's batch: 512 windows of 2,000 frames, bonito's LSTMs of 384
+WIDE = (2000, 512, 384)
 #: the phases of a step that each clocked build stamps, in order
 FWD_PHASES = ("product", "slot_wait", "activation", "shuffles_cell",
               "barrier", "refill_stores")
 BWD_PHASES = ("cell", "slot_wait", "barrier", "refill_copies",
               "refill_commit", "product", "shuffles")
 WGRAD_PHASES = ("slice_wait_barrier", "refill_issue", "fmas")
+WIDE_PHASES = ("product", "peer_wait", "barriers", "cell", "stores")
 #: a width that is not a multiple of 4 (rows of h and c that are not
 #: 16-byte units), at which ``lstm_wgrad`` is also timed
 WGRAD_NARROW_S = 65
@@ -117,6 +126,51 @@ def fwd_step_clocks(xp, sWT, p, mask, ref, train=False):
     warps = -(-4 * sWT.shape[0] // 32)
     raw = read_clocks(lib, "lstm_fwd_clocks_read", warps)
     return _split(raw, xp.shape[0], ms, FWD_PHASES)
+
+
+def wide_step_clocks(xp, sWT, p, mask, ref):
+    """Run the clocked build of the wide route (it must give ``ref``, the
+    port's build's h); returns its time a step, the clock it ran at and the
+    cycles a step of each phase, by warp of block 0 and their mean."""
+    from sloika_tpu_torch.nn.fused_lstm import WIDE_THREADS, LstmForward
+    from sloika_tpu_torch.scripts import clocked_library, cuda_ms, read_clocks
+    lib = clocked_library("lstm_fwd_wide", "LSTM_FWD_CLOCKS",
+                          LstmForward._WIDE_ARGTYPES,
+                          "lstm_fwd_wide_clocks_read")
+
+    class Clocked(LstmForward):
+        def _wide_library(self):
+            return lib
+
+    run = lambda: Clocked()(xp, sWT, p, mask=mask, emit_cout=False)[0]
+    ms = cuda_ms(run, 2, 2)
+    if not torch.equal(run(), ref):
+        raise AssertionError("the clocked build of lstm_fwd_wide gave other "
+                             "bits")
+    raw = read_clocks(lib, "lstm_fwd_wide_clocks_read", WIDE_THREADS // 32)
+    return _split(raw, xp.shape[0], ms, WIDE_PHASES)
+
+
+def wide_route(clocks):
+    """The wide route at WIDE on ragged rows: its time, the plan, its
+    bound and, with ``clocks``, its step split."""
+    from sloika_tpu_torch.nn.fused_lstm import lstm_forward, lstm_fwd_plan
+    from sloika_tpu_torch.scripts import bound_ms, cuda_ms
+    T, B, S = WIDE
+    dev = torch.device("cuda")
+    xp, sWT, _, _, mask = inputs(T, B, S, dev, seed=2)
+    p = torch.zeros((3, S), device=dev)
+    run = lambda: lstm_forward(xp, sWT, p, mask=mask, emit_cout=False)[0]
+    ms = cuda_ms(run, 2, 2)
+    steps = int(mask.sum())
+    out = {"T": T, "B": B, "S": S, "ms": ms, "us_per_step": 1e3 * ms / T,
+           "bound_ms": bound_ms(4 * (5 * S * steps + 4 * S * S),
+                                8 * S * S * steps),
+           "plan": lstm_fwd_plan(B, S,
+                                 clusters=lstm_forward.wide_clusters(dev))}
+    if clocks:
+        out["clocks"] = wide_step_clocks(xp, sWT, p, mask, run())
+    return out
 
 
 def bwd_step_clocks(gates, sWT, p, mask, g, c, dxp):
@@ -207,6 +261,8 @@ def main(argv=None):
                         "and a slice of lstm_wgrad by the clocked builds")
     parser.add_argument("--wgrad", action="store_true",
                         help="time lstm_wgrad alone")
+    parser.add_argument("--wide", action="store_true",
+                        help="time the forward's wide route (S 384) alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("bench_lstm needs a CUDA device")
@@ -226,6 +282,10 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
+    if args.wide:
+        print(json.dumps({"card": card, "lstm_fwd_wide": wide_route(
+            args.clocks)}), flush=True)
+        return 0
     T, B, S = SHAPE
     xp, sWT, p, g, mask = inputs(T, B, S, dev)
     inference = lambda: lstm_forward(xp, sWT, p, mask=mask, emit_cout=False)

@@ -4,8 +4,9 @@ weights at small widths on the CPU: swish, the peephole-free LSTM in both
 directions on ragged rows, the CRF head, the CRF decode's posteriors and
 Viterbi against brute-force enumeration, the whole model's bases through
 ``Basecaller`` and the ``basecall`` CLI, and the model's JSON.  On the card
-(``-m gpu``): ``lstm_fwd`` at S = 384, the CRF kernels against their plain
-twin, and one launch of each a batch.
+(``-m gpu``): ``lstm_fwd``'s wide route (a cluster of blocks, S 257-384)
+and the CRF kernels against their plain twins, its clocked build, and one
+launch of each a batch.
 
 This file imports no jax, so its ``gpu``-marked tests run on a machine with
 a CUDA card and without jax::
@@ -364,46 +365,131 @@ def test_flops_of_the_published_widths():
     assert layer.size == 1280 and flops.downsample(layer) == 5
 
 
-def test_lstm_forward_plan_takes_384_by_two_columns_a_lane():
+def test_lstm_forward_plan_takes_384_by_a_cluster():
+    """S 384 at the CRF cell's batch: 7 clusters of 16 (an H100's), 74 rows
+    a cluster in 10 chunks of 8; past S 384 refused, and at S 256 the
+    narrow plan, as before."""
     plan = fused_lstm.lstm_fwd_plan(512, 384)
-    assert (plan["g"], plan["mode"], plan["threads"], plan["br"]) == (
-        2, "global", 768, fused_lstm.FWD_WIDE_ROWS)
-    assert plan["smem"] <= fused_lstm.SMEM_OPTIN
-    assert fused_lstm.lstm_fwd_plan(100, 256)["g"] == 1
+    assert plan == fused_lstm.lstm_fwd_plan(512, 384, clusters=7)
+    assert (plan["mode"], plan["cluster"], plan["threads"]) == (
+        "cluster", 16, 384)
+    assert (plan["rows"], plan["clusters"], plan["chunks"]) == (74, 7, 10)
+    assert plan["smem"] == 222912 <= fused_lstm.SMEM_OPTIN
+    # the tail batch of the cell's reads, one row, and two waves
+    assert fused_lstm.lstm_fwd_plan(250, 384)["rows"] == 36
+    one = fused_lstm.lstm_fwd_plan(1, 384)
+    assert (one["rows"], one["clusters"], one["chunks"]) == (1, 1, 1)
+    two = fused_lstm.lstm_fwd_plan(1100, 384)
+    assert (two["rows"], two["clusters"]) == (79, 14)
+    assert fused_lstm.wide_rows() == 80
+    narrow = fused_lstm.lstm_fwd_plan(100, 256)
+    assert narrow == {"br": 1, "mode": "global", "kq": 0, "stage": 0,
+                      "ns": 4, "mw": 16384, "smem": narrow["smem"],
+                      "threads": 1024}
     with pytest.raises(ValueError, match="384"):
         fused_lstm.lstm_fwd_plan(8, 385)
+
+
+def test_lstm_forward_counts_wide_launches_in_the_tracer():
+    """``LstmForward.wide_launches`` (the wide route's launches) is one of
+    the program's counters."""
+    from sloika_tpu_torch import tracing
+    counts = tracing.counters()
+    assert counts["LstmForward.wide_launches"] == (
+        fused_lstm.lstm_forward.wide_launches)
+    assert counts["LstmForward.launches"] == fused_lstm.lstm_forward.launches
+
+
+def test_lstm_forward_wide_entry_points_take_the_wrapper_arguments():
+    """The C entry points of ``lstm_fwd_wide.cu`` take as many arguments as
+    the wrapper declares (ctypes would pass a short list unchecked)."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(fused_lstm.__file__), "..",
+                            "csrc", "lstm_fwd_wide.cu")).read()
+    for name, argtypes in fused_lstm.LstmForward._WIDE_ARGTYPES.items():
+        found = re.search(r'extern "C" int {}\(([^)]*)\)'.format(name), src)
+        assert found, name
+        assert len(found.group(1).split(",")) == len(argtypes), name
+
+
+@pytest.mark.parametrize("S", [257, 320, 384])
+@pytest.mark.parametrize("B", [1, 37, 250, 512, 1100, 5000])
+@pytest.mark.parametrize("active", [1, 3, 7, 15])
+def test_lstm_forward_wide_plan_covers_the_batch(B, S, active):
+    """The wide route's plan from a given count of active clusters: every
+    row in one cluster, no cluster empty, the fewest waves of ``active``
+    clusters, the shared memory under SMEM_OPTIN and as the kernel lays it
+    out; a function of its arguments alone."""
+    plan = fused_lstm.lstm_fwd_plan(B, S, clusters=active)
+    assert plan == fused_lstm.lstm_fwd_wide_plan(B, S, clusters=active)
+    rows, n = plan["rows"], plan["clusters"]
+    assert rows * n >= B > rows * (n - 1)
+    most = fused_lstm.wide_rows()
+    waves = -(-B // (active * most))
+    assert rows <= most and n <= active * waves
+    assert plan["chunks"] == -(-rows // 8) <= fused_lstm.WIDE_MAX_CHUNKS
+    assert plan["smem"] == fused_lstm.wide_smem(rows) <= fused_lstm.SMEM_OPTIN
+    assert plan["smem"] == 192 + 4 * (8 * plan["chunks"] * 24 * 19
+                                      + 8 * 96 + 2 * 12 * 8 * 96)
 
 
 # -- on the card ---------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [512, 37])
+@pytest.mark.parametrize("S", [257, 320, 384])
+@pytest.mark.parametrize("B", [1, 37, 250, 512, 1100])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_lstm_forward_at_384_matches_twin(cuda_device, B, reverse):
-    """``lstm_fwd``'s wide route at bonito's width, the cell's batch and a
-    ragged one, against the plain twin on valid steps; the same bits
-    twice, one launch a call; the traces (training) refused."""
-    S, T = 384, 48
-    rs = np.random.RandomState(B)
+@pytest.mark.parametrize("peep", [False, True])
+def test_lstm_forward_at_384_matches_twin(cuda_device, S, B, reverse, peep):
+    """``lstm_fwd``'s wide route (a cluster of blocks) at bonito's width and
+    two narrower, at one row, ragged batches, the CRF cell's batch and one
+    past a wave, with zero and nonzero peepholes, against the plain twin on
+    valid steps (rows masked from their first step, holes inside); the same
+    bits twice, one launch and one wide launch a call; the traces
+    (training) refused."""
+    T = 48
+    rs = np.random.RandomState(B + S)
     f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)
     xp = f32(rs.normal(size=(T, B, 4 * S)))
     sWT = f32(rs.normal(size=(S, 4 * S)) / np.sqrt(2 * S))
-    p = torch.zeros((3, S), device=cuda_device)
+    p = (f32(rs.normal(size=(3, S)) / np.sqrt(S)) if peep
+         else torch.zeros((3, S), device=cuda_device))
     lengths = rs.randint(1, T + 1, size=B)
     lengths[0] = T
-    mask = torch.from_numpy(np.arange(T)[:, None] < lengths[None, :]).to(
-        cuda_device)
-    before = fused_lstm.lstm_forward.launches
-    h, none = fused_lstm.lstm_forward(xp, sWT, p, mask=mask, reverse=reverse,
-                                      emit_cout=False)
-    again, _ = fused_lstm.lstm_forward(xp, sWT, p, mask=mask,
-                                       reverse=reverse, emit_cout=False)
-    assert none is None and fused_lstm.lstm_forward.launches == before + 2
+    valid = np.arange(T)[:, None] < lengths[None, :]
+    valid &= rs.uniform(size=(T, B)) > 0.1
+    if B > 2:
+        valid[:, 2] = False
+    mask = torch.from_numpy(valid).to(cuda_device)
+    fwd = fused_lstm.lstm_forward
+    before = fwd.launches, fwd.wide_launches
+    h, none = fwd(xp, sWT, p, mask=mask, reverse=reverse, emit_cout=False)
+    assert (fwd.launches, fwd.wide_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    again, _ = fwd(xp, sWT, p, mask=mask, reverse=reverse, emit_cout=False)
+    assert none is None and fwd.wide_launches == before[1] + 2
     href, _ = fused_lstm.lstm_scan_plain(xp, sWT, p, mask, reverse)
-    assert float(((h - href).abs() * mask[:, :, None]).max()) <= 1e-4
+    assert float((h - href).abs().max()) <= 1e-4
     assert torch.equal(h, again)
     with pytest.raises(ValueError, match="256"):
-        fused_lstm.lstm_forward(xp, sWT, p, mask=mask, emit_cout=True)
+        fwd(xp, sWT, p, mask=mask, emit_cout=True)
+
+
+@pytest.mark.gpu
+def test_lstm_forward_wide_clocked_build_gives_the_same_bits(cuda_device):
+    """``bench_lstm --wide --clocks``: the clocked build of the wide route
+    computes the port's bits, and its phases sum to under the loop."""
+    from sloika_tpu_torch.scripts import bench_lstm
+    T, B, S = 40, 100, 384
+    xp, sWT, p, _, mask = bench_lstm.inputs(T, B, S, cuda_device)
+    h = fused_lstm.lstm_forward(xp, sWT, p, mask=mask, emit_cout=False)[0]
+    split = bench_lstm.wide_step_clocks(xp, sWT, p, mask, h)
+    phases = split["phases_mean"]
+    assert set(phases) == set(bench_lstm.WIDE_PHASES)
+    assert all(v >= 0 for v in phases.values())
+    assert sum(phases.values()) <= split["cycles_per_step"] * 1.001
+    assert len(split["phases_by_warp"]) == fused_lstm.WIDE_THREADS // 32
 
 
 @pytest.mark.gpu
